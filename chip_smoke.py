@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
   4. the main path: TorchSolver().solve(build_input(50_000)) — one cold
      and 20 warm solves through the kernels — must give the JAX package's
      answer, with every kernel's launch count above zero;
-  5. kernel timings beside their bounds.
+  5. warm solves with the take_new compaction against dense, at a size
+     where the compaction engages;
+  6. kernel timings beside their bounds.
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and
 prints no result.
@@ -39,6 +41,10 @@ HEADLINE_NODES = 782
 HEADLINE_UNSCHED = 0
 HEADLINE_PRICE_HEX = "0x1.c192b9cb6848bp+12"
 WARM_SOLVES = 20
+# the take_new compaction engages on a warm solve whose previous per-group
+# fan-out is small against the node axis: on the headline workload that
+# holds at a few hundred pods (N=64), not at 50k (fan-out 782 of 1024)
+COMPACT_PODS = 240
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
 # float32 outside the tensor cores
@@ -185,29 +191,55 @@ def _kernel_ms(fn, reps: int, kernel: str):
     return total_us / count / 1e3 if count and total_us > 0 else None
 
 
+def compaction_ab(solver, inp, reps: int):
+    """Warm solves of `inp` on one solver with the take_new compaction
+    (the solver's own warm-start rule engages it) and dense (its fan-out
+    estimate cleared just before the solve), in turns.  Returns
+    ({arm: {"e2e": [...], "transfer": [...]}}, K, failures); "transfer"
+    is dispatch + device + pull, the phases the compaction can move."""
+    solver.solve(inp)
+    arms = {"compact": {"e2e": [], "transfer": []},
+            "dense": {"e2e": [], "transfer": []}}
+    answers, bad, K = set(), [], 0
+    for i in range(reps):
+        for arm in (("compact", "dense") if i % 2 == 0
+                    else ("dense", "compact")):
+            if arm == "dense":
+                solver._last_new_segments = None
+            k = solver._pick_sparse_n(solver._adaptive_max_nodes())
+            if (k > 0) != (arm == "compact"):
+                bad.append(f"{arm} solve ran with K={k}")
+            K = max(K, k)
+            t0 = time.perf_counter()
+            res = solver.solve(inp)
+            arms[arm]["e2e"].append((time.perf_counter() - t0) * 1e3)
+            ph = solver.last_phase_ms
+            arms[arm]["transfer"].append(
+                ph["dispatch"] + ph["device"] + ph["pull"])
+            answers.add((res.node_count(), len(res.unschedulable),
+                         res.total_price().hex()))
+    if len(answers) != 1:
+        bad.append(f"the arms disagree: {sorted(answers)}")
+    return arms, K, bad
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
 
 
-def scan_work(take_new: np.ndarray, G: int, E: int, PT: int, O: int,
-              R: int) -> float:
-    """Float operations the light scan needs on this run's data: per
-    step, the fit (subtract, add, divide, floor, min: 5 per resource) of
-    every active node against every (pool,type) block, the ok-block test
-    (subtract, compare) of every node the step touched or opened, the
-    per-column fit of an empty node and the existing-node fit."""
-    ops = 0.0
-    first_use = np.full(take_new.shape[1], G)
-    used_any = take_new > 0
-    for n in np.nonzero(used_any.any(axis=0))[0]:
-        first_use[n] = int(np.argmax(used_any[:, n]))
-    for g in range(G):
-        active = int((first_use < g).sum())
-        touched = int(used_any[g].sum())
-        ops += active * PT * R * 5 + touched * PT * R * 2
-        ops += O * R * 5 + E * R * 5
-    return ops
+def scan_ops(ffd, p, c, N, lay) -> float:
+    """Float operations K1 needs on this run's data: 5 per resource for
+    each fit (subtract, add, divide, floor, min) and 2 for each all-fits
+    test (subtract, compare), counted by the plain scan on the same
+    inputs over the (node, block) pairs the kernel visits."""
+    import torch
+    flat = torch.empty(lay["total"][1], device=c.col_alloc.device)
+    lim = torch.empty((p.P, ffd.R), device=flat.device)
+    work = {"fit": 0, "test": 0}
+    ffd.light_scan_reference(p, c, N, flat, lay,
+                             ffd._region(flat, lay, "take_new"), lim, work)
+    return float((work["fit"] * 5 + work["test"] * 2) * ffd.R)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -332,7 +364,20 @@ def main() -> int:
         print(f"chip_smoke: main path failed: {bad}", file=sys.stderr)
         return 1
 
-    # -- 5. timings at the headline's shapes ---------------------------------
+    # -- 5. the take_new compaction against the dense row ------------------
+    arms, K, bad = compaction_ab(TorchSolver(), build_input(COMPACT_PODS),
+                                 WARM_SOLVES)
+    print(f"[5] take_new compaction at {COMPACT_PODS} pods (K={K}), "
+          f"{WARM_SOLVES} warm solves each, in turns, on {card}: " +
+          "; ".join(f"{a} e2e p50 {statistics.median(v['e2e']):.4f} ms, "
+                    f"dispatch+device+pull p50 "
+                    f"{statistics.median(v['transfer']):.4f} ms"
+                    for a, v in arms.items()), flush=True)
+    if bad:
+        print(f"chip_smoke: compaction phase failed: {bad}", file=sys.stderr)
+        return 1
+
+    # -- 6. timings at the headline's shapes ---------------------------------
     p, c = ffd.problem_from_numpy(head_prob, head_cat, dev)
     N = solver.max_nodes
     lay = ffd.flat_layout(p.G, p.E, N, p.D, 0, 1)
@@ -357,21 +402,19 @@ def main() -> int:
     # them: the kernel's own time comes from the profiler when it has it
     d_k1 = _kernel_ms(k1, 50, "light_scan_kernel")
     d_k2 = _kernel_ms(k2, 200, "pack_kernel")
-    print(f"[5] loop of launches, CUDA events: ffd_light_scan {t_k1:.4f} "
+    print(f"[6] loop of launches, CUDA events: ffd_light_scan {t_k1:.4f} "
           f"ms, ffd_pack {t_k2:.4f} ms; profiler device time: "
           f"ffd_light_scan {d_k1} ms, ffd_pack {d_k2} ms", flush=True)
     t_k1 = d_k1 if d_k1 is not None else t_k1
     t_k2 = d_k2 if d_k2 is not None else t_k2
-    k1()
-    torch.cuda.synchronize()
-    take_new = tn.cpu().numpy().reshape(p.G, N)
+    # the dense take_new row is one of the flat regions in out1
     out1 = [ffd._region(flat, lay, n) for n in _k1_regions(lay)]
     k1_bytes = _nbytes(p.group_req, p.group_count, p.mask_bits,
                        p.exist_cap, p.exist_remaining, p.pool_limit,
                        p.group_ncap, p.group_whole, c.col_alloc,
                        c.col_daemon, c.pt_alloc, c.col_pool, c.pool_daemon,
-                       c.pool_bits, lim, tn, *out1)
-    k1_ops = scan_work(take_new, p.G, p.E, c.PT, c.O, ffd.R)
+                       c.pool_bits, lim, *out1)
+    k1_ops = scan_ops(ffd, p, c, N, lay)
     # K2 reads the mask rows, one (pool,type) row and its daemon row per
     # block, the pool rows, unsched and num_active; writes the counts
     k2_bytes = (_nbytes(p.mask_bits, p.group_req, p.group_whole,
@@ -396,7 +439,7 @@ def main() -> int:
          "max_abs_err": errs["ffd_pack"], "ms": t_k2, "plain_ms": t_k2p,
          "bound_ms": b2, "bound_by": by2, "library_ms": None},
     ]
-    print(f"[5] at the headline shapes (G={p.G}, N={N}, PT={c.PT}, "
+    print(f"[6] at the headline shapes (G={p.G}, N={N}, PT={c.PT}, "
           f"O={c.O}) on {card}: " + "; ".join(
               f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms,"
               f" bound {k['bound_ms']:.6f} ms by {k['bound_by']})"

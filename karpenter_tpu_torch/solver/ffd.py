@@ -291,10 +291,18 @@ def _ceil_div(t: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
 def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                          flat: torch.Tensor, lay: Dict,
                          take_new: torch.Tensor,
-                         limits_out: torch.Tensor) -> None:
+                         limits_out: torch.Tensor,
+                         work: Optional[Dict[str, int]] = None) -> None:
     """Plain PyTorch version of K1: `_solve_ffd_impl`'s light branch
     (ffd.py:460-587) transcribed step for step, a Python loop over groups
-    and pools.  Writes the same outputs as the kernel."""
+    and pools.  Writes the same outputs as the kernel.
+
+    Given a `work` dict, adds to it what K1 computes on this data: "fit",
+    the R-vector `_fit_count`s, and "test", the R-vector all-fits tests.
+    K1 fits an in-flight node only against the (pool,type) blocks that
+    still hold a surviving column the group admits, and narrows only
+    touched and opened nodes, on the blocks their candidate columns
+    span."""
     dev = flat.device
     i32, f32 = torch.int32, torch.float32
     G, E, P, zc = prob.G, prob.E, prob.P, cat.zc
@@ -334,6 +342,13 @@ def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
         cap_npt = _fit_count(cat.pt_alloc[None] - used[:, None], req)
         elig_pt = (colmask & gmask[None]).view(N, PT, zc).any(dim=-1)
         best = torch.where(elig_pt, cap_npt, 0).max(dim=1).values
+        if work is not None:
+            # existing rows, active nodes' eligible blocks, pool budgets,
+            # the empty-node fit of each admitted column, and the cascade's
+            # three fits and one test per pool
+            work["fit"] += (E + P + 3 * P + int(gmask.sum())
+                            + int((elig_pt & active[:, None]).sum()))
+            work["test"] += P
         cap_n = torch.where(active, torch.minimum(best, ncap), 0).to(i32)
         limit_cap = _fit_count(limits, req)                      # [P]
         cap_pfx = cap_n
@@ -350,6 +365,8 @@ def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                              _prefix_fill(cap_n, c1))
         used = used + take_n[:, None] * req
         touched = take_n > 0
+        if work is not None:
+            work["test"] += int((elig_pt & touched[:, None]).sum())
         colmask = torch.where(touched[:, None], colmask & gmask[None],
                               colmask)
         ok_pt = _fits(cat.pt_alloc[None] - used[:, None])       # [N, PT]
@@ -396,6 +413,9 @@ def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
             used = torch.where(newmask[:, None], new_used, used)
             new_ok_pt = _fits(cat.pt_alloc[None] - new_used[:, None])
             new_colmask = cols_p[None] & _pt_expand(new_ok_pt, zc)
+            if work is not None:
+                work["test"] += int(m) * int(
+                    cols_p.view(PT, zc).any(dim=-1).sum())
             colmask = torch.where(newmask[:, None], new_colmask, colmask)
             active = active | newmask
             node_pool = torch.where(newmask, p, node_pool).to(i32)

@@ -269,20 +269,12 @@ class TorchSolver:
     def _pick_sparse_n(self, N_pad: int) -> int:
         """K for the top-K take_new compaction (0 = dense): the previous
         solve's max fan-out with 2x headroom, engaged only when the
-        compacted rows are smaller than the dense row.  Knob
-        KARPENTER_TPU_NEW_TOPK=0 forces dense."""
-        import os as _os
+        compacted rows are smaller than the dense row."""
         last = self._last_new_segments
         if last is None:
             return 0
         Kn = bucket(min(max(2 * last, 1), max(N_pad, 1)), self.NSEG_BUCKETS)
-        sparse_n = Kn if (2 * Kn + 1) * 2 <= N_pad else 0
-        try:
-            if int(_os.environ.get("KARPENTER_TPU_NEW_TOPK", "1")) == 0:
-                sparse_n = 0
-        except ValueError:
-            pass
-        return sparse_n
+        return Kn if (2 * Kn + 1) * 2 <= N_pad else 0
 
     @staticmethod
     def _check_light(enc: EncodedProblem) -> None:

@@ -143,3 +143,36 @@ def test_wrapper_checks_arguments():
     p.group_count = p.group_count.to(torch.int64)
     with pytest.raises(ValueError, match="group_count"):
         tffd.light_scan(p, c, 64, flat, lay, tn, torch.zeros(p.P, 6))
+
+
+def test_plain_scan_work_count():
+    """The plain scan's optional work count (chip_smoke.py's operation
+    bound for K1) leaves its outputs unchanged, counts exactly the
+    empty-node fits on a one-group problem, and stays under the dense
+    count of every node against every (pool,type) block."""
+    def run(prob, cat, work):
+        p, c = tffd.problem_from_numpy(prob, cat, "cpu")
+        lay = tffd.flat_layout(p.G, p.E, 64, p.D)
+        flat = torch.zeros(lay["total"][1])
+        lim = torch.zeros(p.P, tffd.R)
+        tffd.light_scan_reference(p, c, 64, flat, lay,
+                                  tffd._region(flat, lay, "take_new"), lim,
+                                  work)
+        return p, c, flat.numpy().view(np.uint32)
+
+    prob, cat = random_problem(3)
+    work = {"fit": 0, "test": 0}
+    p, c, with_work = run(prob, cat, work)
+    assert np.array_equal(with_work, run(prob, cat, None)[2])
+    G, E, P, PT = p.G, p.E, p.P, c.PT
+    admitted = int(prob[2].sum())
+    assert admitted + G * (E + 4 * P) < work["fit"] \
+        <= G * (E + 4 * P + c.O + 64 * PT)
+    assert G * P < work["test"] <= G * (P + 2 * 64 * PT)
+
+    # slots 4, 5, 15 and 16 are per existing node or per pool
+    one = tuple(a if i in (4, 5, 15, 16) else a[:1]
+                for i, a in enumerate(prob))
+    work1 = {"fit": 0, "test": 0}
+    run(one, cat, work1)
+    assert work1["fit"] == E + 4 * P + int(one[2][0].sum())
