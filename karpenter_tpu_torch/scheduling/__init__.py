@@ -1,9 +1,6 @@
-"""Scheduling: shared semantics (inputs, results, topology, spot risk).
-
-The CPU oracle scheduler of `karpenter_tpu.scheduling.oracle` is not
-ported yet; the solver reports what it would hand to the oracle as
-`UnsupportedPods`.
-"""
+"""Scheduling: shared semantics (inputs, results, topology, spot risk) and
+the CPU oracle scheduler, the reference first-fit-decreasing bin-packer
+the solver hands its inexpressible groups and stranded pods to."""
 
 from karpenter_tpu_torch.scheduling.types import (
     ExistingNode,
@@ -11,10 +8,12 @@ from karpenter_tpu_torch.scheduling.types import (
     ScheduleInput,
     ScheduleResult,
 )
+from karpenter_tpu_torch.scheduling.oracle import Scheduler
 
 __all__ = [
     "ExistingNode",
     "NewNodeClaim",
     "ScheduleInput",
     "ScheduleResult",
+    "Scheduler",
 ]

@@ -271,6 +271,22 @@ class ScheduleInput:
             self.pods = fold_volume_topology(self.pods)
 
 
+def price_capped_types(types: List[InstanceType], price_cap: float) -> List[InstanceType]:
+    """Restrict offerings to those strictly cheaper than the cap — the
+    consolidation simulator only considers cheaper replacements
+    (designs/consolidation.md node-replacement cost rule)."""
+    out: List[InstanceType] = []
+    for it in types:
+        offs = [o for o in it.offerings if o.available and o.price < price_cap]
+        if not offs:
+            continue
+        out.append(InstanceType(
+            name=it.name, capacity=it.capacity,
+            requirements=it.requirements, offerings=offs,
+            overhead=it.overhead))
+    return out
+
+
 @dataclass
 class NewNodeClaim:
     """A planned node: which pool, the accumulated requirement intersection,
@@ -296,7 +312,9 @@ class ScheduleResult:
     existing_assignments: Dict[str, str] = field(default_factory=dict)  # pod → node
     unschedulable: Dict[str, str] = field(default_factory=dict)         # pod → reason
     # preemption plans for stranded higher-priority pods (the reference's
-    # solver/preempt.py); the port has no planner yet, so this stays empty
+    # solver/preempt.py); the port has no planner yet and refuses inputs
+    # where one would plan (oracle.preemption_would_plan), so this stays
+    # empty
     preemptions: List = field(default_factory=list)
 
     def node_count(self) -> int:

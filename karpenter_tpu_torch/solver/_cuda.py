@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-KERNELS = ("ffd_light_scan", "ffd_pack")
+KERNELS = ("ffd_light_scan", "ffd_topo_scan", "ffd_pack")
 
 # -fmad=false and the precise division/sqrt keep the float arithmetic the
 # reference's (the kernels also spell every operation with a

@@ -19,8 +19,8 @@ seqnums by the caller; only group/existing arrays change call to call.
 
 The port's copy of `karpenter_tpu/solver/encode.py` for the single-problem
 solve: host numpy only, pure-Python grouping (no native helper), and no
-consolidation-sweep caches or split mode — an inexpressible group raises
-`Unsupported` and the solver reports it.
+consolidation-sweep caches.  `encode(..., split=True)` collects the
+groups the tensors cannot express into `.residue` for the host oracle.
 """
 
 from __future__ import annotations
@@ -124,6 +124,10 @@ class EncodedProblem:
     # into the column masks for the solve AND into claim requirements at
     # decode, so launch can't drift into a statically-forbidden domain
     static_allowed: List[Dict[str, Optional[set]]] = field(default_factory=list)
+    # split mode (encode(split=True)): groups whose constraints the tensor
+    # encoding can't express, with the reason — solved host-side AFTER the
+    # device solve instead of abandoning the whole batch
+    residue: List[Tuple[List[Pod], str]] = field(default_factory=list)
     # placement provenance (solver/explain.py HOST_CONSTRAINTS): per
     # group, columns eliminated by [compat mask, price cap] — filled by
     # the solver's _encode_checked when KARPENTER_TPU_EXPLAIN is armed
@@ -487,7 +491,15 @@ class _TopologyEncoder:
     """
 
     def __init__(self, inp: ScheduleInput, cat: "CatalogEncoding",
-                 groups: List[List[Pod]]):
+                 groups: List[List[Pod]], split_mode: bool = False):
+        # split mode: groups that raise Unsupported become host-side
+        # residue solved AFTER the device solve, so the victim-side
+        # coupling check (another pending group's anti matching this one)
+        # can be skipped — the anti's OWNER always lands in the residue
+        # (its own selector-couples-pending check fires), and the oracle
+        # registers the device placements before placing it, which
+        # enforces the symmetry.
+        self.split_mode = split_mode
         self.cat = cat  # for the seed-domain pick (column prices)
         self.dense_layout = cat.layout == "dense"
         # seeding the tracker walks every resident pod — skip it entirely
@@ -850,10 +862,11 @@ class _TopologyEncoder:
             else:
                 raise Unsupported(f"symmetric anti-affinity on {key}")
         # pending groups' anti terms matching this group couple dynamically
-        for gj, sel in self.pending_anti:
-            if gj != gi and _matches(sel, my):
-                raise Unsupported("another pending group's anti-affinity "
-                                  "matches this group")
+        if not self.split_mode:
+            for gj, sel in self.pending_anti:
+                if gj != gi and _matches(sel, my):
+                    raise Unsupported("another pending group's anti-affinity "
+                                      "matches this group")
 
         dsel = 0
         delig = np.zeros(self.D, dtype=bool)
@@ -949,9 +962,14 @@ def group_column_mask(cat: "CatalogEncoding", rep: Pod):
 
 
 def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
-           groups: Optional[List[List[Pod]]] = None) -> EncodedProblem:
-    """Encode one problem; raise Unsupported on the first inexpressible
-    group (the caller reports the whole batch as unsupported)."""
+           groups: Optional[List[List[Pod]]] = None,
+           split: bool = False) -> EncodedProblem:
+    """split=False: raise Unsupported on the first inexpressible group
+    (caller falls back wholesale).  split=True: collect inexpressible
+    groups into `.residue` and encode the rest — the solver runs the
+    device kernel on the supported majority and hands only the residue to
+    the host oracle (a 50k-pod problem with one affinity pod must not
+    abandon the device)."""
     cat = cat or encode_catalog(inp)
     if any(en.charge_pool is not None for en in inp.existing_nodes):
         # synthetic claim-nodes (split/rescue augment outputs) charge the
@@ -971,7 +989,7 @@ def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
     E = len(inp.existing_nodes)
     G = len(groups)
 
-    topo = _TopologyEncoder(inp, cat, groups)
+    topo = _TopologyEncoder(inp, cat, groups, split_mode=split)
     D = topo.D
 
     # existing-node labels (hostnames are per-node-unique) go into a
@@ -1014,12 +1032,21 @@ def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
     dom_arrays = {wellknown.ZONE_LABEL: (cat.col_zone, topo.exist_zone),
                   wellknown.CAPACITY_TYPE_LABEL: (cat.col_ct, topo.exist_ct)}
 
+    residue: List[Tuple[List[Pod], str]] = []
+    dropped: List[int] = []
     for gi, g in enumerate(groups):
         rep = g[0]
         group_req[gi] = np.array(effective_request(rep).v, dtype=np.float32)
         group_count[gi] = len(g)
         group_priority[gi] = priority_of(rep)
-        t = topo.encode_group(gi, rep)
+        try:
+            t = topo.encode_group(gi, rep)
+        except Unsupported as e:
+            if not split:
+                raise  # → oracle fallback for the whole batch
+            residue.append((g, str(e)))
+            dropped.append(gi)
+            continue
         group_ncap[gi] = t["ncap"]
         group_dsel[gi] = t["dsel"]
         group_dbase[gi] = t["dbase"]
@@ -1079,6 +1106,26 @@ def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
                 cap_row = np.zeros_like(cap_row)
             exist_cap[gi] = cap_row
 
+    if dropped:
+        keep = np.ones(G, dtype=bool)
+        keep[dropped] = False
+        group_req = group_req[keep]
+        group_count = group_count[keep]
+        group_mask = group_mask[keep]
+        exist_cap = exist_cap[keep]
+        group_ncap = group_ncap[keep]
+        group_dsel = group_dsel[keep]
+        group_dbase = group_dbase[keep]
+        group_dcap = group_dcap[keep]
+        group_skew = group_skew[keep]
+        group_mindom = group_mindom[keep]
+        group_delig = group_delig[keep]
+        group_whole_node = group_whole_node[keep]
+        group_gang = group_gang[keep]
+        group_priority = group_priority[keep]
+        groups = [g for gi, g in enumerate(groups) if keep[gi]]
+        # static_allowed / merged_reqs were only appended for kept groups
+
     exist_remaining = exist_avail()
 
     pool_limit = np.full((max(len(pools), 1), R), np.inf, dtype=np.float32)
@@ -1124,6 +1171,7 @@ def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
         ct_values=ct_values,
         n_domains=D,
         static_allowed=static_allowed,
+        residue=residue,
         groups=groups,
         columns=columns,
         existing=list(inp.existing_nodes),

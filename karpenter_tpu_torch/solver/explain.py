@@ -5,8 +5,8 @@ The port's copy of the parts of `karpenter_tpu/solver/explain.py` that the
 single-problem solve reads.  Codes, constraint names and the
 ``KARPENTER_TPU_EXPLAIN`` grammar are identical, so a verdict from either
 package carries the same `.code`.  The per-pod reason trees
-(``build_tree``) are not carried: a real solve that strands pods raises
-`UnsupportedPods` in this port, so no returned result ever needs one.
+(``build_tree``) are not carried yet; the oracle's verdicts carry the
+codes and per-nodepool causes it registers (`scheduling/oracle.py`).
 """
 
 from __future__ import annotations
@@ -66,7 +66,45 @@ MIN_VALUES = _register(
     "MinValuesViolated", "compat",
     "the surviving type set exposes fewer distinct label values than "
     "the nodepool's minValues")
+# oracle verdicts (scheduling/oracle.py)
+POOL_LIMIT = _register(
+    "PoolLimitExceeded", "limit",
+    "a binding nodepool limit blocked the placement (oracle authority)")
+# gang scheduling verdicts of the oracle's atomic gang pre-pass, always
+# for the WHOLE gang (one member's verdict is every member's verdict)
+GANG_PARTIAL = _register(
+    "GangPartiallyPlaceable", "gang",
+    "the best adjacency domain can hold some but not all gang members "
+    "— the gang strands whole rather than split (tree carries the "
+    "nearest domain and the deficit)")
+GANG_DOMAIN = _register(
+    "GangDomainExhausted", "gang",
+    "no adjacency domain can currently hold any gang member — every "
+    "eligible domain is out of capacity or ineligible")
+GANG_TOO_LARGE = _register(
+    "GangTooLarge", "gang",
+    "the gang's member count exceeds what any single adjacency domain "
+    "could hold even on an empty fleet at the solver's node ceiling")
+GANG_INCOMPLETE = _register(
+    "GangIncomplete", "gang",
+    "the pending member count (plus members already bound on live "
+    "nodes) does not match the gang-size annotation (fewer: placement "
+    "waits for the full gang; more: fix gang-size — an over-full gang "
+    "never self-heals by waiting)")
+GANG_CODES = frozenset((GANG_PARTIAL, GANG_DOMAIN, GANG_TOO_LARGE,
+                        GANG_INCOMPLETE))
 LEGACY = "Legacy"  # unregistered plain-string reason (should not occur)
+
+# per-nodepool cause vocabulary for the oracle's open-new cascade
+# (scheduling/oracle.py `_open_new`): each blocked pool names exactly one
+# of these in the reason tree
+CAUSE_NO_TYPES = "NoInstanceTypes"
+CAUSE_TAINTS = "TaintsNotTolerated"
+CAUSE_UNKNOWN_LABEL = "UnknownLabel"
+CAUSE_INCOMPATIBLE = "IncompatibleRequirements"
+CAUSE_LIMITS = "LimitsExceeded"
+CAUSE_NO_FIT = "NoFittingType"
+CAUSE_TOPOLOGY = "TopologyUnsatisfiable"
 
 
 class Reason(str):

@@ -1,30 +1,40 @@
 """The grouped-FFD solve on the card: kernel wrappers and plain versions.
 
 The JAX reference (`karpenter_tpu/solver/ffd.py` `_solve_ffd_impl`) is one
-jitted `lax.scan` over pod equivalence classes.  This module runs the
-scan's light branch — every class without a zone/capacity-type domain
-constraint and without a gang — as two hand-written CUDA kernels:
+jitted `lax.scan` over pod equivalence classes; each step takes the light
+branch (no zone/capacity-type domain constraint) or the heavy one
+(`lax.cond(dsel > 0, heavy, light)`).  This module runs the scan for every
+class without a gang as hand-written CUDA kernels:
 
   * ``light_scan`` (K1, `csrc/ffd_light_scan.cu`): the whole G-step scan
-    in one launch; writes the dense result rows straight into the flat
-    result buffer and leaves the final pool budgets in a small carry.
-  * ``pack`` (K2, `csrc/ffd_pack.cu`): the take_new top-K compaction
-    (``sparse_n``) and the explain=1 elimination counts, from K1's final
-    state, at the offsets `unpack` expects.
+    of a problem whose classes are all light, in one launch; writes the
+    dense result rows straight into the flat result buffer and leaves the
+    final pool budgets in a small carry.
+  * ``topo_scan`` (K3, `csrc/ffd_topo_scan.cu`): the same scan with the
+    heavy step — per-domain water-fill quotas, domain-pinned fills — for
+    problems with at least one domain class; light classes take K1's step.
+  * ``pack`` (K2, `csrc/ffd_pack.cu`): the explain=1 elimination counts,
+    topology class included, from the scan's final state, at the offsets
+    `unpack` expects.
 
-Beside each kernel sits its plain PyTorch version (``light_scan_reference``,
-``pack_reference``), a transcription of the reference with a Python loop
-over groups and pools.  A wrapper runs the kernel for a CUDA tensor and
-the plain version for a CPU tensor; there is no fallback from one to the
-other.  Each wrapper counts its kernel launches in ``.launches``.
+`solve_ffd` launches K3 when any class has a domain constraint, K1
+otherwise.  Beside each kernel sits its plain PyTorch version
+(``light_scan_reference``, ``topo_scan_reference``, ``pack_reference``), a
+transcription of the reference with a Python loop over groups and pools;
+the two scan versions share one light step.  A wrapper runs the kernel
+for a CUDA tensor and the plain version for a CPU tensor; there is no
+fallback from one to the other.  Each wrapper counts its kernel launches
+in ``.launches``.
 
 The flat result buffer has exactly the reference's layout (ffd.py:1258):
 
-    take_exist G*E | take_new G*N  (or cnt G*K, idx G*K, nnz G)
+    take_exist G*E | take_new G*N
     | unsched G | dom_placed G*D | used N*R | node_pool N | node_zone N
     | node_ct N | num_active 1 | [explain: counts G*5, bits G]
 
-and `unpack` splits it into the same named host arrays.
+(always the dense take_new rows: the reference's top-K take_new
+compaction saves device-to-host bytes on a TPU link and bought nothing
+on the card) and `unpack` splits it into the same named host arrays.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ R = len(RESOURCE_AXIS)
 EXPLAIN_C = len(KERNEL_CONSTRAINTS)
 _CAP = 2 ** 30  # _fit_count's ceiling (ffd.py:116)
 MAX_POOLS = 64  # the kernels' pool-axis capacity (csrc MAXP)
+MAX_DOMAINS = 128  # the kernels' domain-axis capacity (csrc MAXD)
 
 
 # -- tensors -----------------------------------------------------------------
@@ -55,6 +66,8 @@ class FFDCatalog:
     col_pool: torch.Tensor     # [O] i32
     pool_daemon: torch.Tensor  # [P, R] f32
     pool_bits: torch.Tensor    # [P, W] i32 — col_pool == p as column bits
+    col_zone: torch.Tensor     # [O] i32 zone id; padded with the tiled
+    col_ct: torch.Tensor       # [O] i32 capacity-type id; block pattern
     zc: int
 
     @property
@@ -72,7 +85,7 @@ class FFDCatalog:
 
 @dataclass
 class FFDProblem:
-    """The per-solve half of the kernel arguments (light branch only)."""
+    """The per-solve half of the kernel arguments."""
     group_req: torch.Tensor        # [G, R] f32
     group_count: torch.Tensor      # [G] i32
     mask_bits: torch.Tensor        # [G, W] i32, bit o%32 of word o//32
@@ -81,7 +94,20 @@ class FFDProblem:
     pool_limit: torch.Tensor       # [P, R] f32 (inf = unlimited)
     group_ncap: torch.Tensor       # [G] i32
     group_whole: torch.Tensor      # [G] i32 0/1
-    D: int                         # padded domain width of dom_placed
+    group_dsel: torch.Tensor       # [G] i32 0 none / 1 zone / 2 cap. type
+    group_dbase: torch.Tensor      # [G, D] i32 spread base counts
+    group_dcap: torch.Tensor       # [G, D] i32 max additional per domain
+    group_skew: torch.Tensor       # [G] i32
+    group_mindom: torch.Tensor     # [G] i32 (0 = unset)
+    group_delig: torch.Tensor      # [G, D] i32 0/1 eligible for skew min
+    exist_zone: torch.Tensor       # [E] i32 (-1 = unlabeled)
+    exist_ct: torch.Tensor         # [E] i32
+    topology: bool                 # any class with dsel > 0 (K3, not K1)
+
+    @property
+    def D(self) -> int:
+        """The padded domain width of dom_placed."""
+        return self.group_dbase.shape[1]
 
     @property
     def G(self) -> int:
@@ -138,9 +164,9 @@ def _upload(arrays: Sequence[np.ndarray],
 
 def catalog_tensors(cat_arrays: Dict, device) -> FFDCatalog:
     """The padded catalog arrays (numpy: col_alloc, col_daemon, pt_alloc,
-    col_pool, pool_daemon, and the grid stride ``zc``) as
-    device tensors, plus the per-pool column bits the kernel ANDs into a
-    new node's surviving columns."""
+    col_pool, pool_daemon, col_zone, col_ct, and the grid stride ``zc``)
+    as device tensors, plus the per-pool column bits the kernel ANDs into
+    a new node's surviving columns."""
     device = torch.device(device)
     col_pool = np.asarray(cat_arrays["col_pool"], np.int32)
     pool_daemon = np.asarray(cat_arrays["pool_daemon"], np.float32)
@@ -152,7 +178,9 @@ def catalog_tensors(cat_arrays: Dict, device) -> FFDCatalog:
     t = _upload([np.asarray(cat_arrays["col_alloc"], np.float32),
                  np.asarray(cat_arrays["col_daemon"], np.float32),
                  np.asarray(cat_arrays["pt_alloc"], np.float32),
-                 col_pool, pool_daemon, pool_bits], device)
+                 col_pool, pool_daemon, pool_bits,
+                 np.asarray(cat_arrays["col_zone"], np.int32),
+                 np.asarray(cat_arrays["col_ct"], np.int32)], device)
     cat = FFDCatalog(*t, zc=zc)
     assert cat.O == cat.PT * zc, (cat.O, cat.PT, zc)
     return cat
@@ -162,21 +190,18 @@ def problem_tensors(prob: Sequence[np.ndarray], O: int,
                     device) -> FFDProblem:
     """The reference's 17-slot `_problem_args` tuple (numpy, padded;
     slot 2 a [G, O] bool mask or its packed [G, ceil(O/8)] bytes) as the
-    light scan's device arguments, in one host→device copy.  Rejects what
-    the light branch cannot run: zone/capacity-type domain groups, gangs,
-    and the 18-slot priority-band form."""
+    scan's device arguments, in one host→device copy.  Rejects what no
+    ported scan runs: gangs and the 18-slot priority-band form."""
     if len(prob) != 17:
         raise ValueError("priority-band problems (18 slots) are not "
-                         "supported by the light scan")
+                         "supported by the scan")
     (group_req, group_count, group_mask, exist_cap, exist_remaining,
-     pool_limit, group_ncap, group_dsel, group_dbase, _dcap, _skew,
-     _mindom, _delig, group_whole, group_gang, _ez, _ect) = prob
-    if np.asarray(group_dsel).any():
-        raise ValueError("zone/capacity-type domain groups need the "
-                         "heavy branch, not the light scan")
+     pool_limit, group_ncap, group_dsel, group_dbase, group_dcap,
+     group_skew, group_mindom, group_delig, group_whole, group_gang,
+     exist_zone, exist_ct) = prob
     if np.asarray(group_gang).any():
-        raise ValueError("gang groups need the gang fill, not the light "
-                         "scan")
+        raise ValueError("gang groups need the gang fill, not the scan")
+    group_dsel = np.asarray(group_dsel, np.int32)
     t = _upload([np.asarray(group_req, np.float32),
                  np.asarray(group_count, np.int32),
                  pack_mask_bits(np.asarray(group_mask), O),
@@ -184,9 +209,17 @@ def problem_tensors(prob: Sequence[np.ndarray], O: int,
                  np.asarray(exist_remaining, np.float32),
                  np.asarray(pool_limit, np.float32),
                  np.asarray(group_ncap, np.int32),
-                 np.asarray(group_whole).astype(np.int32)],
+                 np.asarray(group_whole).astype(np.int32),
+                 group_dsel,
+                 np.asarray(group_dbase, np.int32),
+                 np.asarray(group_dcap, np.int32),
+                 np.asarray(group_skew, np.int32),
+                 np.asarray(group_mindom, np.int32),
+                 np.asarray(group_delig).astype(np.int32),
+                 np.asarray(exist_zone, np.int32),
+                 np.asarray(exist_ct, np.int32)],
                 torch.device(device))
-    return FFDProblem(*t, D=int(np.asarray(group_dbase).shape[1]))
+    return FFDProblem(*t, topology=bool((group_dsel > 0).any()))
 
 
 def problem_from_numpy(prob: Sequence[np.ndarray], cat_arrays: Dict,
@@ -198,19 +231,13 @@ def problem_from_numpy(prob: Sequence[np.ndarray], cat_arrays: Dict,
 
 
 # -- the flat result layout ---------------------------------------------------
-def flat_layout(G: int, E: int, N: int, D: int, sparse_n: int = 0,
+def flat_layout(G: int, E: int, N: int, D: int,
                 explain: int = 0) -> Dict[str, Tuple[int, int]]:
     """(offset, length) of every region of the flat result buffer, plus
     ("total", n)."""
-    sizes = [("take_exist", G * E)]
-    if sparse_n:
-        sizes += [("sp_cnt", G * sparse_n), ("sp_idx", G * sparse_n),
-                  ("sp_nnz", G)]
-    else:
-        sizes += [("take_new", G * N)]
-    sizes += [("unsched", G), ("dom_placed", G * D), ("used", N * R),
-              ("node_pool", N), ("node_zone", N), ("node_ct", N),
-              ("num_active", 1)]
+    sizes = [("take_exist", G * E), ("take_new", G * N), ("unsched", G),
+             ("dom_placed", G * D), ("used", N * R), ("node_pool", N),
+             ("node_zone", N), ("node_ct", N), ("num_active", 1)]
     if explain:
         sizes += [("explain_counts", G * EXPLAIN_C), ("explain_bits", G)]
     out, off = {}, 0
@@ -288,53 +315,160 @@ def _ceil_div(t: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
     return -torch.div(-t, kf, rounding_mode="floor")
 
 
-def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
-                         flat: torch.Tensor, lay: Dict,
-                         take_new: torch.Tensor,
-                         limits_out: torch.Tensor,
-                         work: Optional[Dict[str, int]] = None) -> None:
-    """Plain PyTorch version of K1: `_solve_ffd_impl`'s light branch
-    (ffd.py:460-587) transcribed step for step, a Python loop over groups
-    and pools.  Writes the same outputs as the kernel.
+def _w32(x: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 with the reference's int32 wrap-around."""
+    return x.to(torch.int64).to(torch.int32)
 
-    Given a `work` dict, adds to it what K1 computes on this data: "fit",
-    the R-vector `_fit_count`s, and "test", the R-vector all-fits tests.
-    K1 fits an in-flight node only against the (pool,type) blocks that
-    still hold a surviving column the group admits, and narrows only
-    touched and opened nodes, on the blocks their candidate columns
-    span."""
-    dev = flat.device
+
+def _sum_i32(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """int32 sum with int32 wrap-around (torch accumulates in int64)."""
+    x = x.to(torch.int64)
+    return _w32(x.sum() if dim is None else x.sum(dim))
+
+
+def _mul_i32(a, b) -> torch.Tensor:
+    """int32 product with int32 wrap-around."""
+    return _w32(torch.as_tensor(a).to(torch.int64)
+                * torch.as_tensor(b).to(torch.int64))
+
+
+def _slot_expand(a_slot: torch.Tensor, PT: int) -> torch.Tensor:
+    """[N, ZC] → [N, PT*ZC]: tile a per-grid-slot mask across every
+    (pool,type) block."""
+    n, zc = a_slot.shape
+    return a_slot[:, None, :].expand(n, PT, zc).reshape(n, PT * zc)
+
+
+def water_fill(cnt: torch.Tensor, base: torch.Tensor, xmax: torch.Tensor,
+               elig: torch.Tensor, skew: torch.Tensor,
+               mindom: torch.Tensor) -> torch.Tensor:
+    """Split `cnt` pods into per-domain quotas [D] (ffd.py:147
+    `_water_fill`): the largest water level L whose final counts
+    clip(L, base, base + xmax) respect the skew against the eligible
+    minimum (0 while fewer than `mindom` domains are populated) and the
+    count, found among the O(D) breakpoint candidates; then the integral
+    repair hands the floored-away pods to domains that stay within the
+    skew.  Float sums over domains run in index order, as the kernel's."""
     i32, f32 = torch.int32, torch.float32
-    G, E, P, zc = prob.G, prob.E, prob.P, cat.zc
-    PT, O = cat.PT, cat.O
-    gmask_all = _unpack_bits(prob.mask_bits, O)
-    col_avail = cat.col_alloc - cat.col_daemon
-    pool_idx = [cat.col_pool == p for p in range(P)]
-    exist_rem = prob.exist_remaining.clone()
-    used = torch.zeros((N, R), dtype=f32, device=dev)
-    colmask = torch.zeros((N, O), dtype=torch.bool, device=dev)
-    active = torch.zeros(N, dtype=torch.bool, device=dev)
-    node_pool = torch.zeros(N, dtype=i32, device=dev)
-    num_active = torch.zeros((), dtype=i32, device=dev)
-    limits = prob.pool_limit.clone()
-    idx = torch.arange(N, dtype=i32, device=dev)
-    te_rows, tn_rows, un_rows = [], [], []
-    for g in range(G):
+    dev = base.device
+    D = base.shape[0]
+    eps = _f32(EPS, dev)
+    cnt_f = cnt.to(f32)
+    skew_f = skew.to(f32)
+    c = base.to(f32)
+    elig = elig.to(torch.bool)
+    ub = torch.where(elig, _w32(base.to(torch.int64) + xmax).to(f32), c)
+
+    def f_at(L):                                     # [K] → [K, D]
+        return torch.minimum(torch.maximum(L[:, None], c[None, :]),
+                             ub[None, :])
+
+    def placed(L):                                   # [K]
+        d = f_at(L) - c[None, :]
+        acc = torch.zeros(L.shape[0], dtype=f32, device=dev)
+        for j in range(D):
+            acc = acc + d[:, j]
+        return acc
+
+    def minf(L):                                     # [K]
+        f = f_at(L)
+        inf = _f32(float("inf"), dev)
+        m = torch.where(elig[None, :], f, inf).min(dim=-1).values
+        pop = (torch.where(elig[None, :], f, _f32(0.0, dev))
+               > _f32(0.5, dev)).sum(-1)
+        return torch.where((mindom > 0) & (pop < mindom), _f32(0.0, dev), m)
+
+    bps = torch.sort(torch.cat([c, ub])).values      # [2D]
+    pl = placed(bps)
+    slope = ((c[None, :] <= bps[:, None]) & (bps[:, None] < ub[None, :])
+             & elig[None, :]).sum(-1)
+    cands = torch.cat([
+        bps,
+        minf(bps) + skew_f,
+        bps + (cnt_f - pl) / torch.clamp(slope, min=1).to(f32),
+    ])
+    ok = ((cands <= minf(cands) + skew_f + eps)
+          & (placed(cands) <= cnt_f + eps))
+    floor_val = c.min() if D else _f32(0.0, dev)
+    L = torch.floor(torch.where(ok, cands, floor_val).max())
+    fl = torch.minimum(torch.maximum(L, c), ub)
+    x = (fl - c).to(i32)
+    leftover = torch.clamp(cnt - _sum_i32(x), min=0)
+    m = minf(L[None])[0]
+    bumpable = (elig & (c + x.to(f32) < ub)
+                & (fl + _f32(1.0, dev) - m <= skew_f + eps))
+    x = x + _prefix_fill(bumpable.to(i32), leftover)
+    return torch.minimum(x, cnt)
+
+
+def _clamp_pool_limits(cap_n: torch.Tensor, node_pool: torch.Tensor,
+                       limits: torch.Tensor, req: torch.Tensor,
+                       P: int) -> torch.Tensor:
+    """Pool limits are collective (ffd.py:442): each node's cap is clamped
+    by what its pool's budget leaves after lower-index nodes of the same
+    pool take theirs."""
+    limit_cap = _fit_count(limits, req)                      # [P]
+    for p in range(P):
+        mask_p = node_pool == p
+        cap_p = torch.where(mask_p, cap_n, 0).to(torch.int32)
+        before_p = _cumsum_i32(cap_p) - cap_p
+        allowed = torch.clamp(limit_cap[p] - before_p, min=0)
+        cap_n = torch.where(mask_p, torch.minimum(cap_p, allowed), cap_n)
+    return cap_n.to(torch.int32)
+
+
+class _Scan:
+    """One plain-version scan: the per-problem constants and the carry of
+    the reference's `lax.scan` (ffd.py:430), updated in place step by
+    step."""
+
+    def __init__(self, prob: FFDProblem, cat: FFDCatalog, N: int,
+                 work: Optional[Dict[str, int]]):
+        dev = prob.group_req.device
+        i32, f32 = torch.int32, torch.float32
+        self.prob, self.cat, self.N, self.work = prob, cat, N, work
+        self.dev = dev
+        self.G, self.E, self.P, self.D = prob.G, prob.E, prob.P, prob.D
+        self.zc, self.PT, self.O = cat.zc, cat.PT, cat.O
+        self.gmask_all = _unpack_bits(prob.mask_bits, cat.O)
+        self.col_avail = cat.col_alloc - cat.col_daemon
+        self.pool_idx = [cat.col_pool == p for p in range(prob.P)]
+        self.idx = torch.arange(N, dtype=i32, device=dev)
+        # the carry
+        self.exist_rem = prob.exist_remaining.clone()
+        self.used = torch.zeros((N, R), dtype=f32, device=dev)
+        self.colmask = torch.zeros((N, cat.O), dtype=torch.bool, device=dev)
+        self.active = torch.zeros(N, dtype=torch.bool, device=dev)
+        self.node_pool = torch.zeros(N, dtype=i32, device=dev)
+        self.node_zone = torch.full((N,), -1, dtype=i32, device=dev)
+        self.node_ct = torch.full((N,), -1, dtype=i32, device=dev)
+        self.num_active = torch.zeros((), dtype=i32, device=dev)
+        self.limits = prob.pool_limit.clone()
+
+    def light(self, g: int):
+        """The light step (ffd.py:460-587).  Returns (take_exist [E],
+        take_new [N], unsched)."""
+        prob, cat, work = self.prob, self.cat, self.work
+        i32, f32 = torch.int32, torch.float32
+        N, E, P, zc, PT = self.N, self.E, self.P, self.zc, self.PT
+        idx = self.idx
         req = prob.group_req[g]
         cnt = prob.group_count[g]
         ncap = prob.group_ncap[g]
         whole = prob.group_whole[g] != 0
-        gmask = gmask_all[g]
+        gmask = self.gmask_all[g]
+        used, colmask, active = self.used, self.colmask, self.active
+        node_pool, num_active = self.node_pool, self.num_active
 
         # -- 1. existing nodes
+        take_e = None
         if E:
-            cap_e = torch.minimum(_fit_count(exist_rem, req),
+            cap_e = torch.minimum(_fit_count(self.exist_rem, req),
                                   prob.exist_cap[g])
             take_e = torch.where(whole, _atomic_fill(cap_e, cnt),
                                  _prefix_fill(cap_e, cnt))
-            exist_rem = exist_rem - take_e[:, None] * req
+            self.exist_rem = self.exist_rem - take_e[:, None] * req
             c1 = cnt - take_e.sum().to(i32)
-            te_rows.append(take_e)
         else:
             c1 = cnt
 
@@ -350,16 +484,9 @@ def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                             + int((elig_pt & active[:, None]).sum()))
             work["test"] += P
         cap_n = torch.where(active, torch.minimum(best, ncap), 0).to(i32)
-        limit_cap = _fit_count(limits, req)                      # [P]
-        cap_pfx = cap_n
-        for p in range(P):
-            mask_p = node_pool == p
-            cap_p = torch.where(mask_p, cap_pfx, 0).to(i32)
-            before_p = _cumsum_i32(cap_p) - cap_p
-            allowed = torch.clamp(limit_cap[p] - before_p, min=0)
-            cap_pfx = torch.where(mask_p, torch.minimum(cap_p, allowed),
-                                  cap_pfx)
-        cap_full = torch.minimum(cap_n, limit_cap[node_pool.long()])
+        cap_pfx = _clamp_pool_limits(cap_n, node_pool, self.limits, req, P)
+        cap_full = torch.minimum(cap_n, _fit_count(self.limits, req)[
+            node_pool.long()])
         cap_n = torch.where(whole, cap_full, cap_pfx)
         take_n = torch.where(whole, _atomic_fill(cap_n, c1),
                              _prefix_fill(cap_n, c1))
@@ -373,18 +500,18 @@ def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
         colmask = colmask & _pt_expand(ok_pt, zc)
         # segment_sum of integer takes: exact in float32 below 2^24, so
         # the summation order does not matter
-        pool_take = torch.zeros(P, dtype=f32, device=dev).index_add_(
+        pool_take = torch.zeros(P, dtype=f32, device=self.dev).index_add_(
             0, node_pool.long(), take_n.to(f32))
-        limits = limits - pool_take[:, None] * req
+        limits = self.limits - pool_take[:, None] * req
         c2 = c1 - take_n.sum().to(i32)
 
         # -- 3. open new nodes, pools in priority order
-        per_col = torch.minimum(_fit_count(col_avail, req), ncap)
+        per_col = torch.minimum(_fit_count(self.col_avail, req), ncap)
         col_feas = gmask & (per_col >= 1)
         c_rem = c2
-        k_new_total = torch.zeros(N, dtype=i32, device=dev)
+        k_new_total = torch.zeros(N, dtype=i32, device=self.dev)
         for p in range(P):
-            cols_p = col_feas & pool_idx[p]
+            cols_p = col_feas & self.pool_idx[p]
             k_full = torch.where(cols_p, per_col, 0).max().to(i32)
             pd = cat.pool_daemon[p]
             can = (cols_p.any() & _fits(limits[p] - pd - req)
@@ -403,11 +530,11 @@ def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
             m = torch.minimum(m_need, N - num_active)
             newmask = (idx >= num_active) & (idx < num_active + m)
             pos = idx - num_active
-            taken_new = torch.minimum(t, m * k_full)
+            taken_new = torch.minimum(t, _mul_i32(m, k_full))
             k_node = torch.where(
                 newmask,
-                torch.where(pos == m - 1, taken_new - (m - 1) * k_full,
-                            k_full),
+                torch.where(pos == m - 1,
+                            taken_new - _mul_i32(m - 1, k_full), k_full),
                 0).to(i32)
             new_used = pd[None] + k_node[:, None].to(f32) * req
             used = torch.where(newmask[:, None], new_used, used)
@@ -425,80 +552,343 @@ def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                                        + taken_new.to(f32) * req))
             k_new_total = k_new_total + k_node
             c_rem = c_rem - taken_new
-        tn_rows.append(take_n + k_new_total)
-        un_rows.append(c_rem)
+        self.used, self.colmask, self.active = used, colmask, active
+        self.node_pool, self.num_active, self.limits = (node_pool,
+                                                        num_active, limits)
+        return take_e, take_n + k_new_total, c_rem
+
+    def heavy(self, g: int):
+        """The heavy step (ffd.py:589-818): per-domain quotas by
+        `water_fill`, then existing, in-flight and new-node fills per
+        domain, each touched or opened node pinned to its domain.
+        Returns (take_exist [E], take_new [N], unsched, dom_placed [D])."""
+        prob, cat, work = self.prob, self.cat, self.work
+        i32, f32 = torch.int32, torch.float32
+        dev = self.dev
+        N, E, P, D, zc, PT = self.N, self.E, self.P, self.D, self.zc, self.PT
+        idx = self.idx
+        req = prob.group_req[g]
+        cnt = prob.group_count[g]
+        ncap = prob.group_ncap[g]
+        dsel = int(prob.group_dsel[g])
+        gmask = self.gmask_all[g]
+        used, colmask, active = self.used, self.colmask, self.active
+        node_pool, num_active = self.node_pool, self.num_active
+        dom_ids = torch.arange(D, dtype=i32, device=dev)
+
+        col_dom = cat.col_zone if dsel == 1 else cat.col_ct          # [O]
+        ex_dom = prob.exist_zone if dsel == 1 else prob.exist_ct     # [E]
+        dom_cols = col_dom[None, :] == dom_ids[:, None]              # [D, O]
+        dom_ex = ex_dom[None, :] == dom_ids[:, None]                 # [D, E]
+
+        # -- capacity estimates per domain (for the water-fill)
+        if E:
+            cap_e = torch.minimum(_fit_count(self.exist_rem, req),
+                                  prob.exist_cap[g])
+            cap_ed = torch.where(dom_ex, cap_e[None, :], 0).to(i32)  # [D, E]
+        else:
+            cap_ed = torch.zeros((D, 0), dtype=i32, device=dev)
+        cap_npt = _fit_count(cat.pt_alloc[None] - used[:, None], req)
+        cap_no = torch.where(colmask & gmask[None],
+                             _pt_expand(cap_npt, zc), 0)             # [N, O]
+        zc_dom = col_dom[:zc]
+        slotmax = cap_no.view(N, PT, zc).max(dim=1).values           # [N, ZC]
+        cap_nd = torch.where(
+            zc_dom[None, :, None] == dom_ids[None, None, :],
+            slotmax[:, :, None], 0).max(dim=1).values.T              # [D, N]
+        cap_nd = torch.minimum(cap_nd, ncap)
+        cap_nd = torch.where(active[None, :], cap_nd, 0).to(i32)
+        if work is not None:
+            # existing rows, active nodes' eligible blocks, pool budgets,
+            # the empty-node fit of each admitted column
+            elig_pt = (colmask & gmask[None]).view(N, PT, zc).any(dim=-1)
+            work["fit"] += (E + 2 * P + int(gmask.sum())
+                            + int((elig_pt & active[:, None]).sum()))
+            work["test"] += P
+        # each in-flight node serves ONE domain: the best capacity, ties
+        # rotated over the real domain count
+        d_real = torch.clamp(col_dom.max() + 1, min=1)
+        score = _w32(_mul_i32(torch.minimum(cap_nd, cnt), D + 1).to(
+            torch.int64) + (idx[None, :] + dom_ids[:, None]) % d_real)
+        bd = torch.argmax(score, dim=0).to(i32)                       # [N]
+        sel_nd = dom_ids[:, None] == bd[None, :]
+        cap_nd = torch.where(sel_nd, cap_nd, 0).to(i32)
+
+        per_col = torch.minimum(_fit_count(self.col_avail, req), ncap)
+        col_feas = gmask & (per_col >= 1)
+        kfull_pd = torch.stack([
+            torch.where(dom_cols & (col_feas & self.pool_idx[p])[None, :],
+                        per_col[None, :], 0).max(-1).values
+            for p in range(P)]).to(i32)                              # [P, D]
+        limits = self.limits
+        rooms = torch.stack([_fits(limits[p] - cat.pool_daemon[p] - req)
+                             for p in range(P)])                    # [P]
+        afford = torch.stack([_fit_count(limits[p][None], req)[0]
+                              for p in range(P)])                   # [P]
+        new_est = torch.where(
+            rooms[:, None],
+            torch.minimum(_mul_i32(N - num_active, kfull_pd),
+                          afford[:, None]), 0).max(0).values        # [D]
+        capacity = _w32(_sum_i32(cap_ed, -1).to(torch.int64)
+                        + _sum_i32(cap_nd, -1) + new_est)           # [D]
+        afford_total = _f32(0.0, dev)
+        for p in range(P):
+            afford_total = afford_total + afford[p].to(f32)
+        cap_sum = (_sum_i32(cap_ed).to(f32) if E else _f32(0.0, dev))
+        cnt_eff = torch.minimum(cnt.to(f32), cap_sum + afford_total).to(i32)
+        if work is not None:
+            # the water-fill: 16D evaluations of placed/minf, 3 scalar
+            # operations per domain each
+            work["flops"] = work.get("flops", 0) + 48 * D * D
+        want = water_fill(cnt_eff, prob.group_dbase[g],
+                          torch.minimum(capacity, prob.group_dcap[g]),
+                          prob.group_delig[g], prob.group_skew[g],
+                          prob.group_mindom[g])                      # [D]
+        unplaceable = cnt - _sum_i32(want)
+
+        # -- 1. existing nodes, per domain
+        if E:
+            take_ed = torch.stack([_prefix_fill(cap_ed[d], want[d])
+                                   for d in range(D)])               # [D, E]
+            take_e = _sum_i32(take_ed, 0)
+            self.exist_rem = self.exist_rem - take_e[:, None] * req
+            dom_exist = _sum_i32(take_ed, -1)
+            want = want - dom_exist
+        else:
+            take_e = None
+            dom_exist = torch.zeros(D, dtype=i32, device=dev)
+
+        # -- 2. in-flight nodes, per domain
+        cap_nd = torch.minimum(cap_nd, want[:, None])
+        cap_n_flat = _clamp_pool_limits(_sum_i32(cap_nd, 0), node_pool,
+                                        limits, req, P)
+        cap_nd = torch.minimum(cap_nd, cap_n_flat[None, :])
+        take_nd = torch.stack([_prefix_fill(cap_nd[d], want[d])
+                               for d in range(D)])                   # [D, N]
+        take_n = _sum_i32(take_nd, 0)
+        used = used + take_n[:, None] * req
+        touched = take_n > 0
+        if work is not None:
+            work["test"] += int(((colmask & gmask[None]).view(N, PT, zc)
+                                 .any(dim=-1) & touched[:, None]).sum())
+        node_dcols = _slot_expand(zc_dom[None, :] == bd[:, None], PT)
+        colmask = torch.where(touched[:, None],
+                              colmask & gmask[None] & node_dcols, colmask)
+        ok_pt = _fits(cat.pt_alloc[None] - used[:, None])
+        colmask = colmask & _pt_expand(ok_pt, zc)
+        if dsel == 1:
+            self.node_zone = torch.where(touched, bd, self.node_zone)
+        else:
+            self.node_ct = torch.where(touched, bd, self.node_ct)
+        pool_take = torch.zeros(P, dtype=f32, device=dev).index_add_(
+            0, node_pool.long(), take_n.to(f32))
+        limits = limits - pool_take[:, None] * req
+        dom_flight = _sum_i32(take_nd, -1)
+        want = want - dom_flight
+
+        # -- 3. open new nodes, per pool × domain
+        k_new_total = torch.zeros(N, dtype=i32, device=dev)
+        new_dom_placed = torch.zeros(D, dtype=i32, device=dev)
+        for p in range(P):
+            cols_p = col_feas & self.pool_idx[p]
+            kfull_d = kfull_pd[p]
+            pd = cat.pool_daemon[p]
+            # the pool budget is shared over domains, in domain order
+            rem_budget = limits[p]
+            slots_left = N - num_active
+            m_list, taken_list = [], []
+            for d in range(D):
+                can = (kfull_d[d] > 0) & (want[d] > 0)
+                kf = torch.clamp(kfull_d[d], min=1)
+                t = torch.minimum(want[d],
+                                  _fit_count(rem_budget[None], req)[0])
+                m_t = _ceil_div(t, kf)
+                t = torch.minimum(t, _fit_count(
+                    (rem_budget - m_t.to(f32) * pd)[None], req)[0])
+                m_need = torch.where(can, _ceil_div(t, kf), 0).to(i32)
+                m_d = torch.minimum(m_need, slots_left)
+                taken_d = torch.minimum(t, _mul_i32(m_d, kfull_d[d]))
+                if work is not None:
+                    work["fit"] += 2
+                rem_budget = rem_budget - (m_d.to(f32) * pd
+                                           + taken_d.to(f32) * req)
+                slots_left = slots_left - m_d
+                m_list.append(m_d)
+                taken_list.append(taken_d)
+            m_d = torch.stack(m_list).to(i32)                        # [D]
+            taken_d = torch.stack(taken_list).to(i32)                # [D]
+            starts = num_active + _cumsum_i32(m_d) - m_d             # [D]
+            in_dom = ((idx[None, :] >= starts[:, None])
+                      & (idx[None, :] < (starts + m_d)[:, None]))     # [D, N]
+            is_last = idx[None, :] == (starts + m_d - 1)[:, None]
+            k_dn = torch.where(
+                in_dom,
+                torch.where(is_last,
+                            (taken_d - _mul_i32(m_d - 1, kfull_d))[:, None],
+                            kfull_d[:, None]),
+                0)                                                   # [D, N]
+            k_node = _sum_i32(k_dn, 0)
+            newmask = in_dom.any(0)
+            new_used = pd[None] + k_node[:, None].to(f32) * req
+            used = torch.where(newmask[:, None], new_used, used)
+            new_bd = _sum_i32(in_dom.to(i32) * dom_ids[:, None], 0)
+            nd_cols = _slot_expand(zc_dom[None, :] == new_bd[:, None], PT)
+            new_ok_pt = _fits(cat.pt_alloc[None] - new_used[:, None])
+            if work is not None:
+                work["test"] += int(m_d.sum()) * int(
+                    cols_p.view(PT, zc).any(dim=-1).sum())
+            new_colmask = nd_cols & cols_p[None] & _pt_expand(new_ok_pt, zc)
+            colmask = torch.where(newmask[:, None], new_colmask, colmask)
+            if dsel == 1:
+                self.node_zone = torch.where(newmask, new_bd, self.node_zone)
+            else:
+                self.node_ct = torch.where(newmask, new_bd, self.node_ct)
+            active = active | newmask
+            node_pool = torch.where(newmask, p, node_pool).to(i32)
+            num_active = num_active + _sum_i32(m_d)
+            limits = limits.clone()
+            limits[p] = limits[p] + (-(_sum_i32(m_d).to(f32) * pd
+                                       + _sum_i32(taken_d).to(f32) * req))
+            k_new_total = k_new_total + k_node
+            new_dom_placed = new_dom_placed + taken_d
+            want = want - taken_d
+
+        self.used, self.colmask, self.active = used, colmask, active
+        self.node_pool, self.num_active, self.limits = (node_pool,
+                                                        num_active, limits)
+        dom_placed = dom_exist + dom_flight + new_dom_placed
+        return (take_e, take_n + k_new_total, unplaceable + _sum_i32(want),
+                dom_placed)
+
+
+def _scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
+                    flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
+                    work: Optional[Dict[str, int]], topology: bool) -> None:
+    """The plain scan: per group the light step, or with `topology` the
+    heavy step for a group with dsel > 0 (the reference's
+    `lax.cond(dsel > 0, heavy, light)`, ffd.py:1057).  Writes the
+    kernels' outputs."""
+    f32 = torch.float32
+    s = _Scan(prob, cat, N, work)
+    dsel = prob.group_dsel.tolist()
+    te_rows, tn_rows, un_rows, dp_rows = [], [], [], []
+    zeros_d = torch.zeros(prob.D, dtype=torch.int32, device=flat.device)
+    for g in range(prob.G):
+        if topology and dsel[g] > 0:
+            te, tn, un, dp = s.heavy(g)
+        else:
+            (te, tn, un), dp = s.light(g), zeros_d
+        te_rows.append(te)
+        tn_rows.append(tn)
+        un_rows.append(un)
+        dp_rows.append(dp)
 
     def put(name, value):
         _region(flat, lay, name).copy_(value.reshape(-1).to(f32))
 
-    if E:
+    if s.E:
         put("take_exist", torch.stack(te_rows))
-    take_new.copy_(torch.stack(tn_rows).to(f32).reshape(take_new.shape))
+    put("take_new", torch.stack(tn_rows))
     put("unsched", torch.stack(un_rows))
-    _region(flat, lay, "dom_placed").zero_()
-    put("used", used)
-    put("node_pool", node_pool)
-    _region(flat, lay, "node_zone").fill_(-1.0)
-    _region(flat, lay, "node_ct").fill_(-1.0)
-    put("num_active", num_active)
-    limits_out.copy_(limits)
+    put("dom_placed", torch.stack(dp_rows))
+    put("used", s.used)
+    put("node_pool", s.node_pool)
+    put("node_zone", s.node_zone)
+    put("node_ct", s.node_ct)
+    put("num_active", s.num_active)
+    limits_out.copy_(s.limits)
+
+
+def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
+                         flat: torch.Tensor, lay: Dict,
+                         limits_out: torch.Tensor,
+                         work: Optional[Dict[str, int]] = None) -> None:
+    """Plain PyTorch version of K1: `_solve_ffd_impl`'s light branch
+    (ffd.py:460-587) transcribed step for step, a Python loop over groups
+    and pools.  Writes the same outputs as the kernel.
+
+    Given a `work` dict, adds to it what K1 computes on this data: "fit",
+    the R-vector `_fit_count`s, and "test", the R-vector all-fits tests.
+    K1 fits an in-flight node only against the (pool,type) blocks that
+    still hold a surviving column the group admits, and narrows only
+    touched and opened nodes, on the blocks their candidate columns
+    span."""
+    _scan_reference(prob, cat, N, flat, lay, limits_out, work,
+                    topology=False)
+
+
+def topo_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
+                        flat: torch.Tensor, lay: Dict,
+                        limits_out: torch.Tensor,
+                        work: Optional[Dict[str, int]] = None) -> None:
+    """Plain PyTorch version of K3: the whole scan, light or heavy step
+    per group as the reference's `lax.cond` picks.  `work` counts as in
+    `light_scan_reference`; the heavy step adds its per-pool budget fits,
+    the per-(pool, domain) fits of the new-node loop, and the water-fill's
+    scalar float operations under "flops"."""
+    _scan_reference(prob, cat, N, flat, lay, limits_out, work,
+                    topology=True)
 
 
 def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
-                   flat: torch.Tensor, lay: Dict, take_new: torch.Tensor,
-                   limits: torch.Tensor, sparse_n: int,
-                   explain: int) -> None:
-    """Plain PyTorch version of K2: the sparse_n take_new compaction
-    (ffd.py:1089-1109) and the explain=1 aux (ffd.py:1113-1214) for
-    light-branch problems (topology class 0)."""
+                   flat: torch.Tensor, lay: Dict,
+                   limits: torch.Tensor) -> None:
+    """Plain PyTorch version of K2: the explain=1 aux (ffd.py:1113-1214),
+    the topology class (ffd.py:1141-1175) included."""
     dev = flat.device
     i32, f32 = torch.int32, torch.float32
     G = prob.G
-    if sparse_n:
-        K = sparse_n
-        tn = take_new.view(G, N)
-        nz = tn > 0
-        rank = torch.cumsum(nz.to(torch.int64), dim=1) - 1
-        slot = torch.where(nz & (rank < K), rank, K)         # K = dropped
-        cols = torch.arange(N, device=dev, dtype=f32).expand(G, N)
-        cnt = torch.zeros((G, K + 1), dtype=f32, device=dev).scatter_(
-            1, slot, tn)
-        idxs = torch.zeros((G, K + 1), dtype=f32, device=dev).scatter_(
-            1, slot, cols)
-        _region(flat, lay, "sp_cnt").copy_(cnt[:, :K].reshape(-1))
-        _region(flat, lay, "sp_idx").copy_(idxs[:, :K].reshape(-1))
-        _region(flat, lay, "sp_nnz").copy_(nz.sum(dim=1).to(f32))
-    if explain:
-        zc, PT = cat.zc, cat.PT
-        gmask_pt = _unpack_bits(prob.mask_bits, cat.O).view(G, PT, zc)
-        cols_per_block = gmask_pt.sum(dim=-1).to(i32)            # [G, PT]
-        pt_daemon = cat.col_daemon.view(PT, zc, R)[:, 0]
-        pt_pool = cat.col_pool.view(PT, zc)[:, 0].long()
-        req = prob.group_req
-        fits_pt = _fits(cat.pt_alloc[None] - pt_daemon[None]
-                        - req[:, None])                          # [G, PT]
-        lim_ok = _fits(limits[None] - cat.pool_daemon[None]
-                       - req[:, None])                           # [G, P]
-        lim_ok_pt = lim_ok[:, pt_pool]
-        elim_fit = torch.where(~fits_pt, cols_per_block, 0).sum(-1)
-        elim_limit = torch.where(fits_pt & ~lim_ok_pt,
-                                 cols_per_block, 0).sum(-1)
-        elim_topo = torch.zeros_like(elim_fit)
-        stranded = _region(flat, lay, "unsched") > 0
-        ok_cols = torch.where(fits_pt & lim_ok_pt,
-                              cols_per_block, 0).sum(-1)
-        elim_whole = torch.where((prob.group_whole != 0) & stranded,
-                                 ok_cols, 0)
-        na = _region(flat, lay, "num_active")[0]
-        slots = (stranded & (na >= N)).to(elim_fit.dtype)
-        counts = torch.stack([elim_fit, elim_limit, elim_topo, elim_whole,
-                              slots], dim=1)                     # [G, C]
-        weights = torch.tensor([1 << i for i in range(EXPLAIN_C)],
-                               device=dev, dtype=counts.dtype)
-        bits = ((counts > 0).to(counts.dtype) * weights).sum(-1)
-        _region(flat, lay, "explain_counts").copy_(
-            counts.to(f32).reshape(-1))
-        _region(flat, lay, "explain_bits").copy_(bits.to(f32))
+    zc, PT = cat.zc, cat.PT
+    gmask_pt = _unpack_bits(prob.mask_bits, cat.O).view(G, PT, zc)
+    cols_per_block = gmask_pt.sum(dim=-1).to(i32)            # [G, PT]
+    pt_daemon = cat.col_daemon.view(PT, zc, R)[:, 0]
+    pt_pool = cat.col_pool.view(PT, zc)[:, 0].long()
+    req = prob.group_req
+    fits_pt = _fits(cat.pt_alloc[None] - pt_daemon[None]
+                    - req[:, None])                          # [G, PT]
+    lim_ok = _fits(limits[None] - cat.pool_daemon[None]
+                   - req[:, None])                           # [G, P]
+    lim_ok_pt = lim_ok[:, pt_pool]
+    elim_fit = torch.where(~fits_pt, cols_per_block, 0).sum(-1)
+    elim_limit = torch.where(fits_pt & ~lim_ok_pt,
+                             cols_per_block, 0).sum(-1)
+    # topology: admitted columns of fitting, fundable blocks whose
+    # domain is ineligible or at the skew ceiling after the group's
+    # own placements (dom_placed); domain of a column via its grid slot
+    D = prob.D
+    f_dom = prob.group_dbase + _region(flat, lay, "dom_placed").view(
+        G, D).to(i32)                                        # [G, D]
+    delig = prob.group_delig != 0
+    big = torch.tensor(2 ** 29, dtype=i32, device=dev)
+    m_elig = torch.where(delig, f_dom, big).min(-1).values   # [G]
+    pop = (torch.where(delig, f_dom, 0) > 0).sum(-1)
+    m_floor = torch.where((prob.group_mindom > 0)
+                          & (pop < prob.group_mindom), 0, m_elig)
+    ceiling = m_floor + prob.group_skew                      # [G]
+    blocked_dom = (~delig) | (f_dom >= ceiling[:, None])     # [G, D]
+    slot_dom = torch.where((prob.group_dsel == 1)[:, None],
+                           cat.col_zone[None, :zc],
+                           cat.col_ct[None, :zc])            # [G, ZC]
+    slot_blocked = torch.gather(
+        blocked_dom, 1, torch.clamp(slot_dom, 0, D - 1).long())
+    ok_pt = fits_pt & lim_ok_pt                              # [G, PT]
+    elim_topo = torch.where(
+        (prob.group_dsel > 0)[:, None, None] & slot_blocked[:, None, :]
+        & ok_pt[:, :, None], gmask_pt.to(i32), 0).sum((1, 2))
+    stranded = _region(flat, lay, "unsched") > 0
+    ok_cols = torch.where(ok_pt, cols_per_block, 0).sum(-1)
+    elim_whole = torch.where((prob.group_whole != 0) & stranded,
+                             ok_cols, 0)
+    na = _region(flat, lay, "num_active")[0]
+    slots = (stranded & (na >= N)).to(elim_fit.dtype)
+    counts = torch.stack([elim_fit, elim_limit, elim_topo, elim_whole,
+                          slots], dim=1)                     # [G, C]
+    weights = torch.tensor([1 << i for i in range(EXPLAIN_C)],
+                           device=dev, dtype=counts.dtype)
+    bits = ((counts > 0).to(counts.dtype) * weights).sum(-1)
+    _region(flat, lay, "explain_counts").copy_(
+        counts.to(f32).reshape(-1))
+    _region(flat, lay, "explain_bits").copy_(bits.to(f32))
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -516,7 +906,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _check_args(prob: FFDProblem, cat: FFDCatalog, N: int,
                 device) -> None:
-    G, E, P, W = prob.G, prob.E, prob.P, cat.W
+    G, E, P, W, D, O = prob.G, prob.E, prob.P, cat.W, prob.D, cat.O
     f32, i32 = torch.float32, torch.int32
     for name, t, dt, shp in (
             ("group_req", prob.group_req, f32, (G, R)),
@@ -527,53 +917,63 @@ def _check_args(prob: FFDProblem, cat: FFDCatalog, N: int,
             ("pool_limit", prob.pool_limit, f32, (P, R)),
             ("group_ncap", prob.group_ncap, i32, (G,)),
             ("group_whole", prob.group_whole, i32, (G,)),
-            ("col_alloc", cat.col_alloc, f32, (cat.O, R)),
-            ("col_daemon", cat.col_daemon, f32, (cat.O, R)),
+            ("group_dsel", prob.group_dsel, i32, (G,)),
+            ("group_dbase", prob.group_dbase, i32, (G, D)),
+            ("group_dcap", prob.group_dcap, i32, (G, D)),
+            ("group_skew", prob.group_skew, i32, (G,)),
+            ("group_mindom", prob.group_mindom, i32, (G,)),
+            ("group_delig", prob.group_delig, i32, (G, D)),
+            ("exist_zone", prob.exist_zone, i32, (E,)),
+            ("exist_ct", prob.exist_ct, i32, (E,)),
+            ("col_alloc", cat.col_alloc, f32, (O, R)),
+            ("col_daemon", cat.col_daemon, f32, (O, R)),
             ("pt_alloc", cat.pt_alloc, f32, (cat.PT, R)),
-            ("col_pool", cat.col_pool, i32, (cat.O,)),
+            ("col_pool", cat.col_pool, i32, (O,)),
             ("pool_daemon", cat.pool_daemon, f32, (P, R)),
-            ("pool_bits", cat.pool_bits, i32, (P, W))):
+            ("pool_bits", cat.pool_bits, i32, (P, W)),
+            ("col_zone", cat.col_zone, i32, (O,)),
+            ("col_ct", cat.col_ct, i32, (O,))):
         _check(t, name, dt, shp, device)
-    if N < 1 or G < 1:
-        raise ValueError(f"empty problem: G={G}, N={N}")
+    if N < 1 or G < 1 or D < 1:
+        raise ValueError(f"empty problem: G={G}, N={N}, D={D}")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def light_scan(prob: FFDProblem, cat: FFDCatalog, N: int,
-               flat: torch.Tensor, lay: Dict, take_new: torch.Tensor,
-               limits_out: torch.Tensor) -> None:
-    """K1: the light FFD scan over all groups.  Writes the flat regions
-    take_exist, unsched, dom_placed, used, node_pool/zone/ct and
-    num_active, the dense [G, N] take_new rows into `take_new` (a view of
-    the flat buffer when uncompacted), and the final pool budgets into
-    `limits_out`.  CUDA tensors launch the kernel; CPU tensors run
-    `light_scan_reference`."""
+def _check_outputs(prob: FFDProblem, flat: torch.Tensor, lay: Dict,
+                   limits_out: torch.Tensor) -> None:
     dev = flat.device
-    _check_args(prob, cat, N, dev)
     _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
-    _check(take_new, "take_new", torch.float32, (prob.G * N,), dev)
     _check(limits_out, "limits_out", torch.float32, (prob.P, R), dev)
-    if dev.type != "cuda":
-        light_scan_reference(prob, cat, N, flat, lay, take_new, limits_out)
-        return
+
+
+def _launch_scan(name: str, prob: FFDProblem, cat: FFDCatalog, N: int,
+                 flat: torch.Tensor, lay: Dict,
+                 limits_out: torch.Tensor) -> None:
+    """Launch K1 or K3: both take the same argument list (K1 never reads
+    the topology arguments)."""
     from karpenter_tpu_torch.solver import _cuda
-    G, E, P = prob.G, prob.E, prob.P
+    dev = flat.device
+    G, E, P, D = prob.G, prob.E, prob.P, prob.D
     W = cat.W
     if P > MAX_POOLS:
-        raise ValueError(f"{P} node pools: the kernel takes at most "
+        raise ValueError(f"{P} node pools: the kernels take at most "
                          f"{MAX_POOLS}")
+    if D > MAX_DOMAINS:
+        raise ValueError(f"{D} topology domains: the kernels take at most "
+                         f"{MAX_DOMAINS}")
     scratch_f = torch.empty(E * R + N * R, dtype=torch.float32, device=dev)
-    scratch_i = torch.empty(W * N + 2 * N + E, dtype=torch.int32,
+    scratch_i = torch.empty(W * N + 4 * N + E, dtype=torch.int32,
                             device=dev)
     exist_rem, used = scratch_f[:E * R], scratch_f[E * R:]
     colmask = scratch_i[:W * N]
-    active = scratch_i[W * N:W * N + N]
-    node_pool = scratch_i[W * N + N:W * N + 2 * N]
-    cap_e = scratch_i[W * N + 2 * N:]
-    reg = lambda name: _region(flat, lay, name)  # noqa: E731
+    rest = scratch_i[W * N:]
+    active, node_pool = rest[:N], rest[N:2 * N]
+    node_zone, node_ct = rest[2 * N:3 * N], rest[3 * N:4 * N]
+    cap_e = rest[4 * N:]
+    reg = lambda name_: _region(flat, lay, name_)  # noqa: E731
     ptrs = [
         prob.group_req, prob.group_count, prob.mask_bits, prob.exist_cap,
         prob.exist_remaining, prob.pool_limit, prob.group_ncap,
@@ -581,50 +981,93 @@ def light_scan(prob: FFDProblem, cat: FFDCatalog, N: int,
         cat.col_alloc, cat.col_daemon, cat.pt_alloc, cat.col_pool,
         cat.pool_daemon, cat.pool_bits,
         exist_rem, used, colmask, active, node_pool, cap_e, limits_out,
-        reg("take_exist"), take_new, reg("unsched"), reg("dom_placed"),
+        reg("take_exist"), reg("take_new"), reg("unsched"),
+        reg("dom_placed"),
         reg("used"), reg("node_pool"), reg("node_zone"), reg("node_ct"),
         reg("num_active"),
+        prob.group_dsel, prob.group_dbase, prob.group_dcap,
+        prob.group_skew, prob.group_mindom, prob.group_delig,
+        prob.exist_zone, prob.exist_ct, cat.col_zone, cat.col_ct,
+        node_zone, node_ct,
     ]
-    dims = [G, E, N, cat.O, cat.PT, cat.zc, P, prob.D, W]
+    dims = [G, E, N, cat.O, cat.PT, cat.zc, P, D, W]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _cuda.launch("ffd_light_scan", [_ptr(t) for t in ptrs], dims, stream)
+    _cuda.launch(name, [_ptr(t) for t in ptrs], dims, stream)
+
+
+def light_scan(prob: FFDProblem, cat: FFDCatalog, N: int,
+               flat: torch.Tensor, lay: Dict,
+               limits_out: torch.Tensor) -> None:
+    """K1: the light FFD scan over all groups.  Writes the flat regions
+    take_exist, take_new, unsched, dom_placed, used, node_pool/zone/ct
+    and num_active, and the final pool budgets into `limits_out`.
+    Refuses a problem with a domain group (that is K3's).  CUDA tensors
+    launch the kernel; CPU tensors run `light_scan_reference`."""
+    dev = flat.device
+    _check_args(prob, cat, N, dev)
+    _check_outputs(prob, flat, lay, limits_out)
+    if prob.topology:
+        raise ValueError("zone/capacity-type domain groups need the heavy "
+                         "step: topo_scan (K3), not light_scan (K1)")
+    if dev.type != "cuda":
+        light_scan_reference(prob, cat, N, flat, lay, limits_out)
+        return
+    _launch_scan("ffd_light_scan", prob, cat, N, flat, lay, limits_out)
     light_scan.launches += 1
 
 
 light_scan.launches = 0
 
 
-def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
-         lay: Dict, take_new: torch.Tensor, limits: torch.Tensor,
-         sparse_n: int, explain: int) -> None:
-    """K2: the take_new top-K compaction (sparse_n > 0) and the explain=1
-    counts, written into the flat buffer from K1's outputs.  CUDA tensors
-    launch the kernel; CPU tensors run `pack_reference`."""
+def topo_scan(prob: FFDProblem, cat: FFDCatalog, N: int,
+              flat: torch.Tensor, lay: Dict,
+              limits_out: torch.Tensor) -> None:
+    """K3: the FFD scan with the heavy step for groups with dsel > 0 and
+    the light step for the rest; writes what `light_scan` writes, plus
+    the per-group dom_placed rows and the nodes' zone/capacity-type pins.
+    CUDA tensors launch the kernel; CPU tensors run
+    `topo_scan_reference`."""
     dev = flat.device
     _check_args(prob, cat, N, dev)
-    _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
-    _check(take_new, "take_new", torch.float32, (prob.G * N,), dev)
-    _check(limits, "limits", torch.float32, (prob.P, R), dev)
-    if explain not in (0, 1):
-        raise ValueError(f"explain={explain}: the pack computes counts "
-                         "(1) or nothing (0)")
-    if sparse_n < 0:
-        raise ValueError(f"sparse_n={sparse_n}")
+    _check_outputs(prob, flat, lay, limits_out)
     if dev.type != "cuda":
-        pack_reference(prob, cat, N, flat, lay, take_new, limits,
-                       sparse_n, explain)
+        topo_scan_reference(prob, cat, N, flat, lay, limits_out)
+        return
+    _launch_scan("ffd_topo_scan", prob, cat, N, flat, lay, limits_out)
+    topo_scan.launches += 1
+
+
+topo_scan.launches = 0
+
+
+def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
+         lay: Dict, limits: torch.Tensor) -> None:
+    """K2: the explain=1 counts, written into the flat buffer (which must
+    hold them) from the scan's outputs and final pool budgets `limits`.
+    CUDA tensors launch the kernel; CPU tensors run `pack_reference`."""
+    dev = flat.device
+    _check_args(prob, cat, N, dev)
+    _check_outputs(prob, flat, lay, limits)
+    if "explain_counts" not in lay:
+        raise ValueError("the flat layout holds no explain counts")
+    if dev.type != "cuda":
+        pack_reference(prob, cat, N, flat, lay, limits)
         return
     from karpenter_tpu_torch.solver import _cuda
-    reg = lambda name: (_region(flat, lay, name)  # noqa: E731
-                        if name in lay else None)
+    if prob.D > MAX_DOMAINS:
+        raise ValueError(f"{prob.D} topology domains: the pack takes at "
+                         f"most {MAX_DOMAINS}")
+    reg = lambda name: _region(flat, lay, name)  # noqa: E731
     ptrs = [
-        take_new, prob.mask_bits, prob.group_req, prob.group_whole,
+        prob.mask_bits, prob.group_req, prob.group_whole,
         cat.pt_alloc, cat.col_daemon, cat.col_pool, cat.pool_daemon,
         limits, reg("unsched"), reg("num_active"),
-        reg("sp_cnt"), reg("sp_idx"), reg("sp_nnz"),
         reg("explain_counts"), reg("explain_bits"),
+        reg("dom_placed"), prob.group_dsel, prob.group_dbase,
+        prob.group_skew, prob.group_mindom, prob.group_delig,
+        cat.col_zone, cat.col_ct,
     ]
-    dims = [prob.G, N, cat.PT, cat.zc, prob.P, cat.W, sparse_n, explain]
+    dims = [prob.G, N, cat.PT, cat.zc, prob.P, cat.W, prob.D]
     stream = torch.cuda.current_stream(dev).cuda_stream
     _cuda.launch("ffd_pack", [_ptr(t) for t in ptrs], dims, stream)
     pack.launches += 1
@@ -634,67 +1077,53 @@ pack.launches = 0
 
 
 def solve_ffd(prob: FFDProblem, cat: FFDCatalog, max_nodes: int,
-              sparse_n: int = 0, explain: int = 0) -> torch.Tensor:
-    """One light-branch solve: K1, then K2 when there is anything to pack.
-    Returns the flat f32 result buffer on the problem's device (not
+              explain: int = 0) -> torch.Tensor:
+    """One solve: the scan — K3 when any group has a zone/capacity-type
+    domain constraint, K1 otherwise — then, with explain=1, K2.  Returns
+    the flat f32 result buffer on the problem's device (not
     synchronised)."""
+    if explain not in (0, 1):
+        raise ValueError(f"explain={explain}: the pack computes counts "
+                         "(1) or nothing (0)")
     dev = prob.group_req.device
     N = max_nodes
-    lay = flat_layout(prob.G, prob.E, N, prob.D, sparse_n, explain)
+    lay = flat_layout(prob.G, prob.E, N, prob.D, explain)
     flat = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
-    take_new = (torch.empty(prob.G * N, dtype=torch.float32, device=dev)
-                if sparse_n else _region(flat, lay, "take_new"))
     limits = torch.empty((prob.P, R), dtype=torch.float32, device=dev)
-    light_scan(prob, cat, N, flat, lay, take_new, limits)
-    if sparse_n or explain:
-        pack(prob, cat, N, flat, lay, take_new, limits, sparse_n, explain)
+    scan = topo_scan if prob.topology else light_scan
+    scan(prob, cat, N, flat, lay, limits)
+    if explain:
+        pack(prob, cat, N, flat, lay, limits)
     return flat
 
 
 def unpack(packed, G: int, E: int, N: int, RDIM: int, D: int,
-           sparse_n: int = 0, explain: int = 0) -> Dict:
-    """Split the flat result buffer into named host arrays (ffd.py:1677).
-    sparse_n > 0 rebuilds take_new from its (count, index) pairs and
-    reports ``new_overflow`` when a group touched more than K nodes (the
-    caller re-runs dense)."""
+           explain: int = 0) -> Dict:
+    """Split the flat result buffer into named host arrays (ffd.py:1677,
+    dense take_new rows)."""
     flat = np.asarray(packed)
     if not flat.flags.writeable:
         flat = np.array(flat)
-    Kn = sparse_n
-    head = G * E
-    mid = (2 * G * Kn + G) if Kn else G * N
-    sizes = [head, mid, G, G * D, N * RDIM, N, N, N, 1]
-    offs = np.cumsum([0] + sizes)
-    take_exist = flat[offs[0]:offs[1]].reshape(G, E)
-    new_overflow = False
-    if Kn:
-        cntn = flat[offs[1]:offs[1] + G * Kn].reshape(G, Kn)
-        idxn = flat[offs[1] + G * Kn:
-                    offs[1] + 2 * G * Kn].reshape(G, Kn).astype(np.int64)
-        nnz = flat[offs[1] + 2 * G * Kn:offs[2]]
-        new_overflow = bool((nnz > Kn).any())
-        take_new = np.zeros((G, N), dtype=flat.dtype)
-        mn_ = cntn > 0
-        take_new[np.nonzero(mn_)[0], idxn[mn_]] = cntn[mn_]
-    else:
-        take_new = flat[offs[1]:offs[2]].reshape(G, N)
+    lay = flat_layout(G, E, N, D, explain)
+    assert RDIM == R and flat.shape == (lay["total"][1],), flat.shape
+
+    def reg(name):
+        off, n = lay[name]
+        return flat[off:off + n]
+
     out = dict(
-        take_exist=take_exist,
-        take_new=take_new,
-        new_overflow=new_overflow,
-        unsched=flat[offs[2]:offs[3]],
-        dom_placed=flat[offs[3]:offs[4]].reshape(G, D),
-        used=flat[offs[4]:offs[5]].reshape(N, RDIM),
-        node_pool=flat[offs[5]:offs[6]].astype(np.int32),
-        node_zone=flat[offs[6]:offs[7]].astype(np.int32),
-        node_ct=flat[offs[7]:offs[8]].astype(np.int32),
-        num_active=flat[offs[8]],
+        take_exist=reg("take_exist").reshape(G, E),
+        take_new=reg("take_new").reshape(G, N),
+        unsched=reg("unsched"),
+        dom_placed=reg("dom_placed").reshape(G, D),
+        used=reg("used").reshape(N, RDIM),
+        node_pool=reg("node_pool").astype(np.int32),
+        node_zone=reg("node_zone").astype(np.int32),
+        node_ct=reg("node_ct").astype(np.int32),
+        num_active=reg("num_active")[0],
     )
-    off = int(offs[-1])
     if explain:
-        C = EXPLAIN_C
-        out["explain_counts"] = \
-            flat[off:off + G * C].reshape(G, C).astype(np.int64)
-        off += G * C
-        out["explain_bits"] = flat[off:off + G].astype(np.int64)
+        out["explain_counts"] = reg("explain_counts").reshape(
+            G, EXPLAIN_C).astype(np.int64)
+        out["explain_bits"] = reg("explain_bits").astype(np.int64)
     return out

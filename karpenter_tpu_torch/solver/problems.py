@@ -6,7 +6,9 @@ the padded catalog arrays, in numpy, shaped like an encoded solve: a PT x
 ZC column grid with padded (pool,type) blocks, pools with daemon overhead
 and finite or unlimited budgets, existing nodes with per-node caps,
 hostname-style per-node caps, whole-node (all-or-nothing) groups and padded
-group rows.  Every float is integer-valued (millicores, MiB, counts), as
+group rows.  With ``topology=True`` it also carries zone and capacity-type
+domain groups (the heavy scan branch) mixed with light ones.  Every float
+is integer-valued (millicores, MiB, counts), as
 encoded requests and capacities are, so the float arithmetic is exact and
 the kernels must agree bit for bit.
 """
@@ -25,10 +27,19 @@ def random_problem(seed: int, *, G: int = 8, E: int = 16, PT: int = 64,
                    ZC: int = 6, P: int = 2, real_groups: Optional[int] = None,
                    pad_blocks: int = 8, limits: str = "mixed",
                    whole: bool = True, pod_scale: int = 60,
-                   D: int = 2) -> Tuple[tuple, Dict]:
+                   D: int = 2, topology: bool = False) -> Tuple[tuple, Dict]:
     """One problem.  `limits`: "none" (every pool unlimited), "finite"
     (every pool budgeted) or "mixed".  `pod_scale` sets group sizes:
-    large values against a small node axis exhaust the slots."""
+    large values against a small node axis exhaust the slots.
+
+    `topology`: the (zone, capacity-type) grid has ZC // 2 zones and 2
+    capacity types (slot s is zone s % (ZC // 2), capacity type
+    s // (ZC // 2)); each real group draws dsel from {0, 1, 2} — light,
+    zone or capacity-type domain — and a domain group is a spread
+    (base counts, skew 1 or 2, sometimes minDomains, sometimes a blocked
+    domain) or an anti-affinity (at most one more pod per domain), over
+    partly ineligible domains.  Existing nodes sit in random domains.  D
+    (the padded domain width) must hold the zones."""
     rng = np.random.RandomState(seed)
     real_groups = G - 1 if real_groups is None else real_groups
     O = PT * ZC
@@ -113,23 +124,57 @@ def random_problem(seed: int, *, G: int = 8, E: int = 16, PT: int = 64,
             pool_limit[p, 0] = rng.randint(8, 160) * 1000
             pool_limit[p, 1] = rng.randint(16, 320) * 1024
 
+    # -- topology domains ----------------------------------------------------
+    nz = max(ZC // 2, 1)
+    slot = np.arange(ZC, dtype=np.int32)
+    col_zone = np.tile(slot % nz if topology else slot % 3, PT)
+    col_ct = np.tile(slot // nz if topology else slot // 3, PT)
+    group_dsel = np.zeros(G, np.int32)
+    group_dbase = np.zeros((G, D), np.int32)
+    group_dcap = np.full((G, D), BIG, np.int32)
+    group_skew = np.full(G, BIG, np.int32)
+    group_mindom = np.zeros(G, np.int32)
+    group_delig = np.zeros((G, D), bool)
+    exist_zone = np.full(E, -1, np.int32)
+    exist_ct = np.full(E, -1, np.int32)
+    if topology:
+        assert nz <= D, (nz, D)
+        e_real = max(E - 2, 0)
+        exist_zone[:e_real] = rng.randint(-1, nz, e_real)
+        exist_ct[:e_real] = rng.randint(-1, 2, e_real)
+        for g in range(real_groups):
+            dsel = rng.choice([0, 1, 2])
+            if dsel == 0 or group_whole[g]:
+                continue
+            group_dsel[g] = dsel
+            ndom = nz if dsel == 1 else 2
+            group_dcap[g, ndom:] = 0   # pad domains take no quota
+            elig = rng.rand(ndom) < 0.8
+            elig[rng.randint(ndom)] = True
+            group_delig[g, :ndom] = elig
+            if rng.rand() < 0.25:
+                # anti-affinity: one more pod per domain, unbounded skew
+                group_dcap[g, :ndom] = (rng.rand(ndom) < 0.8).astype(
+                    np.int32)
+            else:
+                group_skew[g] = rng.choice([1, 2])
+                group_dbase[g, :ndom] = rng.randint(0, 4, ndom)
+                if rng.rand() < 0.3:
+                    group_mindom[g] = rng.randint(1, ndom + 1)
+                if rng.rand() < 0.2:
+                    group_dcap[g, rng.randint(ndom)] = 0
+
     prob = (
         group_req, group_count, group_mask, exist_cap, exist_remaining,
         pool_limit, group_ncap,
-        np.zeros(G, np.int32),                 # group_dsel (light only)
-        np.zeros((G, D), np.int32),            # group_dbase
-        np.full((G, D), BIG, np.int32),        # group_dcap
-        np.full(G, BIG, np.int32),             # group_skew
-        np.zeros(G, np.int32),                 # group_mindom
-        np.zeros((G, D), bool),                # group_delig
+        group_dsel, group_dbase, group_dcap, group_skew, group_mindom,
+        group_delig,
         group_whole,
         np.zeros(G, bool),                     # group_gang
-        np.full(E, -1, np.int32),              # exist_zone
-        np.full(E, -1, np.int32),              # exist_ct
+        exist_zone, exist_ct,
     )
     cat = dict(col_alloc=col_alloc, col_daemon=col_daemon, pt_alloc=pt_alloc,
                col_pool=col_pool, pool_daemon=pool_daemon,
-               col_zone=np.tile(np.arange(ZC, dtype=np.int32) % 3, PT),
-               col_ct=np.tile(np.arange(ZC, dtype=np.int32) // 3, PT),
+               col_zone=col_zone, col_ct=col_ct,
                zc=ZC)
     return prob, cat

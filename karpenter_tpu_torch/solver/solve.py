@@ -1,25 +1,29 @@
 """TorchSolver — the cold provisioning solve on the card.
 
-encode (host, numpy) → the light FFD scan and the result pack (CUDA
-kernels, solver/ffd.py) → decode (host).  The port of
-`karpenter_tpu/solver/solve.py` `TPUSolver` for problems the light scan
-expresses; everything else raises `UnsupportedPods`, naming the slice of
-the port that brings it:
+encode (host, numpy) → the FFD scan (K1, or K3 when a class carries a zone
+or capacity-type spread or anti-affinity) and the result pack (CUDA
+kernels, solver/ffd.py) → host repair (whole-node, topology skew) →
+decode (host).  The port of `karpenter_tpu/solver/solve.py` `TPUSolver`,
+with its host paths around the device solve:
 
-  * zone/capacity-type spread and anti-affinity groups (the heavy scan
-    branch), gangs, more than one priority band, soft terms that need the
-    relaxation loop;
-  * groups the encoding cannot express (the reference's split path hands
-    them to the host oracle);
-  * pods the scan strands on a real solve (the reference's oracle rescue
-    and pool-limit backstop).
+  * the split path: groups the encoding cannot express (custom topology
+    keys, two dynamic keys, coupled selectors) go to the host oracle
+    (`scheduling/oracle.py`) after the device solve of the rest;
+  * the rescue: pods the scan strands on a real solve are re-judged by
+    the oracle against the device placements;
+  * the pool-limit backstop: when pods strand on a binding pool limit, one
+    oracle solve of the whole input, kept if it strands fewer.
 
-A result is therefore always the reference's result: no path here returns
-an answer the JAX package would not.
+What the port does not run yet raises `UnsupportedPods`, naming the slice
+that brings it: gangs, more than one priority band (and a stranded pod
+that outranks a resident one, which the reference's preemption planner
+would act on), and soft terms that need the relaxation loop.  A result is
+therefore always the reference's result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -27,12 +31,21 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.models import wellknown
+from karpenter_tpu_torch.models.objects import Node, ObjectMeta, Pod
 from karpenter_tpu_torch.models.requirements import Requirement, Requirements
 from karpenter_tpu_torch.models.resources import RESOURCE_AXIS, Resources
+from karpenter_tpu_torch.scheduling.oracle import (
+    PreemptionNotPorted,
+    Scheduler,
+    preemption_would_plan,
+)
 from karpenter_tpu_torch.scheduling.types import (
+    ExistingNode,
     NewNodeClaim,
     ScheduleInput,
     ScheduleResult,
+    effective_request,
+    gang_of,
     min_values_violation,
 )
 from karpenter_tpu_torch.solver import explain as explainmod
@@ -47,6 +60,7 @@ from karpenter_tpu_torch.solver.encode import (
     encode_catalog,
     group_pods,
 )
+from karpenter_tpu_torch.utils.knobs import priority_enabled
 
 R = len(RESOURCE_AXIS)
 
@@ -56,8 +70,22 @@ PT_ALIGN = 64  # (pool,type) axis padding; column axis O = PT_pad × ZC
 
 
 class UnsupportedPods(Exception):
-    """Raised when this port cannot solve the batch on the card; the
-    message names the slice that brings the missing path."""
+    """Raised when this port cannot solve the batch; the message names the
+    slice that brings the missing path."""
+
+
+class _SplitNeeded(Exception):
+    """The device attempt cannot take this input as a whole: the split
+    path decides (the reference's UnsupportedPods inside the solver)."""
+
+
+def _oracle_solve(inp: ScheduleInput) -> ScheduleResult:
+    """The host oracle on `inp`; UnsupportedPods where the reference's
+    oracle would plan preemptions."""
+    try:
+        return Scheduler(inp).solve()
+    except PreemptionNotPorted as e:
+        raise UnsupportedPods(f"{e} (slice 2b)") from e
 
 
 class TorchSolver:
@@ -70,9 +98,6 @@ class TorchSolver:
         self.device = torch.device(device)
         self._cat_entry = None
         self._last_active: Optional[int] = None  # node-axis warm start
-        # take_new compaction warm start: the previous solve's max
-        # per-group new-node fan-out (None = dense until measured)
-        self._last_new_segments: Optional[int] = None
         self._last_slots_exhausted = False
         self._pregroup_ms = 0.0
         self._explain_resolved: Optional[int] = None
@@ -82,6 +107,13 @@ class TorchSolver:
         self.last_phase_ms: Dict[str, float] = {}
         # per-solve provenance summary from the kernel's explain counts
         self.last_explain: Optional[Dict] = None
+        # per-solve host help: whether the split/rescue/backstop oracle
+        # ran, the pods it was handed (deduplicated per solve), and the
+        # pods the current attempt's split oracle already judged
+        self._used_split = False
+        self._residue_counted: set = set()
+        self.last_residue_pods = 0
+        self._last_oracle_judged: set = set()
 
     def _check_device(self) -> None:
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -134,10 +166,27 @@ class TorchSolver:
             col_daemon=self._pad(cat.col_daemon, 0, O),
             pt_alloc=self._pad(cat.pt_alloc, 0, PT_pad),
             col_pool=self._pad(cat.col_pool, 0, O),
+            col_zone=self._pad_tiled(cat.col_zone, O, ZC),
+            col_ct=self._pad_tiled(cat.col_ct, O, ZC),
             pool_daemon=cat.pool_daemon,
             zc=ZC), self.device)
         self._cat_entry = (key, cat)
         return cat
+
+    @staticmethod
+    def _pad_tiled(a: np.ndarray, O: int, ZC: int) -> np.ndarray:
+        """Pad a per-column domain id to O columns with the TILED per-block
+        pattern (the reference's `_pad_tiled`): the heavy step's real
+        domain count reads the maximum id over every column, padding
+        included."""
+        out = np.empty(O, a.dtype)
+        n = len(a)
+        out[:n] = a
+        if O > n and ZC:
+            pat = a[:ZC] if n >= ZC else np.zeros(ZC, a.dtype)
+            reps = -(-(O - n) // ZC)
+            out[n:] = np.tile(pat, reps)[:O - n]
+        return out
 
     @staticmethod
     def _pad(arr: np.ndarray, axis: int, to: int, value=0) -> np.ndarray:
@@ -205,34 +254,337 @@ class TorchSolver:
         consolidation simulation); a capped solve that runs out of node
         slots returns its strands, as the reference does."""
         self._check_device()
+        self._used_split = False
+        self._residue_counted = set()
+        self.last_residue_pods = 0
         res = self._solve_relaxed(inp, max_nodes=max_nodes)
         if res.unschedulable and not (max_nodes is not None
                                       and self._last_slots_exhausted):
+            # rescue unless the caller's explicit node cap was itself the
+            # binding constraint: a slot-exhausted consolidation sim wants
+            # the cheap reject, but a capped sim stranded for capacity or
+            # topology reasons may be feasible
+            res = self._rescue_stranded(inp, res)
+        if max_nodes is None:
+            # the backstop ignores node caps, so a capped solve never
+            # takes it
+            res = self._oracle_backstop_on_limits(inp, res)
+        if (max_nodes is None and res.unschedulable and priority_enabled()
+                and preemption_would_plan(inp, res)):
             raise UnsupportedPods(
-                f"{len(res.unschedulable)} pod(s) stranded by the scan: "
-                "the host oracle rescue and the pool-limit backstop come "
-                "with slice 2")
+                "a stranded pod outranks an evictable resident pod: the "
+                "preemption planner comes with slice 2b")
         return res
+
+    # pods beyond this, the backstop oracle's O(pods) wall-clock isn't
+    # worth a limits-edge improvement
+    _ORACLE_BACKSTOP_MAX_PODS = 2000
+
+    def _oracle_backstop_on_limits(self, inp: ScheduleInput,
+                                   res: ScheduleResult) -> ScheduleResult:
+        """Full-oracle fallback when pods strand on a BINDING pool limit.
+        The decomposed paths (device-then-residue split, rescue) spend a
+        shared pool budget sequentially, so whichever sub-solve runs first
+        can starve the later one even when a joint solve fits everyone.
+        Runs only when the oracle's own verdict names a pool limit,
+        bounded by pod count; keeps whichever result strands fewer pods."""
+        if not res.unschedulable or len(inp.pods) > \
+                self._ORACLE_BACKSTOP_MAX_PODS:
+            return res
+        if not any(lim is not None
+                   for lim in (inp.remaining_limits or {}).values()):
+            return res
+        if not any(explainmod.code_of(reason) == explainmod.POOL_LIMIT
+                   for reason in res.unschedulable.values()):
+            return res
+        orc = _oracle_solve(inp)
+        if len(orc.unschedulable) < len(res.unschedulable):
+            self._used_split = True  # host help happened
+            return orc
+        return res
+
+    def _count_residue(self, pods: List[Pod]) -> None:
+        """Count the pods handed to the host oracle, once per solve: the
+        split path can meet the same pods again."""
+        fresh = [p for p in pods if p.meta.name not in self._residue_counted]
+        self._residue_counted.update(p.meta.name for p in fresh)
+        self.last_residue_pods += len(fresh)
+
+    def _rescue_stranded(self, inp: ScheduleInput,
+                         dev_res: ScheduleResult) -> ScheduleResult:
+        """One host-side oracle pass for pods the kernel stranded: the
+        kernel's per-domain quotas are planned against capacity
+        ESTIMATES, and the water-fill is cost-blind, so stranded pods are
+        re-judged by the oracle against the residual state via the split
+        path's augment+merge machinery.  They either place or the verdict
+        carries oracle authority."""
+        by_name = {p.meta.name: p for p in inp.pods}
+        # pods the final attempt's split oracle already judged carry
+        # oracle authority: re-judging them would repeat the same pass
+        seen = self._last_oracle_judged
+        stranded = [by_name[n] for n in dev_res.unschedulable
+                    if n in by_name and n not in seen]
+        if not stranded:
+            return dev_res
+        placed = [p for p in inp.pods
+                  if p.meta.name not in dev_res.unschedulable]
+        self._count_residue(stranded)
+        self._used_split = True
+        aug = self._augment_with_claims(inp, stranded, placed, dev_res)
+        orc_res = _oracle_solve(aug)
+        # the oracle's verdict replaces the kernel's for the rescued set;
+        # the kernel's reason tree, where one was attached, is kept under
+        # "kernel"
+        kernel_trees = {
+            p.meta.name: getattr(
+                dev_res.unschedulable.get(p.meta.name), "tree", None)
+            for p in stranded}
+        for p in stranded:
+            dev_res.unschedulable.pop(p.meta.name, None)
+        merged = self._merge_split(inp, dev_res, orc_res, stranded)
+        for name, kt in kernel_trees.items():
+            r = merged.unschedulable.get(name)
+            if r is None or kt is None:
+                continue
+            code = explainmod.code_of(r)
+            if code == explainmod.LEGACY:
+                continue
+            tree = dict(getattr(r, "tree", None)
+                        or {"code": code,
+                            "constraint": explainmod.constraint_of(code)})
+            tree.setdefault("kernel", kt)
+            merged.unschedulable[name] = explainmod.make(
+                code, str(r), tree)
+        return merged
 
     def _attempt_or_split(self, inp: ScheduleInput,
                           max_nodes: Optional[int] = None,
                           groups=None) -> ScheduleResult:
-        """The device attempt.  Where the reference falls back to its
-        split path (device for the expressible groups, host oracle for
-        the residue), this port reports the batch: the oracle is slice 2."""
+        """Device attempt; on inexpressible groups, the split path for
+        THIS exact input."""
         try:
             return self._solve_attempt(inp, max_nodes=max_nodes,
                                        groups=groups)
-        except Unsupported as e:
-            raise UnsupportedPods(
-                f"{e}: the split path (host oracle for inexpressible "
-                "groups) comes with slice 2") from e
+        except (Unsupported, _SplitNeeded):
+            self._pregroup_ms = 0.0
+            res = self._solve_split(inp, max_nodes=max_nodes)
+            self._used_split = True
+            return res
+
+    def _solve_split(self, inp: ScheduleInput,
+                     max_nodes: Optional[int] = None) -> ScheduleResult:
+        """Device solve of the expressible groups, then the host oracle for
+        the residue against the device placements."""
+        cat = self._catalog_encoding(inp)
+        try:
+            probe = encode(inp, cat, split=True)
+        except Unsupported as e:  # a non-group-level limitation
+            raise UnsupportedPods(str(e)) from e
+        if not probe.residue:
+            # the plain path failed for a reason splitting can't fix
+            raise UnsupportedPods("no residue groups; plain solve failed")
+        residue_pods = [p for g, _ in probe.residue for p in g]
+        supported_pods = [p for g in probe.groups for p in g]
+        self._count_residue(residue_pods)
+
+        if supported_pods:
+            dev_res = self._solve_relaxed(
+                dataclasses.replace(inp, pods=supported_pods),
+                max_nodes=max_nodes)
+        else:
+            dev_res = ScheduleResult()
+        aug = self._augment_with_claims(inp, residue_pods, supported_pods,
+                                        dev_res)
+        orc_res = _oracle_solve(aug)
+
+        # budget starvation retry: under a binding pool limit the device
+        # pass (solved first) can spend budget the residue needed.
+        # Reserve the residue's aggregate requests out of the device
+        # pass's budget and retry once; keep whichever split strands
+        # fewer pods overall.
+        residue_names = {p.meta.name for p in residue_pods}
+        has_limit = any(lim is not None
+                        for lim in (inp.remaining_limits or {}).values())
+        if supported_pods and has_limit and any(
+                n in residue_names
+                and explainmod.code_of(r) == explainmod.POOL_LIMIT
+                for n, r in orc_res.unschedulable.items()):
+            reserve = Resources()
+            for p in residue_pods:
+                reserve = reserve + effective_request(p)
+            reduced = {pool: (lim - reserve if lim is not None else None)
+                       for pool, lim in inp.remaining_limits.items()}
+            dev2 = self._solve_relaxed(
+                dataclasses.replace(inp, pods=supported_pods,
+                                    remaining_limits=reduced),
+                max_nodes=max_nodes)
+            aug2 = self._augment_with_claims(inp, residue_pods,
+                                             supported_pods, dev2)
+            orc2 = _oracle_solve(aug2)
+            if (len(dev2.unschedulable) + len(orc2.unschedulable)
+                    < len(dev_res.unschedulable)
+                    + len(orc_res.unschedulable)):
+                dev_res, orc_res = dev2, orc2
+
+        # union after internal sub-solves: a nested split already recorded
+        # its oracle's verdicts
+        self._last_oracle_judged = (self._last_oracle_judged
+                                    | set(orc_res.unschedulable))
+        return self._merge_split(inp, dev_res, orc_res, residue_pods)
+
+    def _augment_with_claims(self, inp: ScheduleInput,
+                             residue_pods: List[Pod],
+                             supported_pods: List[Pod],
+                             dev_res: ScheduleResult) -> ScheduleInput:
+        """The residue oracle's input: the original cluster state with the
+        device solve's placements folded in — existing nodes lose the
+        capacity the device assigned onto them, and each new claim becomes
+        a synthetic existing node (pinned to a concrete zone and capacity
+        type so the residue's topology terms count its pods)."""
+        by_pod = {p.meta.name: p for p in supported_pods}
+        assigned: Dict[str, List[Pod]] = {}
+        for pod_name, node_name in dev_res.existing_assignments.items():
+            assigned.setdefault(node_name, []).append(by_pod[pod_name])
+
+        existing: List = []
+        for en in inp.existing_nodes:
+            extra = assigned.get(en.name)
+            if not extra:
+                existing.append(en)
+                continue
+            avail = en.available.copy()
+            for pod in extra:
+                avail = avail - effective_request(pod)
+            existing.append(dataclasses.replace(
+                en, available=avail, pods=list(en.pods) + extra))
+
+        types_by_pool = {
+            pool: {it.name: it for it in lst}
+            for pool, lst in inp.instance_types.items()}
+        used_by_pool: Dict[str, Resources] = {}
+        for claim in dev_res.new_claims:
+            self._pin_claim(claim, types_by_pool.get(claim.nodepool, {}))
+            it = types_by_pool.get(claim.nodepool, {}).get(
+                claim.instance_type_names[0]) if claim.instance_type_names \
+                else None
+            if it is None:
+                continue
+            labels = {r.key: next(iter(r.values()))
+                      for r in claim.requirements
+                      if r.is_finite() and len(r.values()) == 1}
+            labels[wellknown.NODEPOOL_LABEL] = claim.nodepool
+            labels[wellknown.INSTANCE_TYPE_LABEL] = \
+                claim.instance_type_names[0]
+            alloc = it.allocatable()
+            # synthetic nodes are PURCHASES: pods the oracle folds onto
+            # them still consume the pool limit (charge_pool)
+            existing.append(ExistingNode(
+                node=Node(meta=ObjectMeta(name=claim.hostname,
+                                          labels=labels),
+                          allocatable=alloc, taints=list(claim.taints),
+                          ready=True),
+                available=alloc - claim.requests,
+                pods=list(claim.pods),
+                charge_pool=claim.nodepool))
+            u = used_by_pool.setdefault(claim.nodepool, Resources())
+            used_by_pool[claim.nodepool] = u + claim.requests
+
+        limits = dict(inp.remaining_limits)
+        for pool, used in used_by_pool.items():
+            lim = limits.get(pool)
+            if lim is not None:
+                limits[pool] = lim - used
+
+        return dataclasses.replace(
+            inp, pods=residue_pods, existing_nodes=existing,
+            remaining_limits=limits)
+
+    @staticmethod
+    def _best_offering(it, requirements):
+        """Cheapest available offering of `it` consistent with the claim's
+        zone/capacity-type requirements (None when nothing qualifies)."""
+        zreq = requirements.get(wellknown.ZONE_LABEL)
+        creq = requirements.get(wellknown.CAPACITY_TYPE_LABEL)
+        zones = zreq.values() if zreq is not None and zreq.is_finite() \
+            else None
+        cts = creq.values() if creq is not None and creq.is_finite() \
+            else None
+        best = None
+        for o in it.offerings:
+            if not o.available:
+                continue
+            if zones is not None and o.zone not in zones:
+                continue
+            if cts is not None and o.capacity_type not in cts:
+                continue
+            if best is None or o.price < best.price:
+                best = o
+        return best
+
+    @classmethod
+    def _pin_claim(cls, claim, types_by_name: Dict[str, object]) -> None:
+        """Narrow a claim to one concrete (zone, capacity-type): the
+        cheapest available offering of its top-ranked type consistent with
+        its requirements."""
+        if not claim.instance_type_names:
+            return
+        it = types_by_name.get(claim.instance_type_names[0])
+        if it is None:
+            return
+        best = cls._best_offering(it, claim.requirements)
+        if best is None:
+            return
+        reqs = claim.requirements
+        reqs = reqs.intersection(Requirements(Requirement.make(
+            wellknown.ZONE_LABEL, "In", best.zone)))
+        reqs = reqs.intersection(Requirements(Requirement.make(
+            wellknown.CAPACITY_TYPE_LABEL, "In", best.capacity_type)))
+        claim.requirements = reqs
+        claim.price = best.price
+
+    def _merge_split(self, inp: ScheduleInput, dev_res: ScheduleResult,
+                     orc_res: ScheduleResult,
+                     residue_pods: List[Pod]) -> ScheduleResult:
+        """One result from the device result and the residue oracle's:
+        pods the oracle placed on a synthetic claim-node join that claim,
+        whose ranked types and price are refreshed."""
+        res = ScheduleResult()
+        res.existing_assignments = dict(dev_res.existing_assignments)
+        res.unschedulable = {**dev_res.unschedulable,
+                             **orc_res.unschedulable}
+        claims_by_host = {c.hostname: c for c in dev_res.new_claims}
+        pod_by_name = {p.meta.name: p for p in residue_pods}
+        types_by_pool = {
+            pool: {it.name: it for it in lst}
+            for pool, lst in inp.instance_types.items()}
+        for pod_name, node_name in orc_res.existing_assignments.items():
+            claim = claims_by_host.get(node_name)
+            if claim is None:
+                res.existing_assignments[pod_name] = node_name
+                continue
+            pod = pod_by_name[pod_name]
+            claim.pods.append(pod)
+            claim.requests = claim.requests + effective_request(pod)
+            # heavier usage can invalidate smaller types in the ranked
+            # list; the top-ranked type always still fits
+            tbn = types_by_pool.get(claim.nodepool, {})
+            claim.instance_type_names = [
+                t for t in claim.instance_type_names
+                if t in tbn and claim.requests.fits(tbn[t].allocatable())]
+            if claim.instance_type_names:
+                best = self._best_offering(
+                    tbn[claim.instance_type_names[0]], claim.requirements)
+                if best is not None:
+                    claim.price = best.price
+        res.new_claims = list(dev_res.new_claims) + list(orc_res.new_claims)
+        return res
 
     def _solve_relaxed(self, inp: ScheduleInput,
                        max_nodes: Optional[int] = None) -> ScheduleResult:
         """Group, then solve.  Pods with soft terms (preferences, preferred
         affinity, ScheduleAnyway spread) need the reference's relaxation
-        loop around the solve, which comes with slice 2."""
+        loop around the solve, and gangs the gang fill: both come with
+        slice 2b."""
         t0 = time.perf_counter()
         groups = group_pods(inp.pods)
         # grouping belongs to the encode phase (folded in by
@@ -244,7 +596,13 @@ class TorchSolver:
                for g in groups):
             raise UnsupportedPods(
                 "soft scheduling terms need the relaxation loop "
-                "(slice 2)")
+                "(slice 2b)")
+        if any(gang_of(g[0]) is not None for g in groups):
+            # refused whether the encoder would express the gang (the
+            # device gang fill) or hand it to the split path's oracle:
+            # the gang repair and its verdicts come together
+            raise UnsupportedPods(
+                "gang groups need the gang fill (slice 2b)")
         return self._attempt_or_split(inp, max_nodes=max_nodes,
                                       groups=groups)
 
@@ -261,41 +619,25 @@ class TorchSolver:
                 return b
         return self.max_nodes
 
-    # take_new compaction tiers: K bounds the max per-group new-node
-    # fan-out, known only after the solve, so K warm-starts from the
-    # previous solve and the pack's nnz row detects a miss
-    NSEG_BUCKETS = (8, 32, 128, 512)
-
-    def _pick_sparse_n(self, N_pad: int) -> int:
-        """K for the top-K take_new compaction (0 = dense): the previous
-        solve's max fan-out with 2x headroom, engaged only when the
-        compacted rows are smaller than the dense row."""
-        last = self._last_new_segments
-        if last is None:
-            return 0
-        Kn = bucket(min(max(2 * last, 1), max(N_pad, 1)), self.NSEG_BUCKETS)
-        return Kn if (2 * Kn + 1) * 2 <= N_pad else 0
-
     @staticmethod
-    def _check_light(enc: EncodedProblem) -> None:
-        """Raise for groups only the later slices' paths can run."""
+    def _check_supported(enc: EncodedProblem) -> None:
+        """Raise for groups only a later slice's path can run."""
         n = enc.n_groups
-        if (enc.group_dsel[:n] > 0).any():
-            raise UnsupportedPods(
-                "zone/capacity-type spread or anti-affinity groups need "
-                "the heavy scan branch (slice 2)")
         if enc.group_gang is not None and enc.group_gang[:n].any():
-            raise UnsupportedPods("gang groups need the gang fill (slice 2)")
+            raise UnsupportedPods(
+                "gang groups need the gang fill (slice 2b)")
         gp = enc.group_priority
         if gp is not None and len(np.unique(gp[:n])) > 1:
             raise UnsupportedPods(
                 "more than one priority band needs the priority witness "
-                "(slice 2)")
+                "(slice 2b)")
 
     def _solve_attempt(self, inp: ScheduleInput,
                        max_nodes: Optional[int] = None,
                        groups=None) -> ScheduleResult:
         mn = max_nodes or self._adaptive_max_nodes()
+        # a pure-device attempt carries no oracle verdicts
+        self._last_oracle_judged = set()
         self._last_slots_exhausted = False
         t0 = time.perf_counter()
         cat = self._catalog_encoding(inp)
@@ -306,10 +648,16 @@ class TorchSolver:
         self._pregroup_ms = 0.0
         if enc.n_groups == 0:
             return ScheduleResult()
-        self._check_light(enc)
+        self._check_supported(enc)
         if enc.n_columns == 0:
             # no purchasable capacity — existing nodes can still absorb
-            # pods, exactly as the oracle fills them first
+            # pods, exactly as the oracle fills them first.  The host fill
+            # enforces per-node caps but not the per-domain quotas, so
+            # domain-constrained groups go to the split path instead
+            if (enc.group_dsel[:enc.n_groups] > 0).any():
+                raise _SplitNeeded(
+                    "zone/capacity-type-constrained pods with no "
+                    "purchasable capacity")
             return self._existing_only(enc)
 
         G = bucket(enc.n_groups, G_BUCKETS)
@@ -319,50 +667,44 @@ class TorchSolver:
         prob = self._problem_args(enc, G, E, Db, dev.O)
         exc = self._explain_mode()
         t2 = time.perf_counter()
-        kn = self._pick_sparse_n(mn)
         disp_s = dev_s = pull_s = 0.0
         cuda = self.device.type == "cuda"
 
-        def execute(n, k):
+        def execute(n):
             # dispatch (one upload, the kernel launches), then wait for
             # the device, then pull + unpack — timed separately
             nonlocal disp_s, dev_s, pull_s
             t_a = time.perf_counter()
             ptens = ffd.problem_tensors(prob, dev.O, self.device)
-            flat = ffd.solve_ffd(ptens, dev, n, sparse_n=k, explain=exc)
+            flat = ffd.solve_ffd(ptens, dev, n, explain=exc)
             t_b = time.perf_counter()
             if cuda:
                 torch.cuda.synchronize(self.device)
             t_c = time.perf_counter()
             out_ = ffd.unpack(flat.cpu().numpy(), G, E, n, R, Db,
-                              sparse_n=k, explain=exc)
+                              explain=exc)
             t_d = time.perf_counter()
             disp_s += t_b - t_a
             dev_s += t_c - t_b
             pull_s += t_d - t_c
             return out_
 
-        out = execute(mn, kn)
-        if kn and out["new_overflow"]:
-            # the warm-started fan-out estimate was low: redo dense
-            out = execute(mn, 0)
+        out = execute(mn)
         if (max_nodes is None and mn < self.max_nodes
                 and out["unsched"].sum() > 0
                 and out["num_active"] >= mn):
             # the warm-start bucket ran out of node slots: redo at the
-            # configured ceiling, dense
+            # configured ceiling
             mn = self.max_nodes
-            out = execute(mn, 0)
+            out = execute(mn)
         self._last_slots_exhausted = bool(
             out["unsched"].sum() > 0 and out["num_active"] >= mn)
         if max_nodes is None:
             # capped sims (tiny explicit N) must not poison the warm-start
-            na = self._last_active = int(out["num_active"])
-            segs = (int((out["take_new"][:enc.n_groups, :na] > 0)
-                        .sum(axis=1).max()) if na and enc.n_groups else 0)
-            self._last_new_segments = max(segs, 1)
+            self._last_active = int(out["num_active"])
         t3 = time.perf_counter()
         self._repair_whole_node(enc, out)
+        self._repair_topology(enc, out)
         t4 = time.perf_counter()
         res = self._decode(enc, out)
         t5 = time.perf_counter()
@@ -463,6 +805,66 @@ class TorchSolver:
             out["used"][ni] -= int(tn[ni]) * req
         te[:] = 0
         tn[:] = 0
+
+    def _repair_topology(self, enc: EncodedProblem,
+                         out: Dict[str, np.ndarray]) -> None:
+        """The kernel's per-domain quotas are planned against a capacity
+        ESTIMATE (new-node slots and pool budgets are shared across
+        domains); when a domain achieves less than planned, another may end
+        above the final skew ceiling.  Strip the excess placements here so
+        every emitted placement is skew-valid (DoNotSchedule is a hard
+        constraint) — the stripped pods report unschedulable, as the
+        oracle does when capacity starves a domain."""
+        Er = len(enc.existing)
+        num_active = int(out["num_active"])
+        for gi in range(enc.n_groups):
+            dsel = int(enc.group_dsel[gi])
+            skew = int(enc.group_skew[gi])
+            if dsel == 0 or skew >= BIG:
+                continue
+            D = enc.n_domains
+            elig = enc.group_delig[gi]
+            if not elig.any():
+                continue
+            placed = out["dom_placed"][gi][:D].astype(np.int64)
+            f = enc.group_dbase[gi].astype(np.int64) + placed
+            m = int(f[elig].min())
+            if (enc.group_mindom[gi] > 0
+                    and int((f[elig] > 0).sum()) < int(enc.group_mindom[gi])):
+                m = 0
+            limit = m + skew
+            node_dom = out["node_zone"] if dsel == 1 else out["node_ct"]
+            ex_dom = enc.exist_zone if dsel == 1 else enc.exist_ct
+            req = enc.group_req[gi]
+            for d in np.nonzero(elig & (f > limit))[0]:
+                excess = int(f[d] - limit)
+                removed = 0
+                # strip new nodes last-first (the partial node empties
+                # first)
+                for ni in range(num_active - 1, -1, -1):
+                    if removed >= excess:
+                        break
+                    if node_dom[ni] != d:
+                        continue
+                    k = int(out["take_new"][gi, ni])
+                    if k <= 0:
+                        continue
+                    r = min(k, excess - removed)
+                    out["take_new"][gi, ni] -= r
+                    out["used"][ni] -= r * req
+                    removed += r
+                for ei in range(Er - 1, -1, -1):
+                    if removed >= excess:
+                        break
+                    if ex_dom[ei] != d:
+                        continue
+                    k = int(out["take_exist"][gi, ei])
+                    if k <= 0:
+                        continue
+                    r = min(k, excess - removed)
+                    out["take_exist"][gi, ei] -= r
+                    removed += r
+                out["unsched"][gi] += removed
 
     # -- decode ----------------------------------------------------------
     def _decode(self, enc: EncodedProblem,

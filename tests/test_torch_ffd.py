@@ -32,60 +32,60 @@ def _jax_args(prob, cat, packed):
             prob[16])
 
 
-# (id, seed, problem kwargs, N, sparse_n, explain, mask_packed)
+# (id, seed, problem kwargs, N, explain, mask_packed)
 CASES = [
-    ("base", 1, dict(), 64, 0, 1, False),
-    ("explain-off", 2, dict(), 64, 0, 0, False),
-    ("packed-mask", 3, dict(), 64, 0, 1, True),
-    ("packed-explain-off", 1, dict(), 64, 0, 0, True),
-    ("no-existing", 2, dict(E=0), 64, 0, 1, False),
-    ("one-pool-unlimited", 3, dict(P=1, limits="none"), 64, 0, 1, False),
-    ("three-pools-finite", 1, dict(P=3, limits="finite"), 64, 0, 1, False),
-    ("three-pools-mixed", 2, dict(P=3, limits="mixed"), 64, 0, 1, False),
-    ("whole-node", 6, dict(whole=True, pod_scale=12), 64, 0, 1, False),
-    ("slot-exhaustion", 5, dict(P=1, limits="none", pod_scale=300), 16, 0,
+    ("base", 1, dict(), 64, 1, False),
+    ("explain-off", 2, dict(), 64, 0, False),
+    ("packed-mask", 3, dict(), 64, 1, True),
+    ("packed-explain-off", 1, dict(), 64, 0, True),
+    ("no-existing", 2, dict(E=0), 64, 1, False),
+    ("one-pool-unlimited", 3, dict(P=1, limits="none"), 64, 1, False),
+    ("three-pools-finite", 1, dict(P=3, limits="finite"), 64, 1, False),
+    ("three-pools-mixed", 2, dict(P=3, limits="mixed"), 64, 1, False),
+    ("whole-node", 6, dict(whole=True, pod_scale=12), 64, 1, False),
+    ("slot-exhaustion", 5, dict(P=1, limits="none", pod_scale=300), 16,
      1, False),
     ("slot-exhaustion-finite", 14, dict(P=2, limits="finite",
-                                        pod_scale=300), 16, 0, 1, False),
-    ("sparse-K", 3, dict(pod_scale=20), 64, 8, 1, False),
-    ("sparse-K-explain-off", 5, dict(pod_scale=20), 64, 8, 0, False),
-    ("sparse-overflow", 2, dict(pod_scale=400), 64, 8, 1, False),
-    ("sparse-overflow-packed", 3, dict(pod_scale=400), 64, 8, 1, True),
-    ("dense-layout-zc1", 1, dict(PT=384, ZC=1, pad_blocks=40), 64, 0, 1,
+                                        pod_scale=300), 16, 1, False),
+    ("small-groups", 3, dict(pod_scale=20), 64, 1, False),
+    ("small-groups-explain-off", 5, dict(pod_scale=20), 64, 0, False),
+    ("wide-fan-out", 2, dict(pod_scale=400), 64, 1, False),
+    ("wide-fan-out-packed", 3, dict(pod_scale=400), 64, 1, True),
+    ("dense-layout-zc1", 1, dict(PT=384, ZC=1, pad_blocks=40), 64, 1,
      False),
 ]
 
 
-def _solve_both(kw, seed, N, kn, ex, packed):
+def _solve_both(kw, seed, N, ex, packed):
     prob, cat = random_problem(seed, **kw)
     ref = np.asarray(jffd.solve_ffd(
         *_jax_args(prob, cat, packed), max_nodes=N, zc=cat["zc"],
-        sparse_n=kn, explain=ex, mask_packed=packed, with_topology=False))
+        explain=ex, mask_packed=packed, with_topology=False))
     p, c = tffd.problem_from_numpy(prob, cat, "cpu")
-    out = tffd.solve_ffd(p, c, N, sparse_n=kn, explain=ex)
+    out = tffd.solve_ffd(p, c, N, explain=ex)
     return prob, ref, out.numpy()
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_scan_and_pack_match_jax_bitwise(case):
-    name, seed, kw, N, kn, ex, packed = case
-    prob, ref, out = _solve_both(kw, seed, N, kn, ex, packed)
+    name, seed, kw, N, ex, packed = case
+    prob, ref, out = _solve_both(kw, seed, N, ex, packed)
     assert out.dtype == np.float32 and out.shape == ref.shape
     differ = np.nonzero(ref.view(np.uint32) != out.view(np.uint32))[0]
     assert differ.size == 0, (name, differ[:10], ref[differ[:10]],
                               out[differ[:10]])
     # the case exercises what its name claims
     G, E = prob[0].shape[0], prob[4].shape[0]
-    u = tffd.unpack(out, G, E, N, 6, prob[8].shape[1], sparse_n=kn,
-                    explain=ex)
+    u = tffd.unpack(out, G, E, N, 6, prob[8].shape[1], explain=ex)
     if name.startswith("slot-exhaustion"):
         assert u["num_active"] == N and u["unsched"].sum() > 0
-    if name.startswith("sparse-overflow"):
-        assert u["new_overflow"]
+    if name.startswith("wide-fan-out"):
+        # some group spreads over more than 8 new nodes
+        assert ((u["take_new"] > 0).sum(axis=1) > 8).any()
     if name == "base":
         assert u["take_exist"].any() and u["take_new"].any()
-    if name.startswith("sparse-K"):
-        assert not u["new_overflow"] and u["take_new"].any()
+    if name.startswith("small-groups"):
+        assert u["take_new"].any()
     if name == "whole-node":
         whole = prob[13]
         assert (u["take_new"][whole].sum()
@@ -93,12 +93,15 @@ def test_scan_and_pack_match_jax_bitwise(case):
 
 
 def test_unpack_matches_reference_unpack():
-    prob, ref, out = _solve_both(dict(pod_scale=400), 3, 64, 8, 1, False)
+    """The port's unpack names the reference's arrays, equal; the
+    reference's one other key is its compaction's overflow flag, False
+    on the dense layout the port keeps."""
+    prob, ref, out = _solve_both(dict(pod_scale=400), 3, 64, 1, False)
     G, E, D = prob[0].shape[0], prob[4].shape[0], prob[8].shape[1]
-    a = jffd.unpack(ref, G, E, 64, 6, D, sparse_n=8, explain=1)
-    b = tffd.unpack(out, G, E, 64, 6, D, sparse_n=8, explain=1)
-    assert set(b) == set(a)
-    for k in a:
+    a = jffd.unpack(ref, G, E, 64, 6, D, explain=1)
+    b = tffd.unpack(out, G, E, 64, 6, D, explain=1)
+    assert set(a) - set(b) == {"new_overflow"} and not a["new_overflow"]
+    for k in b:
         assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
 
 
@@ -116,12 +119,36 @@ def test_mask_bits_are_the_packed_mask():
 @pytest.mark.parametrize("slot,value,match", [
     (7, np.ones(8, np.int32), "domain"),
     (14, np.ones(8, bool), "gang"),
+    (7, np.ones(8, np.int32), "routes-to-K3"),
 ])
-def test_light_scan_rejects_other_branches(slot, value, match):
+def test_light_scan_rejects_other_branches(slot, value, match,
+                                           monkeypatch):
+    """K1's wrapper refuses a problem with a domain group and solve_ffd
+    sends it to K3; no scan takes a gang."""
     prob, cat = random_problem(1)
     prob = prob[:slot] + (value,) + prob[slot + 1:]
-    with pytest.raises(ValueError, match=match):
-        tffd.problem_from_numpy(prob, cat, "cpu")
+    if match == "gang":
+        with pytest.raises(ValueError, match=match):
+            tffd.problem_from_numpy(prob, cat, "cpu")
+        return
+    p, c = tffd.problem_from_numpy(prob, cat, "cpu")
+    assert p.topology
+    if match == "domain":
+        lay = tffd.flat_layout(p.G, p.E, 64, p.D)
+        flat = torch.zeros(lay["total"][1])
+        with pytest.raises(ValueError, match=match):
+            tffd.light_scan(p, c, 64, flat, lay, torch.zeros(p.P, 6))
+        return
+    calls = []
+    real = tffd.topo_scan
+
+    def spy(*args):
+        calls.append("topo_scan")
+        return real(*args)
+
+    monkeypatch.setattr(tffd, "topo_scan", spy)
+    tffd.solve_ffd(p, c, 64, explain=1)
+    assert calls == ["topo_scan"]
 
 
 def test_light_scan_rejects_priority_slot():
@@ -135,14 +162,15 @@ def test_wrapper_checks_arguments():
     p, c = tffd.problem_from_numpy(prob, cat, "cpu")
     lay = tffd.flat_layout(p.G, p.E, 64, p.D)
     flat = torch.zeros(lay["total"][1])
-    tn = tffd._region(flat, lay, "take_new")
     with pytest.raises(ValueError, match="limits_out"):
-        tffd.light_scan(p, c, 64, flat, lay, tn, torch.zeros(p.P, 5))
+        tffd.light_scan(p, c, 64, flat, lay, torch.zeros(p.P, 5))
     with pytest.raises(ValueError, match="flat"):
-        tffd.light_scan(p, c, 64, flat[:-1], lay, tn, torch.zeros(p.P, 6))
+        tffd.light_scan(p, c, 64, flat[:-1], lay, torch.zeros(p.P, 6))
+    with pytest.raises(ValueError, match="explain"):
+        tffd.pack(p, c, 64, flat, lay, torch.zeros(p.P, 6))
     p.group_count = p.group_count.to(torch.int64)
     with pytest.raises(ValueError, match="group_count"):
-        tffd.light_scan(p, c, 64, flat, lay, tn, torch.zeros(p.P, 6))
+        tffd.light_scan(p, c, 64, flat, lay, torch.zeros(p.P, 6))
 
 
 def test_plain_scan_work_count():
@@ -155,9 +183,7 @@ def test_plain_scan_work_count():
         lay = tffd.flat_layout(p.G, p.E, 64, p.D)
         flat = torch.zeros(lay["total"][1])
         lim = torch.zeros(p.P, tffd.R)
-        tffd.light_scan_reference(p, c, 64, flat, lay,
-                                  tffd._region(flat, lay, "take_new"), lim,
-                                  work)
+        tffd.light_scan_reference(p, c, 64, flat, lay, lim, work)
         return p, c, flat.numpy().view(np.uint32)
 
     prob, cat = random_problem(3)
