@@ -9,20 +9,31 @@ Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every CUDA kernel from karpenter_tpu_torch/csrc with nvcc, one
      process per source, all at once;
-  3. each kernel against its plain PyTorch version on the card, on seeded
-     problems (light and topology) and on the encoded problems of both
-     main paths: flat result buffers must be equal as uint32;
+  3. each kernel against its plain PyTorch version on the card: K5 and K2
+     on seeded problems (light and topology) and on the encoded problems
+     of the headline and config #3, K5 on seeded batches, K4's two lanes
+     on seeded sweeps (exclusions, price caps, pool limits, strands, new
+     nodes under N=8, the take_exist compaction on and off, up to 128
+     domains) and on the first light chunk of config #4 and the first
+     heavy chunk of config #4b: flat result buffers must be equal as
+     uint32;
   4. the headline path: TorchSolver().solve(build_input(50_000)) — one
-     cold and 20 warm solves through K1 and K2 — must give the JAX
+     cold and 20 warm solves through K5 and K2 — must give the JAX
      package's answer, with those kernels' launch counts above zero;
   5. the config #3 path: TorchSolver().solve(build_config3()) — 10k pods
      with zone spread and hostname anti-affinity, one cold and 20 warm
-     solves through K3 and K2 — the same;
+     solves through K5 (its heavy step) and K2 — the same;
   6. the host oracle's paths: two small inputs that strand pods for the
      rescue or hold a group the encoding cannot express (the split path's
      nested device solve), each one cold and 20 warm solves — the JAX
      package's answer, the oracle taken, the kernels launched;
-  7. kernel timings at the main paths' shapes beside their bounds.
+  7. the consolidation sweep: TorchSolver().solve_batch(build_config4(),
+     max_nodes=8) and the same for build_config4b() — 2,000 simulations
+     against 2,000 nodes, one cold and 5 warm sweeps each through K4 (the
+     light lane; both lanes for #4b) — every simulation the JAX package's
+     answer (a digest of the canonical results);
+  8. kernel timings at the main paths' shapes beside their bounds, and the
+     sweep's dense against compacted take_exist rows.
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.
@@ -57,24 +68,76 @@ CONFIG3_PRICE_HEX = "0x1.4266a55087011p+5"
 # kernels of the device solve): the scenarios of the same names in
 # tests/test_torch_topology.py
 ORACLE_CASES = {
-    # 5 pods with zone anti-affinity over 3 zones: K3 places 3, the rescue
-    # cannot place the other 2
+    # 5 pods with zone anti-affinity over 3 zones: the scan's heavy step
+    # places 3, the rescue cannot place the other 2
     "zone-anti-affinity-2-strands": (3, 2, "0x1.76d330941c822p-4",
-                                     ("ffd_topo_scan", "ffd_pack")),
+                                     ("ffd_batch_scan", "ffd_pack")),
     # 50 plain pods and one pod spread over zone and capacity type (two
     # dynamic keys: inexpressible): the split path solves the 50 through
-    # K1 and the one through the oracle
+    # the scan and the one through the oracle
     "combined-mixed-residue-split": (1, 0, "0x1.8d0bb6ed67770p-2",
-                                     ("ffd_light_scan", "ffd_pack")),
+                                     ("ffd_batch_scan", "ffd_pack")),
 }
 # the node axis of config #3's warm solves (the solver's warm-start bucket
 # for 15 active nodes)
 CONFIG3_WARM_N = 64
+# BASELINE config #4 and #4b (benchmarks/config4_consolidation.py,
+# config4b_consolidation_spread.py): the JAX package's answer
+# (TPUSolver(max_nodes=2048).solve_batch(make_input(), max_nodes=8),
+# default knobs, on the CPU) — 2,000 results, every one a feasible delete
+# (no unschedulable pod, no new claim) — as the sha256 `sweep_digest` of
+# its canonical results, simulation by simulation
+SWEEP_SIMS = 2000
+SWEEP_MAX_NODES = 8
+SWEEP_WARM = 5
+CONFIG4_DIGEST = ("d5e84c8d96f332506e8ba8511464d10a"
+                  "9832d1eb0ee692aa3c4906579c982d06")
+CONFIG4B_DIGEST = ("e3ee51b1e72d8f97e3f8c142620d2e23"
+                   "d6b394be1d402c8a0ca21b0c3dfae5ab")
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+# the kernel wrappers of karpenter_tpu_torch.solver.ffd and their kernels
+KERNELS = {"batch_scan": "ffd_batch_scan", "sweep_scan": "ffd_sweep_scan",
+           "sweep_topo_scan": "ffd_sweep_topo_scan", "pack": "ffd_pack"}
+
+
+def _pins(claim, key):
+    """The sorted values a claim's requirement on `key` allows (None when
+    the claim does not constrain the key)."""
+    for r in claim.requirements:
+        if r.key == key:
+            return (tuple(sorted(r.values())) if r.is_finite()
+                    else ("not-in",) + tuple(sorted(r.values())))
+    return None
+
+
+def sweep_canon(res):
+    """One result in canonical form (tests/test_torch_solve.py `canon`):
+    the claims (pool, pods, ranked instance types, price as a float hex,
+    zone and capacity-type pins), the existing-node assignments, the
+    unschedulable pods with their reason codes, and the total price as a
+    float hex."""
+    zone, ct = "topology.kubernetes.io/zone", "karpenter.sh/capacity-type"
+    return (sorted((c.nodepool, tuple(sorted(p.meta.name for p in c.pods)),
+                    tuple(c.instance_type_names), float(c.price).hex(),
+                    _pins(c, zone), _pins(c, ct))
+                   for c in res.new_claims),
+            sorted(res.existing_assignments.items()),
+            sorted((k, getattr(v, "code", None))
+                   for k, v in res.unschedulable.items()),
+            float(res.total_price()).hex())
+
+
+def sweep_digest(results) -> str:
+    """sha256 of the simulations' canonical forms, one line each, in
+    order."""
+    import hashlib
+    text = "\n".join(repr(sweep_canon(r)) for r in results)
+    return hashlib.sha256(text.encode()).hexdigest()
 
 
 def _card_line() -> str:
@@ -106,7 +169,7 @@ def _seeded_cases():
         ("8-pools", dict(P=8, limits="mixed", PT=128), 256, 1),
         ("wide-G32", dict(G=32, E=16, PT=640, pod_scale=300), 1024, 1),
     ]
-    # topology problems: zone and capacity-type domain classes (K3's heavy
+    # topology problems: zone and capacity-type domain classes (the heavy
     # step) mixed with light ones
     topo = dict(topology=True, D=4)
     specs += [
@@ -171,65 +234,151 @@ def oracle_inputs():
             "combined-mixed-residue-split": mixed_residue}
 
 
-def _k1_regions(lay):
-    return [n for n in ("take_exist", "take_new", "unsched", "dom_placed",
-                        "used", "node_pool", "node_zone", "node_ct",
-                        "num_active") if n in lay]
+def _batch_cases():
+    """(label, problems, catalog arrays, N, explain, sparse_k): seeded
+    batches of stacked problems for K5."""
+    from karpenter_tpu_torch.solver.problems import random_batch
+    topo = dict(topology=True, D=4)
+    specs = [
+        ("batch-light", 1, dict(), 5, 64, 1, 0),
+        ("batch-light-sparse", 2, dict(pod_scale=6), 5, 64, 0, 8),
+        ("batch-topo", 3, dict(topo), 5, 64, 1, 0),
+        ("batch-topo-sparse-d8", 4, dict(topo, D=8, ZC=12, pod_scale=8), 5,
+         32, 1, 8),
+        ("batch-E2048-N8", 5, dict(E=2048, pod_scale=300), 5, 8, 0, 0),
+        ("batch-E2048-N8-sparse", 6, dict(E=2048, pod_scale=6), 5, 8, 0, 8),
+        ("batch-64", 7, dict(topo), 64, 64, 0, 0),
+    ]
+    for label, seed, kw, B, N, ex, K in specs:
+        probs, cat = random_batch(seed, B, **kw)
+        yield label, probs, cat, N, ex, K
+
+
+def _sweep_cases():
+    """(label, rows, shared, catalog arrays, N, sparse_k): seeded sweeps
+    for K4's two lanes.  Every sweep caps about half its simulations'
+    price below a real column's; each simulation excludes 1..X rows."""
+    from karpenter_tpu_torch.solver.problems import random_sweep
+    specs = [
+        ("sweep-light", 1, False, dict(X=1), 8, 0),
+        ("sweep-light-sparse", 2, False, dict(pod_scale=8), 8, 8),
+        ("sweep-light-two-out", 3, False, dict(X=2, pod_scale=6), 8, 8),
+        ("sweep-light-finite-strand", 5, False,
+         dict(limits="finite", pod_scale=400), 8, 0),
+        ("sweep-light-slot-exhaustion", 9, False,
+         dict(limits="none", pod_scale=600, E=16), 2, 0),
+        ("sweep-light-E2048", 7, False, dict(E=2048, X=2), 8, 8),
+        ("sweep-light-E2048-dense", 7, False, dict(E=2048, X=2), 8, 0),
+        ("sweep-light-64", 10, False, dict(E=2048, X=8, pod_scale=30, G=4,
+                                           C=6), 8, 32),
+        ("sweep-heavy", 3, True, dict(), 8, 0),
+        ("sweep-heavy-sparse-d8", 4, True, dict(D=8, ZC=12, pod_scale=8),
+         16, 8),
+        ("sweep-heavy-many-classes", 6, True, dict(G=4, C=6), 8, 32),
+        ("sweep-heavy-finite", 8, True, dict(limits="finite"), 8, 0),
+        ("sweep-heavy-d128-E2048", 8, True, dict(E=2048, D=128, ZC=12), 8,
+         8),
+    ]
+    for label, seed, heavy, kw, N, K in specs:
+        B = 64 if label.endswith("-64") else 6
+        rows, shared, cat = random_sweep(seed, B, heavy=heavy, **kw)
+        yield label, rows, shared, cat, N, K
+
+
+def _diff(a, b):
+    """(equal as uint32, max abs difference of the differing entries)."""
+    a = a.detach().cpu().numpy().reshape(-1)
+    b = b.detach().cpu().numpy().reshape(-1)
+    if a.shape != b.shape:
+        return False, float("inf")
+    differ = a.view(np.uint32) != b.view(np.uint32)
+    if not differ.any():
+        return True, 0.0
+    d = np.abs(a[differ].astype(np.float64) - b[differ].astype(np.float64))
+    return False, float(np.max(np.where(np.isfinite(d), d, np.inf)))
+
+
+def _merge(parts):
+    return all(e for e, _ in parts), max(x for _, x in parts)
+
+
+def _scan_regions(lay):
+    """The regions of a flat row the scan kernels write (K2 writes the
+    explain counts)."""
+    return [n for n in lay
+            if n not in ("total", "explain_counts", "explain_bits")]
+
+
+def _buffers(B, P, lay, dev):
+    import torch
+    from karpenter_tpu_torch.solver import ffd
+    return (torch.full((B, lay["total"][1]), float("nan"), device=dev),
+            torch.full((B, P, ffd.R), float("nan"), device=dev))
+
+
+def _compare_rows(name, fk, lk, fp, lp, lay):
+    """{check: (equal, max_abs_err)} of a scan's rows against its plain
+    version's: the scan's regions and final pool budgets, and the
+    take_exist compaction's (count, index) head on its own."""
+    from karpenter_tpu_torch.solver import ffd
+    out = {name: _merge([_diff(ffd._region(fk, lay, n),
+                               ffd._region(fp, lay, n))
+                         for n in _scan_regions(lay)] + [_diff(lk, lp)])}
+    if "te_cnt" in lay:
+        out["te_compaction"] = _merge([
+            _diff(ffd._region(fk, lay, n), ffd._region(fp, lay, n))
+            for n in ("te_cnt", "te_idx")])
+    return out
+
+
+def compare_batch(ffd, b, c, N, ex, K, dev):
+    """Run K5 — and K2 for each problem with explain — and their plain
+    versions on the card on the same inputs.  K2 and its plain version
+    both start from the kernel scan's output, so each comparison isolates
+    one kernel.  Returns {kernel: (equal, max_abs_err)}."""
+    import torch
+    lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, K)
+    fk, lk = _buffers(b.B, b.P, lay, dev)
+    fp, lp = _buffers(b.B, b.P, lay, dev)
+    ffd.batch_scan(b, c, N, fk, lay, lk, K)
+    ffd.batch_scan_reference(b, c, N, fp, lay, lp, K)
+    torch.cuda.synchronize()
+    out = _compare_rows("ffd_batch_scan", fk, lk, fp, lp, lay)
+    if ex:
+        f2, f3 = fk.clone(), fk.clone()
+        for i in range(b.B):
+            ffd.pack(b.at(i), c, N, f2[i], lay, lk[i])
+            ffd.pack_reference(b.at(i), c, N, f3[i], lay, lk[i])
+        torch.cuda.synchronize()
+        out["ffd_pack"] = _merge([
+            _diff(ffd._region(f2, lay, n), ffd._region(f3, lay, n))
+            for n in ("explain_counts", "explain_bits")])
+    return out
 
 
 def compare_case(ffd, prob, cat, N, ex, dev):
-    """Run the scan — K1, or K3 for a problem with a domain class — and
-    K2, and their plain versions, on the card on the same inputs.  K2 and
-    its plain version both start from the kernel scan's output, so each
-    comparison isolates one kernel.  Returns {kernel: (equal,
-    max_abs_err)}."""
-    import torch
+    """One problem tuple through K5 at B=1 (and K2)."""
     p, c = ffd.problem_from_numpy(prob, cat, dev)
-    lay = ffd.flat_layout(p.G, p.E, N, p.D, ex)
-    total = lay["total"][1]
+    return compare_batch(ffd, ffd.FFDBatch.of(p), c, N, ex, 0, dev)
 
-    def buffers():
-        flat = torch.full((total,), float("nan"), device=dev)
-        lim = torch.full((p.P, ffd.R), float("nan"), device=dev)
-        return flat, lim
 
-    if p.topology:
-        name, scan, plain = ("ffd_topo_scan", ffd.topo_scan,
-                             ffd.topo_scan_reference)
+def compare_sweep(ffd, sw, c, N, K, dev):
+    """Run K4's lane for `sw` and its plain version on the card on the
+    same inputs.  Returns {kernel: (equal, max_abs_err)}."""
+    import torch
+    lay = ffd.flat_layout(sw.G, sw.E, N, sw.D, 0, K)
+    fk, lk = _buffers(sw.B, sw.P, lay, dev)
+    fp, lp = _buffers(sw.B, sw.P, lay, dev)
+    if sw.heavy:
+        name, scan, plain = ("ffd_sweep_topo_scan", ffd.sweep_topo_scan,
+                             ffd.sweep_topo_scan_reference)
     else:
-        name, scan, plain = ("ffd_light_scan", ffd.light_scan,
-                             ffd.light_scan_reference)
-    fk, lk = buffers()
-    scan(p, c, N, fk, lay, lk)
-    fp, lp = buffers()
-    plain(p, c, N, fp, lay, lp)
+        name, scan, plain = ("ffd_sweep_scan", ffd.sweep_scan,
+                             ffd.sweep_scan_reference)
+    scan(sw, c, N, fk, lay, lk, K)
+    plain(sw, c, N, fp, lay, lp, K)
     torch.cuda.synchronize()
-
-    def diff(a, b):
-        a = a.detach().cpu().numpy().reshape(-1)
-        b = b.detach().cpu().numpy().reshape(-1)
-        if a.shape != b.shape:
-            return False, float("inf")
-        differ = a.view(np.uint32) != b.view(np.uint32)
-        if not differ.any():
-            return True, 0.0
-        d = np.abs(a[differ].astype(np.float64) - b[differ].astype(np.float64))
-        return False, float(np.max(np.where(np.isfinite(d), d, np.inf)))
-
-    parts = [diff(ffd._region(fk, lay, n), ffd._region(fp, lay, n))
-             for n in _k1_regions(lay)]
-    parts += [diff(lk, lp)]
-    out = {name: (all(e for e, _ in parts), max(x for _, x in parts))}
-    if ex:
-        f2, f3 = fk.clone(), fk.clone()
-        ffd.pack(p, c, N, f2, lay, lk)
-        ffd.pack_reference(p, c, N, f3, lay, lk)
-        torch.cuda.synchronize()
-        parts = [diff(ffd._region(f2, lay, n), ffd._region(f3, lay, n))
-                 for n in ("explain_counts", "explain_bits")]
-        out["ffd_pack"] = (all(e for e, _ in parts),
-                           max(x for _, x in parts))
-    return out
+    return _compare_rows(name, fk, lk, fp, lp, lay)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -249,10 +398,11 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _kernel_ms(fn, reps: int, kernel: str):
-    """Mean device time of one launch of CUDA kernel `kernel` over `reps`
-    calls of fn(), from the profiler's CUPTI trace: unlike events around
-    the loop, it leaves out the host time between short launches.  None
-    when the trace holds no device time for the kernel."""
+    """Mean device time of one launch of CUDA kernel `kernel` (its name as
+    the trace spells it, spaces ignored) over `reps` calls of fn(), from
+    the profiler's CUPTI trace: unlike events around the loop, it leaves
+    out the host time between short launches.  None when the trace holds
+    no device time for the kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -262,12 +412,21 @@ def _kernel_ms(fn, reps: int, kernel: str):
             fn()
         torch.cuda.synchronize()
     total_us, count = 0.0, 0
+    want = kernel.replace(" ", "")
     for ev in prof.key_averages():
-        if kernel in ev.key:
+        if want in ev.key.replace(" ", ""):
             total_us += getattr(ev, "device_time_total",
                                 getattr(ev, "cuda_time_total", 0.0))
             count += ev.count
     return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+def _device_ms(fn, reps, kernel):
+    """The profiler's time of `kernel`, or the events' when the trace
+    holds none; and the events' time."""
+    ev = _time_ms(fn, reps)
+    d = _kernel_ms(fn, reps, kernel)
+    return (d if d is not None else ev), ev
 
 
 def _nbytes(*tensors) -> int:
@@ -275,26 +434,77 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def scan_ops(ffd, p, c, N, lay, plain) -> float:
-    """Float operations K1 or K3 needs on this run's data: 5 per resource
-    for each fit (subtract, add, divide, floor, min), 2 for each all-fits
-    test (subtract, compare), and the water-fill's scalar operations,
-    counted by the plain scan `plain` on the same inputs over the (node,
-    block) pairs the kernel visits."""
-    import torch
-    flat = torch.empty(lay["total"][1], device=c.col_alloc.device)
-    lim = torch.empty((p.P, ffd.R), device=flat.device)
-    work = {"fit": 0, "test": 0, "flops": 0}
-    plain(p, c, N, flat, lay, lim, work)
-    return float((work["fit"] * 5 + work["test"] * 2) * ffd.R
-                 + work["flops"])
-
-
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def _work_ops(work) -> float:
+    """Float operations of a plain scan's work count: 5 per resource for
+    each fit (subtract, add, divide, floor, min), 2 for each all-fits test
+    (subtract, compare), and the water-fill's scalar operations."""
+    from karpenter_tpu_torch.solver import ffd
+    return float((work["fit"] * 5 + work["test"] * 2) * ffd.R
+                 + work["flops"])
+
+
+def _catalog_bytes(c):
+    return _nbytes(c.col_alloc, c.col_daemon, c.pt_alloc, c.col_pool,
+                   c.pool_daemon, c.pool_bits, c.col_zone, c.col_ct)
+
+
+def _batch_bound(ffd, b, c, N, lay, flat, lim):
+    """K5's bound: inputs read once, outputs written once, over the HBM
+    rate, against the float operations this run's data needs (counted by
+    the plain version over the (node, block) pairs the kernel visits)
+    over the fp32 rate."""
+    import torch
+    out = [ffd._region(flat, lay, n) for n in _scan_regions(lay)]
+    nbytes = (_nbytes(*(getattr(b, f) for f in (
+        "group_req", "group_count", "mask_bits", "exist_cap",
+        "exist_remaining", "pool_limit", "group_ncap", "group_whole",
+        "group_dsel", "group_dbase", "group_dcap", "group_skew",
+        "group_mindom", "group_delig", "exist_zone", "exist_ct")))
+        + _catalog_bytes(c) + _nbytes(lim, *out))
+    work = {"fit": 0, "test": 0, "flops": 0}
+    ffd.batch_scan_reference(b, c, N, torch.empty_like(flat), lay,
+                             torch.empty_like(lim), 0, work)
+    return bound_ms(nbytes, _work_ops(work))
+
+
+def _sweep_bound(ffd, sw, c, N, K, lay, flat, lim):
+    """K4's bound, counted as K5's: the simulations' rows, the shared
+    snapshot and the catalog read once, the result rows written once."""
+    import torch
+    sh = sw.shared
+    rows = [getattr(sw, f) for f in ffd.SWEEP_ROWS]
+    if sw.heavy:
+        rows += [getattr(sw, f) for f in ffd.SWEEP_TOPO_ROWS]
+    nbytes = (_nbytes(*rows, sh.class_bits, sh.class_cap,
+                      sh.exist_remaining, sh.exist_zone, sh.exist_ct,
+                      sh.col_price)
+              + _catalog_bytes(c) + _nbytes(lim, flat))
+    work = {"fit": 0, "test": 0, "flops": 0}
+    plain = (ffd.sweep_topo_scan_reference if sw.heavy
+             else ffd.sweep_scan_reference)
+    plain(sw, c, N, torch.empty_like(flat), lay, torch.empty_like(lim), K,
+          work)
+    return bound_ms(nbytes, _work_ops(work))
+
+
+def _pack_bound(ffd, p, c, lim):
+    """K2 reads the mask rows, one (pool,type) row and its daemon row per
+    block, the pool rows, unsched, num_active and the topology rows;
+    writes the counts."""
+    nbytes = (_nbytes(p.mask_bits, p.group_req, p.group_whole, c.pt_alloc,
+                      c.pool_daemon, lim, p.group_dsel, p.group_dbase,
+                      p.group_skew, p.group_mindom, p.group_delig)
+              + c.PT * ffd.R * 4 + c.PT * 4 + (p.G + 1) * 4
+              + p.G * p.D * 4 + 2 * c.zc * 4
+              + (p.G * ffd.EXPLAIN_C + p.G) * 4)
+    return bound_ms(nbytes, p.G * c.PT * ffd.R * 3 * 2)
 
 
 def _encoded_problem(solver, inp, ffd):
@@ -316,41 +526,73 @@ def _encoded_problem(solver, inp, ffd):
     return prob, arrays
 
 
-def _main_path(solver_cls, build, ffd, card, label):
-    """One cold and WARM_SOLVES warm solves of build() on a fresh solver,
-    every kernel count set to 0 just before and read just after.  Returns
-    (result, launches, solver)."""
+def _first_chunks(ffd, solver, inps):
+    """{heavy: (SweepBatch, catalog, N, sparse_k)}: the first chunk of
+    each lane that solve_batch launches on `inps`, as it launches it."""
+    seen = {}
+    real = ffd.solve_ffd_sweep
+
+    def capture(sw, cat, n, k=0):
+        seen.setdefault(sw.heavy, (sw, cat, n, k))
+        return real(sw, cat, n, k)
+
+    ffd.solve_ffd_sweep = capture
+    try:
+        solver.solve_batch(inps, max_nodes=SWEEP_MAX_NODES)
+    finally:
+        ffd.solve_ffd_sweep = real
+    return seen
+
+
+def _reset_launches(ffd):
+    for w in KERNELS:
+        getattr(ffd, w).launches = 0
+
+
+def _read_launches(ffd):
+    return {k: getattr(ffd, w).launches for w, k in KERNELS.items()}
+
+
+def _main_path(solver_cls, build, ffd, card, label, warm=WARM_SOLVES,
+               max_nodes=None):
+    """One cold and `warm` warm runs of build() on a fresh solver —
+    `solve`, or `solve_batch` under `max_nodes` — every kernel count set
+    to 0 just before and read just after.  Returns (result, launches,
+    solver)."""
     import torch
-    for k in (ffd.light_scan, ffd.topo_scan, ffd.pack):
-        k.launches = 0
     solver = solver_cls()
     inp = build()
+    if max_nodes is None:
+        run = lambda: solver.solve(inp)  # noqa: E731
+    else:
+        run = lambda: solver.solve_batch(  # noqa: E731
+            inp, max_nodes=max_nodes)
+    _reset_launches(ffd)
     t0 = time.perf_counter()
-    res = solver.solve(inp)
+    res = run()
     cold_ms = (time.perf_counter() - t0) * 1e3
     cold_phases = dict(solver.last_phase_ms)
     phases = {k: [] for k in solver.last_phase_ms}
     e2e = []
-    for _ in range(WARM_SOLVES):
+    for _ in range(warm):
         t0 = time.perf_counter()
-        res = solver.solve(inp)
+        res = run()
         e2e.append((time.perf_counter() - t0) * 1e3)
         for k, v in solver.last_phase_ms.items():
             phases.setdefault(k, []).append(v)
     torch.cuda.synchronize()
-    launches = {"ffd_light_scan": ffd.light_scan.launches,
-                "ffd_topo_scan": ffd.topo_scan.launches,
-                "ffd_pack": ffd.pack.launches}
-    price = res.total_price()
-    print(f"[{label}] {res.node_count()} nodes, {len(res.unschedulable)} "
-          f"unschedulable, price {price.hex()} ({price:.5f}) on {card}",
-          flush=True)
-    print(f"[{label}] cold solve {cold_ms:.1f} ms, phases ms: " + ", ".join(
+    launches = _read_launches(ffd)
+    if max_nodes is None:
+        price = res.total_price()
+        print(f"[{label}] {res.node_count()} nodes, "
+              f"{len(res.unschedulable)} unschedulable, price "
+              f"{price.hex()} ({price:.5f}) on {card}", flush=True)
+    print(f"[{label}] cold {cold_ms:.1f} ms, phases ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in cold_phases.items()), flush=True)
     print(f"[{label}] warm p50 {statistics.median(e2e):.3f} ms over "
-          f"{WARM_SOLVES} solves; phase p50 ms: " + ", ".join(
-              f"{k} {statistics.median(v):.3f}" for k, v in phases.items()),
-          flush=True)
+          f"{warm} runs (min {min(e2e):.3f}, max {max(e2e):.3f}); phase "
+          f"p50 ms: " + ", ".join(f"{k} {statistics.median(v):.3f}"
+                                  for k, v in phases.items()), flush=True)
     print(f"[{label}] launches: {launches}", flush=True)
     return res, launches, solver
 
@@ -365,6 +607,27 @@ def _check_answer(res, launches, nodes, unsched, price_hex, kernels):
         bad.append(f"price {res.total_price().hex()} != {price_hex}")
     if not all(np.isfinite(c.price) and c.pods for c in res.new_claims):
         bad.append("a claim without pods or with a non-finite price")
+    for k in kernels:
+        if launches[k] <= 0:
+            bad.append(f"kernel {k} was not launched on the main path")
+    return bad
+
+
+def _check_sweep(results, launches, digest, kernels, label):
+    bad = []
+    n_unsched = sum(len(r.unschedulable) for r in results)
+    n_claims = sum(len(r.new_claims) for r in results)
+    got = sweep_digest(results)
+    print(f"[{label}] {len(results)} results, {n_unsched} unschedulable, "
+          f"{n_claims} new claims, digest {got}; p0 -> "
+          f"{sorted(results[0].existing_assignments.items())}, p1999 -> "
+          f"{sorted(results[-1].existing_assignments.items())}", flush=True)
+    if len(results) != SWEEP_SIMS:
+        bad.append(f"{len(results)} results != {SWEEP_SIMS}")
+    if n_unsched or n_claims:
+        bad.append(f"{n_unsched} unschedulable, {n_claims} new claims")
+    if got != digest:
+        bad.append(f"digest {got} != {digest}")
     for k in kernels:
         if launches[k] <= 0:
             bad.append(f"kernel {k} was not launched on the main path")
@@ -387,59 +650,77 @@ def _only_groups(prob, keep):
     return tuple(out)
 
 
-def _kernel_times(ffd, p, c, N, scan, plain, kname, reps):
-    """(kernel ms, plain ms, events ms, K2 ms, K2 plain ms) at one
-    problem's shapes: plain, kernel, kernel, plain, in turns."""
+def _batch_times(ffd, b, c, N, reps):
+    """(K5 ms, plain ms, events ms, bound, K2 ms, K2 plain ms, K2 bound)
+    at one batch's shapes: plain, kernel, kernel, plain, in turns; K2 on
+    problem 0."""
     import torch
-    dev = p.group_req.device
-    lay = ffd.flat_layout(p.G, p.E, N, p.D, 1)
-    flat = torch.empty(lay["total"][1], device=dev)
-    lim = torch.empty((p.P, ffd.R), device=dev)
-    k = lambda: scan(p, c, N, flat, lay, lim)  # noqa: E731
-    kp = lambda: plain(p, c, N, flat, lay, lim)  # noqa: E731
-    k2 = lambda: ffd.pack(p, c, N, flat, lay, lim)  # noqa: E731
-    k2p = lambda: ffd.pack_reference(p, c, N, flat, lay, lim)  # noqa: E731
+    dev = b.group_req.device
+    lay = ffd.flat_layout(b.G, b.E, N, b.D, 1)
+    flat = torch.empty((b.B, lay["total"][1]), device=dev)
+    lim = torch.empty((b.B, b.P, ffd.R), device=dev)
+    k = lambda: ffd.batch_scan(b, c, N, flat, lay, lim)  # noqa: E731
+    kp = lambda: ffd.batch_scan_reference(  # noqa: E731
+        b, c, N, flat, lay, lim)
+    p0 = b.at(0)
+    k2 = lambda: ffd.pack(p0, c, N, flat[0], lay, lim[0])  # noqa: E731
+    k2p = lambda: ffd.pack_reference(  # noqa: E731
+        p0, c, N, flat[0], lay, lim[0])
     t_kp = _time_ms(kp, 3)
-    t_k = _time_ms(k, reps)
-    t_k2 = _time_ms(k2, 200)
-    t_k = min(t_k, _time_ms(k, reps))
-    t_k2 = min(t_k2, _time_ms(k2, 200))
+    t_k, ev_k = _device_ms(k, reps, "scan_kernel<true, false>")
+    t_k2, _ = _device_ms(k2, 200, "pack_kernel")
+    t_k = min(t_k, _device_ms(k, reps, "scan_kernel<true, false>")[0])
     t_kp = min(t_kp, _time_ms(kp, 3))
     t_k2p = _time_ms(k2p, 20)
-    # events around a loop of short launches also time the host between
-    # them: the kernel's own time comes from the profiler when it has it
-    d_k = _kernel_ms(k, reps, kname)
-    d_k2 = _kernel_ms(k2, 200, "pack_kernel")
-    return (d_k if d_k is not None else t_k, t_kp, t_k,
-            d_k2 if d_k2 is not None else t_k2, t_k2p, lay, flat, lim)
+    k()
+    torch.cuda.synchronize()
+    bnd = _batch_bound(ffd, b, c, N, lay, flat, lim)
+    return (t_k, t_kp, ev_k, bnd, t_k2, t_k2p,
+            _pack_bound(ffd, p0, c, lim[0]))
 
 
-def _scan_bound(ffd, p, c, N, lay, flat, lim, plain):
-    """K1/K3 bound: inputs read once, outputs written once, over the HBM
-    rate, against the float operations this run's data needs over the
-    fp32 rate."""
-    out = [ffd._region(flat, lay, n) for n in _k1_regions(lay)]
-    nbytes = _nbytes(p.group_req, p.group_count, p.mask_bits, p.exist_cap,
-                     p.exist_remaining, p.pool_limit, p.group_ncap,
-                     p.group_whole, p.group_dsel, p.group_dbase,
-                     p.group_dcap, p.group_skew, p.group_mindom,
-                     p.group_delig, p.exist_zone, p.exist_ct, c.col_alloc,
-                     c.col_daemon, c.pt_alloc, c.col_pool, c.pool_daemon,
-                     c.pool_bits, c.col_zone, c.col_ct, lim, *out)
-    return bound_ms(nbytes, scan_ops(ffd, p, c, N, lay, plain))
+def _sweep_times(ffd, sw, c, N, K, reps):
+    """(K4 ms, plain ms, events ms, bound) at one chunk's shapes:
+    kernel, plain, kernel, in turns."""
+    import torch
+    dev = sw.group_req.device
+    lay = ffd.flat_layout(sw.G, sw.E, N, sw.D, 0, K)
+    flat = torch.empty((sw.B, lay["total"][1]), device=dev)
+    lim = torch.empty((sw.B, sw.P, ffd.R), device=dev)
+    if sw.heavy:
+        scan, plain = ffd.sweep_topo_scan, ffd.sweep_topo_scan_reference
+        tag = "scan_kernel<true, true>"
+    else:
+        scan, plain = ffd.sweep_scan, ffd.sweep_scan_reference
+        tag = "scan_kernel<false, true>"
+    k = lambda: scan(sw, c, N, flat, lay, lim, K)  # noqa: E731
+    kp = lambda: plain(sw, c, N, flat, lay, lim, K)  # noqa: E731
+    t_k, ev_k = _device_ms(k, reps, tag)
+    t_kp = _time_ms(kp, 1)
+    t_k = min(t_k, _device_ms(k, reps, tag)[0])
+    k()
+    torch.cuda.synchronize()
+    return t_k, t_kp, ev_k, _sweep_bound(ffd, sw, c, N, K, lay, flat, lim)
 
 
-def _pack_bound(ffd, p, c, lim):
-    """K2 reads the mask rows, one (pool,type) row and its daemon row per
-    block, the pool rows, unsched, num_active and the topology rows;
-    writes the counts."""
-    nbytes = (_nbytes(p.mask_bits, p.group_req, p.group_whole, c.pt_alloc,
-                      c.pool_daemon, lim, p.group_dsel, p.group_dbase,
-                      p.group_skew, p.group_mindom, p.group_delig)
-              + c.PT * ffd.R * 4 + c.PT * 4 + (p.G + 1) * 4
-              + p.G * p.D * 4 + 2 * c.zc * 4
-              + (p.G * ffd.EXPLAIN_C + p.G) * 4)
-    return bound_ms(nbytes, p.G * c.PT * ffd.R * 3 * 2)
+def _compaction_turns(ffd, sw, c, N, K, reps):
+    """Dense (sparse_k 0) against compacted (sparse_k K) take_exist rows
+    on one sweep chunk: launch, device and the pull of the result rows to
+    the host, wall time per chunk, in turns dense, compacted, compacted,
+    dense.  Returns ({"dense": [ms...], "compacted": [...]}, bytes)."""
+    import torch
+    ms = {"dense": [], "compacted": []}
+    nbytes = {}
+    for kind in ("dense", "compacted", "compacted", "dense"):
+        k = K if kind == "compacted" else 0
+        host = ffd.solve_ffd_sweep(sw, c, N, k).cpu()   # warm-up
+        nbytes[kind] = host.numel() * 4
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ffd.solve_ffd_sweep(sw, c, N, k).cpu()
+        ms[kind].append((time.perf_counter() - t0) * 1e3 / reps)
+    return ms, nbytes
 
 
 def main(argv) -> int:
@@ -450,7 +731,8 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch.solver import TorchSolver, _cuda, ffd
-    from karpenter_tpu_torch.workloads import build_config3, build_input
+    from karpenter_tpu_torch.workloads import (build_config3, build_config4,
+                                               build_config4b, build_input)
 
     dev = torch.device("cuda", 0)
     card = _card_line()
@@ -470,8 +752,18 @@ def main(argv) -> int:
                 print(f"    {k}: {line.strip()}")
 
     # -- 3. kernels against their plain versions ---------------------------
-    errs = {k: 0.0 for k in _cuda.KERNELS}
+    errs = {k: 0.0 for k in list(KERNELS.values()) + ["te_compaction"]}
     failed = []
+
+    def record(label, res, what):
+        for k, (eq, err) in res.items():
+            errs[k] = max(errs[k], err)
+            if not eq:
+                failed.append(f"{label}:{k}")
+        print(f"[3] {label:28s} {what}: " + ", ".join(
+            f"{k} {'equal' if eq else 'DIFFERS'} (max abs err {err:g})"
+            for k, (eq, err) in res.items()), flush=True)
+
     solver = TorchSolver()
     head_prob, head_cat = _encoded_problem(solver, build_input(HEADLINE_PODS),
                                            ffd)
@@ -482,39 +774,65 @@ def main(argv) -> int:
         ("config3-cold", c3_prob, c3_cat, solver.max_nodes, 1),
         ("config3-warm", c3_prob, c3_cat, CONFIG3_WARM_N, 1)]
     for label, prob, catarr, N, ex in cases:
-        res = compare_case(ffd, prob, catarr, N, ex, dev)
-        for k, (eq, err) in res.items():
-            errs[k] = max(errs[k], err)
-            if not eq:
-                failed.append(f"{label}:{k}")
-        print(f"[3] {label:20s} N={N:5d} explain={ex}: " +
-              ", ".join(f"{k} {'equal' if eq else 'DIFFERS'} "
-                        f"(max abs err {err:g})"
-                        for k, (eq, err) in res.items()), flush=True)
+        record(label, compare_case(ffd, prob, catarr, N, ex, dev),
+               f"N={N} explain={ex}")
+    for label, probs, catarr, N, ex, K in _batch_cases():
+        c = ffd.catalog_tensors(catarr, dev)
+        b = ffd.batch_tensors(probs, c.O, dev)
+        record(label, compare_batch(ffd, b, c, N, ex, K, dev),
+               f"B={b.B} N={N} explain={ex} K={K}")
+    for label, rows, shared, catarr, N, K in _sweep_cases():
+        c = ffd.catalog_tensors(catarr, dev)
+        sw = ffd.sweep_tensors(rows, ffd.sweep_shared_tensors(
+            shared, c.O, dev), dev)
+        record(label, compare_sweep(ffd, sw, c, N, K, dev),
+               f"B={sw.B} E={sw.E} D={sw.D} N={N} K={K}")
+    # the sweeps' own first chunks: config #4's first light chunk and
+    # config #4b's first heavy chunk, as solve_batch launches them
+    chunks = {"config4": _first_chunks(ffd, TorchSolver(), build_config4()),
+              "config4b": _first_chunks(ffd, TorchSolver(),
+                                        build_config4b())}
+    if False not in chunks["config4"] or True not in chunks["config4b"]:
+        print("chip_smoke: config #4 launched no light chunk or config #4b "
+              "no heavy chunk", file=sys.stderr)
+        return 1
+    c4_chunk = chunks["config4"][False]
+    c4b_chunk = chunks["config4b"][True]
+    for label, (sw, c, N, K) in (("config4-light-chunk", c4_chunk),
+                                 ("config4b-heavy-chunk", c4b_chunk)):
+        record(label, compare_sweep(ffd, sw, c, N, K, dev),
+               f"B={sw.B} G={sw.G} E={sw.E} D={sw.D} N={N} K={K}")
     if failed:
         print(f"chip_smoke: kernels disagree with their plain versions: "
               f"{failed}", file=sys.stderr)
         return 1
 
     # -- 4. the main path: the 50k headline ----------------------------------
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
     torch.cuda.reset_peak_memory_stats(dev)
-    res, head_launches, _ = _main_path(
+    res, counts, _ = _main_path(
         TorchSolver, lambda: build_input(HEADLINE_PODS), ffd, card,
         "4 headline")
+    add(counts)
     print(f"[4 headline] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
-    bad = _check_answer(res, head_launches, HEADLINE_NODES,
-                        HEADLINE_UNSCHED, HEADLINE_PRICE_HEX,
-                        ("ffd_light_scan", "ffd_pack"))
+    bad = _check_answer(res, counts, HEADLINE_NODES, HEADLINE_UNSCHED,
+                        HEADLINE_PRICE_HEX, ("ffd_batch_scan", "ffd_pack"))
     if bad:
         print(f"chip_smoke: headline path failed: {bad}", file=sys.stderr)
         return 1
 
     # -- 5. the main path: config #3 (topology spread) -----------------------
-    res, c3_launches, _ = _main_path(TorchSolver, build_config3, ffd,
-                                     card, "5 config3")
-    bad = _check_answer(res, c3_launches, CONFIG3_NODES, CONFIG3_UNSCHED,
-                        CONFIG3_PRICE_HEX, ("ffd_topo_scan", "ffd_pack"))
+    res, counts, _ = _main_path(TorchSolver, build_config3, ffd, card,
+                                "5 config3")
+    add(counts)
+    bad = _check_answer(res, counts, CONFIG3_NODES, CONFIG3_UNSCHED,
+                        CONFIG3_PRICE_HEX, ("ffd_batch_scan", "ffd_pack"))
     if bad:
         print(f"chip_smoke: config #3 path failed: {bad}", file=sys.stderr)
         return 1
@@ -522,9 +840,10 @@ def main(argv) -> int:
     # -- 6. the host oracle's paths: rescue and split ------------------------
     for label, build in oracle_inputs().items():
         nodes, unsched, price_hex, kernels = ORACLE_CASES[label]
-        res, launches, s = _main_path(TorchSolver, build, ffd, card,
-                                      f"6 {label}")
-        bad = _check_answer(res, launches, nodes, unsched, price_hex,
+        res, counts, s = _main_path(TorchSolver, build, ffd, card,
+                                    f"6 {label}")
+        add(counts)
+        bad = _check_answer(res, counts, nodes, unsched, price_hex,
                             kernels)
         if not s._used_split:
             bad.append("the oracle was not taken")
@@ -533,89 +852,108 @@ def main(argv) -> int:
                   file=sys.stderr)
             return 1
 
-    # -- 7. timings at the main paths' shapes --------------------------------
+    # -- 7. the consolidation sweep: config #4 and #4b -----------------------
+    for label, build, digest, kernels in (
+            ("7 config4", build_config4, CONFIG4_DIGEST,
+             ("ffd_sweep_scan",)),
+            ("7 config4b", build_config4b, CONFIG4B_DIGEST,
+             ("ffd_sweep_scan", "ffd_sweep_topo_scan"))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        results, counts, _ = _main_path(
+            TorchSolver, build, ffd, card, label, warm=SWEEP_WARM,
+            max_nodes=SWEEP_MAX_NODES)
+        add(counts)
+        print(f"[{label}] max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
+        bad = _check_sweep(results, counts, digest, kernels, label)
+        if bad:
+            print(f"chip_smoke: {label} failed: {bad}", file=sys.stderr)
+            return 1
+
+    # -- 8. timings at the main paths' shapes --------------------------------
     p, c = ffd.problem_from_numpy(head_prob, head_cat, dev)
     N = solver.max_nodes
-    t_k1, t_k1p, ev_k1, t_k2, t_k2p, lay, flat, lim = _kernel_times(
-        ffd, p, c, N, ffd.light_scan, ffd.light_scan_reference,
-        "scan_kernel<false>", 50)
-    b1, by1 = _scan_bound(ffd, p, c, N, lay, flat, lim,
-                          ffd.light_scan_reference)
-    b2, by2 = _pack_bound(ffd, p, c, lim)
-    print(f"[7] headline shapes (G={p.G}, N={N}, PT={c.PT}, O={c.O}) on "
-          f"{card}: ffd_light_scan {t_k1:.4f} ms (events {ev_k1:.4f}, "
-          f"plain {t_k1p:.3f}, bound {b1:.6f} by {by1}); ffd_pack "
+    t_k5, t_k5p, ev_k5, (b5, by5), t_k2, t_k2p, (b2, by2) = _batch_times(
+        ffd, ffd.FFDBatch.of(p), c, N, 50)
+    print(f"[8] headline shapes (B=1, G={p.G}, N={N}, PT={c.PT}, O={c.O}) "
+          f"on {card}: ffd_batch_scan {t_k5:.4f} ms (events {ev_k5:.4f}, "
+          f"plain {t_k5p:.3f}, bound {b5:.6f} by {by5}); ffd_pack "
           f"{t_k2:.4f} ms (plain {t_k2p:.3f}, bound {b2:.6f} by {by2})",
           flush=True)
-    # K3 on the headline, where every step is light: K1 and K3 in turns
-    scans = {"ffd_light_scan": (ffd.light_scan, "scan_kernel<false>"),
-             "ffd_topo_scan": (ffd.topo_scan, "scan_kernel<true>")}
-    ab = {k: [] for k in scans}
-    for kname in ("ffd_light_scan", "ffd_topo_scan") * 2 + (
-            "ffd_topo_scan", "ffd_light_scan"):
-        scan, tag = scans[kname]
-        run = lambda: scan(p, c, N, flat, lay, lim)  # noqa: E731
-        t = _kernel_ms(run, 50, tag)
-        ab[kname].append(t if t is not None else _time_ms(run, 50))
-    print(f"[7] headline shapes, K1 and K3 in turns on {card}: " + "; ".join(
-        f"{k} " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
-        for k, vs in sorted(ab.items())), flush=True)
     p3, c3 = ffd.problem_from_numpy(c3_prob, c3_cat, dev)
-    k3 = {}
     for N3 in (solver.max_nodes, CONFIG3_WARM_N):
-        t_k3, t_k3p, ev_k3, t_k2c, t_k2cp, lay3, flat3, lim3 = \
-            _kernel_times(ffd, p3, c3, N3, ffd.topo_scan,
-                          ffd.topo_scan_reference, "scan_kernel<true>", 20)
-        b3, by3 = _scan_bound(ffd, p3, c3, N3, lay3, flat3, lim3,
-                              ffd.topo_scan_reference)
-        k3[N3] = (t_k3, t_k3p, b3, by3)
-        print(f"[7] config #3 shapes (G={p3.G}, N={N3}, PT={c3.PT}, "
-              f"D={p3.D}) on {card}: ffd_topo_scan {t_k3:.4f} ms (events "
-              f"{ev_k3:.4f}, plain {t_k3p:.3f}, bound {b3:.6f} by {by3}); "
-              f"ffd_pack {t_k2c:.4f} ms (plain {t_k2cp:.3f})", flush=True)
-    t_k3, t_k3p, b3, by3 = k3[CONFIG3_WARM_N]
-    # where K3's time goes: the same problem with only its light groups,
-    # or only its heavy groups, kept (the others' rows zeroed: a step with
-    # no pods and no admitted column does next to nothing)
+        t3, t3p, ev3, (b3, by3), t3k2, t3k2p, _ = _batch_times(
+            ffd, ffd.FFDBatch.of(p3), c3, N3, 20)
+        print(f"[8] config #3 shapes (B=1, G={p3.G}, N={N3}, PT={c3.PT}, "
+              f"D={p3.D}) on {card}: ffd_batch_scan {t3:.4f} ms (events "
+              f"{ev3:.4f}, plain {t3p:.3f}, bound {b3:.6f} by {by3}); "
+              f"ffd_pack {t3k2:.4f} ms (plain {t3k2p:.3f})", flush=True)
+    # where the scan's time goes on config #3: the same problem with only
+    # its light groups, or only its heavy groups, kept (the others' rows
+    # zeroed: a step with no pods and no admitted column does next to
+    # nothing)
     dsel = np.asarray(c3_prob[7])
     split = {}
     for kind, keep in (("light", dsel == 0), ("heavy", dsel > 0)):
         pk, ck = ffd.problem_from_numpy(_only_groups(c3_prob, keep), c3_cat,
                                         dev)
+        bk = ffd.FFDBatch.of(pk)
         lay_k = ffd.flat_layout(pk.G, pk.E, CONFIG3_WARM_N, pk.D)
-        flat_k = torch.empty(lay_k["total"][1], device=dev)
-        lim_k = torch.empty((pk.P, ffd.R), device=dev)
-        for kname, scan in (("ffd_topo_scan", ffd.topo_scan),
-                            ("ffd_light_scan", ffd.light_scan)):
-            if kname == "ffd_light_scan" and pk.topology:
-                continue
-            split[f"{kname} {kind} groups only ({int(keep.sum())})"] = \
-                _kernel_ms(lambda: scan(pk, ck, CONFIG3_WARM_N, flat_k,
-                                        lay_k, lim_k), 10,
-                           "scan_kernel<true>" if scan is ffd.topo_scan
-                           else "scan_kernel<false>")
-    print(f"[7] config #3 (N={CONFIG3_WARM_N}) by step kind on {card}: " +
-          "; ".join(f"{k} {v:.4f} ms" for k, v in split.items()),
-          flush=True)
+        flat_k = torch.empty((1, lay_k["total"][1]), device=dev)
+        lim_k = torch.empty((1, pk.P, ffd.R), device=dev)
+        split[f"{kind} groups only ({int(keep.sum())})"] = _device_ms(
+            lambda: ffd.batch_scan(bk, ck, CONFIG3_WARM_N, flat_k, lay_k,
+                                   lim_k), 10, "scan_kernel<true, false>")[0]
+    print(f"[8] config #3 (N={CONFIG3_WARM_N}) ffd_batch_scan by step kind "
+          f"on {card}: " + "; ".join(f"{k} {v:.4f} ms"
+                                     for k, v in split.items()), flush=True)
+    sweep_t = {}
+    for kname, (sw, cs, Ns, Ks) in (("ffd_sweep_scan", c4_chunk),
+                                    ("ffd_sweep_topo_scan", c4b_chunk)):
+        t4, t4p, ev4, (b4, by4) = _sweep_times(ffd, sw, cs, Ns, Ks, 20)
+        sweep_t[kname] = (t4, t4p, b4, by4)
+        print(f"[8] {'config #4b heavy' if sw.heavy else 'config #4 light'}"
+              f" chunk (B={sw.B}, G={sw.G}, E={sw.E}, D={sw.D}, N={Ns}, "
+              f"O={cs.O}, K={Ks}) on {card}: {kname} {t4:.4f} ms (events "
+              f"{ev4:.4f}, per simulation {t4 / sw.B * 1e3:.2f} us, plain "
+              f"{t4p:.3f}, bound {b4:.6f} by {by4})", flush=True)
+    sw, cs, Ns, Ks = c4_chunk
+    turns, nbytes = _compaction_turns(ffd, sw, cs, Ns, max(Ks, 8), 20)
+    print(f"[8] config #4 chunk take_exist, launch+device+pull per chunk, in "
+          f"turns on {card}: " + "; ".join(
+              f"{k} ({nbytes[k]} bytes) " + ", ".join(f"{v:.4f}" for v in vs)
+              + " ms" for k, vs in turns.items()), flush=True)
+
     kernels = [
-        {"name": "ffd_light_scan", "route": "cuda",
-         "source": "karpenter_tpu_torch/csrc/ffd_light_scan.cu",
-         "replaces": "karpenter_tpu/solver/ffd.py:460",
-         "launches": head_launches["ffd_light_scan"],
-         "max_abs_err": errs["ffd_light_scan"], "ms": t_k1,
-         "plain_ms": t_k1p, "bound_ms": b1, "bound_by": by1,
+        {"name": "ffd_batch_scan", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/ffd_batch_scan.cu",
+         "replaces": "karpenter_tpu/solver/ffd.py:1492",
+         "launches": launches["ffd_batch_scan"],
+         "max_abs_err": errs["ffd_batch_scan"], "ms": t_k5,
+         "plain_ms": t_k5p, "bound_ms": b5, "bound_by": by5,
          "library_ms": None},
-        {"name": "ffd_topo_scan", "route": "cuda",
-         "source": "karpenter_tpu_torch/csrc/ffd_topo_scan.cu",
-         "replaces": "karpenter_tpu/solver/ffd.py:589",
-         "launches": c3_launches["ffd_topo_scan"],
-         "max_abs_err": errs["ffd_topo_scan"], "ms": t_k3,
-         "plain_ms": t_k3p, "bound_ms": b3, "bound_by": by3,
-         "library_ms": None},
+        {"name": "ffd_sweep_scan", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/ffd_sweep_scan.cu",
+         "replaces": "karpenter_tpu/solver/ffd.py:1531",
+         "launches": launches["ffd_sweep_scan"],
+         "max_abs_err": max(errs["ffd_sweep_scan"], errs["te_compaction"]),
+         "ms": sweep_t["ffd_sweep_scan"][0],
+         "plain_ms": sweep_t["ffd_sweep_scan"][1],
+         "bound_ms": sweep_t["ffd_sweep_scan"][2],
+         "bound_by": sweep_t["ffd_sweep_scan"][3], "library_ms": None},
+        {"name": "ffd_sweep_topo_scan", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/ffd_sweep_scan.cu",
+         "replaces": "karpenter_tpu/solver/ffd.py:1610",
+         "launches": launches["ffd_sweep_topo_scan"],
+         "max_abs_err": errs["ffd_sweep_topo_scan"],
+         "ms": sweep_t["ffd_sweep_topo_scan"][0],
+         "plain_ms": sweep_t["ffd_sweep_topo_scan"][1],
+         "bound_ms": sweep_t["ffd_sweep_topo_scan"][2],
+         "bound_by": sweep_t["ffd_sweep_topo_scan"][3], "library_ms": None},
         {"name": "ffd_pack", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/ffd_pack.cu",
          "replaces": "karpenter_tpu/solver/ffd.py:1113",
-         "launches": head_launches["ffd_pack"] + c3_launches["ffd_pack"],
+         "launches": launches["ffd_pack"],
          "max_abs_err": errs["ffd_pack"], "ms": t_k2, "plain_ms": t_k2p,
          "bound_ms": b2, "bound_by": by2, "library_ms": None},
     ]

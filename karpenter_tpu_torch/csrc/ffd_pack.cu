@@ -12,7 +12,7 @@
 // offsets of the flat result buffer `unpack` reads.  (The reference's
 // take_new top-K compaction, ffd.py:1089-1109, saves device-to-host bytes
 // on a TPU link; on the card it bought nothing, and the port keeps the
-// dense rows K1/K3 write.)
+// dense rows the scan kernels write.)
 //
 // What bounds it on the H100: per group it reads one mask row, walks the PT
 // (pool,type) blocks once and reads a few per-group rows; at the 50k

@@ -1,49 +1,62 @@
-// The FFD scan shared by K1 ffd_light_scan and K3 ffd_topo_scan: one
-// templated kernel, `scan_kernel<TOPO>`, that runs the whole G-step scan of
-// karpenter_tpu/solver/ffd.py `_solve_ffd_impl` (ffd.py:210, scanned at
-// :1062) in one launch.
+// The FFD scan shared by K5 ffd_batch_scan and K4 ffd_sweep_scan (both
+// lanes): one templated kernel, `scan_kernel<TOPO, SWEEP>`, that runs the
+// whole G-step scan of karpenter_tpu/solver/ffd.py `_solve_ffd_impl`
+// (ffd.py:210, scanned at :1062) for B problems in one launch, one thread
+// block per problem (the reference's `jax.vmap` axis, ffd.py:1492, :1531,
+// :1610).
 //
 //   * light_step: the light branch, ffd.py:460-587 (`_fit_count` :116,
 //     `_prefix_fill` :125, `_atomic_fill` :134, `_clamp_pool_limits` :442,
-//     `pt_any`/`pt_expand` :381-390), for every class of K1's problems and
-//     for the classes without a domain constraint in K3's;
+//     `pt_any`/`pt_expand` :381-390), for every class without a domain
+//     constraint;
 //   * heavy_step: the heavy branch, ffd.py:589-818, for classes with
 //     dsel > 0 (zone or capacity-type spread and anti-affinity): per-domain
 //     capacity estimates, the `_water_fill` quotas (:147-196), per-domain
 //     prefix fills of existing and in-flight nodes, the pool x domain
 //     new-node budget loop, each touched or opened node pinned to its
-//     domain.  Only K3 instantiates it (`if constexpr`), the reference's
-//     `lax.cond(dsel > 0, heavy, light)` (:1057), uniform across the block.
+//     domain.  Only the TOPO instances compile it (`if constexpr`), the
+//     reference's `lax.cond(dsel > 0, heavy, light)` (:1057), uniform across
+//     the block;
+//   * SWEEP: the problem is a consolidation simulation, "the shared snapshot
+//     minus a few nodes" (ffd.py:1570): the block keeps the existing rows
+//     its exclusions leave, reads its groups' column masks and node caps
+//     from per-class tables (`class_mask[gcls]`, `class_cap[gcls] * keep`)
+//     and ANDs in its price cap (`col_price < pcap`) as a word mask;
+//   * with K > 0 the take_exist top-K compaction (:1068-1086) in the
+//     epilogue: a block scan ranks each group's nonzero entries.
 // The packed-mask expansion `_expand_packed_mask` (:199) disappears: the
 // kernels read the group mask as bits.  Results land in the flat result
-// buffer of ffd.py:1258.
+// row of ffd.py:1258, one row per problem.
 //
-// What bounds it on the H100: not bytes and not arithmetic.  The inputs are
-// a few hundred KB (catalog rows, one 480-byte mask row per class), the
-// outputs tens of KB, and the float work is tens of millions of operations
-// at most: both bounds are microseconds.  The scan is a dependency chain,
-// steps x pools (x domains in the heavy step) long, with block-wide
-// barriers inside each step: its time is latency, on one SM.
+// What bounds it on the H100: not bytes and not arithmetic.  A problem's
+// inputs are a few hundred KB (catalog rows, one 480-byte mask row per
+// class, the existing rows), its outputs tens of KB, and its float work
+// tens of millions of operations at most: both bounds are microseconds.
+// Each problem's scan is a dependency chain, steps x pools (x domains in the
+// heavy step) long, with block-wide barriers inside each step: its time is
+// latency, on one SM.  The batch axis spreads problems over SMs.
 //
-// Design: one thread block of 1024 threads per problem.  Thread n owns node
-// slot n (a strided loop when N > 1024).  The carry lives in device memory:
+// Design: one thread block of 1024 threads per problem (block b offsets every
+// per-problem pointer to problem b, offset_block).  Thread n owns node
+// slot n (a strided loop when N > 1024; threads past N idle in the node
+// loops).  The carry lives in device memory, one slice per block:
 // the surviving-column mask as u32 bit-words in [W, N] layout (neighbouring
 // threads touch neighbouring words), used [N, R], the pool budgets [P, R],
-// the existing-node remainders [E, R], and (K3) each node's zone and
+// the existing-node remainders [E, R], and each node's zone and
 // capacity-type pin.  Per step, every thread works on its own node (the
 // [N, PT] fit and the per-node max over eligible blocks, in the heavy step
 // per grid slot and then per domain; the colmask narrowing), block scans
-// give the node-axis cumsums (`_prefix_fill`, `_clamp_pool_limits`, and
-// per domain in the heavy step), shared-memory atomics the per-pool and
-// per-(pool, domain) maxima, and the short sequential loops (the per-pool
-// new-node cascade, the pool x domain budget loop, the water-fill's
-// integral repair) run on thread 0 before the slots they open are
-// activated in parallel.  The water-fill evaluates its 6D candidate levels
-// one per thread.  Work is skipped where the reference's is a provable
-// no-op: the fit runs only over blocks that hold a surviving, admitted
-// column, and the ok-block narrowing only on nodes that took pods (an
-// untouched node's mask is already narrowed against its unchanged `used`).
-// (pool, type) rows sit in shared memory.
+// give the node-axis and existing-axis cumsums (`_prefix_fill`,
+// `_clamp_pool_limits`, and per domain in the heavy step), shared-memory
+// atomics the per-pool and per-(pool, domain) maxima, and the short
+// sequential loops (the per-pool new-node cascade, the pool x domain budget
+// loop, the water-fill's integral repair) run on thread 0 before the slots
+// they open are activated in parallel.  The water-fill evaluates its 6D
+// candidate levels one per thread.  Work is skipped where the reference's is
+// a provable no-op: the fit runs only over blocks that hold a surviving,
+// admitted column, and the ok-block narrowing only on nodes that took pods
+// (an untouched node's mask is already narrowed against its unchanged
+// `used`).  (pool, type) rows sit in shared memory.
 //
 // Float parity: every operation is the reference's, in its order, rounded
 // to nearest (ffd_common.cuh); float sums over domains run in index order.
@@ -96,7 +109,7 @@ struct ScanArgs {
   float* zone_out;               // [N]
   float* ct_out;                 // [N]
   float* na_out;                 // [1]
-  // topology (read by K3 only)
+  // topology (read by the TOPO instances only)
   const int* group_dsel;         // [G] 0 none / 1 zone / 2 capacity type
   const int* group_dbase;        // [G, D] spread base counts
   const int* group_dcap;         // [G, D] max additional pods per domain
@@ -109,17 +122,33 @@ struct ScanArgs {
   const int* col_ct;             // [O]
   int* node_zone;                // [N] carry (scratch)
   int* node_ct;                  // [N] carry (scratch)
+  // the consolidation sweep (K4): per-simulation gather and price cap
+  const int* group_class;        // [G] row of the class tables (mask_bits
+                                 // [C, W], exist_cap [C, E]); null = g
+  const int* exclude_idx;        // [X] existing rows excluded (-1 = pad)
+  const float* price_cap;        // [1] columns priced below it survive
+  const float* col_price;        // [O] (+inf on padding)
+  // the take_exist top-K compaction (K > 0)
+  float* te_dense;               // [G, E] scratch: the dense rows
+  float* te_head;                // flat: counts [G, K], indices [G, K]
   int G, E, N, O, PT, ZC, P, D, W;
+  int B, X, K, total;            // problems, exclusions, top-K, flat row
 };
+// Every pointer above addresses problem 0 of the batch; block b offsets the
+// per-problem ones (inputs, carry, the flat row) in offset_block.
 
-#define SCAN_NPTRS 42
-#define SCAN_NDIMS 9
+#define SCAN_NPTRS 48
+#define SCAN_NDIMS 13
+#define MAXX 8
+#define BIGCAP 536870912  /* encode.BIG: no per-node cap */
 
 // per-step state every thread reads, in shared memory
 struct ScanShared {
   unsigned warp[NT / 32];
   float req[KR];
   int cnt, ncap, whole, dsel, first, sum, na, crem;
+  int row;               // this group's row of the (class) tables
+  int nx, excl[MAXX];    // the sweep simulation's excluded existing rows
   int dreal_zone, dreal_ct;
   int kfull[MAXP], any[MAXP], ptake[MAXP], limcap[MAXP];
   int start[MAXP], m[MAXP], taken[MAXP];
@@ -132,9 +161,25 @@ struct ScanDyn {
   int* take;      // [N]
   uint32_t* gm;   // [W]
   uint32_t* feas; // [W]
-  int* bd;        // [N]     (K3) each node's domain this step
-  int* kpd;       // [P, D]  (K3) best pods per new node, per pool, domain
+  int* bd;        // [N]     (TOPO) each node's domain this step
+  int* kpd;       // [P, D]  (TOPO) best pods per new node, per pool, domain
+  uint32_t* pm;   // [W]     (SWEEP) columns under the price cap
 };
+
+// whether existing row e survives the simulation's exclusions (the
+// reference's keep = all(arange(E) != excl), ffd.py:1571)
+__device__ __forceinline__ bool kept(const ScanShared& S, int e) {
+  for (int x = 0; x < S.nx; ++x)
+    if (S.excl[x] == e) return false;
+  return true;
+}
+
+// the group's per-existing-node allowance: its table row, times keep
+__device__ __forceinline__ int exist_cap_at(const ScanArgs& a,
+                                            const ScanShared& S, int e) {
+  const int c = a.exist_cap[(size_t)S.row * a.E + e];
+  return kept(S, e) ? c : 0;
+}
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
@@ -201,7 +246,7 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
   if (E > 0) {
     for (int e = tid; e < E; e += NT) {
       const int cap = min(fit_count(&a.exist_rem[e * KR], req),
-                          a.exist_cap[(size_t)g * E + e]);
+                          exist_cap_at(a, S, e));
       a.cap_e[e] = cap;
       if (whole && cap >= cnt) atomicMin(&S.first, e);
     }
@@ -450,7 +495,7 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
 // ---------------------------------------------------------------------------
 // the heavy step (ffd.py:589-818)
 
-// per-domain state of one heavy step, in shared memory (K3 only)
+// per-domain state of one heavy step, in shared memory (TOPO only)
 struct HeavyShared {
   int zcdom[MAXZC];           // domain of each grid slot
   int dbase[MAXD], delig[MAXD], xmax[MAXD], want[MAXD];
@@ -601,7 +646,7 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
   // -- capacity estimates per domain (for the water-fill) -----------------
   for (int e = tid; e < E; e += NT) {
     const int cap = min(fit_count(&a.exist_rem[e * KR], req),
-                        a.exist_cap[(size_t)g * E + e]);
+                        exist_cap_at(a, S, e));
     a.cap_e[e] = cap;
     const int d = ex_dom[e];
     if (d >= 0 && d < D) atomicAdd(&H.cape[d], (unsigned)cap);
@@ -911,11 +956,113 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
 }
 
 // ---------------------------------------------------------------------------
-template <bool TOPO>
-__global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a) {
+// Block b's view of the batch: every per-problem pointer moved to problem
+// b.  K5 (SWEEP false) stacks whole problems; K4 (SWEEP true) stacks only
+// the simulations' rows and shares the class tables and existing nodes.
+template <bool SWEEP>
+__device__ void offset_block(ScanArgs& a, int b) {
+  const size_t G = a.G, E = a.E, N = a.N, P = a.P, D = a.D, W = a.W;
+  const size_t bb = b;
+  a.group_req += bb * G * KR;
+  a.group_count += bb * G;
+  a.pool_limit += bb * P * KR;
+  if (a.group_ncap) a.group_ncap += bb * G;
+  if (a.group_whole) a.group_whole += bb * G;
+  if (a.group_dsel) {
+    a.group_dsel += bb * G;
+    a.group_dbase += bb * G * D;
+    a.group_dcap += bb * G * D;
+    a.group_skew += bb * G;
+    a.group_mindom += bb * G;
+    a.group_delig += bb * G * D;
+  }
+  if (SWEEP) {
+    a.group_class += bb * G;
+    a.exclude_idx += bb * a.X;
+    a.price_cap += bb;
+  } else {
+    a.mask_bits += bb * G * W;
+    a.exist_cap += bb * G * E;
+    a.exist_remaining += bb * E * KR;
+    a.exist_zone += bb * E;
+    a.exist_ct += bb * E;
+  }
+  // the carry
+  a.exist_rem += bb * E * KR;
+  a.used += bb * N * KR;
+  a.colmask += bb * W * N;
+  a.active += bb * N;
+  a.node_pool += bb * N;
+  a.cap_e += bb * E;
+  a.limits += bb * P * KR;
+  a.node_zone += bb * N;
+  a.node_ct += bb * N;
+  // the flat row
+  const size_t row = bb * (size_t)a.total;
+  if (a.K > 0) {
+    a.take_exist = a.te_dense + bb * G * E;
+    a.te_head += row;
+  } else {
+    a.take_exist += row;
+  }
+  a.take_new += row;
+  a.unsched += row;
+  a.dom_placed += row;
+  a.used_out += row;
+  a.pool_out += row;
+  a.zone_out += row;
+  a.ct_out += row;
+  a.na_out += row;
+}
+
+// The top-K take_exist compaction (ffd.py:1068-1086): each group's nonzero
+// entries in index order, ranked by a block scan, scattered into K
+// (count, index) slots; empty slots hold (0, 0), ranks past K drop.
+__device__ void compact_take_exist(const ScanArgs& a, ScanShared& S) {
+  const int tid = threadIdx.x;
+  const int G = a.G, E = a.E, K = a.K;
+  float* cnt = a.te_head;
+  float* idx = a.te_head + (size_t)G * K;
+  for (int g = 0; g < G; ++g) {
+    for (int k = tid; k < K; k += NT) {
+      cnt[(size_t)g * K + k] = 0.0f;
+      idx[(size_t)g * K + k] = 0.0f;
+    }
+    __syncthreads();
+    unsigned carry = 0u;
+    for (int base = 0; base < E; base += NT) {
+      const int e = base + tid;
+      const float v = e < E ? a.take_exist[(size_t)g * E + e] : 0.0f;
+      const bool nz = v > 0.0f;
+      unsigned tot;
+      const unsigned rank =
+          block_excl_scan<NT>(nz ? 1u : 0u, S.warp, &tot) + carry;
+      carry += tot;
+      if (nz && rank < (unsigned)K) {
+        cnt[(size_t)g * K + rank] = v;
+        idx[(size_t)g * K + rank] = (float)e;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One block of NT threads per problem (grid = B).  TOPO: the heavy step for
+// groups with dsel > 0.  SWEEP: the problem is a simulation of a shared
+// snapshot, built in the prologue (kept existing rows, price-capped class
+// masks).
+template <bool TOPO, bool SWEEP>
+__global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScanShared S;
+  __shared__ ScanArgs A;
   const int tid = threadIdx.x;
+  if (tid == 0) {
+    A = a0;
+    offset_block<SWEEP>(A, blockIdx.x);
+  }
+  __syncthreads();
+  const ScanArgs& a = A;
   const int G = a.G, E = a.E, N = a.N, O = a.O, PT = a.PT;
   const int P = a.P, D = a.D, W = a.W;
   ScanDyn s;
@@ -926,19 +1073,37 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a) {
   s.feas = s.gm + W;                                             // [W]
   s.bd = reinterpret_cast<int*>(s.feas + W);                     // [N]
   s.kpd = s.bd + (TOPO ? N : 0);                                 // [P, D]
+  s.pm = reinterpret_cast<uint32_t*>(s.kpd + (TOPO ? P * D : 0));  // [W]
+
+  // -- the simulation: its exclusions and its price-capped columns --------
+  if (tid == 0) S.nx = SWEEP ? a.X : 0;
+  if (SWEEP) {
+    if (tid < a.X) S.excl[tid] = a.exclude_idx[tid];
+    const float pcap = a.price_cap[0];
+    for (int w = tid; w < W; w += NT) {
+      uint32_t word = 0u;
+      for (int bit = 0; bit < 32; ++bit) {
+        const int o = w * 32 + bit;
+        if (o < O && a.col_price[o] < pcap) word |= 1u << bit;
+      }
+      s.pm[w] = word;
+    }
+  }
+  __syncthreads();
 
   // -- initial carry --------------------------------------------------------
   for (int i = tid; i < PT * KR; i += NT) s.pt[i] = a.pt_alloc[i];
-  for (int i = tid; i < E * KR; i += NT) a.exist_rem[i] = a.exist_remaining[i];
+  for (int i = tid; i < E * KR; i += NT)
+    a.exist_rem[i] =
+        SWEEP ? __fmul_rn(a.exist_remaining[i], kept(S, i / KR) ? 1.0f : 0.0f)
+              : a.exist_remaining[i];
   for (int i = tid; i < N * KR; i += NT) a.used[i] = 0.0f;
   for (size_t i = tid; i < (size_t)W * N; i += NT) a.colmask[i] = 0u;
   for (int i = tid; i < N; i += NT) {
     a.active[i] = 0;
     a.node_pool[i] = 0;
-    if (TOPO) {
-      a.node_zone[i] = -1;
-      a.node_ct[i] = -1;
-    }
+    a.node_zone[i] = -1;
+    a.node_ct[i] = -1;
   }
   for (int i = tid; i < P * KR; i += NT) a.limits[i] = a.pool_limit[i];
   if (tid == 0) {
@@ -967,17 +1132,20 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a) {
   }
 
   for (int g = 0; g < G; ++g) {
+    const int row = a.group_class ? a.group_class[g] : g;
     if (tid < KR) S.req[tid] = a.group_req[g * KR + tid];
     if (tid == 0) {
       S.cnt = a.group_count[g];
-      S.ncap = a.group_ncap[g];
-      S.whole = a.group_whole[g] != 0;
+      S.ncap = a.group_ncap ? a.group_ncap[g] : BIGCAP;
+      S.whole = a.group_whole ? a.group_whole[g] != 0 : 0;
       S.dsel = TOPO ? a.group_dsel[g] : 0;
+      S.row = row;
       S.first = INT_MAX;
       S.sum = 0;
     }
     for (int w = tid; w < W; w += NT) {
-      s.gm[w] = a.mask_bits[(size_t)g * W + w];
+      const uint32_t m = a.mask_bits[(size_t)row * W + w];
+      s.gm[w] = SWEEP ? (m & s.pm[w]) : m;
       s.feas[w] = 0u;
     }
     if (tid < P) {
@@ -996,22 +1164,24 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a) {
     }
     __syncthreads();
   }
+  if (a.K > 0) compact_take_exist(a, S);
 
   // -- final state ---------------------------------------------------------
   for (int i = tid; i < N * KR; i += NT) a.used_out[i] = a.used[i];
   for (int n = tid; n < N; n += NT) {
     a.pool_out[n] = (float)a.node_pool[n];
-    a.zone_out[n] = TOPO ? (float)a.node_zone[n] : -1.0f;
-    a.ct_out[n] = TOPO ? (float)a.node_ct[n] : -1.0f;
+    a.zone_out[n] = (float)a.node_zone[n];
+    a.ct_out[n] = (float)a.node_ct[n];
   }
   if (tid == 0) a.na_out[0] = (float)S.na;
 }
 
 // Plain-C entry point body for ctypes.  ptrs: SCAN_NPTRS device addresses in
-// ScanArgs order; dims: G, E, N, O, PT, ZC, P, D, W.  Returns 0, a CUDA
-// error code (cudaGetLastError after the launch), or a negative argument
-// error.  Launches on `stream` and does not synchronise.
-template <bool TOPO>
+// ScanArgs order (0 for what the instance does not read); dims: G, E, N, O,
+// PT, ZC, P, D, W, B, X, K, total.  Returns 0, a CUDA error code
+// (cudaGetLastError after the launch), or a negative argument error.
+// Launches B blocks on `stream` and does not synchronise.
+template <bool TOPO, bool SWEEP>
 int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
                int ndims, void* stream) {
   if (nptrs != SCAN_NPTRS || ndims != SCAN_NDIMS) return -1;
@@ -1059,6 +1229,12 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.col_ct = (const int*)ptrs[i++];
   a.node_zone = (int*)ptrs[i++];
   a.node_ct = (int*)ptrs[i++];
+  a.group_class = (const int*)ptrs[i++];
+  a.exclude_idx = (const int*)ptrs[i++];
+  a.price_cap = (const float*)ptrs[i++];
+  a.col_price = (const float*)ptrs[i++];
+  a.te_dense = (float*)ptrs[i++];
+  a.te_head = (float*)ptrs[i++];
   a.G = dims[0];
   a.E = dims[1];
   a.N = dims[2];
@@ -1068,21 +1244,39 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.P = dims[6];
   a.D = dims[7];
   a.W = dims[8];
-  if (a.P < 1 || a.P > MAXP || a.ZC < 1 || a.N < 1 || a.D < 1 ||
-      a.O != a.PT * a.ZC || a.W != (a.O + 31) / 32)
+  a.B = dims[9];
+  a.X = dims[10];
+  a.K = dims[11];
+  a.total = dims[12];
+  if (a.P < 1 || a.P > MAXP || a.ZC < 1 || a.N < 1 || a.D < 1 || a.G < 1 ||
+      a.B < 1 || a.O != a.PT * a.ZC || a.W != (a.O + 31) / 32 || a.K < 0 ||
+      !a.node_zone || !a.node_ct ||
+      (a.E > 0 && (!a.exist_zone || !a.exist_ct)))
     return -2;
   if (TOPO && (a.D > MAXD || a.ZC > MAXZC || !a.group_dsel ||
-               !a.col_zone || !a.col_ct || !a.node_zone || !a.node_ct))
+               !a.group_dbase || !a.group_dcap || !a.group_skew ||
+               !a.group_mindom || !a.group_delig || !a.col_zone ||
+               !a.col_ct))
+    return -2;
+  if (SWEEP && (a.X < 0 || a.X > MAXX || !a.group_class || !a.price_cap ||
+                !a.col_price || (a.X > 0 && !a.exclude_idx)))
+    return -2;
+  if (!SWEEP && (a.X != 0 || a.group_class || !a.group_ncap ||
+                 !a.group_whole))
+    return -2;
+  if ((a.K > 0) != (a.te_dense != nullptr && a.te_head != nullptr) ||
+      (a.K == 0 && a.E > 0 && !a.take_exist))
     return -2;
   const size_t smem = (size_t)a.PT * KR * sizeof(float) +
                       2 * (size_t)a.N * sizeof(int) +
                       2 * (size_t)a.W * sizeof(uint32_t) +
                       (TOPO ? ((size_t)a.N + (size_t)a.P * a.D) * sizeof(int)
-                            : 0);
+                            : 0) +
+                      (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<TOPO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scan_kernel<TOPO, SWEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  scan_kernel<TOPO><<<1, NT, smem, (cudaStream_t)stream>>>(a);
+  scan_kernel<TOPO, SWEEP><<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

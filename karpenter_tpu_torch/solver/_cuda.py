@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, `_build/lib<name>-<hash>.so`, loaded
-with `ctypes`.  The hash covers the sources and the flags, so an edited
+with `ctypes`; a source may export several entry points (`ENTRIES`).  The hash covers the sources and the flags, so an edited
 kernel rebuilds and an unchanged one loads the library already there.
 Nothing here runs at import: the first call of a kernel wrapper builds
 what it needs, and `build()` builds every kernel at once, one `nvcc` per
@@ -24,7 +24,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-KERNELS = ("ffd_light_scan", "ffd_topo_scan", "ffd_pack")
+# the sources, one library each
+KERNELS = ("ffd_batch_scan", "ffd_sweep_scan", "ffd_pack")
+# entry point -> the source that exports it
+ENTRIES = {"ffd_batch_scan": "ffd_batch_scan",
+           "ffd_sweep_scan": "ffd_sweep_scan",
+           "ffd_sweep_topo_scan": "ffd_sweep_scan",
+           "ffd_pack": "ffd_pack"}
 
 # -fmad=false and the precise division/sqrt keep the float arithmetic the
 # reference's (the kernels also spell every operation with a
@@ -95,19 +101,24 @@ def build(names: Sequence[str] = KERNELS) -> float:
 
 
 def kernel(name: str):
-    """The ctypes function `name` of lib<name>, building it on first use.
-    Signature: (ptrs: u64[], nptrs, dims: i32[], ndims, stream) -> int."""
+    """The ctypes entry point `name` of its source's library, building it
+    on first use.  Signature: (ptrs: u64[], nptrs, dims: i32[], ndims,
+    stream) -> int."""
+    src = ENTRIES[name]
     with _lock:
-        lib: Optional[ctypes.CDLL] = _libs.get(name)
+        lib: Optional[ctypes.CDLL] = _libs.get(src)
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(_lib_path(name))
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
-                           ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
+            build((src,))
+            lib = ctypes.CDLL(_lib_path(src))
+            for entry, s in ENTRIES.items():
+                if s != src:
+                    continue
+                fn = getattr(lib, entry)
+                fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                               ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            _libs[src] = lib
     return getattr(lib, name)
 
 

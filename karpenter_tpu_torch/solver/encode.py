@@ -18,9 +18,11 @@ The encoding is cached against the instance-type list identity and catalog
 seqnums by the caller; only group/existing arrays change call to call.
 
 The port's copy of `karpenter_tpu/solver/encode.py` for the single-problem
-solve: host numpy only, pure-Python grouping (no native helper), and no
-consolidation-sweep caches.  `encode(..., split=True)` collects the
-groups the tensors cannot express into `.residue` for the host oracle.
+solve and the consolidation sweep: host numpy only, pure-Python grouping
+(no native helper).  `SharedExistEncoding` and `SweepTopologyTables` are
+the sweep's per-batch caches of the shared cluster snapshot.
+`encode(..., split=True)` collects the groups the tensors cannot express
+into `.residue` for the host oracle.
 """
 
 from __future__ import annotations
@@ -477,6 +479,362 @@ def _has_required_anti(pods) -> bool:
                for p in pods for t in p.pod_affinities)
 
 
+class SharedExistEncoding:
+    """Union cache of existing-node encodings for ONE solve_batch call.
+
+    The consolidation sweep encodes ~N
+    near-identical node sets N times — at 2k candidates × 2k nodes the
+    per-simulation label interning and per-node Python checks dominate
+    the whole sweep (profiled: ~85% of wall-clock). Everything determined
+    by the Node object alone — label matrices, readiness, zone/ct ids,
+    per-group requirement+toleration verdicts — is computed once over
+    the union of nodes and gathered per simulation by row index.
+
+    Sound only within one batch: TorchSolver.solve_batch's contract is
+    that all inputs come from the same cluster snapshot, so a node
+    object's labels/taints/readiness — and its resident-pod set, which
+    the required-anti activity check reads — are fixed for the batch.
+    """
+
+    def __init__(self, cat: "CatalogEncoding"):
+        self._index: Dict[int, int] = {}
+        # strong refs: id() keys stay unambiguous while the cache lives
+        self._nodes: List = []
+        self._wrappers: List[ExistingNode] = []
+        self._res_anti: List[bool] = []
+        self.zone_ids = dict(cat.zone_ids)
+        self.ct_ids = dict(cat.ct_ids)
+        self._frozen = False
+
+    def add_input(self, inp: ScheduleInput) -> None:
+        self.add_nodes(inp.existing_nodes)
+
+    def add_nodes(self, existing: Sequence[ExistingNode]) -> None:
+        """Register wrappers directly — the sweep path seeds the cache
+        from the shared snapshot list (ScheduleInput.exist_base) instead
+        of per-input node sets, so union row i == snapshot row i."""
+        assert not self._frozen
+        for en in existing:
+            node = en.node
+            if id(node) in self._index:
+                continue
+            # identity-keyed row lookup, never iterated: row order is
+            # add_nodes() call order (the shared snapshot's), so
+            # addresses cannot order anything
+            self._index[id(node)] = len(self._nodes)
+            self._nodes.append(node)
+            self._wrappers.append(en)
+            self._res_anti.append(_has_required_anti(en.pods))
+
+    def freeze(self) -> None:
+        if self._frozen:
+            return
+        self._frozen = True
+        nodes = self._nodes
+        self.vocab = _Vocab()
+        keys = sorted({k for n in nodes for k in n.labels})
+        self.matrices = _label_matrix(
+            self.vocab, keys, [n.labels for n in nodes])
+        self.usable = np.array(
+            [not n.meta.deleting and n.ready for n in nodes], dtype=bool)
+        for n in nodes:
+            z = n.labels.get(wellknown.ZONE_LABEL)
+            if z is not None:
+                self.zone_ids.setdefault(z, len(self.zone_ids))
+            t = n.labels.get(wellknown.CAPACITY_TYPE_LABEL)
+            if t is not None:
+                self.ct_ids.setdefault(t, len(self.ct_ids))
+        self.zone = np.array(
+            [self.zone_ids.get(n.labels.get(wellknown.ZONE_LABEL), -1)
+             for n in nodes], dtype=np.int32)
+        self.ct = np.array(
+            [self.ct_ids.get(n.labels.get(wellknown.CAPACITY_TYPE_LABEL), -1)
+             for n in nodes], dtype=np.int32)
+        self.res_anti = np.array(self._res_anti, dtype=bool)
+        # nodes with taints are rare; only they need the per-group loop
+        self._tainted = [i for i, n in enumerate(nodes) if n.taints]
+        self._group_ok: Dict[int, np.ndarray] = {}
+        # available-capacity rows keyed by the WRAPPER seen at add time:
+        # sims that share ExistingNode objects (the sweep's common case)
+        # skip the 2k-row nested-list conversion; a sim carrying a fresh
+        # wrapper for a known node gets its row rebuilt from its own
+        # values, so a differing snapshot can never be silently shadowed
+        self._avail = np.array([en.available.v for en in self._wrappers],
+                               dtype=np.float32).reshape(len(nodes), R)
+        self._wrapper_id = [id(en) for en in self._wrappers]
+
+    def exist_remaining(self, existing: Sequence[ExistingNode],
+                        rows: np.ndarray) -> np.ndarray:
+        out = self._avail[rows]
+        wid = self._wrapper_id
+        for j, en in enumerate(existing):
+            if id(en) != wid[rows[j]]:
+                out[j] = en.available.v
+        return out
+
+    def res_anti_any(self, existing: Sequence[ExistingNode],
+                     rows: np.ndarray) -> bool:
+        """Whether any resident pod carries required anti-affinity — with
+        the same wrapper-divergence guard as exist_remaining: a sim whose
+        fresh wrapper carries a different resident set than the snapshot
+        must be judged on ITS pods, not the cached flag."""
+        wid = self._wrapper_id
+        for j, en in enumerate(existing):
+            if id(en) == wid[rows[j]]:
+                if self.res_anti[rows[j]]:
+                    return True
+            elif _has_required_anti(en.pods):
+                return True
+        return False
+
+    def rows(self, existing: Sequence[ExistingNode]) -> np.ndarray:
+        """Union row index per ExistingNode (identity-keyed on .node)."""
+        # identity-keyed lookup in caller-supplied order — see add_nodes
+        return np.fromiter((self._index[id(en.node)] for en in existing),
+                           dtype=np.int64, count=len(existing))
+
+    def group_ok(self, rep: Pod) -> np.ndarray:
+        """Usable ∧ requirements-matched ∧ taints-tolerated over the
+        union, cached per pod equivalence class."""
+        gid = rep.scheduling_group_id()
+        ok = self._group_ok.get(gid)
+        if ok is None:
+            ok = _eval_requirements(rep.requirements, self.vocab,
+                                    self.matrices, len(self._nodes))
+            ok = ok & self.usable
+            for i in self._tainted:
+                if ok[i] and not tolerates_all(self._nodes[i].taints,
+                                               rep.tolerations):
+                    ok[i] = False
+            self._group_ok[gid] = ok
+        return ok
+
+
+class SweepTopologyTables:
+    """Per-class topology tables for the consolidation sweep's HEAVY lane.
+
+    The sweep's whole point is that per-simulation host work stays O(pods),
+    never O(cluster): the shared snapshot's per-node facts upload once.
+    Topology-constrained pods used to hole out to the generic batched path
+    (paying the per-sim [E,*] encode the sweep exists to kill); this class
+    precomputes, ONCE per sweep, everything their kernel tensors need —
+    per-(selector, key) per-node matching-resident counts, per-class
+    hostname clamps, eligible-domain masks — so a simulation's dynamic
+    tensors (dbase/dcap after ITS exclusions) are O(X) arithmetic.
+
+    Supported per-class shapes mirror the kernel's dynamic machinery
+    (_solve_ffd_impl's heavy branch): at most ONE dynamic self-matching
+    zone/capacity-type term (DoNotSchedule spread with maxSkew/minDomains,
+    or required anti-affinity), plus self-matching hostname spread/anti as
+    ncap + per-node clamps.  Everything else raises `Unsupported` and the
+    simulation stays a hole for the generic path: non-self-match selectors
+    (static allowed-set math), required co-location (seed pin needs
+    per-sim state), preferences (host relaxation ladder).
+    """
+
+    def __init__(self, base: Sequence, zone_arr: np.ndarray,
+                 ct_arr: np.ndarray, zone_ids: Dict[str, int],
+                 ct_ids: Dict[str, int]):
+        self.base = base
+        self.zone_arr = zone_arr          # [E] zone id per snapshot node
+        self.ct_arr = ct_arr              # [E] ct id per snapshot node
+        self.zone_ids = zone_ids
+        self.ct_ids = ct_ids
+        self.D = max(len(zone_ids), len(ct_ids), 1)
+        self.E = len(base)
+        self._counts: Dict[tuple, np.ndarray] = {}
+        self._class_topo: Dict[int, dict] = {}
+        # resident required-anti index (ONE scan): (key, selector) →
+        # [E] bool, node holds a resident whose required anti-affinity
+        # carries that (key, selector).  Classes matched by a selector
+        # get those nodes'/domains' placements blocked (the oracle's
+        # symmetric_anti_blocked_domains, sweep-shaped) — without this,
+        # one anti-affinity pod anywhere in the cluster would disable
+        # the whole sweep.
+        self._res_anti: Dict[tuple, np.ndarray] = {}
+        for ei, en in enumerate(base):
+            for p in en.pods:
+                for t in p.pod_affinities:
+                    if not (t.required and t.anti):
+                        continue
+                    k = (t.topology_key,
+                         tuple(sorted(t.label_selector.items())))
+                    flags = self._res_anti.get(k)
+                    if flags is None:
+                        flags = np.zeros(self.E, dtype=bool)
+                        self._res_anti[k] = flags
+                    flags[ei] = True
+
+    def counts_per_node(self, selector: Dict[str, str]) -> np.ndarray:
+        """Matching resident pods per snapshot node ([E] i32), cached per
+        selector — the one O(cluster) scan, paid once per distinct
+        selector per sweep."""
+        key = tuple(sorted(selector.items()))
+        out = self._counts.get(key)
+        if out is None:
+            out = np.zeros(self.E, dtype=np.int32)
+            for ei, en in enumerate(self.base):
+                out[ei] = sum(1 for p in en.pods
+                              if _matches(selector, p.meta.labels))
+            self._counts[key] = out
+        return out
+
+    def _dom_total(self, counts: np.ndarray, dom_arr: np.ndarray) -> np.ndarray:
+        total = np.zeros(self.D, dtype=np.int32)
+        valid = dom_arr >= 0
+        np.add.at(total, dom_arr[valid], counts[valid])
+        return total
+
+    def class_topo(self, rep: Pod) -> dict:
+        """Class-level topology info (cached): static parts of the kernel
+        tensors plus the per-node count arrays the per-sim math needs.
+        Raises Unsupported for shapes the sweep can't express."""
+        gid = rep.scheduling_group_id()
+        info = self._class_topo.get(gid)
+        if info is not None:
+            if isinstance(info, Unsupported):
+                raise info
+            return info
+        try:
+            info = self._build_class_topo(rep)
+        except Unsupported as e:
+            self._class_topo[gid] = e
+            raise
+        self._class_topo[gid] = info
+        return info
+
+    def _build_class_topo(self, rep: Pod) -> dict:
+        my = rep.meta.labels
+        ncap = BIG
+        hostcap = np.full(self.E, BIG, dtype=np.int32)
+        dyn = None  # (key, dsel, anti flag, selector, skew, mindom)
+
+        def set_dyn(key, anti, sel, skew=BIG, mindom=0):
+            nonlocal dyn
+            if dyn is not None:
+                raise Unsupported("multiple dynamic topology terms")
+            dsel = 1 if key == wellknown.ZONE_LABEL else 2
+            dyn = dict(key=key, dsel=dsel, anti=anti, selector=dict(sel),
+                       skew=skew, mindom=mindom)
+
+        for c in rep.topology_spread:
+            if c.when_unsatisfiable != "DoNotSchedule":
+                continue  # best-effort never blocks (encoder parity)
+            key = c.topology_key
+            if key not in _TOPO_KEYS:
+                raise Unsupported(f"spread topology key {key}")
+            if not _matches(c.label_selector, my):
+                raise Unsupported("non-self-match spread in sweep")
+            counts = self.counts_per_node(c.label_selector)
+            if key == wellknown.HOSTNAME_LABEL:
+                ncap = min(ncap, c.max_skew)
+                hostcap = np.minimum(hostcap,
+                                     np.maximum(c.max_skew - counts, 0))
+            else:
+                set_dyn(key, False, c.label_selector, skew=c.max_skew,
+                        mindom=c.min_domains or 0)
+        for t in rep.pod_affinities:
+            if not t.required:
+                continue
+            if not t.anti:
+                raise Unsupported("required co-location in sweep")
+            key = t.topology_key
+            if key not in _TOPO_KEYS:
+                raise Unsupported(f"affinity topology key {key}")
+            if not _matches(t.label_selector, my):
+                raise Unsupported("non-self-match anti in sweep")
+            counts = self.counts_per_node(t.label_selector)
+            if key == wellknown.HOSTNAME_LABEL:
+                ncap = min(ncap, 1)
+                hostcap = np.minimum(hostcap, np.maximum(1 - counts, 0))
+            else:
+                set_dyn(key, True, t.label_selector)
+
+        # symmetric anti: resident required-anti terms whose selector
+        # matches THIS class block the holding node (hostname key) or the
+        # holding node's domain (zone/ct key) — per-sim, because an
+        # excluded node's residents stop blocking
+        sym_key = None
+        sym_flags = None
+        for (key, sel_t), flags in self._res_anti.items():
+            if not _matches(dict(sel_t), my):
+                continue
+            if key == wellknown.HOSTNAME_LABEL:
+                hostcap = np.where(flags, 0, hostcap).astype(np.int32)
+            elif key in _DOM_KEYS:
+                if sym_key is not None and sym_key != key:
+                    raise Unsupported(
+                        "symmetric anti on two domain keys")
+                sym_key = key
+                sym_flags = (flags if sym_flags is None
+                             else (sym_flags | flags))
+            else:
+                raise Unsupported(f"symmetric anti-affinity on {key}")
+        if sym_key is not None:
+            if dyn is None:
+                # borrow the dynamic slot: dcap 0 on blocked domains,
+                # skew unbounded — pure domain blocking
+                set_dyn(sym_key, True, {})
+                dyn["counts"] = np.zeros(self.E, dtype=np.int32)
+                dyn["sym_only"] = True
+            elif dyn["key"] != sym_key:
+                raise Unsupported(
+                    "symmetric anti key differs from dynamic key")
+            dyn["sym_flags"] = sym_flags
+
+        delig = np.zeros(self.D, dtype=bool)
+        dsel = 0
+        if dyn is not None:
+            dsel = dyn["dsel"]
+            ids = (self.zone_ids if dyn["dsel"] == 1 else self.ct_ids)
+            req = rep.requirements.get(dyn["key"])
+            for d, i in ids.items():
+                if req is None or req.matches(d):
+                    delig[i] = True
+            dom_arr = self.zone_arr if dyn["dsel"] == 1 else self.ct_arr
+            if "counts" not in dyn:
+                dyn["counts"] = self.counts_per_node(dyn["selector"])
+            dyn["dom_total"] = self._dom_total(dyn["counts"], dom_arr)
+            dyn["dom_arr"] = dom_arr
+            if dyn.get("sym_flags") is not None:
+                dyn["sym_idx"] = np.nonzero(dyn["sym_flags"])[0]
+        return dict(ncap=ncap, hostcap=hostcap, dyn=dyn, dsel=dsel,
+                    delig=delig)
+
+    def sim_tensors(self, info: dict, excl: Sequence[int]):
+        """(dbase, dcap) for ONE simulation: the class totals minus the
+        excluded nodes' contributions, plus symmetric-anti domain
+        blocking over the KEPT flagged nodes — O(X + flagged), never
+        O(E)."""
+        dbase = np.zeros(self.D, dtype=np.int32)
+        dcap = np.full(self.D, BIG, dtype=np.int32)
+        dyn = info["dyn"]
+        if dyn is None:
+            return dbase, dcap
+        after = dyn["dom_total"].copy()
+        for e in excl:
+            if 0 <= e < self.E:
+                d = dyn["dom_arr"][e]
+                if d >= 0:
+                    after[d] -= dyn["counts"][e]
+        if dyn.get("sym_only"):
+            pass  # pure symmetric blocking: no own-term counts
+        elif dyn["anti"]:
+            # at most one matching pod per domain (encoder parity:
+            # dcap = 1 - counts, dbase untouched)
+            dcap = np.maximum(1 - after, 0).astype(np.int32)
+        else:
+            dbase = after
+        if dyn.get("sym_flags") is not None:
+            excl_set = set(int(e) for e in excl)
+            for e in dyn["sym_idx"]:
+                if int(e) not in excl_set:
+                    d = dyn["dom_arr"][e]
+                    if d >= 0:
+                        dcap[d] = 0
+        return dbase, dcap
+
+
 class _TopologyEncoder:
     """Classifies each group's spread / (anti-)affinity constraints and
     produces the kernel's topology tensors; raises `Unsupported` for shapes
@@ -491,7 +849,9 @@ class _TopologyEncoder:
     """
 
     def __init__(self, inp: ScheduleInput, cat: "CatalogEncoding",
-                 groups: List[List[Pod]], split_mode: bool = False):
+                 groups: List[List[Pod]], split_mode: bool = False,
+                 shared: Optional[SharedExistEncoding] = None,
+                 shared_rows: Optional[np.ndarray] = None):
         # split mode: groups that raise Unsupported become host-side
         # residue solved AFTER the device solve, so the victim-side
         # coupling check (another pending group's anti matching this one)
@@ -505,11 +865,16 @@ class _TopologyEncoder:
         # seeding the tracker walks every resident pod — skip it entirely
         # when no pending pod carries a constraint and no resident pod
         # carries required anti-affinity (the only way existing state can
-        # constrain unconstrained pods).
+        # constrain unconstrained pods). This keeps consolidation's batched
+        # per-candidate encodes O(pods), not O(cluster).
         has_constraints = any(
             g[0].topology_spread or g[0].pod_affinities for g in groups)
-        self.active = has_constraints or any(
-            _has_required_anti(en.pods) for en in inp.existing_nodes)
+        if shared is not None:
+            self.active = has_constraints or shared.res_anti_any(
+                inp.existing_nodes, shared_rows)
+        else:
+            self.active = has_constraints or any(
+                _has_required_anti(en.pods) for en in inp.existing_nodes)
         self.tracker = TopologyTracker()
         if self.active:
             for en in inp.existing_nodes:
@@ -524,23 +889,30 @@ class _TopologyEncoder:
                 wellknown.CAPACITY_TYPE_LABEL,
                 {c.capacity_type for c in cat.columns})
         # domain vocab: catalog ids first (stable across calls), existing-node
-        # domains appended per call
+        # domains appended per call (union-wide when a batch cache is shared,
+        # so every simulation in the batch agrees on D)
         self.existing = inp.existing_nodes
-        self.zone_ids = dict(cat.zone_ids)
-        self.ct_ids = dict(cat.ct_ids)
-        for en in inp.existing_nodes:
-            z = en.node.labels.get(wellknown.ZONE_LABEL)
-            if z is not None:
-                self.zone_ids.setdefault(z, len(self.zone_ids))
-            t = en.node.labels.get(wellknown.CAPACITY_TYPE_LABEL)
-            if t is not None:
-                self.ct_ids.setdefault(t, len(self.ct_ids))
-        self.exist_zone = np.array(
-            [self.zone_ids.get(en.node.labels.get(wellknown.ZONE_LABEL), -1)
-             for en in self.existing], dtype=np.int32).reshape(len(self.existing))
-        self.exist_ct = np.array(
-            [self.ct_ids.get(en.node.labels.get(wellknown.CAPACITY_TYPE_LABEL), -1)
-             for en in self.existing], dtype=np.int32).reshape(len(self.existing))
+        if shared is not None:
+            self.zone_ids = shared.zone_ids
+            self.ct_ids = shared.ct_ids
+            self.exist_zone = shared.zone[shared_rows]
+            self.exist_ct = shared.ct[shared_rows]
+        else:
+            self.zone_ids = dict(cat.zone_ids)
+            self.ct_ids = dict(cat.ct_ids)
+            for en in inp.existing_nodes:
+                z = en.node.labels.get(wellknown.ZONE_LABEL)
+                if z is not None:
+                    self.zone_ids.setdefault(z, len(self.zone_ids))
+                t = en.node.labels.get(wellknown.CAPACITY_TYPE_LABEL)
+                if t is not None:
+                    self.ct_ids.setdefault(t, len(self.ct_ids))
+            self.exist_zone = np.array(
+                [self.zone_ids.get(en.node.labels.get(wellknown.ZONE_LABEL), -1)
+                 for en in self.existing], dtype=np.int32).reshape(len(self.existing))
+            self.exist_ct = np.array(
+                [self.ct_ids.get(en.node.labels.get(wellknown.CAPACITY_TYPE_LABEL), -1)
+                 for en in self.existing], dtype=np.int32).reshape(len(self.existing))
         self.group_labels = [g[0].meta.labels for g in groups]
         # gang units: per-group gang specs + the gang-name →
         # group-index map for the heterogeneous-gang check (two pod
@@ -963,13 +1335,18 @@ def group_column_mask(cat: "CatalogEncoding", rep: Pod):
 
 def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
            groups: Optional[List[List[Pod]]] = None,
-           split: bool = False) -> EncodedProblem:
+           split: bool = False,
+           exist_shared: Optional[SharedExistEncoding] = None
+           ) -> EncodedProblem:
     """split=False: raise Unsupported on the first inexpressible group
     (caller falls back wholesale).  split=True: collect inexpressible
     groups into `.residue` and encode the rest — the solver runs the
     device kernel on the supported majority and hands only the residue to
     the host oracle (a 50k-pod problem with one affinity pod must not
-    abandon the device)."""
+    abandon the device).  exist_shared: a frozen per-batch union cache of
+    existing-node encodings (the consolidation sweep's simulations share
+    one snapshot's node objects, so the per-simulation node work collapses
+    to row gathers)."""
     cat = cat or encode_catalog(inp)
     if any(en.charge_pool is not None for en in inp.existing_nodes):
         # synthetic claim-nodes (split/rescue augment outputs) charge the
@@ -989,15 +1366,21 @@ def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
     E = len(inp.existing_nodes)
     G = len(groups)
 
-    topo = _TopologyEncoder(inp, cat, groups, split_mode=split)
+    shared_rows = (exist_shared.rows(inp.existing_nodes)
+                   if exist_shared is not None else None)
+    topo = _TopologyEncoder(inp, cat, groups, split_mode=split,
+                            shared=exist_shared, shared_rows=shared_rows)
     D = topo.D
 
-    # existing-node labels (hostnames are per-node-unique) go into a
-    # per-call vocab so node churn can't grow the cached catalog vocab
-    exist_vocab = _Vocab()
-    exist_keys = sorted({k for en in inp.existing_nodes for k in en.node.labels})
-    exist_matrices = _label_matrix(
-        exist_vocab, exist_keys, [en.node.labels for en in inp.existing_nodes])
+    if exist_shared is None:
+        # existing-node labels (hostnames are per-node-unique) go into a
+        # per-call vocab so node churn can't grow the cached catalog vocab
+        exist_vocab = _Vocab()
+        exist_keys = sorted({k for en in inp.existing_nodes
+                             for k in en.node.labels})
+        exist_matrices = _label_matrix(
+            exist_vocab, exist_keys,
+            [en.node.labels for en in inp.existing_nodes])
 
     group_req = np.zeros((G, R), dtype=np.float32)
     group_count = np.zeros(G, dtype=np.int32)
@@ -1020,12 +1403,16 @@ def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
 
     def exist_avail() -> np.ndarray:
         """[E, R] remaining capacity, built once on first use — the same
-        rows the kernel's exist fill sees, so the whole-node verdicts can't
-        disagree with the fill."""
+        rows the kernel's exist fill sees (shared snapshot when present),
+        so the whole-node verdicts can't disagree with the fill."""
         if _avail_rows[0] is None:
-            _avail_rows[0] = np.array(
-                [en.available.v for en in inp.existing_nodes],
-                dtype=np.float32).reshape(E, R)
+            if exist_shared is not None:
+                _avail_rows[0] = exist_shared.exist_remaining(
+                    inp.existing_nodes, shared_rows)
+            else:
+                _avail_rows[0] = np.array(
+                    [en.available.v for en in inp.existing_nodes],
+                    dtype=np.float32).reshape(E, R)
         return _avail_rows[0]
 
     pool_col = cat.col_pool
@@ -1085,8 +1472,12 @@ def encode(inp: ScheduleInput, cat: Optional[CatalogEncoding] = None,
         merged_reqs.append(merged_per_pool)
 
         if E:
-            ok = exist_group_ok(rep, exist_vocab, exist_matrices,
-                                inp.existing_nodes)
+            if exist_shared is not None:
+                # union verdict cached per pod class; usable+taints folded in
+                ok = exist_shared.group_ok(rep)[shared_rows]
+            else:
+                ok = exist_group_ok(rep, exist_vocab, exist_matrices,
+                                    inp.existing_nodes)
             cap_row = np.where(ok, t["ecap"], 0).astype(np.int32)
             # static topology domain restrictions → per-node allowance
             for key, (_, ex_ids) in dom_arrays.items():

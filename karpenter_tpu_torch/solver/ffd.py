@@ -3,43 +3,49 @@
 The JAX reference (`karpenter_tpu/solver/ffd.py` `_solve_ffd_impl`) is one
 jitted `lax.scan` over pod equivalence classes; each step takes the light
 branch (no zone/capacity-type domain constraint) or the heavy one
-(`lax.cond(dsel > 0, heavy, light)`).  This module runs the scan for every
-class without a gang as hand-written CUDA kernels:
+(`lax.cond(dsel > 0, heavy, light)`).  Its batched entry points vmap that
+scan over many problems.  This module runs them as hand-written CUDA
+kernels, one thread block per problem:
 
-  * ``light_scan`` (K1, `csrc/ffd_light_scan.cu`): the whole G-step scan
-    of a problem whose classes are all light, in one launch; writes the
-    dense result rows straight into the flat result buffer and leaves the
-    final pool budgets in a small carry.
-  * ``topo_scan`` (K3, `csrc/ffd_topo_scan.cu`): the same scan with the
-    heavy step — per-domain water-fill quotas, domain-pinned fills — for
-    problems with at least one domain class; light classes take K1's step.
+  * ``batch_scan`` (K5, `csrc/ffd_batch_scan.cu`): the scan over B stacked
+    problems that share a catalog (`_solve_ffd_batch_impl`, the
+    consolidation simulator's generic path); one solve is the B=1 launch.
+  * ``sweep_scan`` / ``sweep_topo_scan`` (K4, `csrc/ffd_sweep_scan.cu`,
+    the light and the heavy lane): the scan over B simulations of one
+    cluster snapshot (`_solve_ffd_sweep_impl`, `_solve_ffd_sweep_topo_impl`)
+    — each simulation excludes a few existing nodes, gathers its classes'
+    column masks and per-node caps from shared tables and caps the column
+    price.
   * ``pack`` (K2, `csrc/ffd_pack.cu`): the explain=1 elimination counts,
     topology class included, from the scan's final state, at the offsets
     `unpack` expects.
 
-`solve_ffd` launches K3 when any class has a domain constraint, K1
-otherwise.  Beside each kernel sits its plain PyTorch version
-(``light_scan_reference``, ``topo_scan_reference``, ``pack_reference``), a
-transcription of the reference with a Python loop over groups and pools;
-the two scan versions share one light step.  A wrapper runs the kernel
-for a CUDA tensor and the plain version for a CPU tensor; there is no
-fallback from one to the other.  Each wrapper counts its kernel launches
-in ``.launches``.
+With ``sparse_k`` > 0 the scans also compact each group's take_exist row
+into K (count, index) pairs, the reference's prefix-rank scatter.  Beside
+each kernel sits its plain PyTorch version (``batch_scan_reference``,
+``sweep_scan_reference``, ``sweep_topo_scan_reference``,
+``pack_reference``), a transcription of the reference with a Python loop
+over problems, groups and pools; every scan shares one light and one heavy
+step.  A wrapper runs the kernel for a CUDA tensor and the plain version
+for a CPU tensor; there is no fallback from one to the other.  Each
+wrapper counts its kernel launches in ``.launches``.
 
-The flat result buffer has exactly the reference's layout (ffd.py:1258):
+The flat result buffer of one problem has exactly the reference's layout
+(ffd.py:1258):
 
-    take_exist G*E | take_new G*N
-    | unsched G | dom_placed G*D | used N*R | node_pool N | node_zone N
-    | node_ct N | num_active 1 | [explain: counts G*5, bits G]
+    take_exist G*E  (sparse_k: counts G*K | indices G*K)
+    | take_new G*N | unsched G | dom_placed G*D | used N*R | node_pool N
+    | node_zone N | node_ct N | num_active 1 | [explain: counts G*5, bits G]
 
 (always the dense take_new rows: the reference's top-K take_new
 compaction saves device-to-host bytes on a TPU link and bought nothing
-on the card) and `unpack` splits it into the same named host arrays.
+on the card); a batch is B such buffers, one row each, and `unpack`
+splits a row into the same named host arrays.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,8 +57,10 @@ from karpenter_tpu_torch.solver.explain import EPS, KERNEL_CONSTRAINTS
 R = len(RESOURCE_AXIS)
 EXPLAIN_C = len(KERNEL_CONSTRAINTS)
 _CAP = 2 ** 30  # _fit_count's ceiling (ffd.py:116)
+BIG = 2 ** 29  # the encoder's "unbounded" cap (encode.BIG)
 MAX_POOLS = 64  # the kernels' pool-axis capacity (csrc MAXP)
 MAX_DOMAINS = 128  # the kernels' domain-axis capacity (csrc MAXD)
+MAX_EXCLUDED = 8  # the sweep kernels' exclusions per simulation (csrc MAXX)
 
 
 # -- tensors -----------------------------------------------------------------
@@ -85,7 +93,7 @@ class FFDCatalog:
 
 @dataclass
 class FFDProblem:
-    """The per-solve half of the kernel arguments."""
+    """The per-solve half of the kernel arguments, for one problem."""
     group_req: torch.Tensor        # [G, R] f32
     group_count: torch.Tensor      # [G] i32
     mask_bits: torch.Tensor        # [G, W] i32, bit o%32 of word o//32
@@ -102,38 +110,120 @@ class FFDProblem:
     group_delig: torch.Tensor      # [G, D] i32 0/1 eligible for skew min
     exist_zone: torch.Tensor       # [E] i32 (-1 = unlabeled)
     exist_ct: torch.Tensor         # [E] i32
-    topology: bool                 # any class with dsel > 0 (K3, not K1)
 
     @property
     def D(self) -> int:
         """The padded domain width of dom_placed."""
-        return self.group_dbase.shape[1]
+        return self.group_dbase.shape[-1]
 
     @property
     def G(self) -> int:
-        return self.group_req.shape[0]
+        return self.group_req.shape[-2]
 
     @property
     def E(self) -> int:
-        return self.exist_remaining.shape[0]
+        return self.exist_remaining.shape[-2]
 
     @property
     def P(self) -> int:
-        return self.pool_limit.shape[0]
+        return self.pool_limit.shape[-2]
+
+
+@dataclass
+class FFDBatch(FFDProblem):
+    """B problems stacked on a leading axis (every field [B, ...]), padded
+    to common G, E, D; they share the catalog (the reference's
+    `_BATCH_AXES`, ffd.py:1483)."""
+
+    @property
+    def B(self) -> int:
+        return self.group_req.shape[0]
+
+    def at(self, b: int) -> FFDProblem:
+        return FFDProblem(*(getattr(self, f.name)[b] for f in fields(self)))
+
+    @classmethod
+    def of(cls, prob: FFDProblem) -> "FFDBatch":
+        """One problem as a batch of one (views)."""
+        return cls(*(getattr(prob, f.name).unsqueeze(0)
+                     for f in fields(prob)))
+
+
+@dataclass
+class SweepShared:
+    """The cluster snapshot a sweep's simulations share (uploaded once):
+    per-class column masks and per-node caps, the existing nodes, and the
+    column prices the per-simulation cap applies to."""
+    class_bits: torch.Tensor       # [C, W] i32 column bits per pod class
+    class_cap: torch.Tensor        # [C, E] i32 per-class per-node allowance
+    exist_remaining: torch.Tensor  # [E, R] f32
+    exist_zone: torch.Tensor       # [E] i32
+    exist_ct: torch.Tensor         # [E] i32
+    col_price: torch.Tensor        # [O] f32, padded with +inf
+
+
+@dataclass
+class SweepBatch:
+    """B simulations of one snapshot (every field [B, ...]).  The heavy
+    lane carries per-simulation topology rows; the light lane has none and
+    runs every group with no node cap and no domain constraint."""
+    group_req: torch.Tensor        # [B, G, R] f32
+    group_count: torch.Tensor      # [B, G] i32
+    group_class: torch.Tensor      # [B, G] i32 row of the class tables
+    exclude_idx: torch.Tensor      # [B, X] i32 excluded rows (-1 = pad)
+    price_cap: torch.Tensor        # [B] f32 (+inf = uncapped)
+    pool_limit: torch.Tensor       # [B, P, R] f32
+    shared: SweepShared
+    group_ncap: Optional[torch.Tensor] = None    # [B, G] i32 (heavy)
+    group_dsel: Optional[torch.Tensor] = None    # [B, G] i32
+    group_dbase: Optional[torch.Tensor] = None   # [B, G, D] i32
+    group_dcap: Optional[torch.Tensor] = None    # [B, G, D] i32
+    group_skew: Optional[torch.Tensor] = None    # [B, G] i32
+    group_mindom: Optional[torch.Tensor] = None  # [B, G] i32
+    group_delig: Optional[torch.Tensor] = None   # [B, G, D] i32 0/1
+
+    @property
+    def heavy(self) -> bool:
+        return self.group_dsel is not None
+
+    @property
+    def B(self) -> int:
+        return self.group_req.shape[0]
+
+    @property
+    def G(self) -> int:
+        return self.group_req.shape[1]
+
+    @property
+    def E(self) -> int:
+        return self.shared.exist_remaining.shape[0]
+
+    @property
+    def P(self) -> int:
+        return self.pool_limit.shape[1]
+
+    @property
+    def D(self) -> int:
+        return self.group_dbase.shape[2] if self.heavy else 1
+
+    @property
+    def X(self) -> int:
+        return self.exclude_idx.shape[1]
 
 
 def pack_mask_bits(mask: np.ndarray, O: int) -> np.ndarray:
-    """[G, O] bool, or [G, ceil(O/8)] uint8 already packed with
-    np.packbits(bitorder="little"), → [G, ceil(O/32)] int32 words: bit
+    """[..., O] bool, or [..., ceil(O/8)] uint8 already packed with
+    np.packbits(bitorder="little"), → [..., ceil(O/32)] int32 words: bit
     o % 32 of word o // 32 is column o."""
     if mask.dtype != np.uint8:
         assert mask.shape[-1] == O, (mask.shape, O)
         mask = np.packbits(mask.astype(bool), axis=-1, bitorder="little")
     W = (O + 31) // 32
     assert mask.shape[-1] == (O + 7) // 8, (mask.shape, O)
-    out = np.zeros((mask.shape[0], W * 4), np.uint8)
-    out[:, :mask.shape[-1]] = mask
-    return out.view("<u4").view(np.int32).reshape(mask.shape[0], W)
+    lead = mask.shape[:-1]
+    out = np.zeros(lead + (W * 4,), np.uint8)
+    out[..., :mask.shape[-1]] = mask
+    return out.view("<u4").view(np.int32).reshape(lead + (W,))
 
 
 def _upload(arrays: Sequence[np.ndarray],
@@ -151,6 +241,13 @@ def _upload(arrays: Sequence[np.ndarray],
         buf = host.pin_memory().to(device, non_blocking=True)
     else:
         buf = host.to(device)
+    return typed_views(buf, arrays)
+
+
+def typed_views(buf: torch.Tensor,
+                arrays: Sequence[np.ndarray]) -> Tuple[torch.Tensor, ...]:
+    """Views of the int32 buffer `buf` holding `arrays` back to back, each
+    with its array's shape and 4-byte type."""
     out, off = [], 0
     for a in arrays:
         n = int(np.prod(a.shape))
@@ -186,12 +283,11 @@ def catalog_tensors(cat_arrays: Dict, device) -> FFDCatalog:
     return cat
 
 
-def problem_tensors(prob: Sequence[np.ndarray], O: int,
-                    device) -> FFDProblem:
-    """The reference's 17-slot `_problem_args` tuple (numpy, padded;
-    slot 2 a [G, O] bool mask or its packed [G, ceil(O/8)] bytes) as the
-    scan's device arguments, in one host→device copy.  Rejects what no
-    ported scan runs: gangs and the 18-slot priority-band form."""
+def problem_arrays(prob: Sequence[np.ndarray], O: int) -> list:
+    """The reference's 17-slot `_problem_args` tuple (numpy, padded; slot
+    2 a [G, O] bool mask or its packed [G, ceil(O/8)] bytes) as the
+    scan's 16 host arrays in FFDProblem order.  Rejects what no ported
+    scan runs: gangs and the 18-slot priority-band form."""
     if len(prob) != 17:
         raise ValueError("priority-band problems (18 slots) are not "
                          "supported by the scan")
@@ -201,25 +297,72 @@ def problem_tensors(prob: Sequence[np.ndarray], O: int,
      exist_zone, exist_ct) = prob
     if np.asarray(group_gang).any():
         raise ValueError("gang groups need the gang fill, not the scan")
-    group_dsel = np.asarray(group_dsel, np.int32)
-    t = _upload([np.asarray(group_req, np.float32),
-                 np.asarray(group_count, np.int32),
-                 pack_mask_bits(np.asarray(group_mask), O),
-                 np.asarray(exist_cap, np.int32),
-                 np.asarray(exist_remaining, np.float32),
-                 np.asarray(pool_limit, np.float32),
-                 np.asarray(group_ncap, np.int32),
-                 np.asarray(group_whole).astype(np.int32),
-                 group_dsel,
-                 np.asarray(group_dbase, np.int32),
-                 np.asarray(group_dcap, np.int32),
-                 np.asarray(group_skew, np.int32),
-                 np.asarray(group_mindom, np.int32),
-                 np.asarray(group_delig).astype(np.int32),
-                 np.asarray(exist_zone, np.int32),
-                 np.asarray(exist_ct, np.int32)],
-                torch.device(device))
-    return FFDProblem(*t, topology=bool((group_dsel > 0).any()))
+    return [np.asarray(group_req, np.float32),
+            np.asarray(group_count, np.int32),
+            pack_mask_bits(np.asarray(group_mask), O),
+            np.asarray(exist_cap, np.int32),
+            np.asarray(exist_remaining, np.float32),
+            np.asarray(pool_limit, np.float32),
+            np.asarray(group_ncap, np.int32),
+            np.asarray(group_whole).astype(np.int32),
+            np.asarray(group_dsel, np.int32),
+            np.asarray(group_dbase, np.int32),
+            np.asarray(group_dcap, np.int32),
+            np.asarray(group_skew, np.int32),
+            np.asarray(group_mindom, np.int32),
+            np.asarray(group_delig).astype(np.int32),
+            np.asarray(exist_zone, np.int32),
+            np.asarray(exist_ct, np.int32)]
+
+
+def problem_tensors(prob: Sequence[np.ndarray], O: int,
+                    device) -> FFDProblem:
+    """One 17-slot problem tuple as the scan's device arguments, in one
+    host→device copy."""
+    return FFDProblem(*_upload(problem_arrays(prob, O),
+                               torch.device(device)))
+
+
+def batch_tensors(probs: Sequence[Sequence[np.ndarray]], O: int, device,
+                  upload=_upload) -> FFDBatch:
+    """B problem tuples of common padded shapes, stacked, as the batched
+    scan's device arguments, in one host→device copy (`upload`, the
+    pipeline's staging buffers when it runs)."""
+    per = [problem_arrays(p, O) for p in probs]
+    stacked = [np.stack(parts) for parts in zip(*per)]
+    return FFDBatch(*upload(stacked, torch.device(device)))
+
+
+SWEEP_ROWS = ("group_req", "group_count", "group_class", "exclude_idx",
+              "price_cap", "pool_limit")
+SWEEP_TOPO_ROWS = ("group_ncap", "group_dsel", "group_dbase", "group_dcap",
+                   "group_skew", "group_mindom", "group_delig")
+_F32_ROWS = ("group_req", "price_cap", "pool_limit")
+
+
+def sweep_shared_tensors(shared: Dict, O: int, device) -> SweepShared:
+    """A sweep's snapshot (numpy: class_mask [C, O] bool, class_cap,
+    exist_remaining, exist_zone, exist_ct, col_price) on `device`, the
+    class masks as column bits, in one host→device copy."""
+    return SweepShared(*_upload([
+        pack_mask_bits(np.asarray(shared["class_mask"]), O),
+        np.asarray(shared["class_cap"], np.int32),
+        np.asarray(shared["exist_remaining"], np.float32),
+        np.asarray(shared["exist_zone"], np.int32),
+        np.asarray(shared["exist_ct"], np.int32),
+        np.asarray(shared["col_price"], np.float32)], torch.device(device)))
+
+
+def sweep_tensors(rows: Dict, shared: SweepShared, device,
+                  upload=_upload) -> SweepBatch:
+    """B simulations' rows (numpy, SWEEP_ROWS and, for the heavy lane,
+    SWEEP_TOPO_ROWS) on `device` in one host→device copy (`upload`, the
+    pipeline's staging buffers when it runs), against `shared`."""
+    names = SWEEP_ROWS + (SWEEP_TOPO_ROWS if "group_dsel" in rows else ())
+    arrays = [np.asarray(rows[n], np.float32 if n in _F32_ROWS
+                         else np.int32) for n in names]
+    t = upload(arrays, torch.device(device))
+    return SweepBatch(shared=shared, **dict(zip(names, t)))
 
 
 def problem_from_numpy(prob: Sequence[np.ndarray], cat_arrays: Dict,
@@ -231,13 +374,17 @@ def problem_from_numpy(prob: Sequence[np.ndarray], cat_arrays: Dict,
 
 
 # -- the flat result layout ---------------------------------------------------
-def flat_layout(G: int, E: int, N: int, D: int,
-                explain: int = 0) -> Dict[str, Tuple[int, int]]:
-    """(offset, length) of every region of the flat result buffer, plus
-    ("total", n)."""
-    sizes = [("take_exist", G * E), ("take_new", G * N), ("unsched", G),
-             ("dom_placed", G * D), ("used", N * R), ("node_pool", N),
-             ("node_zone", N), ("node_ct", N), ("num_active", 1)]
+def flat_layout(G: int, E: int, N: int, D: int, explain: int = 0,
+                sparse_k: int = 0) -> Dict[str, Tuple[int, int]]:
+    """(offset, length) of every region of one problem's flat result
+    buffer, plus ("total", n).  With `sparse_k` the take_exist rows are
+    replaced by K (count, index) pairs per group."""
+    head = ([("te_cnt", G * sparse_k), ("te_idx", G * sparse_k)]
+            if sparse_k else [("take_exist", G * E)])
+    sizes = head + [("take_new", G * N), ("unsched", G),
+                    ("dom_placed", G * D), ("used", N * R),
+                    ("node_pool", N), ("node_zone", N), ("node_ct", N),
+                    ("num_active", 1)]
     if explain:
         sizes += [("explain_counts", G * EXPLAIN_C), ("explain_bits", G)]
     out, off = {}, 0
@@ -249,8 +396,10 @@ def flat_layout(G: int, E: int, N: int, D: int,
 
 
 def _region(flat: torch.Tensor, lay: Dict, name: str) -> torch.Tensor:
+    """Region `name` of a flat buffer: [n] of one problem's row, or
+    [B, n] of a batch's [B, total] buffer."""
     off, n = lay[name]
-    return flat[off:off + n]
+    return flat[..., off:off + n]
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -763,11 +912,13 @@ class _Scan:
 
 def _scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                     flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
-                    work: Optional[Dict[str, int]], topology: bool) -> None:
-    """The plain scan: per group the light step, or with `topology` the
-    heavy step for a group with dsel > 0 (the reference's
+                    work: Optional[Dict[str, int]], topology: bool,
+                    sparse_k: int = 0) -> None:
+    """The plain scan of one problem: per group the light step, or with
+    `topology` the heavy step for a group with dsel > 0 (the reference's
     `lax.cond(dsel > 0, heavy, light)`, ffd.py:1057).  Writes the
-    kernels' outputs."""
+    kernels' outputs into the problem's flat row; with `sparse_k`, the
+    take_exist rows compacted."""
     f32 = torch.float32
     s = _Scan(prob, cat, N, work)
     dsel = prob.group_dsel.tolist()
@@ -787,7 +938,16 @@ def _scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
         _region(flat, lay, name).copy_(value.reshape(-1).to(f32))
 
     if s.E:
-        put("take_exist", torch.stack(te_rows))
+        te = torch.stack(te_rows).to(f32)
+        if sparse_k:
+            cnt, idx = compact_take_exist(te, sparse_k)
+            put("te_cnt", cnt)
+            put("te_idx", idx)
+        else:
+            put("take_exist", te)
+    elif sparse_k:
+        put("te_cnt", torch.zeros(prob.G * sparse_k))
+        put("te_idx", torch.zeros(prob.G * sparse_k))
     put("take_new", torch.stack(tn_rows))
     put("unsched", torch.stack(un_rows))
     put("dom_placed", torch.stack(dp_rows))
@@ -799,35 +959,120 @@ def _scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
     limits_out.copy_(s.limits)
 
 
-def light_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
+def compact_take_exist(te: torch.Tensor, K: int):
+    """The reference's top-K take_exist compaction (ffd.py:1068-1086):
+    each group's nonzero entries, in index order, ranked by a prefix sum
+    and scattered into K (count, index) slots; empty slots hold (0, 0) and
+    ranks past K are dropped.  `te` [G, E] f32 → ([G, K], [G, K]) f32."""
+    G, E = te.shape
+    nz = te > 0
+    rank = torch.cumsum(nz.to(torch.int64), dim=1) - 1
+    gi, ei = torch.nonzero(nz & (rank < K), as_tuple=True)
+    cnt = torch.zeros((G, K), dtype=torch.float32, device=te.device)
+    idx = torch.zeros((G, K), dtype=torch.float32, device=te.device)
+    cnt[gi, rank[gi, ei]] = te[gi, ei]
+    idx[gi, rank[gi, ei]] = ei.to(torch.float32)
+    return cnt, idx
+
+
+def batch_scan_reference(batch: FFDBatch, cat: FFDCatalog, N: int,
                          flat: torch.Tensor, lay: Dict,
-                         limits_out: torch.Tensor,
+                         limits_out: torch.Tensor, sparse_k: int = 0,
                          work: Optional[Dict[str, int]] = None) -> None:
-    """Plain PyTorch version of K1: `_solve_ffd_impl`'s light branch
-    (ffd.py:460-587) transcribed step for step, a Python loop over groups
-    and pools.  Writes the same outputs as the kernel.
+    """Plain PyTorch version of K5: `_solve_ffd_batch_impl`
+    (ffd.py:1492) — the scan with the heavy branch traced, per problem of
+    the batch, transcribed step for step (a Python loop over problems,
+    groups and pools).  Writes the kernel's outputs, one flat row per
+    problem.
 
-    Given a `work` dict, adds to it what K1 computes on this data: "fit",
-    the R-vector `_fit_count`s, and "test", the R-vector all-fits tests.
-    K1 fits an in-flight node only against the (pool,type) blocks that
-    still hold a surviving column the group admits, and narrows only
-    touched and opened nodes, on the blocks their candidate columns
-    span."""
-    _scan_reference(prob, cat, N, flat, lay, limits_out, work,
-                    topology=False)
+    Given a `work` dict, adds to it what the kernel computes on this
+    data: "fit", the R-vector `_fit_count`s, "test", the R-vector
+    all-fits tests, and "flops", the water-fill's scalar float
+    operations.  The kernel fits an in-flight node only against the
+    (pool,type) blocks that still hold a surviving column the group
+    admits, and narrows only touched and opened nodes, on the blocks
+    their candidate columns span."""
+    for b in range(batch.B):
+        _scan_reference(batch.at(b), cat, N, flat[b], lay, limits_out[b],
+                        work, topology=True, sparse_k=sparse_k)
 
 
-def topo_scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
-                        flat: torch.Tensor, lay: Dict,
-                        limits_out: torch.Tensor,
-                        work: Optional[Dict[str, int]] = None) -> None:
-    """Plain PyTorch version of K3: the whole scan, light or heavy step
-    per group as the reference's `lax.cond` picks.  `work` counts as in
-    `light_scan_reference`; the heavy step adds its per-pool budget fits,
-    the per-(pool, domain) fits of the new-node loop, and the water-fill's
-    scalar float operations under "flops"."""
-    _scan_reference(prob, cat, N, flat, lay, limits_out, work,
-                    topology=True)
+def _bits_of(mask: torch.Tensor) -> torch.Tensor:
+    """[O] bool → [ceil(O/32)] i32 words (bit o%32 of word o//32)."""
+    O = mask.shape[0]
+    W = (O + 31) // 32
+    m = torch.zeros(W * 32, dtype=torch.int64, device=mask.device)
+    m[:O] = mask.to(torch.int64)
+    w = (m.view(W, 32) << torch.arange(32, device=mask.device)).sum(-1)
+    return _w32(w)
+
+
+def _sweep_problem(sw: SweepBatch, b: int) -> FFDProblem:
+    """Simulation b as one problem, as the reference's per-simulation
+    `one` builds it (ffd.py:1570, :1644): the kept existing rows, the
+    class rows of its groups, the price cap on the columns."""
+    sh = sw.shared
+    i32, f32 = torch.int32, torch.float32
+    dev = sw.group_req.device
+    E, G = sw.E, sw.G
+    keep = (torch.arange(E, dtype=i32, device=dev)[None, :]
+            != sw.exclude_idx[b][:, None]).all(dim=0)             # [E]
+    er = sh.exist_remaining * keep[:, None].to(f32)
+    gcls = sw.group_class[b].long()
+    ecap = sh.class_cap[gcls] * keep[None, :].to(i32)
+    pbits = _bits_of(sh.col_price < sw.price_cap[b])
+    mask_bits = sh.class_bits[gcls] & pbits[None, :]
+    zeros_g = torch.zeros(G, dtype=i32, device=dev)
+    if sw.heavy:
+        topo = (sw.group_ncap[b], sw.group_dsel[b], sw.group_dbase[b],
+                sw.group_dcap[b], sw.group_skew[b], sw.group_mindom[b],
+                sw.group_delig[b])
+    else:
+        big_g = torch.full((G,), BIG, dtype=i32, device=dev)
+        topo = (big_g, zeros_g, torch.zeros((G, 1), dtype=i32, device=dev),
+                torch.full((G, 1), BIG, dtype=i32, device=dev), big_g,
+                zeros_g, torch.zeros((G, 1), dtype=i32, device=dev))
+    ncap, dsel, dbase, dcap, skew, mindom, delig = topo
+    return FFDProblem(sw.group_req[b], sw.group_count[b], mask_bits, ecap,
+                      er, sw.pool_limit[b], ncap, zeros_g, dsel, dbase,
+                      dcap, skew, mindom, delig, sh.exist_zone, sh.exist_ct)
+
+
+def _sweep_reference(sw: SweepBatch, cat: FFDCatalog, N: int,
+                     flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
+                     sparse_k: int, work: Optional[Dict[str, int]]) -> None:
+    for b in range(sw.B):
+        _scan_reference(_sweep_problem(sw, b), cat, N, flat[b], lay,
+                        limits_out[b], work, topology=sw.heavy,
+                        sparse_k=sparse_k)
+
+
+def sweep_scan_reference(sw: SweepBatch, cat: FFDCatalog, N: int,
+                         flat: torch.Tensor, lay: Dict,
+                         limits_out: torch.Tensor, sparse_k: int = 0,
+                         work: Optional[Dict[str, int]] = None) -> None:
+    """Plain PyTorch version of K4's light lane: `_solve_ffd_sweep_impl`
+    (ffd.py:1531) — per simulation, the kept existing rows, the gathered
+    class rows and the price cap, then the light scan.  `work` counts as
+    in `batch_scan_reference`."""
+    if sw.heavy:
+        raise ValueError("topology rows need the heavy lane "
+                         "(sweep_topo_scan)")
+    _sweep_reference(sw, cat, N, flat, lay, limits_out, sparse_k, work)
+
+
+def sweep_topo_scan_reference(sw: SweepBatch, cat: FFDCatalog, N: int,
+                              flat: torch.Tensor, lay: Dict,
+                              limits_out: torch.Tensor, sparse_k: int = 0,
+                              work: Optional[Dict[str, int]] = None
+                              ) -> None:
+    """Plain PyTorch version of K4's heavy lane:
+    `_solve_ffd_sweep_topo_impl` (ffd.py:1610) — as the light lane, with
+    per-simulation topology rows and the heavy step for dsel > 0."""
+    if not sw.heavy:
+        raise ValueError("the heavy lane needs per-simulation topology "
+                         "rows")
+    _sweep_reference(sw, cat, N, flat, lay, limits_out, sparse_k, work)
 
 
 def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
@@ -904,9 +1149,27 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def _check_args(prob: FFDProblem, cat: FFDCatalog, N: int,
-                device) -> None:
-    G, E, P, W, D, O = prob.G, prob.E, prob.P, cat.W, prob.D, cat.O
+def _check_catalog(cat: FFDCatalog, P: int, device) -> None:
+    O, W = cat.O, cat.W
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dt, shp in (
+            ("col_alloc", cat.col_alloc, f32, (O, R)),
+            ("col_daemon", cat.col_daemon, f32, (O, R)),
+            ("pt_alloc", cat.pt_alloc, f32, (cat.PT, R)),
+            ("col_pool", cat.col_pool, i32, (O,)),
+            ("pool_daemon", cat.pool_daemon, f32, (P, R)),
+            ("pool_bits", cat.pool_bits, i32, (P, W)),
+            ("col_zone", cat.col_zone, i32, (O,)),
+            ("col_ct", cat.col_ct, i32, (O,))):
+        _check(t, name, dt, shp, device)
+
+
+def _check_problem(prob: FFDProblem, cat: FFDCatalog, N: int,
+                   device) -> None:
+    """Shapes, types, device and contiguity of one problem (FFDProblem) or
+    of a batch (FFDBatch: every shape with its leading B)."""
+    G, E, P, W, D = prob.G, prob.E, prob.P, cat.W, prob.D
+    lead = (prob.B,) if isinstance(prob, FFDBatch) else ()
     f32, i32 = torch.float32, torch.int32
     for name, t, dt, shp in (
             ("group_req", prob.group_req, f32, (G, R)),
@@ -924,39 +1187,75 @@ def _check_args(prob: FFDProblem, cat: FFDCatalog, N: int,
             ("group_mindom", prob.group_mindom, i32, (G,)),
             ("group_delig", prob.group_delig, i32, (G, D)),
             ("exist_zone", prob.exist_zone, i32, (E,)),
-            ("exist_ct", prob.exist_ct, i32, (E,)),
-            ("col_alloc", cat.col_alloc, f32, (O, R)),
-            ("col_daemon", cat.col_daemon, f32, (O, R)),
-            ("pt_alloc", cat.pt_alloc, f32, (cat.PT, R)),
-            ("col_pool", cat.col_pool, i32, (O,)),
-            ("pool_daemon", cat.pool_daemon, f32, (P, R)),
-            ("pool_bits", cat.pool_bits, i32, (P, W)),
-            ("col_zone", cat.col_zone, i32, (O,)),
-            ("col_ct", cat.col_ct, i32, (O,))):
-        _check(t, name, dt, shp, device)
+            ("exist_ct", prob.exist_ct, i32, (E,))):
+        _check(t, name, dt, lead + shp, device)
+    _check_catalog(cat, P, device)
     if N < 1 or G < 1 or D < 1:
         raise ValueError(f"empty problem: G={G}, N={N}, D={D}")
+
+
+def _check_sweep(sw: SweepBatch, cat: FFDCatalog, N: int, device) -> None:
+    B, G, E, P, X, W, D = sw.B, sw.G, sw.E, sw.P, sw.X, cat.W, sw.D
+    f32, i32 = torch.float32, torch.int32
+    sh = sw.shared
+    C = sh.class_bits.shape[0]
+    checks = [
+        ("group_req", sw.group_req, f32, (B, G, R)),
+        ("group_count", sw.group_count, i32, (B, G)),
+        ("group_class", sw.group_class, i32, (B, G)),
+        ("exclude_idx", sw.exclude_idx, i32, (B, X)),
+        ("price_cap", sw.price_cap, f32, (B,)),
+        ("pool_limit", sw.pool_limit, f32, (B, P, R)),
+        ("class_bits", sh.class_bits, i32, (C, W)),
+        ("class_cap", sh.class_cap, i32, (C, E)),
+        ("exist_remaining", sh.exist_remaining, f32, (E, R)),
+        ("exist_zone", sh.exist_zone, i32, (E,)),
+        ("exist_ct", sh.exist_ct, i32, (E,)),
+        ("col_price", sh.col_price, f32, (cat.O,))]
+    if sw.heavy:
+        checks += [
+            ("group_ncap", sw.group_ncap, i32, (B, G)),
+            ("group_dsel", sw.group_dsel, i32, (B, G)),
+            ("group_dbase", sw.group_dbase, i32, (B, G, D)),
+            ("group_dcap", sw.group_dcap, i32, (B, G, D)),
+            ("group_skew", sw.group_skew, i32, (B, G)),
+            ("group_mindom", sw.group_mindom, i32, (B, G)),
+            ("group_delig", sw.group_delig, i32, (B, G, D))]
+    for name, t, dt, shp in checks:
+        _check(t, name, dt, shp, device)
+    _check_catalog(cat, P, device)
+    if N < 1 or G < 1 or B < 1 or C < 1:
+        raise ValueError(f"empty sweep: B={B}, G={G}, N={N}, C={C}")
+    if X > MAX_EXCLUDED:
+        raise ValueError(f"{X} exclusions per simulation: the sweep "
+                         f"kernels take at most {MAX_EXCLUDED}")
+
+
+def _check_outputs(B: int, P: int, flat: torch.Tensor, lay: Dict,
+                   limits_out: torch.Tensor, sparse_k: int) -> None:
+    dev = flat.device
+    _check(flat, "flat", torch.float32, (B, lay["total"][1]), dev)
+    _check(limits_out, "limits_out", torch.float32, (B, P, R), dev)
+    if ("te_cnt" in lay) != (sparse_k > 0) or (
+            sparse_k and lay["te_cnt"][1] != lay["unsched"][1] * sparse_k):
+        raise ValueError(f"the flat layout does not hold sparse_k="
+                         f"{sparse_k} take_exist rows")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _check_outputs(prob: FFDProblem, flat: torch.Tensor, lay: Dict,
-                   limits_out: torch.Tensor) -> None:
-    dev = flat.device
-    _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
-    _check(limits_out, "limits_out", torch.float32, (prob.P, R), dev)
-
-
-def _launch_scan(name: str, prob: FFDProblem, cat: FFDCatalog, N: int,
-                 flat: torch.Tensor, lay: Dict,
-                 limits_out: torch.Tensor) -> None:
-    """Launch K1 or K3: both take the same argument list (K1 never reads
-    the topology arguments)."""
+def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
+                 D: int, X: int, cat: FFDCatalog, flat: torch.Tensor,
+                 lay: Dict, limits_out: torch.Tensor, sparse_k: int,
+                 inputs: Dict[str, Optional[torch.Tensor]]) -> None:
+    """Launch one of the scan kernels (grid: one block per problem) with
+    the argument list every instance takes (ScanArgs order); `inputs`
+    holds the per-problem or per-simulation tensors, None where the
+    instance reads nothing."""
     from karpenter_tpu_torch.solver import _cuda
     dev = flat.device
-    G, E, P, D = prob.G, prob.E, prob.P, prob.D
     W = cat.W
     if P > MAX_POOLS:
         raise ValueError(f"{P} node pools: the kernels take at most "
@@ -964,20 +1263,28 @@ def _launch_scan(name: str, prob: FFDProblem, cat: FFDCatalog, N: int,
     if D > MAX_DOMAINS:
         raise ValueError(f"{D} topology domains: the kernels take at most "
                          f"{MAX_DOMAINS}")
-    scratch_f = torch.empty(E * R + N * R, dtype=torch.float32, device=dev)
-    scratch_i = torch.empty(W * N + 4 * N + E, dtype=torch.int32,
+    # per-block scratch (the scan's carry), one slice per problem
+    scratch_f = torch.empty(B * (E * R + N * R + G * E * (sparse_k > 0)),
+                            dtype=torch.float32, device=dev)
+    scratch_i = torch.empty(B * (W * N + 4 * N + E), dtype=torch.int32,
                             device=dev)
-    exist_rem, used = scratch_f[:E * R], scratch_f[E * R:]
-    colmask = scratch_i[:W * N]
-    rest = scratch_i[W * N:]
-    active, node_pool = rest[:N], rest[N:2 * N]
-    node_zone, node_ct = rest[2 * N:3 * N], rest[3 * N:4 * N]
-    cap_e = rest[4 * N:]
-    reg = lambda name_: _region(flat, lay, name_)  # noqa: E731
+    exist_rem = scratch_f[:B * E * R]
+    used = scratch_f[B * E * R:B * (E * R + N * R)]
+    te_dense = scratch_f[B * (E * R + N * R):] if sparse_k else None
+    colmask = scratch_i[:B * W * N]
+    rest = scratch_i[B * W * N:]
+    active, node_pool = rest[:B * N], rest[B * N:2 * B * N]
+    node_zone, node_ct = rest[2 * B * N:3 * B * N], rest[3 * B * N:4 * B * N]
+    cap_e = rest[4 * B * N:]
+
+    def reg(name):
+        return flat[0, lay[name][0]:] if name in lay else None
+
+    i = inputs
     ptrs = [
-        prob.group_req, prob.group_count, prob.mask_bits, prob.exist_cap,
-        prob.exist_remaining, prob.pool_limit, prob.group_ncap,
-        prob.group_whole,
+        i["group_req"], i["group_count"], i["mask_bits"], i["exist_cap"],
+        i["exist_remaining"], i["pool_limit"], i.get("group_ncap"),
+        i.get("group_whole"),
         cat.col_alloc, cat.col_daemon, cat.pt_alloc, cat.col_pool,
         cat.pool_daemon, cat.pool_bits,
         exist_rem, used, colmask, active, node_pool, cap_e, limits_out,
@@ -985,69 +1292,120 @@ def _launch_scan(name: str, prob: FFDProblem, cat: FFDCatalog, N: int,
         reg("dom_placed"),
         reg("used"), reg("node_pool"), reg("node_zone"), reg("node_ct"),
         reg("num_active"),
-        prob.group_dsel, prob.group_dbase, prob.group_dcap,
-        prob.group_skew, prob.group_mindom, prob.group_delig,
-        prob.exist_zone, prob.exist_ct, cat.col_zone, cat.col_ct,
+        i.get("group_dsel"), i.get("group_dbase"), i.get("group_dcap"),
+        i.get("group_skew"), i.get("group_mindom"), i.get("group_delig"),
+        i["exist_zone"], i["exist_ct"], cat.col_zone, cat.col_ct,
         node_zone, node_ct,
+        i.get("group_class"), i.get("exclude_idx"), i.get("price_cap"),
+        i.get("col_price"), te_dense, reg("te_cnt"),
     ]
-    dims = [G, E, N, cat.O, cat.PT, cat.zc, P, D, W]
+    dims = [G, E, N, cat.O, cat.PT, cat.zc, P, D, W, B, X, sparse_k,
+            lay["total"][1]]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _cuda.launch(name, [_ptr(t) for t in ptrs], dims, stream)
+    _cuda.launch(entry, [_ptr(t) for t in ptrs], dims, stream)
 
 
-def light_scan(prob: FFDProblem, cat: FFDCatalog, N: int,
-               flat: torch.Tensor, lay: Dict,
-               limits_out: torch.Tensor) -> None:
-    """K1: the light FFD scan over all groups.  Writes the flat regions
-    take_exist, take_new, unsched, dom_placed, used, node_pool/zone/ct
-    and num_active, and the final pool budgets into `limits_out`.
-    Refuses a problem with a domain group (that is K3's).  CUDA tensors
-    launch the kernel; CPU tensors run `light_scan_reference`."""
+def batch_scan(batch: FFDBatch, cat: FFDCatalog, N: int,
+               flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
+               sparse_k: int = 0) -> None:
+    """K5: the FFD scan of every problem of `batch` (the heavy step for
+    groups with dsel > 0, the light step for the rest), one flat row each
+    in `flat` [B, total]: take_exist (or its sparse_k compaction),
+    take_new, unsched, dom_placed, used, node_pool/zone/ct and
+    num_active; the final pool budgets in `limits_out` [B, P, R].  CUDA
+    tensors launch the kernel; CPU tensors run `batch_scan_reference`."""
     dev = flat.device
-    _check_args(prob, cat, N, dev)
-    _check_outputs(prob, flat, lay, limits_out)
-    if prob.topology:
-        raise ValueError("zone/capacity-type domain groups need the heavy "
-                         "step: topo_scan (K3), not light_scan (K1)")
+    _check_problem(batch, cat, N, dev)
+    _check_outputs(batch.B, batch.P, flat, lay, limits_out, sparse_k)
     if dev.type != "cuda":
-        light_scan_reference(prob, cat, N, flat, lay, limits_out)
+        batch_scan_reference(batch, cat, N, flat, lay, limits_out, sparse_k)
         return
-    _launch_scan("ffd_light_scan", prob, cat, N, flat, lay, limits_out)
-    light_scan.launches += 1
+    _launch_scan("ffd_batch_scan", batch.B, batch.G, batch.E, N, batch.P,
+                 batch.D, 0, cat, flat, lay, limits_out, sparse_k,
+                 {f.name: getattr(batch, f.name) for f in fields(batch)})
+    batch_scan.launches += 1
 
 
-light_scan.launches = 0
+batch_scan.launches = 0
 
 
-def topo_scan(prob: FFDProblem, cat: FFDCatalog, N: int,
-              flat: torch.Tensor, lay: Dict,
-              limits_out: torch.Tensor) -> None:
-    """K3: the FFD scan with the heavy step for groups with dsel > 0 and
-    the light step for the rest; writes what `light_scan` writes, plus
-    the per-group dom_placed rows and the nodes' zone/capacity-type pins.
-    CUDA tensors launch the kernel; CPU tensors run
-    `topo_scan_reference`."""
+def _sweep_inputs(sw: SweepBatch) -> Dict[str, Optional[torch.Tensor]]:
+    sh = sw.shared
+    out = dict(group_req=sw.group_req, group_count=sw.group_count,
+               mask_bits=sh.class_bits, exist_cap=sh.class_cap,
+               exist_remaining=sh.exist_remaining,
+               pool_limit=sw.pool_limit, exist_zone=sh.exist_zone,
+               exist_ct=sh.exist_ct, group_class=sw.group_class,
+               exclude_idx=sw.exclude_idx, price_cap=sw.price_cap,
+               col_price=sh.col_price)
+    if sw.heavy:
+        out.update(group_ncap=sw.group_ncap, group_dsel=sw.group_dsel,
+                   group_dbase=sw.group_dbase, group_dcap=sw.group_dcap,
+                   group_skew=sw.group_skew, group_mindom=sw.group_mindom,
+                   group_delig=sw.group_delig)
+    return out
+
+
+def sweep_scan(sw: SweepBatch, cat: FFDCatalog, N: int, flat: torch.Tensor,
+               lay: Dict, limits_out: torch.Tensor,
+               sparse_k: int = 0) -> None:
+    """K4, light lane: the scan of every simulation of `sw` against the
+    shared snapshot — its kept existing rows, its classes' column masks
+    under its price cap — every group light; writes what `batch_scan`
+    writes (dom_placed one zero column, node pins -1).  CUDA tensors
+    launch the kernel; CPU tensors run `sweep_scan_reference`."""
     dev = flat.device
-    _check_args(prob, cat, N, dev)
-    _check_outputs(prob, flat, lay, limits_out)
+    _check_sweep(sw, cat, N, dev)
+    _check_outputs(sw.B, sw.P, flat, lay, limits_out, sparse_k)
+    if sw.heavy:
+        raise ValueError("topology rows need the heavy lane "
+                         "(sweep_topo_scan)")
     if dev.type != "cuda":
-        topo_scan_reference(prob, cat, N, flat, lay, limits_out)
+        sweep_scan_reference(sw, cat, N, flat, lay, limits_out, sparse_k)
         return
-    _launch_scan("ffd_topo_scan", prob, cat, N, flat, lay, limits_out)
-    topo_scan.launches += 1
+    _launch_scan("ffd_sweep_scan", sw.B, sw.G, sw.E, N, sw.P, 1, sw.X,
+                 cat, flat, lay, limits_out, sparse_k, _sweep_inputs(sw))
+    sweep_scan.launches += 1
 
 
-topo_scan.launches = 0
+sweep_scan.launches = 0
+
+
+def sweep_topo_scan(sw: SweepBatch, cat: FFDCatalog, N: int,
+                    flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
+                    sparse_k: int = 0) -> None:
+    """K4, heavy lane: as `sweep_scan`, with each simulation's topology
+    rows and the heavy step for its groups with dsel > 0.  CUDA tensors
+    launch the kernel; CPU tensors run `sweep_topo_scan_reference`."""
+    dev = flat.device
+    _check_sweep(sw, cat, N, dev)
+    _check_outputs(sw.B, sw.P, flat, lay, limits_out, sparse_k)
+    if not sw.heavy:
+        raise ValueError("the heavy lane needs per-simulation topology "
+                         "rows")
+    if dev.type != "cuda":
+        sweep_topo_scan_reference(sw, cat, N, flat, lay, limits_out,
+                                  sparse_k)
+        return
+    _launch_scan("ffd_sweep_topo_scan", sw.B, sw.G, sw.E, N, sw.P, sw.D,
+                 sw.X, cat, flat, lay, limits_out, sparse_k,
+                 _sweep_inputs(sw))
+    sweep_topo_scan.launches += 1
+
+
+sweep_topo_scan.launches = 0
 
 
 def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
          lay: Dict, limits: torch.Tensor) -> None:
-    """K2: the explain=1 counts, written into the flat buffer (which must
-    hold them) from the scan's outputs and final pool budgets `limits`.
-    CUDA tensors launch the kernel; CPU tensors run `pack_reference`."""
+    """K2: the explain=1 counts of one problem, written into its flat row
+    (which must hold them) from the scan's outputs and final pool budgets
+    `limits`.  CUDA tensors launch the kernel; CPU tensors run
+    `pack_reference`."""
     dev = flat.device
-    _check_args(prob, cat, N, dev)
-    _check_outputs(prob, flat, lay, limits)
+    _check_problem(prob, cat, N, dev)
+    _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
+    _check(limits, "limits", torch.float32, (prob.P, R), dev)
     if "explain_counts" not in lay:
         raise ValueError("the flat layout holds no explain counts")
     if dev.type != "cuda":
@@ -1076,43 +1434,79 @@ def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
 pack.launches = 0
 
 
-def solve_ffd(prob: FFDProblem, cat: FFDCatalog, max_nodes: int,
-              explain: int = 0) -> torch.Tensor:
-    """One solve: the scan — K3 when any group has a zone/capacity-type
-    domain constraint, K1 otherwise — then, with explain=1, K2.  Returns
-    the flat f32 result buffer on the problem's device (not
+def solve_ffd_batch(batch: FFDBatch, cat: FFDCatalog, max_nodes: int,
+                    explain: int = 0, sparse_k: int = 0) -> torch.Tensor:
+    """The generic batched solve (`solve_ffd_batch`, ffd.py:1514): K5 over
+    the batch, then, with explain=1, K2 for each problem.  Returns the
+    [B, total] f32 result rows on the batch's device (not
     synchronised)."""
     if explain not in (0, 1):
         raise ValueError(f"explain={explain}: the pack computes counts "
                          "(1) or nothing (0)")
-    dev = prob.group_req.device
+    dev = batch.group_req.device
     N = max_nodes
-    lay = flat_layout(prob.G, prob.E, N, prob.D, explain)
-    flat = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
-    limits = torch.empty((prob.P, R), dtype=torch.float32, device=dev)
-    scan = topo_scan if prob.topology else light_scan
-    scan(prob, cat, N, flat, lay, limits)
+    lay = flat_layout(batch.G, batch.E, N, batch.D, explain, sparse_k)
+    flat = torch.empty((batch.B, lay["total"][1]), dtype=torch.float32,
+                       device=dev)
+    limits = torch.empty((batch.B, batch.P, R), dtype=torch.float32,
+                         device=dev)
+    batch_scan(batch, cat, N, flat, lay, limits, sparse_k)
     if explain:
-        pack(prob, cat, N, flat, lay, limits)
+        for b in range(batch.B):
+            pack(batch.at(b), cat, N, flat[b], lay, limits[b])
+    return flat
+
+
+def solve_ffd(prob: FFDProblem, cat: FFDCatalog, max_nodes: int,
+              explain: int = 0) -> torch.Tensor:
+    """One solve: the batched scan at B=1, then, with explain=1, K2.
+    Returns the flat f32 result buffer on the problem's device (not
+    synchronised)."""
+    return solve_ffd_batch(FFDBatch.of(prob), cat, max_nodes, explain)[0]
+
+
+def solve_ffd_sweep(sw: SweepBatch, cat: FFDCatalog, max_nodes: int,
+                    sparse_k: int = 0) -> torch.Tensor:
+    """The consolidation sweep (`solve_ffd_sweep`, ffd.py:1601, or
+    `solve_ffd_sweep_topo` :1668 when `sw` carries topology rows): K4's
+    lane over the simulations.  Returns the [B, total] f32 result rows
+    (not synchronised)."""
+    dev = sw.group_req.device
+    lay = flat_layout(sw.G, sw.E, max_nodes, sw.D, 0, sparse_k)
+    flat = torch.empty((sw.B, lay["total"][1]), dtype=torch.float32,
+                       device=dev)
+    limits = torch.empty((sw.B, sw.P, R), dtype=torch.float32, device=dev)
+    scan = sweep_topo_scan if sw.heavy else sweep_scan
+    scan(sw, cat, max_nodes, flat, lay, limits, sparse_k)
     return flat
 
 
 def unpack(packed, G: int, E: int, N: int, RDIM: int, D: int,
-           explain: int = 0) -> Dict:
-    """Split the flat result buffer into named host arrays (ffd.py:1677,
-    dense take_new rows)."""
+           sparse_k: int = 0, explain: int = 0) -> Dict:
+    """Split one flat result row into named host arrays (ffd.py:1677,
+    dense take_new rows).  With sparse_k the dense [G, E] take_exist rows
+    are rebuilt from the (count, index) pairs; empty slots (count 0) are
+    skipped, so a pad slot's index 0 never clears a real entry."""
     flat = np.asarray(packed)
     if not flat.flags.writeable:
         flat = np.array(flat)
-    lay = flat_layout(G, E, N, D, explain)
+    lay = flat_layout(G, E, N, D, explain, sparse_k)
     assert RDIM == R and flat.shape == (lay["total"][1],), flat.shape
 
     def reg(name):
         off, n = lay[name]
         return flat[off:off + n]
 
+    if sparse_k:
+        cnt = reg("te_cnt").reshape(G, sparse_k)
+        idx = reg("te_idx").reshape(G, sparse_k).astype(np.int64)
+        take_exist = np.zeros((G, E), dtype=flat.dtype)
+        m = cnt > 0
+        take_exist[np.nonzero(m)[0], idx[m]] = cnt[m]
+    else:
+        take_exist = reg("take_exist").reshape(G, E)
     out = dict(
-        take_exist=reg("take_exist").reshape(G, E),
+        take_exist=take_exist,
         take_new=reg("take_new").reshape(G, N),
         unsched=reg("unsched"),
         dom_placed=reg("dom_placed").reshape(G, D),

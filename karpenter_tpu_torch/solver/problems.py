@@ -11,6 +11,13 @@ domain groups (the heavy scan branch) mixed with light ones.  Every float
 is integer-valued (millicores, MiB, counts), as
 encoded requests and capacities are, so the float arithmetic is exact and
 the kernels must agree bit for bit.
+
+`random_batch` stacks B such problems against one catalog (the generic
+batched scan), and `random_sweep` builds a consolidation sweep: a shared
+snapshot (per-class column masks and node caps, existing nodes, column
+prices) and B simulations that each exclude existing rows, pick classes,
+cap the price and budget the pools — light, or with per-simulation
+topology rows for the heavy lane.
 """
 
 from __future__ import annotations
@@ -178,3 +185,96 @@ def random_problem(seed: int, *, G: int = 8, E: int = 16, PT: int = 64,
                col_zone=col_zone, col_ct=col_ct,
                zc=ZC)
     return prob, cat
+
+
+def random_batch(seed: int, B: int, **kw) -> Tuple[list, Dict]:
+    """B problems of common shapes against one catalog: the catalog and
+    problem 0 of `random_problem(seed, **kw)`, then problems of other
+    seeds with the same keyword arguments (their masks admit only real
+    columns, which every catalog of these arguments holds)."""
+    prob0, cat = random_problem(seed, **kw)
+    probs = [prob0] + [random_problem(seed * 1000 + b, **kw)[0]
+                       for b in range(1, B)]
+    return probs, cat
+
+
+def random_sweep(seed: int, B: int, *, C: int = 4, G: int = 2,
+                 E: int = 64, X: int = 2, heavy: bool = False, D: int = 4,
+                 PT: int = 64, ZC: int = 6, P: int = 2,
+                 pod_scale: int = 40, limits: str = "mixed",
+                 capped: float = 0.5) -> Tuple[Dict, Dict, Dict]:
+    """A consolidation sweep: (per-simulation rows, shared snapshot,
+    catalog arrays), numpy.
+
+    The snapshot's C classes, existing rows and catalog are those of
+    `random_problem(seed, G=C, E=E, ...)` (the last class row is padding,
+    as an encoded class table's tail is); columns get prices, +inf on the
+    padding.  Simulation b excludes 1..X distinct existing rows (the rest
+    -1), runs G groups of random classes with random counts up to
+    `pod_scale`, caps the price below a random column price with
+    probability `capped` (else +inf) and budgets its pools ("none",
+    "finite" or "mixed").  With `heavy`, each simulation also carries the
+    heavy lane's topology rows: its groups' classes' domain constraints
+    with base counts moved by the simulation, and sometimes a node cap."""
+    rng = np.random.RandomState(seed)
+    base, cat = random_problem(seed, G=C, E=E, PT=PT, ZC=ZC, P=P,
+                               limits="none", whole=False,
+                               pod_scale=pod_scale, D=D, topology=heavy)
+    (creq, _, cmask, ccap, exist_remaining, _, _, cdsel, cdbase, cdcap,
+     cskew, cmindom, cdelig, _, _, exist_zone, exist_ct) = base
+    O = PT * ZC
+    real_pt = PT - 8
+    pt_price = np.zeros(PT, np.float32)
+    pt_price[:real_pt] = (cat["pt_alloc"][:real_pt, 0] / 1000.0
+                          * rng.choice([0.02, 0.03, 0.05], real_pt))
+    col_price = np.repeat(pt_price, ZC).astype(np.float32)
+    # spot-like slots are cheaper; padding columns are never bought
+    col_price *= np.tile(np.where(np.arange(ZC) % 2 == 0, 1.0, 0.4),
+                         PT).astype(np.float32)
+    col_price[real_pt * ZC:] = np.inf
+    real_c = C - 1
+    group_class = rng.randint(0, real_c, size=(B, G)).astype(np.int32)
+    group_req = creq[group_class].astype(np.float32)
+    group_count = rng.randint(1, pod_scale + 1, size=(B, G)).astype(np.int32)
+    # padded group rows: no pods, class 0
+    pad = rng.rand(B, G) < 0.15
+    pad[:, 0] = False
+    group_count[pad] = 0
+    group_req[pad] = 0.0
+    group_class[pad] = 0
+    exclude_idx = np.full((B, X), -1, np.int32)
+    for b in range(B):
+        k = rng.randint(1, X + 1)
+        exclude_idx[b, :k] = rng.choice(E, size=k, replace=False)
+    finite = col_price[np.isfinite(col_price) & (col_price > 0)]
+    price_cap = np.where(rng.rand(B) < capped,
+                         rng.choice(finite, size=B) if finite.size else 0.0,
+                         np.inf).astype(np.float32)
+    pool_limit = np.full((B, P, R), np.inf, np.float32)
+    for b in range(B):
+        for p in range(P):
+            if limits == "finite" or (limits == "mixed" and rng.rand() < 0.5):
+                pool_limit[b, p, 0] = rng.randint(2, 80) * 1000
+                pool_limit[b, p, 1] = rng.randint(4, 160) * 1024
+    rows = dict(group_req=group_req, group_count=group_count,
+                group_class=group_class, exclude_idx=exclude_idx,
+                price_cap=price_cap, pool_limit=pool_limit)
+    if heavy:
+        dsel = cdsel[group_class].copy()
+        dsel[pad] = 0
+        dbase = cdbase[group_class] + np.where(
+            cdsel[group_class][..., None] > 0,
+            rng.randint(0, 3, size=(B, G, D)), 0).astype(np.int32)
+        ncap = np.where(rng.rand(B, G) < 0.2, rng.randint(1, 6, (B, G)),
+                        BIG).astype(np.int32)
+        rows.update(group_ncap=ncap, group_dsel=dsel.astype(np.int32),
+                    group_dbase=dbase.astype(np.int32),
+                    group_dcap=cdcap[group_class].astype(np.int32),
+                    group_skew=cskew[group_class].astype(np.int32),
+                    group_mindom=cmindom[group_class].astype(np.int32),
+                    group_delig=cdelig[group_class].astype(np.int32))
+    shared = dict(class_mask=cmask, class_cap=ccap.astype(np.int32),
+                  exist_remaining=exist_remaining,
+                  exist_zone=exist_zone, exist_ct=exist_ct,
+                  col_price=col_price)
+    return rows, shared, cat

@@ -1,10 +1,15 @@
-"""TorchSolver — the cold provisioning solve on the card.
+"""TorchSolver — the provisioning solve and the consolidation sweep on the
+card.
 
-encode (host, numpy) → the FFD scan (K1, or K3 when a class carries a zone
-or capacity-type spread or anti-affinity) and the result pack (CUDA
-kernels, solver/ffd.py) → host repair (whole-node, topology skew) →
-decode (host).  The port of `karpenter_tpu/solver/solve.py` `TPUSolver`,
-with its host paths around the device solve:
+`solve`: encode (host, numpy) → the FFD scan (K5 at B=1, its heavy step
+for classes with a zone or capacity-type spread or anti-affinity) and the
+result pack (CUDA kernels, solver/ffd.py) → host repair (whole-node,
+topology skew) → decode (host).  `solve_batch`: many simulations of one
+cluster snapshot — the leave-k-out sweep (K4, light and heavy lanes) for
+inputs that carry the snapshot's provenance, the generic batched scan (K5)
+for the rest, a chunk of up to 64 problems per launch, pipelined.  The
+port of `karpenter_tpu/solver/solve.py` `TPUSolver`, with its host paths
+around the device solve:
 
   * the split path: groups the encoding cannot express (custom topology
     keys, two dynamic keys, coupled selectors) go to the host oracle
@@ -50,20 +55,26 @@ from karpenter_tpu_torch.scheduling.types import (
 )
 from karpenter_tpu_torch.solver import explain as explainmod
 from karpenter_tpu_torch.solver import ffd
+from karpenter_tpu_torch.solver import pipeline as pipelining
 from karpenter_tpu_torch.solver.encode import (
     BIG,
     D_BUCKETS,
     EncodedProblem,
+    SharedExistEncoding,
+    SweepTopologyTables,
     Unsupported,
+    _matches,
     bucket,
     encode,
     encode_catalog,
+    group_column_mask,
     group_pods,
 )
 from karpenter_tpu_torch.utils.knobs import priority_enabled
 
 R = len(RESOURCE_AXIS)
 
+B_BUCKETS = (4, 16, 64)  # simulate-batch axis: problems per launch
 G_BUCKETS = (1, 4, 8, 16, 32, 128, 512, 2048)
 E_BUCKETS = (0, 16, 64, 128, 256, 512, 1024, 2048, 4096)
 PT_ALIGN = 64  # (pool,type) axis padding; column axis O = PT_pad × ZC
@@ -114,6 +125,10 @@ class TorchSolver:
         self._residue_counted: set = set()
         self.last_residue_pods = 0
         self._last_oracle_judged: set = set()
+        # the sweep's decode caches its shared existing-node names while
+        # it runs (released on every exit)
+        self._exist_names_cache = None
+        self._in_sweep_decode = False
 
     def _check_device(self) -> None:
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -197,9 +212,9 @@ class TorchSolver:
         widths[axis] = (0, pad)
         return np.pad(arr, widths, constant_values=value)
 
-    def _encode_checked(self, inp: ScheduleInput, cat,
-                        groups=None) -> EncodedProblem:
-        enc = encode(inp, cat, groups=groups)
+    def _encode_checked(self, inp: ScheduleInput, cat, groups=None,
+                        exist_shared=None) -> EncodedProblem:
+        enc = encode(inp, cat, groups=groups, exist_shared=exist_shared)
         # host-owned provenance classes: the label/taint compat mask and
         # the price cap are folded into group_mask before the kernel sees
         # it, so their elimination counts are taken here
@@ -742,6 +757,585 @@ class TorchSolver:
             "kernel_aux": kc is not None,
         }
 
+    # -- the batched paths: the consolidation simulator ------------------
+    # sweep-path bucket tiers: pod classes per sweep and exclusion indices
+    # per simulation are tiny in practice; padding keeps the launch shapes
+    # few across reconcile passes
+    C_BUCKETS = (4, 16, 64, 256)
+    X_BUCKETS = (1, 2, 4, 8)
+    # top-K take_exist compaction tiers: K bounds the per-group node
+    # fan-out, i.e. the max group COUNT in the batch — sweep sims carry one
+    # candidate node's pods, so the smallest tier almost always holds
+    K_BUCKETS = (8, 32, 128)
+
+    def _pick_sparse_k(self, max_cnt: int, E_pad: int) -> int:
+        """K for the top-K take_exist result compaction (0 = dense):
+        bucket the max group count so the compaction is lossless, engage
+        only when it shrinks the row past the padded existing axis.
+        Shared by the sweep and the generic batched path."""
+        Ks = bucket(min(max_cnt, max(E_pad, 1)), self.K_BUCKETS)
+        return Ks if (E_pad > 0 and 2 * Ks < E_pad) else 0
+
+    def _chunk_io(self):
+        """(pipeline on, upload, pull, wait) for a batched chunk loop: with
+        the pipeline on a card, the staging buffers' pinned upload, async
+        pull and per-chunk event; otherwise one upload and a blocking pull
+        per chunk."""
+        pipe = pipelining.pipeline_enabled(self.device)
+        if pipe and self.device.type == "cuda":
+            st = pipelining.ChunkStaging()
+            return pipe, st.upload, st.pull, st.wait
+
+        def wait(flat):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return flat.cpu().numpy()
+        return pipe, ffd._upload, (lambda flat: flat), wait
+
+    def _try_sweep(self, inps: List[ScheduleInput], cat, mn: int,
+                   explicit_cap: bool) -> Optional[List[ScheduleResult]]:
+        """The leave-k-out fast path for the consolidation sweep: every
+        input is 'the shared snapshot minus a few candidate nodes'
+        (ScheduleInput.exist_base provenance).  The snapshot's node rows
+        and per-class column masks upload ONCE; each simulation ships only
+        its group rows, exclusion indices, price cap and pool budgets.
+
+        Returns None when the batch-global preconditions fail (no base, no
+        columns, synthetic charge-pool nodes); otherwise a result list with
+        None HOLES for per-input-ineligible simulations (over-wide
+        exclusion sets, inexpressible topology, gangs, preferences) — the
+        caller solves the holes generically.
+
+        Two kernel lanes: constraint-light sims take K4's light lane; sims
+        whose every group is sweep-expressible (self-match dynamic zone/ct
+        spread or anti, hostname caps — SweepTopologyTables) take the heavy
+        lane with real per-sim topology tensors.
+        """
+        base = next((inp.exist_base for inp in inps if inp.exist_base),
+                    None)
+        if not base:
+            return None
+        if len(cat.columns) == 0:
+            return None
+        if any(en.charge_pool is not None for en in base):
+            return None
+        # per-INPUT eligibility: the shared snapshot, a bounded exclusion
+        # set, no soft terms.  Ineligible inputs stay None in the result
+        cand: List[int] = []
+        for i, inp in enumerate(inps):
+            if inp.exist_base is not base or inp.exist_excluded is None:
+                continue
+            if len(inp.exist_excluded) > self.X_BUCKETS[-1]:
+                continue
+            if any(p.preferences for p in inp.pods):
+                continue  # relaxation ladder is host-driven
+            cand.append(i)
+        if not cand:
+            return None
+
+        t0 = time.perf_counter()
+        shared = SharedExistEncoding(cat)
+        shared.add_nodes(base)
+        shared.freeze()
+        E = len(base)
+        Eb = bucket(E, E_BUCKETS)
+        dev = cat.device_args
+        O = dev.O
+        O_real = len(cat.columns)
+        tables = SweepTopologyTables(base, shared.zone, shared.ct,
+                                     shared.zone_ids, shared.ct_ids)
+        D = tables.D
+        Db = bucket(D, D_BUCKETS)
+        # resident required-anti terms block matching classes via the
+        # tables (symmetric anti); when present, even constraint-free
+        # classes need the topology check
+        has_res_anti = bool(tables._res_anti)
+
+        # per-class tables, interned by scheduling group id; topology
+        # classes carry their static topology info alongside (hostname
+        # clamps fold into the class's per-node cap row)
+        class_row: Dict[int, int] = {}
+        class_masks: List[np.ndarray] = []
+        class_caps: List[np.ndarray] = []
+        class_merged: List[list] = []
+        class_topo: List[Optional[dict]] = []
+        class_trivial: List[bool] = []
+
+        def class_of(rep: Pod) -> int:
+            gid = rep.scheduling_group_id()
+            row = class_row.get(gid)
+            if row is None:
+                if gang_of(rep) is not None:
+                    # gang units need the atomic K-node fill: the sim
+                    # holes out to the generic batched path
+                    raise Unsupported("gang unit in sweep")
+                info = None
+                if (has_res_anti or rep.topology_spread
+                        or rep.pod_affinities):
+                    info = tables.class_topo(rep)  # may raise Unsupported
+                gmask, merged = group_column_mask(cat, rep)
+                ok = shared.group_ok(rep)
+                cap = np.where(ok, BIG, 0).astype(np.int32)
+                if info is not None:
+                    cap = np.minimum(cap, info["hostcap"])
+                row = len(class_masks)
+                class_row[gid] = row
+                class_masks.append(gmask)
+                class_caps.append(cap)
+                class_merged.append(merged)
+                class_topo.append(info)
+                class_trivial.append(
+                    info is None or (info["dyn"] is None
+                                     and info["ncap"] >= BIG
+                                     and bool((info["hostcap"] >= BIG).all())))
+            return row
+
+        # per-sim group rows (variable G, padded per chunk); lane chosen
+        # by class triviality — a sim whose every class is untouched by
+        # topology takes the light lane
+        sims = {}
+        plain: List[int] = []
+        topo: List[int] = []
+        for i in cand:
+            groups = group_pods(inps[i].pods)
+            try:
+                # a DoNotSchedule spread or required affinity selector
+                # matching another pending group's labels couples their
+                # placements mid-solve — hole
+                for g in groups:
+                    if not (g[0].topology_spread or g[0].pod_affinities):
+                        continue
+                    for sel in ([c.label_selector
+                                 for c in g[0].topology_spread
+                                 if c.when_unsatisfiable == "DoNotSchedule"]
+                                + [t.label_selector
+                                   for t in g[0].pod_affinities
+                                   if t.required]):
+                        for h in groups:
+                            if h is not g and _matches(
+                                    sel, h[0].meta.labels):
+                                raise Unsupported(
+                                    "selector couples pending groups")
+                gcls = np.array([class_of(g[0]) for g in groups],
+                                dtype=np.int32)
+            except Unsupported:
+                continue  # stays a hole for the generic path
+            heavy_sim = any(not class_trivial[c] for c in gcls)
+            if heavy_sim and cat.layout != "grid":
+                # the heavy step reads a column's domain from its grid
+                # slot — dense layouts hole out
+                continue
+            greq = np.stack([
+                np.asarray(effective_request(g[0]).v, dtype=np.float32)
+                for g in groups]) if groups else np.zeros((0, R), np.float32)
+            gcount = np.array([len(g) for g in groups], dtype=np.int32)
+            sims[i] = (groups, gcls, greq, gcount)
+            (topo if heavy_sim else plain).append(i)
+        eligible = plain + topo
+        if not eligible:
+            return None
+
+        G = bucket(max((len(s[0]) for s in sims.values()), default=1),
+                   G_BUCKETS)
+        Xb = bucket(max((len(inps[i].exist_excluded) for i in eligible),
+                        default=1), self.X_BUCKETS)
+        C = bucket(len(class_masks), self.C_BUCKETS)
+        P = max(len(cat.pools), 1)
+
+        class_mask = np.zeros((C, O), dtype=bool)
+        class_cap = np.zeros((C, Eb), dtype=np.int32)
+        if class_masks:
+            class_mask[:len(class_masks), :O_real] = np.stack(class_masks)
+            class_cap[:len(class_caps), :E] = np.stack(class_caps)
+        exist_remaining = np.zeros((Eb, R), dtype=np.float32)
+        exist_remaining[:E] = shared._avail
+        exist_zone = np.full(Eb, -1, dtype=np.int32)
+        exist_zone[:E] = shared.zone
+        exist_ct = np.full(Eb, -1, dtype=np.int32)
+        exist_ct[:E] = shared.ct
+        # the host class_mask stays dense: decode rebuilds each sim's
+        # EncodedProblem from it; the card gets column bits
+        shared_dev = ffd.sweep_shared_tensors(dict(
+            class_mask=class_mask, class_cap=class_cap,
+            exist_remaining=exist_remaining, exist_zone=exist_zone,
+            exist_ct=exist_ct,
+            col_price=self._pad(cat.col_price.astype(np.float32), 0, O,
+                                value=np.inf)), O, self.device)
+        encode_ms = (time.perf_counter() - t0) * 1000.0
+
+        device_ms = 0.0
+        decode_ms = 0.0
+        out_results: List[Optional[ScheduleResult]] = [None] * len(inps)
+        zone_values = [None] * len(shared.zone_ids)
+        for z, i in shared.zone_ids.items():
+            zone_values[i] = z
+        ct_values = [None] * len(shared.ct_ids)
+        for ctv, i in shared.ct_ids.items():
+            ct_values[i] = ctv
+
+        # top-K result compaction: a group of c pods touches at most c
+        # existing nodes, so K = bucket(max group count) makes the packed
+        # take_exist row lossless at a fraction of the dense G*Eb size
+        max_cnt = 1
+        for i in eligible:
+            gcount_i = sims[i][3]
+            if gcount_i.size:
+                max_cnt = max(max_cnt, int(gcount_i.max()))
+        sparse_k = self._pick_sparse_k(max_cnt, Eb)
+
+        def decode_chunk(idxs, packed, pcap, plims, heavy, topo_rows):
+            nonlocal decode_ms
+            t2 = time.perf_counter()
+            # every sim decodes against the SAME shared list — let _decode
+            # cache its name list while this chunk decodes (the cache
+            # itself is released when the sweep returns)
+            self._in_sweep_decode = True
+            try:
+                for bi, i in enumerate(idxs):
+                    groups, cls_i, greq_i, gcount_i = sims[i]
+                    out = ffd.unpack(packed[bi], G, Eb, mn, R,
+                                     Db if heavy else 1, sparse_k=sparse_k)
+                    exhausted = bool(out["unsched"].sum() > 0
+                                     and out["num_active"] >= mn)
+                    g = len(groups)
+                    keep = np.ones(E, dtype=bool)
+                    ex = [e for e in inps[i].exist_excluded if e < E]
+                    keep[ex] = False
+                    if heavy:
+                        tr = topo_rows
+                        dn = Db
+                        ncap_i = tr["group_ncap"][bi, :g]
+                        dsel_i = tr["group_dsel"][bi, :g]
+                        dbase_i = tr["group_dbase"][bi, :g]
+                        dcap_i = tr["group_dcap"][bi, :g]
+                        skew_i = tr["group_skew"][bi, :g]
+                        mindom_i = tr["group_mindom"][bi, :g]
+                        delig_i = tr["group_delig"][bi, :g]
+                    else:
+                        dn = 1
+                        ncap_i = np.full(g, BIG, dtype=np.int32)
+                        dsel_i = np.zeros(g, dtype=np.int32)
+                        dbase_i = np.zeros((g, 1), dtype=np.int32)
+                        dcap_i = np.full((g, 1), BIG, dtype=np.int32)
+                        skew_i = np.full(g, BIG, dtype=np.int32)
+                        mindom_i = np.zeros(g, dtype=np.int32)
+                        delig_i = np.zeros((g, 1), dtype=bool)
+                    enc = EncodedProblem(
+                        group_req=greq_i,
+                        group_count=gcount_i,
+                        group_mask=(class_mask[cls_i, :O_real]
+                                    & (cat.col_price < pcap[bi])[None, :]
+                                    if g else np.zeros((0, O_real), bool)),
+                        exist_cap=(class_cap[cls_i, :E] * keep[None, :]
+                                   if g else np.zeros((0, E), np.int32)),
+                        exist_remaining=shared._avail * keep[:, None],
+                        col_alloc=cat.col_alloc,
+                        col_daemon=cat.col_daemon,
+                        col_price=cat.col_price,
+                        col_pool=cat.col_pool,
+                        pool_limit=plims[bi],
+                        group_ncap=ncap_i,
+                        group_dsel=dsel_i,
+                        group_dbase=dbase_i,
+                        group_dcap=dcap_i,
+                        group_skew=skew_i,
+                        group_mindom=mindom_i,
+                        group_delig=delig_i,
+                        col_zone=cat.col_zone,
+                        col_ct=cat.col_ct,
+                        exist_zone=shared.zone,
+                        exist_ct=shared.ct,
+                        zone_values=zone_values,
+                        ct_values=ct_values,
+                        n_domains=dn,
+                        static_allowed=[
+                            {wellknown.ZONE_LABEL: None,
+                             wellknown.CAPACITY_TYPE_LABEL: None}
+                            for _ in range(g)],
+                        groups=groups,
+                        columns=cat.columns,
+                        existing=base,
+                        pools=cat.pools,
+                        merged_reqs=[class_merged[c] for c in cls_i],
+                    )
+                    if heavy:
+                        # per-domain quotas are planned against a capacity
+                        # estimate: a starved domain hands pods to another
+                        self._repair_topology(enc, out)
+                    res = self._decode(enc, out)
+                    if res.unschedulable and not (explicit_cap and exhausted):
+                        # a stranding WITHOUT slot pressure earns the oracle
+                        # rescue; only an explicit caller cap earns the
+                        # cheap slot-exhaustion reject
+                        self._residue_counted = set()
+                        self._last_oracle_judged = set()
+                        res = self._rescue_stranded(inps[i], res)
+                    out_results[i] = res
+            finally:
+                self._in_sweep_decode = False
+            decode_ms += (time.perf_counter() - t2) * 1000.0
+
+        chunk_size = B_BUCKETS[-1]
+        # the chunk pipeline (solver/pipeline.py): on a card, chunk i+1
+        # builds, uploads and launches while chunk i runs; then chunk i
+        # pulls and decodes
+        pipe, upload, pull, wait = self._chunk_io()
+        chunk_items = [(lane, members[start:start + chunk_size])
+                       for lane, members in (("light", plain),
+                                             ("heavy", topo))
+                       for start in range(0, len(members), chunk_size)]
+
+        def dispatch_chunk(item):
+            # stage 1: build the per-sim rows, upload, launch — never
+            # block on device results
+            nonlocal device_ms
+            lane, idxs = item
+            t1 = time.perf_counter()
+            B = bucket(len(idxs), B_BUCKETS)
+            greq = np.zeros((B, G, R), dtype=np.float32)
+            gcount = np.zeros((B, G), dtype=np.int32)
+            gcls = np.zeros((B, G), dtype=np.int32)
+            excl = np.full((B, Xb), -1, dtype=np.int32)
+            pcap = np.full(B, np.inf, dtype=np.float32)
+            plim = np.full((B, P, R), np.inf, dtype=np.float32)
+            rows = dict(group_req=greq, group_count=gcount,
+                        group_class=gcls, exclude_idx=excl, price_cap=pcap,
+                        pool_limit=plim)
+            topo_rows = None
+            if lane == "heavy":
+                topo_rows = dict(
+                    group_ncap=np.full((B, G), BIG, dtype=np.int32),
+                    group_dsel=np.zeros((B, G), dtype=np.int32),
+                    group_dbase=np.zeros((B, G, Db), dtype=np.int32),
+                    group_dcap=np.zeros((B, G, Db), dtype=np.int32),
+                    group_skew=np.full((B, G), BIG, dtype=np.int32),
+                    group_mindom=np.zeros((B, G), dtype=np.int32),
+                    group_delig=np.zeros((B, G, Db), dtype=bool),
+                )
+                rows.update(topo_rows)
+            for bi, i in enumerate(idxs):
+                groups, cls_i, greq_i, gcount_i = sims[i]
+                g = len(groups)
+                greq[bi, :g] = greq_i
+                gcount[bi, :g] = gcount_i
+                gcls[bi, :g] = cls_i
+                ex = inps[i].exist_excluded
+                excl[bi, :len(ex)] = ex
+                if inps[i].price_cap is not None:
+                    pcap[bi] = inps[i].price_cap
+                for pidx, pool in enumerate(cat.pools):
+                    lim = inps[i].remaining_limits.get(pool.name)
+                    if lim is not None:
+                        plim[bi, pidx] = np.asarray(lim.v,
+                                                    dtype=np.float32)
+                if lane == "heavy":
+                    for grow, c in enumerate(cls_i):
+                        info = class_topo[c]
+                        if info is None:
+                            # topology-free group in a topo sim: BIG dcap
+                            # keeps the heavy step inert
+                            topo_rows["group_dcap"][bi, grow, :] = BIG
+                            continue
+                        dbase_g, dcap_g = tables.sim_tensors(info, ex)
+                        topo_rows["group_ncap"][bi, grow] = info["ncap"]
+                        topo_rows["group_dsel"][bi, grow] = info["dsel"]
+                        topo_rows["group_dbase"][bi, grow, :D] = dbase_g
+                        topo_rows["group_dcap"][bi, grow, :D] = dcap_g
+                        dyn = info["dyn"]
+                        topo_rows["group_skew"][bi, grow] = (
+                            dyn["skew"] if dyn is not None else BIG)
+                        topo_rows["group_mindom"][bi, grow] = (
+                            dyn["mindom"] if dyn is not None else 0)
+                        topo_rows["group_delig"][bi, grow, :D] = \
+                            info["delig"]
+            sw = ffd.sweep_tensors(rows, shared_dev, self.device,
+                                   upload=upload)
+            handle = pull(ffd.solve_ffd_sweep(sw, dev, mn, sparse_k))
+            device_ms += (time.perf_counter() - t1) * 1000.0
+            return (handle, pcap, plim, topo_rows)
+
+        def complete_chunk(item, handle):
+            # stage 2: wait for this chunk's rows (the wait overlaps the
+            # NEXT chunk's device run when the pipeline is on) and decode
+            nonlocal device_ms
+            lane, idxs = item
+            h, pcap, plim, topo_rows = handle
+            t1 = time.perf_counter()
+            packed = wait(h)
+            device_ms += (time.perf_counter() - t1) * 1000.0
+            decode_chunk(idxs, packed, pcap, plim, lane == "heavy",
+                         topo_rows)
+
+        try:
+            pipelining.run_pipeline(chunk_items, dispatch_chunk,
+                                    complete_chunk, enabled=pipe)
+        finally:
+            # the exist-names cache exists for THIS sweep's shared list;
+            # keeping it past the return — an exception exit included —
+            # would pin the whole node+pod snapshot in the solver
+            self._exist_names_cache = None
+            self._in_sweep_decode = False
+        self.last_phase_ms = {
+            "encode": encode_ms, "device": device_ms, "decode": decode_ms,
+            "per_sim": ((encode_ms + device_ms + decode_ms) / len(eligible)
+                        if eligible else 0.0)}
+        return out_results
+
+    def solve_batch(self, inps: List[ScheduleInput],
+                    max_nodes: Optional[int] = None) -> List[ScheduleResult]:
+        """Evaluate many scheduling problems that share one catalog — the
+        consolidation simulator's candidate axis: one launch per chunk of
+        up to 64 problems, one thread block each; per-problem pods,
+        existing nodes and limits batch, the catalog is shared.
+
+        All inputs must come from the same cluster snapshot (same
+        nodepools and instance-type lists); `price_cap` may differ per
+        input.  Inputs that carry the snapshot's provenance
+        (`exist_base`/`exist_excluded`) take the leave-k-out sweep, the
+        rest the generic batched solve, and what neither expresses the
+        single-problem `solve`.
+
+        `max_nodes` caps the new-node axis for THIS call: consolidation
+        rejects any simulation needing more than one replacement node, so
+        the simulator passes a tiny cap; a slot-exhausted sim reports
+        unschedulable.  Gangs and more than one priority band raise
+        UnsupportedPods (slice 2b).
+        """
+        if not inps:
+            return []
+        self._check_device()
+        return self._solve_batch_inner(inps, max_nodes=max_nodes)
+
+    def _solve_batch_inner(self, inps: List[ScheduleInput],
+                           max_nodes: Optional[int] = None
+                           ) -> List[ScheduleResult]:
+        mn = max_nodes or self.max_nodes
+        # soft-term pods: batch the common first round — every soft term
+        # ENFORCED as hard (relaxed(0)) — and re-solve only the stragglers
+        # whose enforced terms left pods unschedulable, individually
+        soft = [i for i, inp in enumerate(inps)
+                if any(p.has_soft_terms() for p in inp.pods)]
+        if soft:
+            round0 = list(inps)
+            for i in soft:
+                round0[i] = dataclasses.replace(
+                    inps[i],
+                    pods=[p.relaxed(0) for p in inps[i].pods])
+            out = self.solve_batch(round0, max_nodes=max_nodes)
+            for i in soft:
+                r = out[i]
+                if r is not None and r.unschedulable and any(
+                        p.relax_levels() for p in inps[i].pods):
+                    # the ORIGINAL input: relaxation starts from the pod's
+                    # true soft ladder (solve raises until slice 2b)
+                    out[i] = self.solve(inps[i], max_nodes=max_nodes)
+            return out
+        cat = self._catalog_encoding(inps[0])
+        sweep = self._try_sweep(inps, cat, mn,
+                                explicit_cap=max_nodes is not None)
+        if sweep is not None:
+            # PARTIAL sweep: ineligible inputs come back as None holes and
+            # solve through the generic path below
+            holes = [i for i, r in enumerate(sweep) if r is None]
+            if holes:
+                # the holes' nested solves overwrite last_phase_ms; the
+                # sweep's timings are the ones to report
+                sweep_phases = self.last_phase_ms
+                rest = self.solve_batch([inps[i] for i in holes],
+                                        max_nodes=max_nodes)
+                self.last_phase_ms = sweep_phases
+                for i, r in zip(holes, rest):
+                    sweep[i] = r
+            return sweep
+        # per-input encoding: an inexpressible input routes through the
+        # individual solve (split path) WITHOUT demoting the rest of the
+        # batch.  A per-batch union cache of existing-node encodings serves
+        # simulations that share one snapshot's node OBJECTS; when sharing
+        # does not materialize (the union balloons) the cache is dropped
+        shared = SharedExistEncoding(cat)
+        for inp in inps:
+            shared.add_input(inp)
+        max_e = max((len(inp.existing_nodes) for inp in inps), default=0)
+        if max_e == 0 or len(shared._nodes) > 2 * max_e:
+            shared = None
+        else:
+            shared.freeze()
+        encs: List = []          # (orig_index, EncodedProblem)
+        singles: List[int] = []  # orig indices needing individual solves
+        for i, inp in enumerate(inps):
+            try:
+                encs.append((i, self._encode_checked(
+                    inp, cat, exist_shared=shared)))
+            except Unsupported:
+                singles.append(i)
+        if len(cat.columns) == 0:
+            return [self.solve(inp, max_nodes=max_nodes) for inp in inps]
+
+        out_results: List[Optional[ScheduleResult]] = [None] * len(inps)
+        for i in singles:
+            out_results[i] = self.solve(inps[i], max_nodes=max_nodes)
+        if not encs:
+            return out_results
+        for _, e in encs:
+            self._check_supported(e)
+        G = bucket(max(e.n_groups for _, e in encs), G_BUCKETS)
+        E = bucket(max(len(e.existing) for _, e in encs), E_BUCKETS)
+        Db = bucket(max(e.n_domains for _, e in encs), D_BUCKETS)
+        dev = cat.device_args
+        O = dev.O
+        # the same top-K result compaction as the sweep path
+        max_cnt = 1
+        for _, e in encs:
+            for pods in e.groups:
+                max_cnt = max(max_cnt, len(pods))
+        sparse_k = self._pick_sparse_k(max_cnt, E)
+        # the explain counts for UNCAPPED batches only (real provisioning
+        # requests); capped consolidation sims stay aux-free
+        exc_b = min(self._explain_mode(), 1) if max_nodes is None else 0
+        pipe, upload, pull, wait = self._chunk_io()
+        chunk_size = B_BUCKETS[-1]
+        chunks = [encs[s:s + chunk_size]
+                  for s in range(0, len(encs), chunk_size)]
+
+        def dispatch(chunk):
+            # stage 1: build + upload + launch, never block
+            B = bucket(len(chunk), B_BUCKETS)
+            probs = [self._problem_args(e, G, E, Db, O) for _, e in chunk]
+            # pad the batch axis with empty problems (zero groups = no
+            # work), so repeat calls see few launch shapes
+            while len(probs) < B:
+                probs.append(tuple(np.zeros_like(a) for a in probs[0]))
+            batch = ffd.batch_tensors(probs, O, self.device, upload=upload)
+            return pull(ffd.solve_ffd_batch(batch, dev, mn, exc_b,
+                                            sparse_k))
+
+        def complete(chunk, handle):
+            # stage 2: wait for this chunk's rows, repair and decode
+            packed = wait(handle)
+            for bi, (i, enc) in enumerate(chunk):
+                out = ffd.unpack(packed[bi], G, E, mn, R, Db,
+                                 sparse_k=sparse_k, explain=exc_b)
+                if exc_b:
+                    self._note_explain(enc, out)
+                # judged BEFORE topology repair, as solve() judges it
+                exhausted = bool(out["unsched"].sum() > 0
+                                 and out["num_active"] >= mn)
+                self._repair_whole_node(enc, out)
+                self._repair_topology(enc, out)
+                res = self._decode(enc, out)
+                if res.unschedulable and not (
+                        max_nodes is not None and exhausted):
+                    # a sim the kernel strands WITHOUT slot pressure gets
+                    # the oracle rescue; only an EXPLICIT caller cap earns
+                    # the cheap slot-exhaustion reject, as in solve()
+                    self._residue_counted = set()
+                    self._last_oracle_judged = set()
+                    res = self._rescue_stranded(inps[i], res)
+                out_results[i] = res
+
+        pipelining.run_pipeline(chunks, dispatch, complete, enabled=pipe)
+        return out_results
+
     def _existing_only(self, enc: EncodedProblem) -> ScheduleResult:
         """Host-side step-1-only fill when there are no columns to buy."""
         res = ScheduleResult()
@@ -880,6 +1474,15 @@ class TorchSolver:
         col_pool = enc.col_pool
         col_alloc = enc.col_alloc
 
+        # the sweep decodes its simulations against the SAME shared
+        # existing list: cache its names by identity while it runs
+        cached = self._exist_names_cache
+        if cached is not None and cached[0] is enc.existing:
+            exist_names = cached[1]
+        else:
+            exist_names = [en.name for en in enc.existing]
+            if self._in_sweep_decode:
+                self._exist_names_cache = (enc.existing, exist_names)
         # distribute each group's pods: existing nodes first (scan order),
         # then new nodes, then unschedulable — the kernel's accounting
         take_exist = out["take_exist"][:Gr, :Er].astype(int)
@@ -891,9 +1494,9 @@ class TorchSolver:
             cursor = 0
             for ei in np.nonzero(take_exist[gi])[0]:
                 k = take_exist[gi, ei]
+                name = exist_names[ei]
                 for pod in pods[cursor:cursor + k]:
-                    res.existing_assignments[pod.meta.name] = \
-                        enc.existing[ei].name
+                    res.existing_assignments[pod.meta.name] = name
                 cursor += k
             for ni in np.nonzero(take_new[gi, :num_active])[0]:
                 k = take_new[gi, ni]

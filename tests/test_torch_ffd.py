@@ -2,8 +2,8 @@
 
 The same seeded problem (numpy, `karpenter_tpu_torch.solver.problems`)
 goes through the JAX package's `ffd.solve_ffd` on the CPU and through the
-port's `ffd.solve_ffd` on the CPU, where its wrappers run the plain
-PyTorch versions of the two CUDA kernels.  The flat result buffers must be
+port's `ffd.solve_ffd` on the CPU (the batched scan at B=1), where its
+wrappers run the plain PyTorch versions of the CUDA kernels.  The flat result buffers must be
 equal as uint32: the tolerance is bit-exact, because every float in these
 problems is integer-valued (millicores, MiB, counts) and both sides
 perform the same IEEE float32 operations in the same order.  The CUDA
@@ -17,7 +17,7 @@ import torch
 
 from karpenter_tpu.solver import ffd as jffd
 from karpenter_tpu_torch.solver import ffd as tffd
-from karpenter_tpu_torch.solver.problems import random_problem
+from karpenter_tpu_torch.solver.problems import random_problem, random_sweep
 
 
 def _jax_args(prob, cat, packed):
@@ -123,8 +123,9 @@ def test_mask_bits_are_the_packed_mask():
 ])
 def test_light_scan_rejects_other_branches(slot, value, match,
                                            monkeypatch):
-    """K1's wrapper refuses a problem with a domain group and solve_ffd
-    sends it to K3; no scan takes a gang."""
+    """The one light-only scan left, K4's light lane, refuses a batch with
+    domain rows; a problem with a domain group goes through the one
+    problem scan (K5, heavy step traced); no scan takes a gang."""
     prob, cat = random_problem(1)
     prob = prob[:slot] + (value,) + prob[slot + 1:]
     if match == "gang":
@@ -132,23 +133,30 @@ def test_light_scan_rejects_other_branches(slot, value, match,
             tffd.problem_from_numpy(prob, cat, "cpu")
         return
     p, c = tffd.problem_from_numpy(prob, cat, "cpu")
-    assert p.topology
+    assert (p.group_dsel > 0).any()
     if match == "domain":
-        lay = tffd.flat_layout(p.G, p.E, 64, p.D)
-        flat = torch.zeros(lay["total"][1])
-        with pytest.raises(ValueError, match=match):
-            tffd.light_scan(p, c, 64, flat, lay, torch.zeros(p.P, 6))
+        rows, shared, scat = random_sweep(1, 2, heavy=True)
+        c = tffd.catalog_tensors(scat, "cpu")
+        sw = tffd.sweep_tensors(rows, tffd.sweep_shared_tensors(
+            shared, c.O, "cpu"), "cpu")
+        lay = tffd.flat_layout(sw.G, sw.E, 8, sw.D)
+        flat = torch.zeros(2, lay["total"][1])
+        with pytest.raises(ValueError, match="heavy lane"):
+            tffd.sweep_scan(sw, c, 8, flat, lay, torch.zeros(2, sw.P, 6))
         return
     calls = []
-    real = tffd.topo_scan
+    real = tffd.batch_scan
 
     def spy(*args):
-        calls.append("topo_scan")
+        calls.append("batch_scan")
         return real(*args)
 
-    monkeypatch.setattr(tffd, "topo_scan", spy)
-    tffd.solve_ffd(p, c, 64, explain=1)
-    assert calls == ["topo_scan"]
+    monkeypatch.setattr(tffd, "batch_scan", spy)
+    out = tffd.solve_ffd(p, c, 64, explain=1).numpy()
+    assert calls == ["batch_scan"]
+    ref = np.asarray(jffd.solve_ffd(*_jax_args(prob, cat, False),
+                                    max_nodes=64, zc=cat["zc"], explain=1))
+    assert np.array_equal(ref.view(np.uint32), out.view(np.uint32))
 
 
 def test_light_scan_rejects_priority_slot():
@@ -160,34 +168,39 @@ def test_light_scan_rejects_priority_slot():
 def test_wrapper_checks_arguments():
     prob, cat = random_problem(2)
     p, c = tffd.problem_from_numpy(prob, cat, "cpu")
+    b = tffd.FFDBatch.of(p)
     lay = tffd.flat_layout(p.G, p.E, 64, p.D)
-    flat = torch.zeros(lay["total"][1])
+    flat = torch.zeros(1, lay["total"][1])
     with pytest.raises(ValueError, match="limits_out"):
-        tffd.light_scan(p, c, 64, flat, lay, torch.zeros(p.P, 5))
+        tffd.batch_scan(b, c, 64, flat, lay, torch.zeros(1, p.P, 5))
     with pytest.raises(ValueError, match="flat"):
-        tffd.light_scan(p, c, 64, flat[:-1], lay, torch.zeros(p.P, 6))
+        tffd.batch_scan(b, c, 64, flat[:, :-1], lay, torch.zeros(1, p.P, 6))
+    with pytest.raises(ValueError, match="sparse_k"):
+        tffd.batch_scan(b, c, 64, flat, lay, torch.zeros(1, p.P, 6),
+                        sparse_k=8)
     with pytest.raises(ValueError, match="explain"):
-        tffd.pack(p, c, 64, flat, lay, torch.zeros(p.P, 6))
-    p.group_count = p.group_count.to(torch.int64)
+        tffd.pack(p, c, 64, flat[0], lay, torch.zeros(p.P, 6))
+    b.group_count = b.group_count.to(torch.int64)
     with pytest.raises(ValueError, match="group_count"):
-        tffd.light_scan(p, c, 64, flat, lay, torch.zeros(p.P, 6))
+        tffd.batch_scan(b, c, 64, flat, lay, torch.zeros(1, p.P, 6))
 
 
 def test_plain_scan_work_count():
     """The plain scan's optional work count (chip_smoke.py's operation
-    bound for K1) leaves its outputs unchanged, counts exactly the
+    bound for the scan kernels) leaves its outputs unchanged, counts exactly the
     empty-node fits on a one-group problem, and stays under the dense
     count of every node against every (pool,type) block."""
     def run(prob, cat, work):
         p, c = tffd.problem_from_numpy(prob, cat, "cpu")
         lay = tffd.flat_layout(p.G, p.E, 64, p.D)
-        flat = torch.zeros(lay["total"][1])
-        lim = torch.zeros(p.P, tffd.R)
-        tffd.light_scan_reference(p, c, 64, flat, lay, lim, work)
+        flat = torch.zeros(1, lay["total"][1])
+        lim = torch.zeros(1, p.P, tffd.R)
+        tffd.batch_scan_reference(tffd.FFDBatch.of(p), c, 64, flat, lay,
+                                  lim, work=work)
         return p, c, flat.numpy().view(np.uint32)
 
     prob, cat = random_problem(3)
-    work = {"fit": 0, "test": 0}
+    work = {"fit": 0, "test": 0, "flops": 0}
     p, c, with_work = run(prob, cat, work)
     assert np.array_equal(with_work, run(prob, cat, None)[2])
     G, E, P, PT = p.G, p.E, p.P, c.PT
@@ -199,6 +212,6 @@ def test_plain_scan_work_count():
     # slots 4, 5, 15 and 16 are per existing node or per pool
     one = tuple(a if i in (4, 5, 15, 16) else a[:1]
                 for i, a in enumerate(prob))
-    work1 = {"fit": 0, "test": 0}
+    work1 = {"fit": 0, "test": 0, "flops": 0}
     run(one, cat, work1)
     assert work1["fit"] == E + 4 * P + int(one[2][0].sum())

@@ -181,8 +181,8 @@ def _unsupported_inputs():
         return inp
 
     # match None: the port runs it since slice 2 and must give the
-    # reference's answer (K3 for the spread, the oracle rescue for the
-    # strands, the split path for the custom key)
+    # reference's answer (the scan's heavy step for the spread, the
+    # oracle rescue for the strands, the split path for the custom key)
     return {"zone-spread": (zone_spread, None),
             "gang": (gang, "gang"),
             "priority-bands": (priority_bands, "priority"),

@@ -5,8 +5,8 @@ plain PyTorch versions:
 
   * the scan: seeded problems with zone and capacity-type domain classes
     (`random_problem(topology=True)`) through the JAX `ffd.solve_ffd`
-    (heavy branch on) and the port's `ffd.solve_ffd` (K3's plain version
-    and K2's), explain=1: the flat result buffers must be equal as uint32
+    (heavy branch on) and the port's `ffd.solve_ffd` (the plain versions
+    of the batched scan at B=1 and of K2), explain=1: the flat result buffers must be equal as uint32
     — bit-exact, because both sides do the same IEEE float32 operations
     in the same order;
   * `water_fill` against the JAX `_water_fill` on random inputs, exact;
@@ -430,9 +430,8 @@ def test_chip_smoke_oracle_cases_are_the_reference(name, monkeypatch):
     counts."""
     nodes, unsched, price_hex, kernels = chip_smoke.ORACLE_CASES[name]
     ref = jax_solver().solve(_build(JAX, name))
-    calls = {"ffd_light_scan": 0, "ffd_topo_scan": 0, "ffd_pack": 0}
-    for kname, fn in (("ffd_light_scan", "light_scan_reference"),
-                      ("ffd_topo_scan", "topo_scan_reference"),
+    calls = {"ffd_batch_scan": 0, "ffd_pack": 0}
+    for kname, fn in (("ffd_batch_scan", "batch_scan_reference"),
                       ("ffd_pack", "pack_reference")):
         def counted(*a, _f=getattr(tffd, fn), _k=kname, **kw):
             calls[_k] += 1
