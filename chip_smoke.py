@@ -32,8 +32,19 @@ Phases (any failure exits non-zero):
      against 2,000 nodes, one cold and 5 warm sweeps each through K4 (the
      light lane; both lanes for #4b) — every simulation the JAX package's
      answer (a digest of the canonical results);
-  8. kernel timings at the main paths' shapes beside their bounds, and the
+  8. gangs, priority bands and explain=full: TorchSolver(max_nodes=2048)
+     .solve(build_config9()) through K5's gang instance and K2, then
+     build_config10() through K5 with the priority witness, the preemption
+     planner attaching its plan, then build_config9() on a fresh solver
+     under KARPENTER_TPU_EXPLAIN=full (K2's class map and the reason
+     trees), one cold and 20 warm solves each — the JAX package's answers,
+     gang audit and plans, with the kernels launched;
+  9. kernel timings at the main paths' shapes beside their bounds, and the
      sweep's dense against compacted take_exist rows.
+
+Phase 3 also holds K5's gang instance, the witness and K2's map and
+with_gang class against their plain versions on seeded gang and priority
+problems at B=1 and B>1 and on config #9's and #10's encodings.
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.
@@ -94,15 +105,47 @@ CONFIG4_DIGEST = ("d5e84c8d96f332506e8ba8511464d10a"
                   "9832d1eb0ee692aa3c4906579c982d06")
 CONFIG4B_DIGEST = ("e3ee51b1e72d8f97e3f8c142620d2e23"
                    "d6b394be1d402c8a0ca21b0c3dfae5ab")
+# BASELINE config #9 and #10 (benchmarks/config9_gang.py,
+# config10_priority.py): the JAX package's answers (TPUSolver(max_nodes=
+# 2048).solve(make_input()), default knobs, on the CPU) as (nodes,
+# unschedulable, price, sha256 `result_digest` of the canonical result,
+# `trees_digest` of the reason trees under the default explain=counts);
+# config #9's stranded gangs; config #10's preemption plans as (plan id,
+# targets, target priority, (victim unit, its pods)...); and for config
+# #9 on a fresh solver under KARPENTER_TPU_EXPLAIN=full the sha256 of the
+# cold solve's [G, O] class map as int8 and `trees_digest` of its reason
+# trees
+CONFIG_MAX_NODES = 2048
+CONFIG9 = (4, 72, "0x1.023ffac1d29dcp+4",
+           "dfcad7cca219ebb5e805268b29c7cb70f2b276f2391bdd91eea481e85320a3fb",
+           "ab5d55181a7b096d0b79e830ffcaf7e76d0e9a987da28c964c675e106e55f1c9")
+CONFIG9_STRANDED_GANGS = ("jumbo", "waiting")
+CONFIG10 = (3, 1, "0x1.d2c100e6afccep+2",
+            "cd5e8b393e4ec810ba013353dd6620c79caa835dd132cf0c52c1d400cf0a585c",
+            "deb9239a9f536d3962cbacf72ce5d7daa2112c52c3db6f8dee97bbe6009632e3")
+CONFIG10_PLANS = [("preempt-94fc1b355fb1", ("pin-hi",), 1000,
+                   (("gang:ring", ("ring-0", "ring-1")),
+                    ("low-edge", ("low-edge",))))]
+CONFIG9_FULL_MAP = ("d34a0a3887865481acfbedd300bb90a2"
+                    "538806bbcfe11f48063cec6e0bba18e2")
+CONFIG9_FULL_TREES = ("469b1284358b3c50751f4e8f0a5e8443"
+                      "10b6b5c009ac35d9c419b0d1b9c65b6b")
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# the kernel wrappers of karpenter_tpu_torch.solver.ffd and their kernels
-KERNELS = {"batch_scan": "ffd_batch_scan", "sweep_scan": "ffd_sweep_scan",
-           "sweep_topo_scan": "ffd_sweep_topo_scan", "pack": "ffd_pack"}
+# the kernels of karpenter_tpu_torch.solver.ffd: kernel -> (its wrapper,
+# the wrapper's launch count); and the launches that carry the priority
+# witness (in the scan's epilogue) and the explain=2 map (in K2)
+KERNELS = {"ffd_batch_scan": ("batch_scan", "launches"),
+           "ffd_batch_gang_scan": ("batch_scan", "gang_launches"),
+           "ffd_sweep_scan": ("sweep_scan", "launches"),
+           "ffd_sweep_topo_scan": ("sweep_topo_scan", "launches"),
+           "ffd_pack": ("pack", "launches")}
+PASSES = {"priority_witness": ("batch_scan", "witness_launches"),
+          "explain_map": ("pack", "map_launches")}
 
 
 def _pins(claim, key):
@@ -138,6 +181,38 @@ def sweep_digest(results) -> str:
     import hashlib
     text = "\n".join(repr(sweep_canon(r)) for r in results)
     return hashlib.sha256(text.encode()).hexdigest()
+
+
+def result_digest(res) -> str:
+    """sha256 of one result's canonical form."""
+    import hashlib
+    return hashlib.sha256(repr(sweep_canon(res)).encode()).hexdigest()
+
+
+def trees_digest(res) -> str:
+    """sha256 of the unschedulable pods' reason codes and reason trees
+    (as sorted-key JSON), in pod order."""
+    import hashlib
+    rows = sorted((k, getattr(v, "code", None),
+                   json.dumps(getattr(v, "tree", None), sort_keys=True,
+                              default=str))
+                  for k, v in res.unschedulable.items())
+    return hashlib.sha256(repr(rows).encode()).hexdigest()
+
+
+def plans_canon(res):
+    """A result's preemption plans: (plan id, targets, target priority,
+    (victim unit, its pods)...)."""
+    return [(p.plan_id, tuple(p.target_pods), p.target_priority,
+             tuple((u.name, tuple(u.pod_names)) for u in p.victims))
+            for p in res.preemptions]
+
+
+def map_digest(m) -> str:
+    """sha256 of a [G, O] class map as int8."""
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(
+        np.asarray(m).astype(np.int8)).tobytes()).hexdigest()
 
 
 def _card_line() -> str:
@@ -254,6 +329,41 @@ def _batch_cases():
         yield label, probs, cat, N, ex, K
 
 
+def _gang_cases():
+    """(label, problems, catalog arrays, N, explain): seeded gang and
+    priority-band problems — gangs over zones, capacity types and no
+    domain, with and without existing nodes, finite pool budgets, tied
+    ranks, slot exhaustion, the strided node and existing axes, 8
+    domains, priority bands with strands — at B=1 and in batches, for
+    K5's gang instance, the witness and K2's map."""
+    from karpenter_tpu_torch.solver.problems import random_batch
+    g4 = dict(gang=True, D=4)
+    specs = [
+        ("gang-base", 11, g4, 1, 64, 2),
+        ("gang-topo", 2, dict(g4, topology=True), 1, 64, 2),
+        ("gang-no-existing", 3, dict(g4, E=0), 1, 64, 1),
+        ("gang-3-pools-finite", 4, dict(g4, P=3, limits="finite"), 1, 64,
+         2),
+        ("gang-tied-ranks", 5, dict(g4, tied_ranks=True), 1, 64, 1),
+        ("gang-slot-exhaustion", 6, g4, 1, 8, 2),
+        ("gang-E2048", 8, dict(g4, E=2048, pod_scale=300), 1, 256, 1),
+        ("gang-N2048", 9, dict(g4, G=16, PT=128, E=0, pod_scale=800), 1,
+         2048, 2),
+        ("gang-d8", 10, dict(g4, D=8, ZC=12, topology=True), 1, 64, 2),
+        ("prio-gang-topo-finite", 7, dict(g4, topology=True, priority=True,
+                                          limits="finite"), 1, 64, 2),
+        ("prio-no-gang", 12, dict(priority=True, limits="finite",
+                                  pod_scale=300), 1, 64, 1),
+        ("gang-batch", 13, g4, 5, 64, 1),
+        ("gang-prio-batch", 14, dict(g4, topology=True, priority=True,
+                                     limits="finite"), 5, 64, 1),
+        ("gang-batch-64", 15, dict(g4, pod_scale=30), 64, 32, 0),
+    ]
+    for label, seed, kw, B, N, ex in specs:
+        probs, cat = random_batch(seed, B, **kw)
+        yield label, probs, cat, N, ex
+
+
 def _sweep_cases():
     """(label, rows, shared, catalog arrays, N, sparse_k): seeded sweeps
     for K4's two lanes.  Every sweep caps about half its simulations'
@@ -302,11 +412,14 @@ def _merge(parts):
     return all(e for e, _ in parts), max(x for _, x in parts)
 
 
+PACK_REGIONS = ("explain_counts", "explain_bits", "explain_map")
+
+
 def _scan_regions(lay):
     """The regions of a flat row the scan kernels write (K2 writes the
-    explain counts)."""
+    explain counts and map; the witness is compared on its own)."""
     return [n for n in lay
-            if n not in ("total", "explain_counts", "explain_bits")]
+            if n not in ("total", "prio_inv") + PACK_REGIONS]
 
 
 def _buffers(B, P, lay, dev):
@@ -331,35 +444,51 @@ def _compare_rows(name, fk, lk, fp, lp, lay):
     return out
 
 
-def compare_batch(ffd, b, c, N, ex, K, dev):
-    """Run K5 — and K2 for each problem with explain — and their plain
-    versions on the card on the same inputs.  K2 and its plain version
-    both start from the kernel scan's output, so each comparison isolates
-    one kernel.  Returns {kernel: (equal, max_abs_err)}."""
+def compare_batch(ffd, b, c, N, ex, K, dev, wg=0, wp=0):
+    """Run K5 (its gang instance with `wg`, the witness with `wp`) — and
+    K2 for each problem with explain, its map with explain=2 — and their
+    plain versions on the card on the same inputs.  K2 and its plain
+    version both start from the kernel scan's output, so each comparison
+    isolates one kernel.  Returns {kernel: (equal, max_abs_err)}."""
     import torch
-    lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, K)
+    lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, K, c.O, wp)
     fk, lk = _buffers(b.B, b.P, lay, dev)
     fp, lp = _buffers(b.B, b.P, lay, dev)
-    ffd.batch_scan(b, c, N, fk, lay, lk, K)
-    ffd.batch_scan_reference(b, c, N, fp, lay, lp, K)
+    ffd.batch_scan(b, c, N, fk, lay, lk, K, with_gang=wg)
+    ffd.batch_scan_reference(b, c, N, fp, lay, lp, K, with_gang=wg)
     torch.cuda.synchronize()
-    out = _compare_rows("ffd_batch_scan", fk, lk, fp, lp, lay)
+    out = _compare_rows("ffd_batch_gang_scan" if wg else "ffd_batch_scan",
+                        fk, lk, fp, lp, lay)
+    if wp:
+        out["priority_witness"] = _diff(ffd._region(fk, lay, "prio_inv"),
+                                        ffd._region(fp, lay, "prio_inv"))
     if ex:
         f2, f3 = fk.clone(), fk.clone()
         for i in range(b.B):
-            ffd.pack(b.at(i), c, N, f2[i], lay, lk[i])
-            ffd.pack_reference(b.at(i), c, N, f3[i], lay, lk[i])
+            ffd.pack(b.at(i), c, N, f2[i], lay, lk[i], wg)
+            ffd.pack_reference(b.at(i), c, N, f3[i], lay, lk[i], wg)
         torch.cuda.synchronize()
         out["ffd_pack"] = _merge([
             _diff(ffd._region(f2, lay, n), ffd._region(f3, lay, n))
             for n in ("explain_counts", "explain_bits")])
+        if ex >= 2:
+            out["explain_map"] = _diff(ffd._region(f2, lay, "explain_map"),
+                                       ffd._region(f3, lay, "explain_map"))
     return out
+
+
+def _statics(probs):
+    """(with_gang, with_priority) of problem tuples, as the solver derives
+    them: a gang row set anywhere, an 18th slot."""
+    return (int(any(np.asarray(p[14]).any() for p in probs)),
+            int(any(len(p) > 17 for p in probs)))
 
 
 def compare_case(ffd, prob, cat, N, ex, dev):
     """One problem tuple through K5 at B=1 (and K2)."""
     p, c = ffd.problem_from_numpy(prob, cat, dev)
-    return compare_batch(ffd, ffd.FFDBatch.of(p), c, N, ex, 0, dev)
+    wg, wp = _statics([prob])
+    return compare_batch(ffd, ffd.FFDBatch.of(p), c, N, ex, 0, dev, wg, wp)
 
 
 def compare_sweep(ffd, sw, c, N, K, dev):
@@ -455,22 +584,26 @@ def _catalog_bytes(c):
                    c.pool_daemon, c.pool_bits, c.col_zone, c.col_ct)
 
 
-def _batch_bound(ffd, b, c, N, lay, flat, lim):
+def _batch_bound(ffd, b, c, N, lay, flat, lim, wg=0):
     """K5's bound: inputs read once, outputs written once, over the HBM
     rate, against the float operations this run's data needs (counted by
-    the plain version over the (node, block) pairs the kernel visits)
-    over the fp32 rate."""
+    the plain version over the (node, block) pairs the kernel visits, and
+    in the gang fill over every domain's candidate) over the fp32
+    rate."""
     import torch
-    out = [ffd._region(flat, lay, n) for n in _scan_regions(lay)]
-    nbytes = (_nbytes(*(getattr(b, f) for f in (
-        "group_req", "group_count", "mask_bits", "exist_cap",
-        "exist_remaining", "pool_limit", "group_ncap", "group_whole",
-        "group_dsel", "group_dbase", "group_dcap", "group_skew",
-        "group_mindom", "group_delig", "exist_zone", "exist_ct")))
-        + _catalog_bytes(c) + _nbytes(lim, *out))
+    out = [ffd._region(flat, lay, n) for n in _scan_regions(lay)
+           + (["prio_inv"] if "prio_inv" in lay else [])]
+    fields = ["group_req", "group_count", "mask_bits", "exist_cap",
+              "exist_remaining", "pool_limit", "group_ncap", "group_whole",
+              "group_dsel", "group_dbase", "group_dcap", "group_skew",
+              "group_mindom", "group_delig", "exist_zone", "exist_ct"]
+    fields += ["group_gang"] if wg else []
+    fields += ["group_prio"] if "prio_inv" in lay else []
+    nbytes = (_nbytes(*(getattr(b, f) for f in fields))
+              + _catalog_bytes(c) + _nbytes(lim, *out))
     work = {"fit": 0, "test": 0, "flops": 0}
     ffd.batch_scan_reference(b, c, N, torch.empty_like(flat), lay,
-                             torch.empty_like(lim), 0, work)
+                             torch.empty_like(lim), 0, work, with_gang=wg)
     return bound_ms(nbytes, _work_ops(work))
 
 
@@ -494,16 +627,19 @@ def _sweep_bound(ffd, sw, c, N, K, lay, flat, lim):
     return bound_ms(nbytes, _work_ops(work))
 
 
-def _pack_bound(ffd, p, c, lim):
+def _pack_bound(ffd, p, c, lim, ex=1, wg=0):
     """K2 reads the mask rows, one (pool,type) row and its daemon row per
-    block, the pool rows, unsched, num_active and the topology rows;
-    writes the counts."""
+    block, the pool rows, unsched, num_active and the topology rows (and
+    the gang row with `wg`); writes the counts, and with explain=2 the
+    [G, O] map after reading each column's domain."""
     nbytes = (_nbytes(p.mask_bits, p.group_req, p.group_whole, c.pt_alloc,
                       c.pool_daemon, lim, p.group_dsel, p.group_dbase,
                       p.group_skew, p.group_mindom, p.group_delig)
+              + (_nbytes(p.group_gang) if wg else 0)
               + c.PT * ffd.R * 4 + c.PT * 4 + (p.G + 1) * 4
               + p.G * p.D * 4 + 2 * c.zc * 4
-              + (p.G * ffd.EXPLAIN_C + p.G) * 4)
+              + (p.G * ffd.EXPLAIN_C + p.G) * 4
+              + ((p.G * c.O + 2 * c.O) * 4 if ex >= 2 else 0))
     return bound_ms(nbytes, p.G * c.PT * ffd.R * 3 * 2)
 
 
@@ -545,12 +681,14 @@ def _first_chunks(ffd, solver, inps):
 
 
 def _reset_launches(ffd):
-    for w in KERNELS:
-        getattr(ffd, w).launches = 0
+    for w, attr in list(KERNELS.values()) + list(PASSES.values()):
+        setattr(getattr(ffd, w), attr, 0)
 
 
 def _read_launches(ffd):
-    return {k: getattr(ffd, w).launches for w, k in KERNELS.items()}
+    return {k: getattr(getattr(ffd, w), attr)
+            for k, (w, attr) in list(KERNELS.items())
+            + list(PASSES.items())}
 
 
 def _main_path(solver_cls, build, ffd, card, label, warm=WARM_SOLVES,
@@ -650,33 +788,59 @@ def _only_groups(prob, keep):
     return tuple(out)
 
 
-def _batch_times(ffd, b, c, N, reps):
+def _batch_times(ffd, b, c, N, reps, ex=1, wg=0, wp=0):
     """(K5 ms, plain ms, events ms, bound, K2 ms, K2 plain ms, K2 bound)
-    at one batch's shapes: plain, kernel, kernel, plain, in turns; K2 on
-    problem 0."""
+    at one batch's shapes (K5's gang instance with `wg`, the witness with
+    `wp`, K2's map with explain=2): plain, kernel, kernel, plain, in
+    turns; K2 on problem 0."""
     import torch
     dev = b.group_req.device
-    lay = ffd.flat_layout(b.G, b.E, N, b.D, 1)
+    lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, 0, c.O, wp)
     flat = torch.empty((b.B, lay["total"][1]), device=dev)
     lim = torch.empty((b.B, b.P, ffd.R), device=dev)
-    k = lambda: ffd.batch_scan(b, c, N, flat, lay, lim)  # noqa: E731
+    tag = f"scan_kernel<true, false, {'true' if wg else 'false'}>"
+    k = lambda: ffd.batch_scan(  # noqa: E731
+        b, c, N, flat, lay, lim, with_gang=wg)
     kp = lambda: ffd.batch_scan_reference(  # noqa: E731
-        b, c, N, flat, lay, lim)
+        b, c, N, flat, lay, lim, with_gang=wg)
     p0 = b.at(0)
-    k2 = lambda: ffd.pack(p0, c, N, flat[0], lay, lim[0])  # noqa: E731
+    k2 = lambda: ffd.pack(p0, c, N, flat[0], lay, lim[0], wg)  # noqa: E731
     k2p = lambda: ffd.pack_reference(  # noqa: E731
-        p0, c, N, flat[0], lay, lim[0])
+        p0, c, N, flat[0], lay, lim[0], wg)
     t_kp = _time_ms(kp, 3)
-    t_k, ev_k = _device_ms(k, reps, "scan_kernel<true, false>")
+    t_k, ev_k = _device_ms(k, reps, tag)
     t_k2, _ = _device_ms(k2, 200, "pack_kernel")
-    t_k = min(t_k, _device_ms(k, reps, "scan_kernel<true, false>")[0])
+    t_k = min(t_k, _device_ms(k, reps, tag)[0])
     t_kp = min(t_kp, _time_ms(kp, 3))
     t_k2p = _time_ms(k2p, 20)
     k()
     torch.cuda.synchronize()
-    bnd = _batch_bound(ffd, b, c, N, lay, flat, lim)
+    bnd = _batch_bound(ffd, b, c, N, lay, flat, lim, wg)
     return (t_k, t_kp, ev_k, bnd, t_k2, t_k2p,
-            _pack_bound(ffd, p0, c, lim[0]))
+            _pack_bound(ffd, p0, c, lim[0], ex, wg))
+
+
+def _witness_times(ffd, b, c, N, reps):
+    """The witness at one problem's shapes: K5 with and without the
+    witness region in turns (profiler ms each), the plain witness's ms,
+    and its bound (count, unsched and priority rows read, the witness row
+    written)."""
+    import torch
+    dev = b.group_req.device
+    out = {}
+    for wp in (0, 1, 1, 0):
+        lay = ffd.flat_layout(b.G, b.E, N, b.D, 0, 0, c.O, wp)
+        flat = torch.empty((b.B, lay["total"][1]), device=dev)
+        lim = torch.empty((b.B, b.P, ffd.R), device=dev)
+        t, _ = _device_ms(lambda: ffd.batch_scan(b, c, N, flat, lay, lim),
+                          reps, "scan_kernel<true, false, false>")
+        out.setdefault(wp, []).append(t)
+    unsched = ffd._region(flat, lay, "unsched")[0].to(torch.int32)
+    p0 = b.at(0)
+    t_plain = _time_ms(lambda: ffd.priority_witness(
+        p0.group_count, unsched, p0.group_prio), 20)
+    bnd = bound_ms(4 * 4 * b.G, 3 * b.G)
+    return out, t_plain, bnd
 
 
 def _sweep_times(ffd, sw, c, N, K, reps):
@@ -689,10 +853,10 @@ def _sweep_times(ffd, sw, c, N, K, reps):
     lim = torch.empty((sw.B, sw.P, ffd.R), device=dev)
     if sw.heavy:
         scan, plain = ffd.sweep_topo_scan, ffd.sweep_topo_scan_reference
-        tag = "scan_kernel<true, true>"
+        tag = "scan_kernel<true, true, false>"
     else:
         scan, plain = ffd.sweep_scan, ffd.sweep_scan_reference
-        tag = "scan_kernel<false, true>"
+        tag = "scan_kernel<false, true, false>"
     k = lambda: scan(sw, c, N, flat, lay, lim, K)  # noqa: E731
     kp = lambda: plain(sw, c, N, flat, lay, lim, K)  # noqa: E731
     t_k, ev_k = _device_ms(k, reps, tag)
@@ -731,8 +895,9 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch.solver import TorchSolver, _cuda, ffd
-    from karpenter_tpu_torch.workloads import (build_config3, build_config4,
-                                               build_config4b, build_input)
+    from karpenter_tpu_torch.workloads import (
+        build_config3, build_config4, build_config4b, build_config9,
+        build_config10, build_input)
 
     dev = torch.device("cuda", 0)
     card = _card_line()
@@ -752,7 +917,8 @@ def main(argv) -> int:
                 print(f"    {k}: {line.strip()}")
 
     # -- 3. kernels against their plain versions ---------------------------
-    errs = {k: 0.0 for k in list(KERNELS.values()) + ["te_compaction"]}
+    errs = {k: 0.0 for k in list(KERNELS) + list(PASSES)
+            + ["te_compaction"]}
     failed = []
 
     def record(label, res, what):
@@ -768,11 +934,17 @@ def main(argv) -> int:
     head_prob, head_cat = _encoded_problem(solver, build_input(HEADLINE_PODS),
                                            ffd)
     c3_prob, c3_cat = _encoded_problem(solver, build_config3(), ffd)
+    c9_prob, c9_cat = _encoded_problem(solver, build_config9(), ffd)
+    c10_prob, c10_cat = _encoded_problem(solver, build_config10(), ffd)
     cases = list(_seeded_cases()) + [
         ("headline", head_prob, head_cat, solver.max_nodes, 1),
         ("headline-explain-off", head_prob, head_cat, solver.max_nodes, 0),
         ("config3-cold", c3_prob, c3_cat, solver.max_nodes, 1),
-        ("config3-warm", c3_prob, c3_cat, CONFIG3_WARM_N, 1)]
+        ("config3-warm", c3_prob, c3_cat, CONFIG3_WARM_N, 1),
+        ("config9-cold-full", c9_prob, c9_cat, CONFIG_MAX_NODES, 2),
+        ("config9-warm", c9_prob, c9_cat, CONFIG3_WARM_N, 1),
+        ("config10-cold", c10_prob, c10_cat, CONFIG_MAX_NODES, 1),
+        ("config10-warm-full", c10_prob, c10_cat, CONFIG3_WARM_N, 2)]
     for label, prob, catarr, N, ex in cases:
         record(label, compare_case(ffd, prob, catarr, N, ex, dev),
                f"N={N} explain={ex}")
@@ -781,6 +953,12 @@ def main(argv) -> int:
         b = ffd.batch_tensors(probs, c.O, dev)
         record(label, compare_batch(ffd, b, c, N, ex, K, dev),
                f"B={b.B} N={N} explain={ex} K={K}")
+    for label, probs, catarr, N, ex in _gang_cases():
+        c = ffd.catalog_tensors(catarr, dev)
+        b = ffd.batch_tensors(probs, c.O, dev)
+        wg, wp = _statics(probs)
+        record(label, compare_batch(ffd, b, c, N, ex, 0, dev, wg, wp),
+               f"B={b.B} N={N} explain={ex} gang={wg} prio={wp}")
     for label, rows, shared, catarr, N, K in _sweep_cases():
         c = ffd.catalog_tensors(catarr, dev)
         sw = ffd.sweep_tensors(rows, ffd.sweep_shared_tensors(
@@ -870,12 +1048,90 @@ def main(argv) -> int:
             print(f"chip_smoke: {label} failed: {bad}", file=sys.stderr)
             return 1
 
-    # -- 8. timings at the main paths' shapes --------------------------------
+    # -- 8. gangs, priority bands and explain=full: config #9 and #10 -------
+    from karpenter_tpu_torch.scheduling.types import (
+        gang_placement_audit, priority_inversion_audit)
+
+    def big_solver():
+        return TorchSolver(max_nodes=CONFIG_MAX_NODES)
+
+    maps = []
+    real_unpack = ffd.unpack
+
+    def capture(*a, **kw):
+        out = real_unpack(*a, **kw)
+        if "explain_map" in out:
+            maps.append(out["explain_map"])
+        return out
+
+    for label, build, want, kernels, passes, full in (
+            ("8 config9", build_config9, CONFIG9,
+             ("ffd_batch_gang_scan", "ffd_pack"), (), False),
+            ("8 config10", build_config10, CONFIG10,
+             ("ffd_batch_scan", "ffd_pack"), ("priority_witness",), False),
+            ("8 config9-explain-full", build_config9, CONFIG9,
+             ("ffd_batch_gang_scan", "ffd_pack"), ("explain_map",), True)):
+        if full:
+            os.environ["KARPENTER_TPU_EXPLAIN"] = "full"
+            ffd.unpack = capture
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            res, counts, s = _main_path(big_solver, build, ffd, card, label)
+        finally:
+            os.environ.pop("KARPENTER_TPU_EXPLAIN", None)
+            ffd.unpack = real_unpack
+        add(counts)
+        print(f"[{label}] max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
+        nodes, unsched, price_hex, digest, trees = want
+        trees = CONFIG9_FULL_TREES if full else trees
+        bad = _check_answer(res, counts, nodes, unsched, price_hex,
+                            kernels + passes)
+        got = result_digest(res)
+        print(f"[{label}] result digest {got}; gang repairs "
+              f"{s.gang_repairs}; plans {plans_canon(res)}", flush=True)
+        if got != digest:
+            bad.append(f"result digest {got} != {digest}")
+        inp = build()
+        audit = gang_placement_audit(inp, res)
+        for g, a in audit.items():
+            if a["placed"] not in (0, a["total"]) or (
+                    a["placed"] and a["spec"].domain_key is not None
+                    and (a["unpinned"] or len(a["domains"]) != 1)):
+                bad.append(f"gang {g} partial or split: {a}")
+        if label == "8 config10":
+            if plans_canon(res) != CONFIG10_PLANS:
+                bad.append(f"plans {plans_canon(res)} != {CONFIG10_PLANS}")
+            inv = priority_inversion_audit(inp, res, res.preemptions)
+            if inv:
+                bad.append(f"priority inversions {inv}")
+        else:
+            stranded = tuple(sorted(g for g, a in audit.items()
+                                    if a["placed"] == 0))
+            if stranded != CONFIG9_STRANDED_GANGS:
+                bad.append(f"stranded gangs {stranded}")
+        td = trees_digest(res)
+        print(f"[{label}] trees digest {td}", flush=True)
+        if td != trees:
+            bad.append(f"trees digest {td} != {trees}")
+        if full:
+            md = map_digest(maps[0]) if maps else None
+            print(f"[{label}] map {None if not maps else maps[0].shape} "
+                  f"digest {md}", flush=True)
+            if md != CONFIG9_FULL_MAP or not all(
+                    map_digest(m) == md for m in maps):
+                bad.append(f"map digest {md} != {CONFIG9_FULL_MAP} (or a "
+                           f"warm solve's differs)")
+        if bad:
+            print(f"chip_smoke: {label} failed: {bad}", file=sys.stderr)
+            return 1
+
+    # -- 9. timings at the main paths' shapes --------------------------------
     p, c = ffd.problem_from_numpy(head_prob, head_cat, dev)
     N = solver.max_nodes
     t_k5, t_k5p, ev_k5, (b5, by5), t_k2, t_k2p, (b2, by2) = _batch_times(
         ffd, ffd.FFDBatch.of(p), c, N, 50)
-    print(f"[8] headline shapes (B=1, G={p.G}, N={N}, PT={c.PT}, O={c.O}) "
+    print(f"[9] headline shapes (B=1, G={p.G}, N={N}, PT={c.PT}, O={c.O}) "
           f"on {card}: ffd_batch_scan {t_k5:.4f} ms (events {ev_k5:.4f}, "
           f"plain {t_k5p:.3f}, bound {b5:.6f} by {by5}); ffd_pack "
           f"{t_k2:.4f} ms (plain {t_k2p:.3f}, bound {b2:.6f} by {by2})",
@@ -884,7 +1140,7 @@ def main(argv) -> int:
     for N3 in (solver.max_nodes, CONFIG3_WARM_N):
         t3, t3p, ev3, (b3, by3), t3k2, t3k2p, _ = _batch_times(
             ffd, ffd.FFDBatch.of(p3), c3, N3, 20)
-        print(f"[8] config #3 shapes (B=1, G={p3.G}, N={N3}, PT={c3.PT}, "
+        print(f"[9] config #3 shapes (B=1, G={p3.G}, N={N3}, PT={c3.PT}, "
               f"D={p3.D}) on {card}: ffd_batch_scan {t3:.4f} ms (events "
               f"{ev3:.4f}, plain {t3p:.3f}, bound {b3:.6f} by {by3}); "
               f"ffd_pack {t3k2:.4f} ms (plain {t3k2p:.3f})", flush=True)
@@ -894,6 +1150,7 @@ def main(argv) -> int:
     # nothing)
     dsel = np.asarray(c3_prob[7])
     split = {}
+    tag = "scan_kernel<true, false, false>"
     for kind, keep in (("light", dsel == 0), ("heavy", dsel > 0)):
         pk, ck = ffd.problem_from_numpy(_only_groups(c3_prob, keep), c3_cat,
                                         dev)
@@ -903,8 +1160,8 @@ def main(argv) -> int:
         lim_k = torch.empty((1, pk.P, ffd.R), device=dev)
         split[f"{kind} groups only ({int(keep.sum())})"] = _device_ms(
             lambda: ffd.batch_scan(bk, ck, CONFIG3_WARM_N, flat_k, lay_k,
-                                   lim_k), 10, "scan_kernel<true, false>")[0]
-    print(f"[8] config #3 (N={CONFIG3_WARM_N}) ffd_batch_scan by step kind "
+                                   lim_k), 10, tag)[0]
+    print(f"[9] config #3 (N={CONFIG3_WARM_N}) ffd_batch_scan by step kind "
           f"on {card}: " + "; ".join(f"{k} {v:.4f} ms"
                                      for k, v in split.items()), flush=True)
     sweep_t = {}
@@ -912,17 +1169,42 @@ def main(argv) -> int:
                                     ("ffd_sweep_topo_scan", c4b_chunk)):
         t4, t4p, ev4, (b4, by4) = _sweep_times(ffd, sw, cs, Ns, Ks, 20)
         sweep_t[kname] = (t4, t4p, b4, by4)
-        print(f"[8] {'config #4b heavy' if sw.heavy else 'config #4 light'}"
+        print(f"[9] {'config #4b heavy' if sw.heavy else 'config #4 light'}"
               f" chunk (B={sw.B}, G={sw.G}, E={sw.E}, D={sw.D}, N={Ns}, "
               f"O={cs.O}, K={Ks}) on {card}: {kname} {t4:.4f} ms (events "
               f"{ev4:.4f}, per simulation {t4 / sw.B * 1e3:.2f} us, plain "
               f"{t4p:.3f}, bound {b4:.6f} by {by4})", flush=True)
     sw, cs, Ns, Ks = c4_chunk
     turns, nbytes = _compaction_turns(ffd, sw, cs, Ns, max(Ks, 8), 20)
-    print(f"[8] config #4 chunk take_exist, launch+device+pull per chunk, in "
+    print(f"[9] config #4 chunk take_exist, launch+device+pull per chunk, in "
           f"turns on {card}: " + "; ".join(
               f"{k} ({nbytes[k]} bytes) " + ", ".join(f"{v:.4f}" for v in vs)
               + " ms" for k, vs in turns.items()), flush=True)
+    # config #9: the gang instance at the cold and the warm node axis, K2
+    # with the explain=2 map at the cold one
+    p9, c9 = ffd.problem_from_numpy(c9_prob, c9_cat, dev)
+    gang_t = {}
+    for N9, ex9 in ((CONFIG_MAX_NODES, 2), (CONFIG3_WARM_N, 1)):
+        gang_t[N9] = _batch_times(ffd, ffd.FFDBatch.of(p9), c9, N9, 20, ex9,
+                                  wg=1)
+        t9, t9p, ev9, (b9, by9), t9k2, t9k2p, (b9k2, by9k2) = gang_t[N9]
+        print(f"[9] config #9 shapes (B=1, G={p9.G}, N={N9}, PT={c9.PT}, "
+              f"D={p9.D}) on {card}: ffd_batch_gang_scan {t9:.4f} ms "
+              f"(events {ev9:.4f}, plain {t9p:.3f}, bound {b9:.6f} by "
+              f"{by9}); ffd_pack explain={ex9} {t9k2:.4f} ms (plain "
+              f"{t9k2p:.3f}, bound {b9k2:.6f} by {by9k2})", flush=True)
+    # config #10: the gang-free scan with and without the witness
+    p10, c10 = ffd.problem_from_numpy(c10_prob, c10_cat, dev)
+    wit, t_witp, (b_wit, by_wit) = _witness_times(
+        ffd, ffd.FFDBatch.of(p10), c10, CONFIG3_WARM_N, 20)
+    print(f"[9] config #10 shapes (B=1, G={p10.G}, N={CONFIG3_WARM_N}) on "
+          f"{card}: ffd_batch_scan with the witness "
+          + ", ".join(f"{v:.4f}" for v in wit[1]) + " ms, without "
+          + ", ".join(f"{v:.4f}" for v in wit[0]) + f" ms (in turns); "
+          f"plain witness {t_witp:.4f} ms, bound {b_wit:.8f} by {by_wit}",
+          flush=True)
+    t_gang, t_gangp, _, (b_gang, by_gang), t_map, t_mapp, (b_map, by_map) = \
+        gang_t[CONFIG_MAX_NODES]
 
     kernels = [
         {"name": "ffd_batch_scan", "route": "cuda",
@@ -932,6 +1214,20 @@ def main(argv) -> int:
          "max_abs_err": errs["ffd_batch_scan"], "ms": t_k5,
          "plain_ms": t_k5p, "bound_ms": b5, "bound_by": by5,
          "library_ms": None},
+        {"name": "ffd_batch_gang_scan", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/ffd_batch_scan.cu",
+         "replaces": "karpenter_tpu/solver/ffd.py:820",
+         "launches": launches["ffd_batch_gang_scan"],
+         "max_abs_err": errs["ffd_batch_gang_scan"], "ms": t_gang,
+         "plain_ms": t_gangp, "bound_ms": b_gang, "bound_by": by_gang,
+         "library_ms": None},
+        {"name": "priority_witness", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/ffd_scan_common.cuh",
+         "replaces": "karpenter_tpu/solver/ffd.py:1238",
+         "launches": launches["priority_witness"],
+         "max_abs_err": errs["priority_witness"],
+         "ms": max(0.0, min(wit[1]) - min(wit[0])), "plain_ms": t_witp,
+         "bound_ms": b_wit, "bound_by": by_wit, "library_ms": None},
         {"name": "ffd_sweep_scan", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/ffd_sweep_scan.cu",
          "replaces": "karpenter_tpu/solver/ffd.py:1531",
@@ -956,6 +1252,13 @@ def main(argv) -> int:
          "launches": launches["ffd_pack"],
          "max_abs_err": errs["ffd_pack"], "ms": t_k2, "plain_ms": t_k2p,
          "bound_ms": b2, "bound_by": by2, "library_ms": None},
+        {"name": "explain_map", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/ffd_pack.cu",
+         "replaces": "karpenter_tpu/solver/ffd.py:1215",
+         "launches": launches["explain_map"],
+         "max_abs_err": errs["explain_map"], "ms": t_map,
+         "plain_ms": t_mapp, "bound_ms": b_map, "bound_by": by_map,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

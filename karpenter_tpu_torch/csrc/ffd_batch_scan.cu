@@ -11,13 +11,26 @@
 // the rest — and, with sparse_k, the take_exist top-K compaction
 // (:1068-1086).  It writes each problem's flat result row of ffd.py:1258.
 //
-// This is the `scan_kernel<true, false>` instance of ffd_scan_common.cuh,
-// which holds the design notes.  What bounds it on the H100: latency, not
-// bytes or arithmetic.  Each problem's inputs are a few hundred KB and its
-// float work a few million operations at most (microseconds of HBM and of
+// This is the `scan_kernel<true, false, false>` instance of
+// ffd_scan_common.cuh, which holds the design notes.  With priority bands
+// it also writes the priority inversion witness (ffd.py:1238-1257) in its
+// epilogue.  What bounds it on the H100: latency, not bytes or
+// arithmetic.  Each problem's inputs are a few hundred KB and its float
+// work a few million operations at most (microseconds of HBM and of
 // fp32), while its scan is a dependency chain, steps x pools (x domains)
 // long, with block barriers inside each step.  The batch axis is the one
 // source of parallelism across SMs: B blocks run on B SMs at once.
+//
+// ffd_batch_gang_scan, `scan_kernel<true, false, true>`, is the same scan
+// with the gang branch compiled in — the reference's `with_gang` static
+// (ffd.py:338, :1049-1056): a group with group_gang set runs the atomic
+// K-node gang fill `gang_fill` (ffd.py:820-1047).  Only problems that hold
+// a gang group launch it, so gang-free rows come from the gang-free
+// instance, as the reference's gang-free program.  What bounds the gang
+// step is latency too: per gang it evaluates every domain's candidate (a
+// block scan over the existing nodes, a walk of each active node's
+// surviving columns, P + 1 block scans over the node slots and the pool
+// cascade on one thread), then the winner once more to commit it.
 #include "ffd_scan_common.cuh"
 
 // Plain-C entry point for ctypes.  ptrs: SCAN_NPTRS device addresses in
@@ -27,5 +40,12 @@
 // synchronise.
 extern "C" int ffd_batch_scan(const unsigned long long* ptrs, int nptrs,
                               const int* dims, int ndims, void* stream) {
-  return scan_entry<true, false>(ptrs, nptrs, dims, ndims, stream);
+  return scan_entry<true, false, false>(ptrs, nptrs, dims, ndims, stream);
+}
+
+// The gang instance: the same arguments, with the group_gang row set.
+extern "C" int ffd_batch_gang_scan(const unsigned long long* ptrs, int nptrs,
+                                   const int* dims, int ndims,
+                                   void* stream) {
+  return scan_entry<true, false, true>(ptrs, nptrs, dims, ndims, stream);
 }

@@ -1,4 +1,5 @@
-// K2 ffd_pack: the post-scan explain counts, one thread block per group.
+// K2 ffd_pack: the post-scan explain counts and the explain=2 column map,
+// one thread block per group.
 //
 // Replaces the explain=1 provenance aux of karpenter_tpu/solver/ffd.py
 // `_solve_ffd_impl`, ffd.py:1113-1214: per group, the catalog columns
@@ -8,11 +9,18 @@
 // admitted columns of fitting, fundable blocks whose domain is ineligible
 // or at the skew ceiling after the group's own placements (dom_placed +
 // base counts, minDomains as in the water-fill); a column's domain is its
-// grid slot's, col_zone[:zc] or col_ct[:zc].  The counts land at the
-// offsets of the flat result buffer `unpack` reads.  (The reference's
-// take_new top-K compaction, ffd.py:1089-1109, saves device-to-host bytes
-// on a TPU link; on the card it bought nothing, and the port keeps the
-// dense rows the scan kernels write.)
+// grid slot's, col_zone[:zc] or col_ct[:zc].  With the gang row (the
+// reference's `with_gang` static, ffd.py:1181-1194), a stranded gang
+// counts in the whole-node class too, less the columns the topology class
+// already claimed.  The counts land at the offsets of the flat result
+// buffer `unpack` reads.  With a map row (explain=2, ffd.py:1215-1237),
+// every column of the group's [O] map row gets its first eliminating
+// class, fit > limit > topology > whole (1-based, 0 = kept), in a strided
+// pass over the columns: the block's fit and limit flags repeated over its
+// grid slots, the topology flag looked up by the column's domain.  (The
+// reference's take_new top-K compaction, ffd.py:1089-1109, saves
+// device-to-host bytes on a TPU link; on the card it bought nothing, and
+// the port keeps the dense rows the scan kernels write.)
 //
 // What bounds it on the H100: per group it reads one mask row, walks the PT
 // (pool,type) blocks once and reads a few per-group rows; at the 50k
@@ -21,12 +29,15 @@
 // occupy 8 of 132 SMs: the launch itself is the cost.
 //
 // Design: a strided walk over the blocks with per-thread partial sums
-// combined by shared-memory atomics; the blocked grid slots are a [ZC]
-// flag row computed once per group.  Float parity as in ffd_common.cuh.
+// combined by shared-memory atomics; the blocked domains are a [D] flag
+// row and the blocked grid slots a [ZC] one, computed once per group.
+// The map pass (explain=2) writes G*O floats: at config #9 (G=16,
+// O=3840) 246 KB, under 0.1 us of HBM.  Float parity as in ffd_common.cuh.
 #include "ffd_common.cuh"
 
 #define NT2 256
 #define PACK_MAXZC 64
+#define PACK_MAXD 128
 
 struct PackArgs {
   const uint32_t* mask_bits;  // [G, W]
@@ -49,10 +60,13 @@ struct PackArgs {
   const int* group_delig;     // [G, D] 0/1
   const int* col_zone;        // [O] (the first ZC: the grid's slot pattern)
   const int* col_ct;          // [O]
+  const int* group_gang;      // [G] gang rows (with_gang), or null
+  float* ex_map;              // [G, O] (flat) the explain=2 map, or null
   int G, N, PT, ZC, P, W, D;
 };
 
-#define PACK_NPTRS 20
+#define PACK_NPTRS 22
+#define PACK_OPTIONAL 2  /* group_gang and ex_map may be null */
 #define PACK_NDIMS 7
 
 // number of set bits of `row` in columns [lo, lo + n)
@@ -73,6 +87,7 @@ __global__ void __launch_bounds__(NT2) pack_kernel(const PackArgs a) {
   const int g = blockIdx.x, tid = threadIdx.x;
   __shared__ int s_fit, s_lim, s_topo, s_ok;
   __shared__ int s_blocked[PACK_MAXZC];
+  __shared__ int s_bdom[PACK_MAXD];
 
   const int dsel = a.group_dsel[g];
   if (tid == 0) {
@@ -98,12 +113,13 @@ __global__ void __launch_bounds__(NT2) pack_kernel(const PackArgs a) {
       const int m_floor = (mindom > 0 && pop < mindom) ? 0 : m_elig;
       const int ceiling =
           (int)((unsigned)m_floor + (unsigned)a.group_skew[g]);
-      const int* slot_dom = dsel == 1 ? a.col_zone : a.col_ct;
-      for (int z = 0; z < a.ZC; ++z) {
-        const int d = min(max(slot_dom[z], 0), D - 1);
+      for (int d = 0; d < D; ++d) {
         const int f = (int)((unsigned)base[d] + (unsigned)(int)placed[d]);
-        s_blocked[z] = !elig[d] || f >= ceiling;
+        s_bdom[d] = !elig[d] || f >= ceiling;
       }
+      const int* slot_dom = dsel == 1 ? a.col_zone : a.col_ct;
+      for (int z = 0; z < a.ZC; ++z)
+        s_blocked[z] = s_bdom[min(max(slot_dom[z], 0), D - 1)];
     }
   }
   __syncthreads();
@@ -141,11 +157,15 @@ __global__ void __launch_bounds__(NT2) pack_kernel(const PackArgs a) {
   atomicAdd(&s_topo, topo);
   atomicAdd(&s_ok, ok);
   __syncthreads();
+  const bool stranded = a.unsched[g] > 0.0f;
+  // with the gang row, gang strands count as whole-node strands, on the
+  // admitted fitting, fundable columns the topology class left
+  const bool whole = a.group_whole[g] != 0 ||
+                     (a.group_gang && a.group_gang[g] != 0);
   if (tid == 0) {
-    const bool stranded = a.unsched[g] > 0.0f;
-    const bool whole = a.group_whole[g] != 0;
+    const int whole_cols = a.group_gang ? s_ok - s_topo : s_ok;
     const int counts[5] = {
-        s_fit, s_lim, s_topo, (whole && stranded) ? s_ok : 0,
+        s_fit, s_lim, s_topo, (whole && stranded) ? whole_cols : 0,
         (stranded && a.na[0] >= (float)a.N) ? 1 : 0};
     int bits = 0;
     for (int i = 0; i < 5; ++i) {
@@ -154,11 +174,34 @@ __global__ void __launch_bounds__(NT2) pack_kernel(const PackArgs a) {
     }
     a.ex_bits[g] = (float)bits;
   }
+  if (!a.ex_map) return;
+  // explain=2: each column's first eliminating class
+  const int O = a.PT * a.ZC;
+  const int* col_dom = dsel == 1 ? a.col_zone : a.col_ct;
+  float* map = a.ex_map + (size_t)g * O;
+  for (int o = tid; o < O; o += NT2) {
+    int cls = 0;
+    if ((row[o >> 5] >> (o & 31)) & 1u) {
+      const int pt = o / a.ZC, lo = pt * a.ZC;
+      const int p = a.col_pool[lo];
+      if (!all_fits3(&a.pt_alloc[pt * KR], &a.col_daemon[(size_t)lo * KR],
+                     req))
+        cls = 1;
+      else if (!all_fits3(&a.limits[p * KR], &a.pool_daemon[p * KR], req))
+        cls = 2;
+      else if (dsel > 0 && s_bdom[min(max(col_dom[o], 0), a.D - 1)])
+        cls = 3;
+      else if (whole && stranded)
+        cls = 4;
+    }
+    map[o] = (float)cls;
+  }
 }
 
 // Plain-C entry point for ctypes.  ptrs: PACK_NPTRS device addresses in
-// PackArgs order; dims: G, N, PT, ZC, P, W, D.  Returns 0, a CUDA error
-// code, or a negative argument error.
+// PackArgs order (the last PACK_OPTIONAL may be 0: no gang row, no map);
+// dims: G, N, PT, ZC, P, W, D.  Returns 0, a CUDA error code, or a
+// negative argument error.
 extern "C" int ffd_pack(const unsigned long long* ptrs, int nptrs,
                         const int* dims, int ndims, void* stream) {
   if (nptrs != PACK_NPTRS || ndims != PACK_NDIMS) return -1;
@@ -184,6 +227,8 @@ extern "C" int ffd_pack(const unsigned long long* ptrs, int nptrs,
   a.group_delig = (const int*)ptrs[i++];
   a.col_zone = (const int*)ptrs[i++];
   a.col_ct = (const int*)ptrs[i++];
+  a.group_gang = (const int*)ptrs[i++];
+  a.ex_map = (float*)ptrs[i++];
   a.G = dims[0];
   a.N = dims[1];
   a.PT = dims[2];
@@ -192,9 +237,9 @@ extern "C" int ffd_pack(const unsigned long long* ptrs, int nptrs,
   a.W = dims[5];
   a.D = dims[6];
   if (a.G < 1 || a.N < 1 || a.ZC < 1 || a.D < 1 || a.ZC > PACK_MAXZC ||
-      a.W != (a.PT * a.ZC + 31) / 32)
+      a.D > PACK_MAXD || a.W != (a.PT * a.ZC + 31) / 32)
     return -2;
-  for (int k = 0; k < PACK_NPTRS; ++k)
+  for (int k = 0; k < PACK_NPTRS - PACK_OPTIONAL; ++k)
     if (!ptrs[k]) return -3;
   pack_kernel<<<a.G, NT2, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-// The FFD scan shared by K5 ffd_batch_scan and K4 ffd_sweep_scan (both
-// lanes): one templated kernel, `scan_kernel<TOPO, SWEEP>`, that runs the
+// The FFD scan shared by K5 ffd_batch_scan (and its gang instance) and K4
+// ffd_sweep_scan (both lanes): one templated kernel,
+// `scan_kernel<TOPO, SWEEP, GANG>`, that runs the
 // whole G-step scan of karpenter_tpu/solver/ffd.py `_solve_ffd_impl`
 // (ffd.py:210, scanned at :1062) for B problems in one launch, one thread
 // block per problem (the reference's `jax.vmap` axis, ffd.py:1492, :1531,
@@ -17,13 +18,23 @@
 //     domain.  Only the TOPO instances compile it (`if constexpr`), the
 //     reference's `lax.cond(dsel > 0, heavy, light)` (:1057), uniform across
 //     the block;
+//   * gang_step: the atomic K-node gang fill, ffd.py:820-1047, for groups
+//     with group_gang set, compiled only into the GANG instance (the
+//     reference's `with_gang` static, ffd.py:1049-1056): for every domain
+//     the light cascade restricted to that domain against its own copy of
+//     the pool budget, evaluated without touching the carry; the feasible
+//     domain of lowest trial rank is then evaluated once more and
+//     committed, every node it touches pinned to it;
 //   * SWEEP: the problem is a consolidation simulation, "the shared snapshot
 //     minus a few nodes" (ffd.py:1570): the block keeps the existing rows
 //     its exclusions leave, reads its groups' column masks and node caps
 //     from per-class tables (`class_mask[gcls]`, `class_cap[gcls] * keep`)
 //     and ANDs in its price cap (`col_price < pcap`) as a word mask;
 //   * with K > 0 the take_exist top-K compaction (:1068-1086) in the
-//     epilogue: a block scan ranks each group's nonzero entries.
+//     epilogue: a block scan ranks each group's nonzero entries;
+//   * with a priority row, the priority inversion witness (:1238-1257) in
+//     the epilogue: one thread walks the groups with the exclusive running
+//     max of the stranded groups' priorities (integers only, exact).
 // The packed-mask expansion `_expand_packed_mask` (:199) disappears: the
 // kernels read the group mask as bits.  Results land in the flat result
 // row of ffd.py:1258, one row per problem.
@@ -131,13 +142,17 @@ struct ScanArgs {
   // the take_exist top-K compaction (K > 0)
   float* te_dense;               // [G, E] scratch: the dense rows
   float* te_head;                // flat: counts [G, K], indices [G, K]
+  // gangs (the GANG instance) and priority bands (the witness)
+  const int* group_gang;         // [G] 0/1 gang unit
+  const int* group_prio;         // [G] effective priority
+  float* prio_inv;               // [G] (flat) the witness; null = none
   int G, E, N, O, PT, ZC, P, D, W;
   int B, X, K, total;            // problems, exclusions, top-K, flat row
 };
 // Every pointer above addresses problem 0 of the batch; block b offsets the
 // per-problem ones (inputs, carry, the flat row) in offset_block.
 
-#define SCAN_NPTRS 48
+#define SCAN_NPTRS 51
 #define SCAN_NDIMS 13
 #define MAXX 8
 #define BIGCAP 536870912  /* encode.BIG: no per-node cap */
@@ -146,7 +161,7 @@ struct ScanArgs {
 struct ScanShared {
   unsigned warp[NT / 32];
   float req[KR];
-  int cnt, ncap, whole, dsel, first, sum, na, crem;
+  int cnt, ncap, whole, dsel, gang, first, sum, na, crem;
   int row;               // this group's row of the (class) tables
   int nx, excl[MAXX];    // the sweep simulation's excluded existing rows
   int dreal_zone, dreal_ct;
@@ -956,6 +971,327 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
 }
 
 // ---------------------------------------------------------------------------
+// the gang fill (ffd.py:820-1047)
+
+// per-step state of one gang step, in shared memory (GANG only)
+struct GangShared {
+  int zcdom[MAXZC];        // domain of each grid slot (all 0 for dsel 0)
+  int placed[MAXD];        // each domain's candidate total
+  float lim[MAXP * KR];    // a candidate's own copy of the pool budgets
+  int sum_e, sum_n, w, ok;
+};
+
+// the gang's domain of existing node / column i: zone, capacity type, or
+// domain 0 for a domain-free gang (dsel 0)
+__device__ __forceinline__ int gang_dom(int dsel, const int* zone,
+                                        const int* ct, int i) {
+  return dsel == 1 ? zone[i] : (dsel == 2 ? ct[i] : 0);
+}
+
+// Domain d's candidate: the light cascade (existing, in-flight, new
+// nodes) restricted to d's existing nodes, node slots and grid slots, the
+// new nodes charged to a copy of the pool budgets pre-charged with d's
+// in-flight take.  Without `commit` it only records Gs.placed[d] and
+// leaves the carry alone; with `commit` (the winner) it applies the
+// candidate to the carry in the reference's order (ffd.py:979-1035):
+// existing takes, in-flight takes narrowed to d's slots and pinned, the
+// budgets charged with the in-flight take, then each pool's new nodes and
+// pods, the new nodes pinned.  Evaluating the winner twice on the same
+// carry gives the same candidate bit for bit.  Every thread calls.
+__device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
+                               const ScanDyn& s, GangShared& Gs, int g,
+                               int d, bool commit) {
+  const int tid = threadIdx.x;
+  const int E = a.E, N = a.N, ZC = a.ZC, P = a.P, D = a.D, W = a.W;
+  float req[KR];
+#pragma unroll
+  for (int r = 0; r < KR; ++r) req[r] = S.req[r];
+  const int cnt = S.cnt, ncap = S.ncap, dsel = S.dsel;
+  int* node_dom = dsel == 1 ? a.node_zone : (dsel == 2 ? a.node_ct : nullptr);
+  if (tid == 0) {
+    Gs.sum_e = 0;
+    Gs.sum_n = 0;
+  }
+  if (tid < P) S.ptake[tid] = 0;
+  __syncthreads();
+
+  // -- 1. existing nodes of domain d ---------------------------------------
+  {
+    unsigned carry = 0u;
+    for (int base = 0; base < E; base += NT) {
+      const int e = base + tid;
+      const bool mine =
+          e < E && gang_dom(dsel, a.exist_zone, a.exist_ct, e) == d;
+      const int cap = mine ? a.cap_e[e] : 0;
+      unsigned tot;
+      const unsigned before =
+          block_excl_scan<NT>((unsigned)cap, S.warp, &tot) + carry;
+      carry += tot;
+      if (e < E) {
+        const int take = mine ? prefix_take(cap, cnt, before) : 0;
+        if (commit) {
+          a.take_exist[(size_t)g * E + e] = (float)take;
+          if (take != 0) {
+#pragma unroll
+            for (int r = 0; r < KR; ++r)
+              a.exist_rem[e * KR + r] = __fsub_rn(
+                  a.exist_rem[e * KR + r], __fmul_rn((float)take, req[r]));
+          }
+        }
+        if (take != 0) atomicAdd(&Gs.sum_e, take);
+      }
+    }
+  }
+  __syncthreads();
+  const int rem1 = cnt - Gs.sum_e;
+
+  // -- 2. in-flight nodes: the best fit over the node's surviving,
+  // admitted blocks in d's grid slots (a node pinned elsewhere has none)
+  for (int n = tid; n < N; n += NT) {
+    int cap = 0;
+    if (a.active[n]) {
+      float u[KR];
+#pragma unroll
+      for (int r = 0; r < KR; ++r) u[r] = a.used[n * KR + r];
+      int best = 0, last_pt = -1, fit = 0;
+      for (int w = 0; w < W; ++w) {
+        uint32_t m = a.colmask[(size_t)w * N + n] & s.gm[w];
+        while (m) {
+          const int o = w * 32 + __ffs(m) - 1;
+          m &= m - 1;
+          const int pt = o / ZC;
+          if (Gs.zcdom[o - pt * ZC] != d) continue;
+          if (pt != last_pt) {
+            last_pt = pt;
+            float av[KR];
+#pragma unroll
+            for (int r = 0; r < KR; ++r)
+              av[r] = __fsub_rn(s.pt[pt * KR + r], u[r]);
+            fit = fit_count(av, req);
+          }
+          best = max(best, fit);
+        }
+      }
+      cap = min(best, ncap);
+    }
+    s.cap[n] = cap;
+  }
+  __syncthreads();
+  // pool limits are collective (_clamp_pool_limits on the carry budgets)
+  for (int p = 0; p < P; ++p) {
+    unsigned carry = 0u;
+    for (int base = 0; base < N; base += NT) {
+      const int n = base + tid;
+      const bool mine = n < N && a.node_pool[n] == p;
+      const int v = mine ? s.cap[n] : 0;
+      unsigned tot;
+      const unsigned before =
+          block_excl_scan<NT>((unsigned)v, S.warp, &tot) + carry;
+      carry += tot;
+      if (mine) s.cap[n] = min(v, max(wsub(S.limcap[p], before), 0));
+    }
+  }
+  __syncthreads();
+  {
+    unsigned carry = 0u;
+    for (int base = 0; base < N; base += NT) {
+      const int n = base + tid;
+      const int cap = n < N ? s.cap[n] : 0;
+      unsigned tot;
+      const unsigned before =
+          block_excl_scan<NT>((unsigned)cap, S.warp, &tot) + carry;
+      carry += tot;
+      if (n < N) s.take[n] = prefix_take(cap, rem1, before);
+    }
+  }
+  for (int n = tid; n < N; n += NT) {
+    const int take = s.take[n];
+    if (take > 0) {
+      if (commit) {
+        float u[KR];
+#pragma unroll
+        for (int r = 0; r < KR; ++r) {
+          u[r] = __fadd_rn(a.used[n * KR + r], __fmul_rn((float)take, req[r]));
+          a.used[n * KR + r] = u[r];
+        }
+        int last_pt = -1;
+        bool last_ok = true;
+        for (int w = 0; w < W; ++w) {
+          const uint32_t m = a.colmask[(size_t)w * N + n] & s.gm[w];
+          a.colmask[(size_t)w * N + n] =
+              narrow_word(m, w, ZC, s.pt, u, last_pt, last_ok, Gs.zcdom, d);
+        }
+        if (node_dom) node_dom[n] = d;
+      }
+      atomicAdd(&S.ptake[a.node_pool[n]], take);
+      atomicAdd(&Gs.sum_n, take);
+    }
+  }
+  __syncthreads();
+
+  // -- 3. new nodes, pools in priority order, on one thread: the budget
+  // copy (the carry itself for the winner) charged first with d's
+  // in-flight take per pool (segment_sum of integer takes: exact in
+  // float32 below 2^24), then pool by pool
+  if (tid == 0) {
+    const int rem2 = rem1 - Gs.sum_n;
+    int c_rem = rem2, na = S.na;
+    float* lim = commit ? a.limits : Gs.lim;
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int r = 0; r < KR; ++r)
+        lim[p * KR + r] = __fsub_rn(a.limits[p * KR + r],
+                                    __fmul_rn((float)S.ptake[p], req[r]));
+    for (int p = 0; p < P; ++p) {
+      float* lp = lim + p * KR;
+      const float* pd = a.pool_daemon + p * KR;
+      const int kf_raw = s.kpd[p * D + d];
+      const bool can = all_fits3(lp, pd, req) && c_rem > 0 && kf_raw > 0;
+      const int kf = max(kf_raw, 1);
+      // budget-exact node count, the light step's two passes
+      int t = min(c_rem, fit_count(lp, req));
+      const int m_t = ceil_div(t, kf);
+      float tmp[KR];
+#pragma unroll
+      for (int r = 0; r < KR; ++r)
+        tmp[r] = __fsub_rn(lp[r], __fmul_rn((float)m_t, pd[r]));
+      t = min(t, fit_count(tmp, req));
+      const int m_need = can ? ceil_div(t, kf) : 0;
+      const int m = min(m_need, N - na);
+      const int taken = min(t, wmul(m, kf_raw));
+      S.start[p] = na;
+      S.m[p] = m;
+      S.taken[p] = taken;
+#pragma unroll
+      for (int r = 0; r < KR; ++r)
+        lp[r] = __fadd_rn(lp[r],
+                          -__fadd_rn(__fmul_rn((float)m, pd[r]),
+                                     __fmul_rn((float)taken, req[r])));
+      na += m;
+      c_rem -= taken;
+    }
+    // a slot-starved candidate places less than the gang: infeasible
+    Gs.placed[d] = (int)((unsigned)Gs.sum_e + (unsigned)Gs.sum_n +
+                         (unsigned)(rem2 - c_rem));
+    if (commit) S.na = na;
+  }
+  __syncthreads();
+  if (!commit) return;
+
+  // the winner's new nodes, activated in parallel, pinned to d
+  for (int n = tid; n < N; n += NT) {
+    int tn = s.take[n];
+    for (int p = 0; p < P; ++p) {
+      const int m = S.m[p], st = S.start[p];
+      if (m > 0 && n >= st && n < st + m) {
+        const int kfull = s.kpd[p * D + d];
+        const int k = (n - st == m - 1) ? S.taken[p] - wmul(m - 1, kfull)
+                                        : kfull;
+        float u[KR];
+#pragma unroll
+        for (int r = 0; r < KR; ++r) {
+          u[r] = __fadd_rn(a.pool_daemon[p * KR + r],
+                           __fmul_rn((float)k, req[r]));
+          a.used[n * KR + r] = u[r];
+        }
+        int last_pt = -1;
+        bool last_ok = true;
+        for (int w = 0; w < W; ++w) {
+          const uint32_t m0 = s.feas[w] & a.pool_bits[(size_t)p * W + w];
+          a.colmask[(size_t)w * N + n] =
+              narrow_word(m0, w, ZC, s.pt, u, last_pt, last_ok, Gs.zcdom, d);
+        }
+        a.active[n] = 1;
+        a.node_pool[n] = p;
+        if (node_dom) node_dom[n] = d;
+        tn += k;
+        break;
+      }
+    }
+    a.take_new[(size_t)g * N + n] = (float)tn;
+  }
+}
+
+__device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
+                          int g) {
+  __shared__ GangShared Gs;
+  const int tid = threadIdx.x;
+  const int E = a.E, N = a.N, O = a.O, ZC = a.ZC, P = a.P, D = a.D;
+  float req[KR];
+#pragma unroll
+  for (int r = 0; r < KR; ++r) req[r] = S.req[r];
+  const int cnt = S.cnt, ncap = S.ncap, dsel = S.dsel;
+
+  // -- the step's tables: slot domains, existing caps, the budgets' pod
+  // caps, the feasible columns and the best column per (pool, domain)
+  for (int z = tid; z < ZC; z += NT)
+    Gs.zcdom[z] = gang_dom(dsel, a.col_zone, a.col_ct, z);
+  for (int i = tid; i < P * D; i += NT) s.kpd[i] = 0;
+  for (int e = tid; e < E; e += NT)
+    a.cap_e[e] = min(fit_count(&a.exist_rem[e * KR], req),
+                     exist_cap_at(a, S, e));
+  if (tid < P) S.limcap[tid] = fit_count(&a.limits[tid * KR], req);
+  __syncthreads();
+  for (int o = tid; o < O; o += NT) {
+    if ((s.gm[o >> 5] >> (o & 31)) & 1u) {
+      float av[KR];
+#pragma unroll
+      for (int r = 0; r < KR; ++r)
+        av[r] = __fsub_rn(a.col_alloc[o * KR + r], a.col_daemon[o * KR + r]);
+      const int pc = min(fit_count(av, req), ncap);
+      if (pc >= 1) {
+        atomicOr(&s.feas[o >> 5], 1u << (o & 31));
+        const int d = gang_dom(dsel, a.col_zone, a.col_ct, o);
+        if (d >= 0 && d < D) atomicMax(&s.kpd[a.col_pool[o] * D + d], pc);
+      }
+    }
+  }
+  __syncthreads();
+
+  // -- every domain's candidate, then the feasible one of lowest rank
+  for (int d = 0; d < D; ++d) gang_candidate(a, S, s, Gs, g, d, false);
+  if (tid == 0) {
+    int w = 0, best = 0;
+    for (int d = 0; d < D; ++d) {
+      const bool feas = a.group_delig[(size_t)g * D + d] != 0 &&
+                        Gs.placed[d] >= cnt;
+      const int rank = feas ? a.group_dbase[(size_t)g * D + d] : BIGCAP;
+      if (d == 0 || rank < best) {  // argmin: the first minimum
+        best = rank;
+        w = d;
+      }
+      a.dom_placed[(size_t)g * D + d] = (float)min(Gs.placed[d], cnt);
+    }
+    Gs.w = w;
+    Gs.ok = best < BIGCAP && cnt > 0;
+  }
+  __syncthreads();
+  const int w = Gs.w;
+  if (Gs.ok) {
+    gang_candidate(a, S, s, Gs, g, w, true);
+    if (tid == 0) a.unsched[g] = 0.0f;
+  } else {
+    // nothing commits: the gang strands whole
+    for (int e = tid; e < E; e += NT) a.take_exist[(size_t)g * E + e] = 0.0f;
+    for (int n = tid; n < N; n += NT) a.take_new[(size_t)g * N + n] = 0.0f;
+    if (tid == 0) a.unsched[g] = (float)cnt;
+  }
+}
+
+// The priority inversion witness (ffd.py:1238-1257) from the strand
+// outputs: a group that placed pods after an earlier group of strictly
+// higher priority stranded.  One thread; integers only.
+__device__ void priority_witness(const ScanArgs& a) {
+  int before = -2147483647;  // -(2^31) + 1
+  for (int g = 0; g < a.G; ++g) {
+    const int un = (int)a.unsched[g];
+    const int gp = a.group_prio[g];
+    a.prio_inv[g] = (a.group_count[g] - un > 0 && gp < before) ? 1.0f : 0.0f;
+    if (un > 0) before = max(before, gp);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Block b's view of the batch: every per-problem pointer moved to problem
 // b.  K5 (SWEEP false) stacks whole problems; K4 (SWEEP true) stacks only
 // the simulations' rows and shares the class tables and existing nodes.
@@ -968,6 +1304,8 @@ __device__ void offset_block(ScanArgs& a, int b) {
   a.pool_limit += bb * P * KR;
   if (a.group_ncap) a.group_ncap += bb * G;
   if (a.group_whole) a.group_whole += bb * G;
+  if (a.group_gang) a.group_gang += bb * G;
+  if (a.group_prio) a.group_prio += bb * G;
   if (a.group_dsel) {
     a.group_dsel += bb * G;
     a.group_dbase += bb * G * D;
@@ -1013,6 +1351,7 @@ __device__ void offset_block(ScanArgs& a, int b) {
   a.zone_out += row;
   a.ct_out += row;
   a.na_out += row;
+  if (a.prio_inv) a.prio_inv += row;
 }
 
 // The top-K take_exist compaction (ffd.py:1068-1086): each group's nonzero
@@ -1048,10 +1387,11 @@ __device__ void compact_take_exist(const ScanArgs& a, ScanShared& S) {
 }
 
 // One block of NT threads per problem (grid = B).  TOPO: the heavy step for
-// groups with dsel > 0.  SWEEP: the problem is a simulation of a shared
+// groups with dsel > 0.  GANG (with TOPO): the gang fill for groups with
+// group_gang set.  SWEEP: the problem is a simulation of a shared
 // snapshot, built in the prologue (kept existing rows, price-capped class
 // masks).
-template <bool TOPO, bool SWEEP>
+template <bool TOPO, bool SWEEP, bool GANG>
 __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScanShared S;
@@ -1139,6 +1479,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
       S.ncap = a.group_ncap ? a.group_ncap[g] : BIGCAP;
       S.whole = a.group_whole ? a.group_whole[g] != 0 : 0;
       S.dsel = TOPO ? a.group_dsel[g] : 0;
+      S.gang = GANG ? a.group_gang[g] != 0 : 0;
       S.row = row;
       S.first = INT_MAX;
       S.sum = 0;
@@ -1154,7 +1495,14 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
       S.ptake[tid] = 0;
     }
     __syncthreads();
-    if constexpr (TOPO) {
+    if constexpr (GANG) {
+      if (S.gang)
+        gang_step(a, S, s, g);
+      else if (S.dsel > 0)
+        heavy_step(a, S, s, g);
+      else
+        light_step(a, S, s, g);
+    } else if constexpr (TOPO) {
       if (S.dsel > 0)
         heavy_step(a, S, s, g);
       else
@@ -1165,6 +1513,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     __syncthreads();
   }
   if (a.K > 0) compact_take_exist(a, S);
+  if (!SWEEP && a.prio_inv && tid == 0) priority_witness(a);
 
   // -- final state ---------------------------------------------------------
   for (int i = tid; i < N * KR; i += NT) a.used_out[i] = a.used[i];
@@ -1181,7 +1530,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
 // PT, ZC, P, D, W, B, X, K, total.  Returns 0, a CUDA error code
 // (cudaGetLastError after the launch), or a negative argument error.
 // Launches B blocks on `stream` and does not synchronise.
-template <bool TOPO, bool SWEEP>
+template <bool TOPO, bool SWEEP, bool GANG>
 int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
                int ndims, void* stream) {
   if (nptrs != SCAN_NPTRS || ndims != SCAN_NDIMS) return -1;
@@ -1235,6 +1584,9 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.col_price = (const float*)ptrs[i++];
   a.te_dense = (float*)ptrs[i++];
   a.te_head = (float*)ptrs[i++];
+  a.group_gang = (const int*)ptrs[i++];
+  a.group_prio = (const int*)ptrs[i++];
+  a.prio_inv = (float*)ptrs[i++];
   a.G = dims[0];
   a.E = dims[1];
   a.N = dims[2];
@@ -1264,6 +1616,13 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   if (!SWEEP && (a.X != 0 || a.group_class || !a.group_ncap ||
                  !a.group_whole))
     return -2;
+  // the gang instance needs the topology rows and the gang row; the
+  // witness its priority row, and only the batched scan writes it
+  if (GANG != (a.group_gang != nullptr) || (GANG && (!TOPO || SWEEP)))
+    return -2;
+  if ((a.prio_inv != nullptr) != (a.group_prio != nullptr) ||
+      (SWEEP && a.prio_inv))
+    return -2;
   if ((a.K > 0) != (a.te_dense != nullptr && a.te_head != nullptr) ||
       (a.K == 0 && a.E > 0 && !a.take_exist))
     return -2;
@@ -1274,9 +1633,9 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
                             : 0) +
                       (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<TOPO, SWEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      scan_kernel<TOPO, SWEEP, GANG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  scan_kernel<TOPO, SWEEP><<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
+  scan_kernel<TOPO, SWEEP, GANG><<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

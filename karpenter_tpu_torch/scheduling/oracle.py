@@ -19,10 +19,9 @@ correctness reference and the fallback path; the TPU solver replicates its
 decisions in tensor form (solver-unavailable ⇒ fall back here, never fail
 provisioning).
 
-The port's copy of `karpenter_tpu/scheduling/oracle.py`.  Where the
-reference would hand stranded pods to its preemption planner (a stranded
-pod outranks an evictable resident pod), this copy raises
-`PreemptionNotPorted` instead of returning a result without the plans.
+The port's copy of `karpenter_tpu/scheduling/oracle.py`: stranded pods go
+to the shared preemption planner (`solver/preempt.py`), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -60,26 +59,6 @@ from karpenter_tpu_torch.solver import explain as explainmod
 
 _sim_counter = itertools.count(1)
 
-
-class PreemptionNotPorted(NotImplementedError):
-    """The reference would attach preemption plans to this result."""
-
-
-def preemption_would_plan(inp: ScheduleInput, res: ScheduleResult) -> bool:
-    """Whether the reference's preemption pre-pass (`solver/preempt.py`
-    `attach`) could act on `res`: some stranded pod outranks an evictable
-    resident pod (not a daemonset, not do-not-disrupt, on a live node that
-    is not a planned claim).  Otherwise the pre-pass changes nothing."""
-    by_name = {p.meta.name: p for p in inp.pods}
-    top = max((priority_of(by_name[n]) for n in res.unschedulable
-               if n in by_name), default=None)
-    if top is None:
-        return False
-    return any(priority_of(p) < top
-               for en in inp.existing_nodes
-               if not en.node.meta.deleting and en.charge_pool is None
-               for p in en.pods
-               if not p.is_daemonset and not p.do_not_disrupt())
 
 # topology keys the scheduler narrows on new nodes (hostname is always
 # per-node-unique and handled separately)
@@ -191,16 +170,15 @@ class Scheduler:
     def solve(self) -> ScheduleResult:
         res = self._solve()
         # preemption pre-pass: the SAME shared planner the
-        # TPU solver's tail runs, so both engines propose identical
-        # victim sets.  Consolidation sims (price_cap set) strand by
-        # design and never want plans; trials re-enter through _solve,
-        # so the planner can never recurse back here.
+        # solver's tail runs, so both engines propose identical victim
+        # sets.  Consolidation sims (price_cap set) strand by design and
+        # never want plans; trials re-enter through _solve, so the
+        # planner can never recurse back here.
         if res.unschedulable and self.inp.price_cap is None:
             from karpenter_tpu_torch.utils.knobs import priority_enabled
-            if priority_enabled() and preemption_would_plan(self.inp, res):
-                raise PreemptionNotPorted(
-                    "a stranded pod outranks an evictable resident pod: "
-                    "the preemption planner is not ported yet")
+            if priority_enabled():
+                from karpenter_tpu_torch.solver import preempt
+                preempt.attach(self.inp, res)
         return res
 
     def _solve(self) -> ScheduleResult:

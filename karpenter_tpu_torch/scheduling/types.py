@@ -2,8 +2,9 @@
 instanceTypes)` seam (SURVEY §3.2) shared by the CPU oracle and the TPU
 solver so they are drop-in interchangeable behind the provisioner.
 
-The port's copy of `karpenter_tpu/scheduling/types.py` without the
-preemption planner's and the audits' types, which no ported module uses.
+The port's copy of `karpenter_tpu/scheduling/types.py` (without the
+lazy `PodSegments` pod list of the native decode, which the port does not
+load).
 """
 
 from __future__ import annotations
@@ -159,6 +160,67 @@ def gang_trial_order(domains) -> list:
     return sorted(d for d in domains if d is not None)
 
 
+def gang_placement_audit(inp, res) -> dict:
+    """Per-gang placement audit over a ScheduleResult — the ONE
+    implementation of the atomicity/adjacency invariant that the gang
+    test suite, the fuzz class, and the config9 acceptance bench all
+    assert (a private copy drifting in one of them would make the
+    bench gate and the test suite enforce different invariants).
+
+    Returns ``{gang_name: entry}`` where entry carries ``spec``,
+    ``total``/``placed`` member counts, ``stranded`` (names),
+    ``domains`` (the adjacency values the placed members landed in —
+    claim-pinned requirement values for new nodes, the node's own
+    label for existing assignments; ``None`` marks an unlabeled node),
+    and ``unpinned`` (placed members whose new-node claim is not
+    pinned to exactly one value of the gang's domain key).  The
+    invariant holds iff ``placed in (0, total)`` and, for placed
+    adjacency gangs, ``not unpinned and len(domains) == 1``."""
+    members: dict = {}
+    for p in inp.pods:
+        sp = gang_of(p)
+        if sp is not None:
+            members.setdefault(sp.name, (sp, []))[1].append(p)
+    claim_of = {p.meta.name: c for c in res.new_claims for p in c.pods}
+    node_labels = {en.name: en.node.labels for en in inp.existing_nodes}
+    out = {}
+    for gname, (sp, pods) in members.items():
+        stranded = [p.meta.name for p in pods
+                    if p.meta.name in res.unschedulable]
+        domains: set = set()
+        unpinned: list = []
+        if sp.domain_key is not None:
+            for p in pods:
+                if p.meta.name in res.unschedulable:
+                    continue
+                c = claim_of.get(p.meta.name)
+                if c is not None:
+                    req = c.requirements.get(sp.domain_key)
+                    if req is None or not req.is_finite() or \
+                            len(req.values()) != 1:
+                        unpinned.append(p.meta.name)
+                    else:
+                        domains |= req.values()
+                else:
+                    node = res.existing_assignments.get(p.meta.name)
+                    domains.add(
+                        node_labels.get(node, {}).get(sp.domain_key))
+        out[gname] = {"spec": sp, "total": len(pods),
+                      "placed": len(pods) - len(stranded),
+                      "stranded": stranded, "domains": domains,
+                      "unpinned": unpinned}
+    return out
+
+
+def gang_trial_order(domains) -> list:
+    """The SHARED deterministic order both engines try adjacency
+    domains in: lexicographic by domain name.  The kernel encodes it as
+    a per-domain rank (encode.py folds it into the gang group's dbase
+    row); the oracle walks candidate domains in exactly this order —
+    parity of the chosen domain depends on the two never drifting."""
+    return sorted(d for d in domains if d is not None)
+
+
 # -- priority & preemption -------------------------------------
 # Pod priority is first-class scheduling identity: the effective
 # priority joins the scheduling key (objects.Pod._priority_key), the
@@ -212,6 +274,146 @@ def priority_of(pod: Pod) -> int:
                 pass  # malformed annotation degrades to the next source
     pod._priority_of_cache = (enabled, prio)
     return prio
+
+
+@dataclass(frozen=True)
+class VictimUnit:
+    """One atomically-evictable unit the preemption planner considers: a
+    single pod, or a WHOLE gang (evicting part of a gang would leave a
+    broken gang running, so gangs evict all or none).  ``cost`` is the
+    summed pod deletion cost (karpenter.sh/pod-deletion-cost),
+    ``node_names`` the existing nodes whose capacity the eviction
+    frees."""
+    name: str                      # pod name, or "gang:<name>"
+    priority: int
+    cost: float
+    pod_names: Tuple[str, ...]
+    node_names: Tuple[str, ...]
+    gang: "str | None" = None
+
+
+def preemption_victim_order(units) -> list:
+    """The ONE shared victim order both the planner and the oracle
+    pre-pass walk (kernel-vs-oracle parity covers the *chosen victims*
+    because both engines' plans come from this order): ascending
+    effective priority (evict the least important first), then
+    ascending deletion cost, then name for determinism."""
+    return sorted(units, key=lambda u: (u.priority, u.cost, u.name))
+
+
+@dataclass
+class PreemptionPlan:
+    """One planned preemption: evict ``victims`` (atomic per plan —
+    a gang victim is whole-gang by construction) to seat the stranded
+    higher-priority ``target_pods``.  ``plan_id`` is deterministic from
+    the target so re-planning an unexecuted plan is idempotent."""
+    plan_id: str
+    target_pods: List[str]
+    target_priority: int
+    victims: List[VictimUnit] = field(default_factory=list)
+
+    def victim_pod_names(self) -> List[str]:
+        return [n for u in self.victims for n in u.pod_names]
+
+
+def priority_inversion_audit(inp, res, plans=()) -> list:
+    """The ONE priority-inversion checker the fuzz class and the
+    config10 acceptance bench both assert (the gang_placement_audit
+    pattern): an inversion is a LOWER-priority pod remaining placed
+    (resident, same-pass assignment, or new-claim placement) while a
+    HIGHER-priority pod strands *that its single eviction could seat*
+    — the freed capacity fits the stranded pod on a node/claim whose
+    labels, taints, and requirements it is compatible with.  Planned
+    victims (``plans``) no longer count as "remaining placed", and a
+    stranded pod an attached plan TARGETS is not an inversion (its
+    seat is in flight — the Preemption controller executes the plan).
+    Topology-constrained stranded pods are skipped (the capacity-level
+    sufficiency check cannot model spread/affinity).  Returns a list of
+    ``{pod, priority, victim, victim_priority, on}`` dicts — empty
+    means the invariant holds."""
+    from karpenter_tpu_torch.models.taints import tolerates_all
+    planned = {n for p in plans for n in p.victim_pod_names()}
+    targeted = {n for p in plans for n in p.target_pods}
+    # remaining per existing node AFTER this pass's assignments
+    assigned: Dict[str, List[Pod]] = {}
+    by_name = {p.meta.name: p for p in inp.pods}
+    for pod_name, node in res.existing_assignments.items():
+        p = by_name.get(pod_name)
+        if p is not None:
+            assigned.setdefault(node, []).append(p)
+    alloc_of = {it.name: it for types in inp.instance_types.values()
+                for it in types}
+    inversions = []
+    for sname, _reason in res.unschedulable.items():
+        s = by_name.get(sname)
+        if s is None or sname in targeted \
+                or s.topology_spread or s.pod_affinities:
+            continue
+        ps = priority_of(s)
+        sreq = effective_request(s)
+        for en in inp.existing_nodes:
+            node = en.node
+            if node.meta.deleting or not node.ready:
+                continue
+            if not tolerates_all(node.taints, s.tolerations):
+                continue
+            if not s.requirements.matched_by_labels(node.labels):
+                continue
+            rem = en.available
+            for p in assigned.get(en.name, ()):
+                rem = rem - effective_request(p)
+            victims = list(en.pods) + assigned.get(en.name, [])
+            for v in victims:
+                if v.meta.name in planned or v.is_daemonset \
+                        or v.do_not_disrupt():
+                    continue
+                if priority_of(v) >= ps:
+                    continue
+                if sreq.fits(rem + effective_request(v)):
+                    inversions.append({
+                        "pod": sname, "priority": ps,
+                        "victim": v.meta.name,
+                        "victim_priority": priority_of(v),
+                        "on": en.name})
+        for c in res.new_claims:
+            if not c.instance_type_names:
+                continue
+            it = alloc_of.get(c.instance_type_names[0])
+            if it is None:
+                continue
+            if not tolerates_all(c.taints, s.tolerations):
+                continue
+            if not c.requirements.compatible(s.requirements):
+                continue
+            # the claim's requirement intersection is silent on any key
+            # no packed pod constrained, so `compatible` alone lets a
+            # zone-pinned strand claim a seat on a type with no offering
+            # in that zone.  Require one concrete offering whose labels
+            # the strand accepts (conservative: a requirement on a label
+            # outside these axes skips the claim rather than guessing).
+            from karpenter_tpu_torch.models import wellknown as _wk
+            if not any(
+                    s.requirements.matched_by_labels({
+                        _wk.ZONE_LABEL: o.zone,
+                        _wk.CAPACITY_TYPE_LABEL: o.capacity_type,
+                        _wk.INSTANCE_TYPE_LABEL: it.name,
+                        _wk.NODEPOOL_LABEL: c.nodepool})
+                    for o in it.offerings if o.available):
+                continue
+            rem = it.allocatable() - c.requests
+            for v in c.pods:
+                if v.meta.name in planned or v.is_daemonset \
+                        or v.do_not_disrupt():
+                    continue
+                if priority_of(v) >= ps:
+                    continue
+                if sreq.fits(rem + effective_request(v)):
+                    inversions.append({
+                        "pod": sname, "priority": ps,
+                        "victim": v.meta.name,
+                        "victim_priority": priority_of(v),
+                        "on": c.hostname or c.nodepool})
+    return inversions
 
 
 @dataclass
@@ -311,11 +513,10 @@ class ScheduleResult:
     new_claims: List[NewNodeClaim] = field(default_factory=list)
     existing_assignments: Dict[str, str] = field(default_factory=dict)  # pod → node
     unschedulable: Dict[str, str] = field(default_factory=dict)         # pod → reason
-    # preemption plans for stranded higher-priority pods (the reference's
-    # solver/preempt.py); the port has no planner yet and refuses inputs
-    # where one would plan (oracle.preemption_would_plan), so this stays
-    # empty
-    preemptions: List = field(default_factory=list)
+    # preemption plans proposed for still-stranded higher-priority pods
+    # (solver/preempt.py): executing them is a controller's job, not the
+    # scheduler's — attaching keeps solve() pure.
+    preemptions: List["PreemptionPlan"] = field(default_factory=list)
 
     def node_count(self) -> int:
         return len(self.new_claims)

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, `_build/lib<name>-<hash>.so`, loaded
-with `ctypes`; a source may export several entry points (`ENTRIES`).  The hash covers the sources and the flags, so an edited
+with `ctypes`; a source may export several entry points (`ENTRIES`).
+The hash covers the sources and the flags, so an edited
 kernel rebuilds and an unchanged one loads the library already there.
 Nothing here runs at import: the first call of a kernel wrapper builds
 what it needs, and `build()` builds every kernel at once, one `nvcc` per
@@ -28,6 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("ffd_batch_scan", "ffd_sweep_scan", "ffd_pack")
 # entry point -> the source that exports it
 ENTRIES = {"ffd_batch_scan": "ffd_batch_scan",
+           "ffd_batch_gang_scan": "ffd_batch_scan",
            "ffd_sweep_scan": "ffd_sweep_scan",
            "ffd_sweep_topo_scan": "ffd_sweep_scan",
            "ffd_pack": "ffd_pack"}

@@ -2,17 +2,24 @@
 classes, the reason codes the solve path emits, and the explain-mode gate.
 
 The port's copy of the parts of `karpenter_tpu/solver/explain.py` that the
-single-problem solve reads.  Codes, constraint names and the
-``KARPENTER_TPU_EXPLAIN`` grammar are identical, so a verdict from either
-package carries the same `.code`.  The per-pod reason trees
-(``build_tree``) are not carried yet; the oracle's verdicts carry the
-codes and per-nodepool causes it registers (`scheduling/oracle.py`).
+solve path reads: the codes the kernel strands, the oracle, the gang fill
+and the preemption planner emit, the ``KARPENTER_TPU_EXPLAIN`` grammar,
+and the explain engine — `build_tree` turns (encoding, kernel output,
+group) into a per-group reason tree (per-constraint elimination counts,
+per-nodepool verdicts, the nearest-miss column, the unblock suggestion,
+and under full mode the eliminated columns the kernel's [G, O] class map
+names).  Codes and constraint names are identical, so a verdict from
+either package carries the same `.code` and `.tree`.  (The reference's
+disruption-decision and delta-fallback vocabularies wait for the slices
+that port those controllers.)
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+import threading
+import time
+from typing import Dict, List, Optional
 
 # the fit-slack epsilon: every fit test (`floor((avail + EPS) / req)` and
 # the `>= -EPS` subtract-compares) uses this one value, as float32
@@ -24,6 +31,19 @@ EPS = 1e-3
 HOST_CONSTRAINTS = ("compat", "price")
 KERNEL_CONSTRAINTS = ("fit", "limit", "topology", "whole_node", "slots")
 CONSTRAINTS = HOST_CONSTRAINTS + KERNEL_CONSTRAINTS + ("gang", "priority")
+
+_CONSTRAINT_HELP = {
+    "compat": "label/taint/requirement incompatibility (host encode mask)",
+    "price": "price cap eliminated the column (host encode mask)",
+    "fit": "resource request does not fit an empty node of the column",
+    "limit": "the nodepool's remaining limit cannot fund one more pod",
+    "topology": "the column's domain is ineligible or at its skew ceiling",
+    "whole_node": "no single node could hold the whole co-located group",
+    "slots": "the solver's node-slot axis was exhausted",
+    "gang": "the gang's all-or-nothing, single-domain placement failed",
+    "priority": "priority-band packing or preemption planning decided "
+                "the outcome",
+}
 
 
 # -- reason codes ----------------------------------------------------------
@@ -93,6 +113,26 @@ GANG_INCOMPLETE = _register(
     "never self-heals by waiting)")
 GANG_CODES = frozenset((GANG_PARTIAL, GANG_DOMAIN, GANG_TOO_LARGE,
                         GANG_INCOMPLETE))
+# priority & preemption verdicts: emitted by the decode
+# reclassification (solver/solve.py) and the preemption planner
+# (solver/preempt.py).
+PRIORITY_BAND_EXHAUSTED = _register(
+    "PriorityBandExhausted", "priority",
+    "capacity ran out inside this pod's priority band while at least "
+    "one strictly-lower-priority group still placed — the preemption "
+    "planner's trigger condition (kernel witness: the priority aux row)")
+PREEMPTED_FOR = _register(
+    "PreemptedFor", "priority",
+    "this pod is a planned preemption victim: its (atomic, whole-gang "
+    "when ganged) eviction seats a stranded strictly-higher-priority "
+    "pod named in the preempted-for annotation")
+PREEMPTION_INSUFFICIENT = _register(
+    "PreemptionInsufficient", "priority",
+    "evicting every evictable strictly-lower-priority victim still "
+    "could not seat the stranded pod — preemption cannot help; the "
+    "pod waits for capacity")
+PRIORITY_CODES = frozenset((PRIORITY_BAND_EXHAUSTED, PREEMPTED_FOR,
+                            PREEMPTION_INSUFFICIENT))
 LEGACY = "Legacy"  # unregistered plain-string reason (should not occur)
 
 # per-nodepool cause vocabulary for the oracle's open-new cascade
@@ -158,3 +198,347 @@ def mode() -> int:
 
 def mode_name(m: int) -> str:
     return _MODE_NAMES.get(m, "counts")
+
+
+# -- explain engine --------------------------------------------------------
+def counts_dict(enc, out, gi: int) -> Dict[str, int]:
+    """One group's per-constraint elimination counts as {constraint:
+    n_columns}: kernel aux when the solve carried it
+    (`out["explain_counts"]`, KERNEL_CONSTRAINTS order), host recompute
+    otherwise; the host-owned classes (compat, price) come from the
+    encode-side counts (`enc.explain_host`) when armed, else from the
+    final group mask alone (price folded into compat)."""
+    import numpy as np
+    counts: Dict[str, int] = {}
+    host = getattr(enc, "explain_host", None)
+    O = enc.n_columns
+    if host is not None and gi < len(host):
+        counts["compat"] = int(host[gi][0])
+        counts["price"] = int(host[gi][1])
+    else:
+        counts["compat"] = int(O - np.asarray(
+            enc.group_mask[gi], dtype=bool).sum())
+        counts["price"] = 0
+    kc = out.get("explain_counts") if isinstance(out, dict) else None
+    if kc is not None and gi < len(kc):
+        row = np.asarray(kc[gi])
+        for i, name in enumerate(KERNEL_CONSTRAINTS):
+            counts[name] = int(row[i])
+    else:
+        counts.update(host_counts(enc, out, gi))
+    return counts
+
+
+def host_counts(enc, out, gi: int) -> Dict[str, int]:
+    """Numpy mirror of the kernel's aux counts for one group, computed
+    against the FINAL solve state visible on the host.  Used when the
+    dispatch path carried no aux (batched/sweep kernels, replay of a
+    pre-explain capture) — per stranded group only, so the cost is
+    bounded by the strand count, not the problem size.
+
+    `limit` is computed against the INITIAL pool limits (the kernel's
+    final budgets are not downloaded): a column counts as limit-blocked
+    when its pool's configured limit cannot fund even one pod on an
+    otherwise-empty budget — a lower bound on the kernel's final-state
+    verdict, honest for the "is a finite limit involved at all"
+    question the tree answers."""
+    import numpy as np
+    gmask = np.asarray(enc.group_mask[gi], dtype=bool)
+    req = np.asarray(enc.group_req[gi], dtype=np.float32)
+    alloc = np.asarray(enc.col_alloc, dtype=np.float32)
+    daemon = np.asarray(enc.col_daemon, dtype=np.float32)
+    avail = alloc - daemon - req[None, :]
+    fits = np.all(avail >= -1e-3, axis=-1)
+    out_c: Dict[str, int] = {
+        "fit": int((gmask & ~fits).sum()),
+    }
+    # limit: columns of pools whose configured limit can't fund one pod
+    pool_limit = np.asarray(enc.pool_limit, dtype=np.float32)
+    col_pool = np.asarray(enc.col_pool)
+    lim_ok = np.all(
+        pool_limit[col_pool] - daemon - req[None, :] >= -1e-3, axis=-1)
+    out_c["limit"] = int((gmask & fits & ~lim_ok).sum())
+    # topology: only meaningful when the group carried a dynamic domain
+    # constraint — blocked domains from the final dom_placed rows
+    topo = 0
+    dsel = int(enc.group_dsel[gi]) if enc.group_dsel is not None else 0
+    if dsel and isinstance(out, dict) and "dom_placed" in out:
+        D = enc.n_domains
+        dbase = np.asarray(enc.group_dbase[gi][:D], dtype=np.int64)
+        placed = np.asarray(out["dom_placed"][gi][:D], dtype=np.int64)
+        elig = np.asarray(enc.group_delig[gi][:D], dtype=bool)
+        f = dbase + placed
+        skew = int(enc.group_skew[gi])
+        m = int(f[elig].min()) if elig.any() else 0
+        if enc.group_mindom[gi] > 0 and \
+                int((f[elig] > 0).sum()) < int(enc.group_mindom[gi]):
+            m = 0
+        blocked = (~elig) | (f >= m + skew)
+        dom_ids = np.asarray(
+            enc.col_zone if dsel == 1 else enc.col_ct)
+        dom_clipped = np.clip(dom_ids, 0, D - 1)
+        topo = int((gmask & blocked[dom_clipped]).sum())
+    out_c["topology"] = topo
+    whole = bool(enc.group_whole_node is not None
+                 and enc.group_whole_node[gi])
+    stranded = bool(isinstance(out, dict) and "unsched" in out
+                    and out["unsched"][gi] > 0)
+    out_c["whole_node"] = int(gmask.sum()) if whole and stranded else 0
+    slots = 0
+    if isinstance(out, dict) and "num_active" in out and stranded:
+        na = int(out["num_active"])
+        n_axis = out["take_new"].shape[1] if "take_new" in out else 0
+        slots = int(n_axis > 0 and na >= n_axis)
+    out_c["slots"] = slots
+    return out_c
+
+
+def nearest_miss(enc, gi: int) -> Optional[dict]:
+    """The closest eliminated catalog column and what would unblock it:
+    the masked-in column with the smallest worst-resource deficit for a
+    fit miss, or — when a price cap was folded into the mask
+    (`enc.explain_price_cap`) — the cheapest FITTING column above the
+    cap for a price miss (label compatibility is not re-derivable once
+    the cap is folded in, so the price candidate is capacity-checked
+    only).  Host numpy over [O] — called per stranded group only."""
+    import numpy as np
+    O = enc.n_columns
+    if O == 0:
+        return None
+    req = np.asarray(enc.group_req[gi], dtype=np.float32)
+    alloc = np.asarray(enc.col_alloc, dtype=np.float32)
+    daemon = np.asarray(enc.col_daemon, dtype=np.float32)
+    deficit = np.clip(req[None, :] - (alloc - daemon), 0.0, None)  # [O,R]
+    worst = deficit.max(axis=-1)                                   # [O]
+    gmask = np.asarray(enc.group_mask[gi], dtype=bool)
+    cand = gmask & (worst > 0)
+    if cand.any():
+        # the masked-in column with the smallest worst-resource deficit
+        idx = int(np.where(cand, worst, np.inf).argmin())
+        col = enc.columns[idx]
+        from karpenter_tpu_torch.models.resources import RESOURCE_AXIS
+        by_res = {RESOURCE_AXIS[r]: round(float(deficit[idx][r]), 3)
+                  for r in range(len(RESOURCE_AXIS))
+                  if deficit[idx][r] > 0}
+        return {"constraint": "fit", "instance_type": col.type_name,
+                "nodepool": col.pool, "zone": col.zone,
+                "deficit": by_res}
+    cap = getattr(enc, "explain_price_cap", None)
+    if cap is not None and enc.col_price is not None:
+        price = np.asarray(enc.col_price, dtype=np.float64)
+        over = (~gmask) & (price >= cap) & (worst <= 0)
+        if over.any():
+            idx = int(np.where(over, price, np.inf).argmin())
+            col = enc.columns[idx]
+            return {"constraint": "price",
+                    "instance_type": col.type_name,
+                    "nodepool": col.pool, "zone": col.zone,
+                    "price": round(float(price[idx]), 6),
+                    "price_cap": round(float(cap), 6)}
+    return None
+
+
+def _suggestion(counts: Dict[str, int], enc, gi: int,
+                miss: Optional[dict]) -> Optional[str]:
+    """The operator-facing 'what change would unblock it' line, from the
+    dominant constraint class."""
+    import numpy as np
+    if counts.get("limit"):
+        finite = [p.meta.name for pi, p in enumerate(enc.pools)
+                  if np.isfinite(np.asarray(enc.pool_limit[pi])).any()]
+        if finite:
+            return ("raise the limit on nodepool "
+                    + " or ".join(sorted(finite)))
+        return "raise the binding nodepool limit"
+    if counts.get("price"):
+        if miss is not None and miss.get("constraint") == "price":
+            return (f"raise the price cap to >= {miss['price']} "
+                    f"({miss['instance_type']} is the cheapest fitting "
+                    "column above it)")
+        return "raise the price cap (columns were eliminated on price)"
+    if counts.get("topology"):
+        return ("add capacity in an under-ceiling domain or relax "
+                "maxSkew")
+    if counts.get("slots"):
+        return "raise the solver's max_nodes ceiling"
+    if counts.get("whole_node"):
+        return ("no single node holds the whole co-located group — "
+                "larger instance types or fewer members")
+    if miss is not None:
+        need = ", ".join(f"{k}+{v}" for k, v in
+                         sorted(miss["deficit"].items()))
+        return (f"nearest miss {miss['instance_type']}: needs {need} "
+                "more allocatable")
+    if counts.get("compat"):
+        return ("no compatible column at all — check nodepool "
+                "requirements/taints against the pod")
+    return None
+
+
+def _map_detail(enc, out, gi: int, limit: int = 5) -> Optional[dict]:
+    """The full-mode [G, O] class map rendered as named columns: per
+    kernel constraint class, up to `limit` example catalog columns it
+    eliminated — the "which columns exactly" answer counts cannot give
+    (present only under KARPENTER_TPU_EXPLAIN=full / replay)."""
+    import numpy as np
+    m = out.get("explain_map") if isinstance(out, dict) else None
+    if m is None or gi >= len(m):
+        return None
+    row = np.asarray(m[gi][:enc.n_columns])
+    detail: Dict[str, list] = {}
+    for ci, name in enumerate(KERNEL_CONSTRAINTS):
+        idxs = np.nonzero(row == ci + 1)[0]
+        if not len(idxs):
+            continue
+        detail[name] = [
+            {"instance_type": enc.columns[int(i)].type_name,
+             "zone": enc.columns[int(i)].zone,
+             "capacity_type": enc.columns[int(i)].capacity_type}
+            for i in idxs[:limit]]
+        if len(idxs) > limit:
+            detail[name].append({"and_more": int(len(idxs) - limit)})
+    return detail or None
+
+
+def build_tree(enc, out, gi: int, code: str) -> dict:
+    """One stranded group's reason tree: per-constraint elimination
+    counts over the catalog columns, the per-nodepool compatibility
+    verdicts, the nearest-miss type, and the unblock suggestion; under
+    full mode, also the per-column eliminated-columns detail."""
+    counts = counts_dict(enc, out, gi)
+    pools = []
+    merged = enc.merged_reqs[gi] if gi < len(enc.merged_reqs) else []
+    for pidx, pool in enumerate(enc.pools):
+        verdict = ("incompatible or taints"
+                   if pidx < len(merged) and merged[pidx] is None
+                   else "compatible")
+        pools.append({"nodepool": pool.meta.name, "verdict": verdict})
+    miss = nearest_miss(enc, gi)
+    tree = {
+        "code": code,
+        "constraint": constraint_of(code),
+        "group": gi,
+        "pods": int(enc.group_count[gi]) if gi < len(enc.group_count)
+        else None,
+        "unplaced": (int(out["unsched"][gi])
+                     if isinstance(out, dict) and "unsched" in out
+                     and gi < len(out["unsched"]) else None),
+        "columns_total": enc.n_columns,
+        "eliminations": counts,
+        "pools": pools,
+    }
+    if miss is not None:
+        tree["nearest_miss"] = miss
+    sug = _suggestion(counts, enc, gi, miss)
+    if sug is not None:
+        tree["suggestion"] = sug
+    cols = _map_detail(enc, out, gi)
+    if cols is not None:
+        tree["eliminated_columns"] = cols
+    return tree
+
+
+# -- the per-process provenance store -------------------------------------
+class ExplainStore:
+    """Bounded pod → explain-entry map, the `GET /debug/explain`
+    backing: the provisioning controller registers every final
+    unschedulable verdict (local, degraded, or remote — the tree rides
+    the pickled `Reason`), newest entry wins per (pod, trace)."""
+
+    def __init__(self, capacity: int = 512, per_pod: int = 4):
+        self._lock = threading.Lock()
+        self.capacity = capacity
+        self.per_pod = per_pod
+        self._by_pod: "Dict[str, List[dict]]" = {}
+        self._order: List[str] = []   # insertion order for eviction
+
+    def register(self, unschedulable: Dict[str, str],
+                 trace_id: Optional[str] = None,
+                 source: str = "local") -> int:
+        n = 0
+        # debug-surface timestamp (GET /debug/explain freshness / TTL
+        # eviction only): never part of a solve output or digest
+        now = time.time()
+        with self._lock:
+            for pod, reason in unschedulable.items():
+                entry = {
+                    "pod": pod,
+                    "ts": now,
+                    "trace_id": trace_id,
+                    "source": source,
+                    "code": code_of(reason),
+                    "constraint": constraint_of(code_of(reason)),
+                    "detail": str(reason),
+                    "tree": getattr(reason, "tree", None),
+                }
+                rows = self._by_pod.get(pod)
+                if rows is None:
+                    rows = self._by_pod[pod] = []
+                else:
+                    # LRU, not first-insertion order: a chronically
+                    # re-stranded pod holds the NEWEST verdict and must
+                    # neither be evicted before colder pods nor drop out
+                    # of the recent() listing
+                    self._order.remove(pod)
+                self._order.append(pod)
+                rows.insert(0, entry)
+                del rows[self.per_pod:]
+                n += 1
+            while len(self._order) > self.capacity:
+                self._by_pod.pop(self._order.pop(0), None)
+        return n
+
+    def lookup(self, pod: str,
+               trace_id: Optional[str] = None) -> Optional[dict]:
+        with self._lock:
+            rows = self._by_pod.get(pod)
+            if not rows:
+                return None
+            if trace_id is not None:
+                for e in rows:
+                    if e["trace_id"] == trace_id:
+                        return dict(e)
+                return None
+            return dict(rows[0])
+
+    def recent(self, limit: int = 32) -> List[dict]:
+        if limit <= 0:
+            return []  # order[-0:] would be the whole list, not nothing
+        with self._lock:
+            pods = self._order[-limit:]
+            return [
+                {k: self._by_pod[p][0][k]
+                 for k in ("pod", "ts", "trace_id", "code", "constraint")}
+                for p in reversed(pods) if self._by_pod.get(p)]
+
+    def size(self) -> int:
+        with self._lock:
+            return len(self._by_pod)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._by_pod.clear()
+            self._order.clear()
+
+
+STORE = ExplainStore()
+
+
+def event_message(reason) -> str:
+    """`cluster.record_event` message form: code + the legacy detail —
+    '[Code] detail' when structured, the plain string otherwise."""
+    code = code_of(reason)
+    if code == LEGACY:
+        return str(reason)
+    return f"[{code}] {reason}"
+
+
+def reason_table() -> List[dict]:
+    """The registry as rows (docs/CLI rendering)."""
+    return [{"code": s.code, "constraint": s.constraint,
+             "summary": s.summary}
+            for s in sorted(REGISTRY.values(), key=lambda s: s.code)]
+
+
+def constraint_help(name: str) -> str:
+    return _CONSTRAINT_HELP.get(name, "")

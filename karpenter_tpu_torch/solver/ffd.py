@@ -2,14 +2,20 @@
 
 The JAX reference (`karpenter_tpu/solver/ffd.py` `_solve_ffd_impl`) is one
 jitted `lax.scan` over pod equivalence classes; each step takes the light
-branch (no zone/capacity-type domain constraint) or the heavy one
-(`lax.cond(dsel > 0, heavy, light)`).  Its batched entry points vmap that
-scan over many problems.  This module runs them as hand-written CUDA
-kernels, one thread block per problem:
+branch (no zone/capacity-type domain constraint), the heavy one
+(`lax.cond(dsel > 0, heavy, light)`) or, with the `with_gang` static, the
+atomic K-node gang fill for gang groups (`lax.cond(gang, gang_fill, ...)`).
+Its batched entry points vmap that scan over many problems.  This module
+runs them as hand-written CUDA kernels, one thread block per problem:
 
   * ``batch_scan`` (K5, `csrc/ffd_batch_scan.cu`): the scan over B stacked
     problems that share a catalog (`_solve_ffd_batch_impl`, the
     consolidation simulator's generic path); one solve is the B=1 launch.
+    With ``with_gang`` it launches the gang instance of the template (the
+    reference's `with_gang` static); gang-free problems launch the
+    gang-free instance, so their rows stay those of the gang-free program.
+    A problem carrying priority bands also gets the priority inversion
+    witness (`with_priority`), written in the scan's epilogue.
   * ``sweep_scan`` / ``sweep_topo_scan`` (K4, `csrc/ffd_sweep_scan.cu`,
     the light and the heavy lane): the scan over B simulations of one
     cluster snapshot (`_solve_ffd_sweep_impl`, `_solve_ffd_sweep_topo_impl`)
@@ -17,8 +23,9 @@ kernels, one thread block per problem:
     column masks and per-node caps from shared tables and caps the column
     price.
   * ``pack`` (K2, `csrc/ffd_pack.cu`): the explain=1 elimination counts,
-    topology class included, from the scan's final state, at the offsets
-    `unpack` expects.
+    topology class and the with_gang whole class included, and with
+    explain=2 the [G, O] per-column class map, from the scan's final state,
+    at the offsets `unpack` expects.
 
 With ``sparse_k`` > 0 the scans also compact each group's take_exist row
 into K (count, index) pairs, the reference's prefix-rank scatter.  Beside
@@ -36,6 +43,7 @@ The flat result buffer of one problem has exactly the reference's layout
     take_exist G*E  (sparse_k: counts G*K | indices G*K)
     | take_new G*N | unsched G | dom_placed G*D | used N*R | node_pool N
     | node_zone N | node_ct N | num_active 1 | [explain: counts G*5, bits G]
+    | [explain=2: class map G*O] | [with_priority: prio_inv G]
 
 (always the dense take_new rows: the reference's top-K take_new
 compaction saves device-to-host bytes on a TPU link and bought nothing
@@ -110,6 +118,8 @@ class FFDProblem:
     group_delig: torch.Tensor      # [G, D] i32 0/1 eligible for skew min
     exist_zone: torch.Tensor       # [E] i32 (-1 = unlabeled)
     exist_ct: torch.Tensor         # [E] i32
+    group_gang: torch.Tensor       # [G] i32 0/1 gang unit (the gang fill)
+    group_prio: torch.Tensor       # [G] i32 effective priority (0 = none)
 
     @property
     def D(self) -> int:
@@ -284,19 +294,19 @@ def catalog_tensors(cat_arrays: Dict, device) -> FFDCatalog:
 
 
 def problem_arrays(prob: Sequence[np.ndarray], O: int) -> list:
-    """The reference's 17-slot `_problem_args` tuple (numpy, padded; slot
-    2 a [G, O] bool mask or its packed [G, ceil(O/8)] bytes) as the
-    scan's 16 host arrays in FFDProblem order.  Rejects what no ported
-    scan runs: gangs and the 18-slot priority-band form."""
-    if len(prob) != 17:
-        raise ValueError("priority-band problems (18 slots) are not "
-                         "supported by the scan")
+    """The reference's `_problem_args` tuple (numpy, padded; slot 2 a
+    [G, O] bool mask or its packed [G, ceil(O/8)] bytes): 17 slots, or 18
+    with the priority-band row `group_prio` — as the scan's 18 host arrays
+    in FFDProblem order (a zero priority row for the 17-slot form)."""
+    if len(prob) not in (17, 18):
+        raise ValueError(f"a problem tuple has 17 or 18 slots, not "
+                         f"{len(prob)}")
     (group_req, group_count, group_mask, exist_cap, exist_remaining,
      pool_limit, group_ncap, group_dsel, group_dbase, group_dcap,
      group_skew, group_mindom, group_delig, group_whole, group_gang,
-     exist_zone, exist_ct) = prob
-    if np.asarray(group_gang).any():
-        raise ValueError("gang groups need the gang fill, not the scan")
+     exist_zone, exist_ct) = prob[:17]
+    group_prio = (np.asarray(prob[17], np.int32) if len(prob) > 17
+                  else np.zeros(np.asarray(group_count).shape, np.int32))
     return [np.asarray(group_req, np.float32),
             np.asarray(group_count, np.int32),
             pack_mask_bits(np.asarray(group_mask), O),
@@ -312,12 +322,14 @@ def problem_arrays(prob: Sequence[np.ndarray], O: int) -> list:
             np.asarray(group_mindom, np.int32),
             np.asarray(group_delig).astype(np.int32),
             np.asarray(exist_zone, np.int32),
-            np.asarray(exist_ct, np.int32)]
+            np.asarray(exist_ct, np.int32),
+            np.asarray(group_gang).astype(np.int32),
+            group_prio]
 
 
 def problem_tensors(prob: Sequence[np.ndarray], O: int,
                     device) -> FFDProblem:
-    """One 17-slot problem tuple as the scan's device arguments, in one
+    """One problem tuple as the scan's device arguments, in one
     host→device copy."""
     return FFDProblem(*_upload(problem_arrays(prob, O),
                                torch.device(device)))
@@ -367,18 +379,21 @@ def sweep_tensors(rows: Dict, shared: SweepShared, device,
 
 def problem_from_numpy(prob: Sequence[np.ndarray], cat_arrays: Dict,
                        device) -> Tuple[FFDProblem, FFDCatalog]:
-    """The reference's 17-slot problem tuple and its catalog arrays
-    (numpy) as the port's kernel arguments on `device`."""
+    """The reference's problem tuple (17 or 18 slots) and its catalog
+    arrays (numpy) as the port's kernel arguments on `device`."""
     cat = catalog_tensors(cat_arrays, device)
     return problem_tensors(prob, cat.O, device), cat
 
 
 # -- the flat result layout ---------------------------------------------------
 def flat_layout(G: int, E: int, N: int, D: int, explain: int = 0,
-                sparse_k: int = 0) -> Dict[str, Tuple[int, int]]:
+                sparse_k: int = 0, explain_o: int = 0,
+                with_priority: int = 0) -> Dict[str, Tuple[int, int]]:
     """(offset, length) of every region of one problem's flat result
     buffer, plus ("total", n).  With `sparse_k` the take_exist rows are
-    replaced by K (count, index) pairs per group."""
+    replaced by K (count, index) pairs per group; explain=2 appends the
+    [G, explain_o] class map after the counts, and `with_priority` the
+    priority inversion witness [G] last (ffd.py:1677-1759)."""
     head = ([("te_cnt", G * sparse_k), ("te_idx", G * sparse_k)]
             if sparse_k else [("take_exist", G * E)])
     sizes = head + [("take_new", G * N), ("unsched", G),
@@ -387,6 +402,12 @@ def flat_layout(G: int, E: int, N: int, D: int, explain: int = 0,
                     ("num_active", 1)]
     if explain:
         sizes += [("explain_counts", G * EXPLAIN_C), ("explain_bits", G)]
+    if explain >= 2:
+        if explain_o < 1:
+            raise ValueError("explain=2 needs the map's column width")
+        sizes += [("explain_map", G * explain_o)]
+    if with_priority:
+        sizes += [("prio_inv", G)]
     out, off = {}, 0
     for name, n in sizes:
         out[name] = (off, n)
@@ -909,23 +930,231 @@ class _Scan:
         return (take_e, take_n + k_new_total, unplaceable + _sum_i32(want),
                 dom_placed)
 
+    def gang(self, g: int):
+        """The atomic K-node gang fill (ffd.py:820-1047): for every domain
+        the exact light cascade — existing, in-flight, new nodes —
+        restricted to that domain's nodes and columns, against its own
+        copy of the pool budget; the feasible domain of lowest trial rank
+        (dbase; ties to the lower index) commits and pins every node it
+        touches, every other candidate is dropped.  dsel 0 maps every
+        column and node to domain 0.  Returns (take_exist [E], take_new
+        [N], unsched, dom_placed [D]: each domain's candidate total,
+        saturated at the gang size)."""
+        prob, cat, work = self.prob, self.cat, self.work
+        i32, f32 = torch.int32, torch.float32
+        dev = self.dev
+        N, E, P, D, zc, PT = self.N, self.E, self.P, self.D, self.zc, self.PT
+        idx = self.idx
+        req = prob.group_req[g]
+        cnt = prob.group_count[g]
+        ncap = prob.group_ncap[g]
+        dsel = int(prob.group_dsel[g])
+        gmask = self.gmask_all[g]
+        used, colmask, active = self.used, self.colmask, self.active
+        node_pool, num_active = self.node_pool, self.num_active
+        limits = self.limits
+        dom_ids = torch.arange(D, dtype=i32, device=dev)
+
+        def by_dsel(zone, ct):
+            return (zone if dsel == 1 else ct if dsel == 2
+                    else torch.zeros_like(zone))
+        col_dom = by_dsel(cat.col_zone, cat.col_ct)                   # [O]
+        dom_cols = col_dom[None, :] == dom_ids[:, None]              # [D, O]
+
+        # -- 1. existing-node candidate fills per domain
+        if E:
+            ex_dom = by_dsel(prob.exist_zone, prob.exist_ct)
+            dom_ex = ex_dom[None, :] == dom_ids[:, None]             # [D, E]
+            cap_e = torch.minimum(_fit_count(self.exist_rem, req),
+                                  prob.exist_cap[g])
+            cap_ed = torch.where(dom_ex, cap_e[None, :], 0).to(i32)
+            take_ed = torch.stack([_prefix_fill(cap_ed[d], cnt)
+                                   for d in range(D)])               # [D, E]
+            placed_e = _sum_i32(take_ed, -1)
+        else:
+            placed_e = torch.zeros(D, dtype=i32, device=dev)
+        rem1 = cnt - placed_e                                        # [D]
+
+        # -- 2. in-flight candidate fills per domain (a node pinned to
+        # another domain has its columns narrowed to that domain's)
+        cap_npt = _fit_count(cat.pt_alloc[None] - used[:, None], req)
+        cap_no = torch.where(colmask & gmask[None],
+                             _pt_expand(cap_npt, zc), 0)             # [N, O]
+        zc_dom = col_dom[:zc]
+        slotmax = cap_no.view(N, PT, zc).max(dim=1).values           # [N, ZC]
+        cap_nd = torch.where(
+            zc_dom[None, :, None] == dom_ids[None, None, :],
+            slotmax[:, :, None], 0).max(dim=1).values.T              # [D, N]
+        cap_nd = torch.minimum(cap_nd, ncap)
+        cap_nd = torch.where(active[None, :], cap_nd, 0).to(i32)
+        take_nd = torch.stack([
+            _prefix_fill(_clamp_pool_limits(cap_nd[d], node_pool, limits,
+                                            req, P), rem1[d])
+            for d in range(D)])                                      # [D, N]
+        rem2 = rem1 - _sum_i32(take_nd, -1)
+        if work is not None:
+            # existing rows, each domain's fit of the active nodes'
+            # eligible blocks, the empty-node fit of each admitted
+            # column, each domain's pool budgets and cascade fits
+            elig_pt = (colmask & gmask[None]).view(N, PT, zc).any(dim=-1)
+            work["fit"] += (E + int(gmask.sum()) + D * (
+                4 * P + int((elig_pt & active[:, None]).sum())))
+            work["test"] += D * P
+
+        # -- 3. open-new candidate cascade per domain, each on its own
+        # budget copy pre-charged with the domain's in-flight take
+        per_col = torch.minimum(_fit_count(self.col_avail, req), ncap)
+        col_feas = gmask & (per_col >= 1)
+        kfull_pd = torch.stack([
+            torch.where(dom_cols & (col_feas & self.pool_idx[p])[None, :],
+                        per_col[None, :], 0).max(-1).values
+            for p in range(P)]).to(i32)                              # [P, D]
+        pool_take_d = torch.stack([
+            torch.zeros(P, dtype=f32, device=dev).index_add_(
+                0, node_pool.long(), take_nd[d].to(f32))
+            for d in range(D)])                                      # [D, P]
+        limits_d = limits[None] - pool_take_d[:, :, None] * req[None, None]
+        c_rem_d = rem2
+        k_new_d = torch.zeros((D, N), dtype=i32, device=dev)
+        new_pool_d = torch.zeros((D, N), dtype=i32, device=dev)
+        newmask_d = torch.zeros((D, N), dtype=torch.bool, device=dev)
+        na_d = torch.zeros(D, dtype=i32, device=dev) + num_active
+        for p in range(P):
+            kf_raw = kfull_pd[p]                                     # [D]
+            lim_p = limits_d[:, p]                                   # [D, R]
+            pd = cat.pool_daemon[p]
+            can = (_fits(lim_p - pd[None] - req[None]) & (c_rem_d > 0)
+                   & (kf_raw > 0))
+            kf = torch.clamp(kf_raw, min=1)
+            t = torch.minimum(c_rem_d, _fit_count(lim_p, req))
+            m_t = _ceil_div(t, kf)
+            t = torch.minimum(t, _fit_count(
+                lim_p - m_t[:, None].to(f32) * pd[None], req))
+            m_need = torch.where(can, _ceil_div(t, kf), 0)
+            m = torch.minimum(m_need, N - na_d).to(i32)
+            newmask = ((idx[None, :] >= na_d[:, None])
+                       & (idx[None, :] < (na_d + m)[:, None]))
+            pos = idx[None, :] - na_d[:, None]
+            taken = torch.minimum(t, _mul_i32(m, kf_raw))
+            k_node = torch.where(
+                newmask,
+                torch.where(pos == (m - 1)[:, None],
+                            (taken - _mul_i32(m - 1, kf_raw))[:, None],
+                            kf_raw[:, None]), 0).to(i32)
+            k_new_d = k_new_d + k_node
+            new_pool_d = torch.where(newmask, p, new_pool_d).to(i32)
+            newmask_d = newmask_d | newmask
+            na_d = na_d + m
+            limits_d = limits_d.clone()
+            limits_d[:, p] = limits_d[:, p] + (-(
+                m[:, None].to(f32) * pd[None]
+                + taken[:, None].to(f32) * req[None]))
+            c_rem_d = c_rem_d - taken
+        placed_d = _w32(placed_e.to(torch.int64) + _sum_i32(take_nd, -1)
+                        + (rem2 - c_rem_d))                          # [D]
+
+        # -- the winner: the feasible domain of lowest trial rank
+        feas = (prob.group_delig[g] != 0) & (placed_d >= cnt)
+        rank = torch.where(feas, prob.group_dbase[g], BIG)
+        w = int(torch.argmin(rank))
+        ok = bool(rank[w] < BIG) and int(cnt) > 0
+
+        # -- commit the winner (every other candidate is never applied)
+        zeros_n = torch.zeros(N, dtype=i32, device=dev)
+        if E:
+            take_e = take_ed[w] if ok else torch.zeros_like(cap_e)
+            self.exist_rem = self.exist_rem - take_e[:, None] * req
+        else:
+            take_e = None
+        take_n = take_nd[w] if ok else zeros_n
+        used = used + take_n[:, None] * req
+        touched = take_n > 0
+        dcols = _slot_expand((zc_dom == w)[None, :], PT)             # [1, O]
+        colmask = torch.where(touched[:, None], colmask & gmask[None] & dcols,
+                              colmask)
+        ok_pt = _fits(cat.pt_alloc[None] - used[:, None])
+        colmask = colmask & _pt_expand(ok_pt, zc)
+        pool_take = torch.zeros(P, dtype=f32, device=dev).index_add_(
+            0, node_pool.long(), take_n.to(f32))
+        limits = limits - pool_take[:, None] * req
+        k_new = k_new_d[w] if ok else zeros_n
+        newmask = newmask_d[w] if ok else torch.zeros_like(touched)
+        new_pool = new_pool_d[w]
+        new_used = (cat.pool_daemon[new_pool.long()]
+                    + k_new[:, None].to(f32) * req)
+        used = torch.where(newmask[:, None], new_used, used)
+        new_cols = (col_feas[None] & (cat.col_pool[None] == new_pool[:, None])
+                    & dcols)
+        new_ok_pt = _fits(cat.pt_alloc[None] - new_used[:, None])
+        if work is not None:
+            work["test"] += int((elig_pt & touched[:, None]).sum()) + int(
+                newmask.sum()) * int(col_feas.view(PT, zc).any(-1).sum())
+        colmask = torch.where(newmask[:, None],
+                              new_cols & _pt_expand(new_ok_pt, zc), colmask)
+        active = active | newmask
+        node_pool = torch.where(newmask, new_pool, node_pool).to(i32)
+        num_active = num_active + newmask.to(i32).sum().to(i32)
+        limits = limits.clone()
+        for p in range(P):
+            on_p = newmask & (new_pool == p)
+            m_p = on_p.to(f32).sum()
+            taken_p = torch.where(on_p, k_new, 0).to(f32).sum()
+            limits[p] = limits[p] + (-(m_p * cat.pool_daemon[p]
+                                       + taken_p * req))
+        # pin every node the gang touched to the winning domain
+        pin = touched | newmask
+        if dsel == 1:
+            self.node_zone = torch.where(pin, w, self.node_zone).to(i32)
+        elif dsel == 2:
+            self.node_ct = torch.where(pin, w, self.node_ct).to(i32)
+        self.used, self.colmask, self.active = used, colmask, active
+        self.node_pool, self.num_active, self.limits = (node_pool,
+                                                        num_active, limits)
+        unsched = torch.zeros((), dtype=i32, device=dev) if ok else cnt
+        return (take_e, take_n + k_new, unsched,
+                torch.minimum(placed_d, cnt).to(i32))
+
+
+def priority_witness(count: torch.Tensor, unsched: torch.Tensor,
+                     prio: torch.Tensor) -> torch.Tensor:
+    """The priority inversion witness (ffd.py:1238-1257): a group that
+    placed pods after an earlier group of strictly higher priority
+    stranded — the exclusive running max of the stranded groups'
+    priorities, from -(2^31)+1.  [G] i32 each → [G] bool."""
+    neg = -(2 ** 31) + 1
+    stranded = unsched > 0
+    before, out = neg, []
+    for gp, st in zip(prio.tolist(), stranded.tolist()):
+        out.append(gp < before)
+        if st:
+            before = max(before, gp)
+    placed_any = (count - unsched) > 0
+    return placed_any & torch.tensor(out, dtype=torch.bool,
+                                     device=count.device)
+
+
 
 def _scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                     flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
                     work: Optional[Dict[str, int]], topology: bool,
-                    sparse_k: int = 0) -> None:
+                    sparse_k: int = 0, with_gang: int = 0) -> None:
     """The plain scan of one problem: per group the light step, or with
     `topology` the heavy step for a group with dsel > 0 (the reference's
-    `lax.cond(dsel > 0, heavy, light)`, ffd.py:1057).  Writes the
+    `lax.cond(dsel > 0, heavy, light)`, ffd.py:1057), or with `with_gang`
+    the gang fill for a gang group (ffd.py:1049-1056).  Writes the
     kernels' outputs into the problem's flat row; with `sparse_k`, the
-    take_exist rows compacted."""
+    take_exist rows compacted; where the layout holds `prio_inv`, the
+    priority inversion witness."""
     f32 = torch.float32
     s = _Scan(prob, cat, N, work)
     dsel = prob.group_dsel.tolist()
+    gang = prob.group_gang.tolist()
     te_rows, tn_rows, un_rows, dp_rows = [], [], [], []
     zeros_d = torch.zeros(prob.D, dtype=torch.int32, device=flat.device)
     for g in range(prob.G):
-        if topology and dsel[g] > 0:
+        if with_gang and gang[g]:
+            te, tn, un, dp = s.gang(g)
+        elif topology and dsel[g] > 0:
             te, tn, un, dp = s.heavy(g)
         else:
             (te, tn, un), dp = s.light(g), zeros_d
@@ -956,6 +1185,10 @@ def _scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
     put("node_zone", s.node_zone)
     put("node_ct", s.node_ct)
     put("num_active", s.num_active)
+    if "prio_inv" in lay:
+        put("prio_inv", priority_witness(
+            prob.group_count, torch.stack(un_rows).to(torch.int32),
+            prob.group_prio))
     limits_out.copy_(s.limits)
 
 
@@ -978,12 +1211,14 @@ def compact_take_exist(te: torch.Tensor, K: int):
 def batch_scan_reference(batch: FFDBatch, cat: FFDCatalog, N: int,
                          flat: torch.Tensor, lay: Dict,
                          limits_out: torch.Tensor, sparse_k: int = 0,
-                         work: Optional[Dict[str, int]] = None) -> None:
+                         work: Optional[Dict[str, int]] = None,
+                         with_gang: int = 0) -> None:
     """Plain PyTorch version of K5: `_solve_ffd_batch_impl`
-    (ffd.py:1492) — the scan with the heavy branch traced, per problem of
-    the batch, transcribed step for step (a Python loop over problems,
-    groups and pools).  Writes the kernel's outputs, one flat row per
-    problem.
+    (ffd.py:1492) — the scan with the heavy branch traced (and with
+    `with_gang` the gang fill), per problem of the batch, transcribed step
+    for step (a Python loop over problems, groups and pools).  Writes the
+    kernel's outputs, one flat row per problem, the priority witness
+    where the layout holds it.
 
     Given a `work` dict, adds to it what the kernel computes on this
     data: "fit", the R-vector `_fit_count`s, "test", the R-vector
@@ -994,7 +1229,8 @@ def batch_scan_reference(batch: FFDBatch, cat: FFDCatalog, N: int,
     their candidate columns span."""
     for b in range(batch.B):
         _scan_reference(batch.at(b), cat, N, flat[b], lay, limits_out[b],
-                        work, topology=True, sparse_k=sparse_k)
+                        work, topology=True, sparse_k=sparse_k,
+                        with_gang=with_gang)
 
 
 def _bits_of(mask: torch.Tensor) -> torch.Tensor:
@@ -1035,7 +1271,8 @@ def _sweep_problem(sw: SweepBatch, b: int) -> FFDProblem:
     ncap, dsel, dbase, dcap, skew, mindom, delig = topo
     return FFDProblem(sw.group_req[b], sw.group_count[b], mask_bits, ecap,
                       er, sw.pool_limit[b], ncap, zeros_g, dsel, dbase,
-                      dcap, skew, mindom, delig, sh.exist_zone, sh.exist_ct)
+                      dcap, skew, mindom, delig, sh.exist_zone, sh.exist_ct,
+                      zeros_g, zeros_g)
 
 
 def _sweep_reference(sw: SweepBatch, cat: FFDCatalog, N: int,
@@ -1076,10 +1313,13 @@ def sweep_topo_scan_reference(sw: SweepBatch, cat: FFDCatalog, N: int,
 
 
 def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
-                   flat: torch.Tensor, lay: Dict,
-                   limits: torch.Tensor) -> None:
+                   flat: torch.Tensor, lay: Dict, limits: torch.Tensor,
+                   with_gang: int = 0) -> None:
     """Plain PyTorch version of K2: the explain=1 aux (ffd.py:1113-1214),
-    the topology class (ffd.py:1141-1175) included."""
+    the topology class (ffd.py:1141-1175) and, with `with_gang`, the
+    whole class of gang strands (ffd.py:1181-1194) included; where the
+    layout holds `explain_map`, the explain=2 per-column class map
+    (ffd.py:1215-1237)."""
     dev = flat.device
     i32, f32 = torch.int32, torch.float32
     G = prob.G
@@ -1121,9 +1361,18 @@ def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
         (prob.group_dsel > 0)[:, None, None] & slot_blocked[:, None, :]
         & ok_pt[:, :, None], gmask_pt.to(i32), 0).sum((1, 2))
     stranded = _region(flat, lay, "unsched") > 0
-    ok_cols = torch.where(ok_pt, cols_per_block, 0).sum(-1)
-    elim_whole = torch.where((prob.group_whole != 0) & stranded,
-                             ok_cols, 0)
+    topo_sel = ((prob.group_dsel > 0)[:, None, None]
+                & slot_blocked[:, None, :])                  # [G, 1, ZC]
+    whole = prob.group_whole != 0
+    if with_gang:
+        # gang strands count in the whole class too, less the columns
+        # topology already claimed (a gang carries dsel > 0)
+        whole = whole | (prob.group_gang != 0)
+        whole_cols = torch.where(ok_pt[:, :, None] & ~topo_sel,
+                                 gmask_pt.to(i32), 0).sum((1, 2))
+    else:
+        whole_cols = torch.where(ok_pt, cols_per_block, 0).sum(-1)
+    elim_whole = torch.where(whole & stranded, whole_cols, 0)
     na = _region(flat, lay, "num_active")[0]
     slots = (stranded & (na >= N)).to(elim_fit.dtype)
     counts = torch.stack([elim_fit, elim_limit, elim_topo, elim_whole,
@@ -1134,6 +1383,24 @@ def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
     _region(flat, lay, "explain_counts").copy_(
         counts.to(f32).reshape(-1))
     _region(flat, lay, "explain_bits").copy_(bits.to(f32))
+    if "explain_map" not in lay:
+        return
+    # explain=2: each admitted column's first eliminating class, fit >
+    # limit > topology > whole (1-based into KERNEL_CONSTRAINTS, 0 kept)
+    gmask = gmask_pt.reshape(G, -1)                          # [G, O]
+    fits_col = fits_pt.repeat_interleave(zc, dim=1)
+    lim_col = lim_ok_pt.repeat_interleave(zc, dim=1)
+    col_dom = torch.where((prob.group_dsel == 1)[:, None],
+                          cat.col_zone[None, :], cat.col_ct[None, :])
+    col_blocked = torch.gather(
+        blocked_dom, 1, torch.clamp(col_dom, 0, D - 1).long())
+    cls = torch.where(gmask & ~fits_col, 1, 0)
+    cls = torch.where(gmask & fits_col & ~lim_col, 2, cls)
+    cls = torch.where(gmask & (prob.group_dsel > 0)[:, None] & col_blocked
+                      & (cls == 0), 3, cls)
+    cls = torch.where(gmask & (whole & stranded)[:, None] & (cls == 0), 4,
+                      cls)
+    _region(flat, lay, "explain_map").copy_(cls.to(f32).reshape(-1))
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -1187,7 +1454,9 @@ def _check_problem(prob: FFDProblem, cat: FFDCatalog, N: int,
             ("group_mindom", prob.group_mindom, i32, (G,)),
             ("group_delig", prob.group_delig, i32, (G, D)),
             ("exist_zone", prob.exist_zone, i32, (E,)),
-            ("exist_ct", prob.exist_ct, i32, (E,))):
+            ("exist_ct", prob.exist_ct, i32, (E,)),
+            ("group_gang", prob.group_gang, i32, (G,)),
+            ("group_prio", prob.group_prio, i32, (G,))):
         _check(t, name, dt, lead + shp, device)
     _check_catalog(cat, P, device)
     if N < 1 or G < 1 or D < 1:
@@ -1298,6 +1567,7 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
         node_zone, node_ct,
         i.get("group_class"), i.get("exclude_idx"), i.get("price_cap"),
         i.get("col_price"), te_dense, reg("te_cnt"),
+        i.get("group_gang"), i.get("group_prio"), reg("prio_inv"),
     ]
     dims = [G, E, N, cat.O, cat.PT, cat.zc, P, D, W, B, X, sparse_k,
             lay["total"][1]]
@@ -1307,26 +1577,41 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
 
 def batch_scan(batch: FFDBatch, cat: FFDCatalog, N: int,
                flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
-               sparse_k: int = 0) -> None:
+               sparse_k: int = 0, with_gang: int = 0) -> None:
     """K5: the FFD scan of every problem of `batch` (the heavy step for
-    groups with dsel > 0, the light step for the rest), one flat row each
-    in `flat` [B, total]: take_exist (or its sparse_k compaction),
-    take_new, unsched, dom_placed, used, node_pool/zone/ct and
-    num_active; the final pool budgets in `limits_out` [B, P, R].  CUDA
-    tensors launch the kernel; CPU tensors run `batch_scan_reference`."""
+    groups with dsel > 0, the light step for the rest, and with
+    `with_gang` the gang fill for gang groups), one flat row each in
+    `flat` [B, total]: take_exist (or its sparse_k compaction), take_new,
+    unsched, dom_placed, used, node_pool/zone/ct, num_active and, where
+    the layout holds it, the priority witness; the final pool budgets in
+    `limits_out` [B, P, R].  CUDA tensors launch the kernel (its gang
+    instance with `with_gang`); CPU tensors run `batch_scan_reference`."""
     dev = flat.device
     _check_problem(batch, cat, N, dev)
     _check_outputs(batch.B, batch.P, flat, lay, limits_out, sparse_k)
     if dev.type != "cuda":
-        batch_scan_reference(batch, cat, N, flat, lay, limits_out, sparse_k)
+        batch_scan_reference(batch, cat, N, flat, lay, limits_out, sparse_k,
+                             with_gang=with_gang)
         return
-    _launch_scan("ffd_batch_scan", batch.B, batch.G, batch.E, N, batch.P,
-                 batch.D, 0, cat, flat, lay, limits_out, sparse_k,
-                 {f.name: getattr(batch, f.name) for f in fields(batch)})
-    batch_scan.launches += 1
+    inputs = {f.name: getattr(batch, f.name) for f in fields(batch)}
+    if not with_gang:
+        inputs.pop("group_gang")
+    if "prio_inv" not in lay:
+        inputs.pop("group_prio")
+    _launch_scan("ffd_batch_gang_scan" if with_gang else "ffd_batch_scan",
+                 batch.B, batch.G, batch.E, N, batch.P, batch.D, 0, cat,
+                 flat, lay, limits_out, sparse_k, inputs)
+    if with_gang:
+        batch_scan.gang_launches += 1
+    else:
+        batch_scan.launches += 1
+    if "prio_inv" in lay:
+        batch_scan.witness_launches += 1
 
 
-batch_scan.launches = 0
+batch_scan.launches = 0          # the gang-free instance
+batch_scan.gang_launches = 0     # the gang instance
+batch_scan.witness_launches = 0  # launches (either) with the witness
 
 
 def _sweep_inputs(sw: SweepBatch) -> Dict[str, Optional[torch.Tensor]]:
@@ -1397,19 +1682,22 @@ sweep_topo_scan.launches = 0
 
 
 def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
-         lay: Dict, limits: torch.Tensor) -> None:
-    """K2: the explain=1 counts of one problem, written into its flat row
-    (which must hold them) from the scan's outputs and final pool budgets
-    `limits`.  CUDA tensors launch the kernel; CPU tensors run
-    `pack_reference`."""
+         lay: Dict, limits: torch.Tensor, with_gang: int = 0) -> None:
+    """K2: the explain=1 counts of one problem (gang strands in the whole
+    class with `with_gang`), and the explain=2 class map where the layout
+    holds one, written into its flat row from the scan's outputs and
+    final pool budgets `limits`.  CUDA tensors launch the kernel; CPU
+    tensors run `pack_reference`."""
     dev = flat.device
     _check_problem(prob, cat, N, dev)
     _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
     _check(limits, "limits", torch.float32, (prob.P, R), dev)
     if "explain_counts" not in lay:
         raise ValueError("the flat layout holds no explain counts")
+    if "explain_map" in lay and lay["explain_map"][1] != prob.G * cat.O:
+        raise ValueError("the flat layout's class map is not [G, O]")
     if dev.type != "cuda":
-        pack_reference(prob, cat, N, flat, lay, limits)
+        pack_reference(prob, cat, N, flat, lay, limits, with_gang)
         return
     from karpenter_tpu_torch.solver import _cuda
     if prob.D > MAX_DOMAINS:
@@ -1424,45 +1712,57 @@ def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
         reg("dom_placed"), prob.group_dsel, prob.group_dbase,
         prob.group_skew, prob.group_mindom, prob.group_delig,
         cat.col_zone, cat.col_ct,
+        prob.group_gang if with_gang else None,
+        reg("explain_map") if "explain_map" in lay else None,
     ]
     dims = [prob.G, N, cat.PT, cat.zc, prob.P, cat.W, prob.D]
     stream = torch.cuda.current_stream(dev).cuda_stream
     _cuda.launch("ffd_pack", [_ptr(t) for t in ptrs], dims, stream)
     pack.launches += 1
+    if "explain_map" in lay:
+        pack.map_launches += 1
 
 
 pack.launches = 0
+pack.map_launches = 0  # launches with the explain=2 map
 
 
 def solve_ffd_batch(batch: FFDBatch, cat: FFDCatalog, max_nodes: int,
-                    explain: int = 0, sparse_k: int = 0) -> torch.Tensor:
+                    explain: int = 0, sparse_k: int = 0, with_gang: int = 0,
+                    with_priority: int = 0) -> torch.Tensor:
     """The generic batched solve (`solve_ffd_batch`, ffd.py:1514): K5 over
-    the batch, then, with explain=1, K2 for each problem.  Returns the
-    [B, total] f32 result rows on the batch's device (not
+    the batch (its gang instance with `with_gang`, the priority witness
+    with `with_priority`), then, with explain, K2 for each problem —
+    explain=1 the counts, explain=2 also the [G, O] class map.  Returns
+    the [B, total] f32 result rows on the batch's device (not
     synchronised)."""
-    if explain not in (0, 1):
-        raise ValueError(f"explain={explain}: the pack computes counts "
-                         "(1) or nothing (0)")
+    if explain not in (0, 1, 2):
+        raise ValueError(f"explain={explain}: the pack computes the map "
+                         "(2), counts (1) or nothing (0)")
     dev = batch.group_req.device
     N = max_nodes
-    lay = flat_layout(batch.G, batch.E, N, batch.D, explain, sparse_k)
+    lay = flat_layout(batch.G, batch.E, N, batch.D, explain, sparse_k,
+                      cat.O, with_priority)
     flat = torch.empty((batch.B, lay["total"][1]), dtype=torch.float32,
                        device=dev)
     limits = torch.empty((batch.B, batch.P, R), dtype=torch.float32,
                          device=dev)
-    batch_scan(batch, cat, N, flat, lay, limits, sparse_k)
+    batch_scan(batch, cat, N, flat, lay, limits, sparse_k, with_gang)
     if explain:
         for b in range(batch.B):
-            pack(batch.at(b), cat, N, flat[b], lay, limits[b])
+            pack(batch.at(b), cat, N, flat[b], lay, limits[b], with_gang)
     return flat
 
 
 def solve_ffd(prob: FFDProblem, cat: FFDCatalog, max_nodes: int,
-              explain: int = 0) -> torch.Tensor:
-    """One solve: the batched scan at B=1, then, with explain=1, K2.
+              explain: int = 0, with_gang: int = 0,
+              with_priority: int = 0) -> torch.Tensor:
+    """One solve: the batched scan at B=1, then, with explain, K2.
     Returns the flat f32 result buffer on the problem's device (not
     synchronised)."""
-    return solve_ffd_batch(FFDBatch.of(prob), cat, max_nodes, explain)[0]
+    return solve_ffd_batch(FFDBatch.of(prob), cat, max_nodes, explain,
+                           with_gang=with_gang,
+                           with_priority=with_priority)[0]
 
 
 def solve_ffd_sweep(sw: SweepBatch, cat: FFDCatalog, max_nodes: int,
@@ -1482,15 +1782,19 @@ def solve_ffd_sweep(sw: SweepBatch, cat: FFDCatalog, max_nodes: int,
 
 
 def unpack(packed, G: int, E: int, N: int, RDIM: int, D: int,
-           sparse_k: int = 0, explain: int = 0) -> Dict:
+           sparse_k: int = 0, explain: int = 0, explain_o: int = 0,
+           with_priority: int = 0) -> Dict:
     """Split one flat result row into named host arrays (ffd.py:1677,
     dense take_new rows).  With sparse_k the dense [G, E] take_exist rows
     are rebuilt from the (count, index) pairs; empty slots (count 0) are
-    skipped, so a pad slot's index 0 never clears a real entry."""
+    skipped, so a pad slot's index 0 never clears a real entry.  explain=2
+    adds `explain_map` [G, explain_o] int8, `with_priority` the witness
+    `prio_inv` [G] bool."""
     flat = np.asarray(packed)
     if not flat.flags.writeable:
         flat = np.array(flat)
-    lay = flat_layout(G, E, N, D, explain, sparse_k)
+    lay = flat_layout(G, E, N, D, explain, sparse_k, explain_o,
+                      with_priority)
     assert RDIM == R and flat.shape == (lay["total"][1],), flat.shape
 
     def reg(name):
@@ -1520,4 +1824,9 @@ def unpack(packed, G: int, E: int, N: int, RDIM: int, D: int,
         out["explain_counts"] = reg("explain_counts").reshape(
             G, EXPLAIN_C).astype(np.int64)
         out["explain_bits"] = reg("explain_bits").astype(np.int64)
+    if explain >= 2:
+        out["explain_map"] = reg("explain_map").reshape(
+            G, explain_o).astype(np.int8)
+    if with_priority:
+        out["prio_inv"] = reg("prio_inv") > 0.5
     return out

@@ -7,7 +7,10 @@ ZC column grid with padded (pool,type) blocks, pools with daemon overhead
 and finite or unlimited budgets, existing nodes with per-node caps,
 hostname-style per-node caps, whole-node (all-or-nothing) groups and padded
 group rows.  With ``topology=True`` it also carries zone and capacity-type
-domain groups (the heavy scan branch) mixed with light ones.  Every float
+domain groups (the heavy scan branch) mixed with light ones; with
+``gang=True``, gang groups (the gang fill) over zone, capacity-type or no
+domain; with ``priority=True``, the 18-slot form with a priority band per
+group.  Every float
 is integer-valued (millicores, MiB, counts), as
 encoded requests and capacities are, so the float arithmetic is exact and
 the kernels must agree bit for bit.
@@ -34,7 +37,9 @@ def random_problem(seed: int, *, G: int = 8, E: int = 16, PT: int = 64,
                    ZC: int = 6, P: int = 2, real_groups: Optional[int] = None,
                    pad_blocks: int = 8, limits: str = "mixed",
                    whole: bool = True, pod_scale: int = 60,
-                   D: int = 2, topology: bool = False) -> Tuple[tuple, Dict]:
+                   D: int = 2, topology: bool = False, gang: bool = False,
+                   tied_ranks: bool = False,
+                   priority: bool = False) -> Tuple[tuple, Dict]:
     """One problem.  `limits`: "none" (every pool unlimited), "finite"
     (every pool budgeted) or "mixed".  `pod_scale` sets group sizes:
     large values against a small node axis exhaust the slots.
@@ -46,7 +51,19 @@ def random_problem(seed: int, *, G: int = 8, E: int = 16, PT: int = 64,
     (base counts, skew 1 or 2, sometimes minDomains, sometimes a blocked
     domain) or an anti-affinity (at most one more pod per domain), over
     partly ineligible domains.  Existing nodes sit in random domains.  D
-    (the padded domain width) must hold the zones."""
+    (the padded domain width) must hold the zones.
+
+    `gang`: about half the real groups become gang units, as
+    the encoder writes them: dsel 1 (zone), 2 (capacity type) or 0
+    (domain-free: every column and node in domain 0), dbase the trial rank
+    of each domain (all 0 with `tied_ranks`: the lowest index wins),
+    delig a random non-empty (sometimes empty) subset of the real domains,
+    no per-node cap, no spread; sizes from 2 to a few hundred members, so
+    some fit one domain and some none; existing nodes sit in random zones
+    and capacity types.  `priority`: an 18th slot `group_prio`, bands
+    non-increasing along the group order (as the encoder sorts them).
+    Both draw from their own generators, so a seed's other rows do not
+    change with them."""
     rng = np.random.RandomState(seed)
     real_groups = G - 1 if real_groups is None else real_groups
     O = PT * ZC
@@ -171,15 +188,60 @@ def random_problem(seed: int, *, G: int = 8, E: int = 16, PT: int = 64,
                 if rng.rand() < 0.2:
                     group_dcap[g, rng.randint(ndom)] = 0
 
+    group_gang = np.zeros(G, bool)
+    if gang:
+        grng = np.random.RandomState(seed + 104729)
+        nz3 = nz if topology else 3            # zones of the column grid
+        nct = 2
+        assert max(nz3, nct) <= D, (nz3, D)
+        if E and not topology:
+            e_real = max(E - 2, 0)
+            exist_zone[:e_real] = grng.randint(-1, nz3, e_real)
+            exist_ct[:e_real] = grng.randint(-1, nct, e_real)
+        for g in range(real_groups):
+            if group_whole[g] or grng.rand() >= 0.5:
+                continue
+            group_gang[g] = True
+            dsel = grng.choice([0, 1, 2])
+            group_dsel[g] = dsel
+            group_ncap[g] = BIG
+            group_dcap[g] = BIG
+            group_skew[g] = BIG
+            group_mindom[g] = 0
+            group_dbase[g] = 0
+            group_delig[g] = False
+            if E:
+                exist_cap[g, :max(E - 2, 0)] = BIG
+            group_count[g] = grng.choice([grng.randint(2, 13),
+                                          grng.randint(13, 80),
+                                          grng.randint(200, 600)])
+            if dsel == 0:
+                group_delig[g, 0] = True
+                continue
+            ndom = nz3 if dsel == 1 else nct
+            if not tied_ranks:
+                group_dbase[g, :ndom] = grng.permutation(ndom)
+            elig = grng.rand(ndom) < 0.75
+            if grng.rand() < 0.9:
+                elig[grng.randint(ndom)] = True
+            group_delig[g, :ndom] = elig
+
     prob = (
         group_req, group_count, group_mask, exist_cap, exist_remaining,
         pool_limit, group_ncap,
         group_dsel, group_dbase, group_dcap, group_skew, group_mindom,
         group_delig,
         group_whole,
-        np.zeros(G, bool),                     # group_gang
+        group_gang,
         exist_zone, exist_ct,
     )
+    if priority:
+        prng = np.random.RandomState(seed + 7919)
+        bands = np.sort(prng.choice([0, 1, 100, 1000, 2_000_000_000],
+                                    size=real_groups))[::-1]
+        group_prio = np.zeros(G, np.int32)
+        group_prio[:real_groups] = bands
+        prob = prob + (group_prio,)
     cat = dict(col_alloc=col_alloc, col_daemon=col_daemon, pt_alloc=pt_alloc,
                col_pool=col_pool, pool_daemon=pool_daemon,
                col_zone=col_zone, col_ct=col_ct,

@@ -2,14 +2,18 @@
 card.
 
 `solve`: encode (host, numpy) → the FFD scan (K5 at B=1, its heavy step
-for classes with a zone or capacity-type spread or anti-affinity) and the
-result pack (CUDA kernels, solver/ffd.py) → host repair (whole-node,
-topology skew) → decode (host).  `solve_batch`: many simulations of one
-cluster snapshot — the leave-k-out sweep (K4, light and heavy lanes) for
-inputs that carry the snapshot's provenance, the generic batched scan (K5)
-for the rest, a chunk of up to 64 problems per launch, pipelined.  The
-port of `karpenter_tpu/solver/solve.py` `TPUSolver`, with its host paths
-around the device solve:
+for classes with a zone or capacity-type spread or anti-affinity, its gang
+instance for problems that hold a gang, the priority inversion witness for
+problems with more than one priority band) and the result pack (CUDA
+kernels, solver/ffd.py) → host repair (whole-node, gang atomicity,
+topology skew) → decode (host), each stranded group's verdict a reason
+code with its reason tree → the preemption planner (`solver/preempt.py`)
+for pods that outrank evictable residents.  `solve_batch`: many
+simulations of one cluster snapshot — the leave-k-out sweep (K4, light and
+heavy lanes) for inputs that carry the snapshot's provenance, the generic
+batched scan (K5) for the rest, a chunk of up to 64 problems per launch,
+pipelined.  The port of `karpenter_tpu/solver/solve.py` `TPUSolver`, with
+its host paths around the device solve:
 
   * the split path: groups the encoding cannot express (custom topology
     keys, two dynamic keys, coupled selectors) go to the host oracle
@@ -20,9 +24,7 @@ around the device solve:
     oracle solve of the whole input, kept if it strands fewer.
 
 What the port does not run yet raises `UnsupportedPods`, naming the slice
-that brings it: gangs, more than one priority band (and a stranded pod
-that outranks a resident one, which the reference's preemption planner
-would act on), and soft terms that need the relaxation loop.  A result is
+that brings it: soft terms that need the relaxation loop.  A result is
 therefore always the reference's result.
 """
 
@@ -39,11 +41,7 @@ from karpenter_tpu_torch.models import wellknown
 from karpenter_tpu_torch.models.objects import Node, ObjectMeta, Pod
 from karpenter_tpu_torch.models.requirements import Requirement, Requirements
 from karpenter_tpu_torch.models.resources import RESOURCE_AXIS, Resources
-from karpenter_tpu_torch.scheduling.oracle import (
-    PreemptionNotPorted,
-    Scheduler,
-    preemption_would_plan,
-)
+from karpenter_tpu_torch.scheduling.oracle import Scheduler
 from karpenter_tpu_torch.scheduling.types import (
     ExistingNode,
     NewNodeClaim,
@@ -64,6 +62,7 @@ from karpenter_tpu_torch.solver.encode import (
     SweepTopologyTables,
     Unsupported,
     _matches,
+    _np_fit_count,
     bucket,
     encode,
     encode_catalog,
@@ -90,15 +89,6 @@ class _SplitNeeded(Exception):
     path decides (the reference's UnsupportedPods inside the solver)."""
 
 
-def _oracle_solve(inp: ScheduleInput) -> ScheduleResult:
-    """The host oracle on `inp`; UnsupportedPods where the reference's
-    oracle would plan preemptions."""
-    try:
-        return Scheduler(inp).solve()
-    except PreemptionNotPorted as e:
-        raise UnsupportedPods(f"{e} (slice 2b)") from e
-
-
 class TorchSolver:
     def __init__(self, max_nodes: int = 1024, device="cuda"):
         """`device`: where the kernels run — "cuda" (the default, the
@@ -112,6 +102,12 @@ class TorchSolver:
         self._last_slots_exhausted = False
         self._pregroup_ms = 0.0
         self._explain_resolved: Optional[int] = None
+        # per-pod reason trees: built for REAL solves only (a capped
+        # consolidation sim strands by design)
+        self._explain_trees = False
+        # gang groups the host atomicity net stranded (never expected:
+        # the gang fill commits all-or-nothing)
+        self.gang_repairs = 0
         # per-solve host/device phase breakdown (ms), refreshed by
         # _solve_attempt: encode, pad, dispatch, device, pull, repair,
         # decode — the keys of the reference's last_phase_ms
@@ -137,11 +133,10 @@ class TorchSolver:
                 "(pass device='cpu' to run the kernels' plain versions)")
 
     def _explain_mode(self) -> int:
-        """KARPENTER_TPU_EXPLAIN resolved once per solver, clamped to
-        counts: the per-column map of "full" mode is not ported yet."""
+        """KARPENTER_TPU_EXPLAIN (off, counts or full: 0, 1, 2), resolved
+        once per solver."""
         if self._explain_resolved is None:
-            self._explain_resolved = min(explainmod.mode(),
-                                         explainmod.MODE_COUNTS)
+            self._explain_resolved = explainmod.mode()
         return self._explain_resolved
 
     # -- catalog ---------------------------------------------------------
@@ -284,11 +279,12 @@ class TorchSolver:
             # the backstop ignores node caps, so a capped solve never
             # takes it
             res = self._oracle_backstop_on_limits(inp, res)
-        if (max_nodes is None and res.unschedulable and priority_enabled()
-                and preemption_would_plan(inp, res)):
-            raise UnsupportedPods(
-                "a stranded pod outranks an evictable resident pod: the "
-                "preemption planner comes with slice 2b")
+        if max_nodes is None and res.unschedulable and priority_enabled():
+            # the preemption pre-pass: plans for stranded higher-priority
+            # pods whose seat lower-band evictions could free — the SAME
+            # planner the oracle's solve() runs.  Capped sims never plan.
+            from karpenter_tpu_torch.solver import preempt
+            preempt.attach(inp, res)
         return res
 
     # pods beyond this, the backstop oracle's O(pods) wall-clock isn't
@@ -312,7 +308,7 @@ class TorchSolver:
         if not any(explainmod.code_of(reason) == explainmod.POOL_LIMIT
                    for reason in res.unschedulable.values()):
             return res
-        orc = _oracle_solve(inp)
+        orc = Scheduler(inp).solve()
         if len(orc.unschedulable) < len(res.unschedulable):
             self._used_split = True  # host help happened
             return orc
@@ -346,7 +342,7 @@ class TorchSolver:
         self._count_residue(stranded)
         self._used_split = True
         aug = self._augment_with_claims(inp, stranded, placed, dev_res)
-        orc_res = _oracle_solve(aug)
+        orc_res = Scheduler(aug).solve()
         # the oracle's verdict replaces the kernel's for the rescued set;
         # the kernel's reason tree, where one was attached, is kept under
         # "kernel"
@@ -410,7 +406,7 @@ class TorchSolver:
             dev_res = ScheduleResult()
         aug = self._augment_with_claims(inp, residue_pods, supported_pods,
                                         dev_res)
-        orc_res = _oracle_solve(aug)
+        orc_res = Scheduler(aug).solve()
 
         # budget starvation retry: under a binding pool limit the device
         # pass (solved first) can spend budget the residue needed.
@@ -435,7 +431,7 @@ class TorchSolver:
                 max_nodes=max_nodes)
             aug2 = self._augment_with_claims(inp, residue_pods,
                                              supported_pods, dev2)
-            orc2 = _oracle_solve(aug2)
+            orc2 = Scheduler(aug2).solve()
             if (len(dev2.unschedulable) + len(orc2.unschedulable)
                     < len(dev_res.unschedulable)
                     + len(orc_res.unschedulable)):
@@ -598,8 +594,7 @@ class TorchSolver:
                        max_nodes: Optional[int] = None) -> ScheduleResult:
         """Group, then solve.  Pods with soft terms (preferences, preferred
         affinity, ScheduleAnyway spread) need the reference's relaxation
-        loop around the solve, and gangs the gang fill: both come with
-        slice 2b."""
+        loop around the solve, which comes with slice 2c."""
         t0 = time.perf_counter()
         groups = group_pods(inp.pods)
         # grouping belongs to the encode phase (folded in by
@@ -611,13 +606,7 @@ class TorchSolver:
                for g in groups):
             raise UnsupportedPods(
                 "soft scheduling terms need the relaxation loop "
-                "(slice 2b)")
-        if any(gang_of(g[0]) is not None for g in groups):
-            # refused whether the encoder would express the gang (the
-            # device gang fill) or hand it to the split path's oracle:
-            # the gang repair and its verdicts come together
-            raise UnsupportedPods(
-                "gang groups need the gang fill (slice 2b)")
+                "(slice 2c)")
         return self._attempt_or_split(inp, max_nodes=max_nodes,
                                       groups=groups)
 
@@ -635,17 +624,19 @@ class TorchSolver:
         return self.max_nodes
 
     @staticmethod
-    def _check_supported(enc: EncodedProblem) -> None:
-        """Raise for groups only a later slice's path can run."""
+    def _statics(enc: EncodedProblem):
+        """(with_gang, with_priority) of one encoded problem, as the
+        reference derives its statics: the gang instance only for a
+        problem that holds a gang group, the witness only for one with
+        more than one priority band — every other problem keeps the
+        program it had before either existed."""
         n = enc.n_groups
-        if enc.group_gang is not None and enc.group_gang[:n].any():
-            raise UnsupportedPods(
-                "gang groups need the gang fill (slice 2b)")
+        wg = int(enc.group_gang is not None
+                 and bool(np.asarray(enc.group_gang)[:n].any()))
         gp = enc.group_priority
-        if gp is not None and len(np.unique(gp[:n])) > 1:
-            raise UnsupportedPods(
-                "more than one priority band needs the priority witness "
-                "(slice 2b)")
+        wp = int(gp is not None
+                 and len(np.unique(np.asarray(gp)[:n])) > 1)
+        return wg, wp
 
     def _solve_attempt(self, inp: ScheduleInput,
                        max_nodes: Optional[int] = None,
@@ -663,15 +654,17 @@ class TorchSolver:
         self._pregroup_ms = 0.0
         if enc.n_groups == 0:
             return ScheduleResult()
-        self._check_supported(enc)
         if enc.n_columns == 0:
             # no purchasable capacity — existing nodes can still absorb
             # pods, exactly as the oracle fills them first.  The host fill
-            # enforces per-node caps but not the per-domain quotas, so
-            # domain-constrained groups go to the split path instead
-            if (enc.group_dsel[:enc.n_groups] > 0).any():
+            # enforces per-node caps but neither the per-domain quotas nor
+            # the gangs' atomic fills, so those groups go to the split
+            # path instead
+            if (enc.group_dsel[:enc.n_groups] > 0).any() or (
+                    enc.group_gang is not None
+                    and enc.group_gang[:enc.n_groups].any()):
                 raise _SplitNeeded(
-                    "zone/capacity-type-constrained pods with no "
+                    "zone/capacity-type-constrained or gang pods with no "
                     "purchasable capacity")
             return self._existing_only(enc)
 
@@ -681,6 +674,10 @@ class TorchSolver:
         dev = cat.device_args
         prob = self._problem_args(enc, G, E, Db, dev.O)
         exc = self._explain_mode()
+        wg, wp = self._statics(enc)
+        # per-pod reason trees only for REAL solves: a consolidation sim
+        # (explicit max_nodes cap) strands by design
+        self._explain_trees = bool(exc) and max_nodes is None
         t2 = time.perf_counter()
         disp_s = dev_s = pull_s = 0.0
         cuda = self.device.type == "cuda"
@@ -691,13 +688,15 @@ class TorchSolver:
             nonlocal disp_s, dev_s, pull_s
             t_a = time.perf_counter()
             ptens = ffd.problem_tensors(prob, dev.O, self.device)
-            flat = ffd.solve_ffd(ptens, dev, n, explain=exc)
+            flat = ffd.solve_ffd(ptens, dev, n, explain=exc, with_gang=wg,
+                                 with_priority=wp)
             t_b = time.perf_counter()
             if cuda:
                 torch.cuda.synchronize(self.device)
             t_c = time.perf_counter()
             out_ = ffd.unpack(flat.cpu().numpy(), G, E, n, R, Db,
-                              explain=exc)
+                              explain=exc, explain_o=dev.O,
+                              with_priority=wp)
             t_d = time.perf_counter()
             disp_s += t_b - t_a
             dev_s += t_c - t_b
@@ -719,6 +718,7 @@ class TorchSolver:
             self._last_active = int(out["num_active"])
         t3 = time.perf_counter()
         self._repair_whole_node(enc, out)
+        self._repair_gang(enc, out)
         self._repair_topology(enc, out)
         t4 = time.perf_counter()
         res = self._decode(enc, out)
@@ -990,6 +990,8 @@ class TorchSolver:
             # cache its name list while this chunk decodes (the cache
             # itself is released when the sweep returns)
             self._in_sweep_decode = True
+            # sims strand by design: codes without trees
+            self._explain_trees = False
             try:
                 for bi, i in enumerate(idxs):
                     groups, cls_i, greq_i, gcount_i = sims[i]
@@ -1198,8 +1200,8 @@ class TorchSolver:
         `max_nodes` caps the new-node axis for THIS call: consolidation
         rejects any simulation needing more than one replacement node, so
         the simulator passes a tiny cap; a slot-exhausted sim reports
-        unschedulable.  Gangs and more than one priority band raise
-        UnsupportedPods (slice 2b).
+        unschedulable.  A gang unit takes the generic batched solve
+        (the sweep's lanes have no gang fill), as in the reference.
         """
         if not inps:
             return []
@@ -1227,7 +1229,7 @@ class TorchSolver:
                 if r is not None and r.unschedulable and any(
                         p.relax_levels() for p in inps[i].pods):
                     # the ORIGINAL input: relaxation starts from the pod's
-                    # true soft ladder (solve raises until slice 2b)
+                    # true soft ladder (solve raises until slice 2c)
                     out[i] = self.solve(inps[i], max_nodes=max_nodes)
             return out
         cat = self._catalog_encoding(inps[0])
@@ -1276,8 +1278,6 @@ class TorchSolver:
             out_results[i] = self.solve(inps[i], max_nodes=max_nodes)
         if not encs:
             return out_results
-        for _, e in encs:
-            self._check_supported(e)
         G = bucket(max(e.n_groups for _, e in encs), G_BUCKETS)
         E = bucket(max(len(e.existing) for _, e in encs), E_BUCKETS)
         Db = bucket(max(e.n_domains for _, e in encs), D_BUCKETS)
@@ -1292,6 +1292,13 @@ class TorchSolver:
         # the explain counts for UNCAPPED batches only (real provisioning
         # requests); capped consolidation sims stay aux-free
         exc_b = min(self._explain_mode(), 1) if max_nodes is None else 0
+        # the statics for the whole batch: one gang-carrying input arms the
+        # gang instance (gang-free entries still take their own steps), one
+        # multi-band input the witness (single-band entries ride with a
+        # zero priority row, inert)
+        statics = [self._statics(e) for _, e in encs]
+        wg_b = int(any(wg for wg, _ in statics))
+        wp_b = int(any(wp for _, wp in statics))
         pipe, upload, pull, wait = self._chunk_io()
         chunk_size = B_BUCKETS[-1]
         chunks = [encs[s:s + chunk_size]
@@ -1307,20 +1314,27 @@ class TorchSolver:
                 probs.append(tuple(np.zeros_like(a) for a in probs[0]))
             batch = ffd.batch_tensors(probs, O, self.device, upload=upload)
             return pull(ffd.solve_ffd_batch(batch, dev, mn, exc_b,
-                                            sparse_k))
+                                            sparse_k, with_gang=wg_b,
+                                            with_priority=wp_b))
 
         def complete(chunk, handle):
             # stage 2: wait for this chunk's rows, repair and decode
             packed = wait(handle)
+            # capped sims: codes without trees; an uncapped batch entry is
+            # a real provisioning request and gets its trees
+            self._explain_trees = (bool(self._explain_mode())
+                                   and max_nodes is None)
             for bi, (i, enc) in enumerate(chunk):
                 out = ffd.unpack(packed[bi], G, E, mn, R, Db,
-                                 sparse_k=sparse_k, explain=exc_b)
+                                 sparse_k=sparse_k, explain=exc_b,
+                                 with_priority=wp_b)
                 if exc_b:
                     self._note_explain(enc, out)
                 # judged BEFORE topology repair, as solve() judges it
                 exhausted = bool(out["unsched"].sum() > 0
                                  and out["num_active"] >= mn)
                 self._repair_whole_node(enc, out)
+                self._repair_gang(enc, out)
                 self._repair_topology(enc, out)
                 res = self._decode(enc, out)
                 if res.unschedulable and not (
@@ -1399,6 +1413,38 @@ class TorchSolver:
             out["used"][ni] -= int(tn[ni]) * req
         te[:] = 0
         tn[:] = 0
+
+    def _repair_gang(self, enc: EncodedProblem,
+                     out: Dict[str, np.ndarray]) -> None:
+        """Gang atomicity safety net: every gang group must be either
+        FULLY placed inside one adjacency domain or fully stranded.  The
+        gang fill commits all-or-nothing by construction, so this host
+        check is defense in depth — a partial or cross-domain gang is
+        rolled back here (takes zeroed, used released, members stranded
+        whole) rather than split, and counted in `gang_repairs`."""
+        gg = enc.group_gang
+        if gg is None or not gg.any():
+            return
+        Er = len(enc.existing)
+        num_active = int(out["num_active"])
+        for gi in np.nonzero(gg[:enc.n_groups])[0]:
+            te = out["take_exist"][gi, :Er]
+            tn = out["take_new"][gi, :num_active]
+            placed = int(te.sum()) + int(tn.sum())
+            if placed == 0:
+                continue
+            ok = placed == int(enc.group_count[gi])
+            dsel = int(enc.group_dsel[gi])
+            if ok and dsel > 0:
+                ex_dom = (enc.exist_zone if dsel == 1 else enc.exist_ct)
+                nd = (out["node_zone"] if dsel == 1 else out["node_ct"])
+                doms = {int(ex_dom[ei]) for ei in np.nonzero(te > 0)[0]}
+                doms |= {int(nd[ni]) for ni in np.nonzero(tn > 0)[0]}
+                ok = len(doms) <= 1
+            if ok:
+                continue
+            self.gang_repairs += 1
+            self._strand_group(enc, out, gi, te, tn)
 
     def _repair_topology(self, enc: EncodedProblem,
                          out: Dict[str, np.ndarray]) -> None:
@@ -1505,7 +1551,7 @@ class TorchSolver:
                 node_groups.setdefault(int(ni), []).append(gi)
                 cursor += k
             if unsched[gi] > 0:
-                reason = self._unsched_reason(enc, gi)
+                reason = self._unsched_reason(enc, gi, out)
                 for pod in pods[cursor:cursor + unsched[gi]]:
                     res.unschedulable[pod.meta.name] = reason
 
@@ -1667,8 +1713,130 @@ class TorchSolver:
             res.new_claims.append(claim)
         return res
 
-    def _unsched_reason(self, enc: EncodedProblem, gi: int) -> str:
-        """One stranded group's verdict as a registry `Reason`."""
+    def _gang_reason(self, enc: EncodedProblem, gi: int,
+                     out: Optional[Dict]) -> str:
+        """One stranded GANG's verdict: the whole gang strands with one
+        of the gang codes, and the reason tree always carries the per-gang
+        breakdown — nearest adjacency domain, how many members it could
+        hold, the member deficit and the estimated node deficit."""
+        pods = enc.groups[gi]
+        spec = gang_of(pods[0]) if pods else None
+        cnt = int(enc.group_count[gi])
+        dsel = int(enc.group_dsel[gi])
+        D = enc.n_domains
+        delig = np.asarray(enc.group_delig[gi][:D], dtype=bool)
+        placed_d = None
+        if isinstance(out, dict) and "dom_placed" in out \
+                and gi < len(out["dom_placed"]):
+            placed_d = np.asarray(out["dom_placed"][gi][:D],
+                                  dtype=np.int64)
+        best = 0
+        best_dom = None
+        if placed_d is not None and delig.any():
+            masked = np.where(delig, placed_d, -1)
+            bi = int(masked.argmax())
+            best = max(int(masked[bi]), 0)
+            values = (enc.zone_values if dsel == 1
+                      else enc.ct_values if dsel == 2 else [])
+            if dsel > 0 and bi < len(values):
+                best_dom = values[bi]
+        # best per-node fan-out over the gang's admitted columns — the
+        # deficit-node estimate and the too-large bound both need it
+        gmask = np.asarray(enc.group_mask[gi], dtype=bool)
+        per = _np_fit_count(
+            np.asarray(enc.col_alloc, dtype=np.float32)
+            - np.asarray(enc.col_daemon, dtype=np.float32),
+            np.asarray(enc.group_req[gi], dtype=np.float32))
+        best_fit = int(per[gmask].max()) if gmask.any() else 0
+        n_axis = (out["take_new"].shape[1]
+                  if isinstance(out, dict) and "take_new" in out
+                  else self.max_nodes)
+        exist_fit = 0
+        if len(enc.existing):
+            exist_fit = int(_np_fit_count(
+                np.asarray(enc.exist_remaining, dtype=np.float32),
+                np.asarray(enc.group_req[gi],
+                           dtype=np.float32)).sum())
+        name = spec.name if spec is not None else "?"
+        if spec is not None and spec.size and len(pods) != spec.size:
+            code = explainmod.GANG_INCOMPLETE
+            detail = (f"gang {name}: {len(pods)} member(s) pending of "
+                      f"{spec.size} declared — "
+                      + ("waiting for the full gang"
+                         if len(pods) < spec.size
+                         else "more members than declared; fix "
+                              "gang-size"))
+        elif best <= 0:
+            if cnt > best_fit * n_axis + exist_fit:
+                # a sound global upper bound over every domain: the gang
+                # could not fit even on an empty fleet at the node
+                # ceiling
+                code = explainmod.GANG_TOO_LARGE
+                detail = (f"gang {name}: {cnt} members exceed any "
+                          "single adjacency domain's possible capacity "
+                          f"(≤{best_fit} pods/node × {n_axis} node "
+                          "slots)")
+            else:
+                code = explainmod.GANG_DOMAIN
+                detail = (f"gang {name}: no adjacency domain can "
+                          "currently hold any member")
+        else:
+            code = explainmod.GANG_PARTIAL
+            detail = (f"gang {name}: best domain holds {best} of {cnt} "
+                      "members — stranded whole rather than split")
+        deficit = max(cnt - best, 0)
+        gang_tree = {
+            "name": name,
+            "declared_size": spec.size if spec is not None else 0,
+            "members_pending": len(pods),
+            "domain_axis": ("zone" if dsel == 1
+                            else "capacity-type" if dsel == 2
+                            else "none"),
+            "nearest_domain": best_dom,
+            "nearest_domain_members": best,
+            "deficit_members": deficit,
+            "deficit_nodes": (-(-deficit // best_fit)
+                              if best_fit else None),
+        }
+        tree = {"code": code, "constraint": explainmod.constraint_of(code),
+                "gang": gang_tree}
+        if self._explain_trees:
+            full = explainmod.build_tree(enc, out or {}, gi, code)
+            full["gang"] = gang_tree
+            tree = full
+        return explainmod.make(code, detail, tree)
+
+    def _unsched_reason(self, enc: EncodedProblem, gi: int,
+                        out: Optional[Dict] = None) -> str:
+        """One stranded group's verdict as a registry `Reason`, with its
+        reason tree when explain is armed on a REAL solve
+        (`_explain_trees`)."""
+        if enc.group_gang is not None and gi < len(enc.group_gang) \
+                and enc.group_gang[gi]:
+            return self._gang_reason(enc, gi, out)
+        # priority reclassification, gated on the kernel's inversion
+        # witness: prio_inv[h] marks a group that placed pods after a
+        # higher-priority group stranded, so this group's strand is a
+        # band-order capacity loss (preemption could seat it), not a plain
+        # capacity verdict.  Only for hostable groups: a group no column
+        # or existing node can ever carry keeps its real verdict.
+        gp = enc.group_priority
+        pi = None if out is None else out.get("prio_inv")
+        if gp is not None and pi is not None and (
+                enc.group_mask[gi].any() or (enc.exist_cap[gi] > 0).any()):
+            Gr = enc.n_groups
+            gprow = np.asarray(gp)[:Gr]
+            pirow = np.asarray(pi)[:Gr]
+            later = np.arange(Gr) > gi
+            if bool((later & pirow & (gprow < gprow[gi])).any()):
+                code = explainmod.PRIORITY_BAND_EXHAUSTED
+                detail = ("priority band exhausted: capacity went to "
+                          "lower-priority pods placed after this group "
+                          "stranded — eviction could seat it")
+                tree = None
+                if self._explain_trees:
+                    tree = explainmod.build_tree(enc, out or {}, gi, code)
+                return explainmod.make(code, detail, tree)
         if (not enc.group_mask[gi].any()
                 and not (enc.exist_cap[gi] > 0).any()):
             details = []
@@ -1679,19 +1847,21 @@ class TorchSolver:
                 else:
                     details.append(f"nodepool {pool.name}: no instance "
                                    "type fits/compatible")
-            return explainmod.make(
-                explainmod.NO_NODEPOOL,
-                "no nodepool can schedule pod: " + "; ".join(details))
+            code = explainmod.NO_NODEPOOL
+            detail = "no nodepool can schedule pod: " + "; ".join(details)
         # attribute to topology only when the encoder enforced a
         # constraint for this group
-        if (enc.group_dsel[gi] > 0 or enc.group_ncap[gi] < BIG
+        elif (enc.group_dsel[gi] > 0 or enc.group_ncap[gi] < BIG
                 or any(v is not None
                        for v in enc.static_allowed[gi].values())):
-            return explainmod.make(
-                explainmod.TOPOLOGY,
-                "topology constraints unsatisfiable: every allowed "
-                "domain is at its skew ceiling or out of capacity")
-        return explainmod.make(
-            explainmod.CAPACITY,
-            "no capacity: every compatible node/instance-type "
-            "combination is exhausted or over limits")
+            code = explainmod.TOPOLOGY
+            detail = ("topology constraints unsatisfiable: every allowed "
+                      "domain is at its skew ceiling or out of capacity")
+        else:
+            code = explainmod.CAPACITY
+            detail = ("no capacity: every compatible node/instance-type "
+                      "combination is exhausted or over limits")
+        tree = None
+        if self._explain_trees:
+            tree = explainmod.build_tree(enc, out or {}, gi, code)
+        return explainmod.make(code, detail, tree)

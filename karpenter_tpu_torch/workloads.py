@@ -21,6 +21,21 @@ as the product's sweep does.  `build_config4b()` is the same sweep with
 70% of the pods in 8 zone-spread deployments (maxSkew 2), the JAX
 package's `benchmarks/config4b_consolidation_spread.py`.  Both are
 solved with `solve_batch(inps, max_nodes=8)`.
+
+`build_config9()` is BASELINE config #9 (the JAX package's
+`benchmarks/config9_gang.py make_input`): 1,082 pods — 10 gangs of 2-64
+members (one on the rack, i.e. capacity-type, axis, one domain-free, and
+"jumbo", whose 8000Gi members strand it whole), an 8-of-9 "waiting" gang
+that strands GangIncomplete, and 800 singletons — on one NodePool.
+
+`build_config10()` is BASELINE config #10 (the JAX package's
+`benchmarks/config10_priority.py make_input`): 650 pods in 4 priority
+bands (best-effort, 100, 1000, system-critical) and a 12-cpu high pod
+pinned to an edge zone that only one existing 16-cpu node serves, whose
+residents — a 2-member low-priority gang and a low single — leave 4 cpu,
+so the preemption planner must evict the whole gang; before the solve it
+records the benchmark's spot storm (4 interruptions of the 6 cheapest
+types in two zones) in the spot-risk model.
 """
 
 from __future__ import annotations
@@ -33,6 +48,8 @@ from karpenter_tpu_torch.models import (
     ObjectMeta,
     Pod,
     PodAffinityTerm,
+    Requirement,
+    Requirements,
     Resources,
     TopologySpreadConstraint,
     wellknown,
@@ -146,3 +163,125 @@ def build_config4() -> List[ScheduleInput]:
 
 def build_config4b() -> List[ScheduleInput]:
     return _consolidation_sweep(spread=True)
+
+
+# config #9: (gang name, member count, per-pod cpu, per-pod memory,
+# adjacency domain: None = the default zone axis, "rack" = capacity type,
+# "none" = domain-free)
+CONFIG9_GANGS = (
+    ("mpi-a", 2, "2", "4Gi", None),
+    ("mpi-b", 4, "4", "8Gi", None),
+    ("mpi-c", 8, "2", "4Gi", None),
+    ("mpi-d", 12, "1", "2Gi", "rack"),
+    ("mpi-e", 16, "2", "4Gi", None),
+    ("mpi-f", 24, "1", "2Gi", "none"),
+    ("mpi-g", 32, "2", "4Gi", None),
+    ("mpi-h", 48, "1", "2Gi", None),
+    ("mpi-i", 64, "1", "2Gi", None),
+    ("jumbo", 64, "4", "8000Gi", None),
+)
+CONFIG9_WAITING = ("waiting", 8)   # declared size 9, only 8 pending
+CONFIG9_SINGLETONS = 800
+
+
+def _gang_pod(name, gname, size, cpu, mem, dom) -> Pod:
+    ann = {wellknown.GANG_NAME_ANNOTATION: gname,
+           wellknown.GANG_SIZE_ANNOTATION: str(size)}
+    if dom is not None:
+        ann[wellknown.GANG_TOPOLOGY_ANNOTATION] = dom
+    return Pod(meta=ObjectMeta(name=name, annotations=ann),
+               requests=Resources.parse({"cpu": cpu, "memory": mem}))
+
+
+def build_config9() -> ScheduleInput:
+    pods = []
+    for gname, size, cpu, mem, dom in CONFIG9_GANGS:
+        for i in range(size):
+            pods.append(_gang_pod(f"{gname}-{i}", gname, size, cpu, mem,
+                                  dom))
+    wname, wpending = CONFIG9_WAITING
+    for i in range(wpending):
+        pods.append(_gang_pod(f"{wname}-{i}", wname, wpending + 1, "1",
+                              "2Gi", None))
+    for i in range(CONFIG9_SINGLETONS):
+        pods.append(Pod(
+            meta=ObjectMeta(name=f"s{i}"),
+            requests=Resources.parse(
+                {"cpu": ["250m", "500m", "1"][i % 3],
+                 "memory": ["512Mi", "1Gi", "2Gi"][i % 3]})))
+    pool = NodePool(meta=ObjectMeta(name="default"))
+    return ScheduleInput(pods=pods, nodepools=[pool],
+                         instance_types={"default": generate_catalog()})
+
+
+# config #10: a zone that exists only on the hand-built edge node
+CONFIG10_EDGE_ZONE = "tpu-edge-1x"
+# (prefix, count, cpu, memory, priority annotation): four bands from
+# best-effort to system-critical
+CONFIG10_WAVES = (
+    ("be", 300, "250m", "512Mi", None),
+    ("mid", 200, "1", "2Gi", 100),
+    ("hi", 120, "2", "4Gi", 1000),
+    ("sys", 30, "1", "2Gi", 2_000_000_000),
+)
+# the storm: spot reclaims observed in two zones for the catalog's
+# cheapest types
+CONFIG10_STORM_ZONES = ("tpu-west-1a", "tpu-west-1b")
+CONFIG10_STORM_OBSERVATIONS = 4
+
+
+def _prio_pod(name, cpu, mem, prio=None, annotations=None) -> Pod:
+    ann = dict(annotations or {})
+    if prio is not None:
+        ann[wellknown.PRIORITY_ANNOTATION] = str(prio)
+    return Pod(meta=ObjectMeta(name=name, annotations=ann),
+               requests=Resources.parse({"cpu": cpu, "memory": mem}))
+
+
+def _edge_node() -> ExistingNode:
+    """The 16-cpu edge node: a 2 x 5-cpu low gang and a 2-cpu low single
+    leave 4 cpu; the pinned 12-cpu high pod seats only when the gang
+    goes."""
+    residents = [_prio_pod(f"ring-{i}", "5", "4Gi", prio=1, annotations={
+        wellknown.GANG_NAME_ANNOTATION: "ring",
+        wellknown.GANG_SIZE_ANNOTATION: "2"}) for i in range(2)]
+    residents.append(_prio_pod("low-edge", "2", "1Gi", prio=1))
+    alloc = Resources.parse({"cpu": "16", "memory": "64Gi", "pods": "110"})
+    used = Resources()
+    for p in residents:
+        used += p.requests
+        p.node_name = "edge-0"
+    node = Node(meta=ObjectMeta(
+        name="edge-0",
+        labels={wellknown.ZONE_LABEL: CONFIG10_EDGE_ZONE,
+                wellknown.CAPACITY_TYPE_LABEL: "on-demand",
+                wellknown.HOSTNAME_LABEL: "edge-0",
+                wellknown.NODEPOOL_LABEL: "default"}),
+        allocatable=alloc, ready=True)
+    return ExistingNode(node=node, available=alloc - used, pods=residents)
+
+
+def build_config10() -> ScheduleInput:
+    from karpenter_tpu_torch.scheduling import risk
+    catalog = generate_catalog()
+    risk.reset()
+    cheap = sorted(catalog, key=lambda it: min(
+        (o.price for o in it.offerings if o.available), default=1e9))
+    for it in cheap[:6]:
+        for zone in CONFIG10_STORM_ZONES:
+            for _ in range(CONFIG10_STORM_OBSERVATIONS):
+                risk.observe_interruption(it.name, zone)
+    pods = []
+    for prefix, count, cpu, mem, prio in CONFIG10_WAVES:
+        for i in range(count):
+            pods.append(_prio_pod(f"{prefix}-{i}", cpu, mem, prio=prio))
+    # the preemption trigger: a high pod pinned where only evicting the
+    # resident low gang can seat it
+    pin = _prio_pod("pin-hi", "12", "8Gi", prio=1000)
+    pin.requirements = Requirements(
+        Requirement.make(wellknown.ZONE_LABEL, "In", CONFIG10_EDGE_ZONE))
+    pods.append(pin)
+    pool = NodePool(meta=ObjectMeta(name="default"))
+    return ScheduleInput(pods=pods, nodepools=[pool],
+                         instance_types={"default": catalog},
+                         existing_nodes=[_edge_node()])

@@ -125,12 +125,20 @@ def test_light_scan_rejects_other_branches(slot, value, match,
                                            monkeypatch):
     """The one light-only scan left, K4's light lane, refuses a batch with
     domain rows; a problem with a domain group goes through the one
-    problem scan (K5, heavy step traced); no scan takes a gang."""
+    problem scan (K5, heavy step traced); gang rows run the gang fill only
+    under with_gang (K5's gang instance) and are the gang-free program's
+    rows without it, as the reference's static."""
     prob, cat = random_problem(1)
     prob = prob[:slot] + (value,) + prob[slot + 1:]
     if match == "gang":
-        with pytest.raises(ValueError, match=match):
-            tffd.problem_from_numpy(prob, cat, "cpu")
+        p, c = tffd.problem_from_numpy(prob, cat, "cpu")
+        assert bool(p.group_gang.all())
+        for wg in (0, 1):
+            out = tffd.solve_ffd(p, c, 64, explain=1, with_gang=wg).numpy()
+            ref = np.asarray(jffd.solve_ffd(
+                *_jax_args(prob, cat, False), max_nodes=64, zc=cat["zc"],
+                explain=1, with_gang=wg))
+            assert np.array_equal(ref.view(np.uint32), out.view(np.uint32))
         return
     p, c = tffd.problem_from_numpy(prob, cat, "cpu")
     assert (p.group_dsel > 0).any()
@@ -160,9 +168,21 @@ def test_light_scan_rejects_other_branches(slot, value, match,
 
 
 def test_light_scan_rejects_priority_slot():
+    """The 18-slot priority-band form is taken: its group_prio row feeds
+    the priority witness, the last region of the flat row, as the
+    reference's with_priority program writes it; a tuple of any other
+    length is refused."""
     prob, cat = random_problem(1)
-    with pytest.raises(ValueError, match="priority"):
-        tffd.problem_from_numpy(prob + (np.zeros(8, np.int32),), cat, "cpu")
+    prio = np.array([5, 5, 9, 1, 1, 0, 7, 0], np.int32)
+    p, c = tffd.problem_from_numpy(prob + (prio,), cat, "cpu")
+    assert p.group_prio.tolist() == prio.tolist()
+    out = tffd.solve_ffd(p, c, 64, explain=1, with_priority=1).numpy()
+    ref = np.asarray(jffd.solve_ffd(
+        *_jax_args(prob, cat, False), prio, max_nodes=64, zc=cat["zc"],
+        explain=1, with_priority=1))
+    assert np.array_equal(ref.view(np.uint32), out.view(np.uint32))
+    with pytest.raises(ValueError, match="17 or 18 slots"):
+        tffd.problem_from_numpy(prob[:16], cat, "cpu")
 
 
 def test_wrapper_checks_arguments():

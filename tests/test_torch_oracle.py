@@ -4,13 +4,13 @@ against the JAX package's (`karpenter_tpu.scheduling.Scheduler`).
 The same scheduling input, built once with each package's classes, must
 schedule to the same canonical result (claims with their pins, existing
 assignments, unschedulable pods with their reason codes).  The oracle is
-pure Python on both sides; the port's copy differs only where the
-reference would plan preemptions, which it refuses.
+pure Python on both sides, and both attach the shared preemption
+planner's plans to a result that strands a pod outranking an evictable
+resident one.
 """
 
 import pytest
 
-from karpenter_tpu_torch.scheduling.oracle import PreemptionNotPorted
 from tests.test_torch_encode import JAX, PORT, scenario
 from tests.test_torch_solve import canon, headline
 
@@ -70,10 +70,19 @@ def test_oracle_matches_reference(name):
         assert "PoolLimitExceeded" in codes
 
 
+def plans(res):
+    """A result's preemption plans in canonical form: plan id, targets,
+    target priority, and each victim unit's name, pods and nodes."""
+    return [(p.plan_id, p.target_pods, p.target_priority,
+             [(u.name, u.priority, u.cost, u.pod_names, u.node_names,
+               u.gang) for u in p.victims])
+            for p in res.preemptions]
+
+
 def test_oracle_refuses_where_the_reference_would_preempt():
     """A stranded pod that outranks an evictable resident pod: the
-    reference plans a preemption; the port raises rather than return a
-    result without the plan."""
+    reference plans a preemption, and the port's oracle attaches the same
+    plan (the same id, target and victim) to the same result."""
     def build(ns):
         M, wk = ns.M, ns.M.wellknown
         node = M.Node(meta=M.ObjectMeta(name="n1", labels={
@@ -93,5 +102,7 @@ def test_oracle_refuses_where_the_reference_would_preempt():
                 pods=[resident])])
     ref = _sched(JAX)(build(JAX)).solve()
     assert "high" in ref.unschedulable and ref.preemptions
-    with pytest.raises(PreemptionNotPorted):
-        _sched(PORT)(build(PORT)).solve()
+    got = _sched(PORT)(build(PORT)).solve()
+    assert canon(got) == canon(ref)
+    assert plans(got) == plans(ref)
+    assert [u.pod_names for u in got.preemptions[0].victims] == [("low",)]

@@ -114,9 +114,9 @@ def test_slot_exhaustion_reruns_at_the_ceiling(monkeypatch):
     calls = []
     real = tffd.solve_ffd
 
-    def spy(prob, cat, max_nodes, explain=0):
+    def spy(prob, cat, max_nodes, explain=0, **statics):
         calls.append(max_nodes)
-        return real(prob, cat, max_nodes, explain=explain)
+        return real(prob, cat, max_nodes, explain=explain, **statics)
 
     monkeypatch.setattr(tffd, "solve_ffd", spy)
     port = TorchSolver(device="cpu")
@@ -182,10 +182,11 @@ def _unsupported_inputs():
 
     # match None: the port runs it since slice 2 and must give the
     # reference's answer (the scan's heavy step for the spread, the
-    # oracle rescue for the strands, the split path for the custom key)
+    # oracle rescue for the strands, the split path for the custom key,
+    # since slice 2b the gang fill and the priority witness)
     return {"zone-spread": (zone_spread, None),
-            "gang": (gang, "gang"),
-            "priority-bands": (priority_bands, "priority"),
+            "gang": (gang, None),
+            "priority-bands": (priority_bands, None),
             "stranded": (stranded, None),
             "soft-terms": (soft_terms, "relaxation"),
             "custom-topology-key": (custom_topology_key, None)}
@@ -196,18 +197,20 @@ UNSUPPORTED = _unsupported_inputs()
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_inputs_raise(name):
-    """The inputs slice 1 refused: gangs, priority bands and soft terms
-    still raise; zone spread, stranded pods and custom topology keys now
-    solve to the reference's answer."""
+    """The inputs slice 1 refused: soft terms still raise; zone spread,
+    stranded pods and custom topology keys (slice 2a), gangs and priority
+    bands (slice 2b) now solve to the reference's answer."""
     build, match = UNSUPPORTED[name]
     if match is not None:
         with pytest.raises(UnsupportedPods, match=match):
             TorchSolver(device="cpu").solve(build(PORT))
         return
-    port = TorchSolver(device="cpu")
+    port, ref_solver = TorchSolver(device="cpu"), jax_solver()
     got = port.solve(build(PORT))
-    assert canon(got) == canon(jax_solver().solve(build(JAX)))
-    assert port._used_split == (name != "zone-spread")
+    assert canon(got) == canon(ref_solver.solve(build(JAX)))
+    assert port._used_split == ref_solver._used_split
+    if name in ("zone-spread", "stranded", "custom-topology-key"):
+        assert port._used_split == (name != "zone-spread")
 
 
 def test_headline_50k_matches_reference():

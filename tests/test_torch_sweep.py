@@ -589,11 +589,14 @@ def test_sweep_releases_the_names_cache_on_every_exit(monkeypatch):
 
 
 # -- what later slices bring ------------------------------------------------------
-def _unsupported_inputs():
-    from karpenter_tpu_torch import models as M
-    from karpenter_tpu_torch.providers import generate_catalog
-    from karpenter_tpu_torch.providers.catalog import CatalogSpec
-    from karpenter_tpu_torch.scheduling import ScheduleInput
+def _unsupported_inputs(pkg="karpenter_tpu_torch"):
+    M = importlib.import_module(f"{pkg}.models")
+    generate_catalog = importlib.import_module(
+        f"{pkg}.providers").generate_catalog
+    CatalogSpec = importlib.import_module(f"{pkg}.providers.catalog"
+                                          ).CatalogSpec
+    ScheduleInput = importlib.import_module(f"{pkg}.scheduling"
+                                            ).ScheduleInput
     catalog = generate_catalog(CatalogSpec(max_types=24, include_gpu=False))
     pool = M.NodePool(meta=M.ObjectMeta(name="default"))
 
@@ -627,9 +630,19 @@ def _unsupported_inputs():
 
 @pytest.mark.parametrize("name", sorted(_unsupported_inputs()))
 def test_later_slices_raise_unsupported(name):
+    """A soft-term straggler still needs the relaxation loop (slice 2c);
+    gangs (through the generic batched solve, K5's gang instance) and
+    priority bands (the witness) give TPUSolver.solve_batch's results
+    since slice 2b."""
     inps = _unsupported_inputs()[name]
-    with pytest.raises(UnsupportedPods, match="slice 2b"):
-        TorchSolver(device="cpu").solve_batch(inps, max_nodes=8)
+    if name == "soft-term-straggler":
+        with pytest.raises(UnsupportedPods, match="slice 2c"):
+            TorchSolver(device="cpu").solve_batch(inps, max_nodes=8)
+        return
+    ref = jax_solver().solve_batch(
+        _unsupported_inputs("karpenter_tpu")[name], max_nodes=8)
+    got = TorchSolver(device="cpu").solve_batch(inps, max_nodes=8)
+    assert [canon(r) for r in got] == [canon(r) for r in ref]
 
 
 # -- the pipeline ---------------------------------------------------------------
