@@ -40,11 +40,25 @@ Phases (any failure exits non-zero):
      trees), one cold and 20 warm solves each — the JAX package's answers,
      gang audit and plans, with the kernels launched;
   9. kernel timings at the main paths' shapes beside their bounds, and the
-     sweep's dense against compacted take_exist rows.
+     sweep's dense against compacted take_exist rows (run after 10-12);
+ 10. the steady state, config #7: a delta-on TorchSolver(max_nodes=2048)
+     and a delta-off one in lockstep over build_config7(gen) — gen 0, one
+     warm pass, 16 timed churn passes — every pass the JAX package's
+     answer (its digest), every timed pass a delta pass through K6;
+ 11. config #12: build_config12() (471,680 pods) on a spec-on and a
+     spec-off solver (delta off in both), a cold and two warm passes — the
+     JAX answer, the chain of 5 chunks through K6 (committed + repaired
+     = 4);
+ 12. config #13 at 50k pods: the incremental index fed the churn as
+     watch events against the walk, a cold pass, two warm ones and 8
+     timed churn passes — every pass the JAX answer, index-resolved delta
+     passes through K6.
 
 Phase 3 also holds K5's gang instance, the witness and K2's map and
 with_gang class against their plain versions on seeded gang and priority
-problems at B=1 and B>1 and on config #9's and #10's encodings.
+problems at B=1 and B>1 and on config #9's and #10's encodings, and K6
+(the seeded scan) on seeded problems and on config #7's churned suffix
+and config #12's first two chunks as the solver launches them.
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.
@@ -131,6 +145,52 @@ CONFIG9_FULL_MAP = ("d34a0a3887865481acfbedd300bb90a2"
 CONFIG9_FULL_TREES = ("469b1284358b3c50751f4e8f0a5e8443"
                       "10b6b5c009ac35d9c419b0d1b9c65b6b")
 
+# The steady state (BASELINE config #7, #12 and #13: benchmarks/
+# config7_churn.py, config12_megascale.py, config13_warm_million.py): the
+# JAX package's answers (TPUSolver(max_nodes=2048, mesh="off"), default
+# knobs, on the CPU; `tests/steady_state_answers.py` takes them) as the
+# sha256 `result_digest` of the canonical result of each pass — config #7
+# per churn generation 0..17 (269 nodes,
+# 0x1.452396d0917d7p+9 every pass), config #13 at 50k pods per generation
+# 0..10 (400 nodes, 0x1.9p+14), config #12's one cold fleet (640 nodes,
+# 0x1.692e76c8b4395p+9)
+CONFIG7 = (
+    "d71f7c9c29c40dc80090458fcb08641431230334199f14a78ddc8d1adccffc83",
+    "c45c73278488fd751b37e603d3dc804994f706fbb18604a1764d841f8a2393c5",
+    "048d6cff9fc6799bc35d0a4a6d1ccd6f42ee2e513e7246cf3d0c69072905670c",
+    "a8ec2302404b76a85f2693698540e4dd54bdfdade64570ce06e20571bb939443",
+    "90198c5047eb50a01a419ea79e222a846cc8ff523179b5d5e955eb0caa6bd0dc",
+    "fb7e9354028f54097639366945fc6278487defc19e5b7533447fcd6a77536b95",
+    "5415bf384f2b16b36044abac45f28dc2366b8f26d45dcd6884b490cfa4078f9f",
+    "286943806c1fb899a4fd3c2ef7334c5d212044772180346b7f4b758e7fe3579d",
+    "895802467ea54ddb3aad889f2f3ef5a03391b82dead7f44c1a25122a15d0f691",
+    "a26d8558fedb383d125c9b02f30107986b2e292f6bc1360d91fb4c5f1c2e35ee",
+    "2e2a2c53bf36217c624bce0ce81edf400fb181ee58c71bfbfb7057458ed52f7c",
+    "34ab69c36259c6177e6c8e34952963571de5fcc62350ef58f4ccf0806d21417f",
+    "bc8310d9209f03c36bfe0d95396078d6187d99aff4df99bc46260e91ebd9ed6c",
+    "f09faa6ceff4d7f4ee7661f2b8935310283db582fe637b63633228e22a52edc1",
+    "2477ff99c7852040e82ae039179062eedfda2e4cd6a957f80c8df62a881f5878",
+    "a42d8f1b618aa15dc001df1d5fe87f1c81d11b4ae78e6fa1be674ce75b84064c",
+    "dfb01f8ec6bda131dc458b61b5807e2a9a73fde7cd83ed929ac3f0553a396411",
+    "261c460478dcaf5f448276d2d3a2803e0923a2d43dde149f11c41707652b7bc5",
+)
+CONFIG7_TIMED = 16        # churn passes after gen 0 and one warm pass
+CONFIG12 = "548186e9300c0fb12b678fff8de5a7fc0e1f9388fed1776961af240eb5f0c535"
+CONFIG12_CHUNKS = 5
+CONFIG13_PODS = 50_000    # config #13's first size (1M cut)
+CONFIG13 = (
+    "250406d122cc0b889c267a867a5a0858c090bdfa017ef3901b1df9ea587d81ab",
+    "f1ffe368eaa3b84729587634eef9570443460d00bfc41240805b7b91a370035e",
+    "cdabb938a51bce6e695f710a7cd91019f29fab19f4cfae4eb6748ae5dedb1b40",
+    "af1838785006c78e7b5b4332cdd228d9a40be1124d931756b097328db4dba3b1",
+    "c60d13c6c33e04c2f867f8dd3e4871c274fb93cbb0b53c02bac91b144d6d0c1b",
+    "607795e9d304adf16aae1b5c704f3400dfd0f34e692c0d5b731753be76271f71",
+    "2f5df11d08e23359f93b06131069d823a99268cc221e1e951f02266960ee3d12",
+    "fde9f204fea3ad99e4986983153fb00c604a54a7c4cb4d877f79ef97a1821199",
+    "a3701995f710f907cd6a49ecd6adc42a197bc83575228429574dc49072939a3e",
+    "6f5b2e35720f316bafe41b3df53a614530b9b05bdb206d583914d09f7389150c",
+    "1ca0da542fe6c1d5272759230413f83dbd8fab9275751f43313b34b2a3d8c76c",
+)
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -143,6 +203,7 @@ KERNELS = {"ffd_batch_scan": ("batch_scan", "launches"),
            "ffd_batch_gang_scan": ("batch_scan", "gang_launches"),
            "ffd_sweep_scan": ("sweep_scan", "launches"),
            "ffd_sweep_topo_scan": ("sweep_topo_scan", "launches"),
+           "ffd_delta_scan": ("delta_scan", "launches"),
            "ffd_pack": ("pack", "launches")}
 PASSES = {"priority_witness": ("batch_scan", "witness_launches"),
           "explain_map": ("pack", "map_launches")}
@@ -526,6 +587,13 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _tag(topo: bool, sweep: bool, gang: bool, seed: bool = False) -> str:
+    """The trace's name of one instance of the templated scan kernel."""
+    flags = ", ".join("true" if f else "false"
+                      for f in (topo, sweep, gang, seed))
+    return f"scan_kernel<{flags}>"
+
+
 def _kernel_ms(fn, reps: int, kernel: str):
     """Mean device time of one launch of CUDA kernel `kernel` (its name as
     the trace spells it, spaces ignored) over `reps` calls of fn(), from
@@ -731,7 +799,9 @@ def _main_path(solver_cls, build, ffd, card, label, warm=WARM_SOLVES,
           f"{warm} runs (min {min(e2e):.3f}, max {max(e2e):.3f}); phase "
           f"p50 ms: " + ", ".join(f"{k} {statistics.median(v):.3f}"
                                   for k, v in phases.items()), flush=True)
-    print(f"[{label}] launches: {launches}", flush=True)
+    print(f"[{label}] launches: {launches}; seams: delta "
+          f"{solver.delta_passes} {solver.delta_fallbacks}, spec "
+          f"{solver.spec_passes} {solver.spec_fallbacks}", flush=True)
     return res, launches, solver
 
 
@@ -798,7 +868,7 @@ def _batch_times(ffd, b, c, N, reps, ex=1, wg=0, wp=0):
     lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, 0, c.O, wp)
     flat = torch.empty((b.B, lay["total"][1]), device=dev)
     lim = torch.empty((b.B, b.P, ffd.R), device=dev)
-    tag = f"scan_kernel<true, false, {'true' if wg else 'false'}>"
+    tag = _tag(True, False, bool(wg))
     k = lambda: ffd.batch_scan(  # noqa: E731
         b, c, N, flat, lay, lim, with_gang=wg)
     kp = lambda: ffd.batch_scan_reference(  # noqa: E731
@@ -833,7 +903,7 @@ def _witness_times(ffd, b, c, N, reps):
         flat = torch.empty((b.B, lay["total"][1]), device=dev)
         lim = torch.empty((b.B, b.P, ffd.R), device=dev)
         t, _ = _device_ms(lambda: ffd.batch_scan(b, c, N, flat, lay, lim),
-                          reps, "scan_kernel<true, false, false>")
+                          reps, _tag(True, False, False))
         out.setdefault(wp, []).append(t)
     unsched = ffd._region(flat, lay, "unsched")[0].to(torch.int32)
     p0 = b.at(0)
@@ -853,10 +923,10 @@ def _sweep_times(ffd, sw, c, N, K, reps):
     lim = torch.empty((sw.B, sw.P, ffd.R), device=dev)
     if sw.heavy:
         scan, plain = ffd.sweep_topo_scan, ffd.sweep_topo_scan_reference
-        tag = "scan_kernel<true, true, false>"
+        tag = _tag(True, True, False)
     else:
         scan, plain = ffd.sweep_scan, ffd.sweep_scan_reference
-        tag = "scan_kernel<false, true, false>"
+        tag = _tag(False, True, False)
     k = lambda: scan(sw, c, N, flat, lay, lim, K)  # noqa: E731
     kp = lambda: plain(sw, c, N, flat, lay, lim, K)  # noqa: E731
     t_k, ev_k = _device_ms(k, reps, tag)
@@ -887,6 +957,290 @@ def _compaction_turns(ffd, sw, c, N, K, reps):
     return ms, nbytes
 
 
+def _delta_cases():
+    """(label, problem tuple, catalog arrays, seed arrays, N, explain):
+    seeded light problems for K6 — no seeded slot, a few, A_pad past A,
+    A = N - 1, no existing nodes and 256 of them, finite pool budgets,
+    slot exhaustion, the strided node axis (N > 1024), a wide catalog."""
+    from karpenter_tpu_torch.solver.problems import random_delta_problem
+    specs = [
+        ("delta-a0", 0, 16, 64, 1, dict()),
+        ("delta-few-slots", 5, 16, 64, 1, dict()),
+        ("delta-a-pad-past-a", 17, 64, 64, 0, dict()),
+        ("delta-a-n-minus-1", 63, 64, 64, 1, dict()),
+        ("delta-e0", 10, 16, 64, 1, dict(E=0)),
+        ("delta-e256", 12, 16, 64, 1, dict(E=256)),
+        ("delta-explain-off", 8, 16, 64, 0, dict()),
+        ("delta-3-pools-finite", 8, 16, 64, 1, dict(P=3, limits="finite")),
+        ("delta-slot-exhaustion", 14, 16, 16, 1,
+         dict(P=1, limits="none", pod_scale=300)),
+        ("delta-strided-nodes", 1500, 2048, 2048, 1,
+         dict(G=16, E=0, PT=128, pod_scale=3000)),
+        ("delta-wide", 300, 1024, 1024, 1,
+         dict(G=32, E=64, PT=640, pod_scale=200)),
+    ]
+    for i, (label, A, A_pad, N, ex, kw) in enumerate(specs):
+        prob, cat, seeds = random_delta_problem(200 + i, A=A, A_pad=A_pad,
+                                                N=N, **kw)
+        yield label, prob, cat, seeds, N, ex
+
+
+def compare_delta(ffd, p, sd, c, N, ex):
+    """Run K6 — and K2 with explain — and their plain versions on the card
+    on the same inputs.  Returns {kernel: (equal, max_abs_err)}."""
+    import torch
+    dev = p.group_req.device
+    lay = ffd.flat_layout(p.G, p.E, N, p.D, ex)
+    fk, lk = (t[0] for t in _buffers(1, p.P, lay, dev))
+    fp, lp = (t[0] for t in _buffers(1, p.P, lay, dev))
+    ffd.delta_scan(p, sd, c, N, fk, lay, lk)
+    ffd.delta_scan_reference(p, sd, c, N, fp, lay, lp)
+    torch.cuda.synchronize()
+    out = _compare_rows("ffd_delta_scan", fk, lk, fp, lp, lay)
+    if ex:
+        f2, f3 = fk.clone(), fk.clone()
+        ffd.pack(p, c, N, f2, lay, lk)
+        ffd.pack_reference(p, c, N, f3, lay, lk)
+        torch.cuda.synchronize()
+        out["ffd_pack"] = _merge([
+            _diff(ffd._region(f2, lay, n), ffd._region(f3, lay, n))
+            for n in ("explain_counts", "explain_bits")])
+    return out
+
+
+class _DeltaCapture:
+    """Records the arguments of every seeded solve (`ffd.solve_ffd_delta`)
+    the solver launches while active: (problem, seed, catalog, N,
+    explain)."""
+
+    def __init__(self, ffd):
+        self.ffd, self.calls = ffd, []
+
+    def __enter__(self):
+        real = self.real = self.ffd.solve_ffd_delta
+
+        def capture(p, sd, c, n, explain=0):
+            self.calls.append((p, sd, c, n, explain))
+            return real(p, sd, c, n, explain=explain)
+        self.ffd.solve_ffd_delta = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.ffd.solve_ffd_delta = self.real
+
+
+def _delta_bound(ffd, p, sd, c, N, lay, flat, lim):
+    """K6's bound, counted as K5's: the problem, the seed and the catalog
+    read once, the result row and pool budgets written once, against the
+    float operations the plain version counts on this run's data."""
+    import torch
+    fields = ["group_req", "group_count", "mask_bits", "exist_cap",
+              "exist_remaining", "pool_limit", "group_ncap", "group_whole",
+              "exist_zone", "exist_ct"]
+    out = [ffd._region(flat, lay, n) for n in _scan_regions(lay)]
+    nbytes = (_nbytes(*(getattr(p, f) for f in fields))
+              + _nbytes(sd.seed_used, sd.seed_pool, sd.seed_active,
+                        sd.seed_colmask)
+              + _catalog_bytes(c) + _nbytes(lim, *out))
+    work = {"fit": 0, "test": 0, "flops": 0}
+    ffd.delta_scan_reference(p, sd, c, N, torch.empty_like(flat), lay,
+                             torch.empty_like(lim), work)
+    return bound_ms(nbytes, _work_ops(work))
+
+
+def _delta_times(ffd, call, reps):
+    """(K6 ms, plain ms, events ms, bound) at one captured seeded solve's
+    shapes: kernel, plain, kernel, in turns."""
+    import torch
+    p, sd, c, N, _ = call
+    lay = ffd.flat_layout(p.G, p.E, N, p.D)
+    flat = torch.empty(lay["total"][1], device=p.group_req.device)
+    lim = torch.empty((p.P, ffd.R), device=p.group_req.device)
+    tag = _tag(False, False, False, True)
+    k = lambda: ffd.delta_scan(p, sd, c, N, flat, lay, lim)  # noqa: E731
+    kp = lambda: ffd.delta_scan_reference(  # noqa: E731
+        p, sd, c, N, flat, lay, lim)
+    t_k, ev_k = _device_ms(k, reps, tag)
+    t_kp = _time_ms(kp, 1)
+    t_k = min(t_k, _device_ms(k, reps, tag)[0])
+    k()
+    torch.cuda.synchronize()
+    return t_k, t_kp, ev_k, _delta_bound(ffd, p, sd, c, N, lay, flat, lim)
+
+
+def _p50(xs):
+    return statistics.median(xs) if xs else float("nan")
+
+
+def _lockstep(ffd, label, arms, inputs, digests, card, feed=None,
+              timed_from=0):
+    """Solve each input (inputs[i] answers digests[i]) on every solver of
+    `arms` ({name: solver}) in turn; `feed(name, solver, i)` delivers the
+    pass's watch events first.  Returns ({arm: [e2e ms of the timed
+    passes]}, {arm: {phase: [ms]}}, {arm: [per-pass verdicts]}, {arm:
+    [K6 launches of each pass]}, problems): every arm's canonical result
+    must equal the pinned JAX answer."""
+    import torch
+    ms = {a: [] for a in arms}
+    phases = {a: {} for a in arms}
+    verdicts = {a: [] for a in arms}
+    k6 = {a: [] for a in arms}
+    bad = []
+    for i, build in enumerate(inputs):
+        inp = build()
+        for name, solver in arms.items():
+            k0 = ffd.delta_scan.launches
+            t0 = time.perf_counter()
+            if feed is not None:
+                feed(name, solver, i)
+            res = solver.solve(inp)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            k6[name].append(ffd.delta_scan.launches - k0)
+            got = result_digest(res)
+            if got != digests[i]:
+                bad.append(f"{name} pass {i}: digest {got[:16]} != "
+                           f"{digests[i][:16]}")
+            cache = solver._delta_cache
+            verdicts[name].append((cache.last_outcome, cache.last_reason,
+                                   cache.last_incr_reason,
+                                   None if solver.last_spec is None else
+                                   dict(solver.last_spec)))
+            if i >= timed_from:
+                ms[name].append(dt)
+                for k, v in solver.last_phase_ms.items():
+                    phases[name].setdefault(k, []).append(v)
+        if i == 0:
+            print(f"[{label}] {res.node_count()} nodes, "
+                  f"{len(res.unschedulable)} unschedulable, price "
+                  f"{res.total_price().hex()} on {card}", flush=True)
+    return ms, phases, verdicts, k6, bad
+
+
+def _report(label, ms, phases, verdicts, k6):
+    for name, xs in ms.items():
+        if xs:
+            print(f"[{label}] {name}: p50 {_p50(xs):.3f} ms over "
+                  f"{len(xs)} passes (min {min(xs):.3f}, max "
+                  f"{max(xs):.3f})", flush=True)
+            print(f"[{label}] {name} phase p50 ms: " + ", ".join(
+                f"{k} {_p50(v):.3f}" for k, v in phases[name].items()),
+                flush=True)
+        print(f"[{label}] {name} per pass (delta outcome, reason, incr "
+              f"reason, K6 launches): " + str(
+                  [v[:3] + (n,) for v, n in zip(verdicts[name],
+                                                k6[name])]), flush=True)
+        specs = {str(v[3]) for v in verdicts[name]}
+        print(f"[{label}] {name} last_spec seen: {sorted(specs)}",
+              flush=True)
+
+
+def _config7(ffd, card, TorchSolver, build_config7):
+    """Config #7: a delta-on solver and a delta-off one in lockstep over
+    gen 0, one warm pass and the timed churn passes; returns (launches,
+    problems)."""
+    import torch
+    on = TorchSolver(max_nodes=CONFIG_MAX_NODES)
+    off = TorchSolver(max_nodes=CONFIG_MAX_NODES, delta="off")
+    n = 2 + CONFIG7_TIMED
+    _reset_launches(ffd)
+    ms, phases, verdicts, k6, bad = _lockstep(
+        ffd, "10 config7", {"delta-on": on, "delta-off": off},
+        [lambda g=g: build_config7(g) for g in range(n)], CONFIG7[:n],
+        card, timed_from=2)
+    torch.cuda.synchronize()
+    launches = _read_launches(ffd)
+    _report("10 config7", ms, phases, verdicts, k6)
+    if any(v[0] != "delta" for v in verdicts["delta-on"][1:]):
+        bad.append("a delta-on pass after gen 0 did not engage")
+    if min(k6["delta-on"][1:]) < 1:
+        bad.append(f"a delta pass launched no K6: {k6['delta-on']}")
+    if on.delta_passes.get("fallback", 0) != 1:
+        bad.append(f"delta-on fallbacks {on.delta_fallbacks} (only gen "
+                   f"0's cold one expected)")
+    if off.delta_passes:
+        bad.append(f"the delta-off arm crossed the seam: {off.delta_passes}")
+    print(f"[10 config7] launches {launches}; delta-on passes "
+          f"{on.delta_passes}, fallbacks {on.delta_fallbacks}; reencoded "
+          f"{on._delta_cache.last_reencoded}, reuse "
+          f"{on._delta_cache.last_reuse}; K6 launches of the timed delta "
+          f"passes {sum(k6['delta-on'][2:])}", flush=True)
+    return launches, bad
+
+
+def _config12(ffd, card, TorchSolver, build_config12):
+    """Config #12: a spec-on solver and a spec-off one (delta off in
+    both) over one cold and two warm passes of 471,680 pods; returns
+    (launches, problems)."""
+    import torch
+    on = TorchSolver(max_nodes=CONFIG_MAX_NODES, delta="off", spec="on")
+    off = TorchSolver(max_nodes=CONFIG_MAX_NODES, delta="off", spec="off")
+    _reset_launches(ffd)
+    ms, phases, verdicts, k6, bad = _lockstep(
+        ffd, "11 config12", {"spec-on": on, "spec-off": off},
+        [build_config12] * 3, [CONFIG12] * 3, card, timed_from=1)
+    torch.cuda.synchronize()
+    launches = _read_launches(ffd)
+    _report("11 config12", ms, phases, verdicts, k6)
+    for i, v in enumerate(verdicts["spec-on"]):
+        sp = v[3] or {}
+        if (sp.get("outcome") != "spec"
+                or sp.get("chunks") != CONFIG12_CHUNKS
+                or sp.get("committed", 0) + sp.get("repaired", 0)
+                != CONFIG12_CHUNKS - 1):
+            bad.append(f"spec-on pass {i}: {sp}")
+    if off.spec_passes:
+        bad.append(f"the spec-off arm crossed the seam: {off.spec_passes}")
+    print(f"[11 config12] launches {launches}; spec passes "
+          f"{on.spec_passes}, chunks {on.spec_chunks}", flush=True)
+    for k in ("ffd_delta_scan", "ffd_batch_scan"):
+        if launches[k] <= 0:
+            bad.append(f"kernel {k} was not launched on the main path")
+    return launches, bad
+
+
+def _config13(ffd, card, TorchSolver, build_config13):
+    """Config #13 at its first size: the incremental index (fed the churn
+    as watch events) against the walk, delta auto in both, over a cold
+    pass, two warm ones and 8 timed churn passes; returns (launches,
+    problems)."""
+    import torch
+    on = TorchSolver(max_nodes=CONFIG_MAX_NODES, spec="off", incr="on")
+    walk = TorchSolver(max_nodes=CONFIG_MAX_NODES, spec="off", incr="off")
+    n = len(CONFIG13)
+    events = {}
+
+    def build(g):
+        inp, ev = build_config13(CONFIG13_PODS, g)
+        events[g] = ev
+        return inp
+
+    def feed(name, solver, i):
+        if name == "incr" and events.get(i):
+            solver.delta_invalidate(pods=tuple(events[i]),
+                                    pod_objs=events[i])
+
+    _reset_launches(ffd)
+    ms, phases, verdicts, k6, bad = _lockstep(
+        ffd, "12 config13", {"incr": on, "walk": walk},
+        [lambda g=g: build(g) for g in range(n)], CONFIG13, card,
+        feed=feed, timed_from=3)
+    torch.cuda.synchronize()
+    launches = _read_launches(ffd)
+    _report("12 config13", ms, phases, verdicts, k6)
+    for name in ("incr", "walk"):
+        for i, v in enumerate(verdicts[name][1:], 1):
+            if (v[0] != "delta" or k6[name][i] < 1
+                    or (name == "incr" and v[2] is not None)):
+                bad.append(f"{name} pass {i}: {v}, {k6[name][i]} K6")
+    print(f"[12 config13] launches {launches}; incr passes "
+          f"{on.incr_passes} fallbacks {on.incr_fallbacks}; delta passes "
+          f"incr {on.delta_passes}, walk {walk.delta_passes}", flush=True)
+    if launches["ffd_delta_scan"] <= 0:
+        bad.append("kernel ffd_delta_scan was not launched on the main path")
+    return launches, bad
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -896,8 +1250,9 @@ def main(argv) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch.solver import TorchSolver, _cuda, ffd
     from karpenter_tpu_torch.workloads import (
-        build_config3, build_config4, build_config4b, build_config9,
-        build_config10, build_input)
+        build_config3, build_config4, build_config4b, build_config7,
+        build_config9, build_config10, build_config12, build_config13,
+        build_input)
 
     dev = torch.device("cuda", 0)
     card = _card_line()
@@ -959,6 +1314,31 @@ def main(argv) -> int:
         wg, wp = _statics(probs)
         record(label, compare_batch(ffd, b, c, N, ex, 0, dev, wg, wp),
                f"B={b.B} N={N} explain={ex} gang={wg} prio={wp}")
+    for label, prob, catarr, seeds, N, ex in _delta_cases():
+        c = ffd.catalog_tensors(catarr, dev)
+        p, sd = ffd.delta_tensors(prob, *seeds, c.O, dev)
+        record(label, compare_delta(ffd, p, sd, c, N, ex),
+               f"A={sd.A} N={N} E={p.E} explain={ex}")
+    # K6 at the steady state's own encodings, as the solver launches them:
+    # config #7's churned suffix (gen 0, then the delta pass of gen 1) and
+    # config #12's first two chunks (the second seeded with the first's
+    # 128 nodes)
+    s7 = TorchSolver(max_nodes=CONFIG_MAX_NODES)
+    s7.solve(build_config7(0))
+    with _DeltaCapture(ffd) as cap7:
+        s7.solve(build_config7(1))
+    s12 = TorchSolver(max_nodes=CONFIG_MAX_NODES, delta="off", spec="on")
+    with _DeltaCapture(ffd) as cap12:
+        s12.solve(build_config12())
+    if not cap7.calls or len(cap12.calls) < 2:
+        print(f"chip_smoke: config #7 launched {len(cap7.calls)} seeded "
+              f"solves, config #12 {len(cap12.calls)}", file=sys.stderr)
+        return 1
+    for label, (p, sd, c, N, ex) in (("config7-suffix", cap7.calls[0]),
+                                     ("config12-chunk0", cap12.calls[0]),
+                                     ("config12-chunk1", cap12.calls[1])):
+        record(label, compare_delta(ffd, p, sd, c, N, ex),
+               f"G={p.G} A={sd.A} N={N} E={p.E} explain={ex}")
     for label, rows, shared, catarr, N, K in _sweep_cases():
         c = ffd.catalog_tensors(catarr, dev)
         sw = ffd.sweep_tensors(rows, ffd.sweep_shared_tensors(
@@ -1126,6 +1506,23 @@ def main(argv) -> int:
             print(f"chip_smoke: {label} failed: {bad}", file=sys.stderr)
             return 1
 
+    # -- 10-12. the steady state: config #7, #12 and #13 --------------------
+    counts, bad = _config7(ffd, card, TorchSolver, build_config7)
+    add(counts)
+    if bad:
+        print(f"chip_smoke: config #7 failed: {bad}", file=sys.stderr)
+        return 1
+    counts, bad = _config12(ffd, card, TorchSolver, build_config12)
+    add(counts)
+    if bad:
+        print(f"chip_smoke: config #12 failed: {bad}", file=sys.stderr)
+        return 1
+    counts, bad = _config13(ffd, card, TorchSolver, build_config13)
+    add(counts)
+    if bad:
+        print(f"chip_smoke: config #13 failed: {bad}", file=sys.stderr)
+        return 1
+
     # -- 9. timings at the main paths' shapes --------------------------------
     p, c = ffd.problem_from_numpy(head_prob, head_cat, dev)
     N = solver.max_nodes
@@ -1150,7 +1547,7 @@ def main(argv) -> int:
     # nothing)
     dsel = np.asarray(c3_prob[7])
     split = {}
-    tag = "scan_kernel<true, false, false>"
+    tag = _tag(True, False, False)
     for kind, keep in (("light", dsel == 0), ("heavy", dsel > 0)):
         pk, ck = ffd.problem_from_numpy(_only_groups(c3_prob, keep), c3_cat,
                                         dev)
@@ -1205,6 +1602,18 @@ def main(argv) -> int:
           flush=True)
     t_gang, t_gangp, _, (b_gang, by_gang), t_map, t_mapp, (b_map, by_map) = \
         gang_t[CONFIG_MAX_NODES]
+    # K6 at config #7's churned suffix and at config #12's seeded chunk
+    delta_t = {}
+    for dlabel, call in (("config #7 suffix", cap7.calls[0]),
+                         ("config #12 chunk 1", cap12.calls[1])):
+        p6, sd6, c6, N6, _ = call
+        delta_t[dlabel] = _delta_times(ffd, call, 20)
+        t6, t6p, ev6, (b6, by6) = delta_t[dlabel]
+        print(f"[9] {dlabel} shapes (G={p6.G}, A={sd6.A}, N={N6}, "
+              f"E={p6.E}, O={c6.O}) on {card}: ffd_delta_scan {t6:.4f} ms "
+              f"(events {ev6:.4f}, plain {t6p:.3f}, bound {b6:.6f} by "
+              f"{by6})", flush=True)
+    t_k6, t_k6p, _, (b_k6, by_k6) = delta_t["config #7 suffix"]
 
     kernels = [
         {"name": "ffd_batch_scan", "route": "cuda",
@@ -1246,6 +1655,13 @@ def main(argv) -> int:
          "plain_ms": sweep_t["ffd_sweep_topo_scan"][1],
          "bound_ms": sweep_t["ffd_sweep_topo_scan"][2],
          "bound_by": sweep_t["ffd_sweep_topo_scan"][3], "library_ms": None},
+        {"name": "ffd_delta_scan", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/ffd_delta_scan.cu",
+         "replaces": "karpenter_tpu/solver/ffd.py:1403",
+         "launches": launches["ffd_delta_scan"],
+         "max_abs_err": errs["ffd_delta_scan"], "ms": t_k6,
+         "plain_ms": t_k6p, "bound_ms": b_k6, "bound_by": by_k6,
+         "library_ms": None},
         {"name": "ffd_pack", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/ffd_pack.cu",
          "replaces": "karpenter_tpu/solver/ffd.py:1113",

@@ -11,7 +11,7 @@
 // the rest — and, with sparse_k, the take_exist top-K compaction
 // (:1068-1086).  It writes each problem's flat result row of ffd.py:1258.
 //
-// This is the `scan_kernel<true, false, false>` instance of
+// This is the `scan_kernel<true, false, false, false>` instance of
 // ffd_scan_common.cuh, which holds the design notes.  With priority bands
 // it also writes the priority inversion witness (ffd.py:1238-1257) in its
 // epilogue.  What bounds it on the H100: latency, not bytes or
@@ -21,7 +21,7 @@
 // long, with block barriers inside each step.  The batch axis is the one
 // source of parallelism across SMs: B blocks run on B SMs at once.
 //
-// ffd_batch_gang_scan, `scan_kernel<true, false, true>`, is the same scan
+// ffd_batch_gang_scan, `scan_kernel<true, false, true, false>`, is the same scan
 // with the gang branch compiled in — the reference's `with_gang` static
 // (ffd.py:338, :1049-1056): a group with group_gang set runs the atomic
 // K-node gang fill `gang_fill` (ffd.py:820-1047).  Only problems that hold
@@ -40,12 +40,12 @@
 // synchronise.
 extern "C" int ffd_batch_scan(const unsigned long long* ptrs, int nptrs,
                               const int* dims, int ndims, void* stream) {
-  return scan_entry<true, false, false>(ptrs, nptrs, dims, ndims, stream);
+  return scan_entry<true, false, false, false>(ptrs, nptrs, dims, ndims, stream);
 }
 
 // The gang instance: the same arguments, with the group_gang row set.
 extern "C" int ffd_batch_gang_scan(const unsigned long long* ptrs, int nptrs,
                                    const int* dims, int ndims,
                                    void* stream) {
-  return scan_entry<true, false, true>(ptrs, nptrs, dims, ndims, stream);
+  return scan_entry<true, false, true, false>(ptrs, nptrs, dims, ndims, stream);
 }

@@ -1,6 +1,6 @@
-// The FFD scan shared by K5 ffd_batch_scan (and its gang instance) and K4
-// ffd_sweep_scan (both lanes): one templated kernel,
-// `scan_kernel<TOPO, SWEEP, GANG>`, that runs the
+// The FFD scan shared by K5 ffd_batch_scan (and its gang instance), K4
+// ffd_sweep_scan (both lanes) and K6 ffd_delta_scan: one templated kernel,
+// `scan_kernel<TOPO, SWEEP, GANG, SEED>`, that runs the
 // whole G-step scan of karpenter_tpu/solver/ffd.py `_solve_ffd_impl`
 // (ffd.py:210, scanned at :1062) for B problems in one launch, one thread
 // block per problem (the reference's `jax.vmap` axis, ffd.py:1492, :1531,
@@ -30,6 +30,12 @@
 //     its exclusions leave, reads its groups' column masks and node caps
 //     from per-class tables (`class_mask[gcls]`, `class_cap[gcls] * keep`)
 //     and ANDs in its price cap (`col_price < pcap`) as a word mask;
+//   * SEED: the scan starts from a seeded carry instead of zeros (the
+//     delta path's `solve_ffd_delta`, ffd.py:406-427 and :1403): used,
+//     pool and active per node slot and the first A slots' surviving
+//     column words come from a prefix the host replayed, the active count
+//     is the count of seeded slots, the zone and capacity-type pins stay
+//     -1, and exist_remaining arrives already consumed;
 //   * with K > 0 the take_exist top-K compaction (:1068-1086) in the
 //     epilogue: a block scan ranks each group's nonzero entries;
 //   * with a priority row, the priority inversion witness (:1238-1257) in
@@ -146,14 +152,20 @@ struct ScanArgs {
   const int* group_gang;         // [G] 0/1 gang unit
   const int* group_prio;         // [G] effective priority
   float* prio_inv;               // [G] (flat) the witness; null = none
+  // the seeded start (the SEED instance): the prefix's carry
+  const float* seed_used;        // [N, R]
+  const int* seed_pool;          // [N]
+  const int* seed_active;        // [N] 0/1
+  const uint32_t* seed_colmask;  // [A, W] surviving-column words per slot
   int G, E, N, O, PT, ZC, P, D, W;
   int B, X, K, total;            // problems, exclusions, top-K, flat row
+  int A;                         // seeded colmask rows (0 = not seeded)
 };
 // Every pointer above addresses problem 0 of the batch; block b offsets the
 // per-problem ones (inputs, carry, the flat row) in offset_block.
 
-#define SCAN_NPTRS 51
-#define SCAN_NDIMS 13
+#define SCAN_NPTRS 55
+#define SCAN_NDIMS 14
 #define MAXX 8
 #define BIGCAP 536870912  /* encode.BIG: no per-node cap */
 
@@ -1390,8 +1402,9 @@ __device__ void compact_take_exist(const ScanArgs& a, ScanShared& S) {
 // groups with dsel > 0.  GANG (with TOPO): the gang fill for groups with
 // group_gang set.  SWEEP: the problem is a simulation of a shared
 // snapshot, built in the prologue (kept existing rows, price-capped class
-// masks).
-template <bool TOPO, bool SWEEP, bool GANG>
+// masks).  SEED (light only, one problem): the carry starts from the
+// prefix state of the seed arrays.
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED>
 __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScanShared S;
@@ -1437,11 +1450,21 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     a.exist_rem[i] =
         SWEEP ? __fmul_rn(a.exist_remaining[i], kept(S, i / KR) ? 1.0f : 0.0f)
               : a.exist_remaining[i];
-  for (int i = tid; i < N * KR; i += NT) a.used[i] = 0.0f;
-  for (size_t i = tid; i < (size_t)W * N; i += NT) a.colmask[i] = 0u;
+  for (int i = tid; i < N * KR; i += NT)
+    a.used[i] = SEED ? a.seed_used[i] : 0.0f;
+  for (size_t i = tid; i < (size_t)W * N; i += NT) {
+    uint32_t word = 0u;
+    if (SEED) {
+      // the seed's [A, W] slot rows into the carry's [W, N] words; slots
+      // past A start with no surviving column
+      const int n = (int)(i % N), w = (int)(i / N);
+      if (n < a.A) word = a.seed_colmask[(size_t)n * W + w];
+    }
+    a.colmask[i] = word;
+  }
   for (int i = tid; i < N; i += NT) {
-    a.active[i] = 0;
-    a.node_pool[i] = 0;
+    a.active[i] = SEED ? (a.seed_active[i] != 0) : 0;
+    a.node_pool[i] = SEED ? a.seed_pool[i] : 0;
     a.node_zone[i] = -1;
     a.node_ct[i] = -1;
   }
@@ -1454,6 +1477,14 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     S.dreal_ct = INT_MIN;
   }
   __syncthreads();
+  if (SEED) {
+    // num_active = seed_active.sum(): new nodes append after the seeded
+    // slots, exactly where the full solve's suffix would open them
+    int mine = 0;
+    for (int i = tid; i < N; i += NT) mine += a.seed_active[i] != 0;
+    if (mine) atomicAdd(&S.na, mine);
+    __syncthreads();
+  }
   if (TOPO) {
     // the real domain count of each axis: max id over every column + 1
     // (padding carries the block pattern), at least 1
@@ -1527,10 +1558,10 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
 
 // Plain-C entry point body for ctypes.  ptrs: SCAN_NPTRS device addresses in
 // ScanArgs order (0 for what the instance does not read); dims: G, E, N, O,
-// PT, ZC, P, D, W, B, X, K, total.  Returns 0, a CUDA error code
+// PT, ZC, P, D, W, B, X, K, total, A.  Returns 0, a CUDA error code
 // (cudaGetLastError after the launch), or a negative argument error.
 // Launches B blocks on `stream` and does not synchronise.
-template <bool TOPO, bool SWEEP, bool GANG>
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED>
 int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
                int ndims, void* stream) {
   if (nptrs != SCAN_NPTRS || ndims != SCAN_NDIMS) return -1;
@@ -1587,6 +1618,10 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.group_gang = (const int*)ptrs[i++];
   a.group_prio = (const int*)ptrs[i++];
   a.prio_inv = (float*)ptrs[i++];
+  a.seed_used = (const float*)ptrs[i++];
+  a.seed_pool = (const int*)ptrs[i++];
+  a.seed_active = (const int*)ptrs[i++];
+  a.seed_colmask = (const uint32_t*)ptrs[i++];
   a.G = dims[0];
   a.E = dims[1];
   a.N = dims[2];
@@ -1600,6 +1635,7 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.X = dims[10];
   a.K = dims[11];
   a.total = dims[12];
+  a.A = dims[13];
   if (a.P < 1 || a.P > MAXP || a.ZC < 1 || a.N < 1 || a.D < 1 || a.G < 1 ||
       a.B < 1 || a.O != a.PT * a.ZC || a.W != (a.O + 31) / 32 || a.K < 0 ||
       !a.node_zone || !a.node_ct ||
@@ -1626,6 +1662,15 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   if ((a.K > 0) != (a.te_dense != nullptr && a.te_head != nullptr) ||
       (a.K == 0 && a.E > 0 && !a.take_exist))
     return -2;
+  // the seeded instance: one light-only problem with its seed arrays, a
+  // dense take_exist and no witness; every other instance takes none
+  if (SEED != (a.seed_used != nullptr) ||
+      (SEED && (TOPO || SWEEP || GANG || a.B != 1 || a.K != 0 ||
+                a.prio_inv || !a.seed_pool || !a.seed_active ||
+                a.A < 0 || a.A > a.N || (a.A > 0 && !a.seed_colmask))) ||
+      (!SEED && (a.A != 0 || a.seed_pool || a.seed_active ||
+                 a.seed_colmask)))
+    return -2;
   const size_t smem = (size_t)a.PT * KR * sizeof(float) +
                       2 * (size_t)a.N * sizeof(int) +
                       2 * (size_t)a.W * sizeof(uint32_t) +
@@ -1633,9 +1678,10 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
                             : 0) +
                       (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<TOPO, SWEEP, GANG>,
+      scan_kernel<TOPO, SWEEP, GANG, SEED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  scan_kernel<TOPO, SWEEP, GANG><<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
+  scan_kernel<TOPO, SWEEP, GANG, SEED>
+      <<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -17,8 +17,8 @@
 // column mask once in its prologue and ANDs it into every class row it
 // reads; the kept-row test runs on the fly against the simulation's
 // exclusions (at most 8) in shared memory.  The scan itself is
-// ffd_scan_common.cuh's, `scan_kernel<false, true, false>` and
-// `scan_kernel<true, true, false>`.
+// ffd_scan_common.cuh's, `scan_kernel<false, true, false, false>` and
+// `scan_kernel<true, true, false, false>`.
 //
 // What bounds it on the H100: latency, as K5 (ffd_batch_scan.cu).  At
 // BASELINE config #4 (E=2048 existing rows, N=8 node slots, O=3840
@@ -35,11 +35,11 @@
 // total.
 extern "C" int ffd_sweep_scan(const unsigned long long* ptrs, int nptrs,
                               const int* dims, int ndims, void* stream) {
-  return scan_entry<false, true, false>(ptrs, nptrs, dims, ndims, stream);
+  return scan_entry<false, true, false, false>(ptrs, nptrs, dims, ndims, stream);
 }
 
 extern "C" int ffd_sweep_topo_scan(const unsigned long long* ptrs,
                                    int nptrs, const int* dims, int ndims,
                                    void* stream) {
-  return scan_entry<true, true, false>(ptrs, nptrs, dims, ndims, stream);
+  return scan_entry<true, true, false, false>(ptrs, nptrs, dims, ndims, stream);
 }

@@ -179,6 +179,37 @@ def constraint_of(code: str) -> str:
     return spec.constraint if spec is not None else "none"
 
 
+# -- the steady-state seams' fallback vocabularies ------------------------
+# delta seam (solver/solve.py _delta_fallback, solver/delta.py plan and
+# build): every non-engaged delta pass names one of these; an unknown
+# reason is a registry violation, not a new string.  "priority" and
+# "preempt": band order is global and an in-flight eviction plan frees
+# capacity between passes, so both force a full pass.
+DELTA_FALLBACK_REASONS = frozenset((
+    "cold", "nodes", "price-cap", "limits", "small", "topology",
+    "bucket", "seed", "slots", "stranded", "shape", "gang",
+    "priority", "preempt"))
+
+# speculative chunk chain (solver/solve.py _spec_fallback): the delta
+# seam's exactness gates applied to the live encoding, plus the chunk
+# planner's declines
+SPEC_FALLBACK_REASONS = frozenset((
+    "small", "bucket", "topology", "shape", "gang", "priority",
+    "price-cap", "limits", "slots", "stranded", "seed"))
+
+# incremental group index (solver/solve.py _incr_fallback, solver/incr.py
+# build_groups): a pass where the index could have engaged but the
+# grouping walked the cluster instead —
+#   cold  — no index yet (no record, or raced away by an invalidation)
+#   flood — the watch buffer overflowed or an all-dirty invalidation came
+#   drift — the index's pod census disagrees with the live input
+#   pods  — pod names invalidated without their objects
+#   nodes — node-shaped dirt the index could not prove harmless
+#   order — the index cannot prove the walk's group order
+INCR_FALLBACK_REASONS = frozenset((
+    "cold", "flood", "drift", "pods", "nodes", "order"))
+
+
 # -- the gate --------------------------------------------------------------
 MODE_OFF, MODE_COUNTS, MODE_FULL = 0, 1, 2
 _ENV = "KARPENTER_TPU_EXPLAIN"

@@ -22,6 +22,11 @@ runs them as hand-written CUDA kernels, one thread block per problem:
     — each simulation excludes a few existing nodes, gathers its classes'
     column masks and per-node caps from shared tables and caps the column
     price.
+  * ``delta_scan`` (K6, `csrc/ffd_delta_scan.cu`): the delta path's
+    seeded scan (`_solve_ffd_delta_impl`, ffd.py:1403) — one light-only
+    problem started from a prefix's replayed carry (used, pool and active
+    per node slot, the seeded slots' surviving columns) instead of zeros;
+    the delta pass and every chunk of the speculative chunk chain run it.
   * ``pack`` (K2, `csrc/ffd_pack.cu`): the explain=1 elimination counts,
     topology class and the with_gang whole class included, and with
     explain=2 the [G, O] per-column class map, from the scan's final state,
@@ -31,8 +36,9 @@ With ``sparse_k`` > 0 the scans also compact each group's take_exist row
 into K (count, index) pairs, the reference's prefix-rank scatter.  Beside
 each kernel sits its plain PyTorch version (``batch_scan_reference``,
 ``sweep_scan_reference``, ``sweep_topo_scan_reference``,
-``pack_reference``), a transcription of the reference with a Python loop
-over problems, groups and pools; every scan shares one light and one heavy
+``delta_scan_reference``, ``pack_reference``), a transcription of the
+reference with a Python loop over problems, groups and pools; every scan
+shares one light and one heavy
 step.  A wrapper runs the kernel for a CUDA tensor and the plain version
 for a CPU tensor; there is no fallback from one to the other.  Each
 wrapper counts its kernel launches in ``.launches``.
@@ -221,6 +227,22 @@ class SweepBatch:
         return self.exclude_idx.shape[1]
 
 
+@dataclass
+class DeltaSeed:
+    """The seeded start of one delta scan (ffd.py:406-427): the carry a
+    prefix of the scan left, replayed on the host.  Slots past the seeded
+    ones are unopened (zero used, inactive), and past the colmask's A rows
+    have no surviving column."""
+    seed_used: torch.Tensor     # [N, R] f32
+    seed_pool: torch.Tensor     # [N] i32
+    seed_active: torch.Tensor   # [N] i32 0/1
+    seed_colmask: torch.Tensor  # [A, W] i32 surviving-column words per slot
+
+    @property
+    def A(self) -> int:
+        return self.seed_colmask.shape[0]
+
+
 def pack_mask_bits(mask: np.ndarray, O: int) -> np.ndarray:
     """[..., O] bool, or [..., ceil(O/8)] uint8 already packed with
     np.packbits(bitorder="little"), → [..., ceil(O/32)] int32 words: bit
@@ -383,6 +405,35 @@ def problem_from_numpy(prob: Sequence[np.ndarray], cat_arrays: Dict,
     arrays (numpy) as the port's kernel arguments on `device`."""
     cat = catalog_tensors(cat_arrays, device)
     return problem_tensors(prob, cat.O, device), cat
+
+
+def delta_tensors(prob: Sequence[np.ndarray], seed_used: np.ndarray,
+                  seed_pool: np.ndarray, seed_active: np.ndarray,
+                  seed_colmask: np.ndarray, O: int, device,
+                  upload=_upload) -> Tuple[FFDProblem, DeltaSeed]:
+    """A delta problem (the reference's 17-slot suffix tuple, numpy) and its
+    seed — seed_used [N, R], seed_pool [N], seed_active [N], seed_colmask
+    [A, O] bool or its packed [A, ceil(O/8)] bytes — as K6's device
+    arguments, in one host→device copy.  The seeded scan is light-only,
+    gang-free and priority-free by contract (the reference's delta program
+    runs with_topology False, with_gang 0, with_priority 0): a problem with
+    a domain, gang or priority row is refused here, on the host, rather
+    than solved as something else."""
+    if len(prob) != 17:
+        raise ValueError("the seeded scan takes the 17-slot problem: it "
+                         "has no priority witness")
+    if np.asarray(prob[7]).any():
+        raise ValueError("the seeded scan is light-only: a group has a "
+                         "zone or capacity-type domain")
+    if np.asarray(prob[14]).any():
+        raise ValueError("the seeded scan is gang-free: a group is a gang")
+    arrays = problem_arrays(prob, O) + [
+        np.asarray(seed_used, np.float32),
+        np.asarray(seed_pool, np.int32),
+        np.asarray(seed_active).astype(np.int32),
+        pack_mask_bits(np.asarray(seed_colmask), O)]
+    t = upload(arrays, torch.device(device))
+    return FFDProblem(*t[:-4]), DeltaSeed(*t[-4:])
 
 
 # -- the flat result layout ---------------------------------------------------
@@ -593,7 +644,8 @@ class _Scan:
     step."""
 
     def __init__(self, prob: FFDProblem, cat: FFDCatalog, N: int,
-                 work: Optional[Dict[str, int]]):
+                 work: Optional[Dict[str, int]],
+                 seed: Optional[DeltaSeed] = None):
         dev = prob.group_req.device
         i32, f32 = torch.int32, torch.float32
         self.prob, self.cat, self.N, self.work = prob, cat, N, work
@@ -614,6 +666,16 @@ class _Scan:
         self.node_ct = torch.full((N,), -1, dtype=i32, device=dev)
         self.num_active = torch.zeros((), dtype=i32, device=dev)
         self.limits = prob.pool_limit.clone()
+        if seed is not None:
+            # the seeded start (ffd.py:406-427): the prefix's used, pool
+            # and active slots, its surviving columns in the first A slots
+            # (none past them), num_active the count of seeded slots;
+            # exist_remaining arrives already consumed
+            self.used = seed.seed_used.clone()
+            self.colmask[:seed.A] = _unpack_bits(seed.seed_colmask, cat.O)
+            self.active = seed.seed_active != 0
+            self.node_pool = seed.seed_pool.clone()
+            self.num_active = self.active.to(i32).sum().to(i32)
 
     def light(self, g: int):
         """The light step (ffd.py:460-587).  Returns (take_exist [E],
@@ -1137,16 +1199,17 @@ def priority_witness(count: torch.Tensor, unsched: torch.Tensor,
 def _scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                     flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
                     work: Optional[Dict[str, int]], topology: bool,
-                    sparse_k: int = 0, with_gang: int = 0) -> None:
+                    sparse_k: int = 0, with_gang: int = 0,
+                    seed: Optional[DeltaSeed] = None) -> None:
     """The plain scan of one problem: per group the light step, or with
     `topology` the heavy step for a group with dsel > 0 (the reference's
     `lax.cond(dsel > 0, heavy, light)`, ffd.py:1057), or with `with_gang`
     the gang fill for a gang group (ffd.py:1049-1056).  Writes the
     kernels' outputs into the problem's flat row; with `sparse_k`, the
     take_exist rows compacted; where the layout holds `prio_inv`, the
-    priority inversion witness."""
+    priority inversion witness; with a `seed`, from the seeded carry."""
     f32 = torch.float32
-    s = _Scan(prob, cat, N, work)
+    s = _Scan(prob, cat, N, work, seed)
     dsel = prob.group_dsel.tolist()
     gang = prob.group_gang.tolist()
     te_rows, tn_rows, un_rows, dp_rows = [], [], [], []
@@ -1231,6 +1294,19 @@ def batch_scan_reference(batch: FFDBatch, cat: FFDCatalog, N: int,
         _scan_reference(batch.at(b), cat, N, flat[b], lay, limits_out[b],
                         work, topology=True, sparse_k=sparse_k,
                         with_gang=with_gang)
+
+
+def delta_scan_reference(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog,
+                         N: int, flat: torch.Tensor, lay: Dict,
+                         limits_out: torch.Tensor,
+                         work: Optional[Dict[str, int]] = None) -> None:
+    """Plain PyTorch version of K6: `_solve_ffd_delta_impl` (ffd.py:1403)
+    — the scan of one problem started from `seed` (ffd.py:406-427), every
+    group light (with_topology False), dense take_exist rows, no
+    witness.  Writes one flat row; `work` counts as in
+    `batch_scan_reference`."""
+    _scan_reference(prob, cat, N, flat, lay, limits_out, work,
+                    topology=False, seed=seed)
 
 
 def _bits_of(mask: torch.Tensor) -> torch.Tensor:
@@ -1518,11 +1594,13 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
                  D: int, X: int, cat: FFDCatalog, flat: torch.Tensor,
                  lay: Dict, limits_out: torch.Tensor, sparse_k: int,
-                 inputs: Dict[str, Optional[torch.Tensor]]) -> None:
+                 inputs: Dict[str, Optional[torch.Tensor]],
+                 A: int = 0) -> None:
     """Launch one of the scan kernels (grid: one block per problem) with
     the argument list every instance takes (ScanArgs order); `inputs`
-    holds the per-problem or per-simulation tensors, None where the
-    instance reads nothing."""
+    holds the per-problem or per-simulation tensors (and the seeded
+    instance's seed, `A` its colmask rows), None where the instance reads
+    nothing."""
     from karpenter_tpu_torch.solver import _cuda
     dev = flat.device
     W = cat.W
@@ -1568,9 +1646,11 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
         i.get("group_class"), i.get("exclude_idx"), i.get("price_cap"),
         i.get("col_price"), te_dense, reg("te_cnt"),
         i.get("group_gang"), i.get("group_prio"), reg("prio_inv"),
+        i.get("seed_used"), i.get("seed_pool"), i.get("seed_active"),
+        i.get("seed_colmask"),
     ]
     dims = [G, E, N, cat.O, cat.PT, cat.zc, P, D, W, B, X, sparse_k,
-            lay["total"][1]]
+            lay["total"][1], A]
     stream = torch.cuda.current_stream(dev).cuda_stream
     _cuda.launch(entry, [_ptr(t) for t in ptrs], dims, stream)
 
@@ -1681,6 +1761,53 @@ def sweep_topo_scan(sw: SweepBatch, cat: FFDCatalog, N: int,
 sweep_topo_scan.launches = 0
 
 
+def _check_seed(seed: DeltaSeed, cat: FFDCatalog, N: int, device) -> None:
+    i32 = torch.int32
+    _check(seed.seed_used, "seed_used", torch.float32, (N, R), device)
+    _check(seed.seed_pool, "seed_pool", i32, (N,), device)
+    _check(seed.seed_active, "seed_active", i32, (N,), device)
+    _check(seed.seed_colmask, "seed_colmask", i32, (seed.A, cat.W), device)
+    if seed.A > N:
+        raise ValueError(f"{seed.A} seeded colmask rows past N={N}")
+
+
+def delta_scan(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog, N: int,
+               flat: torch.Tensor, lay: Dict,
+               limits_out: torch.Tensor) -> None:
+    """K6: the seeded scan of one light-only problem (the delta suffix,
+    or one chunk of the chunk chain) from `seed`, into its flat row `flat`
+    [total] (dense take_exist, no witness) and the final pool budgets
+    `limits_out` [P, R].  Built by `delta_tensors`, which refuses domain,
+    gang and priority rows on the host; the kernel reads none of them.
+    CUDA tensors launch the kernel; CPU tensors run
+    `delta_scan_reference`."""
+    dev = flat.device
+    _check_problem(prob, cat, N, dev)
+    _check_seed(seed, cat, N, dev)
+    _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
+    _check(limits_out, "limits_out", torch.float32, (prob.P, R), dev)
+    if "te_cnt" in lay or "prio_inv" in lay:
+        raise ValueError("the seeded scan writes dense take_exist rows and "
+                         "no priority witness")
+    if dev.type != "cuda":
+        if bool(prob.group_dsel.any()) or bool(prob.group_gang.any()):
+            raise ValueError("the seeded scan is light-only and gang-free")
+        delta_scan_reference(prob, seed, cat, N, flat, lay, limits_out)
+        return
+    inputs = {f.name: getattr(prob, f.name) for f in fields(prob)
+              if f.name not in ("group_dsel", "group_dbase", "group_dcap",
+                                "group_skew", "group_mindom", "group_delig",
+                                "group_gang", "group_prio")}
+    inputs.update({f.name: getattr(seed, f.name) for f in fields(seed)})
+    _launch_scan("ffd_delta_scan", 1, prob.G, prob.E, N, prob.P, prob.D, 0,
+                 cat, flat.view(1, -1), lay, limits_out.view(1, prob.P, R),
+                 0, inputs, A=seed.A)
+    delta_scan.launches += 1
+
+
+delta_scan.launches = 0
+
+
 def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
          lay: Dict, limits: torch.Tensor, with_gang: int = 0) -> None:
     """K2: the explain=1 counts of one problem (gang strands in the whole
@@ -1763,6 +1890,26 @@ def solve_ffd(prob: FFDProblem, cat: FFDCatalog, max_nodes: int,
     return solve_ffd_batch(FFDBatch.of(prob), cat, max_nodes, explain,
                            with_gang=with_gang,
                            with_priority=with_priority)[0]
+
+
+def solve_ffd_delta(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog,
+                    max_nodes: int, explain: int = 0) -> torch.Tensor:
+    """The delta path's seeded solve (`solve_ffd_delta`, ffd.py:1443): K6
+    from `seed`, then, with explain, K2's counts (the delta pass clamps
+    explain to counts: a suffix's [G, O] map would stitch against prefix
+    rows that never had one).  Returns the flat f32 result row on the
+    problem's device (not synchronised)."""
+    if explain not in (0, 1):
+        raise ValueError(f"explain={explain}: the seeded solve computes "
+                         "counts (1) or nothing (0)")
+    dev = prob.group_req.device
+    lay = flat_layout(prob.G, prob.E, max_nodes, prob.D, explain)
+    flat = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
+    limits = torch.empty((prob.P, R), dtype=torch.float32, device=dev)
+    delta_scan(prob, seed, cat, max_nodes, flat, lay, limits)
+    if explain:
+        pack(prob, cat, max_nodes, flat, lay, limits)
+    return flat
 
 
 def solve_ffd_sweep(sw: SweepBatch, cat: FFDCatalog, max_nodes: int,

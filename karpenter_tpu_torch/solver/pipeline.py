@@ -1,7 +1,8 @@
-"""The batched paths' two-stage chunk pipeline on the card.
+"""The batched paths' two-stage chunk pipeline and the speculative chunk
+chain on the card.
 
-The port of `karpenter_tpu/solver/pipeline.py` for the consolidation sweep
-and the generic batched solve:
+The port of `karpenter_tpu/solver/pipeline.py` for the consolidation sweep,
+the generic batched solve and the G-axis chunk chain:
 
 - **two-stage chunk pipeline** (`run_pipeline`, as the reference's): while
   chunk *i* runs on the card, chunk *i+1* builds its rows, uploads and
@@ -12,9 +13,14 @@ and the generic batched solve:
   chunk's per-problem rows into one of two alternating pinned host
   buffers, copies them to the card asynchronously and launches; it then
   enqueues the result's copy back into pinned memory and records a CUDA
-  event.  The complete stage waits on that chunk's event only.  The two
-  slots alternate, so a chunk's upload never overwrites the host rows of
-  the chunk before it while that copy may still be in flight.
+  event.  The complete stage waits on that chunk's event only.  The slots
+  rotate (two for the pipeline, one per in-flight chunk for the chain) and
+  each upload slot waits on the event of the copy that last read it, so a
+  chunk's upload never overwrites host rows a copy may still be reading.
+- **speculative chunk chain** (`run_spec_chain`, as the reference's): the
+  pipeline generalised to a chain of seeded solves whose successors
+  dispatch from a speculated entry state and are flushed and re-dispatched
+  when the speculation was wrong.
 
 Gating: `KARPENTER_TPU_PIPELINE` — `off`/`0`/`false` runs each chunk to
 the end before the next starts, `on`/`1`/`true` forces the pipeline, and
@@ -45,21 +51,24 @@ def pipeline_enabled(device: torch.device) -> bool:
 
 
 class ChunkStaging:
-    """Two alternating pinned host buffers per direction for a pipelined
-    chunk loop on a CUDA device.
+    """`depth` rotating pinned host buffers per direction (two by default)
+    for a pipelined chunk loop on a CUDA device.  A pull slot is reused
+    `depth` pulls later, so at most `depth` results may be waiting to be
+    read.
 
     `upload(arrays, device)` packs 4-byte numpy arrays into the next
     upload slot, copies it to the card with `non_blocking=True` and
     returns typed device views (the signature of `ffd._upload`).
     `pull(flat)` enqueues the copy of a result tensor into the next pull
     slot and returns a handle; `wait(handle)` blocks on that copy's event
-    only and returns the host rows (a numpy copy: the slot is reused two
-    chunks later)."""
+    only and returns the host rows (a numpy copy: the slot is reused
+    `depth` chunks later)."""
 
-    def __init__(self):
-        self._up: List[Optional[torch.Tensor]] = [None] * 2
-        self._up_ev: List[Optional[torch.cuda.Event]] = [None] * 2
-        self._down: List[Optional[torch.Tensor]] = [None] * 2
+    def __init__(self, depth: int = 2):
+        depth = max(depth, 2)
+        self._up: List[Optional[torch.Tensor]] = [None] * depth
+        self._up_ev: List[Optional[torch.cuda.Event]] = [None] * depth
+        self._down: List[Optional[torch.Tensor]] = [None] * depth
         self._i = 0
         self._j = 0
 
@@ -138,3 +147,79 @@ def run_pipeline(items: Iterable, dispatch: Callable, complete: Callable,
         pending = (item, handle)
     if pending is not None:
         complete(*pending)
+
+
+# -- the speculative chunked G-axis chain ------------------------------------
+
+# in-flight speculation slots: chunk k's device step can cover at most
+# depth-1 speculative dispatches ahead of it, so deeper windows only add
+# wasted work on a mispredict
+SPEC_DEPTH = 3
+
+
+def run_spec_chain(n: int, seed0, dispatch: Callable, project: Callable,
+                   commit: Callable, match: Callable,
+                   depth: int = SPEC_DEPTH):
+    """The two-stage pipeline generalised to a K-deep chain of SEEDED
+    solves with speculate-and-repair (the G-axis chunk chain).
+
+    - ``dispatch(k, seed) -> handle`` enqueues chunk ``k``'s seeded solve
+      from entry state ``seed`` (asynchronous — must not block).
+    - ``project(k, seed) -> seed | None`` speculates chunk ``k``'s EXIT
+      state from its entry, so chunk ``k+1`` can dispatch before ``k``
+      commits; ``None`` declines (the chain stalls until the truth).
+    - ``commit(k, seed, handle) -> seed | None`` blocks for chunk ``k``'s
+      output and returns its TRUE exit state; ``None`` aborts the whole
+      chain (the caller falls back to the single program, counted).
+    - ``match(speculated, true) -> bool`` is the bit-exact seed comparison.
+
+    Returns ``(ok, outcomes, flushed)``: ``outcomes`` has one entry per
+    chunk AFTER the first — ``"committed"`` when the successor's speculated
+    entry matched the true exit (its in-flight solve IS the sequential
+    program's), ``"repaired"`` when it diverged or speculation was declined
+    and the successor (re-)dispatched from the true seed.  A divergence
+    flushes ALL in-flight successors; their launches still run on the
+    stream, so their handles come back in ``flushed`` for the caller to
+    keep alive until the stream has passed them — they are never read.
+    """
+    from collections import deque
+    depth = max(depth, 1)
+    inflight: deque = deque()   # (k, entry_seed, handle)
+    outcomes: List[str] = []
+    flushed: List = []
+    next_k, next_entry = 0, seed0
+    while next_k < n or inflight:
+        while (next_k < n and len(inflight) < depth
+               and next_entry is not None):
+            inflight.append((next_k, next_entry,
+                             dispatch(next_k, next_entry)))
+            entry = next_entry
+            next_k += 1
+            next_entry = (project(next_k - 1, entry)
+                          if next_k < n else None)
+        k, entry, handle = inflight.popleft()
+        true_exit = commit(k, entry, handle)
+        if true_exit is None:
+            flushed.extend(h for _, _, h in inflight)
+            return False, outcomes, flushed
+        if k + 1 < n:
+            if inflight:
+                # chunk k+1 is in flight on a speculated entry
+                if match(inflight[0][1], true_exit):
+                    outcomes.append("committed")
+                else:
+                    # divergence: every in-flight successor chains off the
+                    # wrong state — flush them all and re-dispatch from
+                    # the truth (the counted repair)
+                    outcomes.append("repaired")
+                    flushed.extend(h for _, _, h in inflight)
+                    inflight.clear()
+                    next_k, next_entry = k + 1, true_exit
+            else:
+                # speculation declined (or the window drained): the
+                # successor never ran ahead — sequential for this boundary,
+                # counted with the repairs so committed + repaired always
+                # sums to chunks - 1
+                outcomes.append("repaired")
+                next_entry = true_exit
+    return True, outcomes, flushed

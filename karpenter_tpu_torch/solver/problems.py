@@ -15,6 +15,11 @@ is integer-valued (millicores, MiB, counts), as
 encoded requests and capacities are, so the float arithmetic is exact and
 the kernels must agree bit for bit.
 
+`random_delta_problem` adds a seeded start to a light problem (the delta
+path's suffix scan): the first A node slots already open, each in a pool
+with an integer-valued used vector and a random set of its pool's
+columns that still fit, the colmask padded with empty rows to A_pad.
+
 `random_batch` stacks B such problems against one catalog (the generic
 batched scan), and `random_sweep` builds a consolidation sweep: a shared
 snapshot (per-class column masks and node caps, existing nodes, column
@@ -340,3 +345,38 @@ def random_sweep(seed: int, B: int, *, C: int = 4, G: int = 2,
                   exist_zone=exist_zone, exist_ct=exist_ct,
                   col_price=col_price)
     return rows, shared, cat
+
+
+def random_delta_problem(seed: int, *, A: int, A_pad: int, N: int = 64,
+                         **kw) -> Tuple[tuple, Dict, tuple]:
+    """A light, gang-free problem of `random_problem(seed, **kw)` and a
+    seed for it: (problem tuple, catalog arrays, (seed_used [N, R],
+    seed_pool [N], seed_active [N] bool, seed_colmask [A_pad, O] bool)).
+    The first A slots are open: pool p, used = the pool's daemon plus k
+    pods of one of the problem's requests (integer-valued), and a random
+    half of the pool's valid columns whose block still holds `used`."""
+    assert 0 <= A <= A_pad <= N, (A, A_pad, N)
+    prob, cat = random_problem(seed, topology=False, gang=False,
+                               priority=False, **kw)
+    rng = np.random.RandomState(seed + 15485863)
+    O = cat["col_alloc"].shape[0]
+    ZC = cat["zc"]
+    P = cat["pool_daemon"].shape[0]
+    req = prob[0]
+    real = np.nonzero(prob[1] > 0)[0]
+    used = np.zeros((N, R), np.float32)
+    pool = np.zeros(N, np.int32)
+    active = np.arange(N) < A
+    colmask = np.zeros((A_pad, O), bool)
+    admitted = prob[2].any(axis=0)
+    for n in range(A):
+        p = rng.randint(P)
+        g = real[rng.randint(len(real))] if len(real) else 0
+        k = rng.randint(1, 6)
+        used[n] = cat["pool_daemon"][p] + np.float32(k) * req[g]
+        fits = np.all(cat["pt_alloc"] - used[n] >= -1e-3, axis=1)   # [PT]
+        cols = ((cat["col_pool"] == p) & admitted & np.repeat(fits, ZC)
+                & (rng.rand(O) < 0.5))
+        colmask[n] = cols
+        pool[n] = p
+    return prob, cat, (used, pool, active, colmask)

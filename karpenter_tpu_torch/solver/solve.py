@@ -15,6 +15,16 @@ batched scan (K5) for the rest, a chunk of up to 64 problems per launch,
 pipelined.  The port of `karpenter_tpu/solver/solve.py` `TPUSolver`, with
 its host paths around the device solve:
 
+  * the steady-state seams of a real solve (solver/delta.py,
+    solver/incr.py): the delta pass reuses the unchanged prefix of the
+    previous solve's FFD order and runs only the changed suffix, seeded
+    with the prefix's replayed state, through K6 (`_try_delta`); a cold
+    pass of many pod classes runs as a chain of seeded chunk solves whose
+    successors dispatch from a speculated entry state (`_try_spec`); and
+    with a live watch feed the incremental group index replaces the
+    grouping walk (`_try_incr_groups`).  Each is bit-identical to the full
+    solve or a counted fallback to it;
+
   * the split path: groups the encoding cannot express (custom topology
     keys, two dynamic keys, coupled selectors) go to the host oracle
     (`scheduling/oracle.py`) after the device solve of the rest;
@@ -51,6 +61,8 @@ from karpenter_tpu_torch.scheduling.types import (
     gang_of,
     min_values_violation,
 )
+from karpenter_tpu_torch.scheduling.types import priority_of
+from karpenter_tpu_torch.solver import delta as deltam
 from karpenter_tpu_torch.solver import explain as explainmod
 from karpenter_tpu_torch.solver import ffd
 from karpenter_tpu_torch.solver import pipeline as pipelining
@@ -61,6 +73,7 @@ from karpenter_tpu_torch.solver.encode import (
     SharedExistEncoding,
     SweepTopologyTables,
     Unsupported,
+    _has_required_anti,
     _matches,
     _np_fit_count,
     bucket,
@@ -77,6 +90,27 @@ B_BUCKETS = (4, 16, 64)  # simulate-batch axis: problems per launch
 G_BUCKETS = (1, 4, 8, 16, 32, 128, 512, 2048)
 E_BUCKETS = (0, 16, 64, 128, 256, 512, 1024, 2048, 4096)
 PT_ALIGN = 64  # (pool,type) axis padding; column axis O = PT_pad × ZC
+# the chunk chain's soft cap on chunks per pass (see _plan_spec_chunks)
+SPEC_MAX_CHUNKS = 8
+
+
+def _knob(name: str, spec):
+    """One steady-state knob resolved, in the reference's grammar: the
+    environment variable `name` (KARPENTER_TPU_DELTA, _SPEC, _INCR) —
+    "off"/"0"/"false"/"none", "on"/"1"/"true"/"yes" or "auto" — overrides
+    the constructed `spec`; unset or malformed leaves it.  Returns False
+    (disabled), "on" (forced) or "auto"."""
+    import os
+    raw = os.environ.get(name, "").strip().lower()
+    if raw in ("off", "0", "false", "none"):
+        spec = None
+    elif raw in ("on", "1", "true", "yes"):
+        spec = "on"
+    elif raw == "auto":
+        spec = "auto"
+    if spec in (None, 0, False, "off", ""):
+        return False
+    return "on" if spec == "on" else "auto"
 
 
 class UnsupportedPods(Exception):
@@ -90,13 +124,47 @@ class _SplitNeeded(Exception):
 
 
 class TorchSolver:
-    def __init__(self, max_nodes: int = 1024, device="cuda"):
+    def __init__(self, max_nodes: int = 1024, device="cuda", delta="auto",
+                 spec="auto", incr="auto"):
         """`device`: where the kernels run — "cuda" (the default, the
         card) or "cpu" (the kernels' plain PyTorch versions; the tests
         use it).  With "cuda" and no CUDA device, `solve` raises
-        RuntimeError rather than run anywhere else."""
+        RuntimeError rather than run anywhere else.
+
+        The steady-state knobs, as the reference's: `delta` — "auto"
+        engages the delta pass on repeats of problems with at least
+        `delta.DELTA_MIN_GROUPS` pod classes, "on" regardless of size,
+        "off"/None never; `spec` — "auto" chunks passes of at least
+        `delta.SPEC_MIN_GROUPS` classes, "on" any size, "off"/None never;
+        `incr` — "auto" engages the incremental group index once
+        `incr_arm()` declares a live watch feed, "on" always, "off"/None
+        never.  KARPENTER_TPU_DELTA, KARPENTER_TPU_SPEC and
+        KARPENTER_TPU_INCR (on/off/auto) override the constructed values;
+        each is resolved once, at the first solve."""
         self.max_nodes = max_nodes
         self.device = torch.device(device)
+        self._delta_spec, self._delta_resolved = delta, None
+        self._spec_spec, self._spec_resolved = spec, None
+        self._incr_spec, self._incr_resolved = incr, None
+        self._incr_armed = False
+        self._incr_hints = None
+        self._delta_cache = deltam.SolveCache()
+        self._delta_consumed = None
+        # every pass through a seam, counted (the reference's
+        # solver_{delta,spec,incr}_passes metrics): {"delta"|"spec"|"incr"
+        # | "fallback": n} and the fallbacks by reason; the chain's chunk
+        # boundaries by verdict (committed / repaired)
+        self.delta_passes: Dict[str, int] = {}
+        self.delta_fallbacks: Dict[str, int] = {}
+        self.spec_passes: Dict[str, int] = {}
+        self.spec_fallbacks: Dict[str, int] = {}
+        self.spec_chunks: Dict[str, int] = {}
+        self.incr_passes: Dict[str, int] = {}
+        self.incr_fallbacks: Dict[str, int] = {}
+        # the last chain's verdict ({"outcome": "spec", "chunks": K,
+        # "committed": c, "repaired": r} or {"outcome": "fallback",
+        # "reason": ...}), None when the seam was off
+        self.last_spec: Optional[Dict] = None
         self._cat_entry = None
         self._last_active: Optional[int] = None  # node-axis warm start
         self._last_slots_exhausted = False
@@ -138,6 +206,50 @@ class TorchSolver:
         if self._explain_resolved is None:
             self._explain_resolved = explainmod.mode()
         return self._explain_resolved
+
+    # -- the steady-state knobs ------------------------------------------
+    def _resolve_delta(self):
+        """The delta mode: False, "auto" (min-size gated) or "on"."""
+        if self._delta_resolved is None:
+            self._delta_resolved = _knob("KARPENTER_TPU_DELTA",
+                                         self._delta_spec)
+        return self._delta_resolved
+
+    def _resolve_spec(self):
+        """The chunk-chain mode: False, "auto" (min-size gated) or "on"."""
+        if self._spec_resolved is None:
+            self._spec_resolved = _knob("KARPENTER_TPU_SPEC",
+                                        self._spec_spec)
+        return self._spec_resolved
+
+    def _resolve_incr(self):
+        """The incremental-index mode: False, "auto" (armed-gated) or
+        "on"."""
+        if self._incr_resolved is None:
+            self._incr_resolved = _knob("KARPENTER_TPU_INCR",
+                                        self._incr_spec)
+        return self._incr_resolved
+
+    def incr_arm(self) -> None:
+        """Declare the event feed live: every pod/node/claim mutation
+        reaches `delta_invalidate` with objects from now on, so the "auto"
+        incremental index may trust the stream.  Callers that solve
+        without a feed never arm, and auto mode stays on the walk."""
+        self._incr_armed = True
+
+    def delta_invalidate(self, pods=(), nodes=(), flood: bool = False,
+                         pod_objs=None, node_objs=None, claims=()) -> None:
+        """The event feed: pod names whose groups must re-encode, node
+        names whose cached rows can no longer be trusted; flood=True when
+        the event stream may have dropped entries (everything is dirty
+        until a full solve refreshes the record).  `pod_objs`/`node_objs`
+        map event names to their current objects (None = deleted) and
+        `claims` lists nodeclaim event names: they feed the incremental
+        group index; names without objects degrade the index to a counted
+        fallback.  Thread-safe."""
+        self._delta_cache.invalidate(
+            pods=pods, nodes=nodes, flood=flood, pod_objs=pod_objs,
+            node_objs=node_objs, claims=claims)
 
     # -- catalog ---------------------------------------------------------
     def _catalog_encoding(self, inp: ScheduleInput):
@@ -596,7 +708,13 @@ class TorchSolver:
         affinity, ScheduleAnyway spread) need the reference's relaxation
         loop around the solve, which comes with slice 2c."""
         t0 = time.perf_counter()
-        groups = group_pods(inp.pods)
+        # the incremental index replaces the grouping walk when it can
+        # resolve this pass; real solves only — a capped consolidation sim
+        # carries hypothetical pod sets the index never saw
+        groups = (self._try_incr_groups(inp)
+                  if max_nodes is None else None)
+        if groups is None:
+            groups = group_pods(inp.pods)
         # grouping belongs to the encode phase (folded in by
         # _solve_attempt)
         self._pregroup_ms = (time.perf_counter() - t0) * 1e3
@@ -647,6 +765,13 @@ class TorchSolver:
         self._last_slots_exhausted = False
         t0 = time.perf_counter()
         cat = self._catalog_encoding(inp)
+        if max_nodes is None and groups is not None:
+            # the delta seam: an engaged pass returns a result equal to
+            # the full re-solve's; every other pass is a counted fallback
+            res = self._try_delta(inp, cat, groups)
+            if res is not None:
+                return res
+            t0 = time.perf_counter()  # the seam's check is not encode time
         enc = self._encode_checked(inp, cat, groups=groups)
         t1 = time.perf_counter()
         self.last_phase_ms = {
@@ -667,6 +792,13 @@ class TorchSolver:
                     "zone/capacity-type-constrained or gang pods with no "
                     "purchasable capacity")
             return self._existing_only(enc)
+
+        if max_nodes is None and groups is not None:
+            # the speculative chunk chain: equal to the single program when
+            # it runs, a counted fallback (and the program below) otherwise
+            res = self._try_spec(inp, cat, enc, groups, t1)
+            if res is not None:
+                return res
 
         G = bucket(enc.n_groups, G_BUCKETS)
         E = bucket(len(enc.existing), E_BUCKETS)
@@ -725,6 +857,9 @@ class TorchSolver:
         t5 = time.perf_counter()
         if max_nodes is None:
             self._note_explain(enc, out)
+        if max_nodes is None and groups is not None:
+            # a finished full solve is the next pass's delta base
+            self._delta_store(inp, cat, enc, out, groups)
         self.last_phase_ms.update(
             pad=(t2 - t1) * 1e3, dispatch=disp_s * 1e3,
             device=dev_s * 1e3, pull=pull_s * 1e3,
@@ -756,6 +891,471 @@ class TorchSolver:
             "eliminations": totals,
             "kernel_aux": kc is not None,
         }
+
+    # -- the steady-state seams ------------------------------------------
+    @staticmethod
+    def _count(counter: Dict[str, int], key: str) -> None:
+        counter[key] = counter.get(key, 0) + 1
+
+    def _delta_fallback(self, reason: str) -> None:
+        """Count one non-engaged pass through the delta seam: every pass
+        is "delta" or "fallback" with a reason of the closed vocabulary,
+        never silent."""
+        assert reason in explainmod.DELTA_FALLBACK_REASONS, reason
+        cache = self._delta_cache
+        cache.last_outcome, cache.last_reason = "fallback", reason
+        self._count(self.delta_passes, "fallback")
+        self._count(self.delta_fallbacks, reason)
+        return None
+
+    def _incr_fallback(self, reason: str) -> None:
+        """Count one walk-resolved pass through the incr seam (every pass
+        where the index could have engaged is "incr" or "fallback")."""
+        assert reason in explainmod.INCR_FALLBACK_REASONS, reason
+        self._delta_cache.last_incr_reason = reason
+        self._count(self.incr_passes, "fallback")
+        self._count(self.incr_fallbacks, reason)
+        return None
+
+    def _try_incr_groups(self, inp: ScheduleInput):
+        """This pass's groups from the event-driven index (solver/incr.py):
+        clean rows reused by reference from the cached record, dirty ones
+        rebuilt from O(churn) membership edits, no cluster walk.  None (the
+        walk) when the seam is off or unarmed (silent: those callers never
+        see the seam) or on a counted index-unusable condition; otherwise
+        the groups `group_pods(inp.pods)` would give, with IncrHints
+        stashed for the delta plan."""
+        self._incr_hints = None
+        mode = self._resolve_incr()
+        if not mode or (mode == "auto" and not self._incr_armed):
+            return None
+        from karpenter_tpu_torch.solver import incr as incrmod
+        cache = self._delta_cache
+        # index maintenance starts with the first engaged pass: users with
+        # the knob off or unarmed pay nothing
+        cache.incr_enabled = True
+        cache.last_incr_reason = None
+        snap, consumed, dirty = cache.incr_snapshot()
+        if snap is None:
+            return self._incr_fallback("cold")
+        built = incrmod.build_groups(snap, inp)
+        if isinstance(built, str):
+            return self._incr_fallback(built)
+        groups, m, reuse = built
+        self._count(self.incr_passes, "incr")
+        self._incr_hints = incrmod.IncrHints(
+            rec=snap.rec, groups=groups, m=m, reuse=reuse,
+            consumed=consumed, dirty_size=dirty)
+        return groups
+
+    def _seeded_problem_args(self, req, count, mask, ecap, er, enc,
+                             G: int, E: int, Db: int, O: int):
+        """The padded 17-slot tuple of one seeded solve (the delta suffix,
+        or one chunk of the chain) — `_problem_args`' layout, dtypes and
+        pad values — from its group rows, the consumed exist_remaining
+        `er` and `enc`'s pool limits and existing-node domains, with the
+        inactive encoder's topology constants: both seams engage only on
+        topology-free problems."""
+        Gd = len(count)
+        D = enc.n_domains
+        return (
+            self._pad(req, 0, G),
+            self._pad(count, 0, G),
+            self._pad(self._pad(mask, 1, O), 0, G),
+            self._pad(self._pad(ecap, 1, E), 0, G),
+            self._pad(er, 0, E),
+            enc.pool_limit,
+            self._pad(np.full(Gd, BIG, dtype=np.int32), 0, G),
+            np.zeros(G, dtype=np.int32),
+            np.zeros((G, Db), dtype=np.int32),
+            self._pad(self._pad(
+                np.full((Gd, D), BIG, dtype=np.int32), 1, Db), 0, G),
+            self._pad(np.full(Gd, BIG, dtype=np.int32), 0, G),
+            np.zeros(G, dtype=np.int32),
+            np.zeros((G, Db), dtype=bool),
+            np.zeros(G, dtype=bool),
+            np.zeros(G, dtype=bool),   # group_gang: gang-free by contract
+            self._pad(enc.exist_zone, 0, E, value=-1),
+            self._pad(enc.exist_ct, 0, E, value=-1),
+        )
+
+    def _run_delta(self, prob, seed: "deltam.ChunkSeed", O_real: int,
+                   O: int, mn: int, dev, upload=ffd._upload):
+        """Upload one seeded solve — the padded problem tuple and the seed
+        (used and pool padded to the node axis, the first `seed.A` slots
+        active, the colmask padded to the SEED_BUCKETS tier A_pad) — and
+        launch K6 (and K2's counts): shared by the delta pass and every
+        chunk of the chain.  Explain is clamped to counts: a suffix's
+        [G, O] map would stitch against prefix rows that never had one.
+        Returns the flat result row on the device (not synchronised)."""
+        A_pad = min(bucket(max(seed.A, 1), deltam.SEED_BUCKETS), mn)
+        cm = np.zeros((A_pad, O), dtype=bool)
+        cm[:seed.A, :O_real] = seed.colmask
+        p, sd = ffd.delta_tensors(
+            prob, self._pad(seed.used, 0, mn), self._pad(seed.pool, 0, mn),
+            np.arange(mn) < seed.A, cm, O, self.device, upload=upload)
+        return ffd.solve_ffd_delta(p, sd, dev, mn,
+                                   explain=min(self._explain_mode(), 1))
+
+    def _try_delta(self, inp: ScheduleInput, cat,
+                   groups) -> Optional[ScheduleResult]:
+        """The delta pass: diff against the cached record, seed the
+        restricted suffix solve, merge, decode.  None on any conservative
+        fallback (counted): the caller then runs the ordinary full path,
+        whose finished solve refills the cache."""
+        self._delta_consumed = None  # never consume a stale snapshot
+        # index-resolved hints are valid only for the exact (groups,
+        # record) pair they were computed against
+        hints = self._incr_hints
+        self._incr_hints = None
+        if hints is not None and hints.groups is not groups:
+            hints = None
+        mode = self._resolve_delta()
+        if not mode or not groups:
+            return None
+        if len(cat.columns) == 0:
+            return self._delta_fallback("shape")
+        cache = self._delta_cache
+        t0 = time.perf_counter()
+        rec = cache.get(cat)
+        if hints is not None and hints.rec is not rec:
+            hints = None
+        # ONE dirty snapshot per pass: plan diffs against it, and the
+        # record store (here or _delta_store after a fallback) retires
+        # exactly it — invalidations that arrive mid-solve stay dirty
+        self._delta_consumed = (hints.consumed if hints is not None
+                                else cache.dirty_snapshot())
+        cache.last_dirty = (hints.dirty_size if hints is not None else
+                            len(self._delta_consumed[0])
+                            + len(self._delta_consumed[1]))
+        cache.last_reencoded = cache.last_reuse = None
+        ming = 0 if mode == "on" else deltam.DELTA_MIN_GROUPS
+        plan = deltam.plan(rec, inp, groups, self._delta_consumed, ming,
+                           G_BUCKETS, hints=hints)
+        if isinstance(plan, str):
+            return self._delta_fallback(plan)
+        sp = deltam.build(plan, cat)
+        if sp is None:
+            return self._delta_fallback("seed")
+        mn = self._adaptive_max_nodes()
+        if sp.A >= mn:
+            mn = self.max_nodes
+        if sp.A >= mn:
+            return self._delta_fallback("slots")
+        Gd = len(plan.suffix)
+        dev = cat.device_args
+        exc = min(self._explain_mode(), 1)
+        out_s = None
+        disp_s = dev_s = pull_s = 0.0
+        t1 = time.perf_counter()
+        if Gd:
+            Gp = bucket(Gd, G_BUCKETS)
+            E = bucket(len(inp.existing_nodes), E_BUCKETS)
+            Db = bucket(plan.record.enc.n_domains, D_BUCKETS)
+            prob = self._seeded_problem_args(
+                sp.group_req, sp.group_count, sp.group_mask, sp.exist_cap,
+                sp.exist_remaining, plan.record.enc, Gp, E, Db, dev.O)
+            seed = deltam.ChunkSeed(er=sp.exist_remaining,
+                                    used=sp.seed_used, pool=sp.seed_pool,
+                                    colmask=sp.seed_colmask, A=sp.A)
+            t1 = time.perf_counter()
+            flat = self._run_delta(prob, seed, len(cat.columns), dev.O, mn,
+                                   dev)
+            t_b = time.perf_counter()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t_c = time.perf_counter()
+            out_s = ffd.unpack(flat.cpu().numpy(), Gp, E, mn, R, Db,
+                               explain=exc)
+            t_d = time.perf_counter()
+            disp_s, dev_s, pull_s = t_b - t1, t_c - t_b, t_d - t_c
+            if out_s["unsched"][:Gd].sum() > 0:
+                # stranded pods need the full path's rescue and retry
+                # machinery; the kernel time is wasted, the verdict never
+                return self._delta_fallback("stranded")
+        t2 = time.perf_counter()
+        enc_m, out_m = deltam.merge(plan, sp, cat, inp, out_s, Gd)
+        self._repair_whole_node(enc_m, out_m)
+        self._repair_gang(enc_m, out_m)
+        self._repair_topology(enc_m, out_m)
+        self._explain_trees = bool(self._explain_mode())
+        res = self._decode(enc_m, out_m)
+        self._note_explain(enc_m, out_m)
+        t3 = time.perf_counter()
+        # warm-start continuity: the next solve adapts as after a full pass
+        self._last_active = int(out_m["num_active"])
+        # an engaged pass stitches the new record from the old one along
+        # the plan's reuse map — O(groups + churn), no cluster walk
+        new_rec = deltam.make_record(cat, enc_m, out_m, inp,
+                                     carry=(plan.record, plan))
+        if new_rec is not None:
+            # nodes and catalog held: the lazily-built exist tables and
+            # opener feasibility rows stay valid
+            new_rec.exist_tables = plan.record.exist_tables
+            new_rec.feas_cache = plan.record.feas_cache
+            cache.put(cat, new_rec, consumed=self._delta_consumed,
+                      incr_carry=(hints is not None))
+        cache.last_outcome, cache.last_reason = "delta", None
+        Gt = plan.m + len(plan.suffix)
+        cache.last_reencoded = int(sp.reencoded)
+        cache.last_reuse = round(1.0 - sp.reencoded / max(Gt, 1), 4)
+        self._count(self.delta_passes, "delta")
+        self.last_phase_ms = {
+            "delta_encode": (t1 - t0) * 1e3 + self._pregroup_ms,
+            "dispatch": disp_s * 1e3, "device": dev_s * 1e3,
+            "pull": pull_s * 1e3, "decode": (t3 - t2) * 1e3}
+        self._pregroup_ms = 0.0
+        return res
+
+    def _delta_store(self, inp: ScheduleInput, cat, enc, out,
+                     groups) -> None:
+        """Cache a finished FULL solve as the next pass's delta base;
+        read-only on the solve's outputs."""
+        mode = self._resolve_delta()
+        if not mode or groups is None:
+            return
+        if mode != "on" and len(groups) < deltam.DELTA_MIN_GROUPS:
+            return
+        rec = deltam.make_record(cat, enc, out, inp)
+        if rec is not None:
+            old = self._delta_cache.get(cat)
+            if old is not None:
+                # feasibility rows key on (catalog, class id): always
+                # valid; the exist tables key on the node set and must not
+                # survive node churn
+                rec.feas_cache = old.feas_cache
+                if deltam.tables_reusable(old, rec):
+                    rec.exist_tables = old.exist_tables
+            # retire only the dirt this pass's snapshot observed (None
+            # retires nothing)
+            self._delta_cache.put(cat, rec, consumed=self._delta_consumed)
+            self._delta_consumed = None
+
+    def _spec_fallback(self, reason: str) -> None:
+        """Count one non-chunked pass through the spec seam."""
+        assert reason in explainmod.SPEC_FALLBACK_REASONS, reason
+        self.last_spec = {"outcome": "fallback", "reason": reason}
+        self._count(self.spec_passes, "fallback")
+        self._count(self.spec_fallbacks, reason)
+        return None
+
+    def _spec_repair_count(self, outcomes) -> None:
+        """Count the chain's per-boundary verdicts: every chunk after the
+        first committed (the speculated seed matched the true exit bit for
+        bit) or repaired (re-dispatched from the true seed)."""
+        for oc in outcomes:
+            self._count(self.spec_chunks, oc)
+
+    @staticmethod
+    def _plan_spec_chunks(n_groups: int, mode):
+        """Contiguous [lo, hi) chunks of the G axis, each one G_BUCKETS tier
+        below the full problem's (every chunk pads to the same tier): the
+        SMALLEST tier that keeps the chunk count within SPEC_MAX_CHUNKS,
+        else the largest tier below the full bucket.  A reason string when
+        chunking cannot win: "small" under the auto floor, "bucket" when no
+        tier below the full problem's gives two chunks."""
+        if mode != "on" and n_groups < deltam.SPEC_MIN_GROUPS:
+            return "small"
+        gb = bucket(n_groups, G_BUCKETS)
+        cb = 0
+        for b in G_BUCKETS:
+            if b < gb and -(-n_groups // b) <= SPEC_MAX_CHUNKS:
+                cb = b
+                break
+        if cb == 0:
+            for b in G_BUCKETS:
+                if b < gb:
+                    cb = b
+        if cb < 1 or -(-n_groups // cb) < 2:
+            return "bucket"
+        return [(lo, min(lo + cb, n_groups))
+                for lo in range(0, n_groups, cb)]
+
+    def _try_spec(self, inp: ScheduleInput, cat, enc, groups,
+                  t0: float) -> Optional[ScheduleResult]:
+        """The speculative chunk chain: cut the scan into K seeded chunk
+        solves (K6) and run them as a chain in which chunk k+1 dispatches
+        from a SPECULATED exit seed (the open-new-only projection) while
+        chunk k is still on the card; commit compares the speculation with
+        the true replayed exit state bit for bit, and a divergence
+        re-solves from the truth (counted), so the stitched result equals
+        the single program's.  None on any conservative fallback
+        (counted).  The gates are the delta seam's, on the live encoding:
+        topology-, gang- and limit-free, one band, no price cap."""
+        self.last_spec = None
+        mode = self._resolve_spec()
+        if not mode:
+            return None
+        G = enc.n_groups
+        if enc.group_gang is not None and \
+                np.asarray(enc.group_gang)[:G].any():
+            return self._spec_fallback("gang")
+        if len({priority_of(g[0]) for g in enc.groups}) > 1:
+            return self._spec_fallback("priority")
+        if inp.price_cap is not None:
+            return self._spec_fallback("price-cap")
+        if any(lim is not None
+               for lim in (inp.remaining_limits or {}).values()):
+            return self._spec_fallback("limits")
+        if (enc.group_dsel[:G] != 0).any():
+            return self._spec_fallback("topology")
+        if any(g[0].topology_spread or g[0].pod_affinities
+               or g[0].preferences for g in enc.groups):
+            return self._spec_fallback("topology")
+        if any(_has_required_anti(en.pods) for en in enc.existing):
+            return self._spec_fallback("topology")
+        if (enc.group_ncap[:G] < BIG).any() or \
+                enc.group_whole_node[:G].any():
+            return self._spec_fallback("shape")
+        if any(v is not None for d in enc.static_allowed
+               for v in d.values()):
+            return self._spec_fallback("shape")
+        if any(en.charge_pool is not None for en in enc.existing):
+            return self._spec_fallback("shape")
+        chunks = self._plan_spec_chunks(G, mode)
+        if isinstance(chunks, str):
+            return self._spec_fallback(chunks)
+        K = len(chunks)
+        # the chain rides the plain path's node-axis warm start; slot
+        # exhaustion aborts it as a counted "slots" fallback and the plain
+        # path's own exhaustion retry takes over
+        mn = self._adaptive_max_nodes()
+        Gp = chunks[0][1] - chunks[0][0]   # the planner's bucket tier
+        E_real = len(enc.existing)
+        E = bucket(E_real, E_BUCKETS)
+        Db = bucket(enc.n_domains, D_BUCKETS)
+        dev = cat.device_args
+        O_real = len(cat.columns)
+        exc = min(self._explain_mode(), 1)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            # one pinned slot per in-flight chunk each way: a slot is
+            # rewritten only after the copy that last read it completed
+            st = pipelining.ChunkStaging(pipelining.SPEC_DEPTH)
+            upload, pull, wait = st.upload, st.pull, st.wait
+        else:
+            upload, pull = ffd._upload, (lambda flat: flat)
+            wait = lambda flat: flat.numpy()  # noqa: E731
+        t1 = time.perf_counter()
+        feas: Dict[int, tuple] = {}
+        outs: List[Optional[dict]] = [None] * K
+        disp_s = dev_s = pull_s = repair_s = 0.0
+        abort = [None]
+        seen: set = set()
+        repair_ks: set = set()
+
+        def dispatch(k, seed):
+            nonlocal disp_s, repair_s
+            if k in seen:
+                repair_ks.add(k)
+            seen.add(k)
+            lo, hi = chunks[k]
+            t_a = time.perf_counter()
+            prob = self._seeded_problem_args(
+                enc.group_req[lo:hi], enc.group_count[lo:hi],
+                enc.group_mask[lo:hi], enc.exist_cap[lo:hi], seed.er, enc,
+                Gp, E, Db, dev.O)
+            handle = pull(self._run_delta(prob, seed, O_real, dev.O, mn,
+                                          dev, upload=upload))
+            d = time.perf_counter() - t_a
+            if k in repair_ks:
+                repair_s += d
+            else:
+                disp_s += d
+            return handle
+
+        def commit(k, seed, handle):
+            nonlocal dev_s, pull_s, repair_s
+            lo, hi = chunks[k]
+            Gd = hi - lo
+            t_a = time.perf_counter()
+            host = wait(handle)
+            t_b = time.perf_counter()
+            out = ffd.unpack(host, Gp, E, mn, R, Db, explain=exc)
+            t_c = time.perf_counter()
+            if k in repair_ks:
+                repair_s += t_c - t_a
+            else:
+                dev_s += t_b - t_a
+                pull_s += t_c - t_b
+            if out["unsched"][:Gd].sum() > 0:
+                abort[0] = ("slots" if int(out["num_active"]) >= mn
+                            else "stranded")
+                return None
+            outs[k] = out
+            folded = deltam.fold_chunk(seed, enc, cat, lo, hi, out, feas)
+            if folded is None:
+                abort[0] = "seed"
+            return folded
+
+        def project(k, seed):
+            lo, hi = chunks[k]
+            return deltam.project_chunk(seed, enc, cat, lo, hi, mn, feas)
+
+        def match(a, b):
+            return deltam.seed_digest(a) == deltam.seed_digest(b)
+
+        ok, outcomes, flushed = pipelining.run_spec_chain(
+            K, deltam.chunk_entry_seed(enc), dispatch, project, commit,
+            match, depth=min(K, pipelining.SPEC_DEPTH))
+        if cuda and flushed:
+            # flushed chunks' launches and copies were never read; their
+            # buffers are released only once the stream has passed them
+            torch.cuda.current_stream(self.device).synchronize()
+        del flushed
+        self._spec_repair_count(outcomes)
+        if not ok:
+            return self._spec_fallback(abort[0] or "stranded")
+        t2 = time.perf_counter()
+        # stitch the chunk outputs into one full-problem output: take rows
+        # concatenate in group order, node rows come from the LAST chunk
+        # (its carry holds the whole chain's nodes)
+        na = int(outs[-1]["num_active"])
+        D = enc.n_domains
+        te = np.concatenate(
+            [np.asarray(outs[k]["take_exist"])[:hi - lo, :E_real]
+             for k, (lo, hi) in enumerate(chunks)], axis=0)
+        tn = np.concatenate(
+            [np.asarray(outs[k]["take_new"])[:hi - lo, :na]
+             for k, (lo, hi) in enumerate(chunks)], axis=0)
+        out_m = dict(
+            take_exist=te, take_new=tn, new_overflow=False,
+            unsched=np.zeros(G, dtype=np.float32),
+            dom_placed=np.zeros((G, D), dtype=np.float32),
+            used=outs[-1]["used"],
+            node_pool=np.asarray(outs[-1]["node_pool"], dtype=np.int32),
+            node_zone=np.asarray(outs[-1]["node_zone"], dtype=np.int32),
+            node_ct=np.asarray(outs[-1]["node_ct"], dtype=np.int32),
+            num_active=na)
+        if exc and all(o.get("explain_counts") is not None for o in outs):
+            out_m["explain_counts"] = np.concatenate(
+                [np.asarray(outs[k]["explain_counts"])[:hi - lo]
+                 for k, (lo, hi) in enumerate(chunks)], axis=0)
+        self._repair_whole_node(enc, out_m)
+        self._repair_gang(enc, out_m)
+        self._repair_topology(enc, out_m)
+        self._explain_trees = bool(self._explain_mode())
+        res = self._decode(enc, out_m)
+        self._note_explain(enc, out_m)
+        t3 = time.perf_counter()
+        self._last_slots_exhausted = False
+        # warm-start continuity and the delta-base store: the chain's
+        # output IS the full solve's
+        self._last_active = na
+        self._delta_store(inp, cat, enc, out_m, groups)
+        self.last_spec = {
+            "outcome": "spec", "chunks": K,
+            "committed": outcomes.count("committed"),
+            "repaired": outcomes.count("repaired")}
+        self._count(self.spec_passes, "spec")
+        # `encode` was stamped before the seam; dispatch/device/pull
+        # aggregate over the chain's chunks, and spec_repair is the
+        # re-dispatched chunks' wall share (0.0 on a clean chain)
+        self.last_phase_ms.update(
+            pad=(t1 - t0) * 1e3, dispatch=disp_s * 1e3,
+            device=dev_s * 1e3, pull=pull_s * 1e3,
+            decode=(t3 - t2) * 1e3, spec_repair=repair_s * 1e3)
+        return res
 
     # -- the batched paths: the consolidation simulator ------------------
     # sweep-path bucket tiers: pod classes per sweep and exclusion indices

@@ -36,16 +36,41 @@ residents — a 2-member low-priority gang and a low single — leave 4 cpu,
 so the preemption planner must evict the whole gang; before the solve it
 records the benchmark's spot storm (4 interruptions of the 6 cheapest
 types in two zones) in the spot-risk model.
+
+The steady state's three workloads reuse pod objects across passes as
+their benchmarks do — an unchanged pod keeps its object, a churned one is
+a fresh object with a generation-stamped name — and keep the same
+catalog list, NodePool and existing nodes from pass to pass:
+
+`build_config7(gen)` is BASELINE config #7 (the JAX package's
+`benchmarks/config7_churn.py`): a warm 50k-pod cluster — 400 size classes
+of 125 pods, 256 existing 16-cpu nodes — at churn generation `gen`, where
+the 4 FFD-last classes' 500 pods (1%) are replaced.
+
+`build_config12()` is BASELINE config #12 (`benchmarks/
+config12_megascale.py`): a cold fleet of 640 classes x 737 pods =
+471,680 pods against the generated catalog, each class exactly one full
+node on the pods axis, so the true scan only opens new nodes.
+
+`build_config13(n_pods, gen)` is BASELINE config #13 (`benchmarks/
+config13_warm_million.py`) at `n_pods`: 400 classes on one huge machine
+shape whose pod capacity scales with the size, 256 existing nodes that
+absorb nothing, and per generation the 4 tail classes' 125 pods each
+replaced (500 pods at every size).  It returns the input and the watch
+events since the previous generation (name -> the new object, None for
+a deleted pod), in the order a store reports them.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
 from karpenter_tpu_torch.models import (
+    InstanceType,
     Node,
     NodePool,
     ObjectMeta,
+    Offering,
     Pod,
     PodAffinityTerm,
     Requirement,
@@ -285,3 +310,152 @@ def build_config10() -> ScheduleInput:
     return ScheduleInput(pods=pods, nodepools=[pool],
                          instance_types={"default": catalog},
                          existing_nodes=[_edge_node()])
+
+
+# -- the steady state: BASELINE config #7, #12 and #13 ------------------------
+C7_CLASSES = 400
+C7_PODS_PER_CLASS = 125
+C7_CHURN_CLASSES = 4
+_C7: Dict = {}
+
+
+def _warm_nodes(n: int, alloc: Resources, mixed: bool) -> List[ExistingNode]:
+    """`n` ready existing nodes "warm<i>" of allocatable `alloc`; `mixed`
+    spreads them over three zones with spot and on-demand alternating."""
+    out = []
+    for i in range(n):
+        node = Node(
+            meta=ObjectMeta(name=f"warm{i}", labels={
+                wellknown.ZONE_LABEL: (f"tpu-west-1{'abc'[i % 3]}" if mixed
+                                       else "tpu-west-1a"),
+                wellknown.CAPACITY_TYPE_LABEL: (
+                    ["spot", "on-demand"][i % 2] if mixed
+                    else "on-demand"),
+                wellknown.NODEPOOL_LABEL: "default",
+                wellknown.HOSTNAME_LABEL: f"warm{i}"}),
+            allocatable=alloc, ready=True)
+        out.append(ExistingNode(node=node, available=node.allocatable,
+                                pods=[]))
+    return out
+
+
+def build_config7(gen: int) -> ScheduleInput:
+    if not _C7:
+        _C7.update(
+            catalog=generate_catalog(),
+            existing=_warm_nodes(256, Resources.of(cpu=16000, memory=65536,
+                                                   pods=110), mixed=True),
+            pool=NodePool(meta=ObjectMeta(name="default")), pop={})
+    pop = _C7["pop"]
+    pods = []
+    for g in range(C7_CLASSES):
+        stamp = gen if g >= C7_CLASSES - C7_CHURN_CLASSES else 0
+        for i in range(C7_PODS_PER_CLASS):
+            p = pop.get((g, i))
+            if p is None or not p.meta.name.endswith(f"-{stamp}"):
+                cpu = 2100 - 5 * g        # distinct size per class
+                p = pop[(g, i)] = Pod(
+                    meta=ObjectMeta(name=f"w{g}-{i}-{stamp}"),
+                    requests=Resources.parse({"cpu": f"{cpu}m",
+                                              "memory": f"{2 * cpu}Mi"}))
+            pods.append(p)
+    return ScheduleInput(pods=pods, nodepools=[_C7["pool"]],
+                         instance_types={"default": _C7["catalog"]},
+                         existing_nodes=list(_C7["existing"]))
+
+
+C12_CLASSES = 640
+C12_PODS_PER_CLASS = 737
+_C12: Dict = {}
+
+
+def build_config12() -> ScheduleInput:
+    if not _C12:
+        pods = []
+        for g in range(C12_CLASSES):
+            res = Resources.parse({"cpu": f"{100 + g % 31}m",
+                                   "memory": f"{150 + g % 97}Mi"})
+            for i in range(C12_PODS_PER_CLASS):
+                pods.append(Pod(meta=ObjectMeta(name=f"mg{g}-{i}"),
+                                requests=res.copy()))
+        _C12.update(pods=pods, catalog=generate_catalog(),
+                    pool=NodePool(meta=ObjectMeta(name="default")))
+    return ScheduleInput(pods=list(_C12["pods"]), nodepools=[_C12["pool"]],
+                         instance_types={"default": _C12["catalog"]})
+
+
+C13_CLASSES = 400
+C13_CHURN_CLASSES = 4
+C13_CHURN_PODS = 125
+_C13: Dict[int, Dict] = {}
+
+
+def _c13_catalog(pod_cap: int) -> List[InstanceType]:
+    labels = {
+        wellknown.INSTANCE_TYPE_LABEL: "warm.metal",
+        wellknown.ARCH_LABEL: "amd64",
+        wellknown.OS_LABEL: wellknown.OS_LINUX,
+    }
+    reqs = Requirements(*(Requirement.single(k, v)
+                          for k, v in labels.items()))
+    reqs.add(Requirement.make(wellknown.ZONE_LABEL, "In", "tpu-west-1a"))
+    reqs.add(Requirement.make(wellknown.CAPACITY_TYPE_LABEL, "In",
+                              wellknown.CAPACITY_TYPE_ON_DEMAND))
+    return [InstanceType(
+        name="warm.metal",
+        capacity=Resources.of(cpu=8_000_000, memory=16_000_000,
+                              pods=pod_cap),
+        requirements=reqs,
+        offerings=[Offering("tpu-west-1a",
+                            wellknown.CAPACITY_TYPE_ON_DEMAND, 64.0)])]
+
+
+def _c13_counts(total: int) -> List[int]:
+    static = C13_CLASSES - C13_CHURN_CLASSES
+    base, rem = divmod(total - C13_CHURN_CLASSES * C13_CHURN_PODS, static)
+    return ([base + (1 if g < rem else 0) for g in range(static)]
+            + [C13_CHURN_PODS] * C13_CHURN_CLASSES)
+
+
+def build_config13(n_pods: int, gen: int
+                   ) -> Tuple[ScheduleInput, Dict[str, object]]:
+    st = _C13.get(n_pods)
+    if st is None or gen < st["gen"]:
+        counts = _c13_counts(n_pods)
+        res = {}
+
+        def pod(g, i, stamp):
+            r = res.get(g)
+            if r is None:
+                cpu = 2100 - 5 * g        # tail (churn) classes sort last
+                r = res[g] = Resources.parse({"cpu": f"{cpu}m",
+                                              "memory": f"{2 * cpu}Mi"})
+            return Pod(meta=ObjectMeta(name=f"w{g}-{i}-{stamp}"),
+                       requests=r)
+
+        st = _C13[n_pods] = dict(
+            gen=0, pod=pod, catalog=_c13_catalog(max(counts)),
+            existing=_warm_nodes(256, Resources.of(cpu=1, memory=1, pods=0),
+                                 mixed=False),
+            pool=NodePool(meta=ObjectMeta(name="default")),
+            pods=[pod(g, i, 0) for g in range(C13_CLASSES)
+                  for i in range(counts[g])])
+    events: Dict[str, object] = {}
+    n_churn = C13_CHURN_CLASSES * C13_CHURN_PODS
+    while st["gen"] < gen:
+        st["gen"] += 1
+        fresh = [st["pod"](g, i, st["gen"])
+                 for g in range(C13_CLASSES - C13_CHURN_CLASSES,
+                                C13_CLASSES)
+                 for i in range(C13_CHURN_PODS)]
+        # store order: the outgoing pods' deletes, then the creates
+        # appended at the tail, as a watch stream reports them
+        for p in st["pods"][-n_churn:]:
+            events[p.meta.name] = None
+        events.update({p.meta.name: p for p in fresh})
+        del st["pods"][-n_churn:]
+        st["pods"].extend(fresh)
+    inp = ScheduleInput(pods=st["pods"], nodepools=[st["pool"]],
+                        instance_types={"default": st["catalog"]},
+                        existing_nodes=list(st["existing"]))
+    return inp, events
