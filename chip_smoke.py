@@ -52,13 +52,32 @@ Phases (any failure exits non-zero):
  12. config #13 at 50k pods: the incremental index fed the churn as
      watch events against the walk, a cold pass, two warm ones and 8
      timed churn passes — every pass the JAX answer, index-resolved delta
-     passes through K6.
+     passes through K6;
+ 13. the column-sharded solve (slice 7): TorchSolver(mesh=8,
+     max_nodes=256).solve(build_config2()) — BASELINE config #2 at 5k
+     pods — through K7 (one cluster of 8 blocks, the explain counts in
+     its epilogue) against mesh off (K5 and K2), one cold and 5 warm
+     solves each: the JAX answer, and no column-axis transfer after the
+     first solve (MeshExecutor.transfers);
+ 14. the 50k headline at mesh=8 (max_nodes 2048): the JAX answer;
+ 15. config #9 at mesh=8: K7's gang instance, the JAX answer and trees;
+ 16. config #7 at mesh=8, delta on, gen 0 and 4 churn passes: the chunk
+     chain and the delta passes through K7's seeded instance, every pass
+     the JAX answer;
+ 17. the soft-term input (workloads.build_soft_terms) through the
+     relaxation loop, mesh off and mesh=8: the JAX answer.
 
 Phase 3 also holds K5's gang instance, the witness and K2's map and
 with_gang class against their plain versions on seeded gang and priority
 problems at B=1 and B>1 and on config #9's and #10's encodings, and K6
 (the seeded scan) on seeded problems and on config #7's churned suffix
-and config #12's first two chunks as the solver launches them.
+and config #12's first two chunks as the solver launches them; and K7
+(the column-sharded scan) on seeded problems at 2, 4, 6 and 8 shards —
+light, heavy, gang, priority, explain off, shards of padding blocks only,
+a wide one and the seeded instance, each launched 3 times — and on the
+headline's and config #2's encodings at 8 shards, printing
+cudaOccupancyMaxActiveClusters by cluster size.  Phase 9 also times K7 at
+2, 4 and 8 shards beside K5 and at the mesh phases' own launches.
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.
@@ -191,6 +210,24 @@ CONFIG13 = (
     "6f5b2e35720f316bafe41b3df53a614530b9b05bdb206d583914d09f7389150c",
     "1ca0da542fe6c1d5272759230413f83dbd8fab9275751f43313b34b2a3d8c76c",
 )
+# The column-sharded solve (slice 7): BASELINE config #2 at 5k pods (the
+# JAX package's `bench.py build_config2_5k`, the port's
+# workloads.build_config2) on TorchSolver(max_nodes=256) — the JAX
+# answer, TPUSolver(mesh="off", max_nodes=256) on the CPU: nodes,
+# unschedulable, price hex, result_digest; and the soft-term input
+# (workloads.build_soft_terms) on TorchSolver() — TPUSolver(mesh="off",
+# delta/spec/incr off) on the CPU
+CONFIG2 = (36, 0, "0x1.afd930be0ded2p+6",
+           "3409b0bbe7c9a6c155cbd59c932c9df0e9ed6c6ed6f9dc92dab2605c73890d9a")
+CONFIG2_MAX_NODES = 256
+SOFT = (7, 0, "0x1.fa8255b035bd5p+3",
+        "6a8a44848cafb5c5c217d9cea08a18ef2db7dc62e28224467963723a05d85c6e")
+MESH = 8                  # the mesh arms' shard count
+MESH_WARM = 5             # warm solves per mesh arm
+SHARDS = (2, 4, 6, 8)     # K7 against its plain version at these sizes
+K7_REPEATS = 3            # each K7 comparison launched this many times
+MESH_CONFIG7_PASSES = 5   # config #7 under the mesh: gen 0 and 4 passes
+
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
 # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -204,7 +241,10 @@ KERNELS = {"ffd_batch_scan": ("batch_scan", "launches"),
            "ffd_sweep_scan": ("sweep_scan", "launches"),
            "ffd_sweep_topo_scan": ("sweep_topo_scan", "launches"),
            "ffd_delta_scan": ("delta_scan", "launches"),
-           "ffd_pack": ("pack", "launches")}
+           "ffd_pack": ("pack", "launches"),
+           "ffd_sharded_scan": ("sharded_scan", "launches"),
+           "ffd_sharded_gang_scan": ("sharded_scan", "gang_launches"),
+           "ffd_sharded_delta_scan": ("sharded_scan", "delta_launches")}
 PASSES = {"priority_witness": ("batch_scan", "witness_launches"),
           "explain_map": ("pack", "map_launches")}
 
@@ -587,10 +627,11 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _tag(topo: bool, sweep: bool, gang: bool, seed: bool = False) -> str:
+def _tag(topo: bool, sweep: bool, gang: bool, seed: bool = False,
+         sharded: bool = False) -> str:
     """The trace's name of one instance of the templated scan kernel."""
     flags = ", ".join("true" if f else "false"
-                      for f in (topo, sweep, gang, seed))
+                      for f in (topo, sweep, gang, seed, sharded))
     return f"scan_kernel<{flags}>"
 
 
@@ -760,10 +801,11 @@ def _read_launches(ffd):
 
 
 def _main_path(solver_cls, build, ffd, card, label, warm=WARM_SOLVES,
-               max_nodes=None):
+               max_nodes=None, after_cold=None):
     """One cold and `warm` warm runs of build() on a fresh solver —
     `solve`, or `solve_batch` under `max_nodes` — every kernel count set
-    to 0 just before and read just after.  Returns (result, launches,
+    to 0 just before and read just after; `after_cold(solver)` runs
+    between the cold run and the warm ones.  Returns (result, launches,
     solver)."""
     import torch
     solver = solver_cls()
@@ -778,6 +820,8 @@ def _main_path(solver_cls, build, ffd, card, label, warm=WARM_SOLVES,
     res = run()
     cold_ms = (time.perf_counter() - t0) * 1e3
     cold_phases = dict(solver.last_phase_ms)
+    if after_cold is not None:
+        after_cold(solver)
     phases = {k: [] for k in solver.last_phase_ms}
     e2e = []
     for _ in range(warm):
@@ -1068,6 +1112,221 @@ def _delta_times(ffd, call, reps):
     return t_k, t_kp, ev_k, _delta_bound(ffd, p, sd, c, N, lay, flat, lim)
 
 
+# -- the column-sharded scan (K7) -------------------------------------------
+def _features(prob, seeds):
+    """What a problem tuple makes K7 run: "gang" rows (its gang instance),
+    a "priority" row (the witness), "heavy" (topology) rows, a "seed" (its
+    seeded instance)."""
+    wg, wp = _statics([prob])
+    return ({"gang"} if wg else set()) | ({"priority"} if wp else set()) \
+        | ({"heavy"} if np.asarray(prob[7]).any() else set()) \
+        | ({"seed"} if seeds is not None else set())
+
+
+def _sharded_cases():
+    """(label, S, problem tuple, catalog arrays, N, explain, seed arrays or
+    None, the features the case must have): seeded problems on meshes of
+    2, 4, 6 and 8 shards (PT = 96 for 6: 64 does not split in 6) — light,
+    heavy, gang, priority, explain off, shards made only of padding
+    blocks, a wide one, and the seeded (delta) scan.  A draw that lacks
+    its label's feature (a "gang" problem with no gang row) is replaced by
+    the next seed's."""
+    from karpenter_tpu_torch.solver.problems import (random_delta_problem,
+                                                     random_problem)
+
+    def draw(make, base, want):
+        for k in range(16):
+            out = make(base + 1000 * k)
+            if want <= _features(out[0], out[2] if len(out) > 2 else None):
+                return out
+        raise RuntimeError(f"no seed from {base} draws {want}")
+    for S in SHARDS:
+        PT = 96 if S == 6 else 64
+        topo = dict(topology=True, D=4, PT=PT)
+        pad = PT // 2 if S == 2 else 2 * (PT // S)
+        specs = [
+            ("light", dict(PT=PT), 64, 1, set()),
+            ("heavy", topo, 64, 1, {"heavy"}),
+            ("gang", dict(topo, gang=True), 64, 1, {"gang"}),
+            ("priority", dict(PT=PT, priority=True, P=3, limits="finite"),
+             64, 1, {"priority"}),
+            ("explain-off", topo, 64, 0, {"heavy"}),
+            ("padding-shards", dict(topo, pad_blocks=pad), 64, 1, {"heavy"}),
+            ("wide", dict(topo, G=32, E=64, PT=6 * PT, P=2, pod_scale=200),
+             1024, 1, {"heavy"}),
+        ]
+        for i, (label, kw, N, ex, want) in enumerate(specs):
+            prob, cat = draw(lambda sd, kw=kw: random_problem(sd, **kw),
+                             500 + 10 * S + i, want)
+            yield f"S{S}-{label}", S, prob, cat, N, ex, None, want
+        prob, cat, seeds = draw(lambda sd: random_delta_problem(
+            sd, A=7, A_pad=16, N=64, PT=PT), 600 + S, {"seed"})
+        yield f"S{S}-delta", S, prob, cat, 64, 1, seeds, {"seed"}
+
+
+def _sharded_name(wg, seed):
+    return ("ffd_sharded_delta_scan" if seed is not None
+            else "ffd_sharded_gang_scan" if wg else "ffd_sharded_scan")
+
+
+def compare_sharded(ffd, S, prob, cat, N, ex, seeds, dev,
+                    want=frozenset()):
+    """K7 on a mesh of S shards against its plain version on the card, on
+    the same tensors: the whole flat row (the explain counts of its
+    epilogue and the witness included) and the final pool budgets, equal
+    as uint32 on each of K7_REPEATS launches.  Returns ({kernel: (equal,
+    max_abs_err)}, the max active clusters of the launch, the features of
+    `want` the problem lacks)."""
+    import torch
+    from karpenter_tpu_torch.parallel.mesh import shard_problem
+    missing = set(want) - _features(prob, seeds)
+    wg, wp = _statics([prob]) if seeds is None else (0, 0)
+    if seeds is None:
+        p, table, sc, _ = shard_problem(prob, cat, S, dev)
+        sd = None
+    else:
+        p, sd, table, sc, _ = shard_problem(prob, cat, S, dev, seeds)
+    lay = ffd.flat_layout(p.G, p.E, N, p.D, ex, with_priority=wp)
+    clusters = ffd.sharded_clusters(p, table, sc, N, lay, wg, sd)
+    fp = torch.full((lay["total"][1],), float("nan"), device=dev)
+    lp = torch.full((p.P, ffd.R), float("nan"), device=dev)
+    ffd.sharded_scan_reference(p, table, sc, N, fp, lay, lp, wg, sd)
+    parts = []
+    for _ in range(K7_REPEATS):
+        fk = torch.full_like(fp, float("nan"))
+        lk = torch.full_like(lp, float("nan"))
+        ffd.sharded_scan(p, table, sc, N, fk, lay, lk, wg, sd)
+        torch.cuda.synchronize()
+        parts += [_diff(fk, fp), _diff(lk, lp)]
+    return {_sharded_name(wg, sd): _merge(parts)}, clusters, missing
+
+
+def compare_captured(ffd, call, flat_main):
+    """One K7 launch the mesh path made, held to its plain version on the
+    same tensors: the flat row the path itself got (`flat_main`), and a
+    fresh launch's flat row and final pool budgets, equal as uint32.  (A
+    captured launch's tensors stay as they were: each solve uploads its
+    problem rows and seed into fresh device buffers, and the mask table
+    only gains rows.)  Returns {kernel: (equal, max_abs_err)}."""
+    import torch
+    p, table, sc, N, ex, wg, wp, sd = call
+    dev = table.device
+    lay = ffd.flat_layout(p.G, p.E, N, p.D, ex, with_priority=wp)
+    fp = torch.full((lay["total"][1],), float("nan"), device=dev)
+    lp = torch.full((p.P, ffd.R), float("nan"), device=dev)
+    ffd.sharded_scan_reference(p, table, sc, N, fp, lay, lp, wg, sd)
+    fk = torch.full_like(fp, float("nan"))
+    lk = torch.full_like(lp, float("nan"))
+    ffd.sharded_scan(p, table, sc, N, fk, lay, lk, wg, sd)
+    torch.cuda.synchronize()
+    return {_sharded_name(wg, sd): _merge(
+        [_diff(flat_main, fp), _diff(fk, fp), _diff(lk, lp)])}
+
+
+def _sharded_bound(ffd, p, table, sc, N, lay, flat, lim, wg=0, sd=None):
+    """K7's bound, counted as K5's: the problem rows, the catalog shards,
+    the mask-table rows the groups gather (and the seed) read once, the
+    flat row and budgets written once, against the float operations this
+    run's data needs (the plain version's count) over the fp32 rate."""
+    import torch
+    fields = ["group_req", "group_count", "mask_bits", "exist_cap",
+              "exist_remaining", "pool_limit", "group_ncap", "group_whole",
+              "exist_zone", "exist_ct"]
+    if sd is None:
+        fields += ["group_dsel", "group_dbase", "group_dcap", "group_skew",
+                   "group_mindom", "group_delig"]
+    fields += ["group_gang"] if wg else []
+    fields += ["group_prio"] if "prio_inv" in lay else []
+    rows = int(torch.unique(p.mask_bits).numel())
+    nbytes = (_nbytes(*(getattr(p, f) for f in fields))
+              + _nbytes(sc.col_alloc, sc.col_daemon, sc.pt_alloc,
+                        sc.col_pool, sc.pool_daemon, sc.pool_bits,
+                        sc.col_zone, sc.col_ct)
+              + rows * sc.S * sc.W_s * 4 + _nbytes(lim, flat))
+    if sd is not None:
+        nbytes += _nbytes(sd.seed_used, sd.seed_pool, sd.seed_active,
+                          sd.seed_colmask)
+    work = {"fit": 0, "test": 0, "flops": 0}
+    ffd.sharded_scan_reference(p, table, sc, N, torch.empty_like(flat), lay,
+                               torch.empty_like(lim), wg, sd, work)
+    return bound_ms(nbytes, _work_ops(work))
+
+
+def _sharded_times(ffd, prob, cat, S, N, reps, dev):
+    """K7 at S shards on one problem tuple (explain=1): (profiler ms a
+    launch, events ms, plain-version ms on the card, (bound, by), the
+    clusters the card holds)."""
+    import torch
+    from karpenter_tpu_torch.parallel.mesh import shard_problem
+    p, table, sc, _ = shard_problem(prob, cat, S, dev)
+    wg, wp = _statics([prob])
+    lay = ffd.flat_layout(p.G, p.E, N, p.D, 1, with_priority=wp)
+    flat = torch.empty(lay["total"][1], device=dev)
+    lim = torch.empty((p.P, ffd.R), device=dev)
+    clusters = ffd.sharded_clusters(p, table, sc, N, lay, wg)
+
+    def k7():
+        ffd.sharded_scan(p, table, sc, N, flat, lay, lim, wg)
+    t, ev = _device_ms(k7, reps, _tag(True, False, bool(wg), False, True))
+    t_plain = _time_ms(lambda: ffd.sharded_scan_reference(
+        p, table, sc, N, flat, lay, lim, wg), 1)
+    bound = _sharded_bound(ffd, p, table, sc, N, lay, flat, lim, wg)
+    return t, ev, t_plain, bound, clusters
+
+
+class _MeshCapture:
+    """Records every K7 launch the mesh executor makes while active: its
+    arguments in `calls`, as (problem, table, catalog, N, explain,
+    with_gang, with_priority, seed), and in `made` the phase it ran in
+    (`phase`, set by the caller) and the flat row it returned."""
+
+    def __enter__(self):
+        from karpenter_tpu_torch.parallel.mesh import MeshExecutor
+        self.cls, self.calls, self.made, self.phase = MeshExecutor, [], [], ""
+        self.real = (MeshExecutor.solve, MeshExecutor.solve_delta)
+        real_solve, real_delta = self.real
+
+        def solve(ex, prob, table, cat, max_nodes, explain=0, with_gang=0,
+                  with_priority=0):
+            flat = real_solve(ex, prob, table, cat, max_nodes, explain,
+                              with_gang, with_priority)
+            self.calls.append((prob, table, cat, max_nodes, explain,
+                               with_gang, with_priority, None))
+            self.made.append((self.phase, flat))
+            return flat
+
+        def solve_delta(ex, prob, seed, table, cat, max_nodes, explain=0):
+            flat = real_delta(ex, prob, seed, table, cat, max_nodes, explain)
+            self.calls.append((prob, table, cat, max_nodes, explain, 0, 0,
+                               seed))
+            self.made.append((self.phase, flat))
+            return flat
+        MeshExecutor.solve, MeshExecutor.solve_delta = solve, solve_delta
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.solve, self.cls.solve_delta = self.real
+
+
+def _captured_sharded_times(ffd, call, reps):
+    """K7 at one captured launch's shapes: (profiler ms a launch, events
+    ms, plain-version ms on the card, (bound, by))."""
+    import torch
+    p, table, sc, N, ex, wg, wp, sd = call
+    lay = ffd.flat_layout(p.G, p.E, N, p.D, ex, with_priority=wp)
+    flat = torch.empty(lay["total"][1], device=table.device)
+    lim = torch.empty((p.P, ffd.R), device=table.device)
+
+    def k7():
+        ffd.sharded_scan(p, table, sc, N, flat, lay, lim, wg, sd)
+    t, ev = _device_ms(k7, reps, _tag(sd is None, False, bool(wg),
+                                      sd is not None, True))
+    t_plain = _time_ms(lambda: ffd.sharded_scan_reference(
+        p, table, sc, N, flat, lay, lim, wg, sd), 1)
+    return t, ev, t_plain, _sharded_bound(ffd, p, table, sc, N, lay, flat,
+                                          lim, wg, sd)
+
+
 def _p50(xs):
     return statistics.median(xs) if xs else float("nan")
 
@@ -1250,9 +1509,9 @@ def main(argv) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch.solver import TorchSolver, _cuda, ffd
     from karpenter_tpu_torch.workloads import (
-        build_config3, build_config4, build_config4b, build_config7,
-        build_config9, build_config10, build_config12, build_config13,
-        build_input)
+        build_config2, build_config3, build_config4, build_config4b,
+        build_config7, build_config9, build_config10, build_config12,
+        build_config13, build_input, build_soft_terms)
 
     dev = torch.device("cuda", 0)
     card = _card_line()
@@ -1360,6 +1619,32 @@ def main(argv) -> int:
                                  ("config4b-heavy-chunk", c4b_chunk)):
         record(label, compare_sweep(ffd, sw, c, N, K, dev),
                f"B={sw.B} G={sw.G} E={sw.E} D={sw.D} N={N} K={K}")
+    # K7, the column-sharded scan, against its plain version at 2, 4, 6
+    # and 8 shards, each launch repeated, then at the mesh paths' own
+    # encodings (the headline and config #2) at 8 shards
+    from karpenter_tpu_torch.parallel.mesh import shard_problem
+    for label, S, prob, catarr, N, ex, seeds, want in _sharded_cases():
+        res, n, missing = compare_sharded(ffd, S, prob, catarr, N, ex, seeds,
+                                          dev, want)
+        record(label, res, f"S={S} N={N} explain={ex} clusters={n} "
+                           f"{'+'.join(sorted(want)) or 'light'} "
+                           f"x{K7_REPEATS}")
+        if missing:
+            failed.append(f"{label}: the problem has no {sorted(missing)}")
+    c2_prob, c2_cat = _encoded_problem(solver, build_config2(), ffd)
+    for label, prob, catarr, N in (
+            ("headline-S8", head_prob, head_cat, solver.max_nodes),
+            ("config2-S8", c2_prob, c2_cat, CONFIG2_MAX_NODES)):
+        res, n, _ = compare_sharded(ffd, MESH, prob, catarr, N, 1, None, dev)
+        record(label, res, f"S={MESH} N={N} clusters={n} x{K7_REPEATS}")
+    occ = {}
+    for S in (2, 4, 8, 16):
+        p, table, sc, _ = shard_problem(head_prob, head_cat, S, dev)
+        lay = ffd.flat_layout(p.G, p.E, solver.max_nodes, p.D, 1)
+        occ[S] = ffd.sharded_clusters(p, table, sc, solver.max_nodes, lay)
+    print(f"[3] K7 ffd_sharded_scan at the headline's shape (1024 threads "
+          f"a block): cudaOccupancyMaxActiveClusters by cluster size "
+          f"{occ}", flush=True)
     if failed:
         print(f"chip_smoke: kernels disagree with their plain versions: "
               f"{failed}", file=sys.stderr)
@@ -1523,6 +1808,130 @@ def main(argv) -> int:
         print(f"chip_smoke: config #13 failed: {bad}", file=sys.stderr)
         return 1
 
+    # -- 13-17. the column-sharded solve (K7) ---------------------------------
+    def mesh_solver(m, max_nodes):
+        return lambda: TorchSolver(mesh=m, max_nodes=max_nodes)
+
+    with _MeshCapture() as mcap:
+        bad = []
+        # 13. config #2 at mesh=8 against mesh off
+        for label, m, kernels in (("13 config2-mesh8", MESH,
+                                   ("ffd_sharded_scan",)),
+                                  ("13 config2-off", "off",
+                                   ("ffd_batch_scan", "ffd_pack"))):
+            seen = {}
+            mcap.phase = label
+
+            def after(sv, seen=seen):
+                seen["n"] = (len(sv._mesh_exec.transfers)
+                             if sv._mesh_exec is not None else 0)
+            res, counts, sv = _main_path(
+                mesh_solver(m, CONFIG2_MAX_NODES), build_config2, ffd, card,
+                label, warm=MESH_WARM, after_cold=after)
+            add(counts)
+            nodes, unsched, price_hex, digest = CONFIG2
+            bad += _check_answer(res, counts, nodes, unsched, price_hex,
+                                 kernels)
+            if result_digest(res) != digest:
+                bad.append(f"{label}: digest {result_digest(res)}")
+            if m != "off":
+                ex = sv._mesh_exec
+                if sv.mesh is None or sv.mesh.size != MESH:
+                    bad.append(f"{label}: the mesh is {sv.mesh}")
+                else:
+                    late = len(ex.transfers) - seen["n"]
+                    print(f"[{label}] column-axis transfers {ex.transfers}; "
+                          f"after the first solve: {late}; clusters "
+                          f"{ex.clusters}", flush=True)
+                    if late:
+                        bad.append(f"{label}: {late} column-axis "
+                                   f"transfers after the first solve")
+        # 14. the 50k headline at mesh=8
+        mcap.phase = "14 headline-mesh8"
+        res, counts, _ = _main_path(
+            mesh_solver(MESH, CONFIG_MAX_NODES),
+            lambda: build_input(HEADLINE_PODS), ffd, card,
+            "14 headline-mesh8", warm=MESH_WARM)
+        add(counts)
+        bad += _check_answer(res, counts, HEADLINE_NODES, HEADLINE_UNSCHED,
+                             HEADLINE_PRICE_HEX, ("ffd_sharded_scan",))
+        # 15. config #9 (gangs) at mesh=8: K7's gang instance
+        mcap.phase = "15 config9-mesh8"
+        res, counts, _ = _main_path(
+            mesh_solver(MESH, CONFIG_MAX_NODES), build_config9, ffd, card,
+            "15 config9-mesh8", warm=MESH_WARM)
+        add(counts)
+        nodes, unsched, price_hex, digest, trees = CONFIG9
+        bad += _check_answer(res, counts, nodes, unsched, price_hex,
+                             ("ffd_sharded_gang_scan",))
+        if result_digest(res) != digest or trees_digest(res) != trees:
+            bad.append(f"15 config9-mesh8: digests {result_digest(res)} "
+                       f"{trees_digest(res)}")
+        # 16. config #7 at mesh=8, delta on: K7's seeded instance
+        n7 = MESH_CONFIG7_PASSES
+        mcap.phase = "16 config7-mesh8"
+        on7 = TorchSolver(mesh=MESH, max_nodes=CONFIG_MAX_NODES)
+        _reset_launches(ffd)
+        ms, phases, verdicts, k6, bad7 = _lockstep(
+            ffd, "16 config7-mesh8", {"mesh8-delta-on": on7},
+            [lambda g=g: build_config7(g) for g in range(n7)], CONFIG7[:n7],
+            card, timed_from=2)
+        torch.cuda.synchronize()
+        counts = _read_launches(ffd)
+        add(counts)
+        _report("16 config7-mesh8", ms, phases, verdicts, k6)
+        print(f"[16 config7-mesh8] launches {counts}; delta passes "
+              f"{on7.delta_passes}", flush=True)
+        bad += bad7
+        if any(v[0] != "delta" for v in verdicts["mesh8-delta-on"][1:]):
+            bad.append("16 config7-mesh8: a pass after gen 0 was not a "
+                       "delta pass")
+        if counts["ffd_sharded_delta_scan"] < n7 - 1:
+            bad.append(f"16 config7-mesh8: sharded delta launches "
+                       f"{counts['ffd_sharded_delta_scan']}")
+        # 17. the soft-term input, mesh off and mesh=8
+        for label, m, kernels in (("17 soft-terms", "off",
+                                   ("ffd_batch_scan",)),
+                                  ("17 soft-terms-mesh8", MESH,
+                                   ("ffd_sharded_scan",))):
+            mcap.phase = label
+            res, counts, sv = _main_path(
+                mesh_solver(m, 1024), build_soft_terms, ffd, card, label,
+                warm=MESH_WARM)
+            add(counts)
+            nodes, unsched, price_hex, digest = SOFT
+            bad += _check_answer(res, counts, nodes, unsched, price_hex,
+                                 kernels)
+            print(f"[{label}] relaxation {sv.relax_counts}", flush=True)
+            if result_digest(res) != digest:
+                bad.append(f"{label}: digest {result_digest(res)}")
+            if sv.relax_counts["rounds"] < 2 * (1 + MESH_WARM):
+                bad.append(f"{label}: relaxation {sv.relax_counts}")
+    if bad:
+        print(f"chip_smoke: the mesh phases failed: {bad}", file=sys.stderr)
+        return 1
+    # every K7 launch of phases 13-17 held to its plain version at the
+    # path's own shapes (N, O, G and the table as the solver made them)
+    by_phase = {}
+    for call, (phase, flat) in zip(mcap.calls, mcap.made):
+        by_phase.setdefault(phase, []).append((call, flat))
+    for phase, made in by_phase.items():
+        res = {}
+        for call, flat in made:
+            for k, v in compare_captured(ffd, call, flat).items():
+                res[k] = _merge([res[k], v]) if k in res else v
+        shapes = sorted({(c[2].S, c[0].G, c[0].E, c[3], c[2].O)
+                         for c, _ in made})
+        record(f"{phase} K7", res, f"{len(made)} launches, (S, G, E, N, O) "
+                                   f"{shapes}")
+    kinds = {_sharded_name(c[5], c[7]) for c in mcap.calls}
+    if failed or kinds != {"ffd_sharded_scan", "ffd_sharded_gang_scan",
+                           "ffd_sharded_delta_scan"}:
+        print(f"chip_smoke: the mesh path's K7 launches disagree with their "
+              f"plain versions, or an instance was not launched ({kinds}): "
+              f"{failed}", file=sys.stderr)
+        return 1
+
     # -- 9. timings at the main paths' shapes --------------------------------
     p, c = ffd.problem_from_numpy(head_prob, head_cat, dev)
     N = solver.max_nodes
@@ -1614,6 +2023,42 @@ def main(argv) -> int:
               f"(events {ev6:.4f}, plain {t6p:.3f}, bound {b6:.6f} by "
               f"{by6})", flush=True)
     t_k6, t_k6p, _, (b_k6, by_k6) = delta_t["config #7 suffix"]
+    # K7 at 2, 4 and 8 shards on config #2's and the headline's encodings,
+    # beside K5 on the same problems; then at the mesh paths' own launches
+    for lab, prob, catarr, N in (("config #2", c2_prob, c2_cat,
+                                  CONFIG2_MAX_NODES),
+                                 ("headline", head_prob, head_cat,
+                                  solver.max_nodes)):
+        p5, c5 = ffd.problem_from_numpy(prob, catarr, dev)
+        k5 = _batch_times(ffd, ffd.FFDBatch.of(p5), c5, N, 20)
+        print(f"[9] {lab} (G={p5.G}, N={N}, PT={c5.PT}, O={c5.O}) on "
+              f"{card}: ffd_batch_scan {k5[0]:.4f} ms (S=1)", flush=True)
+        for S in (2, 4, 8):
+            t7, ev7, t7p, (b7, by7), n7 = _sharded_times(
+                ffd, prob, catarr, S, N, 20, dev)
+            print(f"[9] {lab} ffd_sharded_scan S={S}: {t7:.4f} ms (events "
+                  f"{ev7:.4f}, plain {t7p:.3f}, bound {b7:.6f} by {by7}; "
+                  f"clusters the card holds {n7})", flush=True)
+    k7_t = {}
+    for k7_name, pick in (
+            ("ffd_sharded_scan",
+             lambda c: c[7] is None and not c[5] and c[2].S == MESH
+             and c[3] == CONFIG2_MAX_NODES),
+            ("ffd_sharded_gang_scan", lambda c: c[5]),
+            ("ffd_sharded_delta_scan",
+             lambda c: c[7] is not None and c[0].G <= 4)):
+        call = next((c for c in mcap.calls if pick(c)), None)
+        if call is None:
+            print(f"chip_smoke: no {k7_name} launch was captured",
+                  file=sys.stderr)
+            return 1
+        k7_t[k7_name] = _captured_sharded_times(ffd, call, 20)
+        t7, ev7, t7p, (b7, by7) = k7_t[k7_name]
+        p7 = call[0]
+        print(f"[9] {k7_name} at its main path's launch (S={call[2].S}, "
+              f"G={p7.G}, E={p7.E}, N={call[3]}, O={call[2].O}) on {card}: "
+              f"{t7:.4f} ms (events {ev7:.4f}, plain {t7p:.3f}, bound "
+              f"{b7:.6f} by {by7})", flush=True)
 
     kernels = [
         {"name": "ffd_batch_scan", "route": "cuda",
@@ -1668,6 +2113,19 @@ def main(argv) -> int:
          "launches": launches["ffd_pack"],
          "max_abs_err": errs["ffd_pack"], "ms": t_k2, "plain_ms": t_k2p,
          "bound_ms": b2, "bound_by": by2, "library_ms": None},
+        *({"name": k7, "route": "cuda",
+           "source": "karpenter_tpu_torch/csrc/ffd_sharded_scan.cu",
+           "replaces": replaces,
+           "launches": launches[k7], "max_abs_err": errs[k7],
+           "ms": k7_t[k7][0], "plain_ms": k7_t[k7][2],
+           "bound_ms": k7_t[k7][3][0], "bound_by": k7_t[k7][3][1],
+           "library_ms": None}
+          for k7, replaces in (
+              ("ffd_sharded_scan", "karpenter_tpu/solver/ffd.py:1372"),
+              ("ffd_sharded_gang_scan",
+               "karpenter_tpu/parallel/mesh.py:203"),
+              ("ffd_sharded_delta_scan",
+               "karpenter_tpu/solver/ffd.py:1446"))),
         {"name": "explain_map", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/ffd_pack.cu",
          "replaces": "karpenter_tpu/solver/ffd.py:1215",

@@ -1,6 +1,7 @@
 // The FFD scan shared by K5 ffd_batch_scan (and its gang instance), K4
-// ffd_sweep_scan (both lanes) and K6 ffd_delta_scan: one templated kernel,
-// `scan_kernel<TOPO, SWEEP, GANG, SEED>`, that runs the
+// ffd_sweep_scan (both lanes), K6 ffd_delta_scan and K7 ffd_sharded_scan:
+// one templated kernel, `scan_kernel<TOPO, SWEEP, GANG, SEED, SHARDED>`,
+// that runs the
 // whole G-step scan of karpenter_tpu/solver/ffd.py `_solve_ffd_impl`
 // (ffd.py:210, scanned at :1062) for B problems in one launch, one thread
 // block per problem (the reference's `jax.vmap` axis, ffd.py:1492, :1531,
@@ -36,6 +37,21 @@
 //     column words come from a prefix the host replayed, the active count
 //     is the count of seeded slots, the zone and capacity-type pins stay
 //     -1, and exist_remaining arrives already consumed;
+//   * SHARDED (K7, ffd_sharded_scan.cu): one problem on a column-sharded
+//     catalog, the reference's `shard_map` program (ffd.py:1372, :1446;
+//     parallel/mesh.py): S thread blocks in ONE thread-block cluster, block
+//     r owning the r-th contiguous shard of the offering columns O (and of
+//     the (pool,type) axis PT in lockstep) and of the resident mask table,
+//     with the group-scan state replicated in every block.  Each
+//     column-axis reduction runs locally and is combined across the cluster
+//     through distributed shared memory (`cluster_combine`): the per-node
+//     best fit and the per-pool best column of the light step, the per-node
+//     slot maxima and the [P, D] best column of the heavy and gang steps
+//     (the reference's `_axmax`/`_axany` pmax, ffd.py:93-113, :490, :527,
+//     :632, :649, :667, :894, :918); the grid-slot domain pattern is shard
+//     0's leading block (its all_gather, :631, :893, :1161); and the
+//     explain=1 elimination counts are summed over the shards in the
+//     epilogue (its psum, :1202), the slot class joining after the sum;
 //   * with K > 0 the take_exist top-K compaction (:1068-1086) in the
 //     epilogue: a block scan ranks each group's nonzero entries;
 //   * with a priority row, the priority inversion witness (:1238-1257) in
@@ -84,7 +100,10 @@
 
 #include "ffd_common.cuh"
 
+#include <cooperative_groups.h>
 #include <limits.h>
+
+namespace cg = cooperative_groups;
 
 #define NT 1024
 #define MAXP 64
@@ -157,15 +176,27 @@ struct ScanArgs {
   const int* seed_pool;          // [N]
   const int* seed_active;        // [N] 0/1
   const uint32_t* seed_colmask;  // [A, W] surviving-column words per slot
+  // the column-sharded scan (the SHARDED instance): every column-axis
+  // pointer above addresses shard 0 of [S, ...] stacked shards, and O, PT
+  // and W are one shard's; mask_bits is the resident mask table [S, C, W]
+  const int* mask_rows;          // [G] each group's row of the mask table
+  int* xslot;                    // [S, N*ZC + 4G] scratch: per-node slot
+                                 // maxima, then the pack's [G, 4] counts
+  float* ex_counts;              // [G, 5] (flat) explain=1 counts, or null
+  float* ex_bits;                // [G]    (flat)
+  float* row0;                   // the flat row block 0 writes (the caller's)
+  float* xrow;                   // [S-1, total] then [S-1, P, R] scratch: the
+                                 // other blocks' flat rows and pool budgets
   int G, E, N, O, PT, ZC, P, D, W;
   int B, X, K, total;            // problems, exclusions, top-K, flat row
   int A;                         // seeded colmask rows (0 = not seeded)
+  int C, S;                      // mask-table rows, shards (SHARDED)
 };
 // Every pointer above addresses problem 0 of the batch; block b offsets the
 // per-problem ones (inputs, carry, the flat row) in offset_block.
 
-#define SCAN_NPTRS 55
-#define SCAN_NDIMS 14
+#define SCAN_NPTRS 61
+#define SCAN_NDIMS 16
 #define MAXX 8
 #define BIGCAP 536870912  /* encode.BIG: no per-node cap */
 
@@ -256,7 +287,79 @@ __device__ __forceinline__ uint32_t narrow_word(uint32_t m, int w, int ZC,
 }
 
 // ---------------------------------------------------------------------------
+// the cluster exchange of the column-sharded scan (SHARDED only)
+
+#define XCH 2048  // ints per exchange slot
+
+// Per block: two exchange slots (double-buffered, so one cluster barrier
+// per exchange round is enough: a block writes slot p only after the
+// barrier that follows every peer's reads of slot p from two rounds
+// before), each thread's own slot parity (every thread runs the same
+// sequence of exchanges, so the parities stay in step without a shared
+// counter), shard 0's leading grid-slot block of the zone and
+// capacity-type ids, and a small staging row.
+struct ClusterXch {
+  int buf[2][XCH];
+  unsigned char par[NT];
+  int zc0_zone[MAXZC], zc0_ct[MAXZC];
+  int tmp[2 * MAXP];
+};
+
+__device__ __forceinline__ ClusterXch& xch() {
+  __shared__ ClusterXch X;
+  return X;
+}
+
+// x [L] (shared or device memory) holds this block's local reduction; on
+// return every block of the cluster holds the combination over the
+// cluster's blocks: the max (the reference's pmax), or with SUM the
+// integer sum (its psum).  Both are exact in any order.  In rounds of XCH
+// values: each thread copies its values into this round's slot, one
+// cluster barrier, then each thread combines its values over every block's
+// slot through distributed shared memory.  Every thread of every block
+// calls, with the same L.
+template <bool SUM>
+__device__ void cluster_combine(int* x, int L) {
+  cg::cluster_group cl = cg::this_cluster();
+  ClusterXch& X = xch();
+  const int tid = threadIdx.x;
+  const unsigned S = cl.num_blocks();
+  __syncthreads();
+  for (int base = 0; base < L; base += XCH) {
+    const int n = min(XCH, L - base);
+    int* slot = X.buf[X.par[tid]];
+    for (int i = tid; i < n; i += NT) slot[i] = x[base + i];
+    cl.sync();
+    for (int i = tid; i < n; i += NT) {
+      int v = SUM ? 0 : INT_MIN;
+      for (unsigned r = 0; r < S; ++r) {
+        const int y = cl.map_shared_rank(slot, r)[i];
+        v = SUM ? (int)((unsigned)v + (unsigned)y) : max(v, y);
+      }
+      x[base + i] = v;
+    }
+    X.par[tid] ^= 1;
+  }
+  __syncthreads();
+}
+
+// the grid-slot domain ids every block uses: its own leading block, or
+// under SHARDED shard 0's (gathered in the prologue)
+template <bool SHARDED>
+__device__ __forceinline__ const int* slot_zone(const ScanArgs& a) {
+  if constexpr (SHARDED) return xch().zc0_zone;
+  return a.col_zone;
+}
+
+template <bool SHARDED>
+__device__ __forceinline__ const int* slot_ct(const ScanArgs& a) {
+  if constexpr (SHARDED) return xch().zc0_ct;
+  return a.col_ct;
+}
+
+// ---------------------------------------------------------------------------
 // the light step (ffd.py:460-587)
+template <bool SHARDED>
 __device__ void light_step(const ScanArgs& a, ScanShared& S,
                            const ScanDyn& s, int g) {
   const int tid = threadIdx.x;
@@ -344,6 +447,8 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
   }
   if (tid < P) S.limcap[tid] = fit_count(&a.limits[tid * KR], req);
   __syncthreads();
+  // the best over every shard's blocks (min with the cap commutes)
+  if constexpr (SHARDED) cluster_combine<false>(s.cap, N);
 
   // pool limits are collective: each node's cap is clamped by what its
   // pool's budget leaves after lower-index nodes of the same pool take
@@ -440,6 +545,21 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
     }
   }
   __syncthreads();
+  if constexpr (SHARDED) {
+    // each pool's best column and "any column" over every shard, as one
+    // [2P] exchange
+    ClusterXch& X = xch();
+    for (int p = tid; p < P; p += NT) {
+      X.tmp[p] = S.kfull[p];
+      X.tmp[P + p] = S.any[p];
+    }
+    cluster_combine<false>(X.tmp, 2 * P);
+    for (int p = tid; p < P; p += NT) {
+      S.kfull[p] = X.tmp[p];
+      S.any[p] = X.tmp[P + p];
+    }
+    __syncthreads();
+  }
 
   // the per-pool cascade, in pool priority order, on one thread
   if (tid == 0) {
@@ -645,6 +765,7 @@ __device__ void water_fill(HeavyShared& H, int D, int skew, int mindom) {
   __syncthreads();
 }
 
+template <bool SHARDED>
 __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
                            const ScanDyn& s, int g) {
   __shared__ HeavyShared H;
@@ -659,6 +780,7 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
   const int* ex_dom = dsel == 1 ? a.exist_zone : a.exist_ct;
   int* node_dom = dsel == 1 ? a.node_zone : a.node_ct;
   const int dreal = dsel == 1 ? S.dreal_zone : S.dreal_ct;
+  const int* zc_dom = dsel == 1 ? slot_zone<SHARDED>(a) : slot_ct<SHARDED>(a);
 
   for (int d = tid; d < D; d += NT) {
     H.dbase[d] = a.group_dbase[(size_t)g * D + d];
@@ -666,7 +788,7 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
     H.cape[d] = H.capn[d] = 0u;
     H.dexist[d] = H.dflight[d] = H.dnew[d] = 0u;
   }
-  for (int z = tid; z < ZC; z += NT) H.zcdom[z] = col_dom[z];
+  for (int z = tid; z < ZC; z += NT) H.zcdom[z] = zc_dom[z];
   for (int i = tid; i < P * D; i += NT) s.kpd[i] = 0;
   __syncthreads();
 
@@ -681,6 +803,25 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
   // each in-flight node serves ONE domain: the best per-domain capacity
   // (max over the domain's grid slots of the max over admitted blocks),
   // saturated at the group count, ties rotated over the real domain count
+  auto pick_domain = [&](int n, bool act, const int* slotmax) {
+    int best = 0, bd = 0, bcap = 0;
+    for (int d = 0; d < D; ++d) {
+      int capd = 0;
+      for (int z = 0; z < ZC; ++z)
+        if (H.zcdom[z] == d) capd = max(capd, slotmax[z]);
+      capd = act ? min(capd, ncap) : 0;
+      const int score = (int)((unsigned)wmul(min(capd, cnt), D + 1) +
+                              (unsigned)((n + d) % dreal));
+      if (d == 0 || score > best) {
+        best = score;
+        bd = d;
+        bcap = capd;
+      }
+    }
+    s.bd[n] = bd;
+    s.cap[n] = bcap;
+    atomicAdd(&H.capn[bd], (unsigned)bcap);
+  };
   for (int n = tid; n < N; n += NT) {
     int slotmax[MAXZC];
     for (int z = 0; z < ZC; ++z) slotmax[z] = 0;
@@ -709,23 +850,18 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
         }
       }
     }
-    int best = 0, bd = 0, bcap = 0;
-    for (int d = 0; d < D; ++d) {
-      int capd = 0;
-      for (int z = 0; z < ZC; ++z)
-        if (H.zcdom[z] == d) capd = max(capd, slotmax[z]);
-      capd = act ? min(capd, ncap) : 0;
-      const int score = (int)((unsigned)wmul(min(capd, cnt), D + 1) +
-                              (unsigned)((n + d) % dreal));
-      if (d == 0 || score > best) {
-        best = score;
-        bd = d;
-        bcap = capd;
-      }
+    if constexpr (SHARDED) {
+      // this shard's slot maxima; the pick waits for every shard's
+      for (int z = 0; z < ZC; ++z) a.xslot[(size_t)n * ZC + z] = slotmax[z];
+    } else {
+      pick_domain(n, act, slotmax);
     }
-    s.bd[n] = bd;
-    s.cap[n] = bcap;
-    atomicAdd(&H.capn[bd], (unsigned)bcap);
+  }
+  if constexpr (SHARDED) {
+    // the [N, ZC] slot maxima over every shard (ffd.py:632)
+    cluster_combine<false>(a.xslot, N * ZC);
+    for (int n = tid; n < N; n += NT)
+      pick_domain(n, a.active[n] != 0, a.xslot + (size_t)n * ZC);
   }
   // per-column pods-per-node of an empty node, the feasible columns, and
   // the best column per (pool, domain)
@@ -748,6 +884,8 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
     H.afford[p] = fit_count(&a.limits[p * KR], req);
   }
   __syncthreads();
+  // the [P, D] best column per (pool, domain) over every shard (:667)
+  if constexpr (SHARDED) cluster_combine<false>(s.kpd, P * D);
   const int na0 = S.na;
   for (int d = tid; d < D; d += NT) {
     // new-node pods per domain, clamped by what each pool can buy
@@ -1010,6 +1148,7 @@ __device__ __forceinline__ int gang_dom(int dsel, const int* zone,
 // budgets charged with the in-flight take, then each pool's new nodes and
 // pods, the new nodes pinned.  Evaluating the winner twice on the same
 // carry gives the same candidate bit for bit.  Every thread calls.
+template <bool SHARDED>
 __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
                                const ScanDyn& s, GangShared& Gs, int g,
                                int d, bool commit) {
@@ -1089,6 +1228,8 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
     s.cap[n] = cap;
   }
   __syncthreads();
+  // the best over every shard's blocks in d's slots (ffd.py:894)
+  if constexpr (SHARDED) cluster_combine<false>(s.cap, N);
   // pool limits are collective (_clamp_pool_limits on the carry budgets)
   for (int p = 0; p < P; ++p) {
     unsigned carry = 0u;
@@ -1224,6 +1365,7 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
   }
 }
 
+template <bool SHARDED>
 __device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
                           int g) {
   __shared__ GangShared Gs;
@@ -1237,7 +1379,8 @@ __device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
   // -- the step's tables: slot domains, existing caps, the budgets' pod
   // caps, the feasible columns and the best column per (pool, domain)
   for (int z = tid; z < ZC; z += NT)
-    Gs.zcdom[z] = gang_dom(dsel, a.col_zone, a.col_ct, z);
+    Gs.zcdom[z] = gang_dom(dsel, slot_zone<SHARDED>(a), slot_ct<SHARDED>(a),
+                           z);
   for (int i = tid; i < P * D; i += NT) s.kpd[i] = 0;
   for (int e = tid; e < E; e += NT)
     a.cap_e[e] = min(fit_count(&a.exist_rem[e * KR], req),
@@ -1259,9 +1402,12 @@ __device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
     }
   }
   __syncthreads();
+  // the [P, D] best column per (pool, domain) over every shard (:918)
+  if constexpr (SHARDED) cluster_combine<false>(s.kpd, P * D);
 
   // -- every domain's candidate, then the feasible one of lowest rank
-  for (int d = 0; d < D; ++d) gang_candidate(a, S, s, Gs, g, d, false);
+  for (int d = 0; d < D; ++d)
+    gang_candidate<SHARDED>(a, S, s, Gs, g, d, false);
   if (tid == 0) {
     int w = 0, best = 0;
     for (int d = 0; d < D; ++d) {
@@ -1280,7 +1426,7 @@ __device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
   __syncthreads();
   const int w = Gs.w;
   if (Gs.ok) {
-    gang_candidate(a, S, s, Gs, g, w, true);
+    gang_candidate<SHARDED>(a, S, s, Gs, g, w, true);
     if (tid == 0) a.unsched[g] = 0.0f;
   } else {
     // nothing commits: the gang strands whole
@@ -1366,6 +1512,160 @@ __device__ void offset_block(ScanArgs& a, int b) {
   if (a.prio_inv) a.prio_inv += row;
 }
 
+// Block r's view of the column-sharded problem (SHARDED): the column-axis
+// arrays moved to shard r (O, PT and W are one shard's), the carry to block
+// r's own (every block keeps a replica of the group-scan state), and for
+// r > 0 the flat result row and the pool budgets to a scratch replica:
+// block 0 alone writes the caller's.  The problem's replicated rows stay
+// where they are.
+__device__ void offset_shard(ScanArgs& a, int r) {
+  const size_t G = a.G, E = a.E, N = a.N, P = a.P, W = a.W;
+  const size_t O = a.O, PT = a.PT, rr = r;
+  // the shards
+  a.col_alloc += rr * O * KR;
+  a.col_daemon += rr * O * KR;
+  a.pt_alloc += rr * PT * KR;
+  a.col_pool += rr * O;
+  a.pool_bits += rr * P * W;
+  a.col_zone += rr * O;
+  a.col_ct += rr * O;
+  a.mask_bits += rr * (size_t)a.C * W;
+  if (a.seed_colmask) a.seed_colmask += rr * (size_t)a.A * W;
+  // the carry
+  a.exist_rem += rr * E * KR;
+  a.used += rr * N * KR;
+  a.colmask += rr * W * N;
+  a.active += rr * N;
+  a.node_pool += rr * N;
+  a.cap_e += rr * E;
+  a.node_zone += rr * N;
+  a.node_ct += rr * N;
+  a.xslot += rr * (N * (size_t)a.ZC + 4 * G);
+  if (r == 0) return;
+  // the flat row and the pool budgets: block 0 writes the caller's, every
+  // other block a replica of its own in the scratch (the steps read their
+  // flat rows and budgets back, so each block keeps its own)
+  const ptrdiff_t row = (a.xrow + (rr - 1) * a.total) - a.row0;
+  a.take_exist += row;
+  a.take_new += row;
+  a.unsched += row;
+  a.dom_placed += row;
+  a.used_out += row;
+  a.pool_out += row;
+  a.zone_out += row;
+  a.ct_out += row;
+  a.na_out += row;
+  if (a.prio_inv) a.prio_inv += row;
+  if (a.ex_counts) {
+    a.ex_counts += row;
+    a.ex_bits += row;
+  }
+  a.limits = a.xrow + (size_t)(a.S - 1) * a.total + (rr - 1) * P * KR;
+}
+
+// The explain=1 elimination counts of the column-sharded scan, K2's pack
+// (ffd_pack.cu; ffd.py:1113-1214) moved into K7's epilogue: each block
+// counts its shard's admitted columns per class (fit, limit, topology,
+// and the fitting, fundable ones for the whole-node class) for every
+// group from the final state, the counts are summed over the shards (the
+// reference's psum, ffd.py:1202), and the slot class joins after the sum.
+// A column's domain is its grid slot's in shard 0's leading block.
+// Integers only.  Every thread calls.
+template <bool GANG>
+__device__ void sharded_pack(const ScanArgs& a, ScanShared& S) {
+  __shared__ int s_part[4];
+  __shared__ int s_blocked[MAXZC];
+  __shared__ int s_bdom[MAXD];
+  const int tid = threadIdx.x;
+  const int G = a.G, PT = a.PT, ZC = a.ZC, D = a.D, W = a.W;
+  int* part = a.xslot + (size_t)a.N * ZC;  // [G, 4]
+  for (int g = 0; g < G; ++g) {
+    const int dsel = a.group_dsel ? a.group_dsel[g] : 0;
+    if (tid == 0) {
+      for (int k = 0; k < 4; ++k) s_part[k] = 0;
+      if (dsel > 0) {
+        // the skew ceiling after the group's own placements
+        const int* base = a.group_dbase + (size_t)g * D;
+        const int* elig = a.group_delig + (size_t)g * D;
+        const float* placed = a.dom_placed + (size_t)g * D;
+        int m_elig = 1 << 29, pop = 0;
+        for (int d = 0; d < D; ++d) {
+          const int f = (int)((unsigned)base[d] + (unsigned)(int)placed[d]);
+          if (elig[d]) {
+            m_elig = min(m_elig, f);
+            pop += f > 0;
+          }
+        }
+        const int mindom = a.group_mindom[g];
+        const int m_floor = (mindom > 0 && pop < mindom) ? 0 : m_elig;
+        const int ceiling =
+            (int)((unsigned)m_floor + (unsigned)a.group_skew[g]);
+        for (int d = 0; d < D; ++d) {
+          const int f = (int)((unsigned)base[d] + (unsigned)(int)placed[d]);
+          s_bdom[d] = !elig[d] || f >= ceiling;
+        }
+        const int* slot_dom =
+            dsel == 1 ? slot_zone<true>(a) : slot_ct<true>(a);
+        for (int z = 0; z < ZC; ++z)
+          s_blocked[z] = s_bdom[min(max(slot_dom[z], 0), D - 1)];
+      }
+    }
+    __syncthreads();
+    float req[KR];
+#pragma unroll
+    for (int r = 0; r < KR; ++r) req[r] = a.group_req[g * KR + r];
+    const uint32_t* row = a.mask_bits + (size_t)a.mask_rows[g] * W;
+    int fit = 0, lim = 0, topo = 0, ok = 0;
+    for (int pt = tid; pt < PT; pt += NT) {
+      const int lo = pt * ZC;
+      int cpb = 0;  // admitted columns of the block
+      for (int z = 0; z < ZC; ++z)
+        cpb += (row[(lo + z) >> 5] >> ((lo + z) & 31)) & 1u;
+      if (!cpb) continue;
+      const bool fits = all_fits3(&a.pt_alloc[pt * KR],
+                                  &a.col_daemon[(size_t)lo * KR], req);
+      const int p = a.col_pool[lo];
+      const bool lim_ok = all_fits3(&a.limits[p * KR],
+                                    &a.pool_daemon[p * KR], req);
+      if (!fits) {
+        fit += cpb;
+      } else if (!lim_ok) {
+        lim += cpb;
+      } else {
+        ok += cpb;
+        if (dsel > 0)
+          for (int z = 0; z < ZC; ++z)
+            if (s_blocked[z])
+              topo += (row[(lo + z) >> 5] >> ((lo + z) & 31)) & 1u;
+      }
+    }
+    atomicAdd(&s_part[0], fit);
+    atomicAdd(&s_part[1], lim);
+    atomicAdd(&s_part[2], topo);
+    atomicAdd(&s_part[3], ok);
+    __syncthreads();
+    if (tid < 4) part[g * 4 + tid] = s_part[tid];
+    __syncthreads();
+  }
+  cluster_combine<true>(part, 4 * G);
+  for (int g = tid; g < G; g += NT) {
+    const int* c = part + g * 4;
+    const bool stranded = a.unsched[g] > 0.0f;
+    const bool gang = GANG && a.group_gang[g] != 0;
+    const bool whole = a.group_whole[g] != 0 || gang;
+    const int whole_cols = GANG ? c[3] - c[2] : c[3];
+    const int counts[5] = {c[0], c[1], c[2],
+                           (whole && stranded) ? whole_cols : 0,
+                           (stranded && S.na >= a.N) ? 1 : 0};
+    int bits = 0;
+    for (int i = 0; i < 5; ++i) {
+      a.ex_counts[(size_t)g * 5 + i] = (float)counts[i];
+      if (counts[i] > 0) bits |= 1 << i;
+    }
+    a.ex_bits[g] = (float)bits;
+  }
+}
+
 // The top-K take_exist compaction (ffd.py:1068-1086): each group's nonzero
 // entries in index order, ranked by a block scan, scattered into K
 // (count, index) slots; empty slots hold (0, 0), ranks past K drop.
@@ -1403,8 +1703,10 @@ __device__ void compact_take_exist(const ScanArgs& a, ScanShared& S) {
 // group_gang set.  SWEEP: the problem is a simulation of a shared
 // snapshot, built in the prologue (kept existing rows, price-capped class
 // masks).  SEED (light only, one problem): the carry starts from the
-// prefix state of the seed arrays.
-template <bool TOPO, bool SWEEP, bool GANG, bool SEED>
+// prefix state of the seed arrays.  SHARDED (one problem, B = 1): the
+// grid is ONE cluster of S blocks, block r holding column shard r; the
+// column-axis reductions combine across the cluster (cluster_combine).
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, bool SHARDED = false>
 __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScanShared S;
@@ -1412,7 +1714,10 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   const int tid = threadIdx.x;
   if (tid == 0) {
     A = a0;
-    offset_block<SWEEP>(A, blockIdx.x);
+    if constexpr (SHARDED)
+      offset_shard(A, (int)cg::this_cluster().block_rank());
+    else
+      offset_block<SWEEP>(A, blockIdx.x);
   }
   __syncthreads();
   const ScanArgs& a = A;
@@ -1476,6 +1781,26 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     S.dreal_zone = INT_MIN;
     S.dreal_ct = INT_MIN;
   }
+  if constexpr (SHARDED) {
+    // every block takes shard 0's leading grid-slot block as the
+    // slot->domain map (the reference's all_gather(...)[0], ffd.py:631)
+    cg::cluster_group cl = cg::this_cluster();
+    ClusterXch& X = xch();
+    X.par[tid] = 0;  // each thread's own exchange-slot parity
+    for (int z = tid; z < a.ZC; z += NT) {
+      X.zc0_zone[z] = a.col_zone[z];
+      X.zc0_ct[z] = a.col_ct[z];
+    }
+    cl.sync();
+    if (cl.block_rank() != 0) {
+      const int* zz = cl.map_shared_rank(X.zc0_zone, 0);
+      const int* zt = cl.map_shared_rank(X.zc0_ct, 0);
+      for (int z = tid; z < a.ZC; z += NT) {
+        X.zc0_zone[z] = zz[z];
+        X.zc0_ct[z] = zt[z];
+      }
+    }
+  }
   __syncthreads();
   if (SEED) {
     // num_active = seed_active.sum(): new nodes append after the seeded
@@ -1496,6 +1821,20 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     atomicMax(&S.dreal_zone, mz);
     atomicMax(&S.dreal_ct, mc);
     __syncthreads();
+    if constexpr (SHARDED) {
+      // the max over every shard's columns
+      ClusterXch& X = xch();
+      if (tid == 0) {
+        X.tmp[0] = S.dreal_zone;
+        X.tmp[1] = S.dreal_ct;
+      }
+      cluster_combine<false>(X.tmp, 2);
+      if (tid == 0) {
+        S.dreal_zone = X.tmp[0];
+        S.dreal_ct = X.tmp[1];
+      }
+      __syncthreads();
+    }
     if (tid == 0) {
       S.dreal_zone = max(S.dreal_zone + 1, 1);
       S.dreal_ct = max(S.dreal_ct + 1, 1);
@@ -1515,8 +1854,10 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
       S.first = INT_MAX;
       S.sum = 0;
     }
+    // the mesh path gathers the group's row of the resident mask table
+    const int mrow = SHARDED ? a.mask_rows[g] : row;
     for (int w = tid; w < W; w += NT) {
-      const uint32_t m = a.mask_bits[(size_t)row * W + w];
+      const uint32_t m = a.mask_bits[(size_t)mrow * W + w];
       s.gm[w] = SWEEP ? (m & s.pm[w]) : m;
       s.feas[w] = 0u;
     }
@@ -1528,23 +1869,29 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     __syncthreads();
     if constexpr (GANG) {
       if (S.gang)
-        gang_step(a, S, s, g);
+        gang_step<SHARDED>(a, S, s, g);
       else if (S.dsel > 0)
-        heavy_step(a, S, s, g);
+        heavy_step<SHARDED>(a, S, s, g);
       else
-        light_step(a, S, s, g);
+        light_step<SHARDED>(a, S, s, g);
     } else if constexpr (TOPO) {
       if (S.dsel > 0)
-        heavy_step(a, S, s, g);
+        heavy_step<SHARDED>(a, S, s, g);
       else
-        light_step(a, S, s, g);
+        light_step<SHARDED>(a, S, s, g);
     } else {
-      light_step(a, S, s, g);
+      light_step<SHARDED>(a, S, s, g);
     }
     __syncthreads();
   }
   if (a.K > 0) compact_take_exist(a, S);
   if (!SWEEP && a.prio_inv && tid == 0) priority_witness(a);
+  if constexpr (SHARDED) {
+    if (a.ex_counts) {
+      __syncthreads();
+      sharded_pack<GANG>(a, S);
+    }
+  }
 
   // -- final state ---------------------------------------------------------
   for (int i = tid; i < N * KR; i += NT) a.used_out[i] = a.used[i];
@@ -1554,14 +1901,75 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     a.ct_out[n] = (float)a.node_ct[n];
   }
   if (tid == 0) a.na_out[0] = (float)S.na;
+  // no block leaves while a peer may still read its shared memory
+  if constexpr (SHARDED) cg::this_cluster().sync();
+}
+
+// the dynamic shared memory of one block
+template <bool TOPO, bool SWEEP>
+size_t scan_smem(const ScanArgs& a) {
+  return (size_t)a.PT * KR * sizeof(float) + 2 * (size_t)a.N * sizeof(int) +
+         2 * (size_t)a.W * sizeof(uint32_t) +
+         (TOPO ? ((size_t)a.N + (size_t)a.P * a.D) * sizeof(int) : 0) +
+         (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0);
+}
+
+// The launch configuration of the column-sharded instance: one cluster of
+// a.S blocks (cudaLaunchAttributeClusterDimension), sizes past the
+// portable 8 with cudaFuncAttributeNonPortableClusterSizeAllowed.  `attr`
+// is the one attribute `cfg` points at.
+template <bool TOPO, bool GANG, bool SEED>
+cudaError_t sharded_config(const ScanArgs& a, size_t smem, void* stream,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
+  auto kern = scan_kernel<TOPO, false, GANG, SEED, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (a.S > 8) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cfg = {};
+  cfg.gridDim = dim3(a.S, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of this launch shape the card holds at once
+// (cudaOccupancyMaxActiveClusters), or -1000 - a CUDA error code.  The
+// caller asks once per shape before the first launch (parallel/mesh.py
+// MeshExecutor); a launch the card cannot hold is refused by
+// cudaLaunchKernelEx all the same, never run some other way.
+template <bool TOPO, bool GANG, bool SEED>
+int sharded_occupancy(const ScanArgs& a) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = sharded_config<TOPO, GANG, SEED>(
+      a, scan_smem<TOPO, false>(a), nullptr, cfg, attr);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(
+        &n, (void*)scan_kernel<TOPO, false, GANG, SEED, true>, &cfg);
+  return err == cudaSuccess ? n : -1000 - (int)err;
 }
 
 // Plain-C entry point body for ctypes.  ptrs: SCAN_NPTRS device addresses in
 // ScanArgs order (0 for what the instance does not read); dims: G, E, N, O,
-// PT, ZC, P, D, W, B, X, K, total, A.  Returns 0, a CUDA error code
-// (cudaGetLastError after the launch), or a negative argument error.
-// Launches B blocks on `stream` and does not synchronise.
-template <bool TOPO, bool SWEEP, bool GANG, bool SEED>
+// PT, ZC, P, D, W, B, X, K, total, A, C, S.  Returns 0, a CUDA error code
+// (cudaGetLastError after the launch, or cudaLaunchKernelEx's refusal of a
+// cluster the card cannot hold), or a negative argument error.  Launches B
+// blocks (SHARDED: one cluster of S blocks) on `stream` and does not
+// synchronise.
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, bool SHARDED = false>
 int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
                int ndims, void* stream) {
   if (nptrs != SCAN_NPTRS || ndims != SCAN_NDIMS) return -1;
@@ -1622,6 +2030,12 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.seed_pool = (const int*)ptrs[i++];
   a.seed_active = (const int*)ptrs[i++];
   a.seed_colmask = (const uint32_t*)ptrs[i++];
+  a.mask_rows = (const int*)ptrs[i++];
+  a.xslot = (int*)ptrs[i++];
+  a.ex_counts = (float*)ptrs[i++];
+  a.ex_bits = (float*)ptrs[i++];
+  a.row0 = (float*)ptrs[i++];
+  a.xrow = (float*)ptrs[i++];
   a.G = dims[0];
   a.E = dims[1];
   a.N = dims[2];
@@ -1636,6 +2050,8 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.K = dims[11];
   a.total = dims[12];
   a.A = dims[13];
+  a.C = dims[14];
+  a.S = dims[15];
   if (a.P < 1 || a.P > MAXP || a.ZC < 1 || a.N < 1 || a.D < 1 || a.G < 1 ||
       a.B < 1 || a.O != a.PT * a.ZC || a.W != (a.O + 31) / 32 || a.K < 0 ||
       !a.node_zone || !a.node_ct ||
@@ -1671,17 +2087,34 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
       (!SEED && (a.A != 0 || a.seed_pool || a.seed_active ||
                  a.seed_colmask)))
     return -2;
-  const size_t smem = (size_t)a.PT * KR * sizeof(float) +
-                      2 * (size_t)a.N * sizeof(int) +
-                      2 * (size_t)a.W * sizeof(uint32_t) +
-                      (TOPO ? ((size_t)a.N + (size_t)a.P * a.D) * sizeof(int)
-                            : 0) +
-                      (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<TOPO, SWEEP, GANG, SEED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  scan_kernel<TOPO, SWEEP, GANG, SEED>
-      <<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  // the column-sharded instance: one problem over S shards, the mask
+  // table rows gathered per group, the slot scratch, the counts in the
+  // epilogue (both regions or none); no other instance takes any of it
+  if (SHARDED && (SWEEP || a.B != 1 || a.K != 0 || a.S < 1 || a.S > 16 ||
+                  a.C < 1 || !a.mask_rows || !a.xslot || a.ZC > MAXZC ||
+                  a.P > MAXP || !a.row0 || (a.S > 1 && !a.xrow) ||
+                  (a.ex_counts != nullptr) != (a.ex_bits != nullptr)))
+    return -2;
+  if (!SHARDED && (a.C != 0 || a.S != 0 || a.mask_rows || a.xslot ||
+                   a.ex_counts || a.ex_bits || a.row0 || a.xrow))
+    return -2;
+  const size_t smem = scan_smem<TOPO, SWEEP>(a);
+  if constexpr (SHARDED) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    cudaError_t err =
+        sharded_config<TOPO, GANG, SEED>(a, smem, stream, cfg, attr);
+    if (err == cudaSuccess)
+      err = cudaLaunchKernelEx(&cfg, scan_kernel<TOPO, false, GANG, SEED, true>,
+                               a);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        scan_kernel<TOPO, SWEEP, GANG, SEED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    scan_kernel<TOPO, SWEEP, GANG, SEED>
+        <<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
 }

@@ -26,14 +26,19 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # the sources, one library each
-KERNELS = ("ffd_batch_scan", "ffd_sweep_scan", "ffd_delta_scan", "ffd_pack")
+KERNELS = ("ffd_batch_scan", "ffd_sweep_scan", "ffd_delta_scan", "ffd_pack",
+           "ffd_sharded_scan")
 # entry point -> the source that exports it
 ENTRIES = {"ffd_batch_scan": "ffd_batch_scan",
            "ffd_batch_gang_scan": "ffd_batch_scan",
            "ffd_sweep_scan": "ffd_sweep_scan",
            "ffd_sweep_topo_scan": "ffd_sweep_scan",
            "ffd_delta_scan": "ffd_delta_scan",
-           "ffd_pack": "ffd_pack"}
+           "ffd_pack": "ffd_pack",
+           "ffd_sharded_scan": "ffd_sharded_scan",
+           "ffd_sharded_gang_scan": "ffd_sharded_scan",
+           "ffd_sharded_delta_scan": "ffd_sharded_scan",
+           "ffd_sharded_occupancy": "ffd_sharded_scan"}
 
 # -fmad=false and the precise division/sqrt keep the float arithmetic the
 # reference's (the kernels also spell every operation with a

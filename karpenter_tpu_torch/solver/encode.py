@@ -354,6 +354,10 @@ class CatalogEncoding:
     fill_factor: float = 1.0
     layout: str = "grid"
     device_args: Optional[dict] = None  # device-resident padded arrays
+    # under a mesh: the column-sharded catalog (device_args is then its
+    # full-width view) and the resident group-mask row table
+    mesh_args: Optional[object] = None
+    mask_registry: Optional[object] = None
 
 
 def encode_catalog(inp: ScheduleInput) -> CatalogEncoding:

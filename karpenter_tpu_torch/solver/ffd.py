@@ -27,6 +27,13 @@ runs them as hand-written CUDA kernels, one thread block per problem:
     problem started from a prefix's replayed carry (used, pool and active
     per node slot, the seeded slots' surviving columns) instead of zeros;
     the delta pass and every chunk of the speculative chunk chain run it.
+  * ``sharded_scan`` (K7, `csrc/ffd_sharded_scan.cu`): the column-sharded
+    scan of one problem (the reference's resident `shard_map` programs,
+    ffd.py:1372 and the seeded :1446) — the offering columns and the
+    (pool,type) blocks split over S shards (`ShardedCatalog`), each
+    group's mask gathered from a resident row table, one thread-block
+    cluster of S blocks whose column reductions combine through
+    distributed shared memory, and the explain=1 counts in its epilogue;
   * ``pack`` (K2, `csrc/ffd_pack.cu`): the explain=1 elimination counts,
     topology class and the with_gang whole class included, and with
     explain=2 the [G, O] per-column class map, from the scan's final state,
@@ -36,12 +43,12 @@ With ``sparse_k`` > 0 the scans also compact each group's take_exist row
 into K (count, index) pairs, the reference's prefix-rank scatter.  Beside
 each kernel sits its plain PyTorch version (``batch_scan_reference``,
 ``sweep_scan_reference``, ``sweep_topo_scan_reference``,
-``delta_scan_reference``, ``pack_reference``), a transcription of the
-reference with a Python loop over problems, groups and pools; every scan
-shares one light and one heavy
-step.  A wrapper runs the kernel for a CUDA tensor and the plain version
-for a CPU tensor; there is no fallback from one to the other.  Each
-wrapper counts its kernel launches in ``.launches``.
+``delta_scan_reference``, ``sharded_scan_reference``, ``pack_reference``),
+a transcription of the reference with a Python loop over problems, groups
+and pools; every scan shares one light and one heavy step.  A wrapper
+runs the kernel for a CUDA tensor and the plain version for a CPU tensor;
+there is no fallback from one to the other.  Each wrapper counts its
+kernel launches in ``.launches``.
 
 The flat result buffer of one problem has exactly the reference's layout
 (ffd.py:1258):
@@ -59,8 +66,9 @@ splits a row into the same named host arrays.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, fields
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +83,7 @@ BIG = 2 ** 29  # the encoder's "unbounded" cap (encode.BIG)
 MAX_POOLS = 64  # the kernels' pool-axis capacity (csrc MAXP)
 MAX_DOMAINS = 128  # the kernels' domain-axis capacity (csrc MAXD)
 MAX_EXCLUDED = 8  # the sweep kernels' exclusions per simulation (csrc MAXX)
+MAX_SHARDS = 16  # K7's largest cluster (non-portable past 8)
 
 
 # -- tensors -----------------------------------------------------------------
@@ -237,10 +246,115 @@ class DeltaSeed:
     seed_pool: torch.Tensor     # [N] i32
     seed_active: torch.Tensor   # [N] i32 0/1
     seed_colmask: torch.Tensor  # [A, W] i32 surviving-column words per slot
+                                # ([S, A, W_s] per shard on the mesh path)
 
     @property
     def A(self) -> int:
-        return self.seed_colmask.shape[0]
+        return self.seed_colmask.shape[-2]
+
+
+@dataclass
+class ShardedCatalog:
+    """The catalog split over S shards of the offering-column axis, on
+    whole (pool,type) blocks (the reference's `P(ax)`/`P(ax, None)`
+    shardings, parallel/mesh.py): every column-axis array stacked as
+    [S, ...], shard r contiguous at [r]; each shard's pool column bits in
+    its own words (W_s = ceil(O_s / 32), pad bits zero); pool_daemon
+    replicated.  The shards in order are the full-width arrays, so `full()`
+    is a view."""
+    col_alloc: torch.Tensor       # [S, O_s, R] f32
+    col_daemon: torch.Tensor      # [S, O_s, R] f32
+    pt_alloc: torch.Tensor        # [S, PT_s, R] f32
+    col_pool: torch.Tensor        # [S, O_s] i32
+    pool_daemon: torch.Tensor     # [P, R] f32 (replicated)
+    pool_bits: torch.Tensor       # [S, P, W_s] i32
+    col_zone: torch.Tensor        # [S, O_s] i32 (tiled pattern on padding)
+    col_ct: torch.Tensor          # [S, O_s] i32
+    full_pool_bits: torch.Tensor  # [P, W] i32, the full-width words
+    zc: int
+
+    @property
+    def S(self) -> int:
+        return self.col_alloc.shape[0]
+
+    @property
+    def O_s(self) -> int:
+        return self.col_alloc.shape[1]
+
+    @property
+    def PT_s(self) -> int:
+        return self.pt_alloc.shape[1]
+
+    @property
+    def W_s(self) -> int:
+        return (self.O_s + 31) // 32
+
+    @property
+    def O(self) -> int:
+        return self.S * self.O_s
+
+    @property
+    def PT(self) -> int:
+        return self.S * self.PT_s
+
+    def full(self) -> FFDCatalog:
+        """The same catalog at full width (views): what the unsharded
+        kernels read (the batched and sweep paths under a mesh)."""
+        return FFDCatalog(
+            self.col_alloc.view(-1, R), self.col_daemon.view(-1, R),
+            self.pt_alloc.view(-1, R), self.col_pool.view(-1),
+            self.pool_daemon, self.full_pool_bits, self.col_zone.view(-1),
+            self.col_ct.view(-1), zc=self.zc)
+
+
+def split_columns(a: np.ndarray, S: int, axis: int = 0) -> List[np.ndarray]:
+    """S contiguous shards of `a` along `axis`, whose length S divides."""
+    if a.shape[axis] % S:
+        raise ValueError(f"axis of {a.shape[axis]} does not split over "
+                         f"{S} shards")
+    return [np.ascontiguousarray(x) for x in np.split(a, S, axis=axis)]
+
+
+def shard_words(mask: np.ndarray, S: int) -> List[np.ndarray]:
+    """[..., O] bool → S shards of [..., W_s] i32 words, each shard
+    packing its own O/S columns from bit 0 (pad bits zero)."""
+    O_s = mask.shape[-1] // S
+    return [pack_mask_bits(m, O_s)
+            for m in split_columns(np.asarray(mask, bool), S, axis=-1)]
+
+
+def sharded_catalog_tensors(cat_arrays: Dict, S: int,
+                            ex) -> ShardedCatalog:
+    """The padded catalog arrays (numpy, as `catalog_tensors` takes
+    them; PT a multiple of S) as a ShardedCatalog: each column-axis array
+    committed shard by shard through `ex.put_sharded` (parallel.mesh
+    MeshExecutor, which logs the bytes), pool_daemon and the full-width
+    pool bits through `ex.put_replicated`."""
+    zc = int(cat_arrays["zc"])
+    col_pool = np.asarray(cat_arrays["col_pool"], np.int32)
+    pool_daemon = np.asarray(cat_arrays["pool_daemon"], np.float32)
+    O, P = col_pool.shape[0], pool_daemon.shape[0]
+    pt_alloc = np.asarray(cat_arrays["pt_alloc"], np.float32)
+    if pt_alloc.shape[0] % S or O != pt_alloc.shape[0] * zc:
+        raise ValueError(f"PT={pt_alloc.shape[0]} does not split over {S} "
+                         f"shards on whole blocks")
+    pool_cols = col_pool[None, :] == np.arange(P, dtype=np.int32)[:, None]
+
+    def cols(name, dt):
+        return ex.put_sharded(split_columns(
+            np.asarray(cat_arrays[name], dt), S), "catalog")
+    cat = ShardedCatalog(
+        col_alloc=cols("col_alloc", np.float32),
+        col_daemon=cols("col_daemon", np.float32),
+        pt_alloc=ex.put_sharded(split_columns(pt_alloc, S), "catalog"),
+        col_pool=ex.put_sharded(split_columns(col_pool, S), "catalog"),
+        pool_daemon=ex.put_replicated(pool_daemon),
+        pool_bits=ex.put_sharded(shard_words(pool_cols, S), "catalog"),
+        col_zone=cols("col_zone", np.int32),
+        col_ct=cols("col_ct", np.int32),
+        full_pool_bits=ex.put_replicated(pack_mask_bits(pool_cols, O)),
+        zc=zc)
+    return cat
 
 
 def pack_mask_bits(mask: np.ndarray, O: int) -> np.ndarray:
@@ -317,9 +431,11 @@ def catalog_tensors(cat_arrays: Dict, device) -> FFDCatalog:
 
 def problem_arrays(prob: Sequence[np.ndarray], O: int) -> list:
     """The reference's `_problem_args` tuple (numpy, padded; slot 2 a
-    [G, O] bool mask or its packed [G, ceil(O/8)] bytes): 17 slots, or 18
-    with the priority-band row `group_prio` — as the scan's 18 host arrays
-    in FFDProblem order (a zero priority row for the 17-slot form)."""
+    [G, O] bool mask or its packed [G, ceil(O/8)] bytes, or on the mesh
+    path — `_problem_args_mesh` — the [G] rows of the resident mask table):
+    17 slots, or 18 with the priority-band row `group_prio` — as the
+    scan's 18 host arrays in FFDProblem order (a zero priority row for the
+    17-slot form).  The mesh form's `mask_bits` holds the [G] row ids."""
     if len(prob) not in (17, 18):
         raise ValueError(f"a problem tuple has 17 or 18 slots, not "
                          f"{len(prob)}")
@@ -329,9 +445,11 @@ def problem_arrays(prob: Sequence[np.ndarray], O: int) -> list:
      exist_zone, exist_ct) = prob[:17]
     group_prio = (np.asarray(prob[17], np.int32) if len(prob) > 17
                   else np.zeros(np.asarray(group_count).shape, np.int32))
+    group_mask = np.asarray(group_mask)
     return [np.asarray(group_req, np.float32),
             np.asarray(group_count, np.int32),
-            pack_mask_bits(np.asarray(group_mask), O),
+            (group_mask.astype(np.int32) if group_mask.ndim == 1
+             else pack_mask_bits(group_mask, O)),
             np.asarray(exist_cap, np.int32),
             np.asarray(exist_remaining, np.float32),
             np.asarray(pool_limit, np.float32),
@@ -418,7 +536,9 @@ def delta_tensors(prob: Sequence[np.ndarray], seed_used: np.ndarray,
     gang-free and priority-free by contract (the reference's delta program
     runs with_topology False, with_gang 0, with_priority 0): a problem with
     a domain, gang or priority row is refused here, on the host, rather
-    than solved as something else."""
+    than solved as something else.  With `seed_colmask` None (the mesh
+    path, whose seed words go per shard through the executor) the seed's
+    `seed_colmask` is left for the caller to set."""
     if len(prob) != 17:
         raise ValueError("the seeded scan takes the 17-slot problem: it "
                          "has no priority witness")
@@ -430,9 +550,12 @@ def delta_tensors(prob: Sequence[np.ndarray], seed_used: np.ndarray,
     arrays = problem_arrays(prob, O) + [
         np.asarray(seed_used, np.float32),
         np.asarray(seed_pool, np.int32),
-        np.asarray(seed_active).astype(np.int32),
-        pack_mask_bits(np.asarray(seed_colmask), O)]
-    t = upload(arrays, torch.device(device))
+        np.asarray(seed_active).astype(np.int32)]
+    if seed_colmask is None:
+        t = upload(arrays, torch.device(device))
+        return FFDProblem(*t[:-3]), DeltaSeed(*t[-3:], seed_colmask=None)
+    t = upload(arrays + [pack_mask_bits(np.asarray(seed_colmask), O)],
+               torch.device(device))
     return FFDProblem(*t[:-4]), DeltaSeed(*t[-4:])
 
 
@@ -645,14 +768,23 @@ class _Scan:
 
     def __init__(self, prob: FFDProblem, cat: FFDCatalog, N: int,
                  work: Optional[Dict[str, int]],
-                 seed: Optional[DeltaSeed] = None):
+                 seed: Optional[DeltaSeed] = None, shards: int = 1,
+                 gmask: Optional[torch.Tensor] = None,
+                 seed_cols: Optional[torch.Tensor] = None):
+        """With `shards` S > 1 (the column-sharded scan) every reduction
+        over the column or (pool,type) axis runs per contiguous shard and
+        combines over the shards (`_cmax`, `_cany`); `gmask` [G, O] and
+        `seed_cols` [A, O] bool then give the group masks and the seed's
+        surviving columns in place of the problem's and the seed's words."""
         dev = prob.group_req.device
         i32, f32 = torch.int32, torch.float32
         self.prob, self.cat, self.N, self.work = prob, cat, N, work
         self.dev = dev
         self.G, self.E, self.P, self.D = prob.G, prob.E, prob.P, prob.D
         self.zc, self.PT, self.O = cat.zc, cat.PT, cat.O
-        self.gmask_all = _unpack_bits(prob.mask_bits, cat.O)
+        self.S = shards
+        self.gmask_all = (gmask if gmask is not None
+                          else _unpack_bits(prob.mask_bits, cat.O))
         self.col_avail = cat.col_alloc - cat.col_daemon
         self.pool_idx = [cat.col_pool == p for p in range(prob.P)]
         self.idx = torch.arange(N, dtype=i32, device=dev)
@@ -672,10 +804,24 @@ class _Scan:
             # (none past them), num_active the count of seeded slots;
             # exist_remaining arrives already consumed
             self.used = seed.seed_used.clone()
-            self.colmask[:seed.A] = _unpack_bits(seed.seed_colmask, cat.O)
+            self.colmask[:seed.A] = (
+                seed_cols if seed_cols is not None
+                else _unpack_bits(seed.seed_colmask, cat.O))
             self.active = seed.seed_active != 0
             self.node_pool = seed.seed_pool.clone()
             self.num_active = self.active.to(i32).sum().to(i32)
+
+    def _cmax(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Max over the column (or (pool,type)) axis `dim`: each shard's
+        local max, then the max over the shards — the reference's `_axmax`
+        (ffd.py:93), a local max and a pmax.  Exact in any order."""
+        local = [c.amax(dim=dim) for c in torch.chunk(x, self.S, dim=dim)]
+        return torch.stack(local).amax(dim=0)
+
+    def _cany(self, x: torch.Tensor) -> torch.Tensor:
+        """any() over the column axis: per shard, then over the shards
+        (the reference's `_axany`, ffd.py:107)."""
+        return torch.stack([c.any() for c in torch.chunk(x, self.S)]).any()
 
     def light(self, g: int):
         """The light step (ffd.py:460-587).  Returns (take_exist [E],
@@ -707,7 +853,7 @@ class _Scan:
         # -- 2. in-flight nodes
         cap_npt = _fit_count(cat.pt_alloc[None] - used[:, None], req)
         elig_pt = (colmask & gmask[None]).view(N, PT, zc).any(dim=-1)
-        best = torch.where(elig_pt, cap_npt, 0).max(dim=1).values
+        best = self._cmax(torch.where(elig_pt, cap_npt, 0), dim=1)
         if work is not None:
             # existing rows, active nodes' eligible blocks, pool budgets,
             # the empty-node fit of each admitted column, and the cascade's
@@ -744,9 +890,9 @@ class _Scan:
         k_new_total = torch.zeros(N, dtype=i32, device=self.dev)
         for p in range(P):
             cols_p = col_feas & self.pool_idx[p]
-            k_full = torch.where(cols_p, per_col, 0).max().to(i32)
+            k_full = self._cmax(torch.where(cols_p, per_col, 0)).to(i32)
             pd = cat.pool_daemon[p]
-            can = (cols_p.any() & _fits(limits[p] - pd - req)
+            can = (self._cany(cols_p) & _fits(limits[p] - pd - req)
                    & (c_rem > 0) & (k_full > 0))
             can = can & torch.where(
                 whole,
@@ -823,8 +969,8 @@ class _Scan:
         cap_npt = _fit_count(cat.pt_alloc[None] - used[:, None], req)
         cap_no = torch.where(colmask & gmask[None],
                              _pt_expand(cap_npt, zc), 0)             # [N, O]
-        zc_dom = col_dom[:zc]
-        slotmax = cap_no.view(N, PT, zc).max(dim=1).values           # [N, ZC]
+        zc_dom = col_dom[:zc]   # shard 0's leading block
+        slotmax = self._cmax(cap_no.view(N, PT, zc), dim=1)          # [N, ZC]
         cap_nd = torch.where(
             zc_dom[None, :, None] == dom_ids[None, None, :],
             slotmax[:, :, None], 0).max(dim=1).values.T              # [D, N]
@@ -839,7 +985,7 @@ class _Scan:
             work["test"] += P
         # each in-flight node serves ONE domain: the best capacity, ties
         # rotated over the real domain count
-        d_real = torch.clamp(col_dom.max() + 1, min=1)
+        d_real = torch.clamp(self._cmax(col_dom) + 1, min=1)
         score = _w32(_mul_i32(torch.minimum(cap_nd, cnt), D + 1).to(
             torch.int64) + (idx[None, :] + dom_ids[:, None]) % d_real)
         bd = torch.argmax(score, dim=0).to(i32)                       # [N]
@@ -849,8 +995,9 @@ class _Scan:
         per_col = torch.minimum(_fit_count(self.col_avail, req), ncap)
         col_feas = gmask & (per_col >= 1)
         kfull_pd = torch.stack([
-            torch.where(dom_cols & (col_feas & self.pool_idx[p])[None, :],
-                        per_col[None, :], 0).max(-1).values
+            self._cmax(torch.where(
+                dom_cols & (col_feas & self.pool_idx[p])[None, :],
+                per_col[None, :], 0), dim=1)
             for p in range(P)]).to(i32)                              # [P, D]
         limits = self.limits
         rooms = torch.stack([_fits(limits[p] - cat.pool_daemon[p] - req)
@@ -1042,8 +1189,8 @@ class _Scan:
         cap_npt = _fit_count(cat.pt_alloc[None] - used[:, None], req)
         cap_no = torch.where(colmask & gmask[None],
                              _pt_expand(cap_npt, zc), 0)             # [N, O]
-        zc_dom = col_dom[:zc]
-        slotmax = cap_no.view(N, PT, zc).max(dim=1).values           # [N, ZC]
+        zc_dom = col_dom[:zc]   # shard 0's leading block
+        slotmax = self._cmax(cap_no.view(N, PT, zc), dim=1)          # [N, ZC]
         cap_nd = torch.where(
             zc_dom[None, :, None] == dom_ids[None, None, :],
             slotmax[:, :, None], 0).max(dim=1).values.T              # [D, N]
@@ -1068,8 +1215,9 @@ class _Scan:
         per_col = torch.minimum(_fit_count(self.col_avail, req), ncap)
         col_feas = gmask & (per_col >= 1)
         kfull_pd = torch.stack([
-            torch.where(dom_cols & (col_feas & self.pool_idx[p])[None, :],
-                        per_col[None, :], 0).max(-1).values
+            self._cmax(torch.where(
+                dom_cols & (col_feas & self.pool_idx[p])[None, :],
+                per_col[None, :], 0), dim=1)
             for p in range(P)]).to(i32)                              # [P, D]
         pool_take_d = torch.stack([
             torch.zeros(P, dtype=f32, device=dev).index_add_(
@@ -1200,16 +1348,17 @@ def _scan_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                     flat: torch.Tensor, lay: Dict, limits_out: torch.Tensor,
                     work: Optional[Dict[str, int]], topology: bool,
                     sparse_k: int = 0, with_gang: int = 0,
-                    seed: Optional[DeltaSeed] = None) -> None:
+                    seed: Optional[DeltaSeed] = None, **sharding) -> None:
     """The plain scan of one problem: per group the light step, or with
     `topology` the heavy step for a group with dsel > 0 (the reference's
     `lax.cond(dsel > 0, heavy, light)`, ffd.py:1057), or with `with_gang`
     the gang fill for a gang group (ffd.py:1049-1056).  Writes the
     kernels' outputs into the problem's flat row; with `sparse_k`, the
     take_exist rows compacted; where the layout holds `prio_inv`, the
-    priority inversion witness; with a `seed`, from the seeded carry."""
+    priority inversion witness; with a `seed`, from the seeded carry;
+    `sharding` (shards, gmask, seed_cols) as `_Scan` takes it."""
     f32 = torch.float32
-    s = _Scan(prob, cat, N, work, seed)
+    s = _Scan(prob, cat, N, work, seed, **sharding)
     dsel = prob.group_dsel.tolist()
     gang = prob.group_gang.tolist()
     te_rows, tn_rows, un_rows, dp_rows = [], [], [], []
@@ -1390,17 +1539,28 @@ def sweep_topo_scan_reference(sw: SweepBatch, cat: FFDCatalog, N: int,
 
 def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                    flat: torch.Tensor, lay: Dict, limits: torch.Tensor,
-                   with_gang: int = 0) -> None:
+                   with_gang: int = 0, shards: int = 1,
+                   gmask: Optional[torch.Tensor] = None) -> None:
     """Plain PyTorch version of K2: the explain=1 aux (ffd.py:1113-1214),
     the topology class (ffd.py:1141-1175) and, with `with_gang`, the
     whole class of gang strands (ffd.py:1181-1194) included; where the
     layout holds `explain_map`, the explain=2 per-column class map
-    (ffd.py:1215-1237)."""
+    (ffd.py:1215-1237).  With `shards` S > 1 (the column-sharded scan's
+    epilogue) each class count is summed per contiguous shard of the
+    (pool,type) blocks and then over the shards (the reference's psum,
+    ffd.py:1202), the slot class joining after the sum; `gmask` [G, O]
+    bool gives the group masks in place of the problem's words."""
     dev = flat.device
     i32, f32 = torch.int32, torch.float32
     G = prob.G
     zc, PT = cat.zc, cat.PT
-    gmask_pt = _unpack_bits(prob.mask_bits, cat.O).view(G, PT, zc)
+    gmask_pt = (gmask if gmask is not None
+                else _unpack_bits(prob.mask_bits, cat.O)).view(G, PT, zc)
+
+    def psum(x):  # [G, PT, ...] -> [G]: per shard, then over the shards
+        x = x.reshape(G, PT, -1)
+        return torch.stack([c.sum((1, 2)) for c in
+                            torch.chunk(x, shards, dim=1)]).sum(0)
     cols_per_block = gmask_pt.sum(dim=-1).to(i32)            # [G, PT]
     pt_daemon = cat.col_daemon.view(PT, zc, R)[:, 0]
     pt_pool = cat.col_pool.view(PT, zc)[:, 0].long()
@@ -1410,9 +1570,8 @@ def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
     lim_ok = _fits(limits[None] - cat.pool_daemon[None]
                    - req[:, None])                           # [G, P]
     lim_ok_pt = lim_ok[:, pt_pool]
-    elim_fit = torch.where(~fits_pt, cols_per_block, 0).sum(-1)
-    elim_limit = torch.where(fits_pt & ~lim_ok_pt,
-                             cols_per_block, 0).sum(-1)
+    elim_fit = psum(torch.where(~fits_pt, cols_per_block, 0))
+    elim_limit = psum(torch.where(fits_pt & ~lim_ok_pt, cols_per_block, 0))
     # topology: admitted columns of fitting, fundable blocks whose
     # domain is ineligible or at the skew ceiling after the group's
     # own placements (dom_placed); domain of a column via its grid slot
@@ -1433,9 +1592,9 @@ def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
     slot_blocked = torch.gather(
         blocked_dom, 1, torch.clamp(slot_dom, 0, D - 1).long())
     ok_pt = fits_pt & lim_ok_pt                              # [G, PT]
-    elim_topo = torch.where(
+    elim_topo = psum(torch.where(
         (prob.group_dsel > 0)[:, None, None] & slot_blocked[:, None, :]
-        & ok_pt[:, :, None], gmask_pt.to(i32), 0).sum((1, 2))
+        & ok_pt[:, :, None], gmask_pt.to(i32), 0))
     stranded = _region(flat, lay, "unsched") > 0
     topo_sel = ((prob.group_dsel > 0)[:, None, None]
                 & slot_blocked[:, None, :])                  # [G, 1, ZC]
@@ -1444,10 +1603,10 @@ def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
         # gang strands count in the whole class too, less the columns
         # topology already claimed (a gang carries dsel > 0)
         whole = whole | (prob.group_gang != 0)
-        whole_cols = torch.where(ok_pt[:, :, None] & ~topo_sel,
-                                 gmask_pt.to(i32), 0).sum((1, 2))
+        whole_cols = psum(torch.where(ok_pt[:, :, None] & ~topo_sel,
+                                      gmask_pt.to(i32), 0))
     else:
-        whole_cols = torch.where(ok_pt, cols_per_block, 0).sum(-1)
+        whole_cols = psum(torch.where(ok_pt, cols_per_block, 0))
     elim_whole = torch.where(whole & stranded, whole_cols, 0)
     na = _region(flat, lay, "num_active")[0]
     slots = (stranded & (na >= N)).to(elim_fit.dtype)
@@ -1507,17 +1666,14 @@ def _check_catalog(cat: FFDCatalog, P: int, device) -> None:
         _check(t, name, dt, shp, device)
 
 
-def _check_problem(prob: FFDProblem, cat: FFDCatalog, N: int,
-                   device) -> None:
-    """Shapes, types, device and contiguity of one problem (FFDProblem) or
-    of a batch (FFDBatch: every shape with its leading B)."""
-    G, E, P, W, D = prob.G, prob.E, prob.P, cat.W, prob.D
-    lead = (prob.B,) if isinstance(prob, FFDBatch) else ()
+def _problem_fields(prob: FFDProblem, mask_shape: Tuple[int, ...]):
+    """(name, tensor, dtype, shape) of every field of one problem, its
+    mask_bits of `mask_shape`."""
+    G, E, P, D = prob.G, prob.E, prob.P, prob.D
     f32, i32 = torch.float32, torch.int32
-    for name, t, dt, shp in (
-            ("group_req", prob.group_req, f32, (G, R)),
+    return (("group_req", prob.group_req, f32, (G, R)),
             ("group_count", prob.group_count, i32, (G,)),
-            ("mask_bits", prob.mask_bits, i32, (G, W)),
+            ("mask_bits", prob.mask_bits, i32, mask_shape),
             ("exist_cap", prob.exist_cap, i32, (G, E)),
             ("exist_remaining", prob.exist_remaining, f32, (E, R)),
             ("pool_limit", prob.pool_limit, f32, (P, R)),
@@ -1532,7 +1688,16 @@ def _check_problem(prob: FFDProblem, cat: FFDCatalog, N: int,
             ("exist_zone", prob.exist_zone, i32, (E,)),
             ("exist_ct", prob.exist_ct, i32, (E,)),
             ("group_gang", prob.group_gang, i32, (G,)),
-            ("group_prio", prob.group_prio, i32, (G,))):
+            ("group_prio", prob.group_prio, i32, (G,)))
+
+
+def _check_problem(prob: FFDProblem, cat: FFDCatalog, N: int,
+                   device) -> None:
+    """Shapes, types, device and contiguity of one problem (FFDProblem) or
+    of a batch (FFDBatch: every shape with its leading B)."""
+    G, P, D = prob.G, prob.P, prob.D
+    lead = (prob.B,) if isinstance(prob, FFDBatch) else ()
+    for name, t, dt, shp in _problem_fields(prob, (G, cat.W)):
         _check(t, name, dt, lead + shp, device)
     _check_catalog(cat, P, device)
     if N < 1 or G < 1 or D < 1:
@@ -1592,40 +1757,56 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
-                 D: int, X: int, cat: FFDCatalog, flat: torch.Tensor,
+                 D: int, X: int, cat, flat: torch.Tensor,
                  lay: Dict, limits_out: torch.Tensor, sparse_k: int,
                  inputs: Dict[str, Optional[torch.Tensor]],
-                 A: int = 0) -> None:
+                 A: int = 0, mesh: Optional[Dict] = None) -> None:
     """Launch one of the scan kernels (grid: one block per problem) with
     the argument list every instance takes (ScanArgs order); `inputs`
     holds the per-problem or per-simulation tensors (and the seeded
     instance's seed, `A` its colmask rows), None where the instance reads
-    nothing."""
+    nothing.  With `mesh` (K7: {"S", "C", "mask_rows"}) `cat` is a
+    ShardedCatalog, the grid is one cluster of S blocks each holding a
+    replica of the carry, the dims carry one shard's O, PT and W, and
+    block 0 writes the flat row `flat` [total] and the budgets
+    `limits_out` [P, R] (the other blocks keep theirs in the scratch)."""
     from karpenter_tpu_torch.solver import _cuda
     dev = flat.device
-    W = cat.W
+    if mesh is None:
+        O, PT, W, reps = cat.O, cat.PT, cat.W, B
+    else:
+        O, PT, W, reps = cat.O_s, cat.PT_s, cat.W_s, mesh["S"]
+    total = lay["total"][1]
     if P > MAX_POOLS:
         raise ValueError(f"{P} node pools: the kernels take at most "
                          f"{MAX_POOLS}")
     if D > MAX_DOMAINS:
         raise ValueError(f"{D} topology domains: the kernels take at most "
                          f"{MAX_DOMAINS}")
-    # per-block scratch (the scan's carry), one slice per problem
-    scratch_f = torch.empty(B * (E * R + N * R + G * E * (sparse_k > 0)),
-                            dtype=torch.float32, device=dev)
-    scratch_i = torch.empty(B * (W * N + 4 * N + E), dtype=torch.int32,
-                            device=dev)
-    exist_rem = scratch_f[:B * E * R]
-    used = scratch_f[B * E * R:B * (E * R + N * R)]
-    te_dense = scratch_f[B * (E * R + N * R):] if sparse_k else None
-    colmask = scratch_i[:B * W * N]
-    rest = scratch_i[B * W * N:]
-    active, node_pool = rest[:B * N], rest[B * N:2 * B * N]
-    node_zone, node_ct = rest[2 * B * N:3 * B * N], rest[3 * B * N:4 * B * N]
-    cap_e = rest[4 * B * N:]
+    # per-block scratch (the scan's carry), one slice per problem (per
+    # shard on the mesh, with its slot-maxima and counts scratch)
+    n_rows = 0 if mesh is None else (reps - 1) * (total + P * R)
+    scratch_f = torch.empty(reps * (E * R + N * R + G * E * (sparse_k > 0))
+                            + n_rows, dtype=torch.float32, device=dev)
+    n_x = 0 if mesh is None else reps * (N * cat.zc + 4 * G)
+    scratch_i = torch.empty(reps * (W * N + 4 * N + E) + n_x,
+                            dtype=torch.int32, device=dev)
+    exist_rem = scratch_f[:reps * E * R]
+    used = scratch_f[reps * E * R:reps * (E * R + N * R)]
+    te_dense = scratch_f[reps * (E * R + N * R):] if sparse_k else None
+    xrow = scratch_f[scratch_f.numel() - n_rows:] if n_rows else None
+    colmask = scratch_i[:reps * W * N]
+    rest = scratch_i[reps * W * N:]
+    active, node_pool = rest[:reps * N], rest[reps * N:2 * reps * N]
+    node_zone = rest[2 * reps * N:3 * reps * N]
+    node_ct = rest[3 * reps * N:4 * reps * N]
+    cap_e = rest[4 * reps * N:4 * reps * N + reps * E]
+    xslot = rest[4 * reps * N + reps * E:] if mesh is not None else None
+
+    row0 = flat.view(-1)   # problem 0's (block 0's) flat row
 
     def reg(name):
-        return flat[0, lay[name][0]:] if name in lay else None
+        return row0[lay[name][0]:] if name in lay else None
 
     i = inputs
     ptrs = [
@@ -1648,9 +1829,14 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
         i.get("group_gang"), i.get("group_prio"), reg("prio_inv"),
         i.get("seed_used"), i.get("seed_pool"), i.get("seed_active"),
         i.get("seed_colmask"),
+        None if mesh is None else mesh["mask_rows"], xslot,
+        reg("explain_counts") if mesh is not None else None,
+        reg("explain_bits") if mesh is not None else None,
+        None if mesh is None else row0, xrow,
     ]
-    dims = [G, E, N, cat.O, cat.PT, cat.zc, P, D, W, B, X, sparse_k,
-            lay["total"][1], A]
+    dims = [G, E, N, O, PT, cat.zc, P, D, W, B, X, sparse_k, total, A,
+            0 if mesh is None else mesh["C"],
+            0 if mesh is None else mesh["S"]]
     stream = torch.cuda.current_stream(dev).cuda_stream
     _cuda.launch(entry, [_ptr(t) for t in ptrs], dims, stream)
 
@@ -1925,6 +2111,215 @@ def solve_ffd_sweep(sw: SweepBatch, cat: FFDCatalog, max_nodes: int,
     limits = torch.empty((sw.B, sw.P, R), dtype=torch.float32, device=dev)
     scan = sweep_topo_scan if sw.heavy else sweep_scan
     scan(sw, cat, max_nodes, flat, lay, limits, sparse_k)
+    return flat
+
+
+# -- the column-sharded scan (the mesh path) ---------------------------------
+def sharded_group_masks(rows: torch.Tensor, table: torch.Tensor,
+                        O_s: int) -> torch.Tensor:
+    """The groups' [G, O] bool masks from their rows `rows` [G] of the
+    resident mask table `table` [S, C, W_s]: each shard's gathered words
+    unpacked to its O_s columns, the shards side by side."""
+    r = rows.long()
+    return torch.cat([_unpack_bits(table[k][r], O_s)
+                      for k in range(table.shape[0])], dim=1)
+
+
+def sharded_scan_reference(prob: FFDProblem, table: torch.Tensor,
+                           cat: ShardedCatalog, N: int, flat: torch.Tensor,
+                           lay: Dict, limits_out: torch.Tensor,
+                           with_gang: int = 0,
+                           seed: Optional[DeltaSeed] = None,
+                           work: Optional[Dict[str, int]] = None) -> None:
+    """Plain PyTorch version of K7: the reference's resident programs
+    under `shard_map` (`_solve_ffd_resident_impl` ffd.py:1372, the seeded
+    `_solve_ffd_delta_resident_impl` :1446), the column axes split into
+    `cat.S` contiguous shards on whole (pool,type) blocks.  Each group's
+    mask is gathered from its row of every shard of the mask table (`prob.
+    mask_bits` holds the [G] row ids); the column work is elementwise per
+    shard; every reduction over columns or blocks runs per shard and
+    combines as the JAX program does — by max (`_axmax`/`_axany`, the
+    [P, D] winner table), by shard 0's leading block (the grid-slot domain
+    pattern), and, where the layout holds explain counts, by an integer
+    sum of the per-shard counts with the slot class joining after it.
+    With a `seed` ([S, A, W_s] column words) the seeded, light-only scan.
+    Writes one flat row and the final pool budgets."""
+    S = cat.S
+    full = cat.full()
+    gmask = sharded_group_masks(prob.mask_bits, table, cat.O_s)
+    seed_cols = None
+    if seed is not None:
+        seed_cols = torch.cat([_unpack_bits(seed.seed_colmask[k], cat.O_s)
+                               for k in range(S)], dim=1)
+    _scan_reference(prob, full, N, flat, lay, limits_out, work,
+                    topology=seed is None, with_gang=with_gang, seed=seed,
+                    shards=S, gmask=gmask, seed_cols=seed_cols)
+    if "explain_counts" in lay:
+        pack_reference(prob, full, N, flat, lay, limits_out, with_gang,
+                       shards=S, gmask=gmask)
+
+
+def _check_sharded(prob: FFDProblem, table: torch.Tensor,
+                   cat: ShardedCatalog, N: int, device,
+                   seed: Optional[DeltaSeed]) -> None:
+    G, P, D, S = prob.G, prob.P, prob.D, cat.S
+    f32, i32 = torch.float32, torch.int32
+    O_s, W_s, PT_s = cat.O_s, cat.W_s, cat.PT_s
+    # the problem's mask_bits holds its [G] rows of the table
+    checks = list(_problem_fields(prob, (G,))) + [
+        ("mask table", table, i32, (S, table.shape[1], W_s)),
+        ("col_alloc", cat.col_alloc, f32, (S, O_s, R)),
+        ("col_daemon", cat.col_daemon, f32, (S, O_s, R)),
+        ("pt_alloc", cat.pt_alloc, f32, (S, PT_s, R)),
+        ("col_pool", cat.col_pool, i32, (S, O_s)),
+        ("pool_daemon", cat.pool_daemon, f32, (P, R)),
+        ("pool_bits", cat.pool_bits, i32, (S, P, W_s)),
+        ("col_zone", cat.col_zone, i32, (S, O_s)),
+        ("col_ct", cat.col_ct, i32, (S, O_s))]
+    if seed is not None:
+        checks += [("seed_used", seed.seed_used, f32, (N, R)),
+                   ("seed_pool", seed.seed_pool, i32, (N,)),
+                   ("seed_active", seed.seed_active, i32, (N,)),
+                   ("seed_colmask", seed.seed_colmask, i32,
+                    (S, seed.A, W_s))]
+        if seed.A > N:
+            raise ValueError(f"{seed.A} seeded colmask rows past N={N}")
+    for name, t, dt, shp in checks:
+        _check(t, name, dt, shp, device)
+    if N < 1 or G < 1 or D < 1 or table.shape[1] < 1:
+        raise ValueError(f"empty problem: G={G}, N={N}, D={D}")
+    if P > MAX_POOLS or D > MAX_DOMAINS:
+        raise ValueError(f"{P} pools / {D} domains: the kernels take at "
+                         f"most {MAX_POOLS} / {MAX_DOMAINS}")
+    if not 1 <= S <= MAX_SHARDS:
+        raise ValueError(f"{S} shards: one cluster holds 1 to {MAX_SHARDS} "
+                         f"blocks")
+
+
+def _sharded_launch_args(prob, table, cat, lay, with_gang, seed):
+    """(entry, inputs, mesh, A) of one K7 launch."""
+    inputs = {f.name: getattr(prob, f.name) for f in fields(prob)}
+    inputs["mask_bits"] = table
+    mesh = dict(S=cat.S, C=table.shape[1], mask_rows=prob.mask_bits)
+    if seed is not None:
+        for name in ("group_dsel", "group_dbase", "group_dcap", "group_skew",
+                     "group_mindom", "group_delig", "group_gang",
+                     "group_prio"):
+            inputs.pop(name)
+        inputs.update({f.name: getattr(seed, f.name) for f in fields(seed)})
+        return "ffd_sharded_delta_scan", inputs, mesh, seed.A
+    if not with_gang:
+        inputs.pop("group_gang")
+    if "prio_inv" not in lay:
+        inputs.pop("group_prio")
+    return (("ffd_sharded_gang_scan" if with_gang else "ffd_sharded_scan"),
+            inputs, mesh, 0)
+
+
+def sharded_scan(prob: FFDProblem, table: torch.Tensor, cat: ShardedCatalog,
+                 N: int, flat: torch.Tensor, lay: Dict,
+                 limits_out: torch.Tensor, with_gang: int = 0,
+                 seed: Optional[DeltaSeed] = None) -> None:
+    """K7: the column-sharded scan of one problem over `cat.S` shards —
+    the heavy step for groups with dsel > 0, with `with_gang` the gang
+    fill, with a `seed` the seeded light-only scan — and, where the layout
+    holds them, the explain=1 counts (in its epilogue) and the priority
+    witness, into the flat row `flat` [total] and the final pool budgets
+    `limits_out` [P, R].  `prob.mask_bits` holds the groups' [G] rows of
+    the resident mask table `table` [S, C, W_s].  CUDA tensors launch one
+    cluster of S blocks (a cluster the card cannot hold raises); CPU
+    tensors run `sharded_scan_reference`."""
+    dev = flat.device
+    _check_sharded(prob, table, cat, N, dev, seed)
+    _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
+    _check(limits_out, "limits_out", torch.float32, (prob.P, R), dev)
+    if "te_cnt" in lay or "explain_map" in lay:
+        raise ValueError("the sharded scan writes dense take_exist rows and "
+                         "at most the explain counts (explain=full has no "
+                         "sharded form)")
+    if seed is not None and ("prio_inv" in lay or with_gang):
+        raise ValueError("the seeded scan is gang-free, with no witness")
+    if dev.type != "cuda":
+        if seed is not None and (bool(prob.group_dsel.any())
+                                 or bool(prob.group_gang.any())):
+            raise ValueError("the seeded scan is light-only and gang-free")
+        sharded_scan_reference(prob, table, cat, N, flat, lay, limits_out,
+                               with_gang, seed)
+        return
+    entry, inputs, mesh, A = _sharded_launch_args(prob, table, cat, lay,
+                                                  with_gang, seed)
+    _launch_scan(entry, 1, prob.G, prob.E, N, prob.P, prob.D, 0, cat, flat,
+                 lay, limits_out, 0, inputs, A=A, mesh=mesh)
+    if seed is not None:
+        sharded_scan.delta_launches += 1
+    elif with_gang:
+        sharded_scan.gang_launches += 1
+    else:
+        sharded_scan.launches += 1
+
+
+sharded_scan.launches = 0        # ffd_sharded_scan
+sharded_scan.gang_launches = 0   # ffd_sharded_gang_scan
+sharded_scan.delta_launches = 0  # ffd_sharded_delta_scan
+
+
+def sharded_clusters(prob: FFDProblem, table: torch.Tensor,
+                     cat: ShardedCatalog, N: int, lay: Dict,
+                     with_gang: int = 0,
+                     seed: Optional[DeltaSeed] = None) -> int:
+    """How many clusters of K7's launch for these arguments the card
+    holds at once (cudaOccupancyMaxActiveClusters; 0 = the launch would be
+    refused).  Launches nothing; CUDA tensors only."""
+    from karpenter_tpu_torch.solver import _cuda
+    variant = 2 if seed is not None else 1 if with_gang else 0
+    dims = [prob.G, prob.E, N, cat.O_s, cat.PT_s, cat.zc, prob.P, prob.D,
+            cat.W_s, 1, 0, 0, lay["total"][1],
+            0 if seed is None else seed.A, table.shape[1], cat.S]
+    rc = _cuda.kernel("ffd_sharded_occupancy")(
+        None, 0, (ctypes.c_int * len(dims))(*dims), len(dims),
+        ctypes.c_void_p(variant))
+    if rc < 0:
+        raise RuntimeError(f"ffd_sharded_occupancy failed: {rc}")
+    return rc
+
+
+def sharded_solve_ffd(prob: FFDProblem, table: torch.Tensor,
+                      cat: ShardedCatalog, max_nodes: int, explain: int = 0,
+                      with_gang: int = 0,
+                      with_priority: int = 0) -> torch.Tensor:
+    """The kernel-level entry of the column-sharded solve (the
+    reference's `sharded_solve_ffd`, parallel/mesh.py:110, and the
+    resident program `MeshExecutor.solve` runs): K7, the explain counts in
+    its epilogue (explain is clamped to counts by the caller: the [G, O]
+    map has no sharded form, ffd.py:374).  Returns the flat f32 result row
+    on the device (not synchronised)."""
+    if explain not in (0, 1):
+        raise ValueError(f"explain={explain}: the sharded scan computes "
+                         "counts (1) or nothing (0)")
+    dev = prob.group_req.device
+    lay = flat_layout(prob.G, prob.E, max_nodes, prob.D, explain,
+                      with_priority=with_priority)
+    flat = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
+    limits = torch.empty((prob.P, R), dtype=torch.float32, device=dev)
+    sharded_scan(prob, table, cat, max_nodes, flat, lay, limits, with_gang)
+    return flat
+
+
+def sharded_delta_ffd(prob: FFDProblem, seed: DeltaSeed, table: torch.Tensor,
+                      cat: ShardedCatalog, max_nodes: int,
+                      explain: int = 0) -> torch.Tensor:
+    """The seeded column-sharded solve (`MeshExecutor.solve_delta`,
+    parallel/mesh.py:265): K7's seeded instance from `seed`, whose column
+    words arrive per shard ([S, A, W_s]), with explain clamped to counts.
+    Returns the flat f32 result row (not synchronised)."""
+    if explain not in (0, 1):
+        raise ValueError(f"explain={explain}: the seeded solve computes "
+                         "counts (1) or nothing (0)")
+    dev = prob.group_req.device
+    lay = flat_layout(prob.G, prob.E, max_nodes, prob.D, explain)
+    flat = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
+    limits = torch.empty((prob.P, R), dtype=torch.float32, device=dev)
+    sharded_scan(prob, table, cat, max_nodes, flat, lay, limits, seed=seed)
     return flat
 
 

@@ -33,9 +33,10 @@ its host paths around the device solve:
   * the pool-limit backstop: when pods strand on a binding pool limit, one
     oracle solve of the whole input, kept if it strands fewer.
 
-What the port does not run yet raises `UnsupportedPods`, naming the slice
-that brings it: soft terms that need the relaxation loop.  A result is
-therefore always the reference's result.
+Soft terms (preferences, preferred affinity, ScheduleAnyway spread) go
+through the reference's bounded relaxation loop around the solve
+(`_solve_relaxed`).  `UnsupportedPods` is left for inputs that neither the
+device solve nor the split path can take, as in the reference.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ from karpenter_tpu_torch.solver.encode import (
     group_column_mask,
     group_pods,
 )
+from karpenter_tpu_torch.utils import knobs
 from karpenter_tpu_torch.utils.knobs import priority_enabled
 
 R = len(RESOURCE_AXIS)
@@ -125,7 +127,7 @@ class _SplitNeeded(Exception):
 
 class TorchSolver:
     def __init__(self, max_nodes: int = 1024, device="cuda", delta="auto",
-                 spec="auto", incr="auto"):
+                 spec="auto", incr="auto", mesh="auto"):
         """`device`: where the kernels run — "cuda" (the default, the
         card) or "cpu" (the kernels' plain PyTorch versions; the tests
         use it).  With "cuda" and no CUDA device, `solve` raises
@@ -140,9 +142,22 @@ class TorchSolver:
         `incr_arm()` declares a live watch feed, "on" always, "off"/None
         never.  KARPENTER_TPU_DELTA, KARPENTER_TPU_SPEC and
         KARPENTER_TPU_INCR (on/off/auto) override the constructed values;
-        each is resolved once, at the first solve."""
+        each is resolved once, at the first solve.
+
+        `mesh`: the column-sharded solve — an integer S > 1 splits the
+        catalog's offering columns over S shards (on one card, K7's S
+        thread blocks in one cluster), "auto" takes the device count
+        (`torch.cuda.device_count()` on "cuda", 1 on "cpu", so one device
+        is the single-device path, as the reference's), a `parallel.Mesh`
+        is taken as it is, "off"/None/0 is the single-device path.
+        KARPENTER_TPU_MESH (off/0, auto, an integer) overrides it; resolved
+        once."""
         self.max_nodes = max_nodes
         self.device = torch.device(device)
+        self._mesh_spec = mesh
+        self._mesh = None
+        self._mesh_resolved = False
+        self._mesh_exec = None  # parallel.MeshExecutor once resolved
         self._delta_spec, self._delta_resolved = delta, None
         self._spec_spec, self._spec_resolved = spec, None
         self._incr_spec, self._incr_resolved = incr, None
@@ -193,6 +208,14 @@ class TorchSolver:
         # it runs (released on every exit)
         self._exist_names_cache = None
         self._in_sweep_decode = False
+        # the relaxation loop's wall-clock budget per solve (None =
+        # unbounded), the outermost call's deadline, and its counts (the
+        # reference's RELAXATION_* metrics): solves that relaxed, rounds
+        # run, budget exits
+        self.relax_budget_s = knobs.relax_budget_s()
+        self._relax_deadline: Optional[float] = None
+        self.relax_counts: Dict[str, int] = {
+            "solves": 0, "rounds": 0, "budget_exceeded": 0}
 
     def _check_device(self) -> None:
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -206,6 +229,56 @@ class TorchSolver:
         if self._explain_resolved is None:
             self._explain_resolved = explainmod.mode()
         return self._explain_resolved
+
+    def _explain_kernel_mode(self) -> int:
+        """The explain level the solve's kernels run at: the resolved
+        mode, clamped to counts under a mesh (the [G, O] class map has no
+        sharded form, ffd.py:374)."""
+        exc = self._explain_mode()
+        if exc >= 2 and self._resolve_mesh() is not None:
+            return 1
+        return exc
+
+    # -- the mesh ----------------------------------------------------------
+    @property
+    def mesh(self):
+        """The resolved mesh (None = single-device)."""
+        return self._resolve_mesh()
+
+    def _resolve_mesh(self):
+        if self._mesh_resolved:
+            return self._mesh
+        self._mesh_resolved = True
+        from karpenter_tpu_torch.parallel import Mesh, MeshExecutor, make_mesh
+        spec = knobs.mesh_spec(self._mesh_spec)
+        if spec in (None, 0, False, "off", ""):
+            return None
+        if isinstance(spec, Mesh):
+            mesh = spec if spec.size > 1 else None
+        else:
+            if spec == "auto":
+                n = (torch.cuda.device_count()
+                     if self.device.type == "cuda" else 1)
+            else:
+                try:
+                    n = int(spec)
+                except (TypeError, ValueError):
+                    n = 0  # a malformed spec degrades to single-device
+            mesh = make_mesh(n, self.device) if n > 1 else None
+        if mesh is not None:
+            self._mesh_exec = MeshExecutor(mesh)
+        self._mesh = mesh
+        return mesh
+
+    def _pt_align(self) -> int:
+        """The (pool,type) axis pads to lcm(PT_ALIGN, mesh size), so the
+        column axis O = PT_pad x ZC splits over the shards on whole
+        (pool,type) blocks, for every mesh size (6 included)."""
+        mesh = self._resolve_mesh()
+        if mesh is None:
+            return PT_ALIGN
+        import math
+        return PT_ALIGN * mesh.size // math.gcd(PT_ALIGN, mesh.size)
 
     # -- the steady-state knobs ------------------------------------------
     def _resolve_delta(self):
@@ -281,9 +354,10 @@ class TorchSolver:
         # allocatable (fit nothing) and are in no group mask.
         ZC = cat.zc
         PT = len(cat.columns) // ZC if ZC else 0
-        PT_pad = max(-(-PT // PT_ALIGN) * PT_ALIGN, PT_ALIGN)
+        align = self._pt_align()
+        PT_pad = max(-(-PT // align) * align, align)
         O = PT_pad * ZC
-        cat.device_args = ffd.catalog_tensors(dict(
+        arrays = dict(
             col_alloc=self._pad(cat.col_alloc, 0, O),
             col_daemon=self._pad(cat.col_daemon, 0, O),
             pt_alloc=self._pad(cat.pt_alloc, 0, PT_pad),
@@ -291,7 +365,19 @@ class TorchSolver:
             col_zone=self._pad_tiled(cat.col_zone, O, ZC),
             col_ct=self._pad_tiled(cat.col_ct, O, ZC),
             pool_daemon=cat.pool_daemon,
-            zc=ZC), self.device)
+            zc=ZC)
+        mesh = self._resolve_mesh()
+        if mesh is None:
+            cat.device_args = ffd.catalog_tensors(arrays, self.device)
+        else:
+            # pre-partitioned shards, uploaded once per catalog identity
+            # and resident (logged in the executor's transfers); the
+            # batched and sweep paths read the same arrays at full width
+            from karpenter_tpu_torch.parallel import MaskRowRegistry
+            cat.mesh_args = ffd.sharded_catalog_tensors(
+                arrays, mesh.size, self._mesh_exec)
+            cat.device_args = cat.mesh_args.full()
+            cat.mask_registry = MaskRowRegistry(self._mesh_exec, O)
         self._cat_entry = (key, cat)
         return cat
 
@@ -300,7 +386,8 @@ class TorchSolver:
         """Pad a per-column domain id to O columns with the TILED per-block
         pattern (the reference's `_pad_tiled`): the heavy step's real
         domain count reads the maximum id over every column, padding
-        included."""
+        included, and a mesh shard made only of padding blocks still holds
+        the global slot->domain pattern."""
         out = np.empty(O, a.dtype)
         n = len(a)
         out[:n] = a
@@ -368,6 +455,17 @@ class TorchSolver:
         if gp is not None and len(np.unique(gp[:len(enc.groups)])) > 1:
             prob = prob + (self._pad(gp, 0, G),)
         return prob
+
+    def _problem_args_mesh(self, enc: EncodedProblem, G: int, E: int,
+                           Db: int, O: int, registry):
+        """The mesh path's `_problem_args`: the same tuple, with slot 2 the
+        groups' [G] rows of the resident mask table instead of the [G, O]
+        mask (padded group slots index the all-false row 0), so no
+        column-axis array travels per solve once the rows are resident.
+        Returns (prob, table): dispatch uses the returned table snapshot."""
+        prob = self._problem_args(enc, G, E, Db, O)
+        rows, table = registry.ensure(prob[2])
+        return prob[:2] + (rows,) + prob[3:], table
 
     # -- the solve -------------------------------------------------------
     def solve(self, inp: ScheduleInput,
@@ -704,9 +802,15 @@ class TorchSolver:
 
     def _solve_relaxed(self, inp: ScheduleInput,
                        max_nodes: Optional[int] = None) -> ScheduleResult:
-        """Group, then solve.  Pods with soft terms (preferences, preferred
-        affinity, ScheduleAnyway spread) need the reference's relaxation
-        loop around the solve, which comes with slice 2c."""
+        """Group, then solve, with soft-term relaxation: preferred node
+        affinity, preferred pod affinity and ScheduleAnyway spread are
+        enforced as required (`Pod.relaxed`), and pods that stay
+        unschedulable get their weakest term dropped and the whole problem
+        re-solved.  Bounded by the total count of soft terms (at most 64
+        extra rounds) and by a per-solve wall-clock deadline
+        (KARPENTER_TPU_RELAX_BUDGET) that the split path's nested solves
+        inherit; past it, the stragglers go to the caller's rescue oracle
+        on their original soft semantics."""
         t0 = time.perf_counter()
         # the incremental index replaces the grouping walk when it can
         # resolve this pass; real solves only — a capped consolidation sim
@@ -718,15 +822,56 @@ class TorchSolver:
         # grouping belongs to the encode phase (folded in by
         # _solve_attempt)
         self._pregroup_ms = (time.perf_counter() - t0) * 1e3
-        if any(g[0].preferences
-               or ((g[0].pod_affinities or g[0].topology_spread)
-                   and g[0].has_soft_terms())
-               for g in groups):
-            raise UnsupportedPods(
-                "soft scheduling terms need the relaxation loop "
-                "(slice 2c)")
-        return self._attempt_or_split(inp, max_nodes=max_nodes,
-                                      groups=groups)
+        # soft terms are part of the scheduling key, so one representative
+        # per class decides
+        if not any(g[0].preferences
+                   or ((g[0].pod_affinities or g[0].topology_spread)
+                       and g[0].has_soft_terms())
+                   for g in groups):
+            return self._attempt_or_split(inp, max_nodes=max_nodes,
+                                          groups=groups)
+        by_name = {p.meta.name: p for p in inp.pods}
+        relax: Dict[str, int] = {}
+        # bound by the TOTAL soft terms (capped), not the deepest ladder:
+        # one pod's relaxation can un-place another in a later round
+        rounds = 1 + min(sum(p.relax_levels() for p in inp.pods), 64)
+        # the deadline is per solve: the split path re-enters here on
+        # sub-problems, which inherit the outermost call's clock
+        outer = self._relax_deadline is None
+        if outer:
+            self.relax_counts["solves"] += 1
+            self._relax_deadline = (
+                time.perf_counter() + self.relax_budget_s
+                if self.relax_budget_s is not None else float("inf"))
+        res = ScheduleResult()
+        try:
+            for _ in range(rounds):
+                self.relax_counts["rounds"] += 1
+                variants = [p.relaxed(relax.get(p.meta.name, 0))
+                            for p in inp.pods]
+                res = self._attempt_or_split(
+                    dataclasses.replace(inp, pods=variants),
+                    max_nodes=max_nodes)
+                bump = [n for n in res.unschedulable
+                        if n in by_name
+                        and relax.get(n, 0) < by_name[n].relax_levels()]
+                if not bump:
+                    return res
+                if time.perf_counter() > self._relax_deadline:
+                    if outer:
+                        self.relax_counts["budget_exceeded"] += 1
+                    # a split verdict reached with preferences still
+                    # promoted to required carries no authority for pods
+                    # with relaxation headroom: the rescue re-judges them
+                    self._last_oracle_judged = (self._last_oracle_judged
+                                                - set(bump))
+                    return res
+                for n in bump:
+                    relax[n] = relax.get(n, 0) + 1
+            return res
+        finally:
+            if outer:
+                self._relax_deadline = None
 
     def _adaptive_max_nodes(self) -> int:
         """Node-axis warm start from the previous solve's active count with
@@ -804,8 +949,13 @@ class TorchSolver:
         E = bucket(len(enc.existing), E_BUCKETS)
         Db = bucket(enc.n_domains, D_BUCKETS)
         dev = cat.device_args
-        prob = self._problem_args(enc, G, E, Db, dev.O)
-        exc = self._explain_mode()
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            prob, table = self._problem_args_mesh(enc, G, E, Db, dev.O,
+                                                  cat.mask_registry)
+        else:
+            prob = self._problem_args(enc, G, E, Db, dev.O)
+        exc = self._explain_kernel_mode()
         wg, wp = self._statics(enc)
         # per-pod reason trees only for REAL solves: a consolidation sim
         # (explicit max_nodes cap) strands by design
@@ -820,8 +970,14 @@ class TorchSolver:
             nonlocal disp_s, dev_s, pull_s
             t_a = time.perf_counter()
             ptens = ffd.problem_tensors(prob, dev.O, self.device)
-            flat = ffd.solve_ffd(ptens, dev, n, explain=exc, with_gang=wg,
-                                 with_priority=wp)
+            if mesh is not None:
+                # K7: one cluster of S blocks over the resident shards
+                flat = self._mesh_exec.solve(
+                    ptens, table, cat.mesh_args, n, explain=exc,
+                    with_gang=wg, with_priority=wp)
+            else:
+                flat = ffd.solve_ffd(ptens, dev, n, explain=exc,
+                                     with_gang=wg, with_priority=wp)
             t_b = time.perf_counter()
             if cuda:
                 torch.cuda.synchronize(self.device)
@@ -980,22 +1136,39 @@ class TorchSolver:
         )
 
     def _run_delta(self, prob, seed: "deltam.ChunkSeed", O_real: int,
-                   O: int, mn: int, dev, upload=ffd._upload):
+                   O: int, mn: int, dev, upload=ffd._upload,
+                   kind: str = "delta-seed"):
         """Upload one seeded solve — the padded problem tuple and the seed
         (used and pool padded to the node axis, the first `seed.A` slots
         active, the colmask padded to the SEED_BUCKETS tier A_pad) — and
         launch K6 (and K2's counts): shared by the delta pass and every
         chunk of the chain.  Explain is clamped to counts: a suffix's
         [G, O] map would stitch against prefix rows that never had one.
+        Under a mesh the group masks go through the resident row table and
+        the seed's column words are committed per shard (logged as `kind`,
+        "delta-seed" or "spec-seed"), and K7's seeded instance runs.
         Returns the flat result row on the device (not synchronised)."""
         A_pad = min(bucket(max(seed.A, 1), deltam.SEED_BUCKETS), mn)
         cm = np.zeros((A_pad, O), dtype=bool)
         cm[:seed.A, :O_real] = seed.colmask
+        exc = min(self._explain_mode(), 1)
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            cat = self._cat_entry[1]
+            rows, table = cat.mask_registry.ensure(prob[2])
+            p, sd = ffd.delta_tensors(
+                prob[:2] + (rows,) + prob[3:], self._pad(seed.used, 0, mn),
+                self._pad(seed.pool, 0, mn), np.arange(mn) < seed.A,
+                None, dev.O, self.device, upload=upload)
+            ex = self._mesh_exec
+            sd.seed_colmask = ex.put_sharded(
+                ffd.shard_words(cm, mesh.size), kind)
+            return ex.solve_delta(p, sd, table, cat.mesh_args, mn,
+                                  explain=exc)
         p, sd = ffd.delta_tensors(
             prob, self._pad(seed.used, 0, mn), self._pad(seed.pool, 0, mn),
             np.arange(mn) < seed.A, cm, O, self.device, upload=upload)
-        return ffd.solve_ffd_delta(p, sd, dev, mn,
-                                   explain=min(self._explain_mode(), 1))
+        return ffd.solve_ffd_delta(p, sd, dev, mn, explain=exc)
 
     def _try_delta(self, inp: ScheduleInput, cat,
                    groups) -> Optional[ScheduleResult]:
@@ -1256,7 +1429,8 @@ class TorchSolver:
                 enc.group_mask[lo:hi], enc.exist_cap[lo:hi], seed.er, enc,
                 Gp, E, Db, dev.O)
             handle = pull(self._run_delta(prob, seed, O_real, dev.O, mn,
-                                          dev, upload=upload))
+                                          dev, upload=upload,
+                                          kind="spec-seed"))
             d = time.perf_counter() - t_a
             if k in repair_ks:
                 repair_s += d
@@ -1371,9 +1545,12 @@ class TorchSolver:
     def _pick_sparse_k(self, max_cnt: int, E_pad: int) -> int:
         """K for the top-K take_exist result compaction (0 = dense):
         bucket the max group count so the compaction is lossless, engage
-        only when it shrinks the row past the padded existing axis.
+        only when it shrinks the row past the padded existing axis, and
+        honour the dense-rollback knob (KARPENTER_TPU_SWEEP_TOPK=0).
         Shared by the sweep and the generic batched path."""
         Ks = bucket(min(max_cnt, max(E_pad, 1)), self.K_BUCKETS)
+        if not knobs.sweep_topk_enabled():
+            return 0
         return Ks if (E_pad > 0 and 2 * Ks < E_pad) else 0
 
     def _chunk_io(self):
@@ -1829,7 +2006,7 @@ class TorchSolver:
                 if r is not None and r.unschedulable and any(
                         p.relax_levels() for p in inps[i].pods):
                     # the ORIGINAL input: relaxation starts from the pod's
-                    # true soft ladder (solve raises until slice 2c)
+                    # true soft ladder, through solve's relaxation loop
                     out[i] = self.solve(inps[i], max_nodes=max_nodes)
             return out
         cat = self._catalog_encoding(inps[0])

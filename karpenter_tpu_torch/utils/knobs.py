@@ -77,3 +77,50 @@ def spot_risk_enabled() -> bool:
     oracle all resolve the mode through this function."""
     return env_bool("KARPENTER_TPU_SPOT_RISK", default=False)
 
+
+
+def relax_budget_s(environ: Optional[Mapping[str, str]] = None
+                   ) -> Optional[float]:
+    """`KARPENTER_TPU_RELAX_BUDGET`: the relaxation loop's wall-clock
+    budget per solve, in seconds (default 30).  "", "none" and "off" mean
+    unbounded (None); a malformed value falls back to the default — a
+    config typo degrades the knob, it never crashes the solver."""
+    env = os.environ if environ is None else environ
+    raw = env.get("KARPENTER_TPU_RELAX_BUDGET", "30").strip()
+    if raw.lower() in ("", "none", "off"):
+        return None
+    try:
+        return float(raw)
+    except ValueError:
+        return 30.0
+
+
+def sweep_topk_enabled(environ: Optional[Mapping[str, str]] = None) -> bool:
+    """`KARPENTER_TPU_SWEEP_TOPK`: "0" forces the batched paths' dense
+    take_exist rows (the top-K compaction off, a debug/rollback lever);
+    any other integer leaves the compaction on, and a malformed value
+    degrades to the default (on)."""
+    env = os.environ if environ is None else environ
+    try:
+        return int(env.get("KARPENTER_TPU_SWEEP_TOPK", "1")) != 0
+    except ValueError:
+        return True
+
+
+def mesh_spec(spec, environ: Optional[Mapping[str, str]] = None):
+    """`KARPENTER_TPU_MESH` applied to a constructed mesh spec: "off",
+    "0", "false" or "none" force one device (None), "auto" forces auto,
+    an integer forces that shard count; unset or malformed leaves `spec`
+    alone."""
+    env = os.environ if environ is None else environ
+    raw = env.get("KARPENTER_TPU_MESH", "").strip().lower()
+    if not raw:
+        return spec
+    if raw in ("off", "0", "false", "none"):
+        return None
+    if raw == "auto":
+        return "auto"
+    try:
+        return int(raw)
+    except ValueError:
+        return spec

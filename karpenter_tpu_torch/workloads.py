@@ -5,6 +5,13 @@
 an `nvidia.com/gpu`, one NodePool with no limits, no existing nodes and no
 topology, against the 605-type generated catalog.
 
+`build_config2()` is BASELINE config #2 at 5k pods (the JAX package's
+`bench.py build_config2_5k`, the multichip bench's cell): 5,000 pods in 6
+size classes, every third pinned to one of 3 zones by a node selector,
+every seventh tolerating the `team=ml` taint, on 3 weighted NodePools —
+"general" (weight 10), "spot-only" (capacity type spot) and "dedicated"
+(tainted team=ml) — each against the full generated catalog.
+
 `build_config3()` is BASELINE config #3 (the JAX package's
 `benchmarks/config3_topology.py make_input`): 10k pods — 4 workloads of
 2,495 pods, each spread over `topology.kubernetes.io/zone` with maxSkew 1,
@@ -36,6 +43,14 @@ residents — a 2-member low-priority gang and a low single — leave 4 cpu,
 so the preemption planner must evict the whole gang; before the solve it
 records the benchmark's spot storm (4 interruptions of the 6 cheapest
 types in two zones) in the spot-risk model.
+
+`build_soft_terms()` is a soft-term input in the style of the JAX
+package's `tests/test_solver_fuzz.py` `_gen_problem_mixed`: 1,912 pods in
+six classes — a preferred zone, preferred zone anti-affinity within the
+class (12 pods over 3 zones: 9 relax), ScheduleAnyway zone spread, a
+preferred capacity type and zone on a tolerated spot pool, plain pods,
+and a preferred zone no offering has (all relax) — on two pools and two
+existing nodes.  The relaxation loop solves it in rounds.
 
 The steady state's three workloads reuse pod objects across passes as
 their benchmarks do — an unchanged pod keeps its object, a churned one is
@@ -76,6 +91,8 @@ from karpenter_tpu_torch.models import (
     Requirement,
     Requirements,
     Resources,
+    Taint,
+    Toleration,
     TopologySpreadConstraint,
     wellknown,
 )
@@ -105,6 +122,102 @@ def build_input(n_pods: int) -> ScheduleInput:
     pool = NodePool(meta=ObjectMeta(name="default"))
     return ScheduleInput(pods=pods, nodepools=[pool],
                          instance_types={"default": catalog})
+
+
+def build_config2() -> ScheduleInput:
+    catalog = generate_catalog()
+    zones = ["tpu-west-1a", "tpu-west-1b", "tpu-west-1c"]
+    sizes = [("250m", "512Mi"), ("500m", "1Gi"), ("1", "2Gi"),
+             ("2", "4Gi"), ("4", "8Gi"), ("500m", "2Gi")]
+    general = NodePool(meta=ObjectMeta(name="general"), weight=10)
+    spot = NodePool(meta=ObjectMeta(name="spot-only"),
+                    requirements=Requirements(Requirement.make(
+                        wellknown.CAPACITY_TYPE_LABEL, "In", "spot")))
+    dedicated = NodePool(meta=ObjectMeta(name="dedicated"),
+                         taints=[Taint("team", "ml")])
+    pods = []
+    for i in range(5000):
+        cpu, mem = sizes[i % len(sizes)]
+        p = Pod(meta=ObjectMeta(name=f"m{i}"),
+                requests=Resources.parse({"cpu": cpu, "memory": mem}))
+        if i % 3 == 0:
+            p.requirements = Requirements(Requirement.make(
+                wellknown.ZONE_LABEL, "In", zones[i % len(zones)]))
+        if i % 7 == 0:
+            p.tolerations = [Toleration(key="team", operator="Exists")]
+        pods.append(p)
+    pools = [general, spot, dedicated]
+    return ScheduleInput(pods=pods, nodepools=pools,
+                         instance_types={p.meta.name: catalog
+                                         for p in pools})
+
+
+def build_soft_terms(M=None, Sch=None, catalog=None) -> ScheduleInput:
+    """The soft-term input (module docstring).  `M` (models), `Sch`
+    (scheduling types) and `catalog` default to the port's and its
+    generated catalog; a test passes another package's to build the same
+    input from its classes."""
+    if M is None:
+        import karpenter_tpu_torch.models as M
+        import karpenter_tpu_torch.scheduling as Sch
+    if catalog is None:
+        catalog = generate_catalog()
+    wk = M.wellknown
+    zone, ct = wk.ZONE_LABEL, wk.CAPACITY_TYPE_LABEL
+
+    def prefer(weight, key, value):
+        return (weight, M.Requirements(M.Requirement.make(key, "In",
+                                                          value)))
+
+    classes = [
+        # (name, count, cpu, memory, extra fields)
+        ("softzone", 500, "500m", "1Gi",
+         dict(preferences=[prefer(100, zone, "tpu-west-1b")])),
+        ("softanti", 12, "1", "2Gi",
+         dict(pod_affinities=[M.PodAffinityTerm(
+             label_selector={"grp": "softanti"}, topology_key=zone,
+             anti=True, required=False)])),
+        ("sanyspread", 600, "250m", "512Mi",
+         dict(topology_spread=[M.TopologySpreadConstraint(
+             topology_key=zone, max_skew=1,
+             when_unsatisfiable="ScheduleAnyway",
+             label_selector={"grp": "sanyspread"})])),
+        ("softspot", 300, "2", "2Gi",
+         dict(preferences=[prefer(50, ct, "spot"),
+                           prefer(10, zone, "tpu-west-1a")],
+              tolerations=[M.Toleration(key="dedicated", value="burst")])),
+        ("plain", 400, "125m", "256Mi", {}),
+        ("nowhere", 100, "500m", "512Mi",
+         dict(preferences=[prefer(100, zone, "tpu-west-1z")])),
+    ]
+    pods = []
+    for name, count, cpu, mem, extra in classes:
+        for i in range(count):
+            pods.append(M.Pod(
+                meta=M.ObjectMeta(name=f"{name}-{i}",
+                                  labels={"grp": name}),
+                requests=M.Resources.parse({"cpu": cpu, "memory": mem}),
+                **{k: list(v) for k, v in extra.items()}))
+    pools = [M.NodePool(meta=M.ObjectMeta(name="default"), weight=100),
+             M.NodePool(meta=M.ObjectMeta(name="burst"), weight=10,
+                        taints=[M.Taint(key="dedicated", value="burst")],
+                        requirements=M.Requirements(M.Requirement.make(
+                            ct, "In", "spot")))]
+    existing = []
+    for i, z in enumerate(("tpu-west-1a", "tpu-west-1c")):
+        alloc = M.Resources.parse({"cpu": "16", "memory": "64Gi",
+                                   "pods": "110"})
+        existing.append(Sch.ExistingNode(
+            node=M.Node(meta=M.ObjectMeta(
+                name=f"exist-{i}",
+                labels={zone: z, ct: "on-demand",
+                        wk.HOSTNAME_LABEL: f"exist-{i}",
+                        wk.NODEPOOL_LABEL: "default"}),
+                allocatable=alloc, ready=True),
+            available=alloc, pods=[]))
+    return Sch.ScheduleInput(pods=pods, nodepools=pools,
+                             instance_types={p.name: catalog for p in pools},
+                             existing_nodes=existing)
 
 
 def build_config3() -> ScheduleInput:

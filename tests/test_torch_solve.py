@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 from karpenter_tpu.solver import TPUSolver
-from karpenter_tpu_torch.solver import TorchSolver, UnsupportedPods
+from karpenter_tpu_torch.solver import TorchSolver
 from karpenter_tpu_torch.solver import ffd as tffd
 from tests.test_torch_encode import JAX, PORT, scenario
 
@@ -180,16 +180,17 @@ def _unsupported_inputs():
                 label_selector={"app": "c"})]
         return inp
 
-    # match None: the port runs it since slice 2 and must give the
-    # reference's answer (the scan's heavy step for the spread, the
+    # the port runs each since slice 2 and must give the reference's
+    # answer (the scan's heavy step for the spread, the
     # oracle rescue for the strands, the split path for the custom key,
-    # since slice 2b the gang fill and the priority witness)
-    return {"zone-spread": (zone_spread, None),
-            "gang": (gang, None),
-            "priority-bands": (priority_bands, None),
-            "stranded": (stranded, None),
-            "soft-terms": (soft_terms, "relaxation"),
-            "custom-topology-key": (custom_topology_key, None)}
+    # since slice 2b the gang fill and the priority witness, since slice
+    # 2c the relaxation loop)
+    return {"zone-spread": zone_spread,
+            "gang": gang,
+            "priority-bands": priority_bands,
+            "stranded": stranded,
+            "soft-terms": soft_terms,
+            "custom-topology-key": custom_topology_key}
 
 
 UNSUPPORTED = _unsupported_inputs()
@@ -197,14 +198,11 @@ UNSUPPORTED = _unsupported_inputs()
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_unsupported_inputs_raise(name):
-    """The inputs slice 1 refused: soft terms still raise; zone spread,
-    stranded pods and custom topology keys (slice 2a), gangs and priority
-    bands (slice 2b) now solve to the reference's answer."""
-    build, match = UNSUPPORTED[name]
-    if match is not None:
-        with pytest.raises(UnsupportedPods, match=match):
-            TorchSolver(device="cpu").solve(build(PORT))
-        return
+    """The inputs slice 1 refused: zone spread, stranded pods and custom
+    topology keys (slice 2a), gangs and priority bands (slice 2b) and soft
+    terms (slice 2c, the relaxation loop) now solve to the reference's
+    answer."""
+    build = UNSUPPORTED[name]
     port, ref_solver = TorchSolver(device="cpu"), jax_solver()
     got = port.solve(build(PORT))
     assert canon(got) == canon(ref_solver.solve(build(JAX)))

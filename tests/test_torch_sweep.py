@@ -32,7 +32,7 @@ import karpenter_tpu.solver as jsolver_pkg
 from karpenter_tpu.solver import TPUSolver
 from karpenter_tpu.solver import encode as jenc
 from karpenter_tpu.solver import ffd as jffd
-from karpenter_tpu_torch.solver import TorchSolver, UnsupportedPods
+from karpenter_tpu_torch.solver import TorchSolver
 from karpenter_tpu_torch.solver import encode as tenc
 from karpenter_tpu_torch.solver import ffd as tffd
 from karpenter_tpu_torch.solver import pipeline as tpipe
@@ -630,15 +630,11 @@ def _unsupported_inputs(pkg="karpenter_tpu_torch"):
 
 @pytest.mark.parametrize("name", sorted(_unsupported_inputs()))
 def test_later_slices_raise_unsupported(name):
-    """A soft-term straggler still needs the relaxation loop (slice 2c);
-    gangs (through the generic batched solve, K5's gang instance) and
-    priority bands (the witness) give TPUSolver.solve_batch's results
-    since slice 2b."""
+    """The inputs later slices brought: a soft-term straggler (through
+    solve's relaxation loop since slice 2c), gangs (the generic batched
+    solve, K5's gang instance) and priority bands (the witness) give
+    TPUSolver.solve_batch's results."""
     inps = _unsupported_inputs()[name]
-    if name == "soft-term-straggler":
-        with pytest.raises(UnsupportedPods, match="slice 2c"):
-            TorchSolver(device="cpu").solve_batch(inps, max_nodes=8)
-        return
     ref = jax_solver().solve_batch(
         _unsupported_inputs("karpenter_tpu")[name], max_nodes=8)
     got = TorchSolver(device="cpu").solve_batch(inps, max_nodes=8)
@@ -690,3 +686,31 @@ def test_new_modules_are_in_the_import_boundary_scan():
     assert {"karpenter_tpu_torch.solver.pipeline",
             "karpenter_tpu_torch.solver.problems",
             "karpenter_tpu_torch.workloads"} <= mods
+
+
+def test_sweep_topk_knob_forces_dense_rows(monkeypatch):
+    """KARPENTER_TPU_SWEEP_TOPK=0 turns the take_exist top-K compaction off
+    (the reference's `_pick_sparse_k` rollback knob): the sweep then pulls
+    dense rows and gives the same answers as with the compaction on."""
+    jinps = _config4(64, False)
+    inps = _port_inputs(jinps)
+    port = TorchSolver(device="cpu")
+    assert port._pick_sparse_k(1, 64) == 8
+    compact = [canon(r) for r in port.solve_batch(inps, max_nodes=8)]
+    monkeypatch.setenv("KARPENTER_TPU_SWEEP_TOPK", "0")
+    dense = TorchSolver(device="cpu")
+    assert dense._pick_sparse_k(1, 64) == 0
+    seen = []
+    real = tffd.solve_ffd_sweep
+
+    def spy(sw, cat, n, k=0):
+        seen.append(k)
+        return real(sw, cat, n, k)
+
+    monkeypatch.setattr(tffd, "solve_ffd_sweep", spy)
+    assert [canon(r) for r in dense.solve_batch(inps, max_nodes=8)] == compact
+    assert seen and set(seen) == {0}
+    monkeypatch.setenv("KARPENTER_TPU_SWEEP_TOPK", "banana")
+    assert TorchSolver(device="cpu")._pick_sparse_k(1, 64) == 8
+    ref = jax_solver().solve_batch(jinps, max_nodes=8)
+    assert compact == [canon(r) for r in ref]
