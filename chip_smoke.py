@@ -39,8 +39,9 @@ Phases (any failure exits non-zero):
      under KARPENTER_TPU_EXPLAIN=full (K2's class map and the reason
      trees), one cold and 20 warm solves each — the JAX package's answers,
      gang audit and plans, with the kernels launched;
-  9. kernel timings at the main paths' shapes beside their bounds, and the
-     sweep's dense against compacted take_exist rows (run after 10-12);
+  9. kernel timings at the main paths' shapes beside their bounds, each
+     also as ms a scan step (kernel ms / G), and the sweep's dense
+     against compacted take_exist rows (run after 10-12);
  10. the steady state, config #7: a delta-on TorchSolver(max_nodes=2048)
      and a delta-off one in lockstep over build_config7(gen) — gen 0, one
      warm pass, 16 timed churn passes — every pass the JAX package's
@@ -70,14 +71,17 @@ Phases (any failure exits non-zero):
 Phase 3 also holds K5's gang instance, the witness and K2's map and
 with_gang class against their plain versions on seeded gang and priority
 problems at B=1 and B>1 and on config #9's and #10's encodings, and K6
-(the seeded scan) on seeded problems and on config #7's churned suffix
-and config #12's first two chunks as the solver launches them; and K7
+(the seeded scan) on seeded problems and on config #7's churned suffix,
+the second chunk of config #7's delta-off chain and config #12's first
+two chunks as the solver launches them; and K7
 (the column-sharded scan) on seeded problems at 2, 4, 6 and 8 shards —
 light, heavy, gang, priority, explain off, shards of padding blocks only,
 a wide one and the seeded instance, each launched 3 times — and on the
 headline's and config #2's encodings at 8 shards, printing
 cudaOccupancyMaxActiveClusters by cluster size.  Phase 9 also times K7 at
-2, 4 and 8 shards beside K5 and at the mesh phases' own launches.
+2, 4 and 8 shards beside K5 and at the mesh phases' own launches, and K5
+at config #12's one program as the spec-off arm launches it (G=2048
+steps, 640 of them real), held once more against its plain version.
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.
@@ -693,12 +697,12 @@ def _catalog_bytes(c):
                    c.pool_daemon, c.pool_bits, c.col_zone, c.col_ct)
 
 
-def _batch_bound(ffd, b, c, N, lay, flat, lim, wg=0):
+def _batch_bound(ffd, b, c, N, lay, flat, lim, wg=0, work=None):
     """K5's bound: inputs read once, outputs written once, over the HBM
     rate, against the float operations this run's data needs (counted by
     the plain version over the (node, block) pairs the kernel visits, and
-    in the gang fill over every domain's candidate) over the fp32
-    rate."""
+    in the gang fill over every domain's candidate; `work`, a count the
+    caller's plain run already made) over the fp32 rate."""
     import torch
     out = [ffd._region(flat, lay, n) for n in _scan_regions(lay)
            + (["prio_inv"] if "prio_inv" in lay else [])]
@@ -710,9 +714,11 @@ def _batch_bound(ffd, b, c, N, lay, flat, lim, wg=0):
     fields += ["group_prio"] if "prio_inv" in lay else []
     nbytes = (_nbytes(*(getattr(b, f) for f in fields))
               + _catalog_bytes(c) + _nbytes(lim, *out))
-    work = {"fit": 0, "test": 0, "flops": 0}
-    ffd.batch_scan_reference(b, c, N, torch.empty_like(flat), lay,
-                             torch.empty_like(lim), 0, work, with_gang=wg)
+    if work is None:
+        work = {"fit": 0, "test": 0, "flops": 0}
+        ffd.batch_scan_reference(b, c, N, torch.empty_like(flat), lay,
+                                 torch.empty_like(lim), 0, work,
+                                 with_gang=wg)
     return bound_ms(nbytes, _work_ops(work))
 
 
@@ -1071,6 +1077,56 @@ class _DeltaCapture:
 
     def __exit__(self, *exc):
         self.ffd.solve_ffd_delta = self.real
+
+
+class _SolveCapture:
+    """Records the arguments of every one-problem solve (`ffd.solve_ffd`)
+    the solver launches while active: (problem, catalog, N, explain,
+    with_gang, with_priority)."""
+
+    def __init__(self, ffd):
+        self.ffd, self.calls = ffd, []
+
+    def __enter__(self):
+        real = self.real = self.ffd.solve_ffd
+
+        def capture(p, c, n, explain=0, with_gang=0, with_priority=0):
+            self.calls.append((p, c, n, explain, with_gang, with_priority))
+            return real(p, c, n, explain=explain, with_gang=with_gang,
+                        with_priority=with_priority)
+        self.ffd.solve_ffd = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.ffd.solve_ffd = self.real
+
+
+def _captured_batch_times(ffd, call, reps):
+    """K5 at one captured solve's launch: (kernel ms, plain ms, events ms,
+    bound, {kernel: (equal, max abs err)}).  The plain version runs once,
+    on the same inputs: its wall time, its work count for the bound, and
+    its row and budgets held against the kernel's as uint32."""
+    import torch
+    p, c, N, _, wg, wp = call
+    b = ffd.FFDBatch.of(p)
+    dev = p.group_req.device
+    lay = ffd.flat_layout(b.G, b.E, N, b.D, 0, 0, c.O, wp)
+    fk, lk = _buffers(1, b.P, lay, dev)
+    fp, lp = _buffers(1, b.P, lay, dev)
+    k = lambda: ffd.batch_scan(b, c, N, fk, lay, lk,  # noqa: E731
+                               with_gang=wg)
+    t_k, ev_k = _device_ms(k, reps, _tag(True, False, bool(wg)))
+    k()
+    torch.cuda.synchronize()
+    work = {"fit": 0, "test": 0, "flops": 0}
+    t0 = time.perf_counter()
+    ffd.batch_scan_reference(b, c, N, fp, lay, lp, 0, work, with_gang=wg)
+    torch.cuda.synchronize()
+    t_kp = (time.perf_counter() - t0) * 1e3
+    name = "ffd_batch_gang_scan" if wg else "ffd_batch_scan"
+    res = _compare_rows(name, fk, lk, fp, lp, lay)
+    return (t_k, t_kp, ev_k,
+            _batch_bound(ffd, b, c, N, lay, fk, lk, wg, work), res)
 
 
 def _delta_bound(ffd, p, sd, c, N, lay, flat, lim):
@@ -1589,11 +1645,24 @@ def main(argv) -> int:
     s12 = TorchSolver(max_nodes=CONFIG_MAX_NODES, delta="off", spec="on")
     with _DeltaCapture(ffd) as cap12:
         s12.solve(build_config12())
-    if not cap7.calls or len(cap12.calls) < 2:
+    # config #7's delta-off pass runs the chunk chain (spec auto), and
+    # config #12's spec-off arm one K5 program (timed in phase 9)
+    with _DeltaCapture(ffd) as cap7c:
+        TorchSolver(max_nodes=CONFIG_MAX_NODES, delta="off").solve(
+            build_config7(0))
+    with _SolveCapture(ffd) as cap12o:
+        TorchSolver(max_nodes=CONFIG_MAX_NODES, delta="off",
+                    spec="off").solve(build_config12())
+    if (not cap7.calls or len(cap12.calls) < 2 or len(cap7c.calls) < 2
+            or not cap12o.calls):
         print(f"chip_smoke: config #7 launched {len(cap7.calls)} seeded "
-              f"solves, config #12 {len(cap12.calls)}", file=sys.stderr)
+              f"solves (delta off: {len(cap7c.calls)}), config #12 "
+              f"{len(cap12.calls)} (spec off: {len(cap12o.calls)} "
+              f"solves)", file=sys.stderr)
         return 1
     for label, (p, sd, c, N, ex) in (("config7-suffix", cap7.calls[0]),
+                                     ("config7-chain-chunk1",
+                                      cap7c.calls[1]),
                                      ("config12-chunk0", cap12.calls[0]),
                                      ("config12-chunk1", cap12.calls[1])):
         record(label, compare_delta(ffd, p, sd, c, N, ex),
@@ -1938,8 +2007,9 @@ def main(argv) -> int:
     t_k5, t_k5p, ev_k5, (b5, by5), t_k2, t_k2p, (b2, by2) = _batch_times(
         ffd, ffd.FFDBatch.of(p), c, N, 50)
     print(f"[9] headline shapes (B=1, G={p.G}, N={N}, PT={c.PT}, O={c.O}) "
-          f"on {card}: ffd_batch_scan {t_k5:.4f} ms (events {ev_k5:.4f}, "
-          f"plain {t_k5p:.3f}, bound {b5:.6f} by {by5}); ffd_pack "
+          f"on {card}: ffd_batch_scan {t_k5:.4f} ms ({t_k5 / p.G:.4f} ms a "
+          f"step; events {ev_k5:.4f}, plain {t_k5p:.3f}, bound {b5:.6f} by "
+          f"{by5}); ffd_pack "
           f"{t_k2:.4f} ms (plain {t_k2p:.3f}, bound {b2:.6f} by {by2})",
           flush=True)
     p3, c3 = ffd.problem_from_numpy(c3_prob, c3_cat, dev)
@@ -1947,17 +2017,19 @@ def main(argv) -> int:
         t3, t3p, ev3, (b3, by3), t3k2, t3k2p, _ = _batch_times(
             ffd, ffd.FFDBatch.of(p3), c3, N3, 20)
         print(f"[9] config #3 shapes (B=1, G={p3.G}, N={N3}, PT={c3.PT}, "
-              f"D={p3.D}) on {card}: ffd_batch_scan {t3:.4f} ms (events "
-              f"{ev3:.4f}, plain {t3p:.3f}, bound {b3:.6f} by {by3}); "
+              f"D={p3.D}) on {card}: ffd_batch_scan {t3:.4f} ms "
+              f"({t3 / p3.G:.4f} ms a step; events {ev3:.4f}, plain "
+              f"{t3p:.3f}, bound {b3:.6f} by {by3}); "
               f"ffd_pack {t3k2:.4f} ms (plain {t3k2p:.3f})", flush=True)
     # where the scan's time goes on config #3: the same problem with only
     # its light groups, or only its heavy groups, kept (the others' rows
     # zeroed: a step with no pods and no admitted column does next to
     # nothing)
     dsel = np.asarray(c3_prob[7])
-    split = {}
+    split, steps = {}, {}
     tag = _tag(True, False, False)
     for kind, keep in (("light", dsel == 0), ("heavy", dsel > 0)):
+        steps[f"{kind} groups only ({int(keep.sum())})"] = int(keep.sum())
         pk, ck = ffd.problem_from_numpy(_only_groups(c3_prob, keep), c3_cat,
                                         dev)
         bk = ffd.FFDBatch.of(pk)
@@ -1968,8 +2040,9 @@ def main(argv) -> int:
             lambda: ffd.batch_scan(bk, ck, CONFIG3_WARM_N, flat_k, lay_k,
                                    lim_k), 10, tag)[0]
     print(f"[9] config #3 (N={CONFIG3_WARM_N}) ffd_batch_scan by step kind "
-          f"on {card}: " + "; ".join(f"{k} {v:.4f} ms"
-                                     for k, v in split.items()), flush=True)
+          f"on {card}: " + "; ".join(
+              f"{k} {v:.4f} ms ({v / steps[k]:.4f} ms a kept step)"
+              for k, v in split.items()), flush=True)
     sweep_t = {}
     for kname, (sw, cs, Ns, Ks) in (("ffd_sweep_scan", c4_chunk),
                                     ("ffd_sweep_topo_scan", c4b_chunk)):
@@ -1977,8 +2050,9 @@ def main(argv) -> int:
         sweep_t[kname] = (t4, t4p, b4, by4)
         print(f"[9] {'config #4b heavy' if sw.heavy else 'config #4 light'}"
               f" chunk (B={sw.B}, G={sw.G}, E={sw.E}, D={sw.D}, N={Ns}, "
-              f"O={cs.O}, K={Ks}) on {card}: {kname} {t4:.4f} ms (events "
-              f"{ev4:.4f}, per simulation {t4 / sw.B * 1e3:.2f} us, plain "
+              f"O={cs.O}, K={Ks}) on {card}: {kname} {t4:.4f} ms "
+              f"({t4 / sw.G:.4f} ms a step; events {ev4:.4f}, per "
+              f"simulation {t4 / sw.B * 1e3:.2f} us, plain "
               f"{t4p:.3f}, bound {b4:.6f} by {by4})", flush=True)
     sw, cs, Ns, Ks = c4_chunk
     turns, nbytes = _compaction_turns(ffd, sw, cs, Ns, max(Ks, 8), 20)
@@ -1996,7 +2070,8 @@ def main(argv) -> int:
         t9, t9p, ev9, (b9, by9), t9k2, t9k2p, (b9k2, by9k2) = gang_t[N9]
         print(f"[9] config #9 shapes (B=1, G={p9.G}, N={N9}, PT={c9.PT}, "
               f"D={p9.D}) on {card}: ffd_batch_gang_scan {t9:.4f} ms "
-              f"(events {ev9:.4f}, plain {t9p:.3f}, bound {b9:.6f} by "
+              f"({t9 / p9.G:.4f} ms a step; events {ev9:.4f}, plain "
+              f"{t9p:.3f}, bound {b9:.6f} by "
               f"{by9}); ffd_pack explain={ex9} {t9k2:.4f} ms (plain "
               f"{t9k2p:.3f}, bound {b9k2:.6f} by {by9k2})", flush=True)
     # config #10: the gang-free scan with and without the witness
@@ -2011,17 +2086,37 @@ def main(argv) -> int:
           flush=True)
     t_gang, t_gangp, _, (b_gang, by_gang), t_map, t_mapp, (b_map, by_map) = \
         gang_t[CONFIG_MAX_NODES]
-    # K6 at config #7's churned suffix and at config #12's seeded chunk
+    # K6 at config #7's churned suffix, at a chunk of its delta-off chain
+    # and at config #12's seeded chunk
     delta_t = {}
     for dlabel, call in (("config #7 suffix", cap7.calls[0]),
+                         ("config #7 delta-off chain chunk 1",
+                          cap7c.calls[1]),
                          ("config #12 chunk 1", cap12.calls[1])):
         p6, sd6, c6, N6, _ = call
         delta_t[dlabel] = _delta_times(ffd, call, 20)
         t6, t6p, ev6, (b6, by6) = delta_t[dlabel]
         print(f"[9] {dlabel} shapes (G={p6.G}, A={sd6.A}, N={N6}, "
               f"E={p6.E}, O={c6.O}) on {card}: ffd_delta_scan {t6:.4f} ms "
-              f"(events {ev6:.4f}, plain {t6p:.3f}, bound {b6:.6f} by "
-              f"{by6})", flush=True)
+              f"({t6 / p6.G:.4f} ms a step; events {ev6:.4f}, plain "
+              f"{t6p:.3f}, bound {b6:.6f} by {by6})", flush=True)
+    # K5 at config #12's one program, the spec-off arm's launch, held
+    # against its plain version
+    p12 = cap12o.calls[0][0]
+    t12, t12p, ev12, (b12, by12), res12 = _captured_batch_times(
+        ffd, cap12o.calls[0], 3)
+    for k, (eq, err) in res12.items():
+        errs[k] = max(errs[k], err)
+        if not eq:
+            print(f"chip_smoke: {k} at config #12's one program differs "
+                  f"from its plain version (max abs err {err:g})",
+                  file=sys.stderr)
+            return 1
+    print(f"[9] config #12 one program (spec off: B=1, G={p12.G}, "
+          f"N={cap12o.calls[0][2]}, O={cap12o.calls[0][1].O}) on {card}: "
+          f"ffd_batch_scan {t12:.4f} ms ({t12 / p12.G:.4f} ms a step; "
+          f"events {ev12:.4f}, plain {t12p:.3f} once, equal to it, bound "
+          f"{b12:.6f} by {by12})", flush=True)
     t_k6, t_k6p, _, (b_k6, by_k6) = delta_t["config #7 suffix"]
     # K7 at 2, 4 and 8 shards on config #2's and the headline's encodings,
     # beside K5 on the same problems; then at the mesh paths' own launches
@@ -2032,12 +2127,14 @@ def main(argv) -> int:
         p5, c5 = ffd.problem_from_numpy(prob, catarr, dev)
         k5 = _batch_times(ffd, ffd.FFDBatch.of(p5), c5, N, 20)
         print(f"[9] {lab} (G={p5.G}, N={N}, PT={c5.PT}, O={c5.O}) on "
-              f"{card}: ffd_batch_scan {k5[0]:.4f} ms (S=1)", flush=True)
+              f"{card}: ffd_batch_scan {k5[0]:.4f} ms ({k5[0] / p5.G:.4f} "
+              f"ms a step; S=1)", flush=True)
         for S in (2, 4, 8):
             t7, ev7, t7p, (b7, by7), n7 = _sharded_times(
                 ffd, prob, catarr, S, N, 20, dev)
-            print(f"[9] {lab} ffd_sharded_scan S={S}: {t7:.4f} ms (events "
-                  f"{ev7:.4f}, plain {t7p:.3f}, bound {b7:.6f} by {by7}; "
+            print(f"[9] {lab} ffd_sharded_scan S={S}: {t7:.4f} ms "
+                  f"({t7 / p5.G:.4f} ms a step; events {ev7:.4f}, plain "
+                  f"{t7p:.3f}, bound {b7:.6f} by {by7}; "
                   f"clusters the card holds {n7})", flush=True)
     k7_t = {}
     for k7_name, pick in (
@@ -2057,8 +2154,8 @@ def main(argv) -> int:
         p7 = call[0]
         print(f"[9] {k7_name} at its main path's launch (S={call[2].S}, "
               f"G={p7.G}, E={p7.E}, N={call[3]}, O={call[2].O}) on {card}: "
-              f"{t7:.4f} ms (events {ev7:.4f}, plain {t7p:.3f}, bound "
-              f"{b7:.6f} by {by7})", flush=True)
+              f"{t7:.4f} ms ({t7 / p7.G:.4f} ms a step; events {ev7:.4f}, "
+              f"plain {t7p:.3f}, bound {b7:.6f} by {by7})", flush=True)
 
     kernels = [
         {"name": "ffd_batch_scan", "route": "cuda",

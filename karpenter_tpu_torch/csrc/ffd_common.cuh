@@ -10,47 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// the resource axis (karpenter_tpu_torch/models/resources.py RESOURCE_AXIS)
-#define KR 6
-// the fit-slack epsilon (solver/explain.py EPS) as float32
-#define KEPS 1e-3f
-
-// _fit_count (ffd.py:116): how many pods of request `req` fit in `avail`:
-// floor((avail + EPS) / req) per resource with req > 0, the minimum over
-// resources, clipped to [0, 2^30] BEFORE the integer conversion (pool
-// limits are +inf for unlimited pools, and converting inf is undefined).
-__device__ __forceinline__ int fit_count(const float* avail,
-                                         const float* req) {
-  float c = 1073741824.0f;
-#pragma unroll
-  for (int r = 0; r < KR; ++r) {
-    if (req[r] > 0.0f) {
-      const float v = floorf(__fdiv_rn(__fadd_rn(avail[r], KEPS), req[r]));
-      c = fminf(c, v);
-    }
-  }
-  c = fminf(fmaxf(c, 0.0f), 1073741824.0f);
-  return (int)c;
-}
-
-// all(a - b - c >= -EPS) over the resource axis, evaluated left to right
-__device__ __forceinline__ bool all_fits3(const float* a, const float* b,
-                                          const float* c) {
-  bool ok = true;
-#pragma unroll
-  for (int r = 0; r < KR; ++r)
-    ok = ok && (__fsub_rn(__fsub_rn(a[r], b[r]), c[r]) >= -KEPS);
-  return ok;
-}
-
-// all(a - b >= -EPS) over the resource axis
-__device__ __forceinline__ bool all_fits2(const float* a, const float* b) {
-  bool ok = true;
-#pragma unroll
-  for (int r = 0; r < KR; ++r)
-    ok = ok && (__fsub_rn(a[r], b[r]) >= -KEPS);
-  return ok;
-}
+// fit_count, all_fits2/3 and the column walk's per-word arithmetic
+#include "ffd_walk.cuh"
 
 // Exclusive prefix sum over the block (NT threads, every thread calls).
 // Unsigned arithmetic: the reference's int32 cumsums wrap modulo 2^32, and

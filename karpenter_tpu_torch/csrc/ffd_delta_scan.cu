@@ -17,8 +17,8 @@
 // This is the `scan_kernel<false, false, false, true>` instance of
 // ffd_scan_common.cuh, which holds the design notes: the seed flag only
 // adds the prologue that copies the seed into the carry (used [N, R] and
-// pool/active [N] as given, the seed's [A, W] column words into the
-// carry's [W, N] layout with every slot past A cleared, the active count
+// pool/active [N] as given, the seed's [A, W] column words as the
+// carry's first A rows with every slot past A cleared, the active count
 // the number of seeded slots, node zone and capacity-type pins left at
 // -1, exist_remaining taken as given).  What bounds it on the H100 is what
 // bounds K5: latency, the step chain with block barriers inside each step,

@@ -70,26 +70,35 @@
 // latency, on one SM.  The batch axis spreads problems over SMs.
 //
 // Design: one thread block of 1024 threads per problem (block b offsets every
-// per-problem pointer to problem b, offset_block).  Thread n owns node
-// slot n (a strided loop when N > 1024; threads past N idle in the node
-// loops).  The carry lives in device memory, one slice per block:
-// the surviving-column mask as u32 bit-words in [W, N] layout (neighbouring
-// threads touch neighbouring words), used [N, R], the pool budgets [P, R],
-// the existing-node remainders [E, R], and each node's zone and
-// capacity-type pin.  Per step, every thread works on its own node (the
-// [N, PT] fit and the per-node max over eligible blocks, in the heavy step
-// per grid slot and then per domain; the colmask narrowing), block scans
-// give the node-axis and existing-axis cumsums (`_prefix_fill`,
-// `_clamp_pool_limits`, and per domain in the heavy step), shared-memory
-// atomics the per-pool and per-(pool, domain) maxima, and the short
-// sequential loops (the per-pool new-node cascade, the pool x domain budget
-// loop, the water-fill's integral repair) run on thread 0 before the slots
-// they open are activated in parallel.  The water-fill evaluates its 6D
-// candidate levels one per thread.  Work is skipped where the reference's is
-// a provable no-op: the fit runs only over blocks that hold a surviving,
-// admitted column, and the ok-block narrowing only on nodes that took pods
-// (an untouched node's mask is already narrowed against its unchanged
-// `used`).  (pool, type) rows sit in shared memory.
+// per-problem pointer to problem b, offset_block).  The carry lives in
+// device memory, one slice per block: the surviving-column mask as u32
+// bit-words in [N, W] layout (one node's words in one run), used [N, R],
+// the pool budgets [P, R], the existing-node remainders [E, R], and each
+// node's zone and capacity-type pin.  The per-node column work — the best
+// fit over a node's surviving admitted (pool,type) blocks, in the heavy
+// step per grid slot, and the colmask narrowing of touched and opened
+// nodes — is one tile of lanes per node (tile_best, tile_slotmax,
+// tile_narrow): a tile is 1 to 32 lanes of one warp, as wide as lets every
+// node the step walks have its own tile at once (so a step over 15 nodes
+// gives each a warp, one over 782 each a thread); the tiles take the nodes
+// in turn, a tile's lanes take whole lcm(ZC, 32)-column chunks of the
+// node's row in turn and test once per (pool,type) block that holds a bit
+// (ffd_walk.cuh), the lanes' maxima combine with an exact warp max, and the
+// capacity walk stops once a lane reaches the group's per-node cap.  Only
+// slots below the highest active one (slots open in index order) are
+// walked.  The rest is thread-parallel over nodes, existing rows or
+// columns: block scans give the node-axis and
+// existing-axis cumsums (`_prefix_fill`, `_clamp_pool_limits`, and per
+// domain in the heavy step), shared-memory atomics the per-pool and
+// per-(pool, domain) maxima, and the short sequential loops (the per-pool
+// new-node cascade, the pool x domain budget loop, the water-fill's
+// integral repair) run on thread 0 before the slots they open are
+// activated.  The water-fill evaluates its 6D candidate levels one per
+// thread.  Work is skipped where the reference's is a provable no-op: the
+// fit runs only over blocks that hold a surviving, admitted column, and
+// the ok-block narrowing only on nodes that took pods (an untouched node's
+// mask is already narrowed against its unchanged `used`).  (pool, type)
+// rows sit in shared memory.
 //
 // Float parity: every operation is the reference's, in its order, rounded
 // to nearest (ffd_common.cuh); float sums over domains run in index order.
@@ -130,7 +139,7 @@ struct ScanArgs {
   // carry (scratch)
   float* exist_rem;              // [E, R]
   float* used;                   // [N, R]
-  uint32_t* colmask;             // [W, N]
+  uint32_t* colmask;             // [N, W]
   int* active;                   // [N]
   int* node_pool;                // [N]
   int* cap_e;                    // [E]
@@ -205,6 +214,7 @@ struct ScanShared {
   unsigned warp[NT / 32];
   float req[KR];
   int cnt, ncap, whole, dsel, gang, first, sum, na, crem;
+  int hi0;                // 1 + the highest seeded active slot (0 unseeded)
   int row;               // this group's row of the (class) tables
   int nx, excl[MAXX];    // the sweep simulation's excluded existing rows
   int dreal_zone, dreal_ct;
@@ -222,7 +232,15 @@ struct ScanDyn {
   int* bd;        // [N]     (TOPO) each node's domain this step
   int* kpd;       // [P, D]  (TOPO) best pods per new node, per pool, domain
   uint32_t* pm;   // [W]     (SWEEP) columns under the price cap
+  uint32_t* csum; // [N, NS] each node's chunk summary (tile_best), then
+                  // [NS] the step's group mask's (gsum)
 };
+
+// the step's group mask's chunk summary, after the nodes' in s.csum
+__device__ __forceinline__ uint32_t* gsum_of(const ScanDyn& s, int N,
+                                             int NS) {
+  return s.csum + (size_t)N * NS;
+}
 
 // whether existing row e survives the simulation's exclusions (the
 // reference's keep = all(arange(E) != excl), ffd.py:1571)
@@ -256,34 +274,206 @@ __device__ __forceinline__ int prefix_take(int cap, int want,
   return max(min(cap, wsub(want, before)), 0);
 }
 
-// Narrow one node's candidate columns `m` (word w of its row) to the
-// (pool,type) blocks whose allocatable still holds `u`: pt_expand(ok_pt).
-// With dom >= 0, also to the grid slots of domain `dom` (slot_expand of
-// zc_dom == dom).  last_pt/last_ok carry a block's verdict across a word
-// boundary.
-__device__ __forceinline__ uint32_t narrow_word(uint32_t m, int w, int ZC,
-                                                const float* s_pt,
-                                                const float* u,
-                                                int& last_pt, bool& last_ok,
-                                                const int* zcdom = nullptr,
-                                                int dom = -1) {
-  uint32_t keep = m;
-  while (m) {
-    const int b = __ffs(m) - 1;
-    m &= m - 1;
-    const int o = w * 32 + b;
-    const int pt = o / ZC;
-    if (dom >= 0 && zcdom[o - pt * ZC] != dom) {
-      keep &= ~(1u << b);
-      continue;
-    }
-    if (pt != last_pt) {
-      last_pt = pt;
-      last_ok = all_fits2(&s_pt[pt * KR], u);
-    }
-    if (!last_ok) keep &= ~(1u << b);
+#define FULLMASK 0xffffffffu
+#define ALL_SLOTS (~0ull)
+
+// node n's surviving-column words in the carry, [N, W]: one node's W words
+// in one run, the run its tile reads
+__device__ __forceinline__ uint32_t* node_words(const ScanArgs& a, int n) {
+  return a.colmask + (size_t)n * a.W;
+}
+
+// the grid slots of domain d as a slot mask (bit z: zcdom[z] == d)
+__device__ __forceinline__ uint64_t dom_slots(const int* zcdom, int ZC,
+                                              int d) {
+  uint64_t m = 0ull;
+  for (int z = 0; z < ZC; ++z)
+    if (zcdom[z] == d) m |= 1ull << z;
+  return m;
+}
+
+// The per-node column walk, one tile of L lanes per node (L a power of two,
+// at most 32: L consecutive lanes of one warp).  Each node keeps a summary
+// of its row in shared memory (s.csum, [N, NS] words: bit c % 32 of word
+// c / 32 set when chunk c may hold a bit, and set for every chunk that
+// does), so a walk visits only the chunks that can hold a bit: the tile's
+// lanes take those chunks (ffd_walk.cuh lane_*, whole blocks each) in
+// turn, the j-th set bit of a summary word to lane j % L, and combine with
+// an exact max.  Every lane of the tile calls, with the same node.
+
+// Lanes per node: the widest tile that still gives each of `nodes` nodes
+// its own tile at once (the block's NT threads over the nodes), and no
+// wider than the row's nch chunks need.  A step over many nodes walks
+// them side by side, thread by thread; a step over a few splits each
+// node's walk over a warp.
+__device__ __forceinline__ int tile_width(int nodes, int nch) {
+  int L = 32;
+  while (L > 1 && (L * nodes > NT || (L >> 1) >= nch)) L >>= 1;
+  return L;
+}
+
+// this thread's tile of L lanes, as a shuffle mask
+__device__ __forceinline__ unsigned tile_mask(int L) {
+  const int lane = threadIdx.x & 31;
+  return L == 32 ? FULLMASK : ((1u << L) - 1u) << (lane & ~(L - 1));
+}
+
+// min(best fit over the blocks with a bit of row & gm in `slots`, ncap);
+// the tile stops once any lane's best reaches ncap (the min is then ncap)
+__device__ __forceinline__ int tile_best(int L, const uint32_t* row,
+                                         const uint32_t* sum,
+                                         const uint32_t* gsum, int NS,
+                                         const uint32_t* gm, int W, int ZC,
+                                         uint64_t slots, const float* s_pt,
+                                         const float* u, const float* req,
+                                         int ncap) {
+  const unsigned tm = tile_mask(L);
+  const int t = threadIdx.x & (L - 1);
+  int best = 0;
+  for (int sw = 0; sw < NS; ++sw) {
+    best = lane_best(row, gm, sum[sw] & gsum[sw], sw, t, L, W, ZC, slots,
+                     s_pt, u, req, best);
+    if (__any_sync(tm, best >= ncap)) return ncap;
   }
-  return keep;
+  return min(__reduce_max_sync(tm, best), ncap);
+}
+
+// slotmax[ZC] (every lane's copy): per grid slot, the max block fit over
+// the blocks whose bit of row & gm in that slot survives
+__device__ __forceinline__ void tile_slotmax(int L, const uint32_t* row,
+                                             const uint32_t* sum,
+                                             const uint32_t* gsum, int NS,
+                                             const uint32_t* gm, int W,
+                                             int ZC, const float* s_pt,
+                                             const float* u,
+                                             const float* req,
+                                             int* slotmax) {
+  const unsigned tm = tile_mask(L);
+  const int t = threadIdx.x & (L - 1);
+  for (int z = 0; z < ZC; ++z) slotmax[z] = 0;
+  for (int sw = 0; sw < NS; ++sw)
+    lane_slotmax(row, gm, sum[sw] & gsum[sw], sw, t, L, W, ZC, s_pt, u, req,
+                 slotmax);
+  if (L > 1)
+    for (int z = 0; z < ZC; ++z)
+      slotmax[z] = __reduce_max_sync(tm, slotmax[z]);
+}
+
+// A touched node's row in place: row & gm in `slots`, narrowed to the
+// (pool,type) blocks whose allocatable still holds `u` (pt_expand(ok_pt));
+// only the chunks its summary marks can hold a bit, and those left empty
+// leave the summary.
+__device__ __forceinline__ void tile_narrow(int L, uint32_t* row,
+                                            uint32_t* sum,
+                                            int NS, const uint32_t* gm,
+                                            int W, int ZC, uint64_t slots,
+                                            const float* s_pt,
+                                            const float* u) {
+  const unsigned tm = tile_mask(L);
+  const int t = threadIdx.x & (L - 1);
+  for (int sw = 0; sw < NS; ++sw) {
+    const uint32_t had = sum[sw];
+    const uint32_t emptied = __reduce_or_sync(
+        tm, lane_narrow(row, gm, had, sw, t, L, W, ZC, slots, s_pt, u));
+    if (t == 0) sum[sw] = had & ~emptied;
+  }
+}
+
+// An opened node's row: src_a & src_b (its feasible columns and its
+// pool's) in `slots`, narrowed as above, every chunk written (the chunks
+// `reach` leaves unmarked, zeros) and the summary rebuilt.
+__device__ __forceinline__ void tile_open(int L, uint32_t* row,
+                                          uint32_t* sum,
+                                          const uint32_t* reach, int NS,
+                                          const uint32_t* src_a,
+                                          const uint32_t* src_b, int W,
+                                          int ZC, uint64_t slots,
+                                          const float* s_pt,
+                                          const float* u) {
+  const unsigned tm = tile_mask(L);
+  const int t = threadIdx.x & (L - 1);
+  for (int sw = 0; sw < NS; ++sw) {
+    const uint32_t held = __reduce_or_sync(
+        tm, lane_open(row, src_a, src_b, reach[sw], sw, t, L, W, ZC, slots,
+                      s_pt, u));
+    if (t == 0) sum[sw] = held;
+  }
+}
+
+// how many of the first N node slots took pods this step (s_take); also
+// the barrier between the takes and the tiles that read them (a step with
+// no active slot has neither)
+__device__ __forceinline__ int count_touched(const int* s_take, int N) {
+  int n = 0;
+  for (int base = 0; base < N; base += NT)
+    n += __syncthreads_count(base + (int)threadIdx.x < N &&
+                             s_take[base + threadIdx.x] > 0);
+  return n;
+}
+
+// One run of opened slots [st, st + m) of pool p, pinned to domain dom (-1
+// none): kfull pods on each node but the last, which takes klast; its
+// columns are the pool's feasible ones in the grid slots `slots`.
+struct OpenRun {
+  int p, st, m, kfull, klast, dom;
+  uint64_t slots;
+};
+
+// Activates the slots [lo, hi) the cascade opened, in R runs (run(r) gives
+// run r, run_of(n) the run that holds slot n or -1).  A new node's row
+// depends only on its pool, its grid slots and its pods, so each run's
+// first slot and its last (whose pods may differ) are narrowed from the
+// feasible columns, a tile each, and every other slot of the run copies
+// the first's row and summary, a warp a slot.  Each slot gets its used
+// vector, pool and pin, and with take_add its pods added there.  Every
+// thread calls.
+template <class Run, class RunOf>
+__device__ void open_slots(const ScanArgs& a, const ScanDyn& s, int R,
+                           Run run, RunOf run_of, int lo, int hi,
+                           const float* req, int* node_dom, int* take_add) {
+  if (hi <= lo) return;  // nothing opened (uniform)
+  const int tid = threadIdx.x, lane = tid & 31, W = a.W, ZC = a.ZC;
+  const int NS = summary_words(W, ZC);
+  const int L = tile_width(2 * R, row_chunks(W, ZC));
+  for (int i = tid / L; i < 2 * R; i += NT / L) {
+    const OpenRun o = run(i >> 1);
+    if (o.m == 0 || ((i & 1) && o.m < 2)) continue;
+    const int n = (i & 1) ? o.st + o.m - 1 : o.st;
+    const int k = n == o.st + o.m - 1 ? o.klast : o.kfull;
+    float u[KR];
+#pragma unroll
+    for (int r = 0; r < KR; ++r)
+      u[r] = __fadd_rn(a.pool_daemon[o.p * KR + r],
+                       __fmul_rn((float)k, req[r]));
+    tile_open(L, node_words(a, n), s.csum + (size_t)n * NS,
+              gsum_of(s, a.N, NS), NS, s.feas, a.pool_bits + (size_t)o.p * W,
+              W, ZC, o.slots, s.pt, u);
+  }
+  __syncthreads();
+  for (int n = lo + (tid >> 5); n < hi; n += NT / 32) {
+    const int r = run_of(n);
+    if (r < 0) continue;
+    const OpenRun o = run(r);
+    const bool last = n == o.st + o.m - 1;
+    if (n != o.st && !last) {
+      const uint32_t* from = node_words(a, o.st);
+      uint32_t* to = node_words(a, n);
+      for (int w = lane; w < W; w += 32) to[w] = from[w];
+      for (int i = lane; i < NS; i += 32)
+        s.csum[(size_t)n * NS + i] = s.csum[(size_t)o.st * NS + i];
+    }
+    if (lane == 0) {
+      const int k = last ? o.klast : o.kfull;
+#pragma unroll
+      for (int r = 0; r < KR; ++r)
+        a.used[n * KR + r] = __fadd_rn(a.pool_daemon[o.p * KR + r],
+                                       __fmul_rn((float)k, req[r]));
+      a.active[n] = 1;
+      a.node_pool[n] = o.p;
+      if (node_dom) node_dom[n] = o.dom;
+      if (take_add) take_add[n] += k;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -357,6 +547,23 @@ __device__ __forceinline__ const int* slot_ct(const ScanArgs& a) {
   return a.col_ct;
 }
 
+// the pool whose new nodes the cascade opened at slot n ([start[p],
+// start[p] + m[p])), or -1
+__device__ __forceinline__ int opened_pool(const ScanShared& S, int P,
+                                           int n) {
+  for (int p = 0; p < P; ++p)
+    if (S.m[p] > 0 && n >= S.start[p] && n < S.start[p] + S.m[p]) return p;
+  return -1;
+}
+
+// the pods the cascade put on opened slot n of pool p: k_full, the last
+// node the remainder
+__device__ __forceinline__ int opened_pods(const ScanShared& S, int p,
+                                           int kfull, int n) {
+  return (n - S.start[p] == S.m[p] - 1) ? S.taken[p] - wmul(S.m[p] - 1, kfull)
+                                        : kfull;
+}
+
 // ---------------------------------------------------------------------------
 // the light step (ffd.py:460-587)
 template <bool SHARDED>
@@ -365,6 +572,8 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
   const int tid = threadIdx.x;
   const int E = a.E, N = a.N, O = a.O, ZC = a.ZC, P = a.P, D = a.D,
             W = a.W;
+  // every active slot lies below hi (slots open in index order)
+  const int hi = max(S.hi0, S.na), NS = summary_words(W, ZC);
   float req[KR];
 #pragma unroll
   for (int r = 0; r < KR; ++r) req[r] = S.req[r];
@@ -417,33 +626,19 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
   // -- 2. in-flight nodes -------------------------------------------------
   // per-node capacity: the best fit over (pool,type) blocks that still hold
   // a surviving column the group admits, capped by the group's per-node
-  // cap; inactive slots hold nothing
-  for (int n = tid; n < N; n += NT) {
-    int cap = 0;
-    if (a.active[n]) {
-      float u[KR];
+  // cap; inactive slots hold nothing.  One tile of lanes per active node.
+  for (int n = tid; n < N; n += NT)
+    if (n >= hi || !a.active[n]) s.cap[n] = 0;
+  const int Lc = tile_width(hi, row_chunks(W, ZC));
+  for (int n = tid / Lc; n < hi; n += NT / Lc) {
+    if (!a.active[n]) continue;
+    float u[KR];
 #pragma unroll
-      for (int r = 0; r < KR; ++r) u[r] = a.used[n * KR + r];
-      int best = 0, last_pt = -1;
-      for (int w = 0; w < W; ++w) {
-        uint32_t m = a.colmask[(size_t)w * N + n] & s.gm[w];
-        while (m) {
-          const int o = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-          const int pt = o / ZC;
-          if (pt != last_pt) {
-            last_pt = pt;
-            float av[KR];
-#pragma unroll
-            for (int r = 0; r < KR; ++r)
-              av[r] = __fsub_rn(s.pt[pt * KR + r], u[r]);
-            best = max(best, fit_count(av, req));
-          }
-        }
-      }
-      cap = min(best, ncap);
-    }
-    s.cap[n] = cap;
+    for (int r = 0; r < KR; ++r) u[r] = a.used[n * KR + r];
+    const int cap = tile_best(Lc, node_words(a, n), s.csum + (size_t)n * NS,
+                              gsum_of(s, N, NS), NS, s.gm, W, ZC, ALL_SLOTS,
+                              s.pt, u, req, ncap);
+    if ((tid & (Lc - 1)) == 0) s.cap[n] = cap;
   }
   if (tid < P) S.limcap[tid] = fit_count(&a.limits[tid * KR], req);
   __syncthreads();
@@ -494,25 +689,26 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
   }
 
   // touched nodes: charge used, AND the group's mask into the surviving
-  // columns, drop blocks the new `used` no longer fits
-  for (int n = tid; n < N; n += NT) {
+  // columns, drop blocks the new `used` no longer fits (a tile a node)
+  const int Lt =
+      hi > 0 ? tile_width(count_touched(s.take, N), row_chunks(W, ZC)) : 1;
+  for (int n = tid / Lt; n < hi; n += NT / Lt) {
     const int take = s.take[n];
     if (take > 0) {
       float u[KR];
 #pragma unroll
-      for (int r = 0; r < KR; ++r) {
+      for (int r = 0; r < KR; ++r)
         u[r] = __fadd_rn(a.used[n * KR + r], __fmul_rn((float)take, req[r]));
-        a.used[n * KR + r] = u[r];
+      uint32_t* row = node_words(a, n);
+      tile_narrow(Lt, row, s.csum + (size_t)n * NS, NS, s.gm, W, ZC,
+                  ALL_SLOTS, s.pt, u);
+      __syncwarp(tile_mask(Lt));
+      if ((tid & (Lt - 1)) == 0) {
+#pragma unroll
+        for (int r = 0; r < KR; ++r) a.used[n * KR + r] = u[r];
+        atomicAdd(&S.ptake[a.node_pool[n]], take);
+        atomicAdd(&S.sum, take);
       }
-      int last_pt = -1;
-      bool last_ok = true;
-      for (int w = 0; w < W; ++w) {
-        const uint32_t m = a.colmask[(size_t)w * N + n] & s.gm[w];
-        a.colmask[(size_t)w * N + n] =
-            narrow_word(m, w, ZC, s.pt, u, last_pt, last_ok);
-      }
-      atomicAdd(&S.ptake[a.node_pool[n]], take);
-      atomicAdd(&S.sum, take);
     }
   }
   __syncthreads();
@@ -605,37 +801,23 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
   }
   __syncthreads();
 
-  // activate the opened slots in parallel and emit the take_new row
+  // emit the take_new row, and activate the opened slots [start[0], na),
+  // one run per pool
   for (int n = tid; n < N; n += NT) {
     int tn = s.take[n];
-    for (int p = 0; p < P; ++p) {
-      const int m = S.m[p], st = S.start[p];
-      if (m > 0 && n >= st && n < st + m) {
-        const int kfull = S.kfull[p];
-        const int k = (n - st == m - 1) ? S.taken[p] - wmul(m - 1, kfull)
-                                        : kfull;
-        float u[KR];
-#pragma unroll
-        for (int r = 0; r < KR; ++r) {
-          u[r] = __fadd_rn(a.pool_daemon[p * KR + r],
-                           __fmul_rn((float)k, req[r]));
-          a.used[n * KR + r] = u[r];
-        }
-        int last_pt = -1;
-        bool last_ok = true;
-        for (int w = 0; w < W; ++w) {
-          const uint32_t m0 = s.feas[w] & a.pool_bits[(size_t)p * W + w];
-          a.colmask[(size_t)w * N + n] =
-              narrow_word(m0, w, ZC, s.pt, u, last_pt, last_ok);
-        }
-        a.active[n] = 1;
-        a.node_pool[n] = p;
-        tn += k;
-        break;
-      }
-    }
+    const int p = opened_pool(S, P, n);
+    if (p >= 0) tn += opened_pods(S, p, S.kfull[p], n);
     a.take_new[(size_t)g * N + n] = (float)tn;
   }
+  open_slots(
+      a, s, P,
+      [&](int p) {
+        return OpenRun{p, S.start[p], S.m[p], S.kfull[p],
+                       S.taken[p] - wmul(S.m[p] - 1, S.kfull[p]), -1,
+                       ALL_SLOTS};
+      },
+      [&](int n) { return opened_pool(S, P, n); }, S.start[0], S.na, req,
+      nullptr, nullptr);
   for (int d = tid; d < D; d += NT) a.dom_placed[(size_t)g * D + d] = 0.0f;
 }
 
@@ -645,6 +827,7 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
 // per-domain state of one heavy step, in shared memory (TOPO only)
 struct HeavyShared {
   int zcdom[MAXZC];           // domain of each grid slot
+  uint64_t dslots[MAXD];      // each domain's grid slots as a slot mask
   int dbase[MAXD], delig[MAXD], xmax[MAXD], want[MAXD];
   unsigned cape[MAXD];        // sum of existing-node caps per domain
   unsigned capn[MAXD];        // sum of in-flight caps per domain
@@ -772,6 +955,7 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
   const int tid = threadIdx.x;
   const int E = a.E, N = a.N, O = a.O, ZC = a.ZC, P = a.P, D = a.D,
             W = a.W;
+  const int hi = max(S.hi0, S.na), NS = summary_words(W, ZC);
   float req[KR];
 #pragma unroll
   for (int r = 0; r < KR; ++r) req[r] = S.req[r];
@@ -791,6 +975,7 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
   for (int z = tid; z < ZC; z += NT) H.zcdom[z] = zc_dom[z];
   for (int i = tid; i < P * D; i += NT) s.kpd[i] = 0;
   __syncthreads();
+  for (int d = tid; d < D; d += NT) H.dslots[d] = dom_slots(H.zcdom, ZC, d);
 
   // -- capacity estimates per domain (for the water-fill) -----------------
   for (int e = tid; e < E; e += NT) {
@@ -807,9 +992,11 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
     int best = 0, bd = 0, bcap = 0;
     for (int d = 0; d < D; ++d) {
       int capd = 0;
-      for (int z = 0; z < ZC; ++z)
-        if (H.zcdom[z] == d) capd = max(capd, slotmax[z]);
-      capd = act ? min(capd, ncap) : 0;
+      if (act) {
+        for (int z = 0; z < ZC; ++z)
+          if (H.zcdom[z] == d) capd = max(capd, slotmax[z]);
+        capd = min(capd, ncap);
+      }
       const int score = (int)((unsigned)wmul(min(capd, cnt), D + 1) +
                               (unsigned)((n + d) % dreal));
       if (d == 0 || score > best) {
@@ -822,39 +1009,30 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
     s.cap[n] = bcap;
     atomicAdd(&H.capn[bd], (unsigned)bcap);
   };
+  // (inactive slots: no capacity; a tile per active node)
   for (int n = tid; n < N; n += NT) {
-    int slotmax[MAXZC];
-    for (int z = 0; z < ZC; ++z) slotmax[z] = 0;
-    const bool act = a.active[n] != 0;
-    if (act) {
-      float u[KR];
-#pragma unroll
-      for (int r = 0; r < KR; ++r) u[r] = a.used[n * KR + r];
-      int last_pt = -1, fit = 0;
-      for (int w = 0; w < W; ++w) {
-        uint32_t m = a.colmask[(size_t)w * N + n] & s.gm[w];
-        while (m) {
-          const int o = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-          const int pt = o / ZC;
-          if (pt != last_pt) {
-            last_pt = pt;
-            float av[KR];
-#pragma unroll
-            for (int r = 0; r < KR; ++r)
-              av[r] = __fsub_rn(s.pt[pt * KR + r], u[r]);
-            fit = fit_count(av, req);
-          }
-          const int z = o - pt * ZC;
-          slotmax[z] = max(slotmax[z], fit);
-        }
-      }
+    if (n < hi && a.active[n]) continue;
+    if constexpr (SHARDED) {
+      for (int z = 0; z < ZC; ++z) a.xslot[(size_t)n * ZC + z] = 0;
+    } else {
+      pick_domain(n, false, nullptr);
     }
+  }
+  const int Lc = tile_width(hi, row_chunks(W, ZC));
+  for (int n = tid / Lc; n < hi; n += NT / Lc) {
+    if (!a.active[n]) continue;
+    float u[KR];
+#pragma unroll
+    for (int r = 0; r < KR; ++r) u[r] = a.used[n * KR + r];
+    int slotmax[MAXZC];
+    tile_slotmax(Lc, node_words(a, n), s.csum + (size_t)n * NS,
+                 gsum_of(s, N, NS), NS, s.gm, W, ZC, s.pt, u, req, slotmax);
     if constexpr (SHARDED) {
       // this shard's slot maxima; the pick waits for every shard's
-      for (int z = 0; z < ZC; ++z) a.xslot[(size_t)n * ZC + z] = slotmax[z];
+      for (int z = tid & (Lc - 1); z < ZC; z += Lc)
+        a.xslot[(size_t)n * ZC + z] = slotmax[z];
     } else {
-      pick_domain(n, act, slotmax);
+      if ((tid & (Lc - 1)) == 0) pick_domain(n, true, slotmax);
     }
   }
   if constexpr (SHARDED) {
@@ -989,27 +1167,28 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
   }
   // touched nodes: charge used, AND the group's mask and the domain's grid
   // slots into the surviving columns, drop blocks that no longer fit, pin
-  // the node to its domain
-  for (int n = tid; n < N; n += NT) {
+  // the node to its domain (a tile a node)
+  const int Lt =
+      hi > 0 ? tile_width(count_touched(s.take, N), row_chunks(W, ZC)) : 1;
+  for (int n = tid / Lt; n < hi; n += NT / Lt) {
     const int take = s.take[n];
     if (take > 0) {
       const int bd = s.bd[n];
       float u[KR];
 #pragma unroll
-      for (int r = 0; r < KR; ++r) {
+      for (int r = 0; r < KR; ++r)
         u[r] = __fadd_rn(a.used[n * KR + r], __fmul_rn((float)take, req[r]));
-        a.used[n * KR + r] = u[r];
+      uint32_t* row = node_words(a, n);
+      tile_narrow(Lt, row, s.csum + (size_t)n * NS, NS, s.gm, W, ZC,
+                  H.dslots[bd], s.pt, u);
+      __syncwarp(tile_mask(Lt));
+      if ((tid & (Lt - 1)) == 0) {
+#pragma unroll
+        for (int r = 0; r < KR; ++r) a.used[n * KR + r] = u[r];
+        node_dom[n] = bd;
+        atomicAdd(&S.ptake[a.node_pool[n]], take);
+        atomicAdd(&H.dflight[bd], (unsigned)take);
       }
-      int last_pt = -1;
-      bool last_ok = true;
-      for (int w = 0; w < W; ++w) {
-        const uint32_t m = a.colmask[(size_t)w * N + n] & s.gm[w];
-        a.colmask[(size_t)w * N + n] =
-            narrow_word(m, w, ZC, s.pt, u, last_pt, last_ok, H.zcdom, bd);
-      }
-      node_dom[n] = bd;
-      atomicAdd(&S.ptake[a.node_pool[n]], take);
-      atomicAdd(&H.dflight[bd], (unsigned)take);
     }
   }
   __syncthreads();
@@ -1073,37 +1252,23 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
       S.na = (int)((unsigned)na + msum);
     }
     __syncthreads();
-    // activate the opened slots in parallel, each pinned to its domain
-    const int na = H.pool_na, mtot = H.pool_m;
-    for (int n = na + tid; n < na + mtot; n += NT) {
-      int d = 0;
-      while (d < D && !(H.md[d] > 0 && n >= H.startd[d] &&
-                        n < H.startd[d] + H.md[d]))
-        ++d;
-      if (d == D) continue;
-      const int kfull = s.kpd[p * D + d];
-      const int k = (n == H.startd[d] + H.md[d] - 1)
-                        ? H.takend[d] - wmul(H.md[d] - 1, kfull)
-                        : kfull;
-      float u[KR];
-#pragma unroll
-      for (int r = 0; r < KR; ++r) {
-        u[r] = __fadd_rn(a.pool_daemon[p * KR + r],
-                         __fmul_rn((float)k, req[r]));
-        a.used[n * KR + r] = u[r];
-      }
-      int last_pt = -1;
-      bool last_ok = true;
-      for (int w = 0; w < W; ++w) {
-        const uint32_t m0 = s.feas[w] & a.pool_bits[(size_t)p * W + w];
-        a.colmask[(size_t)w * N + n] =
-            narrow_word(m0, w, ZC, s.pt, u, last_pt, last_ok, H.zcdom, d);
-      }
-      a.active[n] = 1;
-      a.node_pool[n] = p;
-      node_dom[n] = d;
-      s.take[n] += k;
-    }
+    // activate the opened slots, one run per domain, each pinned to it
+    open_slots(
+        a, s, D,
+        [&](int d) {
+          const int kf = s.kpd[p * D + d];
+          return OpenRun{p, H.startd[d], H.md[d], kf,
+                         H.takend[d] - wmul(H.md[d] - 1, kf), d,
+                         H.dslots[d]};
+        },
+        [&](int n) {
+          int d = 0;
+          while (d < D && !(H.md[d] > 0 && n >= H.startd[d] &&
+                            n < H.startd[d] + H.md[d]))
+            ++d;
+          return d < D ? d : -1;
+        },
+        H.pool_na, H.pool_na + H.pool_m, req, node_dom, s.take);
     __syncthreads();
   }
 
@@ -1126,6 +1291,7 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
 // per-step state of one gang step, in shared memory (GANG only)
 struct GangShared {
   int zcdom[MAXZC];        // domain of each grid slot (all 0 for dsel 0)
+  uint64_t dslots;         // the candidate domain's grid slots
   int placed[MAXD];        // each domain's candidate total
   float lim[MAXP * KR];    // a candidate's own copy of the pool budgets
   int sum_e, sum_n, w, ok;
@@ -1154,6 +1320,7 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
                                int d, bool commit) {
   const int tid = threadIdx.x;
   const int E = a.E, N = a.N, ZC = a.ZC, P = a.P, D = a.D, W = a.W;
+  const int hi = max(S.hi0, S.na), NS = summary_words(W, ZC);
   float req[KR];
 #pragma unroll
   for (int r = 0; r < KR; ++r) req[r] = S.req[r];
@@ -1162,6 +1329,7 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
   if (tid == 0) {
     Gs.sum_e = 0;
     Gs.sum_n = 0;
+    Gs.dslots = dom_slots(Gs.zcdom, ZC, d);
   }
   if (tid < P) S.ptake[tid] = 0;
   __syncthreads();
@@ -1197,35 +1365,20 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
   const int rem1 = cnt - Gs.sum_e;
 
   // -- 2. in-flight nodes: the best fit over the node's surviving,
-  // admitted blocks in d's grid slots (a node pinned elsewhere has none)
-  for (int n = tid; n < N; n += NT) {
-    int cap = 0;
-    if (a.active[n]) {
-      float u[KR];
+  // admitted blocks in d's grid slots (a node pinned elsewhere has none);
+  // a tile per active node
+  for (int n = tid; n < N; n += NT)
+    if (n >= hi || !a.active[n]) s.cap[n] = 0;
+  const int Lc = tile_width(hi, row_chunks(W, ZC));
+  for (int n = tid / Lc; n < hi; n += NT / Lc) {
+    if (!a.active[n]) continue;
+    float u[KR];
 #pragma unroll
-      for (int r = 0; r < KR; ++r) u[r] = a.used[n * KR + r];
-      int best = 0, last_pt = -1, fit = 0;
-      for (int w = 0; w < W; ++w) {
-        uint32_t m = a.colmask[(size_t)w * N + n] & s.gm[w];
-        while (m) {
-          const int o = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-          const int pt = o / ZC;
-          if (Gs.zcdom[o - pt * ZC] != d) continue;
-          if (pt != last_pt) {
-            last_pt = pt;
-            float av[KR];
-#pragma unroll
-            for (int r = 0; r < KR; ++r)
-              av[r] = __fsub_rn(s.pt[pt * KR + r], u[r]);
-            fit = fit_count(av, req);
-          }
-          best = max(best, fit);
-        }
-      }
-      cap = min(best, ncap);
-    }
-    s.cap[n] = cap;
+    for (int r = 0; r < KR; ++r) u[r] = a.used[n * KR + r];
+    const int cap = tile_best(Lc, node_words(a, n), s.csum + (size_t)n * NS,
+                              gsum_of(s, N, NS), NS, s.gm, W, ZC, Gs.dslots,
+                              s.pt, u, req, ncap);
+    if ((tid & (Lc - 1)) == 0) s.cap[n] = cap;
   }
   __syncthreads();
   // the best over every shard's blocks in d's slots (ffd.py:894)
@@ -1260,24 +1413,31 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
   for (int n = tid; n < N; n += NT) {
     const int take = s.take[n];
     if (take > 0) {
-      if (commit) {
-        float u[KR];
-#pragma unroll
-        for (int r = 0; r < KR; ++r) {
-          u[r] = __fadd_rn(a.used[n * KR + r], __fmul_rn((float)take, req[r]));
-          a.used[n * KR + r] = u[r];
-        }
-        int last_pt = -1;
-        bool last_ok = true;
-        for (int w = 0; w < W; ++w) {
-          const uint32_t m = a.colmask[(size_t)w * N + n] & s.gm[w];
-          a.colmask[(size_t)w * N + n] =
-              narrow_word(m, w, ZC, s.pt, u, last_pt, last_ok, Gs.zcdom, d);
-        }
-        if (node_dom) node_dom[n] = d;
-      }
       atomicAdd(&S.ptake[a.node_pool[n]], take);
       atomicAdd(&Gs.sum_n, take);
+    }
+  }
+  // the winner's in-flight takes: charge used, narrow to d's slots and
+  // the blocks that still fit, pin (a tile a node)
+  if (commit) {
+    const int Lt =
+        hi > 0 ? tile_width(count_touched(s.take, N), row_chunks(W, ZC)) : 1;
+    for (int n = tid / Lt; n < hi; n += NT / Lt) {
+      const int take = s.take[n];
+      if (take <= 0) continue;
+      float u[KR];
+#pragma unroll
+      for (int r = 0; r < KR; ++r)
+        u[r] = __fadd_rn(a.used[n * KR + r], __fmul_rn((float)take, req[r]));
+      uint32_t* row = node_words(a, n);
+      tile_narrow(Lt, row, s.csum + (size_t)n * NS, NS, s.gm, W, ZC,
+                  Gs.dslots, s.pt, u);
+      __syncwarp(tile_mask(Lt));
+      if ((tid & (Lt - 1)) == 0) {
+#pragma unroll
+        for (int r = 0; r < KR; ++r) a.used[n * KR + r] = u[r];
+        if (node_dom) node_dom[n] = d;
+      }
     }
   }
   __syncthreads();
@@ -1331,38 +1491,23 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
   __syncthreads();
   if (!commit) return;
 
-  // the winner's new nodes, activated in parallel, pinned to d
+  // the winner's take_new row, and its new nodes [start[0], na), one run
+  // per pool, pinned to d
   for (int n = tid; n < N; n += NT) {
     int tn = s.take[n];
-    for (int p = 0; p < P; ++p) {
-      const int m = S.m[p], st = S.start[p];
-      if (m > 0 && n >= st && n < st + m) {
-        const int kfull = s.kpd[p * D + d];
-        const int k = (n - st == m - 1) ? S.taken[p] - wmul(m - 1, kfull)
-                                        : kfull;
-        float u[KR];
-#pragma unroll
-        for (int r = 0; r < KR; ++r) {
-          u[r] = __fadd_rn(a.pool_daemon[p * KR + r],
-                           __fmul_rn((float)k, req[r]));
-          a.used[n * KR + r] = u[r];
-        }
-        int last_pt = -1;
-        bool last_ok = true;
-        for (int w = 0; w < W; ++w) {
-          const uint32_t m0 = s.feas[w] & a.pool_bits[(size_t)p * W + w];
-          a.colmask[(size_t)w * N + n] =
-              narrow_word(m0, w, ZC, s.pt, u, last_pt, last_ok, Gs.zcdom, d);
-        }
-        a.active[n] = 1;
-        a.node_pool[n] = p;
-        if (node_dom) node_dom[n] = d;
-        tn += k;
-        break;
-      }
-    }
+    const int p = opened_pool(S, P, n);
+    if (p >= 0) tn += opened_pods(S, p, s.kpd[p * D + d], n);
     a.take_new[(size_t)g * N + n] = (float)tn;
   }
+  open_slots(
+      a, s, P,
+      [&](int p) {
+        const int kf = s.kpd[p * D + d];
+        return OpenRun{p, S.start[p], S.m[p], kf,
+                       S.taken[p] - wmul(S.m[p] - 1, kf), d, Gs.dslots};
+      },
+      [&](int n) { return opened_pool(S, P, n); }, S.start[0], S.na, req,
+      node_dom, nullptr);
 }
 
 template <bool SHARDED>
@@ -1732,6 +1877,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   s.bd = reinterpret_cast<int*>(s.feas + W);                     // [N]
   s.kpd = s.bd + (TOPO ? N : 0);                                 // [P, D]
   s.pm = reinterpret_cast<uint32_t*>(s.kpd + (TOPO ? P * D : 0));  // [W]
+  s.csum = s.pm + (SWEEP ? W : 0);        // [N, NS], then the mask's [NS]
 
   // -- the simulation: its exclusions and its price-capped columns --------
   if (tid == 0) S.nx = SWEEP ? a.X : 0;
@@ -1757,15 +1903,19 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
               : a.exist_remaining[i];
   for (int i = tid; i < N * KR; i += NT)
     a.used[i] = SEED ? a.seed_used[i] : 0.0f;
-  for (size_t i = tid; i < (size_t)W * N; i += NT) {
-    uint32_t word = 0u;
-    if (SEED) {
-      // the seed's [A, W] slot rows into the carry's [W, N] words; slots
-      // past A start with no surviving column
-      const int n = (int)(i % N), w = (int)(i / N);
-      if (n < a.A) word = a.seed_colmask[(size_t)n * W + w];
-    }
-    a.colmask[i] = word;
+  // the carry's [N, W] column words: the seed's [A, W] slot rows, and their
+  // chunk summaries (none past them).  A walk reads only the chunks a
+  // summary marks, and an opened slot writes its whole row and summary, so
+  // nothing else needs clearing.
+  const int NS = summary_words(W, a.ZC);
+  if constexpr (SEED) {
+    for (size_t i = tid; i < (size_t)a.A * W; i += NT)
+      a.colmask[i] = a.seed_colmask[i];
+    for (int i = tid; i < N * NS; i += NT)
+      s.csum[i] = i / NS < a.A
+                      ? summary_word(a.seed_colmask + (size_t)(i / NS) * W,
+                                     i % NS, W, a.ZC)
+                      : 0u;
   }
   for (int i = tid; i < N; i += NT) {
     a.active[i] = SEED ? (a.seed_active[i] != 0) : 0;
@@ -1776,6 +1926,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   for (int i = tid; i < P * KR; i += NT) a.limits[i] = a.pool_limit[i];
   if (tid == 0) {
     S.na = 0;
+    S.hi0 = 0;
     S.first = INT_MAX;
     S.sum = 0;
     S.dreal_zone = INT_MIN;
@@ -1805,9 +1956,16 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   if (SEED) {
     // num_active = seed_active.sum(): new nodes append after the seeded
     // slots, exactly where the full solve's suffix would open them
-    int mine = 0;
-    for (int i = tid; i < N; i += NT) mine += a.seed_active[i] != 0;
-    if (mine) atomicAdd(&S.na, mine);
+    int mine = 0, top = 0;
+    for (int i = tid; i < N; i += NT)
+      if (a.seed_active[i] != 0) {
+        ++mine;
+        top = i + 1;
+      }
+    if (mine) {
+      atomicAdd(&S.na, mine);
+      atomicMax(&S.hi0, top);
+    }
     __syncthreads();
   }
   if (TOPO) {
@@ -1856,10 +2014,20 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     }
     // the mesh path gathers the group's row of the resident mask table
     const int mrow = SHARDED ? a.mask_rows[g] : row;
+    const uint32_t* mask = a.mask_bits + (size_t)mrow * W;
     for (int w = tid; w < W; w += NT) {
-      const uint32_t m = a.mask_bits[(size_t)mrow * W + w];
-      s.gm[w] = SWEEP ? (m & s.pm[w]) : m;
+      s.gm[w] = SWEEP ? (mask[w] & s.pm[w]) : mask[w];
       s.feas[w] = 0u;
+    }
+    // the chunks that mask reaches, a thread a chunk: a node's walk visits
+    // only those (and the feasible columns lie in them)
+    for (int c = tid; c < NS * 32; c += NT) {
+      bool any = false;
+      if (c < row_chunks(W, a.ZC))
+        for (int w = c * chunk_words(a.ZC); w < chunk_end(c, W, a.ZC); ++w)
+          any = any || (SWEEP ? (mask[w] & s.pm[w]) : mask[w]) != 0u;
+      const unsigned held = __ballot_sync(FULLMASK, any);
+      if ((tid & 31) == 0) gsum_of(s, N, NS)[c >> 5] = held;
     }
     if (tid < P) {
       S.kfull[tid] = 0;
@@ -1911,7 +2079,8 @@ size_t scan_smem(const ScanArgs& a) {
   return (size_t)a.PT * KR * sizeof(float) + 2 * (size_t)a.N * sizeof(int) +
          2 * (size_t)a.W * sizeof(uint32_t) +
          (TOPO ? ((size_t)a.N + (size_t)a.P * a.D) * sizeof(int) : 0) +
-         (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0);
+         (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0) +
+         ((size_t)a.N + 1) * summary_words(a.W, a.ZC) * sizeof(uint32_t);
 }
 
 // The launch configuration of the column-sharded instance: one cluster of

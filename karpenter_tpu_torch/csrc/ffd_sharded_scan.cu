@@ -76,7 +76,7 @@ extern "C" int ffd_sharded_delta_scan(const unsigned long long* ptrs,
 
 // How many clusters of one launch's shape the card holds at once
 // (cudaOccupancyMaxActiveClusters): `dims` as the entry points take them
-// (only N, PT, P, D, W and S matter), `ptrs` unused, and in the stream's
+// (only N, PT, ZC, P, D, W and S matter), `ptrs` unused, and in the stream's
 // place the instance (0 ffd_sharded_scan, 1 the gang instance, 2 the
 // seeded one).  Returns the count (>= 0), -2 for dims out of range, or
 // -1000 - a CUDA error code.  Launches nothing.
@@ -89,12 +89,13 @@ extern "C" int ffd_sharded_occupancy(const unsigned long long* ptrs,
   ScanArgs a = {};
   a.N = dims[2];
   a.PT = dims[4];
+  a.ZC = dims[5];
   a.P = dims[6];
   a.D = dims[7];
   a.W = dims[8];
   a.S = dims[15];
-  if (a.N < 1 || a.PT < 0 || a.P < 1 || a.P > MAXP || a.D < 1 || a.W < 0 ||
-      a.S < 1 || a.S > 16)
+  if (a.N < 1 || a.PT < 0 || a.ZC < 1 || a.ZC > MAXZC || a.P < 1 ||
+      a.P > MAXP || a.D < 1 || a.W < 0 || a.S < 1 || a.S > 16)
     return -2;
   switch ((int)(size_t)variant) {
     case 0: return sharded_occupancy<true, false, false>(a);
