@@ -8,7 +8,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every CUDA kernel from karpenter_tpu_torch/csrc with nvcc, one
-     process per source, all at once;
+     process per source, all at once, and load the native host paths
+     (kt_hostops, `make -s hostops` in native/): a missing extension
+     fails the run with make's output, never falls back to the Python
+     loops;
   3. each kernel against its plain PyTorch version on the card: K5 and K2
      on seeded problems (light and topology) and on the encoded problems
      of the headline and config #3, K5 on seeded batches, K4's two lanes
@@ -19,7 +22,10 @@ Phases (any failure exits non-zero):
      uint32;
   4. the headline path: TorchSolver().solve(build_input(50_000)) — one
      cold and 20 warm solves through K5 and K2 — must give the JAX
-     package's answer, with those kernels' launch counts above zero;
+     package's answer, with those kernels' launch counts above zero; then
+     the same in a child process with KARPENTER_TPU_NO_NATIVE=1 (the
+     Python host paths), its encode and decode p50 printed beside the
+     native ones;
   5. the config #3 path: TorchSolver().solve(build_config3()) — 10k pods
      with zone spread and hostname anti-affinity, one cold and 20 warm
      solves through K5 (its heavy step) and K2 — the same;
@@ -40,8 +46,9 @@ Phases (any failure exits non-zero):
      trees), one cold and 20 warm solves each — the JAX package's answers,
      gang audit and plans, with the kernels launched;
   9. kernel timings at the main paths' shapes beside their bounds, each
-     also as ms a scan step (kernel ms / G), and the sweep's dense
-     against compacted take_exist rows (run after 10-12);
+     also as ms a scan step (kernel ms / G), the sweep's dense against
+     compacted take_exist rows, and an empty kernel's launch as the
+     floor of them all (run after 10-12);
  10. the steady state, config #7: a delta-on TorchSolver(max_nodes=2048)
      and a delta-off one in lockstep over build_config7(gen) — gen 0, one
      warm pass, 16 timed churn passes — every pass the JAX package's
@@ -66,7 +73,24 @@ Phases (any failure exits non-zero):
      chain and the delta passes through K7's seeded instance, every pass
      the JAX answer;
  17. the soft-term input (workloads.build_soft_terms) through the
-     relaxation loop, mesh off and mesh=8: the JAX answer.
+     relaxation loop, mesh off and mesh=8: the JAX answer;
+ 18. the provisioning control loop (workloads.provisioning_loop, run
+     right after phase 2, before any other phase launches a kernel):
+     the headline's 50k pods in the cluster store, one NodePool, the
+     default NodeClass, the 605-type catalog through the fake cloud and
+     the instance-type provider, GatedSolver on the card; the controller
+     manager runs the provisioner, the NodeClaim lifecycle, the fake
+     kubelet and the pod binder until idle, then again after 2,000 pods
+     of the two smallest sizes arrive.  Each wave must give the JAX
+     package's answer (LOOP: the launched instances, the pods bound per
+     node, the hex price, the rounds) with K5 and K2 launched, no oracle
+     solve, no SolverFallback event and kt_hostops loaded.  One cold loop
+     (in a child process that has launched nothing), one whose solver is
+     warmed first as the provisioner's startup warm-up does — its first
+     solve must meet zero first-use events (solver/firstuse.py) — and
+     two more on fresh clusters; wall time to idle and per round, the
+     provisioner's spans, the controllers' times and the solve phases,
+     with p50s.
 
 Phase 3 also holds K5's gang instance, the witness and K2's map and
 with_gang class against their plain versions on seeded gang and priority
@@ -84,7 +108,9 @@ at config #12's one program as the spec-off arm launches it (G=2048
 steps, 640 of them real), held once more against its plain version.
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
-Without a CUDA device it exits 2 and prints no result.
+Without a CUDA device it exits 2 and prints no result.  `--child MODE`
+runs one of the phases above that need a process of their own; the
+script starts those itself.
 """
 
 from __future__ import annotations
@@ -231,6 +257,26 @@ MESH_WARM = 5             # warm solves per mesh arm
 SHARDS = (2, 4, 6, 8)     # K7 against its plain version at these sizes
 K7_REPEATS = 3            # each K7 comparison launched this many times
 MESH_CONFIG7_PASSES = 5   # config #7 under the mesh: gen 0 and 4 passes
+
+# The provisioning control loop (phase 18): the headline's 50k pods
+# through GatedSolver to launched nodes and bound pods, then 2,000 pods of
+# its two smallest sizes.  The JAX package's answer to the same loop (its
+# own controllers, cloud provider and stores on the CPU, solver mesh off;
+# `python3 tests/test_torch_provisioning.py --pin` prints it), one dict
+# per wave as `workloads.loop_answer` gives it
+LOOP_PODS = 50_000
+LOOP_WAVE2 = 2_000
+LOOP_FRESH = 2            # loops on fresh clusters after the cold one
+LOOP = (
+    {"instances": 782, "instances_digest": "81ea05461e218a66",
+     "price": "0x1.c192b9cb684b1p+12", "nodes": 782,
+     "pods_per_node_digest": "e0a1832721c047fc", "bound": 50000,
+     "unbound": 0, "rounds": 4},
+    {"instances": 782, "instances_digest": "81ea05461e218a66",
+     "price": "0x1.c192b9cb684b1p+12", "nodes": 782,
+     "pods_per_node_digest": "0cd8fddd45301372", "bound": 52000,
+     "unbound": 0, "rounds": 2},
+)
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
 # float32 outside the tensor cores
@@ -807,11 +853,12 @@ def _read_launches(ffd):
 
 
 def _main_path(solver_cls, build, ffd, card, label, warm=WARM_SOLVES,
-               max_nodes=None, after_cold=None):
+               max_nodes=None, after_cold=None, p50=None):
     """One cold and `warm` warm runs of build() on a fresh solver —
     `solve`, or `solve_batch` under `max_nodes` — every kernel count set
     to 0 just before and read just after; `after_cold(solver)` runs
-    between the cold run and the warm ones.  Returns (result, launches,
+    between the cold run and the warm ones; `p50`, a dict, receives the
+    warm e2e p50 ("e2e") and each phase's.  Returns (result, launches,
     solver)."""
     import torch
     solver = solver_cls()
@@ -849,6 +896,9 @@ def _main_path(solver_cls, build, ffd, card, label, warm=WARM_SOLVES,
           f"{warm} runs (min {min(e2e):.3f}, max {max(e2e):.3f}); phase "
           f"p50 ms: " + ", ".join(f"{k} {statistics.median(v):.3f}"
                                   for k, v in phases.items()), flush=True)
+    if p50 is not None:
+        p50["e2e"] = statistics.median(e2e)
+        p50.update({k: statistics.median(v) for k, v in phases.items()})
     print(f"[{label}] launches: {launches}; seams: delta "
           f"{solver.delta_passes} {solver.delta_fallbacks}, spec "
           f"{solver.spec_passes} {solver.spec_fallbacks}", flush=True)
@@ -1556,12 +1606,277 @@ def _config13(ffd, card, TorchSolver, build_config13):
     return launches, bad
 
 
+# -- 18. the provisioning control loop ---------------------------------------
+def _loop_run(card, warm_up=False, capture=None):
+    """One provisioning loop on a fresh cluster (workloads.provisioning_loop,
+    Options(batch_idle_duration=0)): wave 1 the headline's LOOP_PODS pods,
+    wave 2 LOOP_WAVE2 pods of its two smallest sizes landing on wave 1's
+    nodes.  With `warm_up`, its GatedSolver is warmed first as the
+    provisioner's startup warm-up does (a one-pod input, shapes (8, e) and
+    (512, e)).  With a list as `capture`, each wave appends to it the
+    arguments of the one-problem and seeded solves it launched
+    (`_SolveCapture`, `_DeltaCapture`), for phase 3 to hold those launches
+    to their plain versions.  Every kernel count is set to 0 just before
+    each wave and read just after.  Returns one record per wave and the
+    warm-up's."""
+    import contextlib
+    import torch
+    from karpenter_tpu_torch import native, workloads
+    from karpenter_tpu_torch.models import ObjectMeta, Pod, Resources
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.solver import ffd, firstuse
+    from karpenter_tpu_torch.utils import metrics, tracing
+
+    loop = workloads.provisioning_loop(
+        LOOP_PODS, Options(batch_idle_duration=0), device="cuda")
+    warm = None
+    if warm_up:
+        pod = Pod(meta=ObjectMeta(name="karpenter-warmup"),
+                  requests=Resources.parse({"cpu": "100m",
+                                            "memory": "128Mi"}))
+        inp = loop.provisioner._build_input([pod])
+        e = len(inp.existing_nodes)
+        f0 = firstuse.snapshot()
+        t0 = time.perf_counter()
+        n = loop.solver.warmup(inp, shapes=((8, e), (512, e)))
+        torch.cuda.synchronize()
+        warm = {"launches": n, "ms": (time.perf_counter() - t0) * 1e3,
+                "first_use": {k: v - f0[k]
+                              for k, v in firstuse.snapshot().items()}}
+    # time each round and each controller's reconcile
+    ctl_s = {}
+    for c in loop.manager.controllers:
+        def timed(fn=c.reconcile, name=c.name):
+            t = time.perf_counter()
+            try:
+                fn()
+            finally:
+                ctl_s[name] = ctl_s.get(name, 0.0) + time.perf_counter() - t
+        c.reconcile = timed
+    round_ms = []
+    run_once = loop.manager.run_once
+
+    def timed_round():
+        t = time.perf_counter()
+        run_once()
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+    loop.manager.run_once = timed_round
+    tracing.set_enabled(True)
+    waves = []
+    try:
+        for wave in (1, 2):
+            if wave == 2:
+                loop.add_pods(workloads.headline_pods(
+                    LOOP_WAVE2, prefix="w", sizes=workloads.WAVE2_SIZES))
+            ctl_s.clear()
+            round_ms.clear()
+            tracing.reset()
+            oracle0 = metrics.SOLVER_SOLVES.value(path="oracle")
+            f0 = firstuse.total()
+            with contextlib.ExitStack() as stack:
+                if capture is not None:
+                    caps = (stack.enter_context(_SolveCapture(ffd)),
+                            stack.enter_context(_DeltaCapture(ffd)))
+                    capture.append({"solve": caps[0].calls,
+                                    "delta": caps[1].calls})
+                _reset_launches(ffd)
+                t0 = time.perf_counter()
+                rounds = loop.settle()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                launches = _read_launches(ffd)
+            spans = {}
+            for _, sps in tracing.finished_traces():
+                for sp in sps:
+                    spans[sp.name] = spans.get(sp.name, 0.0) + \
+                        sp.duration * 1e3
+            cache = loop.solver.tpu._delta_cache
+            waves.append({
+                "answer": workloads.loop_answer(loop.cluster, loop.cloud,
+                                                rounds),
+                "wall_ms": wall, "round_ms": list(round_ms),
+                "spans_ms": spans,
+                "controller_ms": {k: v * 1e3 for k, v in ctl_s.items()},
+                "phase_ms": dict(loop.solver.tpu.last_phase_ms),
+                "launches": launches,
+                "oracle": metrics.SOLVER_SOLVES.value(path="oracle")
+                - oracle0,
+                "fallbacks": sum(1 for ev in loop.cluster.events
+                                 if ev[3] == "SolverFallback"),
+                "first_use": firstuse.total() - f0,
+                "seams": (cache.last_outcome, cache.last_reason,
+                          cache.last_incr_reason),
+                "hostops": native.hostops() is not None})
+    finally:
+        tracing.set_enabled(None)
+        tracing.reset()
+    return waves, warm
+
+
+def _loop_check(waves, label):
+    """What phase 18 holds each wave to: the pinned JAX answer, K5 and K2
+    launched, no oracle solve, no SolverFallback event, kt_hostops
+    loaded."""
+    bad = []
+    for i, w in enumerate(waves):
+        if w["answer"] != LOOP[i]:
+            bad.append(f"{label} wave {i + 1}: {w['answer']} != {LOOP[i]}")
+        for k in ("ffd_batch_scan", "ffd_pack"):
+            if w["launches"][k] <= 0:
+                bad.append(f"{label} wave {i + 1}: {k} not launched")
+        if w["oracle"]:
+            bad.append(f"{label} wave {i + 1}: {w['oracle']} oracle solves")
+        if w["fallbacks"]:
+            bad.append(f"{label} wave {i + 1}: {w['fallbacks']} "
+                       f"SolverFallback events")
+        if not w["hostops"]:
+            bad.append(f"{label} wave {i + 1}: kt_hostops not loaded")
+    return bad
+
+
+def _loop_print(label, waves, card):
+    for i, w in enumerate(waves):
+        sp = w["spans_ms"]
+        print(f"[{label}] wave {i + 1} on {card}: {w['answer']}; to idle "
+              f"{w['wall_ms']:.1f} ms, rounds ms "
+              + ", ".join(f"{x:.1f}" for x in w["round_ms"])
+              + "; spans ms " + ", ".join(
+                  f"{k} {sp.get(k, 0.0):.1f}" for k in (
+                      "provisioning.build_input", "provisioning.solve",
+                      "provisioning.apply", "lifecycle.pass"))
+              + "; controllers ms " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in w["controller_ms"].items())
+              + "; solve phases ms " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in w["phase_ms"].items())
+              + f"; seams {w['seams']}; launches "
+              f"{ {k: v for k, v in w['launches'].items() if v} }; "
+              f"oracle solves {w['oracle']}, SolverFallback events "
+              f"{w['fallbacks']}, first-use events {w['first_use']}",
+              flush=True)
+
+
+def _loop_phase(card, add, captured):
+    """Phase 18: the cold loop in a child process, a loop whose solver is
+    warmed first, and LOOP_FRESH more loops on fresh clusters; every wave
+    held by `_loop_check`, the warmed solver's first solve to zero
+    first-use events.  The first fresh loop's solves are captured into
+    `captured` (one entry per wave), and each wave must have launched K5
+    and K6 only through the captured calls.  Adds the parent's loops'
+    launches with `add`; returns what failed."""
+    cold, err = _run_child("cold-loop")
+    if cold is None:
+        return [f"the cold loop failed: {err}"]
+    runs = {"cold": cold["waves"]}
+    warmed, warm = _loop_run(card, warm_up=True)
+    runs["warmed"] = warmed
+    for i in range(LOOP_FRESH):
+        runs[f"fresh {i + 1}"] = _loop_run(
+            card, capture=captured if i == 0 else None)[0]
+    bad = []
+    for i, (w, cap) in enumerate(zip(runs["fresh 1"], captured)):
+        n = {"ffd_batch_scan": len(cap["solve"]),
+             "ffd_delta_scan": len(cap["delta"])}
+        for k, v in n.items():
+            if w["launches"][k] != v:
+                bad.append(f"fresh 1 wave {i + 1}: {w['launches'][k]} {k} "
+                           f"launches, {v} of them captured")
+    for label, waves in runs.items():
+        _loop_print(f"18 {label} loop", waves, card)
+        bad += _loop_check(waves, label)
+        if label != "cold":
+            for w in waves:
+                add(w["launches"])
+    first = {k: [w[0]["spans_ms"].get("provisioning.solve", 0.0)]
+             for k, w in runs.items()}
+    print(f"[18] warm-up on {card}: {warm['launches']} launches in "
+          f"{warm['ms']:.1f} ms, first-use events {warm['first_use']}; the "
+          f"warmed solver's first solve (provisioning.solve) "
+          f"{first['warmed'][0]:.1f} ms with {warmed[0]['first_use']} "
+          f"first-use events, the cold process's first solve "
+          f"{first['cold'][0]:.1f} ms with {runs['cold'][0]['first_use']}, "
+          f"fresh clusters' first solves "
+          + ", ".join(f"{first[k][0]:.1f}" for k in runs
+                      if k.startswith("fresh")) + " ms", flush=True)
+    if warm["launches"] <= 0:
+        bad.append("the warm-up launched nothing")
+    if warmed[0]["first_use"]:
+        bad.append(f"the warmed solver's first solve met "
+                   f"{warmed[0]['first_use']} first-use events")
+    p50_runs = [runs["cold"]] + [runs[k] for k in runs
+                                 if k.startswith("fresh")]
+    for i in (0, 1):
+        ws = [r[i] for r in p50_runs]
+        spans = {k: _p50([w["spans_ms"].get(k, 0.0) for w in ws])
+                 for k in ("provisioning.build_input", "provisioning.solve",
+                           "provisioning.apply", "lifecycle.pass")}
+        ctl = {k: _p50([w["controller_ms"].get(k, 0.0) for w in ws])
+               for k in ws[0]["controller_ms"]}
+        phases = {k: _p50([w["phase_ms"].get(k, 0.0) for w in ws])
+                  for k in ws[0]["phase_ms"]}
+        print(f"[18] wave {i + 1} p50 over the cold loop and {LOOP_FRESH} "
+              f"fresh ones on {card}: to idle "
+              f"{_p50([w['wall_ms'] for w in ws]):.1f} ms; spans ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in spans.items())
+              + "; controllers ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in ctl.items())
+              + "; solve phases ms "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()),
+              flush=True)
+    return bad
+
+
+def _child(mode: str) -> int:
+    """The phases that run in a child process of their own: "headline"
+    (phase 4's headline with the environment the parent set, for the
+    KARPENTER_TPU_NO_NATIVE=1 arm) and "cold-loop" (phase 18's cold loop,
+    in a process that has launched nothing).  Prints one JSON line."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from karpenter_tpu_torch import native
+    from karpenter_tpu_torch.solver import TorchSolver, ffd
+    from karpenter_tpu_torch.workloads import build_input
+    card = _card_line()
+    if mode == "headline":
+        p50 = {}
+        res, counts, _ = _main_path(
+            TorchSolver, lambda: build_input(HEADLINE_PODS), ffd, card,
+            "4 headline, child", p50=p50)
+        bad = _check_answer(res, counts, HEADLINE_NODES, HEADLINE_UNSCHED,
+                            HEADLINE_PRICE_HEX,
+                            ("ffd_batch_scan", "ffd_pack"))
+        print(json.dumps({"bad": bad, "p50": p50,
+                          "hostops": native.hostops() is not None}))
+        return 1 if bad else 0
+    waves, _ = _loop_run(card)
+    torch.cuda.synchronize()
+    print(json.dumps({"waves": waves}))
+    return 0
+
+
+def _run_child(mode: str, env=None):
+    """Run `_child(mode)` in a child process; its JSON line, or None and
+    the child's output when it failed."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--child", mode],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, **(env or {})))
+    lines = out.stdout.strip().splitlines()
+    for line in lines:
+        print(f"    [child {mode}] {line}", flush=True)
+    if out.returncode != 0 or not lines:
+        return None, out.stderr[-4000:]
+    return json.loads(lines[-1]), None
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the card",
               file=sys.stderr)
         return 2
+    if argv[:1] == ["--child"] and len(argv) == 2:
+        return _child(argv[1])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch.solver import TorchSolver, _cuda, ffd
     from karpenter_tpu_torch.workloads import (
@@ -1585,6 +1900,32 @@ def main(argv) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {k}: {line.strip()}")
+    # the native host paths: no silent fallback to the Python loops here
+    from karpenter_tpu_torch import native
+    t0 = time.perf_counter()
+    if native.hostops() is None:
+        print(f"chip_smoke: kt_hostops did not load (the Python host paths "
+              f"would run): {native.build_error() or 'KARPENTER_TPU_NO_NATIVE set'}",
+              file=sys.stderr)
+        return 1
+    print(f"[2] kt_hostops loaded ({native.hostops().__file__}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # -- 18. the provisioning control loop, run here: before any other
+    # phase launches a kernel, so that the warm-up check starts from a
+    # process that has launched nothing -------------------------------------
+    loop_calls = []
+    bad = _loop_phase(card, add, loop_calls)
+    if bad:
+        print(f"chip_smoke: the provisioning loop failed: {bad}",
+              file=sys.stderr)
+        return 1
 
     # -- 3. kernels against their plain versions ---------------------------
     errs = {k: 0.0 for k in list(KERNELS) + list(PASSES)
@@ -1629,6 +1970,20 @@ def main(argv) -> int:
         wg, wp = _statics(probs)
         record(label, compare_batch(ffd, b, c, N, ex, 0, dev, wg, wp),
                f"B={b.B} N={N} explain={ex} gang={wg} prio={wp}")
+    # phase 18's own launches (its first fresh loop), on the tensors the
+    # loop gave them: K5 and K2 of each one-problem solve, K6 and K2 of
+    # each seeded one
+    for w, cap in enumerate(loop_calls, 1):
+        for j, (p, c, N, ex, wg, wp) in enumerate(cap["solve"]):
+            record(f"loop-wave{w}-solve{j}",
+                   compare_batch(ffd, ffd.FFDBatch.of(p), c, N, ex, 0, dev,
+                                 wg, wp),
+                   f"G={p.G} E={p.E} N={N} O={c.O} explain={ex} gang={wg} "
+                   f"prio={wp}")
+        for j, (p, sd, c, N, ex) in enumerate(cap["delta"]):
+            record(f"loop-wave{w}-delta{j}",
+                   compare_delta(ffd, p, sd, c, N, ex),
+                   f"G={p.G} A={sd.A} N={N} E={p.E} explain={ex}")
     for label, prob, catarr, seeds, N, ex in _delta_cases():
         c = ffd.catalog_tensors(catarr, dev)
         p, sd = ffd.delta_tensors(prob, *seeds, c.O, dev)
@@ -1720,16 +2075,11 @@ def main(argv) -> int:
         return 1
 
     # -- 4. the main path: the 50k headline ----------------------------------
-    launches = {}
-
-    def add(counts):
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
-
     torch.cuda.reset_peak_memory_stats(dev)
+    p50_on = {}
     res, counts, _ = _main_path(
         TorchSolver, lambda: build_input(HEADLINE_PODS), ffd, card,
-        "4 headline")
+        "4 headline", p50=p50_on)
     add(counts)
     print(f"[4 headline] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
@@ -1738,6 +2088,17 @@ def main(argv) -> int:
     if bad:
         print(f"chip_smoke: headline path failed: {bad}", file=sys.stderr)
         return 1
+    # the same path with the host fast paths pinned off, in a child process
+    off, err = _run_child("headline", {"KARPENTER_TPU_NO_NATIVE": "1"})
+    if off is None or off["bad"] or off["hostops"]:
+        print(f"chip_smoke: the headline with KARPENTER_TPU_NO_NATIVE=1 "
+              f"failed: {off or err}", file=sys.stderr)
+        return 1
+    p50_off = off["p50"]
+    print(f"[4 headline] warm p50 ms on {card}, kt_hostops on | off "
+          f"(KARPENTER_TPU_NO_NATIVE=1, child process): " + ", ".join(
+              f"{k} {p50_on[k]:.3f} | {p50_off[k]:.3f}"
+              for k in ("e2e", "encode", "decode")), flush=True)
 
     # -- 5. the main path: config #3 (topology spread) -----------------------
     res, counts, _ = _main_path(TorchSolver, build_config3, ffd, card,
@@ -2002,6 +2363,17 @@ def main(argv) -> int:
         return 1
 
     # -- 9. timings at the main paths' shapes --------------------------------
+    # the floor: an empty kernel (one thread, no work) as the profiler
+    # times one launch, beside the events' time a launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty():
+        _cuda.launch("ffd_empty", [], [], stream)
+    t_empty = _kernel_ms(empty, 200, "empty_kernel")
+    ev_empty = _time_ms(empty, 200)
+    print(f"[9] an empty launch (ffd_empty, 1 thread) on {card}: profiler "
+          f"device time {'none' if t_empty is None else f'{t_empty:.4f}'} "
+          f"ms, events {ev_empty:.4f} ms a launch", flush=True)
     p, c = ffd.problem_from_numpy(head_prob, head_cat, dev)
     N = solver.max_nodes
     t_k5, t_k5p, ev_k5, (b5, by5), t_k2, t_k2p, (b2, by2) = _batch_times(
@@ -2117,6 +2489,26 @@ def main(argv) -> int:
           f"ffd_batch_scan {t12:.4f} ms ({t12 / p12.G:.4f} ms a step; "
           f"events {ev12:.4f}, plain {t12p:.3f} once, equal to it, bound "
           f"{b12:.6f} by {by12})", flush=True)
+    # K5 at phase 18's wave-2 launch: the existing-node fill of 2,000 pods
+    # over wave 1's nodes, on the tensors the loop gave it
+    for w, cap in enumerate(loop_calls, 1):
+        if w != 2 or not cap["solve"]:
+            continue
+        call = cap["solve"][-1]
+        pl, cl, Nl = call[0], call[1], call[2]
+        tl, tlp, evl, (bl, byl), resl = _captured_batch_times(ffd, call, 20)
+        for k, (eq, err) in resl.items():
+            errs[k] = max(errs[k], err)
+            if not eq:
+                print(f"chip_smoke: {k} at the loop's wave-2 launch differs "
+                      f"from its plain version (max abs err {err:g})",
+                      file=sys.stderr)
+                return 1
+        print(f"[9] loop wave 2 (B=1, G={pl.G}, E={pl.E}, N={Nl}, "
+              f"O={cl.O}) on {card}: ffd_batch_scan {tl:.4f} ms "
+              f"({tl / pl.G:.4f} ms a step; events {evl:.4f}, plain "
+              f"{tlp:.3f} once, equal to it, bound {bl:.6f} by {byl})",
+              flush=True)
     t_k6, t_k6p, _, (b_k6, by_k6) = delta_t["config #7 suffix"]
     # K7 at 2, 4 and 8 shards on config #2's and the headline's encodings,
     # beside K5 on the same problems; then at the mesh paths' own launches

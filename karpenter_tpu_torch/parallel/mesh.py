@@ -29,7 +29,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.solver import ffd
+from karpenter_tpu_torch.solver import ffd, firstuse
 
 # mask-row table capacity tiers (rows); past the last tier the registry
 # cycles (steady-state clusters hold a bounded set of pod classes)
@@ -130,6 +130,7 @@ class MeshExecutor:
         raises, and is never run some other way."""
         cfg = self._configs.get(key)
         if cfg is None:
+            firstuse.note("launch")
             lay = ffd.flat_layout(prob.G, prob.E, N, prob.D, explain,
                                   with_priority=with_priority)
             n = None
@@ -276,6 +277,7 @@ class MaskRowRegistry:
         """(Re)allocate the device table at the current capacity tier and
         ship every registered row, shard by shard."""
         cap = _bucket(len(self._ids), MASK_ROW_BUCKETS)
+        firstuse.note("table")
         full = np.zeros((cap, self.O), dtype=bool)
         full[:len(self._ids)] = self._host[:len(self._ids)]
         self.table = self.ex.put_sharded(

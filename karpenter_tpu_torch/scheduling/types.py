@@ -2,19 +2,89 @@
 instanceTypes)` seam (SURVEY §3.2) shared by the CPU oracle and the TPU
 solver so they are drop-in interchangeable behind the provisioner.
 
-The port's copy of `karpenter_tpu/scheduling/types.py` (without the
-lazy `PodSegments` pod list of the native decode, which the port does not
-load).
+The port's copy of `karpenter_tpu/scheduling/types.py`, with the lazy
+`PodSegments` pod list that the native decode (`native/hostops.cc`) hands
+out.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from karpenter_tpu_torch.models.objects import InstanceType, Node, NodePool, Pod
 from karpenter_tpu_torch.models.requirements import Requirements
 from karpenter_tpu_torch.models.resources import Resources
+
+
+class PodSegments(Sequence):
+    """Lazy pod list for `NewNodeClaim.pods`: contiguous `(group_list,
+    start, count)` slices into the encoder's group pod lists, plus a
+    materialized tail for post-decode appends (the rescue pass).
+
+    The kernel's fill order guarantees each node holds contiguous runs
+    of whole groups, so the 50k-pod headline decode was spending most of
+    its budget materializing per-node pod lists — ~50k scattered object
+    increfs of pods the solve path itself never reads.  Handing out
+    slice views instead moves that cost off the solve hot path onto the
+    consumers that actually walk the pods (provisioning apply, tests),
+    one node at a time.
+
+    Duck-compatible with the plain lists the oracle and the Python
+    fallback decode produce: iteration, `len`, indexing, `in`,
+    `.append`, truthiness.  Pickles as a plain list — the solverd wire
+    must carry the pods by value, never a view pinning a whole group.
+    """
+
+    __slots__ = ("_segs", "_tail")
+
+    def __init__(self, segs=()):
+        # adopt a list as-is: the native decode hands over a fresh list
+        # it never touches again, and the headline wraps ~800 of these
+        self._segs = segs if type(segs) is list else list(segs)
+        self._tail: list = []
+
+    def __len__(self) -> int:
+        return sum(s[2] for s in self._segs) + len(self._tail)
+
+    def __bool__(self) -> bool:
+        return bool(self._segs) or bool(self._tail)
+
+    def __iter__(self):
+        for lst, start, count in self._segs:
+            yield from lst[start:start + count]
+        yield from self._tail
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return list(self)[i]
+        n = len(self)
+        if i < 0:
+            i += n
+        if not 0 <= i < n:
+            raise IndexError(i)
+        for lst, start, count in self._segs:
+            if i < count:
+                return lst[start + i]
+            i -= count
+        return self._tail[i]
+
+    def append(self, pod) -> None:
+        self._tail.append(pod)
+
+    def __eq__(self, other):
+        if isinstance(other, (PodSegments, list, tuple)):
+            return list(self) == list(other)
+        return NotImplemented
+
+    __hash__ = None  # mutable, like list
+
+    def __reduce__(self):
+        return (list, (list(self),))
+
+    def __repr__(self) -> str:
+        return f"PodSegments({list(self)!r})"
 
 
 def min_values_violation(reqs: Requirements, types) -> "str | None":

@@ -21,6 +21,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
+from karpenter_tpu_torch.solver import firstuse
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -35,6 +37,7 @@ ENTRIES = {"ffd_batch_scan": "ffd_batch_scan",
            "ffd_sweep_topo_scan": "ffd_sweep_scan",
            "ffd_delta_scan": "ffd_delta_scan",
            "ffd_pack": "ffd_pack",
+           "ffd_empty": "ffd_pack",
            "ffd_sharded_scan": "ffd_sharded_scan",
            "ffd_sharded_gang_scan": "ffd_sharded_scan",
            "ffd_sharded_delta_scan": "ffd_sharded_scan",
@@ -103,9 +106,17 @@ def build(names: Sequence[str] = KERNELS) -> float:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+        firstuse.note("build")
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def load(names: Sequence[str] = KERNELS) -> None:
+    """Build (all at once) and load every library in `names`."""
+    build(names)
+    for src in names:
+        kernel(next(e for e, s in ENTRIES.items() if s == src))
 
 
 def kernel(name: str):
@@ -118,6 +129,7 @@ def kernel(name: str):
         if lib is None:
             build((src,))
             lib = ctypes.CDLL(_lib_path(src))
+            firstuse.note("build")
             for entry, s in ENTRIES.items():
                 if s != src:
                     continue

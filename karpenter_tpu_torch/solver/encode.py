@@ -18,8 +18,8 @@ The encoding is cached against the instance-type list identity and catalog
 seqnums by the caller; only group/existing arrays change call to call.
 
 The port's copy of `karpenter_tpu/solver/encode.py` for the single-problem
-solve and the consolidation sweep: host numpy only, pure-Python grouping
-(no native helper).  `SharedExistEncoding` and `SweepTopologyTables` are
+solve and the consolidation sweep: host numpy, with the grouping on the
+native fast path when `karpenter_tpu_torch.native` loads it.  `SharedExistEncoding` and `SweepTopologyTables` are
 the sweep's per-batch caches of the shared cluster snapshot.
 `encode(..., split=True)` collects the groups the tensors cannot express
 into `.residue` for the host oracle.
@@ -257,8 +257,17 @@ def exist_group_ok(rep: Pod, vocab: "_Vocab",
 
 def group_pods(pods: List[Pod]) -> List[List[Pod]]:
     """Equivalence classes in FFD order (size desc, then name for stability),
-    then stably re-sorted into priority bands."""
-    return _priority_band_sort(group_pods_py(pods))
+    then stably re-sorted into priority bands.
+
+    The C++ fast path (`native/hostops.cc` `group_pods`, loaded by
+    `karpenter_tpu_torch.native`) carries the identical contract; at 50k
+    pods the Python loop costs more than the device solve.
+    `group_pods_py` is the fallback and the differential-test oracle."""
+    from karpenter_tpu_torch.native import hostops
+    native = hostops()
+    groups = (native.group_pods(pods) if native is not None
+              else group_pods_py(pods))
+    return _priority_band_sort(groups)
 
 
 def _priority_band_sort(groups: List[List[Pod]]) -> List[List[Pod]]:

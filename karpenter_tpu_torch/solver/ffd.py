@@ -74,6 +74,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.models.resources import RESOURCE_AXIS
+from karpenter_tpu_torch.solver import firstuse
 from karpenter_tpu_torch.solver.explain import EPS, KERNEL_CONSTRAINTS
 
 R = len(RESOURCE_AXIS)
@@ -1756,6 +1757,15 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _first_launch(*key) -> None:
+    """Count a kernel wrapper's launch configuration (its entry point and
+    shape) the first time the process meets it (`firstuse`): on the card
+    the first launch of a configuration pays the module load and its
+    attributes.  Counted on the CPU too, where the plain version runs, so
+    the warm-up's coverage is testable there."""
+    firstuse.first("launch", key)
+
+
 def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
                  D: int, X: int, cat, flat: torch.Tensor,
                  lay: Dict, limits_out: torch.Tensor, sparse_k: int,
@@ -1855,6 +1865,9 @@ def batch_scan(batch: FFDBatch, cat: FFDCatalog, N: int,
     dev = flat.device
     _check_problem(batch, cat, N, dev)
     _check_outputs(batch.B, batch.P, flat, lay, limits_out, sparse_k)
+    _first_launch("ffd_batch_gang_scan" if with_gang else "ffd_batch_scan",
+                  batch.B, batch.G, batch.E, N, batch.P, batch.D, cat.O,
+                  sparse_k, "prio_inv" in lay)
     if dev.type != "cuda":
         batch_scan_reference(batch, cat, N, flat, lay, limits_out, sparse_k,
                              with_gang=with_gang)
@@ -1911,6 +1924,8 @@ def sweep_scan(sw: SweepBatch, cat: FFDCatalog, N: int, flat: torch.Tensor,
     if sw.heavy:
         raise ValueError("topology rows need the heavy lane "
                          "(sweep_topo_scan)")
+    _first_launch("ffd_sweep_scan", sw.B, sw.G, sw.E, N, sw.P, sw.X, cat.O,
+                  sparse_k)
     if dev.type != "cuda":
         sweep_scan_reference(sw, cat, N, flat, lay, limits_out, sparse_k)
         return
@@ -1934,6 +1949,8 @@ def sweep_topo_scan(sw: SweepBatch, cat: FFDCatalog, N: int,
     if not sw.heavy:
         raise ValueError("the heavy lane needs per-simulation topology "
                          "rows")
+    _first_launch("ffd_sweep_topo_scan", sw.B, sw.G, sw.E, N, sw.P, sw.D,
+                  sw.X, cat.O, sparse_k)
     if dev.type != "cuda":
         sweep_topo_scan_reference(sw, cat, N, flat, lay, limits_out,
                                   sparse_k)
@@ -1975,6 +1992,8 @@ def delta_scan(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog, N: int,
     if "te_cnt" in lay or "prio_inv" in lay:
         raise ValueError("the seeded scan writes dense take_exist rows and "
                          "no priority witness")
+    _first_launch("ffd_delta_scan", prob.G, prob.E, N, prob.P, prob.D,
+                  seed.A, cat.O)
     if dev.type != "cuda":
         if bool(prob.group_dsel.any()) or bool(prob.group_gang.any()):
             raise ValueError("the seeded scan is light-only and gang-free")
@@ -2009,6 +2028,8 @@ def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
         raise ValueError("the flat layout holds no explain counts")
     if "explain_map" in lay and lay["explain_map"][1] != prob.G * cat.O:
         raise ValueError("the flat layout's class map is not [G, O]")
+    _first_launch("ffd_pack", prob.G, N, cat.O, prob.P, prob.D,
+                  "explain_map" in lay, with_gang)
     if dev.type != "cuda":
         pack_reference(prob, cat, N, flat, lay, limits, with_gang)
         return
@@ -2239,6 +2260,9 @@ def sharded_scan(prob: FFDProblem, table: torch.Tensor, cat: ShardedCatalog,
                          "sharded form)")
     if seed is not None and ("prio_inv" in lay or with_gang):
         raise ValueError("the seeded scan is gang-free, with no witness")
+    _first_launch("ffd_sharded_scan", prob.G, prob.E, N, prob.P, prob.D,
+                  cat.S, table.shape[1], with_gang,
+                  None if seed is None else seed.A, "prio_inv" in lay)
     if dev.type != "cuda":
         if seed is not None and (bool(prob.group_dsel.any())
                                  or bool(prob.group_gang.any())):

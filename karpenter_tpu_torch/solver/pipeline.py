@@ -37,6 +37,8 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.solver import firstuse
+
 
 def pipeline_enabled(device: torch.device) -> bool:
     """Resolve the pipeline gate (see module docstring) for a solver on
@@ -69,6 +71,7 @@ class ChunkStaging:
         self._up: List[Optional[torch.Tensor]] = [None] * depth
         self._up_ev: List[Optional[torch.cuda.Event]] = [None] * depth
         self._down: List[Optional[torch.Tensor]] = [None] * depth
+        self._most_up = self._most_down = 0
         self._i = 0
         self._j = 0
 
@@ -77,7 +80,18 @@ class ChunkStaging:
                 dtype: torch.dtype) -> torch.Tensor:
         if buf is None or buf.numel() < n:
             buf = torch.empty(max(n, 1), dtype=dtype, pin_memory=True)
+            firstuse.note("pinned")
         return buf
+
+    def reserve(self) -> None:
+        """Size every slot to the largest upload and pull seen so far, so
+        later chunks up to those sizes allocate no pinned memory (the
+        solver's warm-up runs its chunks, then reserves)."""
+        for i in range(len(self._up)):
+            self._up[i] = self._pinned(self._up[i], self._most_up,
+                                       torch.int32)
+            self._down[i] = self._pinned(self._down[i], self._most_down,
+                                         torch.float32)
 
     def upload(self, arrays: Sequence[np.ndarray],
                device: torch.device) -> Tuple[torch.Tensor, ...]:
@@ -90,6 +104,7 @@ class ChunkStaging:
             self._up_ev[i].synchronize()
         sizes = [int(np.prod(a.shape)) for a in arrays]
         total = sum(sizes)
+        self._most_up = max(self._most_up, total)
         host = self._pinned(self._up[i], total, torch.int32)
         self._up[i] = host
         view = host.numpy()
@@ -109,6 +124,7 @@ class ChunkStaging:
     def pull(self, flat: torch.Tensor):
         self._j = (self._j + 1) % len(self._down)
         j = self._j
+        self._most_down = max(self._most_down, flat.numel())
         host = self._pinned(self._down[j], flat.numel(), flat.dtype)
         self._down[j] = host
         out = host[:flat.numel()].view(flat.shape)

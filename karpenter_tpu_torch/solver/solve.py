@@ -53,9 +53,11 @@ from karpenter_tpu_torch.models.objects import Node, ObjectMeta, Pod
 from karpenter_tpu_torch.models.requirements import Requirement, Requirements
 from karpenter_tpu_torch.models.resources import RESOURCE_AXIS, Resources
 from karpenter_tpu_torch.scheduling.oracle import Scheduler
+from karpenter_tpu_torch.native import hostops
 from karpenter_tpu_torch.scheduling.types import (
     ExistingNode,
     NewNodeClaim,
+    PodSegments,
     ScheduleInput,
     ScheduleResult,
     effective_request,
@@ -65,7 +67,7 @@ from karpenter_tpu_torch.scheduling.types import (
 from karpenter_tpu_torch.scheduling.types import priority_of
 from karpenter_tpu_torch.solver import delta as deltam
 from karpenter_tpu_torch.solver import explain as explainmod
-from karpenter_tpu_torch.solver import ffd
+from karpenter_tpu_torch.solver import ffd, firstuse
 from karpenter_tpu_torch.solver import pipeline as pipelining
 from karpenter_tpu_torch.solver.encode import (
     BIG,
@@ -94,6 +96,18 @@ E_BUCKETS = (0, 16, 64, 128, 256, 512, 1024, 2048, 4096)
 PT_ALIGN = 64  # (pool,type) axis padding; column axis O = PT_pad × ZC
 # the chunk chain's soft cap on chunks per pass (see _plan_spec_chunks)
 SPEC_MAX_CHUNKS = 8
+
+# synthetic claim hostnames, interned: the decode stamps one per active
+# node per solve (the native claim loop reads this list)
+_HOSTNAME_CACHE: List[str] = []
+
+
+def _hostname(ni: int) -> str:
+    cache = _HOSTNAME_CACHE
+    if ni >= len(cache):
+        cache.extend(f"tpu-solver-node-{i}"
+                     for i in range(len(cache), ni + 256))
+    return cache[ni]
 
 
 def _knob(name: str, spec):
@@ -208,6 +222,8 @@ class TorchSolver:
         # it runs (released on every exit)
         self._exist_names_cache = None
         self._in_sweep_decode = False
+        # pinned staging slots by depth (`_staging`)
+        self._stagings: Dict[int, "pipelining.ChunkStaging"] = {}
         # the relaxation loop's wall-clock budget per solve (None =
         # unbounded), the outermost call's deadline, and its counts (the
         # reference's RELAXATION_* metrics): solves that relaxed, rounds
@@ -349,6 +365,7 @@ class TorchSolver:
         if entry is not None and _same(key, entry[0]):
             return entry[1]
         cat = encode_catalog(inp)
+        firstuse.note("catalog")
         # the column axis is a PT×ZC grid: padding whole (pool,type)
         # blocks keeps the stride uniform.  Padded blocks carry zero
         # allocatable (fit nothing) and are in no group mask.
@@ -1404,7 +1421,7 @@ class TorchSolver:
         if cuda:
             # one pinned slot per in-flight chunk each way: a slot is
             # rewritten only after the copy that last read it completed
-            st = pipelining.ChunkStaging(pipelining.SPEC_DEPTH)
+            st = self._staging(pipelining.SPEC_DEPTH)
             upload, pull, wait = st.upload, st.pull, st.wait
         else:
             upload, pull = ffd._upload, (lambda flat: flat)
@@ -1553,6 +1570,15 @@ class TorchSolver:
             return 0
         return Ks if (E_pad > 0 and 2 * Ks < E_pad) else 0
 
+    def _staging(self, depth: int) -> "pipelining.ChunkStaging":
+        """The solver's pinned staging slots of `depth` (two for the
+        batched pipeline, SPEC_DEPTH for the chunk chain), kept across
+        calls so a warmed solver allocates none in its solves."""
+        st = self._stagings.get(depth)
+        if st is None:
+            st = self._stagings[depth] = pipelining.ChunkStaging(depth)
+        return st
+
     def _chunk_io(self):
         """(pipeline on, upload, pull, wait) for a batched chunk loop: with
         the pipeline on a card, the staging buffers' pinned upload, async
@@ -1560,7 +1586,7 @@ class TorchSolver:
         per chunk."""
         pipe = pipelining.pipeline_enabled(self.device)
         if pipe and self.device.type == "cuda":
-            st = pipelining.ChunkStaging()
+            st = self._staging(2)
             return pipe, st.upload, st.pull, st.wait
 
         def wait(flat):
@@ -2127,6 +2153,181 @@ class TorchSolver:
         pipelining.run_pipeline(chunks, dispatch, complete, enabled=pipe)
         return out_results
 
+    # -- warm-up ------------------------------------------------------------
+    def warmup(self, inp: ScheduleInput, *, shapes=(),
+               max_nodes_list=None, batch_sizes=(),
+               delta_shapes=()) -> int:
+        """Pay the first-use costs of the solves a workload shaped like
+        `inp` will make before the first of them (operator startup, never
+        on the solve path), so that a solve at a warmed shape meets no
+        first-use event (`solver/firstuse.py`): the kernel libraries built
+        and loaded (all at once, one nvcc per source), the catalog's
+        tensors uploaded, each bucketed launch configuration launched once,
+        the pinned staging slots of the batched paths and of the chunk
+        chain allocated at their bucket sizes, and under a mesh the
+        executor's launch configurations checked and the mask-row table
+        sized by the real encoding's rows.
+
+        The lattice, as the reference's: the (G, E, Db) buckets of `inp`,
+        extended by `shapes` — extra (n_groups, n_existing) points, each
+        rounded to its bucket — crossed with the node-axis ladder of
+        `_adaptive_max_nodes` (`max_nodes_list` overrides it), with the
+        gang instance when `inp` holds a gang and the witness when it holds
+        more than one priority band.  `batch_sizes` also warms the generic
+        batched solve at those problem counts (both explain variants its
+        lane launches) at the node ceiling; `delta_shapes` —
+        (suffix_groups, seeded_nodes) points — warms the seeded scan at
+        those tiers over the ladder, when the delta seam is on; with the
+        chunk chain on, its program family at the ceiling.
+
+        Values are zeros: a launch configuration depends only on shapes,
+        so a warm-up launch costs one scan of masked no-ops.  Returns the
+        number of launches made.  Solver state other than the caches above
+        is untouched (no warm start, no delta record)."""
+        self._check_device()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            from karpenter_tpu_torch.solver import _cuda
+            _cuda.load()
+        cat = self._catalog_encoding(inp)
+        if not inp.pods or len(cat.columns) == 0:
+            return 0
+        try:
+            enc = self._encode_checked(inp, cat,
+                                       groups=group_pods(inp.pods))
+        except Unsupported:
+            return 0
+        if enc.n_groups == 0:
+            return 0
+        dev = cat.device_args
+        baseG = bucket(enc.n_groups, G_BUCKETS)
+        baseE = bucket(len(enc.existing), E_BUCKETS)
+        Db = bucket(enc.n_domains, D_BUCKETS)
+        # the real encoding's own arguments fix the dtypes; under a mesh
+        # this also registers its mask rows, sizing the resident table at
+        # its steady-state tier
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            proto, table = self._problem_args_mesh(
+                enc, baseG, baseE, Db, dev.O, cat.mask_registry)
+        else:
+            proto, table = self._problem_args(enc, baseG, baseE, Db,
+                                              dev.O), None
+        G_AX = (0, 1, 2, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 17)
+
+        def zeros_at(i, a, G2, E2):
+            shp = list(a.shape)
+            if i in G_AX:
+                shp[0] = G2
+            if i == 3:
+                shp[1] = E2
+            if i in (4, 15, 16):
+                shp[0] = E2
+            return np.zeros(shp, dtype=a.dtype)
+
+        def done(flat):
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            return flat
+
+        if max_nodes_list is None:
+            ladder = sorted({b for b in (64, 256, 1024)
+                             if b < self.max_nodes} | {self.max_nodes})
+        else:
+            ladder = sorted(set(max_nodes_list))
+        targets = {(baseG, baseE)} | {
+            (bucket(max(int(g), 1), G_BUCKETS),
+             bucket(max(int(e), 0), E_BUCKETS)) for g, e in shapes}
+        exc = self._explain_kernel_mode()
+        # the gang instance and the witness are separate launch
+        # configurations: warm them when the input holds a gang or more
+        # than one priority band, both with and without
+        gang_variants = (0, 1) if bool(np.asarray(proto[14]).any()) else (0,)
+        prio_variants = (0, 1) if len(proto) > 17 else (0,)
+        warmed = 0
+        for (G2, E2) in sorted(targets):
+            prob2 = tuple(zeros_at(i, a, G2, E2)
+                          for i, a in enumerate(proto))
+            for wg in gang_variants:
+                for wp in prio_variants:
+                    probv = prob2 if wp else prob2[:17]
+                    for mn in ladder:
+                        ptens = ffd.problem_tensors(probv, dev.O,
+                                                    self.device)
+                        if mesh is not None:
+                            done(self._mesh_exec.solve(
+                                ptens, table, cat.mesh_args, mn,
+                                explain=exc, with_gang=wg,
+                                with_priority=wp))
+                        else:
+                            done(ffd.solve_ffd(ptens, dev, mn, explain=exc,
+                                               with_gang=wg,
+                                               with_priority=wp))
+                        warmed += 1
+        if batch_sizes:
+            # the batched solve reads the dense [G, O] masks at full width,
+            # mesh or not
+            proto_b = (self._problem_args(enc, baseG, baseE, Db, dev.O)
+                       if mesh is not None else proto)
+            prob0 = tuple(zeros_at(i, a, baseG, baseE)
+                          for i, a in enumerate(proto_b))
+            sk = self._pick_sparse_k(max(len(p) for p in enc.groups), baseE)
+            _, upload, pull, wait = self._chunk_io()
+            for bsz in batch_sizes:
+                B = bucket(max(int(bsz), 1), B_BUCKETS)
+                for exb in sorted({0, min(self._explain_mode(), 1)}):
+                    for wg in gang_variants:
+                        batch = ffd.batch_tensors([prob0] * B, dev.O,
+                                                  self.device, upload=upload)
+                        flat = ffd.solve_ffd_batch(
+                            batch, dev, self.max_nodes, exb, sk,
+                            with_gang=wg, with_priority=int(len(prob0) > 17))
+                        wait(pull(flat))
+                        warmed += 1
+            if cuda and pipelining.pipeline_enabled(self.device):
+                self._staging(2).reserve()
+        O_real = len(cat.columns)
+
+        def seeded(Gd, A, mn, upload=ffd._upload, kind="delta-seed"):
+            prob = self._seeded_problem_args(
+                np.zeros((0, R), np.float32), np.zeros(0, np.int32),
+                np.zeros((0, O_real), bool),
+                np.zeros((0, len(enc.existing)), np.int32),
+                np.zeros((baseE, R), np.float32), enc, Gd, baseE, Db, dev.O)
+            seed = deltam.ChunkSeed(
+                er=np.zeros((baseE, R), np.float32),
+                used=np.zeros((A, R), np.float32),
+                pool=np.zeros(A, np.int32),
+                colmask=np.zeros((A, O_real), bool), A=A)
+            return self._run_delta(prob, seed, O_real, dev.O, mn, dev,
+                                   upload=upload, kind=kind)
+
+        if delta_shapes and self._resolve_delta():
+            for g, a in delta_shapes:
+                Gd = bucket(max(int(g), 1), G_BUCKETS)
+                for mn in ladder:
+                    done(seeded(Gd, min(max(int(a), 1), mn), mn))
+                    warmed += 1
+        spec_mode = self._resolve_spec()
+        if spec_mode:
+            plan = self._plan_spec_chunks(enc.n_groups, spec_mode)
+            if not isinstance(plan, str):
+                # the chain pads every chunk to the planner's one G tier and
+                # walks the seed tiers as A grows, at the ceiling
+                Gp = plan[0][1] - plan[0][0]
+                mn = self.max_nodes
+                st = self._staging(pipelining.SPEC_DEPTH) if cuda else None
+                for A in sorted({min(b, mn) for b in deltam.SEED_BUCKETS}):
+                    if st is not None:
+                        st.wait(st.pull(seeded(Gp, A, mn, upload=st.upload,
+                                               kind="spec-seed")))
+                    else:
+                        seeded(Gp, A, mn, kind="spec-seed")
+                    warmed += 1
+                if st is not None:
+                    st.reserve()
+        return warmed
+
     def _existing_only(self, enc: EncodedProblem) -> ScheduleResult:
         """Host-side step-1-only fill when there are no columns to buy."""
         res = ScheduleResult()
@@ -2307,30 +2508,51 @@ class TorchSolver:
             if self._in_sweep_decode:
                 self._exist_names_cache = (enc.existing, exist_names)
         # distribute each group's pods: existing nodes first (scan order),
-        # then new nodes, then unschedulable — the kernel's accounting
-        take_exist = out["take_exist"][:Gr, :Er].astype(int)
-        take_new = out["take_new"][:Gr, :].astype(int)
-        unsched = out["unsched"][:Gr].astype(int)
-        node_pods: Dict[int, List] = {}
-        node_groups: Dict[int, List[int]] = {}
-        for gi, pods in enumerate(enc.groups):
-            cursor = 0
-            for ei in np.nonzero(take_exist[gi])[0]:
-                k = take_exist[gi, ei]
-                name = exist_names[ei]
-                for pod in pods[cursor:cursor + k]:
-                    res.existing_assignments[pod.meta.name] = name
-                cursor += k
-            for ni in np.nonzero(take_new[gi, :num_active])[0]:
-                k = take_new[gi, ni]
-                node_pods.setdefault(int(ni), []).extend(
-                    pods[cursor:cursor + k])
-                node_groups.setdefault(int(ni), []).append(gi)
-                cursor += k
-            if unsched[gi] > 0:
+        # then new nodes, then unschedulable — the kernel's accounting.
+        # The C++ fast path (native/hostops.cc distribute) walks the same
+        # rows without per-pod Python frames and returns per-node
+        # (group list, start, count) SEGMENTS, wrapped in PodSegments; the
+        # loop below is the fallback and the differential-test oracle.
+        native = hostops()
+        if native is not None and isinstance(enc.groups, list):
+            node_pods, node_groups, unsched_by_group = native.distribute(
+                enc.groups,
+                np.ascontiguousarray(out["take_exist"][:Gr, :Er],
+                                     dtype=np.int64),
+                np.ascontiguousarray(out["take_new"][:Gr, :num_active],
+                                     dtype=np.int64),
+                np.ascontiguousarray(out["unsched"][:Gr], dtype=np.int64),
+                exist_names, num_active, res.existing_assignments)
+            pod_wrap = PodSegments
+            for gi, pods in unsched_by_group.items():
                 reason = self._unsched_reason(enc, gi, out)
-                for pod in pods[cursor:cursor + unsched[gi]]:
+                for pod in pods:
                     res.unschedulable[pod.meta.name] = reason
+        else:
+            pod_wrap = None
+            take_exist = out["take_exist"][:Gr, :Er].astype(int)
+            take_new = out["take_new"][:Gr, :].astype(int)
+            unsched = out["unsched"][:Gr].astype(int)
+            node_pods = {}
+            node_groups = {}
+            for gi, pods in enumerate(enc.groups):
+                cursor = 0
+                for ei in np.nonzero(take_exist[gi])[0]:
+                    k = take_exist[gi, ei]
+                    name = exist_names[ei]
+                    for pod in pods[cursor:cursor + k]:
+                        res.existing_assignments[pod.meta.name] = name
+                    cursor += k
+                for ni in np.nonzero(take_new[gi, :num_active])[0]:
+                    k = take_new[gi, ni]
+                    node_pods.setdefault(int(ni), []).extend(
+                        pods[cursor:cursor + k])
+                    node_groups.setdefault(int(ni), []).append(gi)
+                    cursor += k
+                if unsched[gi] > 0:
+                    reason = self._unsched_reason(enc, gi, out)
+                    for pod in pods[cursor:cursor + unsched[gi]]:
+                        res.unschedulable[pod.meta.name] = reason
 
         # claim metadata depends only on (pool, resident groups, used row,
         # pinned domains): hundreds of nodes share a handful of shapes
@@ -2339,9 +2561,13 @@ class TorchSolver:
         fit_rows: Dict[tuple, np.ndarray] = {}
         used_id: List[int] = []
         if num_active > 0:
-            seen: Dict[bytes, int] = {}
-            used_id = [seen.setdefault(used[ni].tobytes(), len(seen))
-                       for ni in range(num_active)]
+            if native is not None:
+                used_id = native.row_ids(
+                    np.ascontiguousarray(used[:num_active]), num_active)
+            else:
+                seen: Dict[bytes, int] = {}
+                used_id = [seen.setdefault(used[ni].tobytes(), len(seen))
+                           for ni in range(num_active)]
             used_f = used[:num_active, :R].astype(float)
         # catalog-pure scaffolding, cached by identity of the catalog
         # encoding's columns list:
@@ -2461,6 +2687,26 @@ class TorchSolver:
                 "hostname": "",
             })
 
+        if pod_wrap is not None:
+            # the per-node claim stamping in C (native/hostops.cc
+            # build_claims): Python runs once per distinct claim shape
+            if num_active > 0:
+                _hostname(num_active - 1)  # pre-extend the shared cache
+                native.build_claims(
+                    node_pods, node_groups,
+                    np.ascontiguousarray(node_pool[:num_active],
+                                         dtype=np.int64),
+                    np.ascontiguousarray(node_zone[:num_active],
+                                         dtype=np.int64),
+                    np.ascontiguousarray(node_ct[:num_active],
+                                         dtype=np.int64),
+                    used_id, _HOSTNAME_CACHE, PodSegments, NewNodeClaim,
+                    lambda ni: _claim_shape(
+                        int(node_pool[ni]), node_groups.get(ni, ()),
+                        int(node_zone[ni]), int(node_ct[ni]),
+                        used_id[ni], ni),
+                    res.new_claims, res.unschedulable)
+            return res
         if num_active > 0:
             node_pool_l = node_pool[:num_active].tolist()
             node_zone_l = node_zone[:num_active].tolist()
@@ -2485,7 +2731,7 @@ class TorchSolver:
             claim = NewNodeClaim.__new__(NewNodeClaim)
             d = dict(proto)
             d["pods"] = pods
-            d["hostname"] = f"tpu-solver-node-{ni}"
+            d["hostname"] = _hostname(ni)
             claim.__dict__ = d
             res.new_claims.append(claim)
         return res

@@ -74,10 +74,23 @@ absorb nothing, and per generation the 4 tail classes' 125 pods each
 replaced (500 pods at every size).  It returns the input and the watch
 events since the previous generation (name -> the new object, None for
 a deleted pod), in the order a store reports them.
+
+`provisioning_loop(n_pods, options, clock, device)` is the provisioning
+control loop as the JAX package's `env.py` wires it, cut to the
+controllers ported so far: the fake cloud with the 605-type catalog, the
+pricing and instance-type providers, the unavailable-offerings cache, the
+cloud provider (metrics-decorated, without the subnet, launch-template,
+security-group and image plumbing, which `TPUCloudProvider` takes as
+None), the cluster store, the port's `GatedSolver` on `device`, and a
+`ControllerManager` over the provisioner, the NodeClaim lifecycle, the
+fake kubelet and the pod binder.  The store holds one NodePool `default`,
+the default NodeClass and the headline's first `n_pods` pods
+(`headline_pods`); `loop_answer` is the loop's canonical outcome.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 from karpenter_tpu_torch.models import (
@@ -572,3 +585,143 @@ def build_config13(n_pods: int, gen: int
                         instance_types={"default": st["catalog"]},
                         existing_nodes=list(st["existing"]))
     return inp, events
+
+
+# -- the provisioning control loop ------------------------------------------
+def headline_pods(n: int, prefix: str = "p",
+                  sizes=HEADLINE_SIZES) -> List[Pod]:
+    """`n` pods named `prefix`0.. cycling through `sizes` (the headline's
+    eight by default)."""
+    return [Pod(meta=ObjectMeta(name=f"{prefix}{i}"),
+                requests=Resources.parse(sizes[i % len(sizes)]))
+            for i in range(n)]
+
+
+# the second wave of the loop's cell: the headline's two smallest sizes
+WAVE2_SIZES = HEADLINE_SIZES[:2]
+
+
+@dataclass
+class ProvisioningLoop:
+    """The pieces `provisioning_loop` wires, as `env.py` names them."""
+    clock: object
+    options: object
+    cloud: object
+    pricing: object
+    unavailable: object
+    instance_types: object
+    cluster: object
+    cloud_provider: object
+    solver: object
+    provisioner: object
+    lifecycle: object
+    kubelet: object
+    binder: object
+    manager: object
+
+    def add_pods(self, pods: List[Pod]) -> None:
+        for pod in pods:
+            self.cluster.pods.create(pod)
+
+    def settle(self, max_rounds: int = 50) -> int:
+        """Run every controller until the cluster stops changing; the
+        rounds taken."""
+        return self.manager.run_until_idle(max_rounds)
+
+
+def provisioning_loop(n_pods: int, options=None, clock=None,
+                      device="cuda", catalog=None) -> ProvisioningLoop:
+    """The provisioning control loop (module docstring) holding the
+    headline's first `n_pods` pods, not yet reconciled.  `options`
+    defaults to `Options()`, `clock` to a `FakeClock`, `catalog` to the
+    generated 605-type catalog."""
+    from karpenter_tpu_torch.cloudprovider import TPUCloudProvider
+    from karpenter_tpu_torch.cluster import Cluster
+    from karpenter_tpu_torch.controllers import (
+        ControllerManager,
+        FakeKubelet,
+        NodeClaimLifecycle,
+        PodBinder,
+        Provisioner,
+    )
+    from karpenter_tpu_torch.controllers.state import GatedSolver
+    from karpenter_tpu_torch.models import NodeClass
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.providers import (
+        FakeCloud,
+        InstanceTypeProvider,
+        PricingProvider,
+    )
+    from karpenter_tpu_torch.utils import metrics
+    from karpenter_tpu_torch.utils.cache import UnavailableOfferings
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    clock = clock or FakeClock()
+    options = options or Options()
+    cloud = FakeCloud(catalog=catalog, clock=clock)
+    pricing = PricingProvider(cloud)
+    unavailable = UnavailableOfferings(clock=clock)
+    instance_types = InstanceTypeProvider(cloud, pricing, unavailable,
+                                          clock=clock)
+    cluster = Cluster(clock=clock)
+    cloud_provider = metrics.DecoratedCloudProvider(TPUCloudProvider(
+        cloud=cloud, instance_types=instance_types, unavailable=unavailable,
+        node_classes=cluster.nodeclasses,
+        cluster_name=options.cluster_name))
+    solver = GatedSolver(options, cluster, device=device)
+    provisioner = Provisioner(cluster, cloud_provider, options, clock,
+                              solver=solver)
+    lifecycle = NodeClaimLifecycle(cluster, cloud_provider, options, clock)
+    kubelet = FakeKubelet(cluster, cloud_provider)
+    binder = PodBinder(cluster)
+    manager = ControllerManager(cluster,
+                                [provisioner, lifecycle, kubelet, binder])
+    cluster.nodeclasses.create(NodeClass(meta=ObjectMeta(name="default")))
+    cluster.nodepools.create(NodePool(meta=ObjectMeta(name="default")))
+    loop = ProvisioningLoop(
+        clock=clock, options=options, cloud=cloud, pricing=pricing,
+        unavailable=unavailable, instance_types=instance_types,
+        cluster=cluster, cloud_provider=cloud_provider, solver=solver,
+        provisioner=provisioner, lifecycle=lifecycle, kubelet=kubelet,
+        binder=binder, manager=manager)
+    loop.add_pods(headline_pods(n_pods))
+    return loop
+
+
+def loop_answer(cluster, cloud, rounds: int) -> Dict[str, object]:
+    """The canonical outcome of a settled loop, read off its store and its
+    cloud with attribute access only (so it reads either package's
+    objects): the running instances' sorted (nodepool, instance type,
+    zone, capacity type) and their count, the IEEE-hex sum of their
+    catalog prices in that order, each node's bound-pod count (sorted by
+    node name, with the node's instance type), the pods bound and left
+    unbound, and the rounds taken."""
+    import hashlib
+
+    def digest(rows) -> str:
+        return hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
+
+    book = {(it.name, o.zone, o.capacity_type): o.price
+            for it in cloud.describe_instance_types() for o in it.offerings}
+    insts = sorted(
+        (i.tags.get("karpenter.sh/nodepool"), i.instance_type, i.zone,
+         i.capacity_type)
+        for i in cloud.instances.values() if i.state == "running")
+    price = 0.0
+    for _, t, z, ct in insts:
+        price += book[(t, z, ct)]
+    per_node: Dict[str, int] = {}
+    unbound = 0
+    for pod in cluster.pods.list():
+        if pod.node_name and pod.phase == "Running":
+            per_node[pod.node_name] = per_node.get(pod.node_name, 0) + 1
+        else:
+            unbound += 1
+    nodes = sorted(
+        (n.meta.name, n.meta.labels.get(wellknown.INSTANCE_TYPE_LABEL),
+         per_node.get(n.meta.name, 0)) for n in cluster.nodes.list())
+    return {"instances": len(insts), "instances_digest": digest(insts),
+            "price": float(price).hex(), "nodes": len(nodes),
+            "pods_per_node_digest": digest(nodes),
+            "bound": sum(per_node.values()), "unbound": unbound,
+            "rounds": rounds}

@@ -40,6 +40,28 @@ def _forbidden(name: str) -> bool:
             or name.startswith("karpenter_tpu."))
 
 
+# the subpackages and modules of the provisioning control loop, which the
+# walk above must reach (both checks below read `_modules()`/`_port_files()`)
+CONTROL_LOOP = ("native", "utils", "store", "providers", "cloudprovider",
+                "cluster", "operator", "controllers")
+
+
+def test_the_walk_covers_the_control_loop():
+    mods = set(_modules())
+    for sub in CONTROL_LOOP:
+        assert f"karpenter_tpu_torch.{sub}" in mods, sub
+    for mod in ("controllers.state", "controllers.provisioning",
+                "controllers.lifecycle", "controllers.kubelet",
+                "controllers.binder", "controllers.manager",
+                "cloudprovider.provider", "providers.fake_cloud",
+                "providers.instancetype", "providers.imagefamily",
+                "providers.pricing", "store.backend", "operator.options",
+                "utils.metrics", "utils.tracing", "utils.logging",
+                "utils.cache", "utils.clock", "utils.errors",
+                "solver.firstuse"):
+        assert f"karpenter_tpu_torch.{mod}" in mods, mod
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, importlib\n"
