@@ -12,23 +12,27 @@ Phases (any failure exits non-zero):
      (kt_hostops, `make -s hostops` in native/): a missing extension
      fails the run with make's output, never falls back to the Python
      loops;
-  3. each kernel against its plain PyTorch version on the card: K5 and K2
-     on seeded problems (light and topology) and on the encoded problems
-     of the headline and config #3, K5 on seeded batches, K4's two lanes
+  3. each kernel against its plain PyTorch version on the card: K5 with
+     the explain rows of its epilogue on seeded problems (light and
+     topology) and on the encoded problems of the headline and config #3,
+     K5 on seeded batches (a B=64 one with the explain counts, which must
+     make one launch for its problems and their rows), K4's two lanes
      on seeded sweeps (exclusions, price caps, pool limits, strands, new
      nodes under N=8, the take_exist compaction on and off, up to 128
      domains) and on the first light chunk of config #4 and the first
      heavy chunk of config #4b: flat result buffers must be equal as
-     uint32;
+     uint32, region by region, every case's explain counts must hold a
+     nonzero, and the map cases together every class 1-4;
   4. the headline path: TorchSolver().solve(build_input(50_000)) — one
-     cold and 20 warm solves through K5 and K2 — must give the JAX
-     package's answer, with those kernels' launch counts above zero; then
+     cold and 20 warm solves through K5 and its explain epilogue — must
+     give the JAX package's answer, with those launch counts above zero;
+     then
      the same in a child process with KARPENTER_TPU_NO_NATIVE=1 (the
      Python host paths), its encode and decode p50 printed beside the
      native ones;
   5. the config #3 path: TorchSolver().solve(build_config3()) — 10k pods
      with zone spread and hostname anti-affinity, one cold and 20 warm
-     solves through K5 (its heavy step) and K2 — the same;
+     solves through K5 (its heavy step) and the epilogue — the same;
   6. the host oracle's paths: two small inputs that strand pods for the
      rescue or hold a group the encoding cannot express (the split path's
      nested device solve), each one cold and 20 warm solves — the JAX
@@ -39,16 +43,21 @@ Phases (any failure exits non-zero):
      light lane; both lanes for #4b) — every simulation the JAX package's
      answer (a digest of the canonical results);
   8. gangs, priority bands and explain=full: TorchSolver(max_nodes=2048)
-     .solve(build_config9()) through K5's gang instance and K2, then
+     .solve(build_config9()) through K5's gang instance and the
+     epilogue, then
      build_config10() through K5 with the priority witness, the preemption
      planner attaching its plan, then build_config9() on a fresh solver
-     under KARPENTER_TPU_EXPLAIN=full (K2's class map and the reason
+     under KARPENTER_TPU_EXPLAIN=full (the epilogue's class map and the
+     reason
      trees), one cold and 20 warm solves each — the JAX package's answers,
      gang audit and plans, with the kernels launched;
   9. kernel timings at the main paths' shapes beside their bounds, each
-     also as ms a scan step (kernel ms / G), the sweep's dense against
-     compacted take_exist rows, and an empty kernel's launch as the
-     floor of them all (run after 10-12);
+     also as ms a scan step (kernel ms / G); K5, K6 and K7 with and
+     without their explain rows in turns (the epilogue's cost: the
+     headline, config #3, #9 with the map, #12's one program, K6 at #7's
+     suffix and #12's chunk, K7 at #2's launch); the sweep's dense
+     against compacted take_exist rows, and an empty kernel's launch as
+     the floor of them all (run after 10-12);
  10. the steady state, config #7: a delta-on TorchSolver(max_nodes=2048)
      and a delta-off one in lockstep over build_config7(gen) — gen 0, one
      warm pass, 16 timed churn passes — every pass the JAX package's
@@ -64,7 +73,7 @@ Phases (any failure exits non-zero):
  13. the column-sharded solve (slice 7): TorchSolver(mesh=8,
      max_nodes=256).solve(build_config2()) — BASELINE config #2 at 5k
      pods — through K7 (one cluster of 8 blocks, the explain counts in
-     its epilogue) against mesh off (K5 and K2), one cold and 5 warm
+     its epilogue) against mesh off (K5), one cold and 5 warm
      solves each: the JAX answer, and no column-axis transfer after the
      first solve (MeshExecutor.transfers);
  14. the 50k headline at mesh=8 (max_nodes 2048): the JAX answer;
@@ -83,7 +92,8 @@ Phases (any failure exits non-zero):
      kubelet and the pod binder until idle, then again after 2,000 pods
      of the two smallest sizes arrive.  Each wave must give the JAX
      package's answer (LOOP: the launched instances, the pods bound per
-     node, the hex price, the rounds) with K5 and K2 launched, no oracle
+     node, the hex price, the rounds) with K5 and its explain epilogue
+     launched, no oracle
      solve, no SolverFallback event and kt_hostops loaded.  One cold loop
      (in a child process that has launched nothing), one whose solver is
      warmed first as the provisioner's startup warm-up does — its first
@@ -92,8 +102,8 @@ Phases (any failure exits non-zero):
      provisioner's spans, the controllers' times and the solve phases,
      with p50s.
 
-Phase 3 also holds K5's gang instance, the witness and K2's map and
-with_gang class against their plain versions on seeded gang and priority
+Phase 3 also holds K5's gang instance, the witness and the epilogue's map
+and with_gang class against their plain versions on seeded gang and priority
 problems at B=1 and B>1 and on config #9's and #10's encodings, and K6
 (the seeded scan) on seeded problems and on config #7's churned suffix,
 the second chunk of config #7's delta-off chain and config #12's first
@@ -145,12 +155,12 @@ ORACLE_CASES = {
     # 5 pods with zone anti-affinity over 3 zones: the scan's heavy step
     # places 3, the rescue cannot place the other 2
     "zone-anti-affinity-2-strands": (3, 2, "0x1.76d330941c822p-4",
-                                     ("ffd_batch_scan", "ffd_pack")),
+                                     ("ffd_batch_scan", "explain_pack")),
     # 50 plain pods and one pod spread over zone and capacity type (two
     # dynamic keys: inexpressible): the split path solves the 50 through
     # the scan and the one through the oracle
     "combined-mixed-residue-split": (1, 0, "0x1.8d0bb6ed67770p-2",
-                                     ("ffd_batch_scan", "ffd_pack")),
+                                     ("ffd_batch_scan", "explain_pack")),
 }
 # the node axis of config #3's warm solves (the solver's warm-start bucket
 # for 15 active nodes)
@@ -284,19 +294,22 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 # the kernels of karpenter_tpu_torch.solver.ffd: kernel -> (its wrapper,
-# the wrapper's launch count); and the launches that carry the priority
-# witness (in the scan's epilogue) and the explain=2 map (in K2)
+# the wrapper's launch count); and the passes of the scans' epilogue —
+# the priority witness, the explain counts (K5, K6 and K7) and the
+# explain=2 map (K5) — as the launches that carried them, summed over the
+# wrappers
 KERNELS = {"ffd_batch_scan": ("batch_scan", "launches"),
            "ffd_batch_gang_scan": ("batch_scan", "gang_launches"),
            "ffd_sweep_scan": ("sweep_scan", "launches"),
            "ffd_sweep_topo_scan": ("sweep_topo_scan", "launches"),
            "ffd_delta_scan": ("delta_scan", "launches"),
-           "ffd_pack": ("pack", "launches"),
            "ffd_sharded_scan": ("sharded_scan", "launches"),
            "ffd_sharded_gang_scan": ("sharded_scan", "gang_launches"),
            "ffd_sharded_delta_scan": ("sharded_scan", "delta_launches")}
-PASSES = {"priority_witness": ("batch_scan", "witness_launches"),
-          "explain_map": ("pack", "map_launches")}
+PASSES = {"priority_witness": (("batch_scan", "witness_launches"),),
+          "explain_pack": tuple((w, "explain_launches") for w in (
+              "batch_scan", "delta_scan", "sharded_scan")),
+          "explain_map": (("batch_scan", "map_launches"),)}
 
 
 def _pins(claim, key):
@@ -474,6 +487,8 @@ def _batch_cases():
         ("batch-E2048-N8", 5, dict(E=2048, pod_scale=300), 5, 8, 0, 0),
         ("batch-E2048-N8-sparse", 6, dict(E=2048, pod_scale=6), 5, 8, 0, 8),
         ("batch-64", 7, dict(topo), 64, 64, 0, 0),
+        ("batch-64-explain", 16, dict(topo, limits="finite"), 64, 64, 1,
+         0),
     ]
     for label, seed, kw, B, N, ex, K in specs:
         probs, cat = random_batch(seed, B, **kw)
@@ -486,7 +501,7 @@ def _gang_cases():
     domain, with and without existing nodes, finite pool budgets, tied
     ranks, slot exhaustion, the strided node and existing axes, 8
     domains, priority bands with strands — at B=1 and in batches, for
-    K5's gang instance, the witness and K2's map."""
+    K5's gang instance, the witness and the epilogue's map."""
     from karpenter_tpu_torch.solver.problems import random_batch
     g4 = dict(gang=True, D=4)
     specs = [
@@ -564,13 +579,52 @@ def _merge(parts):
 
 
 PACK_REGIONS = ("explain_counts", "explain_bits", "explain_map")
+# phase 3's comparisons at the main paths' own encodings whose explain
+# rows must hold a nonzero count (each has columns a class eliminates).
+# Config #12's chunks and config #7's delta suffix (its four churned
+# classes of 120-125m pods) are not among them: every column they admit
+# fits their pods, no pool is budgeted and no class has a domain, so
+# their counts are 0 by their data; K6's non-trivial case is the second
+# chunk of config #7's chain, whose classes of up to 2.1 CPU do not fit
+# every column.
+EXPLAIN_NONTRIVIAL = frozenset((
+    "headline", "config3-cold", "config3-warm", "config9-cold-full",
+    "config9-warm", "config10-cold", "config10-warm-full",
+    "batch-64-explain", "config7-chain-chunk1", "headline-S8",
+    "config2-S8"))
+# what the explain rows of the phase-3 comparisons held, one entry per
+# comparison since `record` last drained it: (some count nonzero, the map
+# classes the kernel wrote)
+_EXPLAIN_SEEN = []
 
 
 def _scan_regions(lay):
-    """The regions of a flat row the scan kernels write (K2 writes the
-    explain counts and map; the witness is compared on its own)."""
+    """The regions of a flat row the scan's steps write (the epilogue's
+    witness and explain rows are compared on their own)."""
     return [n for n in lay
             if n not in ("total", "prio_inv") + PACK_REGIONS]
+
+
+def _explain_checks(fk, fp, lay):
+    """{pass: (equal, max_abs_err)} of the explain rows of a kernel's flat
+    rows `fk` against its plain version's `fp` — the counts and bits
+    ("explain_pack"), the class map ("explain_map") — noting in
+    `_EXPLAIN_SEEN` whether the kernel's rows are non-trivial."""
+    from karpenter_tpu_torch.solver import ffd
+    if "explain_counts" not in lay:
+        return {}
+    out = {"explain_pack": _merge([
+        _diff(ffd._region(fk, lay, n), ffd._region(fp, lay, n))
+        for n in ("explain_counts", "explain_bits")])}
+    classes = set()
+    if "explain_map" in lay:
+        out["explain_map"] = _diff(ffd._region(fk, lay, "explain_map"),
+                                   ffd._region(fp, lay, "explain_map"))
+        classes = set(np.unique(ffd._region(fk, lay, "explain_map")
+                                .detach().cpu().numpy()).astype(int).tolist())
+    counts = ffd._region(fk, lay, "explain_counts")
+    _EXPLAIN_SEEN.append((bool((counts != 0).any()), classes))
+    return out
 
 
 def _buffers(B, P, lay, dev):
@@ -582,12 +636,14 @@ def _buffers(B, P, lay, dev):
 
 def _compare_rows(name, fk, lk, fp, lp, lay):
     """{check: (equal, max_abs_err)} of a scan's rows against its plain
-    version's: the scan's regions and final pool budgets, and the
-    take_exist compaction's (count, index) head on its own."""
+    version's: the scan's regions and final pool budgets, the explain rows
+    of its epilogue, and the take_exist compaction's (count, index) head,
+    each on its own."""
     from karpenter_tpu_torch.solver import ffd
     out = {name: _merge([_diff(ffd._region(fk, lay, n),
                                ffd._region(fp, lay, n))
                          for n in _scan_regions(lay)] + [_diff(lk, lp)])}
+    out.update(_explain_checks(fk, fp, lay))
     if "te_cnt" in lay:
         out["te_compaction"] = _merge([
             _diff(ffd._region(fk, lay, n), ffd._region(fp, lay, n))
@@ -596,11 +652,10 @@ def _compare_rows(name, fk, lk, fp, lp, lay):
 
 
 def compare_batch(ffd, b, c, N, ex, K, dev, wg=0, wp=0):
-    """Run K5 (its gang instance with `wg`, the witness with `wp`) — and
-    K2 for each problem with explain, its map with explain=2 — and their
-    plain versions on the card on the same inputs.  K2 and its plain
-    version both start from the kernel scan's output, so each comparison
-    isolates one kernel.  Returns {kernel: (equal, max_abs_err)}."""
+    """Run K5 (its gang instance with `wg`, the witness with `wp`, the
+    explain rows with `ex`: the counts, with 2 the class map) and its
+    plain version on the card on the same inputs: every region of the
+    flat rows.  Returns {kernel or pass: (equal, max_abs_err)}."""
     import torch
     lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, K, c.O, wp)
     fk, lk = _buffers(b.B, b.P, lay, dev)
@@ -613,19 +668,17 @@ def compare_batch(ffd, b, c, N, ex, K, dev, wg=0, wp=0):
     if wp:
         out["priority_witness"] = _diff(ffd._region(fk, lay, "prio_inv"),
                                         ffd._region(fp, lay, "prio_inv"))
-    if ex:
-        f2, f3 = fk.clone(), fk.clone()
-        for i in range(b.B):
-            ffd.pack(b.at(i), c, N, f2[i], lay, lk[i], wg)
-            ffd.pack_reference(b.at(i), c, N, f3[i], lay, lk[i], wg)
-        torch.cuda.synchronize()
-        out["ffd_pack"] = _merge([
-            _diff(ffd._region(f2, lay, n), ffd._region(f3, lay, n))
-            for n in ("explain_counts", "explain_bits")])
-        if ex >= 2:
-            out["explain_map"] = _diff(ffd._region(f2, lay, "explain_map"),
-                                       ffd._region(f3, lay, "explain_map"))
     return out
+
+
+def _launches_of(ffd, fn):
+    """The kernel and pass counts of one call of fn(), every count set to
+    0 just before it."""
+    import torch
+    _reset_launches(ffd)
+    fn()
+    torch.cuda.synchronize()
+    return _read_launches(ffd)
 
 
 def _statics(probs):
@@ -636,7 +689,7 @@ def _statics(probs):
 
 
 def compare_case(ffd, prob, cat, N, ex, dev):
-    """One problem tuple through K5 at B=1 (and K2)."""
+    """One problem tuple through K5 at B=1."""
     p, c = ffd.problem_from_numpy(prob, cat, dev)
     wg, wp = _statics([prob])
     return compare_batch(ffd, ffd.FFDBatch.of(p), c, N, ex, 0, dev, wg, wp)
@@ -750,8 +803,7 @@ def _batch_bound(ffd, b, c, N, lay, flat, lim, wg=0, work=None):
     in the gang fill over every domain's candidate; `work`, a count the
     caller's plain run already made) over the fp32 rate."""
     import torch
-    out = [ffd._region(flat, lay, n) for n in _scan_regions(lay)
-           + (["prio_inv"] if "prio_inv" in lay else [])]
+    out = [ffd._region(flat, lay, n) for n in lay if n != "total"]
     fields = ["group_req", "group_count", "mask_bits", "exist_cap",
               "exist_remaining", "pool_limit", "group_ncap", "group_whole",
               "group_dsel", "group_dbase", "group_dcap", "group_skew",
@@ -788,20 +840,60 @@ def _sweep_bound(ffd, sw, c, N, K, lay, flat, lim):
     return bound_ms(nbytes, _work_ops(work))
 
 
-def _pack_bound(ffd, p, c, lim, ex=1, wg=0):
-    """K2 reads the mask rows, one (pool,type) row and its daemon row per
-    block, the pool rows, unsched, num_active and the topology rows (and
-    the gang row with `wg`); writes the counts, and with explain=2 the
-    [G, O] map after reading each column's domain."""
-    nbytes = (_nbytes(p.mask_bits, p.group_req, p.group_whole, c.pt_alloc,
-                      c.pool_daemon, lim, p.group_dsel, p.group_dbase,
-                      p.group_skew, p.group_mindom, p.group_delig)
-              + (_nbytes(p.group_gang) if wg else 0)
-              + c.PT * ffd.R * 4 + c.PT * 4 + (p.G + 1) * 4
-              + p.G * p.D * 4 + 2 * c.zc * 4
-              + (p.G * ffd.EXPLAIN_C + p.G) * 4
-              + ((p.G * c.O + 2 * c.O) * 4 if ex >= 2 else 0))
-    return bound_ms(nbytes, p.G * c.PT * ffd.R * 3 * 2)
+def _epilogue_bound(ffd, p, c, lay, topo=True, wg=0):
+    """The explain epilogue's own work (`explain_pack`): per group it reads
+    its mask row, request, whole flag, unsched (and with `topo` its
+    topology rows and dom_placed; with `wg` its gang row), per admitted
+    block its allocatable, daemon and pool entries, the pools' final
+    budgets and daemon rows, num_active, and writes the counts and bits,
+    with a map row also the [G, O] map after reading each column's domain.
+    Operations: a 3-term all-fits test (3 per resource) per group and
+    pool, per group and admitted block, and with the map per admitted
+    column, as this run's masks need."""
+    R, G, D, P = ffd.R, p.G, p.D, p.P
+    mask = ffd._unpack_bits(p.mask_bits, c.O).view(G, c.PT, c.zc)
+    blocks, cols = int(mask.any(-1).sum()), int(mask.sum())
+    emap = "explain_map" in lay
+    nbytes = (G * (c.W + R + 3) * 4 + 4 + c.PT * (2 * R + 1) * 4
+              + 2 * P * R * 4
+              + (G * (3 * D + 3) * 4 + 2 * c.zc * 4 if topo else 0)
+              + (G * 4 if wg else 0) + G * (ffd.EXPLAIN_C + 1) * 4
+              + ((G * c.O + c.O) * 4 if emap else 0))
+    ops = 3 * R * (G * P + blocks + (cols if emap else 0))
+    return bound_ms(nbytes, ops)
+
+
+def _epilogue_turns(launch, reps, tag):
+    """A scan with and without its explain rows on identical inputs, in
+    turns (without, with, with, without): ({"off": [profiler ms, ms],
+    "on": [ms, ms]}, the events ms of the first launch with them).
+    `launch(on)` launches it."""
+    ms, ev = {"off": [], "on": []}, None
+    for kind in ("off", "on", "on", "off"):
+        t, e = _device_ms(lambda: launch(kind == "on"), reps, tag)
+        ms[kind].append(t)
+        if kind == "on" and ev is None:
+            ev = e
+    return ms, ev
+
+
+def _epilogue_ms(turns):
+    """The epilogue's cost from its turns: the difference of the minima."""
+    return min(turns["on"]) - min(turns["off"])
+
+
+def _turns_text(turns):
+    return (f"with its explain rows " + ", ".join(
+        f"{v:.4f}" for v in turns["on"]) + " ms, without " + ", ".join(
+        f"{v:.4f}" for v in turns["off"]) + " ms (in turns): the epilogue "
+        f"{_epilogue_ms(turns):.4f} ms")
+
+
+def _epilogue_line(t):
+    """A `_batch_times` record's epilogue, for a phase-9 line."""
+    b, by = t["epi_bound"]
+    return (_turns_text(t["turns"]) + f" (plain pack_reference "
+            f"{t['epi_plain_ms']:.3f}, bound {b:.6f} by {by})")
 
 
 def _encoded_problem(solver, inp, ffd):
@@ -841,15 +933,20 @@ def _first_chunks(ffd, solver, inps):
     return seen
 
 
+def _counters():
+    """{kernel or pass: ((wrapper, attribute), ...)} of every count."""
+    return {**{k: (v,) for k, v in KERNELS.items()}, **PASSES}
+
+
 def _reset_launches(ffd):
-    for w, attr in list(KERNELS.values()) + list(PASSES.values()):
-        setattr(getattr(ffd, w), attr, 0)
+    for pairs in _counters().values():
+        for w, attr in pairs:
+            setattr(getattr(ffd, w), attr, 0)
 
 
 def _read_launches(ffd):
-    return {k: getattr(getattr(ffd, w), attr)
-            for k, (w, attr) in list(KERNELS.items())
-            + list(PASSES.items())}
+    return {k: sum(getattr(getattr(ffd, w), attr) for w, attr in pairs)
+            for k, pairs in _counters().items()}
 
 
 def _main_path(solver_cls, build, ffd, card, label, warm=WARM_SOLVES,
@@ -959,35 +1056,39 @@ def _only_groups(prob, keep):
 
 
 def _batch_times(ffd, b, c, N, reps, ex=1, wg=0, wp=0):
-    """(K5 ms, plain ms, events ms, bound, K2 ms, K2 plain ms, K2 bound)
-    at one batch's shapes (K5's gang instance with `wg`, the witness with
-    `wp`, K2's map with explain=2): plain, kernel, kernel, plain, in
-    turns; K2 on problem 0."""
+    """K5 at one batch's shapes (its gang instance with `wg`, the witness
+    with `wp`) with and without its explain rows at level `ex`, in turns:
+    {"ms": K5's profiler ms with them (the lower of two), "plain_ms",
+    "ev_ms", "bound": (ms, by), "turns", "epi_ms": the epilogue's cost
+    (the minima's difference), "epi_plain_ms": `pack_reference` on
+    problem 0 on the card, "epi_bound": (ms, by)}."""
     import torch
     dev = b.group_req.device
-    lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, 0, c.O, wp)
-    flat = torch.empty((b.B, lay["total"][1]), device=dev)
-    lim = torch.empty((b.B, b.P, ffd.R), device=dev)
+    lays = {on: ffd.flat_layout(b.G, b.E, N, b.D, ex if on else 0, 0, c.O,
+                                wp) for on in (False, True)}
+    bufs = {on: (torch.empty((b.B, lay["total"][1]), device=dev),
+                 torch.empty((b.B, b.P, ffd.R), device=dev))
+            for on, lay in lays.items()}
     tag = _tag(True, False, bool(wg))
-    k = lambda: ffd.batch_scan(  # noqa: E731
-        b, c, N, flat, lay, lim, with_gang=wg)
-    kp = lambda: ffd.batch_scan_reference(  # noqa: E731
-        b, c, N, flat, lay, lim, with_gang=wg)
-    p0 = b.at(0)
-    k2 = lambda: ffd.pack(p0, c, N, flat[0], lay, lim[0], wg)  # noqa: E731
-    k2p = lambda: ffd.pack_reference(  # noqa: E731
-        p0, c, N, flat[0], lay, lim[0], wg)
-    t_kp = _time_ms(kp, 3)
-    t_k, ev_k = _device_ms(k, reps, tag)
-    t_k2, _ = _device_ms(k2, 200, "pack_kernel")
-    t_k = min(t_k, _device_ms(k, reps, tag)[0])
-    t_kp = min(t_kp, _time_ms(kp, 3))
-    t_k2p = _time_ms(k2p, 20)
-    k()
+
+    def launch(on):
+        flat_on, lim_on = bufs[on]
+        ffd.batch_scan(b, c, N, flat_on, lays[on], lim_on, with_gang=wg)
+    turns, ev_k = _epilogue_turns(launch, reps, tag)
+    lay, (flat, lim) = lays[True], bufs[True]
+    t_kp = _time_ms(lambda: ffd.batch_scan_reference(
+        b, c, N, flat, lay, lim, with_gang=wg), 3)
+    launch(True)
     torch.cuda.synchronize()
-    bnd = _batch_bound(ffd, b, c, N, lay, flat, lim, wg)
-    return (t_k, t_kp, ev_k, bnd, t_k2, t_k2p,
-            _pack_bound(ffd, p0, c, lim[0], ex, wg))
+    p0 = b.at(0)
+    f3 = flat[0].clone()
+    t_ep = _time_ms(lambda: ffd.pack_reference(p0, c, N, f3, lay, lim[0],
+                                               wg), 20)
+    return {"ms": min(turns["on"]), "plain_ms": t_kp, "ev_ms": ev_k,
+            "bound": _batch_bound(ffd, b, c, N, lay, flat, lim, wg),
+            "turns": turns, "epi_ms": _epilogue_ms(turns),
+            "epi_plain_ms": t_ep,
+            "epi_bound": _epilogue_bound(ffd, p0, c, lay, True, wg)}
 
 
 def _witness_times(ffd, b, c, N, reps):
@@ -1086,8 +1187,9 @@ def _delta_cases():
 
 
 def compare_delta(ffd, p, sd, c, N, ex):
-    """Run K6 — and K2 with explain — and their plain versions on the card
-    on the same inputs.  Returns {kernel: (equal, max_abs_err)}."""
+    """Run K6 (the explain counts with `ex`) and its plain version on the
+    card on the same inputs.  Returns {kernel or pass: (equal,
+    max_abs_err)}."""
     import torch
     dev = p.group_req.device
     lay = ffd.flat_layout(p.G, p.E, N, p.D, ex)
@@ -1096,16 +1198,7 @@ def compare_delta(ffd, p, sd, c, N, ex):
     ffd.delta_scan(p, sd, c, N, fk, lay, lk)
     ffd.delta_scan_reference(p, sd, c, N, fp, lay, lp)
     torch.cuda.synchronize()
-    out = _compare_rows("ffd_delta_scan", fk, lk, fp, lp, lay)
-    if ex:
-        f2, f3 = fk.clone(), fk.clone()
-        ffd.pack(p, c, N, f2, lay, lk)
-        ffd.pack_reference(p, c, N, f3, lay, lk)
-        torch.cuda.synchronize()
-        out["ffd_pack"] = _merge([
-            _diff(ffd._region(f2, lay, n), ffd._region(f3, lay, n))
-            for n in ("explain_counts", "explain_bits")])
-    return out
+    return _compare_rows("ffd_delta_scan", fk, lk, fp, lp, lay)
 
 
 class _DeltaCapture:
@@ -1152,21 +1245,34 @@ class _SolveCapture:
 
 
 def _captured_batch_times(ffd, call, reps):
-    """K5 at one captured solve's launch: (kernel ms, plain ms, events ms,
-    bound, {kernel: (equal, max abs err)}).  The plain version runs once,
-    on the same inputs: its wall time, its work count for the bound, and
-    its row and budgets held against the kernel's as uint32."""
+    """K5 at one captured solve's launch, its explain rows as the solve
+    asked: (kernel ms, plain ms, events ms, bound, {kernel: (equal, max abs
+    err)}, the epilogue's turns or None).  With explain rows the kernel
+    runs with and without them in turns (`_epilogue_turns`) and its ms is
+    the lower time with them.  The plain version runs once, on the same
+    inputs: its wall time, its work count for the bound, and its row and
+    budgets held against the kernel's as uint32."""
     import torch
-    p, c, N, _, wg, wp = call
+    p, c, N, ex, wg, wp = call
     b = ffd.FFDBatch.of(p)
     dev = p.group_req.device
-    lay = ffd.flat_layout(b.G, b.E, N, b.D, 0, 0, c.O, wp)
-    fk, lk = _buffers(1, b.P, lay, dev)
+    lays = {on: ffd.flat_layout(b.G, b.E, N, b.D, ex if on else 0, 0, c.O,
+                                wp) for on in (False, True)}
+    bufs = {on: _buffers(1, b.P, lays[on], dev) for on in (False, True)}
+    lay, (fk, lk) = lays[True], bufs[True]
     fp, lp = _buffers(1, b.P, lay, dev)
-    k = lambda: ffd.batch_scan(b, c, N, fk, lay, lk,  # noqa: E731
-                               with_gang=wg)
-    t_k, ev_k = _device_ms(k, reps, _tag(True, False, bool(wg)))
-    k()
+    tag = _tag(True, False, bool(wg))
+
+    def launch(on):
+        flat_on, lim_on = bufs[on]
+        ffd.batch_scan(b, c, N, flat_on, lays[on], lim_on, with_gang=wg)
+    turns = None
+    if ex:
+        turns, ev_k = _epilogue_turns(launch, reps, tag)
+        t_k = min(turns["on"])
+    else:
+        t_k, ev_k = _device_ms(lambda: launch(True), reps, tag)
+    launch(True)
     torch.cuda.synchronize()
     work = {"fit": 0, "test": 0, "flops": 0}
     t0 = time.perf_counter()
@@ -1176,7 +1282,7 @@ def _captured_batch_times(ffd, call, reps):
     name = "ffd_batch_gang_scan" if wg else "ffd_batch_scan"
     res = _compare_rows(name, fk, lk, fp, lp, lay)
     return (t_k, t_kp, ev_k,
-            _batch_bound(ffd, b, c, N, lay, fk, lk, wg, work), res)
+            _batch_bound(ffd, b, c, N, lay, fk, lk, wg, work), res, turns)
 
 
 def _delta_bound(ffd, p, sd, c, N, lay, flat, lim):
@@ -1187,7 +1293,7 @@ def _delta_bound(ffd, p, sd, c, N, lay, flat, lim):
     fields = ["group_req", "group_count", "mask_bits", "exist_cap",
               "exist_remaining", "pool_limit", "group_ncap", "group_whole",
               "exist_zone", "exist_ct"]
-    out = [ffd._region(flat, lay, n) for n in _scan_regions(lay)]
+    out = [ffd._region(flat, lay, n) for n in lay if n != "total"]
     nbytes = (_nbytes(*(getattr(p, f) for f in fields))
               + _nbytes(sd.seed_used, sd.seed_pool, sd.seed_active,
                         sd.seed_colmask)
@@ -1199,23 +1305,31 @@ def _delta_bound(ffd, p, sd, c, N, lay, flat, lim):
 
 
 def _delta_times(ffd, call, reps):
-    """(K6 ms, plain ms, events ms, bound) at one captured seeded solve's
-    shapes: kernel, plain, kernel, in turns."""
+    """K6 at one captured seeded solve's shapes, with and without the
+    explain counts in turns: (K6 ms with them, the lower of two; plain ms,
+    events ms, bound, the epilogue's turns, the epilogue's bound)."""
     import torch
     p, sd, c, N, _ = call
-    lay = ffd.flat_layout(p.G, p.E, N, p.D)
-    flat = torch.empty(lay["total"][1], device=p.group_req.device)
-    lim = torch.empty((p.P, ffd.R), device=p.group_req.device)
+    dev = p.group_req.device
+    lays = {on: ffd.flat_layout(p.G, p.E, N, p.D, int(on))
+            for on in (False, True)}
+    bufs = {on: (torch.empty(lays[on]["total"][1], device=dev),
+                 torch.empty((p.P, ffd.R), device=dev))
+            for on in (False, True)}
     tag = _tag(False, False, False, True)
-    k = lambda: ffd.delta_scan(p, sd, c, N, flat, lay, lim)  # noqa: E731
-    kp = lambda: ffd.delta_scan_reference(  # noqa: E731
-        p, sd, c, N, flat, lay, lim)
-    t_k, ev_k = _device_ms(k, reps, tag)
-    t_kp = _time_ms(kp, 1)
-    t_k = min(t_k, _device_ms(k, reps, tag)[0])
-    k()
+
+    def launch(on):
+        flat_on, lim_on = bufs[on]
+        ffd.delta_scan(p, sd, c, N, flat_on, lays[on], lim_on)
+    turns, ev_k = _epilogue_turns(launch, reps, tag)
+    lay, (flat, lim) = lays[True], bufs[True]
+    t_kp = _time_ms(lambda: ffd.delta_scan_reference(
+        p, sd, c, N, flat, lay, lim), 1)
+    launch(True)
     torch.cuda.synchronize()
-    return t_k, t_kp, ev_k, _delta_bound(ffd, p, sd, c, N, lay, flat, lim)
+    return (min(turns["on"]), t_kp, ev_k,
+            _delta_bound(ffd, p, sd, c, N, lay, flat, lim), turns,
+            _epilogue_bound(ffd, p, c, lay, topo=False))
 
 
 # -- the column-sharded scan (K7) -------------------------------------------
@@ -1297,14 +1411,16 @@ def compare_sharded(ffd, S, prob, cat, N, ex, seeds, dev,
     fp = torch.full((lay["total"][1],), float("nan"), device=dev)
     lp = torch.full((p.P, ffd.R), float("nan"), device=dev)
     ffd.sharded_scan_reference(p, table, sc, N, fp, lay, lp, wg, sd)
-    parts = []
+    parts, out = [], {}
     for _ in range(K7_REPEATS):
         fk = torch.full_like(fp, float("nan"))
         lk = torch.full_like(lp, float("nan"))
         ffd.sharded_scan(p, table, sc, N, fk, lay, lk, wg, sd)
         torch.cuda.synchronize()
         parts += [_diff(fk, fp), _diff(lk, lp)]
-    return {_sharded_name(wg, sd): _merge(parts)}, clusters, missing
+    out[_sharded_name(wg, sd)] = _merge(parts)
+    out.update(_explain_checks(fk, fp, lay))
+    return out, clusters, missing
 
 
 def compare_captured(ffd, call, flat_main):
@@ -1325,8 +1441,10 @@ def compare_captured(ffd, call, flat_main):
     lk = torch.full_like(lp, float("nan"))
     ffd.sharded_scan(p, table, sc, N, fk, lay, lk, wg, sd)
     torch.cuda.synchronize()
-    return {_sharded_name(wg, sd): _merge(
+    out = {_sharded_name(wg, sd): _merge(
         [_diff(flat_main, fp), _diff(fk, fp), _diff(lk, lp)])}
+    out.update(_explain_checks(fk, fp, lay))
+    return out
 
 
 def _sharded_bound(ffd, p, table, sc, N, lay, flat, lim, wg=0, sd=None):
@@ -1416,21 +1534,32 @@ class _MeshCapture:
 
 def _captured_sharded_times(ffd, call, reps):
     """K7 at one captured launch's shapes: (profiler ms a launch, events
-    ms, plain-version ms on the card, (bound, by))."""
+    ms, plain-version ms on the card, (bound, by), the epilogue's turns or
+    None).  With explain rows the launch runs with and without them in
+    turns and its ms is the lower time with them."""
     import torch
     p, table, sc, N, ex, wg, wp, sd = call
-    lay = ffd.flat_layout(p.G, p.E, N, p.D, ex, with_priority=wp)
-    flat = torch.empty(lay["total"][1], device=table.device)
-    lim = torch.empty((p.P, ffd.R), device=table.device)
+    lays = {on: ffd.flat_layout(p.G, p.E, N, p.D, ex if on else 0,
+                                with_priority=wp) for on in (False, True)}
+    bufs = {on: (torch.empty(lays[on]["total"][1], device=table.device),
+                 torch.empty((p.P, ffd.R), device=table.device))
+            for on in (False, True)}
+    tag = _tag(sd is None, False, bool(wg), sd is not None, True)
 
-    def k7():
-        ffd.sharded_scan(p, table, sc, N, flat, lay, lim, wg, sd)
-    t, ev = _device_ms(k7, reps, _tag(sd is None, False, bool(wg),
-                                      sd is not None, True))
+    def launch(on):
+        flat_on, lim_on = bufs[on]
+        ffd.sharded_scan(p, table, sc, N, flat_on, lays[on], lim_on, wg, sd)
+    turns = None
+    if ex:
+        turns, ev = _epilogue_turns(launch, reps, tag)
+        t = min(turns["on"])
+    else:
+        t, ev = _device_ms(lambda: launch(True), reps, tag)
+    lay, (flat, lim) = lays[True], bufs[True]
     t_plain = _time_ms(lambda: ffd.sharded_scan_reference(
         p, table, sc, N, flat, lay, lim, wg, sd), 1)
     return t, ev, t_plain, _sharded_bound(ffd, p, table, sc, N, lay, flat,
-                                          lim, wg, sd)
+                                          lim, wg, sd), turns
 
 
 def _p50(xs):
@@ -1715,14 +1844,14 @@ def _loop_run(card, warm_up=False, capture=None):
 
 
 def _loop_check(waves, label):
-    """What phase 18 holds each wave to: the pinned JAX answer, K5 and K2
-    launched, no oracle solve, no SolverFallback event, kt_hostops
-    loaded."""
+    """What phase 18 holds each wave to: the pinned JAX answer, K5 and its
+    explain epilogue launched, no oracle solve, no SolverFallback event,
+    kt_hostops loaded."""
     bad = []
     for i, w in enumerate(waves):
         if w["answer"] != LOOP[i]:
             bad.append(f"{label} wave {i + 1}: {w['answer']} != {LOOP[i]}")
-        for k in ("ffd_batch_scan", "ffd_pack"):
+        for k in ("ffd_batch_scan", "explain_pack"):
             if w["launches"][k] <= 0:
                 bad.append(f"{label} wave {i + 1}: {k} not launched")
         if w["oracle"]:
@@ -1844,7 +1973,7 @@ def _child(mode: str) -> int:
             "4 headline, child", p50=p50)
         bad = _check_answer(res, counts, HEADLINE_NODES, HEADLINE_UNSCHED,
                             HEADLINE_PRICE_HEX,
-                            ("ffd_batch_scan", "ffd_pack"))
+                            ("ffd_batch_scan", "explain_pack"))
         print(json.dumps({"bad": bad, "p50": p50,
                           "hostops": native.hostops() is not None}))
         return 1 if bad else 0
@@ -1932,14 +2061,29 @@ def main(argv) -> int:
             + ["te_compaction"]}
     failed = []
 
+    map_classes = set()
+
     def record(label, res, what):
+        """Print one comparison; fail on a difference, and for the main
+        paths' encodings (EXPLAIN_NONTRIVIAL) on explain rows whose
+        counts are all 0."""
+        trivial_ok = label not in EXPLAIN_NONTRIVIAL
         for k, (eq, err) in res.items():
             errs[k] = max(errs[k], err)
             if not eq:
                 failed.append(f"{label}:{k}")
+        seen = list(_EXPLAIN_SEEN)
+        _EXPLAIN_SEEN.clear()
+        nonzero = [nz for nz, _ in seen]
+        for _, cls in seen:
+            map_classes.update(cls)
+        if seen and not all(nonzero) and not trivial_ok:
+            failed.append(f"{label}: every explain count is 0")
         print(f"[3] {label:28s} {what}: " + ", ".join(
             f"{k} {'equal' if eq else 'DIFFERS'} (max abs err {err:g})"
-            for k, (eq, err) in res.items()), flush=True)
+            for k, (eq, err) in res.items())
+            + (f"; explain rows non-trivial {nonzero}" if seen else ""),
+            flush=True)
 
     solver = TorchSolver()
     head_prob, head_cat = _encoded_problem(solver, build_input(HEADLINE_PODS),
@@ -1959,11 +2103,15 @@ def main(argv) -> int:
     for label, prob, catarr, N, ex in cases:
         record(label, compare_case(ffd, prob, catarr, N, ex, dev),
                f"N={N} explain={ex}")
+    one_launch = {}
     for label, probs, catarr, N, ex, K in _batch_cases():
         c = ffd.catalog_tensors(catarr, dev)
         b = ffd.batch_tensors(probs, c.O, dev)
         record(label, compare_batch(ffd, b, c, N, ex, K, dev),
                f"B={b.B} N={N} explain={ex} K={K}")
+        if ex and b.B == 64:
+            one_launch[label] = _launches_of(
+                ffd, lambda: ffd.solve_ffd_batch(b, c, N, ex, K))
     for label, probs, catarr, N, ex in _gang_cases():
         c = ffd.catalog_tensors(catarr, dev)
         b = ffd.batch_tensors(probs, c.O, dev)
@@ -1971,7 +2119,7 @@ def main(argv) -> int:
         record(label, compare_batch(ffd, b, c, N, ex, 0, dev, wg, wp),
                f"B={b.B} N={N} explain={ex} gang={wg} prio={wp}")
     # phase 18's own launches (its first fresh loop), on the tensors the
-    # loop gave them: K5 and K2 of each one-problem solve, K6 and K2 of
+    # loop gave them: K5 of each one-problem solve, K6 of
     # each seeded one
     for w, cap in enumerate(loop_calls, 1):
         for j, (p, c, N, ex, wg, wp) in enumerate(cap["solve"]):
@@ -1989,6 +2137,9 @@ def main(argv) -> int:
         p, sd = ffd.delta_tensors(prob, *seeds, c.O, dev)
         record(label, compare_delta(ffd, p, sd, c, N, ex),
                f"A={sd.A} N={N} E={p.E} explain={ex}")
+        if ex and "delta" not in one_launch:
+            one_launch["delta"] = _launches_of(
+                ffd, lambda: ffd.solve_ffd_delta(p, sd, c, N, ex))
     # K6 at the steady state's own encodings, as the solver launches them:
     # config #7's churned suffix (gen 0, then the delta pass of gen 1) and
     # config #12's first two chunks (the second seeded with the first's
@@ -2069,6 +2220,23 @@ def main(argv) -> int:
     print(f"[3] K7 ffd_sharded_scan at the headline's shape (1024 threads "
           f"a block): cudaOccupancyMaxActiveClusters by cluster size "
           f"{occ}", flush=True)
+    # the epilogue: every map class across the cases, and one launch for
+    # a batch's problems with their explain rows, one for a seeded solve
+    print(f"[3] explain map classes the kernels wrote: "
+          f"{sorted(map_classes)}; launches of one explain=counts "
+          f"solve_ffd_batch (B=64) and solve_ffd_delta: {one_launch}",
+          flush=True)
+    if not {1, 2, 3, 4} <= map_classes:
+        failed.append(f"explain map classes {sorted(map_classes)}: not "
+                      f"each of 1-4")
+    want_one = {"batch-64-explain": "ffd_batch_scan",
+                "delta": "ffd_delta_scan"}
+    for label, k in want_one.items():
+        n = one_launch.get(label, {})
+        kernels_run = {kk: v for kk, v in n.items() if kk in KERNELS and v}
+        if kernels_run != {k: 1} or n.get("explain_pack") != 1:
+            failed.append(f"{label}: launches {n}, not one {k} with its "
+                          f"explain rows")
     if failed:
         print(f"chip_smoke: kernels disagree with their plain versions: "
               f"{failed}", file=sys.stderr)
@@ -2084,7 +2252,7 @@ def main(argv) -> int:
     print(f"[4 headline] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
     bad = _check_answer(res, counts, HEADLINE_NODES, HEADLINE_UNSCHED,
-                        HEADLINE_PRICE_HEX, ("ffd_batch_scan", "ffd_pack"))
+                        HEADLINE_PRICE_HEX, ("ffd_batch_scan", "explain_pack"))
     if bad:
         print(f"chip_smoke: headline path failed: {bad}", file=sys.stderr)
         return 1
@@ -2105,7 +2273,7 @@ def main(argv) -> int:
                                 "5 config3")
     add(counts)
     bad = _check_answer(res, counts, CONFIG3_NODES, CONFIG3_UNSCHED,
-                        CONFIG3_PRICE_HEX, ("ffd_batch_scan", "ffd_pack"))
+                        CONFIG3_PRICE_HEX, ("ffd_batch_scan", "explain_pack"))
     if bad:
         print(f"chip_smoke: config #3 path failed: {bad}", file=sys.stderr)
         return 1
@@ -2161,11 +2329,11 @@ def main(argv) -> int:
 
     for label, build, want, kernels, passes, full in (
             ("8 config9", build_config9, CONFIG9,
-             ("ffd_batch_gang_scan", "ffd_pack"), (), False),
+             ("ffd_batch_gang_scan", "explain_pack"), (), False),
             ("8 config10", build_config10, CONFIG10,
-             ("ffd_batch_scan", "ffd_pack"), ("priority_witness",), False),
+             ("ffd_batch_scan", "explain_pack"), ("priority_witness",), False),
             ("8 config9-explain-full", build_config9, CONFIG9,
-             ("ffd_batch_gang_scan", "ffd_pack"), ("explain_map",), True)):
+             ("ffd_batch_gang_scan", "explain_pack"), ("explain_map",), True)):
         if full:
             os.environ["KARPENTER_TPU_EXPLAIN"] = "full"
             ffd.unpack = capture
@@ -2248,7 +2416,7 @@ def main(argv) -> int:
         for label, m, kernels in (("13 config2-mesh8", MESH,
                                    ("ffd_sharded_scan",)),
                                   ("13 config2-off", "off",
-                                   ("ffd_batch_scan", "ffd_pack"))):
+                                   ("ffd_batch_scan", "explain_pack"))):
             seen = {}
             mcap.phase = label
 
@@ -2376,23 +2544,23 @@ def main(argv) -> int:
           f"ms, events {ev_empty:.4f} ms a launch", flush=True)
     p, c = ffd.problem_from_numpy(head_prob, head_cat, dev)
     N = solver.max_nodes
-    t_k5, t_k5p, ev_k5, (b5, by5), t_k2, t_k2p, (b2, by2) = _batch_times(
-        ffd, ffd.FFDBatch.of(p), c, N, 50)
+    head_t = _batch_times(ffd, ffd.FFDBatch.of(p), c, N, 50)
+    t_k5, t_k5p, (b5, by5) = (head_t["ms"], head_t["plain_ms"],
+                              head_t["bound"])
     print(f"[9] headline shapes (B=1, G={p.G}, N={N}, PT={c.PT}, O={c.O}) "
-          f"on {card}: ffd_batch_scan {t_k5:.4f} ms ({t_k5 / p.G:.4f} ms a "
-          f"step; events {ev_k5:.4f}, plain {t_k5p:.3f}, bound {b5:.6f} by "
-          f"{by5}); ffd_pack "
-          f"{t_k2:.4f} ms (plain {t_k2p:.3f}, bound {b2:.6f} by {by2})",
-          flush=True)
+          f"on {card}: ffd_batch_scan with the explain counts {t_k5:.4f} "
+          f"ms ({t_k5 / p.G:.4f} ms a step; events {head_t['ev_ms']:.4f}, "
+          f"plain {t_k5p:.3f}, bound {b5:.6f} by {by5}); "
+          + _epilogue_line(head_t), flush=True)
     p3, c3 = ffd.problem_from_numpy(c3_prob, c3_cat, dev)
     for N3 in (solver.max_nodes, CONFIG3_WARM_N):
-        t3, t3p, ev3, (b3, by3), t3k2, t3k2p, _ = _batch_times(
-            ffd, ffd.FFDBatch.of(p3), c3, N3, 20)
+        t3d = _batch_times(ffd, ffd.FFDBatch.of(p3), c3, N3, 20)
+        t3, (b3, by3) = t3d["ms"], t3d["bound"]
         print(f"[9] config #3 shapes (B=1, G={p3.G}, N={N3}, PT={c3.PT}, "
               f"D={p3.D}) on {card}: ffd_batch_scan {t3:.4f} ms "
-              f"({t3 / p3.G:.4f} ms a step; events {ev3:.4f}, plain "
-              f"{t3p:.3f}, bound {b3:.6f} by {by3}); "
-              f"ffd_pack {t3k2:.4f} ms (plain {t3k2p:.3f})", flush=True)
+              f"({t3 / p3.G:.4f} ms a step; events {t3d['ev_ms']:.4f}, "
+              f"plain {t3d['plain_ms']:.3f}, bound {b3:.6f} by {by3}); "
+              + _epilogue_line(t3d), flush=True)
     # where the scan's time goes on config #3: the same problem with only
     # its light groups, or only its heavy groups, kept (the others' rows
     # zeroed: a step with no pods and no admitted column does next to
@@ -2432,20 +2600,19 @@ def main(argv) -> int:
           f"turns on {card}: " + "; ".join(
               f"{k} ({nbytes[k]} bytes) " + ", ".join(f"{v:.4f}" for v in vs)
               + " ms" for k, vs in turns.items()), flush=True)
-    # config #9: the gang instance at the cold and the warm node axis, K2
-    # with the explain=2 map at the cold one
+    # config #9: the gang instance at the cold and the warm node axis, the
+    # epilogue with the explain=2 map at the cold one
     p9, c9 = ffd.problem_from_numpy(c9_prob, c9_cat, dev)
     gang_t = {}
     for N9, ex9 in ((CONFIG_MAX_NODES, 2), (CONFIG3_WARM_N, 1)):
-        gang_t[N9] = _batch_times(ffd, ffd.FFDBatch.of(p9), c9, N9, 20, ex9,
-                                  wg=1)
-        t9, t9p, ev9, (b9, by9), t9k2, t9k2p, (b9k2, by9k2) = gang_t[N9]
+        gang_t[N9] = t9d = _batch_times(ffd, ffd.FFDBatch.of(p9), c9, N9, 20,
+                                        ex9, wg=1)
+        t9, (b9, by9) = t9d["ms"], t9d["bound"]
         print(f"[9] config #9 shapes (B=1, G={p9.G}, N={N9}, PT={c9.PT}, "
-              f"D={p9.D}) on {card}: ffd_batch_gang_scan {t9:.4f} ms "
-              f"({t9 / p9.G:.4f} ms a step; events {ev9:.4f}, plain "
-              f"{t9p:.3f}, bound {b9:.6f} by "
-              f"{by9}); ffd_pack explain={ex9} {t9k2:.4f} ms (plain "
-              f"{t9k2p:.3f}, bound {b9k2:.6f} by {by9k2})", flush=True)
+              f"D={p9.D}, explain={ex9}) on {card}: ffd_batch_gang_scan "
+              f"{t9:.4f} ms ({t9 / p9.G:.4f} ms a step; events "
+              f"{t9d['ev_ms']:.4f}, plain {t9d['plain_ms']:.3f}, bound "
+              f"{b9:.6f} by {by9}); " + _epilogue_line(t9d), flush=True)
     # config #10: the gang-free scan with and without the witness
     p10, c10 = ffd.problem_from_numpy(c10_prob, c10_cat, dev)
     wit, t_witp, (b_wit, by_wit) = _witness_times(
@@ -2456,8 +2623,9 @@ def main(argv) -> int:
           + ", ".join(f"{v:.4f}" for v in wit[0]) + f" ms (in turns); "
           f"plain witness {t_witp:.4f} ms, bound {b_wit:.8f} by {by_wit}",
           flush=True)
-    t_gang, t_gangp, _, (b_gang, by_gang), t_map, t_mapp, (b_map, by_map) = \
-        gang_t[CONFIG_MAX_NODES]
+    map_t = gang_t[CONFIG_MAX_NODES]
+    t_gang, t_gangp, (b_gang, by_gang) = (map_t["ms"], map_t["plain_ms"],
+                                          map_t["bound"])
     # K6 at config #7's churned suffix, at a chunk of its delta-off chain
     # and at config #12's seeded chunk
     delta_t = {}
@@ -2467,15 +2635,16 @@ def main(argv) -> int:
                          ("config #12 chunk 1", cap12.calls[1])):
         p6, sd6, c6, N6, _ = call
         delta_t[dlabel] = _delta_times(ffd, call, 20)
-        t6, t6p, ev6, (b6, by6) = delta_t[dlabel]
+        t6, t6p, ev6, (b6, by6), turns6, (be6, bye6) = delta_t[dlabel]
         print(f"[9] {dlabel} shapes (G={p6.G}, A={sd6.A}, N={N6}, "
               f"E={p6.E}, O={c6.O}) on {card}: ffd_delta_scan {t6:.4f} ms "
               f"({t6 / p6.G:.4f} ms a step; events {ev6:.4f}, plain "
-              f"{t6p:.3f}, bound {b6:.6f} by {by6})", flush=True)
+              f"{t6p:.3f}, bound {b6:.6f} by {by6}); " + _turns_text(turns6)
+              + f" (bound {be6:.6f} by {bye6})", flush=True)
     # K5 at config #12's one program, the spec-off arm's launch, held
     # against its plain version
     p12 = cap12o.calls[0][0]
-    t12, t12p, ev12, (b12, by12), res12 = _captured_batch_times(
+    t12, t12p, ev12, (b12, by12), res12, turns12 = _captured_batch_times(
         ffd, cap12o.calls[0], 3)
     for k, (eq, err) in res12.items():
         errs[k] = max(errs[k], err)
@@ -2485,10 +2654,12 @@ def main(argv) -> int:
                   file=sys.stderr)
             return 1
     print(f"[9] config #12 one program (spec off: B=1, G={p12.G}, "
-          f"N={cap12o.calls[0][2]}, O={cap12o.calls[0][1].O}) on {card}: "
-          f"ffd_batch_scan {t12:.4f} ms ({t12 / p12.G:.4f} ms a step; "
-          f"events {ev12:.4f}, plain {t12p:.3f} once, equal to it, bound "
-          f"{b12:.6f} by {by12})", flush=True)
+          f"N={cap12o.calls[0][2]}, O={cap12o.calls[0][1].O}, "
+          f"explain={cap12o.calls[0][3]}) on {card}: ffd_batch_scan "
+          f"{t12:.4f} ms ({t12 / p12.G:.4f} ms a step; events "
+          f"{ev12:.4f}, plain {t12p:.3f} once, equal to it, bound "
+          f"{b12:.6f} by {by12})"
+          + (f"; {_turns_text(turns12)}" if turns12 else ""), flush=True)
     # K5 at phase 18's wave-2 launch: the existing-node fill of 2,000 pods
     # over wave 1's nodes, on the tensors the loop gave it
     for w, cap in enumerate(loop_calls, 1):
@@ -2496,7 +2667,8 @@ def main(argv) -> int:
             continue
         call = cap["solve"][-1]
         pl, cl, Nl = call[0], call[1], call[2]
-        tl, tlp, evl, (bl, byl), resl = _captured_batch_times(ffd, call, 20)
+        tl, tlp, evl, (bl, byl), resl, _ = _captured_batch_times(
+            ffd, call, 20)
         for k, (eq, err) in resl.items():
             errs[k] = max(errs[k], err)
             if not eq:
@@ -2509,7 +2681,7 @@ def main(argv) -> int:
               f"({tl / pl.G:.4f} ms a step; events {evl:.4f}, plain "
               f"{tlp:.3f} once, equal to it, bound {bl:.6f} by {byl})",
               flush=True)
-    t_k6, t_k6p, _, (b_k6, by_k6) = delta_t["config #7 suffix"]
+    t_k6, t_k6p, _, (b_k6, by_k6), _, _ = delta_t["config #7 suffix"]
     # K7 at 2, 4 and 8 shards on config #2's and the headline's encodings,
     # beside K5 on the same problems; then at the mesh paths' own launches
     for lab, prob, catarr, N in (("config #2", c2_prob, c2_cat,
@@ -2517,9 +2689,9 @@ def main(argv) -> int:
                                  ("headline", head_prob, head_cat,
                                   solver.max_nodes)):
         p5, c5 = ffd.problem_from_numpy(prob, catarr, dev)
-        k5 = _batch_times(ffd, ffd.FFDBatch.of(p5), c5, N, 20)
+        k5 = _batch_times(ffd, ffd.FFDBatch.of(p5), c5, N, 20)["ms"]
         print(f"[9] {lab} (G={p5.G}, N={N}, PT={c5.PT}, O={c5.O}) on "
-              f"{card}: ffd_batch_scan {k5[0]:.4f} ms ({k5[0] / p5.G:.4f} "
+              f"{card}: ffd_batch_scan {k5:.4f} ms ({k5 / p5.G:.4f} "
               f"ms a step; S=1)", flush=True)
         for S in (2, 4, 8):
             t7, ev7, t7p, (b7, by7), n7 = _sharded_times(
@@ -2542,12 +2714,14 @@ def main(argv) -> int:
                   file=sys.stderr)
             return 1
         k7_t[k7_name] = _captured_sharded_times(ffd, call, 20)
-        t7, ev7, t7p, (b7, by7) = k7_t[k7_name]
+        t7, ev7, t7p, (b7, by7), turns7 = k7_t[k7_name]
         p7 = call[0]
         print(f"[9] {k7_name} at its main path's launch (S={call[2].S}, "
-              f"G={p7.G}, E={p7.E}, N={call[3]}, O={call[2].O}) on {card}: "
+              f"G={p7.G}, E={p7.E}, N={call[3]}, O={call[2].O}, "
+              f"explain={call[4]}) on {card}: "
               f"{t7:.4f} ms ({t7 / p7.G:.4f} ms a step; events {ev7:.4f}, "
-              f"plain {t7p:.3f}, bound {b7:.6f} by {by7})", flush=True)
+              f"plain {t7p:.3f}, bound {b7:.6f} by {by7})"
+              + (f"; {_turns_text(turns7)}" if turns7 else ""), flush=True)
 
     kernels = [
         {"name": "ffd_batch_scan", "route": "cuda",
@@ -2596,12 +2770,17 @@ def main(argv) -> int:
          "max_abs_err": errs["ffd_delta_scan"], "ms": t_k6,
          "plain_ms": t_k6p, "bound_ms": b_k6, "bound_by": by_k6,
          "library_ms": None},
-        {"name": "ffd_pack", "route": "cuda",
-         "source": "karpenter_tpu_torch/csrc/ffd_pack.cu",
+        {"name": "explain_pack", "route": "cuda",
+         "source": "karpenter_tpu_torch/csrc/ffd_scan_common.cuh",
          "replaces": "karpenter_tpu/solver/ffd.py:1113",
-         "launches": launches["ffd_pack"],
-         "max_abs_err": errs["ffd_pack"], "ms": t_k2, "plain_ms": t_k2p,
-         "bound_ms": b2, "bound_by": by2, "library_ms": None},
+         "epilogue_of": ["ffd_batch_scan", "ffd_delta_scan",
+                         "ffd_sharded_scan"],
+         "launches": launches["explain_pack"],
+         "max_abs_err": errs["explain_pack"],
+         "ms": max(0.0, head_t["epi_ms"]),
+         "plain_ms": head_t["epi_plain_ms"],
+         "bound_ms": head_t["epi_bound"][0],
+         "bound_by": head_t["epi_bound"][1], "library_ms": None},
         *({"name": k7, "route": "cuda",
            "source": "karpenter_tpu_torch/csrc/ffd_sharded_scan.cu",
            "replaces": replaces,
@@ -2616,12 +2795,15 @@ def main(argv) -> int:
               ("ffd_sharded_delta_scan",
                "karpenter_tpu/solver/ffd.py:1446"))),
         {"name": "explain_map", "route": "cuda",
-         "source": "karpenter_tpu_torch/csrc/ffd_pack.cu",
+         "source": "karpenter_tpu_torch/csrc/ffd_scan_common.cuh",
          "replaces": "karpenter_tpu/solver/ffd.py:1215",
+         "epilogue_of": ["ffd_batch_scan"],
          "launches": launches["explain_map"],
-         "max_abs_err": errs["explain_map"], "ms": t_map,
-         "plain_ms": t_mapp, "bound_ms": b_map, "bound_by": by_map,
-         "library_ms": None},
+         "max_abs_err": errs["explain_map"],
+         "ms": max(0.0, map_t["epi_ms"]),
+         "plain_ms": map_t["epi_plain_ms"],
+         "bound_ms": map_t["epi_bound"][0],
+         "bound_by": map_t["epi_bound"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

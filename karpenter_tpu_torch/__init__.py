@@ -2,8 +2,8 @@
 
 A port of `karpenter_tpu` (JAX) to an NVIDIA H100.  The cold provisioning
 solve runs end to end here, topology spread included: host encode (numpy)
-→ the FFD scan (light, or with the heavy per-domain step) and the explain
-pack as hand-written CUDA kernels (`csrc/`) → host repair and decode, with
+→ the FFD scan (light, or with the heavy per-domain step), the explain
+rows in its epilogue, as hand-written CUDA kernels (`csrc/`) → host repair and decode, with
 the host oracle for inexpressible groups and stranded pods.
 The package imports `torch` and `numpy`, never `jax` or `karpenter_tpu`;
 it keeps its own copies of the model, catalog and encoding modules.

@@ -1,4 +1,4 @@
-// Shared device helpers of the FFD kernels (ffd_scan_common.cuh, ffd_pack.cu).
+// Shared device helpers of the FFD scan kernels (ffd_scan_common.cuh).
 //
 // Bit parity with the JAX reference (karpenter_tpu/solver/ffd.py) is the
 // contract, so every float operation here is spelled with a round-to-

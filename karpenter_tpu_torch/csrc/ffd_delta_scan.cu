@@ -11,8 +11,9 @@
 // replayed on the host (karpenter_tpu_torch/solver/delta.py) with the
 // kernel's own float32 arithmetic.  The scan then runs the light step only
 // (the delta and chunk paths are topology-, gang- and priority-free by
-// contract), writes a dense take_exist row and no priority witness; K2
-// adds the explain counts after it.
+// contract), writes a dense take_exist row and no priority witness, and
+// with explain rows the explain=1 counts in its epilogue (the scans'
+// `explain_pack`; every topology count is 0 here).
 //
 // This is the `scan_kernel<false, false, false, true>` instance of
 // ffd_scan_common.cuh, which holds the design notes: the seed flag only

@@ -56,7 +56,13 @@
 //     epilogue: a block scan ranks each group's nonzero entries;
 //   * with a priority row, the priority inversion witness (:1238-1257) in
 //     the epilogue: one thread walks the groups with the exclusive running
-//     max of the stranded groups' priorities (integers only, exact).
+//     max of the stranded groups' priorities (integers only, exact);
+//   * with explain rows, the explain=1 counts and bits (:1113-1214) and
+//     with a map row the explain=2 class map (:1215-1237) in the epilogue
+//     (`explain_pack`, the per-group arithmetic in ffd_explain.cuh), from
+//     the final state, a warp a group — every instance but the sweep's,
+//     in the scan's own launch, as the reference computes them inside
+//     the scan's program.
 // The packed-mask expansion `_expand_packed_mask` (:199) disappears: the
 // kernels read the group mask as bits.  Results land in the flat result
 // row of ffd.py:1258, one row per problem.
@@ -108,6 +114,7 @@
 #pragma once
 
 #include "ffd_common.cuh"
+#include "ffd_explain.cuh"
 
 #include <cooperative_groups.h>
 #include <limits.h>
@@ -191,8 +198,11 @@ struct ScanArgs {
   const int* mask_rows;          // [G] each group's row of the mask table
   int* xslot;                    // [S, N*ZC + 4G] scratch: per-node slot
                                  // maxima, then the pack's [G, 4] counts
+  // the explain rows, written in the epilogue (not SWEEP)
   float* ex_counts;              // [G, 5] (flat) explain=1 counts, or null
   float* ex_bits;                // [G]    (flat)
+  float* ex_map;                 // [G, O] (flat) explain=2 map, or null
+                                 // (not SHARDED, not SEED)
   float* row0;                   // the flat row block 0 writes (the caller's)
   float* xrow;                   // [S-1, total] then [S-1, P, R] scratch: the
                                  // other blocks' flat rows and pool budgets
@@ -204,7 +214,7 @@ struct ScanArgs {
 // Every pointer above addresses problem 0 of the batch; block b offsets the
 // per-problem ones (inputs, carry, the flat row) in offset_block.
 
-#define SCAN_NPTRS 61
+#define SCAN_NPTRS 62
 #define SCAN_NDIMS 16
 #define MAXX 8
 #define BIGCAP 536870912  /* encode.BIG: no per-node cap */
@@ -1655,6 +1665,11 @@ __device__ void offset_block(ScanArgs& a, int b) {
   a.ct_out += row;
   a.na_out += row;
   if (a.prio_inv) a.prio_inv += row;
+  if (a.ex_counts) {
+    a.ex_counts += row;
+    a.ex_bits += row;
+  }
+  if (a.ex_map) a.ex_map += row;
 }
 
 // Block r's view of the column-sharded problem (SHARDED): the column-axis
@@ -1708,106 +1723,171 @@ __device__ void offset_shard(ScanArgs& a, int r) {
   a.limits = a.xrow + (size_t)(a.S - 1) * a.total + (rr - 1) * P * KR;
 }
 
-// The explain=1 elimination counts of the column-sharded scan, K2's pack
-// (ffd_pack.cu; ffd.py:1113-1214) moved into K7's epilogue: each block
-// counts its shard's admitted columns per class (fit, limit, topology,
-// and the fitting, fundable ones for the whole-node class) for every
-// group from the final state, the counts are summed over the shards (the
-// reference's psum, ffd.py:1202), and the slot class joins after the sum.
-// A column's domain is its grid slot's in shard 0's leading block.
-// Integers only.  Every thread calls.
-template <bool GANG>
-__device__ void sharded_pack(const ScanArgs& a, ScanShared& S) {
-  __shared__ int s_part[4];
-  __shared__ int s_blocked[MAXZC];
-  __shared__ int s_bdom[MAXD];
-  const int tid = threadIdx.x;
-  const int G = a.G, PT = a.PT, ZC = a.ZC, D = a.D, W = a.W;
-  int* part = a.xslot + (size_t)a.N * ZC;  // [G, 4]
-  for (int g = 0; g < G; ++g) {
-    const int dsel = a.group_dsel ? a.group_dsel[g] : 0;
-    if (tid == 0) {
-      for (int k = 0; k < 4; ++k) s_part[k] = 0;
+// The explain rows from the scan's final state (ffd_explain.cuh holds the
+// per-group arithmetic): the carry's pool budgets a.limits, the flat
+// row's unsched and dom_placed, the active count S.na.  The scan's shared
+// copy of the blocks' allocatable, `s_pt`, free after the scan, first
+// becomes each block's room for pods (`block_room`: allocatable less
+// daemon row, once a block for every group).  Every instance that
+// writes explain rows runs it in its epilogue, in the scan's own launch:
+// K5 (any B, one problem a block), K6 and K7.
+//
+// A team of WPG warps per group (WPG = 1 when G >= 32, else the largest
+// power of two with G * WPG <= 32, so that every warp works): each warp
+// computes the group's blocked domains (a warp min and sum give the skew
+// ceiling, one ballot a 32-domain word), its blocked grid slots (two
+// ballots) and the pools its request can still be funded in (two
+// ballots); the team's lanes then stride the (pool,type) blocks,
+// popcounting each block's admitted columns, and combine the four class
+// counts with warp sums (and, in a team of several warps, sums over the
+// warps in the cascade's per-pool rows of ScanShared, free after the
+// scan, behind one block barrier).  No shared memory and no block
+// barrier per group.  With a map row (explain=2, not SHARDED) the same
+// team then writes the group's O map floats, its lanes on consecutive
+// columns, each column's verdict from the shared room.  SHARDED: each
+// block counts its column shard into its [G, 4] slot of xslot, the
+// shards' counts are summed over the cluster (the reference's psum,
+// ffd.py:1202) and the slot class joins after the sum;
+// a column's grid-slot domain is shard 0's leading block's.  Integer
+// counts and sums only: exact in any order.  Every thread calls.
+template <bool SHARDED, bool GANG>
+__device__ void explain_pack(const ScanArgs& a, ScanShared& S,
+                             float* s_pt) {
+  constexpr int NW = NT / 32;
+  static_assert(NW <= MAXP, "a team's sums use the per-pool rows");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = a.G, PT = a.PT, ZC = a.ZC, D = a.D, W = a.W, P = a.P;
+  for (int i = threadIdx.x; i < PT * KR; i += NT)
+    s_pt[i] = block_room(s_pt, a.col_daemon, ZC, i);
+  __syncthreads();
+  const float* room = s_pt;
+  int WPG = 1;
+  while (2 * WPG * G <= NW) WPG *= 2;
+  const int team = warp / WPG, rank = warp % WPG, teams = NW / WPG;
+  const int L = 32 * WPG, t = 32 * rank + lane;  // the lane in its team
+  int* part = SHARDED ? a.xslot + (size_t)a.N * ZC : nullptr;  // [G, 4]
+  // every thread runs the same rounds: with WPG > 1 there is one
+  for (int g0 = 0; g0 < G; g0 += teams) {
+    const int g = g0 + team;
+    const bool mine = g < G;  // uniform across the warp
+    PackPart c = {0u, 0u, 0u, 0u};
+    bool stranded = false, whole = false;
+    if (mine) {
+      stranded = a.unsched[g] > 0.0f;
+      whole = a.group_whole[g] != 0 || (GANG && a.group_gang[g] != 0);
+      float req[KR];
+      DomWords bw = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int r = 0; r < KR; ++r) req[r] = a.group_req[g * KR + r];
+      const int dsel = a.group_dsel ? a.group_dsel[g] : 0;
+      uint64_t topo_slots = 0ull;
       if (dsel > 0) {
-        // the skew ceiling after the group's own placements
         const int* base = a.group_dbase + (size_t)g * D;
         const int* elig = a.group_delig + (size_t)g * D;
         const float* placed = a.dom_placed + (size_t)g * D;
-        int m_elig = 1 << 29, pop = 0;
-        for (int d = 0; d < D; ++d) {
-          const int f = (int)((unsigned)base[d] + (unsigned)(int)placed[d]);
-          if (elig[d]) {
-            m_elig = min(m_elig, f);
-            pop += f > 0;
-          }
-        }
-        const int mindom = a.group_mindom[g];
-        const int m_floor = (mindom > 0 && pop < mindom) ? 0 : m_elig;
-        const int ceiling =
-            (int)((unsigned)m_floor + (unsigned)a.group_skew[g]);
-        for (int d = 0; d < D; ++d) {
-          const int f = (int)((unsigned)base[d] + (unsigned)(int)placed[d]);
-          s_bdom[d] = !elig[d] || f >= ceiling;
+        const DomPart dp = lane_dom(base, elig, placed, D, lane, 32);
+        const int ceiling = skew_ceiling(
+            __reduce_min_sync(FULLMASK, dp.m_elig),
+            __reduce_add_sync(FULLMASK, dp.pop), a.group_mindom[g],
+            a.group_skew[g]);
+#pragma unroll
+        for (int k = 0; k < EXPLAIN_DWORDS; ++k) {
+          const int d = 32 * k + lane;
+          bw.set(k, __ballot_sync(FULLMASK, d < D && dom_blocked(
+                                                base, elig, placed, d,
+                                                ceiling)));
         }
         const int* slot_dom =
-            dsel == 1 ? slot_zone<true>(a) : slot_ct<true>(a);
-        for (int z = 0; z < ZC; ++z)
-          s_blocked[z] = s_bdom[min(max(slot_dom[z], 0), D - 1)];
+            dsel == 1 ? slot_zone<SHARDED>(a) : slot_ct<SHARDED>(a);
+        const uint32_t lo = __ballot_sync(
+            FULLMASK, lane < ZC && blocked_in(bw, slot_dom[lane], D));
+        const uint32_t hi = __ballot_sync(
+            FULLMASK,
+            lane + 32 < ZC && blocked_in(bw, slot_dom[lane + 32], D));
+        topo_slots = (uint64_t)lo | ((uint64_t)hi << 32);
+      }
+      const uint32_t f_lo = __ballot_sync(
+          FULLMASK,
+          lane < P && pool_funds(a.limits, a.pool_daemon, lane, req));
+      const uint32_t f_hi = __ballot_sync(
+          FULLMASK,
+          lane + 32 < P && pool_funds(a.limits, a.pool_daemon, lane + 32,
+                                      req));
+      const uint64_t pool_ok = (uint64_t)f_lo | ((uint64_t)f_hi << 32);
+      const uint32_t* row =
+          a.mask_bits + (size_t)(SHARDED ? a.mask_rows[g] : g) * W;
+      c = lane_pack(row, PT, ZC, room, a.col_pool, pool_ok, topo_slots,
+                    req, t, L);
+      if (!SHARDED && a.ex_map) {
+        // explain=2: each column's first eliminating class, the team's
+        // lanes on consecutive columns (a store of 32 consecutive floats
+        // a warp)
+        const int* col_dom = dsel == 1 ? a.col_zone : a.col_ct;
+        float* map = a.ex_map + (size_t)g * a.O;
+#pragma unroll 4
+        for (int o = t; o < a.O; o += L)
+          map[o] = (float)map_column(row, o, ZC, room, a.col_pool, pool_ok,
+                                     req, dsel > 0, bw, col_dom, D,
+                                     whole && stranded);
+      }
+      c.fit = __reduce_add_sync(FULLMASK, c.fit);
+      c.lim = __reduce_add_sync(FULLMASK, c.lim);
+      c.topo = __reduce_add_sync(FULLMASK, c.topo);
+      c.ok = __reduce_add_sync(FULLMASK, c.ok);
+    }
+    if (WPG > 1) {
+      // the team's warps' sums, in the cascade's per-pool rows (NW <= MAXP)
+      if (mine && lane == 0) {
+        S.kfull[warp] = (int)c.fit;
+        S.any[warp] = (int)c.lim;
+        S.ptake[warp] = (int)c.topo;
+        S.limcap[warp] = (int)c.ok;
+      }
+      __syncthreads();
+      if (mine) {
+        c = PackPart{0u, 0u, 0u, 0u};
+        for (int k = team * WPG; k < (team + 1) * WPG; ++k) {
+          c.fit += (unsigned)S.kfull[k];
+          c.lim += (unsigned)S.any[k];
+          c.topo += (unsigned)S.ptake[k];
+          c.ok += (unsigned)S.limcap[k];
+        }
       }
     }
-    __syncthreads();
-    float req[KR];
-#pragma unroll
-    for (int r = 0; r < KR; ++r) req[r] = a.group_req[g * KR + r];
-    const uint32_t* row = a.mask_bits + (size_t)a.mask_rows[g] * W;
-    int fit = 0, lim = 0, topo = 0, ok = 0;
-    for (int pt = tid; pt < PT; pt += NT) {
-      const int lo = pt * ZC;
-      int cpb = 0;  // admitted columns of the block
-      for (int z = 0; z < ZC; ++z)
-        cpb += (row[(lo + z) >> 5] >> ((lo + z) & 31)) & 1u;
-      if (!cpb) continue;
-      const bool fits = all_fits3(&a.pt_alloc[pt * KR],
-                                  &a.col_daemon[(size_t)lo * KR], req);
-      const int p = a.col_pool[lo];
-      const bool lim_ok = all_fits3(&a.limits[p * KR],
-                                    &a.pool_daemon[p * KR], req);
-      if (!fits) {
-        fit += cpb;
-      } else if (!lim_ok) {
-        lim += cpb;
-      } else {
-        ok += cpb;
-        if (dsel > 0)
-          for (int z = 0; z < ZC; ++z)
-            if (s_blocked[z])
-              topo += (row[(lo + z) >> 5] >> ((lo + z) & 31)) & 1u;
+    if (!mine) continue;
+    if constexpr (SHARDED) {
+      if (t == 0) {
+        part[g * 4 + 0] = (int)c.fit;
+        part[g * 4 + 1] = (int)c.lim;
+        part[g * 4 + 2] = (int)c.topo;
+        part[g * 4 + 3] = (int)c.ok;
+      }
+    } else {
+      if (t == 0) {
+        float counts[EXPLAIN_C];
+        const int bits = explain_row(c.fit, c.lim, c.topo, c.ok, whole,
+                                     GANG, stranded, S.na >= a.N, counts);
+        for (int i = 0; i < EXPLAIN_C; ++i)
+          a.ex_counts[(size_t)g * EXPLAIN_C + i] = counts[i];
+        a.ex_bits[g] = (float)bits;
       }
     }
-    atomicAdd(&s_part[0], fit);
-    atomicAdd(&s_part[1], lim);
-    atomicAdd(&s_part[2], topo);
-    atomicAdd(&s_part[3], ok);
-    __syncthreads();
-    if (tid < 4) part[g * 4 + tid] = s_part[tid];
-    __syncthreads();
   }
-  cluster_combine<true>(part, 4 * G);
-  for (int g = tid; g < G; g += NT) {
-    const int* c = part + g * 4;
-    const bool stranded = a.unsched[g] > 0.0f;
-    const bool gang = GANG && a.group_gang[g] != 0;
-    const bool whole = a.group_whole[g] != 0 || gang;
-    const int whole_cols = GANG ? c[3] - c[2] : c[3];
-    const int counts[5] = {c[0], c[1], c[2],
-                           (whole && stranded) ? whole_cols : 0,
-                           (stranded && S.na >= a.N) ? 1 : 0};
-    int bits = 0;
-    for (int i = 0; i < 5; ++i) {
-      a.ex_counts[(size_t)g * 5 + i] = (float)counts[i];
-      if (counts[i] > 0) bits |= 1 << i;
+  if constexpr (SHARDED) {
+    cluster_combine<true>(part, 4 * G);
+    for (int g = threadIdx.x; g < G; g += NT) {
+      const int* c = part + g * 4;
+      const bool stranded = a.unsched[g] > 0.0f;
+      const bool whole =
+          a.group_whole[g] != 0 || (GANG && a.group_gang[g] != 0);
+      float counts[EXPLAIN_C];
+      const int bits = explain_row(
+          (unsigned)c[0], (unsigned)c[1], (unsigned)c[2], (unsigned)c[3],
+          whole, GANG, stranded, S.na >= a.N, counts);
+      for (int i = 0; i < EXPLAIN_C; ++i)
+        a.ex_counts[(size_t)g * EXPLAIN_C + i] = counts[i];
+      a.ex_bits[g] = (float)bits;
     }
-    a.ex_bits[g] = (float)bits;
   }
 }
 
@@ -2054,10 +2134,10 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   }
   if (a.K > 0) compact_take_exist(a, S);
   if (!SWEEP && a.prio_inv && tid == 0) priority_witness(a);
-  if constexpr (SHARDED) {
+  if constexpr (!SWEEP) {
     if (a.ex_counts) {
       __syncthreads();
-      sharded_pack<GANG>(a, S);
+      explain_pack<SHARDED, GANG>(a, S, s.pt);
     }
   }
 
@@ -2203,6 +2283,7 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.xslot = (int*)ptrs[i++];
   a.ex_counts = (float*)ptrs[i++];
   a.ex_bits = (float*)ptrs[i++];
+  a.ex_map = (float*)ptrs[i++];
   a.row0 = (float*)ptrs[i++];
   a.xrow = (float*)ptrs[i++];
   a.G = dims[0];
@@ -2256,16 +2337,24 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
       (!SEED && (a.A != 0 || a.seed_pool || a.seed_active ||
                  a.seed_colmask)))
     return -2;
+  // the explain rows: the counts and bits both or neither, the map only
+  // with them, in the epilogue of every instance but the sweep's; no map
+  // from the seeded or the column-sharded scan.  The pack's blocked grid
+  // slots and funded pools are 64-bit masks.
+  if ((a.ex_counts != nullptr) != (a.ex_bits != nullptr) ||
+      (a.ex_map && !a.ex_counts) || (SWEEP && a.ex_counts) ||
+      ((SEED || SHARDED) && a.ex_map) ||
+      (a.ex_counts && (a.ZC > 64 || a.P > 64 || !a.group_whole)))
+    return -2;
   // the column-sharded instance: one problem over S shards, the mask
-  // table rows gathered per group, the slot scratch, the counts in the
-  // epilogue (both regions or none); no other instance takes any of it
+  // table rows gathered per group, the slot scratch; no other instance
+  // takes any of it
   if (SHARDED && (SWEEP || a.B != 1 || a.K != 0 || a.S < 1 || a.S > 16 ||
                   a.C < 1 || !a.mask_rows || !a.xslot || a.ZC > MAXZC ||
-                  a.P > MAXP || !a.row0 || (a.S > 1 && !a.xrow) ||
-                  (a.ex_counts != nullptr) != (a.ex_bits != nullptr)))
+                  a.P > MAXP || !a.row0 || (a.S > 1 && !a.xrow)))
     return -2;
   if (!SHARDED && (a.C != 0 || a.S != 0 || a.mask_rows || a.xslot ||
-                   a.ex_counts || a.ex_bits || a.row0 || a.xrow))
+                   a.row0 || a.xrow))
     return -2;
   const size_t smem = scan_smem<TOPO, SWEEP>(a);
   if constexpr (SHARDED) {

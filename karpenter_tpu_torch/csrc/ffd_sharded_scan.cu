@@ -42,13 +42,14 @@
 // Plain-C entry points for ctypes.  ptrs: SCAN_NPTRS device addresses in
 // ScanArgs order (the sweep's are 0; mask_bits is the resident mask table
 // [S, C, W], mask_rows the [G] row ids, xslot the [S, N*ZC + 4G] scratch,
-// ex_counts/ex_bits the explain=1 regions or 0, row0 the caller's flat row
-// and xrow the [S-1, total + P*R] scratch of the other blocks' rows and
-// budgets); dims: G, E, N, O, PT, ZC, P, D, W (one shard's O, PT and W),
-// B (1), X (0), K (0), total, A, C, S.  Returns 0, a CUDA error code
-// (cudaLaunchKernelEx's, e.g. a cluster of S blocks the card cannot hold,
-// or cudaGetLastError after the launch), or a negative argument error.
-// Launches one cluster of S blocks on `stream` and does not synchronise.
+// ex_counts/ex_bits the explain=1 regions or 0, ex_map 0, row0 the
+// caller's flat row and xrow the [S-1, total + P*R] scratch of the other
+// blocks' rows and budgets); dims: G, E, N, O, PT, ZC, P, D, W (one
+// shard's O, PT and W), B (1), X (0), K (0), total, A, C, S.  Returns 0,
+// a CUDA error code (cudaLaunchKernelEx's, e.g. a cluster of S blocks the
+// card cannot hold, or cudaGetLastError after the launch), or a negative
+// argument error.  Launches one cluster of S blocks on `stream` and does
+// not synchronise.
 
 // light and heavy steps (the reference's resident program, with_gang 0)
 extern "C" int ffd_sharded_scan(const unsigned long long* ptrs, int nptrs,

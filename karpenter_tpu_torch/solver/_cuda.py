@@ -28,16 +28,15 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # the sources, one library each
-KERNELS = ("ffd_batch_scan", "ffd_sweep_scan", "ffd_delta_scan", "ffd_pack",
-           "ffd_sharded_scan")
+KERNELS = ("ffd_batch_scan", "ffd_sweep_scan", "ffd_delta_scan",
+           "ffd_sharded_scan", "ffd_empty")
 # entry point -> the source that exports it
 ENTRIES = {"ffd_batch_scan": "ffd_batch_scan",
            "ffd_batch_gang_scan": "ffd_batch_scan",
            "ffd_sweep_scan": "ffd_sweep_scan",
            "ffd_sweep_topo_scan": "ffd_sweep_scan",
            "ffd_delta_scan": "ffd_delta_scan",
-           "ffd_pack": "ffd_pack",
-           "ffd_empty": "ffd_pack",
+           "ffd_empty": "ffd_empty",
            "ffd_sharded_scan": "ffd_sharded_scan",
            "ffd_sharded_gang_scan": "ffd_sharded_scan",
            "ffd_sharded_delta_scan": "ffd_sharded_scan",

@@ -33,22 +33,28 @@ runs them as hand-written CUDA kernels, one thread block per problem:
     (pool,type) blocks split over S shards (`ShardedCatalog`), each
     group's mask gathered from a resident row table, one thread-block
     cluster of S blocks whose column reductions combine through
-    distributed shared memory, and the explain=1 counts in its epilogue;
-  * ``pack`` (K2, `csrc/ffd_pack.cu`): the explain=1 elimination counts,
-    topology class and the with_gang whole class included, and with
-    explain=2 the [G, O] per-column class map, from the scan's final state,
-    at the offsets `unpack` expects.
+    distributed shared memory.
+
+Where the flat layout holds explain rows, K5, K6 and K7 write them in
+their own launch: the scans' epilogue (`explain_pack`, the per-group
+arithmetic in `csrc/ffd_explain.cuh`) computes the explain=1 elimination
+counts, the topology class and the with_gang whole class included, and
+with explain=2 (K5 only) the [G, O] per-column class map, from the scan's
+final state, at the offsets `unpack` reads, as the reference computes
+them inside the scan's program.
 
 With ``sparse_k`` > 0 the scans also compact each group's take_exist row
 into K (count, index) pairs, the reference's prefix-rank scatter.  Beside
 each kernel sits its plain PyTorch version (``batch_scan_reference``,
 ``sweep_scan_reference``, ``sweep_topo_scan_reference``,
-``delta_scan_reference``, ``sharded_scan_reference``, ``pack_reference``),
-a transcription of the reference with a Python loop over problems, groups
-and pools; every scan shares one light and one heavy step.  A wrapper
-runs the kernel for a CUDA tensor and the plain version for a CPU tensor;
-there is no fallback from one to the other.  Each wrapper counts its
-kernel launches in ``.launches``.
+``delta_scan_reference``, ``sharded_scan_reference``; ``pack_reference``
+the epilogue's), a transcription of the reference with a Python loop over
+problems, groups and pools; every scan shares one light and one heavy
+step.  A wrapper runs the kernel for a CUDA tensor and the plain version
+for a CPU tensor; there is no fallback from one to the other.  Each
+wrapper counts its kernel launches in ``.launches`` (and the launches
+that carried explain rows in ``.explain_launches``; ``batch_scan`` those
+with the map in ``.map_launches``).
 
 The flat result buffer of one problem has exactly the reference's layout
 (ffd.py:1258):
@@ -1431,7 +1437,7 @@ def batch_scan_reference(batch: FFDBatch, cat: FFDCatalog, N: int,
     `with_gang` the gang fill), per problem of the batch, transcribed step
     for step (a Python loop over problems, groups and pools).  Writes the
     kernel's outputs, one flat row per problem, the priority witness
-    where the layout holds it.
+    and the explain rows (`pack_reference`) where the layout holds them.
 
     Given a `work` dict, adds to it what the kernel computes on this
     data: "fit", the R-vector `_fit_count`s, "test", the R-vector
@@ -1444,6 +1450,9 @@ def batch_scan_reference(batch: FFDBatch, cat: FFDCatalog, N: int,
         _scan_reference(batch.at(b), cat, N, flat[b], lay, limits_out[b],
                         work, topology=True, sparse_k=sparse_k,
                         with_gang=with_gang)
+        if "explain_counts" in lay:
+            pack_reference(batch.at(b), cat, N, flat[b], lay, limits_out[b],
+                           with_gang)
 
 
 def delta_scan_reference(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog,
@@ -1453,10 +1462,13 @@ def delta_scan_reference(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog,
     """Plain PyTorch version of K6: `_solve_ffd_delta_impl` (ffd.py:1403)
     — the scan of one problem started from `seed` (ffd.py:406-427), every
     group light (with_topology False), dense take_exist rows, no
-    witness.  Writes one flat row; `work` counts as in
+    witness, and the explain counts (`pack_reference`) where the layout
+    holds them.  Writes one flat row; `work` counts as in
     `batch_scan_reference`."""
     _scan_reference(prob, cat, N, flat, lay, limits_out, work,
                     topology=False, seed=seed)
+    if "explain_counts" in lay:
+        pack_reference(prob, cat, N, flat, lay, limits_out)
 
 
 def _bits_of(mask: torch.Tensor) -> torch.Tensor:
@@ -1542,15 +1554,18 @@ def pack_reference(prob: FFDProblem, cat: FFDCatalog, N: int,
                    flat: torch.Tensor, lay: Dict, limits: torch.Tensor,
                    with_gang: int = 0, shards: int = 1,
                    gmask: Optional[torch.Tensor] = None) -> None:
-    """Plain PyTorch version of K2: the explain=1 aux (ffd.py:1113-1214),
-    the topology class (ffd.py:1141-1175) and, with `with_gang`, the
-    whole class of gang strands (ffd.py:1181-1194) included; where the
-    layout holds `explain_map`, the explain=2 per-column class map
-    (ffd.py:1215-1237).  With `shards` S > 1 (the column-sharded scan's
-    epilogue) each class count is summed per contiguous shard of the
-    (pool,type) blocks and then over the shards (the reference's psum,
-    ffd.py:1202), the slot class joining after the sum; `gmask` [G, O]
-    bool gives the group masks in place of the problem's words."""
+    """Plain PyTorch version of the scans' explain epilogue
+    (`explain_pack`, csrc/ffd_scan_common.cuh): the explain=1 aux
+    (ffd.py:1113-1214), the topology class (ffd.py:1141-1175) and, with
+    `with_gang`, the whole class of gang strands (ffd.py:1181-1194)
+    included; where the layout holds `explain_map`, the explain=2
+    per-column class map (ffd.py:1215-1237), from the scan's outputs in
+    `flat` and its final pool budgets `limits`.  With `shards` S > 1
+    (the column-sharded scan's epilogue) each class count is summed per
+    contiguous shard of the (pool,type) blocks and then over the shards
+    (the reference's psum, ffd.py:1202), the slot class joining after the
+    sum; `gmask` [G, O] bool gives the group masks in place of the
+    problem's words."""
     dev = flat.device
     i32, f32 = torch.int32, torch.float32
     G = prob.G
@@ -1753,6 +1768,33 @@ def _check_outputs(B: int, P: int, flat: torch.Tensor, lay: Dict,
                          f"{sparse_k} take_exist rows")
 
 
+def _check_explain(lay: Dict, G: int, O: int, map_ok: bool) -> None:
+    """The explain regions of a flat layout as the scans' epilogue writes
+    them: the [G, 5] counts and the [G] bits both or neither, and the
+    [G, O] class map only with them, where the scan writes a map."""
+    have = [n for n in ("explain_counts", "explain_bits") if n in lay]
+    if have and (len(have) != 2 or lay["explain_counts"][1] != G * EXPLAIN_C
+                 or lay["explain_bits"][1] != G):
+        raise ValueError("the flat layout's explain counts are not "
+                         f"[G, {EXPLAIN_C}] and [G] rows")
+    if "explain_map" in lay:
+        if not map_ok:
+            raise ValueError("this scan writes at most the explain counts "
+                             "(explain=2 has no form here)")
+        if not have or lay["explain_map"][1] != G * O:
+            raise ValueError("the flat layout's explain map is not [G, O] "
+                             "after the explain counts")
+
+
+def _count_explain(wrapper, lay: Dict) -> None:
+    """Count one launch that carried explain rows (and a map: K5 only, the
+    others refuse one in `_check_explain`)."""
+    if "explain_counts" in lay:
+        wrapper.explain_launches += 1
+    if "explain_map" in lay:
+        wrapper.map_launches += 1
+
+
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
@@ -1772,8 +1814,9 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
                  inputs: Dict[str, Optional[torch.Tensor]],
                  A: int = 0, mesh: Optional[Dict] = None) -> None:
     """Launch one of the scan kernels (grid: one block per problem) with
-    the argument list every instance takes (ScanArgs order); `inputs`
-    holds the per-problem or per-simulation tensors (and the seeded
+    the argument list every instance takes (ScanArgs order; the explain
+    regions of `lay` among the outputs); `inputs` holds the per-problem
+    or per-simulation tensors (and the seeded
     instance's seed, `A` its colmask rows), None where the instance reads
     nothing.  With `mesh` (K7: {"S", "C", "mask_rows"}) `cat` is a
     ShardedCatalog, the grid is one cluster of S blocks each holding a
@@ -1840,8 +1883,7 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
         i.get("seed_used"), i.get("seed_pool"), i.get("seed_active"),
         i.get("seed_colmask"),
         None if mesh is None else mesh["mask_rows"], xslot,
-        reg("explain_counts") if mesh is not None else None,
-        reg("explain_bits") if mesh is not None else None,
+        reg("explain_counts"), reg("explain_bits"), reg("explain_map"),
         None if mesh is None else row0, xrow,
     ]
     dims = [G, E, N, O, PT, cat.zc, P, D, W, B, X, sparse_k, total, A,
@@ -1859,15 +1901,18 @@ def batch_scan(batch: FFDBatch, cat: FFDCatalog, N: int,
     `with_gang` the gang fill for gang groups), one flat row each in
     `flat` [B, total]: take_exist (or its sparse_k compaction), take_new,
     unsched, dom_placed, used, node_pool/zone/ct, num_active and, where
-    the layout holds it, the priority witness; the final pool budgets in
+    the layout holds them, the priority witness, the explain counts and
+    the explain=2 class map (the epilogue); the final pool budgets in
     `limits_out` [B, P, R].  CUDA tensors launch the kernel (its gang
     instance with `with_gang`); CPU tensors run `batch_scan_reference`."""
     dev = flat.device
     _check_problem(batch, cat, N, dev)
     _check_outputs(batch.B, batch.P, flat, lay, limits_out, sparse_k)
+    _check_explain(lay, batch.G, cat.O, map_ok=True)
     _first_launch("ffd_batch_gang_scan" if with_gang else "ffd_batch_scan",
                   batch.B, batch.G, batch.E, N, batch.P, batch.D, cat.O,
-                  sparse_k, "prio_inv" in lay)
+                  sparse_k, "prio_inv" in lay, "explain_counts" in lay,
+                  "explain_map" in lay)
     if dev.type != "cuda":
         batch_scan_reference(batch, cat, N, flat, lay, limits_out, sparse_k,
                              with_gang=with_gang)
@@ -1886,11 +1931,14 @@ def batch_scan(batch: FFDBatch, cat: FFDCatalog, N: int,
         batch_scan.launches += 1
     if "prio_inv" in lay:
         batch_scan.witness_launches += 1
+    _count_explain(batch_scan, lay)
 
 
 batch_scan.launches = 0          # the gang-free instance
 batch_scan.gang_launches = 0     # the gang instance
 batch_scan.witness_launches = 0  # launches (either) with the witness
+batch_scan.explain_launches = 0  # launches (either) with explain rows
+batch_scan.map_launches = 0      # launches (either) with the explain=2 map
 
 
 def _sweep_inputs(sw: SweepBatch) -> Dict[str, Optional[torch.Tensor]]:
@@ -1979,9 +2027,10 @@ def delta_scan(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog, N: int,
                limits_out: torch.Tensor) -> None:
     """K6: the seeded scan of one light-only problem (the delta suffix,
     or one chunk of the chunk chain) from `seed`, into its flat row `flat`
-    [total] (dense take_exist, no witness) and the final pool budgets
-    `limits_out` [P, R].  Built by `delta_tensors`, which refuses domain,
-    gang and priority rows on the host; the kernel reads none of them.
+    [total] (dense take_exist, no witness, the explain counts where the
+    layout holds them) and the final pool budgets `limits_out` [P, R].
+    Built by `delta_tensors`, which refuses domain, gang and priority
+    rows on the host; the kernel reads none of them.
     CUDA tensors launch the kernel; CPU tensors run
     `delta_scan_reference`."""
     dev = flat.device
@@ -1992,8 +2041,9 @@ def delta_scan(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog, N: int,
     if "te_cnt" in lay or "prio_inv" in lay:
         raise ValueError("the seeded scan writes dense take_exist rows and "
                          "no priority witness")
+    _check_explain(lay, prob.G, cat.O, map_ok=False)
     _first_launch("ffd_delta_scan", prob.G, prob.E, N, prob.P, prob.D,
-                  seed.A, cat.O)
+                  seed.A, cat.O, "explain_counts" in lay)
     if dev.type != "cuda":
         if bool(prob.group_dsel.any()) or bool(prob.group_gang.any()):
             raise ValueError("the seeded scan is light-only and gang-free")
@@ -2008,70 +2058,24 @@ def delta_scan(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog, N: int,
                  cat, flat.view(1, -1), lay, limits_out.view(1, prob.P, R),
                  0, inputs, A=seed.A)
     delta_scan.launches += 1
+    _count_explain(delta_scan, lay)
 
 
 delta_scan.launches = 0
-
-
-def pack(prob: FFDProblem, cat: FFDCatalog, N: int, flat: torch.Tensor,
-         lay: Dict, limits: torch.Tensor, with_gang: int = 0) -> None:
-    """K2: the explain=1 counts of one problem (gang strands in the whole
-    class with `with_gang`), and the explain=2 class map where the layout
-    holds one, written into its flat row from the scan's outputs and
-    final pool budgets `limits`.  CUDA tensors launch the kernel; CPU
-    tensors run `pack_reference`."""
-    dev = flat.device
-    _check_problem(prob, cat, N, dev)
-    _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
-    _check(limits, "limits", torch.float32, (prob.P, R), dev)
-    if "explain_counts" not in lay:
-        raise ValueError("the flat layout holds no explain counts")
-    if "explain_map" in lay and lay["explain_map"][1] != prob.G * cat.O:
-        raise ValueError("the flat layout's class map is not [G, O]")
-    _first_launch("ffd_pack", prob.G, N, cat.O, prob.P, prob.D,
-                  "explain_map" in lay, with_gang)
-    if dev.type != "cuda":
-        pack_reference(prob, cat, N, flat, lay, limits, with_gang)
-        return
-    from karpenter_tpu_torch.solver import _cuda
-    if prob.D > MAX_DOMAINS:
-        raise ValueError(f"{prob.D} topology domains: the pack takes at "
-                         f"most {MAX_DOMAINS}")
-    reg = lambda name: _region(flat, lay, name)  # noqa: E731
-    ptrs = [
-        prob.mask_bits, prob.group_req, prob.group_whole,
-        cat.pt_alloc, cat.col_daemon, cat.col_pool, cat.pool_daemon,
-        limits, reg("unsched"), reg("num_active"),
-        reg("explain_counts"), reg("explain_bits"),
-        reg("dom_placed"), prob.group_dsel, prob.group_dbase,
-        prob.group_skew, prob.group_mindom, prob.group_delig,
-        cat.col_zone, cat.col_ct,
-        prob.group_gang if with_gang else None,
-        reg("explain_map") if "explain_map" in lay else None,
-    ]
-    dims = [prob.G, N, cat.PT, cat.zc, prob.P, cat.W, prob.D]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _cuda.launch("ffd_pack", [_ptr(t) for t in ptrs], dims, stream)
-    pack.launches += 1
-    if "explain_map" in lay:
-        pack.map_launches += 1
-
-
-pack.launches = 0
-pack.map_launches = 0  # launches with the explain=2 map
+delta_scan.explain_launches = 0  # launches with the explain counts
 
 
 def solve_ffd_batch(batch: FFDBatch, cat: FFDCatalog, max_nodes: int,
                     explain: int = 0, sparse_k: int = 0, with_gang: int = 0,
                     with_priority: int = 0) -> torch.Tensor:
-    """The generic batched solve (`solve_ffd_batch`, ffd.py:1514): K5 over
-    the batch (its gang instance with `with_gang`, the priority witness
-    with `with_priority`), then, with explain, K2 for each problem —
-    explain=1 the counts, explain=2 also the [G, O] class map.  Returns
-    the [B, total] f32 result rows on the batch's device (not
-    synchronised)."""
+    """The generic batched solve (`solve_ffd_batch`, ffd.py:1514): one K5
+    launch over the batch (its gang instance with `with_gang`, the
+    priority witness with `with_priority`), each problem's explain rows
+    in its epilogue — explain=1 the counts, explain=2 also the [G, O]
+    class map.  Returns the [B, total] f32 result rows on the batch's
+    device (not synchronised)."""
     if explain not in (0, 1, 2):
-        raise ValueError(f"explain={explain}: the pack computes the map "
+        raise ValueError(f"explain={explain}: the scan computes the map "
                          "(2), counts (1) or nothing (0)")
     dev = batch.group_req.device
     N = max_nodes
@@ -2082,18 +2086,15 @@ def solve_ffd_batch(batch: FFDBatch, cat: FFDCatalog, max_nodes: int,
     limits = torch.empty((batch.B, batch.P, R), dtype=torch.float32,
                          device=dev)
     batch_scan(batch, cat, N, flat, lay, limits, sparse_k, with_gang)
-    if explain:
-        for b in range(batch.B):
-            pack(batch.at(b), cat, N, flat[b], lay, limits[b], with_gang)
     return flat
 
 
 def solve_ffd(prob: FFDProblem, cat: FFDCatalog, max_nodes: int,
               explain: int = 0, with_gang: int = 0,
               with_priority: int = 0) -> torch.Tensor:
-    """One solve: the batched scan at B=1, then, with explain, K2.
-    Returns the flat f32 result buffer on the problem's device (not
-    synchronised)."""
+    """One solve: the batched scan at B=1, the explain rows in its
+    epilogue.  Returns the flat f32 result buffer on the problem's device
+    (not synchronised)."""
     return solve_ffd_batch(FFDBatch.of(prob), cat, max_nodes, explain,
                            with_gang=with_gang,
                            with_priority=with_priority)[0]
@@ -2101,11 +2102,11 @@ def solve_ffd(prob: FFDProblem, cat: FFDCatalog, max_nodes: int,
 
 def solve_ffd_delta(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog,
                     max_nodes: int, explain: int = 0) -> torch.Tensor:
-    """The delta path's seeded solve (`solve_ffd_delta`, ffd.py:1443): K6
-    from `seed`, then, with explain, K2's counts (the delta pass clamps
-    explain to counts: a suffix's [G, O] map would stitch against prefix
-    rows that never had one).  Returns the flat f32 result row on the
-    problem's device (not synchronised)."""
+    """The delta path's seeded solve (`solve_ffd_delta`, ffd.py:1443): one
+    K6 launch from `seed`, with explain the counts in its epilogue (the
+    delta pass clamps explain to counts: a suffix's [G, O] map would
+    stitch against prefix rows that never had one).  Returns the flat f32
+    result row on the problem's device (not synchronised)."""
     if explain not in (0, 1):
         raise ValueError(f"explain={explain}: the seeded solve computes "
                          "counts (1) or nothing (0)")
@@ -2114,8 +2115,6 @@ def solve_ffd_delta(prob: FFDProblem, seed: DeltaSeed, cat: FFDCatalog,
     flat = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
     limits = torch.empty((prob.P, R), dtype=torch.float32, device=dev)
     delta_scan(prob, seed, cat, max_nodes, flat, lay, limits)
-    if explain:
-        pack(prob, cat, max_nodes, flat, lay, limits)
     return flat
 
 
@@ -2254,15 +2253,15 @@ def sharded_scan(prob: FFDProblem, table: torch.Tensor, cat: ShardedCatalog,
     _check_sharded(prob, table, cat, N, dev, seed)
     _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
     _check(limits_out, "limits_out", torch.float32, (prob.P, R), dev)
-    if "te_cnt" in lay or "explain_map" in lay:
-        raise ValueError("the sharded scan writes dense take_exist rows and "
-                         "at most the explain counts (explain=full has no "
-                         "sharded form)")
+    if "te_cnt" in lay:
+        raise ValueError("the sharded scan writes dense take_exist rows")
+    _check_explain(lay, prob.G, cat.O, map_ok=False)
     if seed is not None and ("prio_inv" in lay or with_gang):
         raise ValueError("the seeded scan is gang-free, with no witness")
     _first_launch("ffd_sharded_scan", prob.G, prob.E, N, prob.P, prob.D,
                   cat.S, table.shape[1], with_gang,
-                  None if seed is None else seed.A, "prio_inv" in lay)
+                  None if seed is None else seed.A, "prio_inv" in lay,
+                  "explain_counts" in lay)
     if dev.type != "cuda":
         if seed is not None and (bool(prob.group_dsel.any())
                                  or bool(prob.group_gang.any())):
@@ -2280,11 +2279,13 @@ def sharded_scan(prob: FFDProblem, table: torch.Tensor, cat: ShardedCatalog,
         sharded_scan.gang_launches += 1
     else:
         sharded_scan.launches += 1
+    _count_explain(sharded_scan, lay)
 
 
-sharded_scan.launches = 0        # ffd_sharded_scan
-sharded_scan.gang_launches = 0   # ffd_sharded_gang_scan
-sharded_scan.delta_launches = 0  # ffd_sharded_delta_scan
+sharded_scan.launches = 0          # ffd_sharded_scan
+sharded_scan.gang_launches = 0     # ffd_sharded_gang_scan
+sharded_scan.delta_launches = 0    # ffd_sharded_delta_scan
+sharded_scan.explain_launches = 0  # launches (any) with the explain counts
 
 
 def sharded_clusters(prob: FFDProblem, table: torch.Tensor,

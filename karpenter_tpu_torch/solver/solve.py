@@ -4,15 +4,15 @@ card.
 `solve`: encode (host, numpy) → the FFD scan (K5 at B=1, its heavy step
 for classes with a zone or capacity-type spread or anti-affinity, its gang
 instance for problems that hold a gang, the priority inversion witness for
-problems with more than one priority band) and the result pack (CUDA
-kernels, solver/ffd.py) → host repair (whole-node, gang atomicity,
-topology skew) → decode (host), each stranded group's verdict a reason
-code with its reason tree → the preemption planner (`solver/preempt.py`)
-for pods that outrank evictable residents.  `solve_batch`: many
-simulations of one cluster snapshot — the leave-k-out sweep (K4, light and
-heavy lanes) for inputs that carry the snapshot's provenance, the generic
-batched scan (K5) for the rest, a chunk of up to 64 problems per launch,
-pipelined.  The port of `karpenter_tpu/solver/solve.py` `TPUSolver`, with
+problems with more than one priority band, the explain rows in its
+epilogue; CUDA kernels, solver/ffd.py) → host repair (whole-node, gang
+atomicity, topology skew) → decode (host), each stranded group's verdict a
+reason code with its reason tree → the preemption planner
+(`solver/preempt.py`) for pods that outrank evictable residents.
+`solve_batch`: many simulations of one cluster snapshot — the
+leave-k-out sweep (K4, light and heavy lanes) for inputs that carry the
+snapshot's provenance, the generic batched scan (K5) for the rest, a
+chunk of up to 64 problems per launch, pipelined.  The port of `karpenter_tpu/solver/solve.py` `TPUSolver`, with
 its host paths around the device solve:
 
   * the steady-state seams of a real solve (solver/delta.py,
@@ -1158,9 +1158,10 @@ class TorchSolver:
         """Upload one seeded solve — the padded problem tuple and the seed
         (used and pool padded to the node axis, the first `seed.A` slots
         active, the colmask padded to the SEED_BUCKETS tier A_pad) — and
-        launch K6 (and K2's counts): shared by the delta pass and every
-        chunk of the chain.  Explain is clamped to counts: a suffix's
-        [G, O] map would stitch against prefix rows that never had one.
+        launch K6, the explain counts in its epilogue: shared by the delta
+        pass and every chunk of the chain.  Explain is clamped to counts: a
+        suffix's [G, O] map would stitch against prefix rows that never had
+        one.
         Under a mesh the group masks go through the resident row table and
         the seed's column words are committed per shard (logged as `kind`,
         "delta-seed" or "spec-seed"), and K7's seeded instance runs.

@@ -12,10 +12,12 @@ at block barriers between the light step's sections — the existing nodes,
 the in-flight capacity walk, the pool-limit scans, the take scan, the
 touched-node narrowing, the pool-budget update, the new-node column pass,
 the per-pool cascade, the slot activation — and around each step's
-prologue, each heavy or gang step and the kernel's prologue and epilogue,
+prologue, each heavy or gang step, the kernel's prologue and epilogue and
+the explain rows' pass of the epilogue (`explain_pack`),
 builds K5, K6 and K4 from the copy with the port's nvcc flags, and
-launches them at the main paths' shapes: K6 at config #12's second chunk,
-K5 at config #12's one program (the spec-off arm's launch), at config #3
+launches them at the main paths' shapes, with the explain rows the main
+path asks for (explain=counts): K6 at config #12's second chunk, K5 at
+config #12's one program (the spec-off arm's launch), at config #3
 (N=1024 and 64) and at the headline, K4's light lane at config #4's first
 chunk.  Thread 0 of block 0 reads the SM clock after each section's
 barrier and adds the difference to a counter in device memory, which the
@@ -30,6 +32,8 @@ times both at the shapes above and at config #9, config #2, config #7's
 suffix and delta-off chain chunk, K7 at 8 shards and K4's two lanes, in
 turns (DIR, this, this, DIR; the profiler's device time, the lower of
 each tree's two), holding this checkout's outputs to DIR's as uint32.
+DIR's kernels must take this checkout's argument list (ScanArgs, the
+wrappers of this checkout's `solver/ffd.py` launch both).
 
 Exits non-zero without a CUDA device, and on any build failure or
 differing output.
@@ -53,7 +57,7 @@ SECTIONS = ("existing nodes", "capacity walk", "pool-limit scans",
             "take scan", "touched narrowing", "pool-budget update",
             "new-node column pass", "cascade", "slot activation",
             "step prologue", "heavy or gang step", "kernel prologue",
-            "kernel epilogue", "final state")
+            "kernel epilogue", "final state", "explain epilogue")
 STEPS = 20  # counter: steps the counters span
 
 COUNTERS = r'''
@@ -105,7 +109,9 @@ def instrument(src: str) -> str:
                   "  if (tid == 0 && blockIdx.x == 0) g_clock = clock64();\n")
     src = _insert(src, kern, "  for (int g = 0; g < G; ++g) {",
                   "  SECTION(11);\n")
-    src = _insert(src, kern, "  // -- final state", "  SECTION(12);\n")
+    src = _insert(src, kern, "  if constexpr (!SWEEP) {\n"
+                  "    if (a.ex_counts)", "  SECTION(12);\n")
+    src = _insert(src, kern, "  // -- final state", "  SECTION(14);\n")
     src = _insert(src, kern, "  if (tid == 0) a.na_out[0] = (float)S.na;",
                   "  SECTION(13);\n")
     src = _insert(src, kern, "    if constexpr (GANG) {",
@@ -195,9 +201,9 @@ def shapes(cs, ffd, dev):
         return (torch.empty(lead + (lay["total"][1],), device=dev),
                 torch.empty(lead + (P, ffd.R), device=dev))
 
-    def batch(p, c, N, wg=0, wp=0):
+    def batch(p, c, N, wg=0, wp=0, ex=1):
         b = ffd.FFDBatch.of(p)
-        lay = ffd.flat_layout(b.G, b.E, N, b.D, 0, 0, c.O, wp)
+        lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, 0, c.O, wp)
         fl, lim = flat(lay, b.P, 1)
         return (lambda: ffd.batch_scan(b, c, N, fl, lay, lim, with_gang=wg),
                 (fl, lim), cs._tag(True, False, bool(wg)), b.G)
@@ -206,8 +212,8 @@ def shapes(cs, ffd, dev):
         return batch(*ffd.problem_from_numpy(prob, cat, dev), N, wg)
 
     def delta(call):
-        p, sd, c, N, _ = call
-        lay = ffd.flat_layout(p.G, p.E, N, p.D)
+        p, sd, c, N, ex = call
+        lay = ffd.flat_layout(p.G, p.E, N, p.D, ex)
         fl, lim = flat(lay, p.P)
         return (lambda: ffd.delta_scan(p, sd, c, N, fl, lay, lim), (fl, lim),
                 cs._tag(False, False, False, True), p.G)
@@ -228,9 +234,10 @@ def shapes(cs, ffd, dev):
         return (lambda: scan(sw, c, N, fl, lay, lim, K), (fl, lim),
                 cs._tag(sw.heavy, True, False), sw.G)
 
-    p12, c12, n12, _, wg12, wp12 = cap12o.calls[0]
+    p12, c12, n12, ex12, wg12, wp12 = cap12o.calls[0]
     split = [("K6 config #12 chunk 1", delta(cap12.calls[1])),
-             ("K5 config #12 one program", batch(p12, c12, n12, wg12, wp12)),
+             ("K5 config #12 one program", batch(p12, c12, n12, wg12, wp12,
+                                                 ex12)),
              ("K5 config #3 N=1024", encoded(*c3, solver.max_nodes)),
              ("K5 config #3 N=64", encoded(*c3, cs.CONFIG3_WARM_N)),
              ("K5 headline N=1024", encoded(*head, solver.max_nodes)),

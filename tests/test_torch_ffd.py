@@ -198,8 +198,11 @@ def test_wrapper_checks_arguments():
     with pytest.raises(ValueError, match="sparse_k"):
         tffd.batch_scan(b, c, 64, flat, lay, torch.zeros(1, p.P, 6),
                         sparse_k=8)
+    # the explain rows are the scan's own (its epilogue): a layout whose
+    # class map has no counts before it is refused before any launch
+    no_counts = dict(lay, explain_map=(lay["total"][1], p.G * c.O))
     with pytest.raises(ValueError, match="explain"):
-        tffd.pack(p, c, 64, flat[0], lay, torch.zeros(p.P, 6))
+        tffd.batch_scan(b, c, 64, flat, no_counts, torch.zeros(1, p.P, 6))
     b.group_count = b.group_count.to(torch.int64)
     with pytest.raises(ValueError, match="group_count"):
         tffd.batch_scan(b, c, 64, flat, lay, torch.zeros(1, p.P, 6))

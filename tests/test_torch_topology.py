@@ -430,9 +430,9 @@ def test_chip_smoke_oracle_cases_are_the_reference(name, monkeypatch):
     counts."""
     nodes, unsched, price_hex, kernels = chip_smoke.ORACLE_CASES[name]
     ref = jax_solver().solve(_build(JAX, name))
-    calls = {"ffd_batch_scan": 0, "ffd_pack": 0}
+    calls = {"ffd_batch_scan": 0, "explain_pack": 0}
     for kname, fn in (("ffd_batch_scan", "batch_scan_reference"),
-                      ("ffd_pack", "pack_reference")):
+                      ("explain_pack", "pack_reference")):
         def counted(*a, _f=getattr(tffd, fn), _k=kname, **kw):
             calls[_k] += 1
             return _f(*a, **kw)
