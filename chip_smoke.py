@@ -100,14 +100,36 @@ Phases (any failure exits non-zero):
      solve must meet zero first-use events (solver/firstuse.py) — and
      two more on fresh clusters; wall time to idle and per round, the
      provisioner's spans, the controllers' times and the solve phases,
-     with p50s.
+     with p50s;
+ 19. the disruption control loop (workloads.disruption_loop, run after
+     phase 18): BASELINE config #4's fleet through the port's
+     env.Environment on the card — the default NodeClass, a spot pool
+     (weight 100, a cpu limit of half the fleet) and an on-demand pool,
+     2,000 pods that each need a 16-vCPU node (wave 1, K5); every pod
+     resized in place to 500m / 1Gi and the manager settled until a
+     settle changes nothing (wave 2: multi-node prefixes on K5 at B=64
+     and on K4, single-node sweeps on K4, Termination draining and the
+     provisioner re-placing through K5); spot interruptions for a tenth
+     of the spot nodes left (wave 3).  Each wave must give the JAX
+     package's answer (DISRUPTION_LOOP: loop_answer and the disruption
+     record), K5 must launch at B=64 and K4 launch, with no oracle solve,
+     no SolverFallback event and kt_hostops loaded.  One cold loop in a
+     child process that has launched nothing, run to its end before the
+     parent's loop whose solver is warmed first; per wave
+     the wall time to idle, the ms a round and a disruption pass, the
+     disruption.* spans, each controller's reconcile ms, solve_batch's
+     calls, simulations (those K4's sweep answered) and phases, the
+     launch shapes (B, G, E, N) of every K5 and K4 launch, and the
+     first-use events of the first disruption pass.
 
 Phase 3 also holds K5's gang instance, the witness and the epilogue's map
 and with_gang class against their plain versions on seeded gang and priority
 problems at B=1 and B>1 and on config #9's and #10's encodings, and K6
 (the seeded scan) on seeded problems and on config #7's churned suffix,
 the second chunk of config #7's delta-off chain and config #12's first
-two chunks as the solver launches them; and K7
+two chunks as the solver launches them; phase 19's own launches (its
+warmed loop's first B=64 K5 launch of a multi-node pass, its first K4
+chunk and a wave-2 re-placement K5 launch with E > 1,000); and K7
 (the column-sharded scan) on seeded problems at 2, 4, 6 and 8 shards —
 light, heavy, gang, priority, explain off, shards of padding blocks only,
 a wide one and the seeded instance, each launched 3 times — and on the
@@ -286,6 +308,45 @@ LOOP = (
      "price": "0x1.c192b9cb684b1p+12", "nodes": 782,
      "pods_per_node_digest": "0cd8fddd45301372", "bound": 52000,
      "unbound": 0, "rounds": 2},
+)
+
+# The disruption control loop (phase 19): BASELINE config #4's fleet
+# reached through the control plane (workloads.disruption_loop: the port's
+# env.Environment, two weighted pools, 2,000 pods that each need a
+# 16-vCPU node; then every pod resized to 500m / 1Gi and the fleet
+# consolidated; then spot interruptions for a tenth of the spot nodes
+# left).  The JAX package's answer to the same loop (its own Environment
+# and controllers on the CPU, solver mesh off; `python3
+# tests/test_torch_disruption.py --pin` prints it), one dict per wave in
+# `disruption_pin`'s form: `workloads.loop_answer` and the disruption
+# record, its acts as their count and digest
+DISRUPTION_LOOP = (
+    {"instances": 2000, "instances_digest": "b67499c3e92a3342",
+     "price": "0x1.015826aa8eb56p+9", "nodes": 2000,
+     "pods_per_node_digest": "2300d3b24bb5fa1b", "bound": 2000,
+     "unbound": 0, "rounds": 4, "acts": 0,
+     "acts_digest": "4f53cda18c2baa0c", "multi_node_acts": 0,
+     "replacements": 0, "verdicts": {}, "retired": "0x0.0p+0",
+     "added": "0x0.0p+0", "settles": 1, "settle_rounds": [4]},
+    {"instances": 78, "instances_digest": "a01297a6d8cf9230",
+     "price": "0x1.b0f6944673821p+3", "nodes": 78,
+     "pods_per_node_digest": "603541f1d1df5ece", "bound": 2000,
+     "unbound": 0, "rounds": 286, "acts": 169,
+     "acts_digest": "cb92ed8624001872", "multi_node_acts": 88,
+     "replacements": 48,
+     "verdicts": {"Unconsolidatable:CandidateNotReschedulable": 59,
+                  "Unconsolidatable:SpotFlexibilityTooLow": 19},
+     "retired": "0x1.0181d49518312p+9", "added": "0x1.ede939eadd58dp+2",
+     "settles": 4, "settle_rounds": [270, 11, 4, 1]},
+    {"instances": 88, "instances_digest": "6e91ff9577f71dc8",
+     "price": "0x1.99a0a52695968p+3", "nodes": 88,
+     "pods_per_node_digest": "74d4b1a81d74b313", "bound": 2000,
+     "unbound": 0, "rounds": 111, "acts": 32,
+     "acts_digest": "e1fadc8caa6ad6ab", "multi_node_acts": 20,
+     "replacements": 32,
+     "verdicts": {"Unconsolidatable:SpotFlexibilityTooLow": 19},
+     "retired": "0x1.0a7caea747d83p+3", "added": "0x1.c8b827fa1a0cep+1",
+     "settles": 1, "settle_rounds": [111]},
 )
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
@@ -1089,6 +1150,28 @@ def _batch_times(ffd, b, c, N, reps, ex=1, wg=0, wp=0):
             "turns": turns, "epi_ms": _epilogue_ms(turns),
             "epi_plain_ms": t_ep,
             "epi_bound": _epilogue_bound(ffd, p0, c, lay, True, wg)}
+
+
+def _kept_batch_times(ffd, b, c, N, ex, K, wg, wp, reps):
+    """(K5 ms, plain ms, events ms, bound) at one batch launch a loop made,
+    its explain rows and compaction as the solver asked: kernel, then its
+    plain version once on the same inputs."""
+    import torch
+    dev = b.group_req.device
+    lay = ffd.flat_layout(b.G, b.E, N, b.D, ex, K, c.O, wp)
+    flat = torch.empty((b.B, lay["total"][1]), device=dev)
+    lim = torch.empty((b.B, b.P, ffd.R), device=dev)
+    k = lambda: ffd.batch_scan(b, c, N, flat, lay, lim, K,  # noqa: E731
+                               with_gang=wg)
+    t_k, ev_k = _device_ms(k, reps, _tag(True, False, bool(wg)))
+    t_kp = _time_ms(lambda: ffd.batch_scan_reference(
+        b, c, N, flat, lay, lim, K, with_gang=wg), 1)
+    work = {"fit": 0, "test": 0, "flops": 0}
+    ffd.batch_scan_reference(b, c, N, flat, lay, lim, K, work, with_gang=wg)
+    k()
+    torch.cuda.synchronize()
+    return t_k, t_kp, ev_k, _batch_bound(ffd, b, c, N, lay, flat, lim, wg,
+                                         work)
 
 
 def _witness_times(ffd, b, c, N, reps):
@@ -1955,11 +2038,347 @@ def _loop_phase(card, add, captured):
     return bad
 
 
+# -- 19. the disruption control loop -----------------------------------------
+def disruption_pin(answer):
+    """A disruption wave's answer in the form DISRUPTION_LOOP pins:
+    `loop_answer`'s fields and the record's, its acts (each as reason,
+    candidates, candidate digest, replacement types) as their count, the
+    sha256 of their JSON, the multi-node acts and the replacements."""
+    import hashlib
+    rec = answer["disruption"]
+    acts = json.loads(json.dumps(rec["acts"]))
+    out = {k: v for k, v in answer.items() if k != "disruption"}
+    out.update({
+        "acts": len(acts),
+        "acts_digest": hashlib.sha256(
+            json.dumps(acts).encode()).hexdigest()[:16],
+        "multi_node_acts": sum(1 for a in acts if a[1] > 1),
+        "replacements": sum(1 for a in acts if a[3]),
+        "verdicts": rec["verdicts"], "retired": rec["retired"],
+        "added": rec["added"], "settles": rec["settles"],
+        "settle_rounds": rec["rounds"]})
+    return out
+
+
+def _clone(x):
+    """A copy of a tensor, or of a dataclass of tensors (nested), that
+    later launches cannot overwrite."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _clone(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+class _LaunchLog:
+    """Logs the shape of every K5 (`ffd.solve_ffd_batch`, which one-problem
+    solves reach too) and K4 (`ffd.solve_ffd_sweep`) launch while active,
+    with the controller whose reconcile made it and the wave: (kernel,
+    controller, wave, B, G, E, N).  With `keep`, it also keeps, cloned,
+    the arguments of the first B=64 K5 launch of a disruption pass, its
+    first K4 chunk and the first provisioner K5 launch with E > 1,000 in
+    wave 2 (a re-placement of evicted pods), for phase 3."""
+
+    def __init__(self, ffd, keep=False):
+        self.ffd, self.keep = ffd, keep
+        self.rows, self.kept = [], {}
+        self.ctl, self.wave = None, 0
+
+    def __enter__(self):
+        ffd = self.ffd
+        self.real = (ffd.solve_ffd_batch, ffd.solve_ffd_sweep)
+        real_batch, real_sweep = self.real
+
+        def batch(b, c, n, explain=0, sparse_k=0, with_gang=0,
+                  with_priority=0):
+            self.rows.append(("ffd_batch_scan", self.ctl, self.wave, b.B,
+                              b.G, b.E, n))
+            for key, want in (
+                    ("multi-node batch", self.ctl == "disruption"
+                     and b.B == 64),
+                    ("re-placement", self.ctl == "provisioning"
+                     and self.wave == 2 and b.E > 1000)):
+                if self.keep and want and key not in self.kept:
+                    self.kept[key] = ("batch", _clone(b), c, n, explain,
+                                      sparse_k, with_gang, with_priority)
+            return real_batch(b, c, n, explain, sparse_k, with_gang,
+                              with_priority)
+
+        def sweep(sw, c, n, sparse_k=0):
+            self.rows.append(("ffd_sweep_topo_scan" if sw.heavy
+                              else "ffd_sweep_scan", self.ctl, self.wave,
+                              sw.B, sw.G, sw.E, n))
+            if self.keep and "sweep chunk" not in self.kept:
+                self.kept["sweep chunk"] = ("sweep", _clone(sw), c, n,
+                                            sparse_k)
+            return real_sweep(sw, c, n, sparse_k)
+        ffd.solve_ffd_batch, ffd.solve_ffd_sweep = batch, sweep
+        return self
+
+    def __exit__(self, *exc):
+        self.ffd.solve_ffd_batch, self.ffd.solve_ffd_sweep = self.real
+
+
+def _disruption_run(card, warm_up=False, keep=False):
+    """One disruption loop on a fresh cluster (workloads.disruption_loop,
+    Options(batch_idle_duration=0), on the card) through its three waves
+    (workloads.DisruptionWaves).  With `warm_up`, its GatedSolver is
+    warmed first as the provisioner's startup warm-up does.  A `_LaunchLog`
+    (keeping launches for phase 3 with `keep`) records every K5 and K4
+    launch.  Every kernel count is set to 0 just before each wave and read
+    just after.  Returns one record per wave, the warm-up's and the
+    log."""
+    import torch
+    from karpenter_tpu_torch import native, workloads
+    from karpenter_tpu_torch.models import ObjectMeta, Pod, Resources
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.solver import ffd, firstuse
+    from karpenter_tpu_torch.utils import metrics, tracing
+
+    env = workloads.disruption_loop(
+        workloads.DISRUPTION_NODES, Options(batch_idle_duration=0),
+        device="cuda")
+    log = _LaunchLog(ffd, keep=keep)
+    warm = None
+    if warm_up:
+        pod = Pod(meta=ObjectMeta(name="karpenter-warmup"),
+                  requests=Resources.parse({"cpu": "100m",
+                                            "memory": "128Mi"}))
+        inp = env.provisioner._build_input([pod])
+        e = len(inp.existing_nodes)
+        f0 = firstuse.snapshot()
+        t0 = time.perf_counter()
+        n = env.solver.warmup(inp, shapes=((8, e), (512, e)))
+        torch.cuda.synchronize()
+        warm = {"launches": n, "ms": (time.perf_counter() - t0) * 1e3,
+                "first_use": {k: v - f0[k]
+                              for k, v in firstuse.snapshot().items()}}
+    # each controller's reconcile ms, and the controller active for the
+    # launch log
+    ctl_s = {}
+    for c in env.manager.controllers:
+        def timed(fn=c.reconcile, name=c.name):
+            log.ctl = name
+            t = time.perf_counter()
+            try:
+                fn()
+            finally:
+                ctl_s[name] = ctl_s.get(name, 0.0) + time.perf_counter() - t
+                log.ctl = None
+        c.reconcile = timed
+    # the first-use events of the loop's first disruption pass that had
+    # candidates
+    first_pass = {}
+    had = [False]
+    build, reconcile = (env.disruption._build_candidates,
+                        env.disruption._reconcile)
+
+    def counted_build():
+        out = build()
+        had[0] = had[0] or bool(out)
+        return out
+
+    def counted_reconcile():
+        had[0] = False
+        f = firstuse.total()
+        reconcile()
+        if had[0] and "events" not in first_pass:
+            first_pass.update(events=firstuse.total() - f, wave=log.wave)
+    env.disruption._build_candidates = counted_build
+    env.disruption._reconcile = counted_reconcile
+    # solve_batch: calls, simulations, those the sweep answered, ms and
+    # the solver's phases summed over the calls
+    batch = {}
+    real_batch, real_sweep = env.solver.solve_batch, env.solver.tpu._try_sweep
+
+    def timed_batch(inps, *a, **kw):
+        t = time.perf_counter()
+        out = real_batch(inps, *a, **kw)
+        batch["calls"] = batch.get("calls", 0) + 1
+        batch["sims"] = batch.get("sims", 0) + len(inps)
+        batch["ms"] = batch.get("ms", 0.0) + (time.perf_counter() - t) * 1e3
+        for k, v in env.solver.tpu.last_phase_ms.items():
+            batch[f"phase {k}"] = batch.get(f"phase {k}", 0.0) + v
+        return out
+
+    def counted_sweep(inps, *a, **kw):
+        out = real_sweep(inps, *a, **kw)
+        if out is not None:
+            batch["sweep sims"] = batch.get("sweep sims", 0) + sum(
+                r is not None for r in out)
+        return out
+    env.solver.solve_batch = timed_batch
+    env.solver.tpu._try_sweep = counted_sweep
+    round_ms, spans = [], {}
+    run_once = env.manager.run_once
+
+    def timed_round():
+        t = time.perf_counter()
+        run_once()
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t) * 1e3)
+        for _, sps in tracing.finished_traces():
+            for sp in sps:
+                spans.setdefault(sp.name, []).append(sp.duration * 1e3)
+        tracing.reset()
+    env.manager.run_once = timed_round
+    waves_drv = workloads.DisruptionWaves(env)
+    tracing.set_enabled(True)
+    waves = []
+    try:
+        with log:
+            for wave, fn in enumerate((waves_drv.wave1, waves_drv.wave2,
+                                       waves_drv.wave3), 1):
+                ctl_s.clear()
+                round_ms.clear()
+                spans.clear()
+                batch.clear()
+                tracing.reset()
+                log.wave = wave
+                n_rows = len(log.rows)
+                oracle0 = metrics.SOLVER_SOLVES.value(path="oracle")
+                f0 = firstuse.total()
+                _reset_launches(ffd)
+                t0 = time.perf_counter()
+                answer = fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                launches = _read_launches(ffd)
+                shapes = {}
+                for row in log.rows[n_rows:]:
+                    key = f"{row[0]} {row[1]} B={row[3]} G={row[4]} " \
+                          f"E={row[5]} N={row[6]}"
+                    shapes[key] = shapes.get(key, 0) + 1
+                waves.append({
+                    "answer": disruption_pin(answer),
+                    "wall_ms": wall, "round_ms": list(round_ms),
+                    "pass_ms": list(spans.get("disruption.pass", [])),
+                    "spans_ms": {k: sum(v) for k, v in spans.items()},
+                    "controller_ms": {k: v * 1e3 for k, v in ctl_s.items()},
+                    "solve_batch": dict(batch), "launches": launches,
+                    "shapes": shapes,
+                    "first_pass_first_use": first_pass["events"]
+                    if first_pass.get("wave") == wave else None,
+                    "oracle": metrics.SOLVER_SOLVES.value(path="oracle")
+                    - oracle0,
+                    "fallbacks": sum(1 for ev in waves_drv.last_events
+                                     if ev[3] == "SolverFallback"),
+                    "first_use": firstuse.total() - f0,
+                    "hostops": native.hostops() is not None})
+    finally:
+        tracing.set_enabled(None)
+        tracing.reset()
+    return waves, warm, log
+
+
+def _disruption_check(waves, label):
+    """What phase 19 holds each wave to: the pinned JAX answer, no oracle
+    solve, no SolverFallback event, kt_hostops loaded; and over the loop,
+    K5 launched at B=64 and K4 launched."""
+    bad = []
+    for i, w in enumerate(waves):
+        if w["answer"] != DISRUPTION_LOOP[i]:
+            bad.append(f"{label} wave {i + 1}: {w['answer']} != "
+                       f"{DISRUPTION_LOOP[i]}")
+        if w["oracle"]:
+            bad.append(f"{label} wave {i + 1}: {w['oracle']} oracle solves")
+        if w["fallbacks"]:
+            bad.append(f"{label} wave {i + 1}: {w['fallbacks']} "
+                       f"SolverFallback events")
+        if not w["hostops"]:
+            bad.append(f"{label} wave {i + 1}: kt_hostops not loaded")
+    shapes = [k for w in waves for k in w["shapes"]]
+    if not any(k.startswith("ffd_batch_scan disruption B=64 ")
+               for k in shapes):
+        bad.append(f"{label}: no B=64 ffd_batch_scan launch of a "
+                   f"disruption pass")
+    if not any(k.startswith("ffd_sweep_scan disruption ") for k in shapes):
+        bad.append(f"{label}: no ffd_sweep_scan launch of a disruption "
+                   f"pass")
+    for k in ("ffd_batch_scan", "ffd_sweep_scan"):
+        if sum(w["launches"][k] for w in waves) <= 0:
+            bad.append(f"{label}: {k} not launched")
+    return bad
+
+
+def _disruption_print(label, waves, card):
+    for i, w in enumerate(waves):
+        sp = w["spans_ms"]
+        rounds = w["round_ms"]
+        pm = w["pass_ms"]
+        print(f"[{label}] wave {i + 1} on {card}: {w['answer']}; to idle "
+              f"{w['wall_ms']:.1f} ms in {len(rounds)} rounds (ms a round "
+              f"p50 {_p50(rounds):.1f}, max {max(rounds):.1f}); "
+              f"{len(pm)} disruption passes (ms a pass p50 "
+              f"{_p50(pm) if pm else 0.0:.1f}, max "
+              f"{max(pm) if pm else 0.0:.1f}); spans ms " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in sorted(sp.items())
+                  if k.startswith(("disruption.", "provisioning.")))
+              + "; controllers ms " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in w["controller_ms"].items())
+              + "; solve_batch " + ", ".join(
+                  f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+                  for k, v in w["solve_batch"].items())
+              + f"; launches { {k: v for k, v in w['launches'].items() if v} }"
+              f"; oracle solves {w['oracle']}, SolverFallback events "
+              f"{w['fallbacks']}, first-use events {w['first_use']} (the "
+              f"first disruption pass {w['first_pass_first_use']})",
+              flush=True)
+        for k, v in sorted(w["shapes"].items()):
+            print(f"    [{label}] wave {i + 1} launch shape {k}: {v}",
+                  flush=True)
+
+
+def _first_pass(waves):
+    """The first-use events of a loop's first disruption pass with
+    candidates (None when it had none)."""
+    return next((w["first_pass_first_use"] for w in waves
+                 if w["first_pass_first_use"] is not None), None)
+
+
+def _disruption_phase(card, add):
+    """Phase 19: the cold loop in a child process, run to its end first,
+    then the loop whose solver is warmed first, which keeps the launches
+    phase 3 holds to their plain versions (one loop at a time, so that
+    neither's times count the other's host work).  Adds the warmed loop's
+    launches with `add`; returns what failed and the warmed loop's
+    `_LaunchLog`."""
+    cold, err = _run_child("disruption-cold")
+    warmed, warm, log = _disruption_run(card, warm_up=True, keep=True)
+    bad = []
+    if cold is None:
+        bad.append(f"the cold disruption loop failed: {err}")
+    runs = {"warmed": warmed}
+    if cold is not None:
+        runs["cold"] = cold["waves"]
+    for label, waves in runs.items():
+        _disruption_print(f"19 {label} loop", waves, card)
+        bad += _disruption_check(waves, label)
+    for w in warmed:
+        add(w["launches"])
+    print(f"[19] warm-up on {card}: {warm['launches']} launches in "
+          f"{warm['ms']:.1f} ms, first-use events {warm['first_use']}; "
+          f"first-use events of the first disruption pass: warmed "
+          f"{_first_pass(warmed)}, cold "
+          f"{_first_pass(cold['waves']) if cold else None}",
+          flush=True)
+    missing = {"multi-node batch", "re-placement",
+               "sweep chunk"} - set(log.kept)
+    if missing:
+        bad.append(f"the warmed loop made no {sorted(missing)} launch")
+    return bad, log
+
+
 def _child(mode: str) -> int:
     """The phases that run in a child process of their own: "headline"
     (phase 4's headline with the environment the parent set, for the
-    KARPENTER_TPU_NO_NATIVE=1 arm) and "cold-loop" (phase 18's cold loop,
-    in a process that has launched nothing).  Prints one JSON line."""
+    KARPENTER_TPU_NO_NATIVE=1 arm), "cold-loop" (phase 18's cold loop,
+    in a process that has launched nothing) and "disruption-cold" (phase
+    19's cold loop, the same).  Prints one JSON line."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch import native
@@ -1977,7 +2396,10 @@ def _child(mode: str) -> int:
         print(json.dumps({"bad": bad, "p50": p50,
                           "hostops": native.hostops() is not None}))
         return 1 if bad else 0
-    waves, _ = _loop_run(card)
+    if mode == "disruption-cold":
+        waves = _disruption_run(card)[0]
+    else:
+        waves, _ = _loop_run(card)
     torch.cuda.synchronize()
     print(json.dumps({"waves": waves}))
     return 0
@@ -2053,6 +2475,14 @@ def main(argv) -> int:
     bad = _loop_phase(card, add, loop_calls)
     if bad:
         print(f"chip_smoke: the provisioning loop failed: {bad}",
+              file=sys.stderr)
+        return 1
+
+    # -- 19. the disruption control loop, here too: its warmed loop keeps
+    # the launches phase 3 holds to their plain versions -------------------
+    bad, disruption_log = _disruption_phase(card, add)
+    if bad:
+        print(f"chip_smoke: the disruption loop failed: {bad}",
               file=sys.stderr)
         return 1
 
@@ -2132,6 +2562,21 @@ def main(argv) -> int:
             record(f"loop-wave{w}-delta{j}",
                    compare_delta(ffd, p, sd, c, N, ex),
                    f"G={p.G} A={sd.A} N={N} E={p.E} explain={ex}")
+    # phase 19's own launches (its warmed loop), on the tensors the loop
+    # gave them: the first B=64 K5 launch of a multi-node pass, the first
+    # K4 chunk and a wave-2 re-placement K5 launch with E > 1,000
+    for key, call in sorted(disruption_log.kept.items()):
+        if call[0] == "batch":
+            _, b, c, N, ex, K, wg, wp = call
+            record(f"disruption-{key.replace(' ', '-')}",
+                   compare_batch(ffd, b, c, N, ex, K, dev, wg, wp),
+                   f"B={b.B} G={b.G} E={b.E} N={N} O={c.O} explain={ex} "
+                   f"K={K}")
+        else:
+            _, sw, c, N, K = call
+            record(f"disruption-{key.replace(' ', '-')}",
+                   compare_sweep(ffd, sw, c, N, K, dev),
+                   f"B={sw.B} G={sw.G} E={sw.E} D={sw.D} N={N} K={K}")
     for label, prob, catarr, seeds, N, ex in _delta_cases():
         c = ffd.catalog_tensors(catarr, dev)
         p, sd = ffd.delta_tensors(prob, *seeds, c.O, dev)
@@ -2681,6 +3126,24 @@ def main(argv) -> int:
               f"({tl / pl.G:.4f} ms a step; events {evl:.4f}, plain "
               f"{tlp:.3f} once, equal to it, bound {bl:.6f} by {byl})",
               flush=True)
+    # K5 and K4 at phase 19's own launches (its warmed loop): the first
+    # B=64 multi-node batch, the wave-2 re-placement, the first sweep chunk
+    for key, call in sorted(disruption_log.kept.items()):
+        if call[0] == "batch":
+            _, b, c, N, ex, K, wg, wp = call
+            kname = "ffd_batch_scan"
+            t, tp, ev, (bd, by) = _kept_batch_times(ffd, b, c, N, ex, K,
+                                                    wg, wp, 20)
+            shape = (f"B={b.B}, G={b.G}, E={b.E}, N={N}, O={c.O}, "
+                     f"explain={ex}")
+        else:
+            _, sw, c, N, K = call
+            kname = "ffd_sweep_scan"
+            t, tp, ev, (bd, by) = _sweep_times(ffd, sw, c, N, K, 20)
+            shape = f"B={sw.B}, G={sw.G}, E={sw.E}, N={N}, O={c.O}, K={K}"
+        print(f"[9] disruption loop {key} ({shape}) on {card}: {kname} "
+              f"{t:.4f} ms (events {ev:.4f}, plain {tp:.3f} once, bound "
+              f"{bd:.6f} by {by})", flush=True)
     t_k6, t_k6p, _, (b_k6, by_k6), _, _ = delta_t["config #7 suffix"]
     # K7 at 2, 4 and 8 shards on config #2's and the headline's encodings,
     # beside K5 on the same problems; then at the mesh paths' own launches

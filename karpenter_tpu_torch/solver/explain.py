@@ -9,9 +9,10 @@ group) into a per-group reason tree (per-constraint elimination counts,
 per-nodepool verdicts, the nearest-miss column, the unblock suggestion,
 and under full mode the eliminated columns the kernel's [G, O] class map
 names).  Codes and constraint names are identical, so a verdict from
-either package carries the same `.code` and `.tree`.  (The reference's
-disruption-decision and delta-fallback vocabularies wait for the slices
-that port those controllers.)
+either package carries the same `.code` and `.tree`.  The disruption
+decision vocabulary (the codes the disruption, expiration, interruption
+and termination controllers name) is registered here too, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -134,6 +135,59 @@ PREEMPTION_INSUFFICIENT = _register(
 PRIORITY_CODES = frozenset((PRIORITY_BAND_EXHAUSTED, PREEMPTED_FOR,
                             PREEMPTION_INSUFFICIENT))
 LEGACY = "Legacy"  # unregistered plain-string reason (should not occur)
+
+# -- disruption decision vocabulary: the controllers' fleet-mutating
+# -- decisions and their rejection verdicts, registered here so every
+# -- disruption event and (from slice 6) every ledger record carries a
+# -- CODE, never a bare string.
+# -- Constraint "none": these classify decisions, not pod eliminations.
+CAPACITY_LAUNCHED = _register(
+    "CapacityLaunched", "none",
+    "provisioning launched new capacity for pending pods")
+CONSOLIDATION_DELETE = _register(
+    "ConsolidationDelete", "none",
+    "consolidation deleted candidates whose pods fit on the remaining "
+    "fleet (pure delete — always saves money)")
+CONSOLIDATION_REPLACE = _register(
+    "ConsolidationReplace", "none",
+    "consolidation replaced candidates with one strictly cheaper node")
+DRIFT_REPLACED = _register(
+    "DriftReplaced", "none",
+    "drifted capacity was replaced in kind (no cheaper-price "
+    "requirement)")
+NODE_EXPIRED = _register(
+    "NodeExpired", "none",
+    "the claim outlived its NodePool expireAfter and was deleted")
+INTERRUPTION_RECLAIM = _register(
+    "InterruptionReclaim", "none",
+    "a cloud interruption signal (spot reclaim, maintenance, state "
+    "change) deleted the claim ahead of the reclaim")
+NODE_TERMINATED = _register(
+    "NodeTerminated", "none",
+    "the drained instance was released — the point the fleet $/hr "
+    "actually falls for a prior delete/replace decision")
+# rejection verdicts: why a consolidation candidate stayed up
+REPLACEMENT_NOT_CHEAPER = _register(
+    "ReplacementNotCheaper", "none",
+    "the cheapest feasible replacement would not reduce fleet cost")
+SPOT_TO_SPOT_DISABLED = _register(
+    "SpotToSpotDisabled", "none",
+    "spot-to-spot consolidation is behind a disabled feature gate")
+SPOT_FLEXIBILITY_TOO_LOW = _register(
+    "SpotFlexibilityTooLow", "none",
+    "the spot replacement keeps too few instance types for reliable "
+    "spot capacity (the >=15-types rule)")
+CANDIDATE_NOT_RESCHEDULABLE = _register(
+    "CandidateNotReschedulable", "none",
+    "the candidate's pods cannot reschedule onto remaining capacity or "
+    "an admissible replacement")
+BUDGET_BLOCKED = _register(
+    "DisruptionBudgetBlocked", "none",
+    "a NodePool disruption budget (possibly cron-windowed) blocked the "
+    "decision this pass")
+NODEPOOL_DRIFT = _register(
+    "NodePoolDrift", "none",
+    "the claim's stamped NodePool hash no longer matches the live pool")
 
 # per-nodepool cause vocabulary for the oracle's open-new cascade
 # (scheduling/oracle.py `_open_new`): each blocked pool names exactly one

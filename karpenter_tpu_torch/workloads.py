@@ -86,6 +86,16 @@ None), the cluster store, the port's `GatedSolver` on `device`, and a
 fake kubelet and the pod binder.  The store holds one NodePool `default`,
 the default NodeClass and the headline's first `n_pods` pods
 (`headline_pods`); `loop_answer` is the loop's canonical outcome.
+
+`disruption_loop(n_pods, options, clock, device)` is the disruption
+control loop, BASELINE config #4's fleet reached through the port's
+`env.Environment` (every controller, the reference's wiring): the default
+NodeClass, a spot pool (weight 100, a cpu limit of half the fleet's
+16-vCPU nodes) and an on-demand pool of the 2-16 vCPU types, and
+`n_pods` pods that each need a 16-vCPU node.  `DisruptionWaves` drives it
+(and the JAX package's, built with `pkg`) through three waves: provision;
+resize every pod in place to 500m / 1Gi and settle until a settle
+changes nothing, consolidating the fleet; spot interruptions.
 """
 
 from __future__ import annotations
@@ -725,3 +735,227 @@ def loop_answer(cluster, cloud, rounds: int) -> Dict[str, object]:
             "pods_per_node_digest": digest(nodes),
             "bound": sum(per_node.values()), "unbound": unbound,
             "rounds": rounds}
+
+
+# -- the disruption control loop ---------------------------------------------
+# BASELINE config #4's fleet reached through the control plane: pods that
+# each need a 16-vCPU node of their own, then resized in place to config
+# #4's one 500m / 1Gi pod a node, on two weighted pools (spot first,
+# on-demand overflow) of the small sizes
+DISRUPTION_NODES = 2000
+DISRUPTION_REQUEST = {"cpu": "12", "memory": "8Gi"}
+DISRUPTION_RESIZED = {"cpu": "500m", "memory": "1Gi"}
+DISRUPTION_CPUS = ("2", "4", "8", "16")
+DISRUPTION_STEP_S = 30.0       # FakeClock seconds before each wave-2 settle
+# the pools' consolidateAfter: a node is a candidate once it is one step
+# old, so the provisioning burst of wave 1 simulates nothing and every
+# node is a candidate again after each step of wave 2
+DISRUPTION_CONSOLIDATE_AFTER_S = DISRUPTION_STEP_S
+DISRUPTION_MAX_ROUNDS = 400    # rounds one settle may take
+DISRUPTION_MAX_SETTLES = 200   # settles wave 2 may take
+
+
+@dataclass
+class Package:
+    """What `disruption_loop` builds a cluster from: a package's models
+    module, its Environment constructor and its Options class."""
+    M: object
+    Environment: object
+    Options: object
+
+
+def disruption_pools(M, spot_cpu: int):
+    """The loop's two NodePools from the models module `M`: `spot`
+    (weight 100, capacity type spot, a cpu limit of `spot_cpu`) and
+    `on-demand` (weight 10, capacity type on-demand, no limit), both of
+    the small sizes (`DISRUPTION_CPUS`), WhenEmptyOrUnderutilized with
+    consolidate_after `DISRUPTION_CONSOLIDATE_AFTER_S` and the default 10%
+    budget."""
+    wk = M.wellknown
+    pools = []
+    for name, weight, ct, limits in (
+            ("spot", 100, wk.CAPACITY_TYPE_SPOT,
+             M.Resources.limits({"cpu": spot_cpu})),
+            ("on-demand", 10, wk.CAPACITY_TYPE_ON_DEMAND, None)):
+        pools.append(M.NodePool(
+            meta=M.ObjectMeta(name=name), weight=weight, limits=limits,
+            requirements=M.Requirements(
+                M.Requirement.make(wk.CAPACITY_TYPE_LABEL, "In", ct),
+                M.Requirement.make(wk.INSTANCE_CPU_LABEL, "In",
+                                   *DISRUPTION_CPUS)),
+            disruption=M.Disruption(
+                consolidate_after=DISRUPTION_CONSOLIDATE_AFTER_S)))
+    return pools
+
+
+def disruption_loop(n_pods: int = DISRUPTION_NODES, options=None,
+                    device="cuda", catalog=None, pkg=None):
+    """The disruption control loop's cluster, not yet reconciled: an
+    `env.Environment` with the default NodeClass, the two pools of
+    `disruption_pools` (the spot pool's cpu limit holds half the fleet's
+    16-vCPU nodes) and `n_pods` pods of `DISRUPTION_REQUEST` (`d0`..,
+    ReplicaSet-owned, so evictable).  `pkg` (a `Package`) names the
+    package whose classes build it; by default the port's, its solver on
+    `device`.  `options` defaults to Options(batch_idle_duration=0);
+    drive it with `DisruptionWaves`."""
+    if pkg is None:
+        import functools
+
+        from karpenter_tpu_torch import env as envmod
+        from karpenter_tpu_torch import models
+        from karpenter_tpu_torch.operator.options import Options
+        pkg = Package(M=models, Environment=functools.partial(
+            envmod.Environment, device=device), Options=Options)
+    M = pkg.M
+    options = options or pkg.Options(batch_idle_duration=0)
+    env = pkg.Environment(catalog=catalog, options=options)
+    env.add_default_nodeclass()
+    for pool in disruption_pools(M, 16 * (n_pods // 2)):
+        env.cluster.nodepools.create(pool)
+    for i in range(n_pods):
+        env.cluster.pods.create(M.Pod(
+            meta=M.ObjectMeta(name=f"d{i}"),
+            requests=M.Resources.parse(DISRUPTION_REQUEST)))
+    return env
+
+
+class DisruptionWaves:
+    """Drives a `disruption_loop` environment through its three waves,
+    reading either package's objects by attribute only:
+
+    1. provision: settle once (the pods' nodes launch and bind);
+    2. right-size: every pod is resized in place to `DISRUPTION_RESIZED`,
+       then the manager settles, the FakeClock stepped
+       `DISRUPTION_STEP_S` before each settle, until a settle changes
+       nothing;
+    3. interruption: spot-interruption messages for a tenth of the spot
+       nodes left (rounded up, the first by claim name), then one settle.
+
+    Each wave returns `loop_answer` plus its disruption record
+    (`disruption_record`)."""
+
+    def __init__(self, env):
+        self.env = env
+        self._last_event = None
+        self.last_events: list = []  # the last wave's events
+
+    def _new_events(self):
+        """The events recorded since the last call.  The store keeps the
+        newest 2,500-5,000: the last event seen is found by identity, and
+        every event after it (all of them when it has been dropped) is
+        new."""
+        evs = self.env.cluster.events
+        start = 0
+        for i in range(len(evs) - 1, -1, -1):
+            if evs[i] is self._last_event:
+                start = i + 1
+                break
+        if evs:
+            self._last_event = evs[-1]
+        return list(evs[start:])
+
+    def settle(self, events: list) -> int:
+        """`ControllerManager.run_until_idle`, a round at a time so that
+        no event is lost to the store's bound; the rounds taken."""
+        mgr = self.env.manager
+        for r in range(DISRUPTION_MAX_ROUNDS):
+            gen = self.env.cluster.generation
+            mgr.run_once()
+            events.extend(self._new_events())
+            if self.env.cluster.generation == gen:
+                return r + 1
+        raise RuntimeError(
+            f"controllers did not settle in {DISRUPTION_MAX_ROUNDS} rounds")
+
+    def wave1(self):
+        self._new_events()
+        events: list = []
+        rounds = [self.settle(events)]
+        return self._answer(events, rounds)
+
+    def wave2(self):
+        self._new_events()
+        parse = type(self.env.cluster.pods.list()[0].requests).parse
+        for pod in self.env.cluster.pods.list():
+            pod.requests = parse(DISRUPTION_RESIZED)
+            self.env.cluster.pods.update(pod)
+        events: list = []
+        rounds = []
+        while not rounds or rounds[-1] > 1:
+            if len(rounds) == DISRUPTION_MAX_SETTLES:
+                raise RuntimeError(
+                    f"wave 2 changed the cluster in each of "
+                    f"{DISRUPTION_MAX_SETTLES} settles")
+            self.env.clock.step(DISRUPTION_STEP_S)
+            rounds.append(self.settle(events))
+        return self._answer(events, rounds)
+
+    def wave3(self):
+        self._new_events()
+        spot = sorted(
+            c.name for c in self.env.cluster.nodeclaims.list()
+            if not c.meta.deleting and c.provider_id
+            and (i := self.env.cloud.instances.get(c.provider_id))
+            is not None and i.capacity_type == "spot")
+        by_name = {c.name: c for c in self.env.cluster.nodeclaims.list()}
+        for name in spot[:-(-len(spot) // 10)]:
+            self.env.cloud.interrupt_spot(by_name[name].provider_id)
+        events: list = []
+        rounds = [self.settle(events)]
+        return self._answer(events, rounds)
+
+    def _answer(self, events, rounds):
+        self.last_events = events
+        out = dict(loop_answer(self.env.cluster, self.env.cloud,
+                               sum(rounds)))
+        out["disruption"] = disruption_record(self.env, events, rounds)
+        return out
+
+
+def disruption_record(env, events, rounds) -> Dict[str, object]:
+    """A wave's disruption record, from its events and the fake cloud,
+    attribute access only: the ordered Disrupted* events, each as (reason,
+    candidate count, digest of the candidate names, the replacements'
+    instance types); the Unconsolidatable and DisruptionBlocked events
+    counted by reason code; the IEEE-hex sums of the retired and the
+    added instances' catalog prices in event order; the rounds of each
+    settle."""
+    import ast
+    import hashlib
+    book = {(it.name, o.zone, o.capacity_type): o.price
+            for it in env.cloud.describe_instance_types()
+            for o in it.offerings}
+    by_claim = {i.tags.get("karpenter.sh/nodeclaim"): i
+                for i in env.cloud.instances.values()}
+
+    def price(claim):
+        i = by_claim.get(claim)
+        return 0.0 if i is None else book[(i.instance_type, i.zone,
+                                           i.capacity_type)]
+
+    acts = []
+    verdicts: Dict[str, int] = {}
+    retired = added = 0.0
+    for ev in events:
+        _, _, obj, reason, message = ev[:5]
+        if reason.startswith("Disrupted"):
+            cands = obj.split(",")
+            reps = []
+            if message.startswith("replacements: ["):
+                reps = ast.literal_eval(message[len("replacements: "):])
+            acts.append((reason, len(cands), hashlib.sha256(
+                ",".join(sorted(cands)).encode()).hexdigest()[:16],
+                tuple(by_claim[r].instance_type if r in by_claim else None
+                      for r in reps)))
+            for c in cands:
+                retired += price(c)
+            for r in reps:
+                added += price(r)
+        elif reason in ("Unconsolidatable", "DisruptionBlocked"):
+            code = message[1:message.index("]")] if message.startswith(
+                "[") else message
+            key = f"{reason}:{code}"
+            verdicts[key] = verdicts.get(key, 0) + 1
+    return {"acts": acts, "verdicts": dict(sorted(verdicts.items())),
+            "retired": float(retired).hex(), "added": float(added).hex(),
+            "settles": len(rounds), "rounds": list(rounds)}

@@ -140,3 +140,27 @@ def test_vocabulary_matches_reference():
     assert store.size() == 2 and store.lookup("a") is None
     assert store.lookup("c")["tree"] == {"code": "x"}
     assert [e["pod"] for e in store.recent()] == ["c", "b"]
+
+
+DISRUPTION_CODES = (
+    "CAPACITY_LAUNCHED", "CONSOLIDATION_DELETE", "CONSOLIDATION_REPLACE",
+    "DRIFT_REPLACED", "NODE_EXPIRED", "INTERRUPTION_RECLAIM",
+    "NODE_TERMINATED", "REPLACEMENT_NOT_CHEAPER", "SPOT_TO_SPOT_DISABLED",
+    "SPOT_FLEXIBILITY_TOO_LOW", "CANDIDATE_NOT_RESCHEDULABLE",
+    "BUDGET_BLOCKED", "NODEPOOL_DRIFT")
+
+
+def test_registry_is_the_reference_one_for_one():
+    """Every registered code of the reference, the disruption decision
+    vocabulary with it, with its constraint and summary — and nothing
+    else."""
+    assert set(explainmod.REGISTRY) == set(jexplain.REGISTRY)
+    for code, spec in jexplain.REGISTRY.items():
+        mine = explainmod.REGISTRY[code]
+        assert (mine.code, mine.constraint, mine.summary) == (
+            spec.code, spec.constraint, spec.summary)
+    for name in DISRUPTION_CODES:
+        assert getattr(explainmod, name) == getattr(jexplain, name)
+        assert explainmod.constraint_of(getattr(explainmod, name)) == "none"
+    assert [r["code"] for r in explainmod.reason_table()] == [
+        r["code"] for r in jexplain.reason_table()]

@@ -62,6 +62,24 @@ def test_the_walk_covers_the_control_loop():
         assert f"karpenter_tpu_torch.{mod}" in mods, mod
 
 
+# the modules of the disruption control loop and the environment, which
+# the walk above must reach too
+DISRUPTION_LOOP = (
+    "env", "utils.cron", "controllers.disruption",
+    "controllers.termination", "controllers.expiration", "controllers.gc",
+    "controllers.interruption", "controllers.preemption",
+    "controllers.nodeclass", "controllers.tagging", "controllers.refresh",
+    "providers.queue", "providers.version", "providers.subnet",
+    "providers.securitygroup", "providers.instanceprofile",
+    "providers.launchtemplate")
+
+
+def test_the_walk_covers_the_disruption_loop():
+    mods = set(_modules())
+    for mod in DISRUPTION_LOOP:
+        assert f"karpenter_tpu_torch.{mod}" in mods, mod
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, importlib\n"
