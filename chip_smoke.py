@@ -25,8 +25,9 @@ Phases (any failure exits non-zero):
      nonzero, and the map cases together every class 1-4;
   4. the headline path: TorchSolver().solve(build_input(50_000)) — one
      cold and 20 warm solves through K5 and its explain epilogue — must
-     give the JAX package's answer, with those launch counts above zero;
-     then
+     give the JAX package's answer, with those launch counts above zero,
+     and write one flight record a solve (utils/flightrecorder.py, on by
+     default) with the JAX package's fingerprint (HEADLINE_FLIGHT); then
      the same in a child process with KARPENTER_TPU_NO_NATIVE=1 (the
      Python host paths), its encode and decode p50 printed beside the
      native ones;
@@ -92,8 +93,12 @@ Phases (any failure exits non-zero):
      kubelet and the pod binder until idle, then again after 2,000 pods
      of the two smallest sizes arrive.  Each wave must give the JAX
      package's answer (LOOP: the launched instances, the pods bound per
-     node, the hex price, the rounds) with K5 and its explain epilogue
-     launched, no oracle
+     node, the hex price, the rounds) and record what the JAX loop's
+     decision ledger and timeline recorded (LOOP_OBSERVED: the ledger's
+     records by source, the hex sums of savings and added spend, the
+     records' digest; the timeline's events by kind; the trajectory
+     judges' verdict), with K5 and its explain epilogue launched, no
+     oracle
      solve, no SolverFallback event and kt_hostops loaded.  One cold loop
      (in a child process that has launched nothing), one whose solver is
      warmed first as the provisioner's startup warm-up does — its first
@@ -112,7 +117,9 @@ Phases (any failure exits non-zero):
      provisioner re-placing through K5); spot interruptions for a tenth
      of the spot nodes left (wave 3).  Each wave must give the JAX
      package's answer (DISRUPTION_LOOP: loop_answer and the disruption
-     record), K5 must launch at B=64 and K4 launch, with no oracle solve,
+     record) and what its ledger and timeline recorded
+     (DISRUPTION_OBSERVED), K5 must launch at B=64 and K4 launch, with no
+     oracle solve,
      no SolverFallback event and kt_hostops loaded.  One cold loop in a
      child process that has launched nothing, run to its end before the
      parent's loop whose solver is warmed first; per wave
@@ -137,7 +144,12 @@ headline's and config #2's encodings at 8 shards, printing
 cudaOccupancyMaxActiveClusters by cluster size.  Phase 9 also times K7 at
 2, 4 and 8 shards beside K5 and at the mesh phases' own launches, and K5
 at config #12's one program as the spec-off arm launches it (G=2048
-steps, 640 of them real), held once more against its plain version.
+steps, 640 of them real), held once more against its plain version,
+and the take_exist compaction of K4's epilogue as the difference of K4
+with and without it in turns, beside its plain version and its bound.
+The three recorders (flight, ledger, timeline) stay on, their defaults,
+in every phase; each loop empties their rings first, as a fresh process
+has them.
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.  `--child MODE`
@@ -163,6 +175,11 @@ HEADLINE_PODS = 50_000
 HEADLINE_NODES = 782
 HEADLINE_UNSCHED = 0
 HEADLINE_PRICE_HEX = "0x1.c192b9cb6848bp+12"
+# the flight record of each headline solve: the JAX package's fingerprint
+# of the encoded problem and the catalog's identity (`python3
+# tests/test_torch_flight.py --pin` prints them)
+HEADLINE_FLIGHT = {"fingerprint": "d27cc79ee16221df", "columns": 3630,
+                   "price_sha": "22b4a4af1183e045"}
 WARM_SOLVES = 20
 # BASELINE config #3's answer from the JAX package (TPUSolver(max_nodes=
 # 2048), default knobs, on the CPU): 15 nodes, none unschedulable
@@ -309,6 +326,28 @@ LOOP = (
      "pods_per_node_digest": "0cd8fddd45301372", "bound": 52000,
      "unbound": 0, "rounds": 2},
 )
+# what the JAX loop's decision ledger and timeline recorded over each wave
+# (`workloads.WaveObserver`: the ledger's records by source, the hex sums
+# of their savings and added spend, the digest of the records; the
+# timeline's events by kind; the trajectory judges' verdict), printed by
+# the same `--pin`
+_VERDICT = {"ledger_hex_exact": True, "zero_lost_pods": True,
+            "zero_gang_atomicity_violations": True,
+            "zero_priority_inversions": True, "audit_clean": True}
+LOOP_OBSERVED = (
+    {"ledger": {"records": {"provisioning": 1}, "savings": "0x0.0p+0",
+                "added": "0x1.c192b9cb6848bp+12",
+                "digest": "7adbe1e5510080f8"},
+     "timeline": {"store.nodeclaims.added": 782,
+                  "store.nodeclaims.modified": 2346,
+                  "store.nodes.added": 782, "store.nodes.modified": 2346,
+                  "store.pods.modified": 100000},
+     "verdict": dict(_VERDICT, ledger_rows_checked=1)},
+    {"ledger": {"records": {}, "savings": "0x0.0p+0", "added": "0x0.0p+0",
+                "digest": "4f53cda18c2baa0c"},
+     "timeline": {"store.pods.modified": 2000},
+     "verdict": dict(_VERDICT, ledger_rows_checked=0)},
+)
 
 # The disruption control loop (phase 19): BASELINE config #4's fleet
 # reached through the control plane (workloads.disruption_loop: the port's
@@ -347,6 +386,42 @@ DISRUPTION_LOOP = (
      "verdicts": {"Unconsolidatable:SpotFlexibilityTooLow": 19},
      "retired": "0x1.0a7caea747d83p+3", "added": "0x1.c8b827fa1a0cep+1",
      "settles": 1, "settle_rounds": [111]},
+)
+# what the JAX loop's decision ledger and timeline recorded over each wave
+# (`workloads.WaveObserver`, as LOOP_OBSERVED), printed by the same `--pin`
+DISRUPTION_OBSERVED = (
+    {"ledger": {"records": {"provisioning": 1}, "savings": "0x0.0p+0",
+                "added": "0x1.015826aa8eb46p+9",
+                "digest": "7e6dc03fa0d0ef51"},
+     "timeline": {"price.refresh": 1, "store.nodeclaims.added": 2000,
+                  "store.nodeclaims.modified": 6000,
+                  "store.nodeclasses.modified": 2, "store.nodes.added": 2000,
+                  "store.nodes.modified": 6000, "store.pods.modified": 4000},
+     "verdict": dict(_VERDICT, ledger_rows_checked=1)},
+    {"ledger": {"records": {"disruption": 169, "provisioning": 39,
+                            "termination": 2010},
+                "savings": "0x1.fb964840e1720p+8",
+                "added": "0x1.7ff9f01b866e6p+2",
+                "digest": "f6fed0f10fc60f30"},
+     "timeline": {"store.nodeclaims.added": 88,
+                  "store.nodeclaims.deleted": 2010,
+                  "store.nodeclaims.deleting": 2010,
+                  "store.nodeclaims.modified": 2274, "store.nodes.added": 88,
+                  "store.nodes.deleted": 2010, "store.nodes.modified": 4284,
+                  "store.pods.modified": 10720},
+     "verdict": dict(_VERDICT, ledger_rows_checked=2218)},
+    {"ledger": {"records": {"disruption": 32, "interruption": 8,
+                            "provisioning": 28, "termination": 60},
+                "savings": "0x1.950cb295e9e19p+2",
+                "added": "0x1.55e963dc486acp+2",
+                "digest": "ec524f125ff8e1da"},
+     "timeline": {"spot.reclaim": 8, "store.nodeclaims.added": 70,
+                  "store.nodeclaims.deleted": 60,
+                  "store.nodeclaims.deleting": 60,
+                  "store.nodeclaims.modified": 270, "store.nodes.added": 70,
+                  "store.nodes.deleted": 60, "store.nodes.modified": 322,
+                  "store.pods.modified": 3569},
+     "verdict": dict(_VERDICT, ledger_rows_checked=128)},
 )
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
@@ -1079,6 +1154,43 @@ def _check_answer(res, launches, nodes, unsched, price_hex, kernels):
     return bad
 
 
+def _flight_seq() -> int:
+    from karpenter_tpu_torch.utils import flightrecorder
+    return flightrecorder.RECORDER.last_seq() or 0
+
+
+def _check_flight(seq0, solves, label, card):
+    """The flight records written since the recorder's newest one was
+    `seq0`: one for each of `solves` headline solves, each of kind
+    "solve" with the pinned fingerprint and catalog identity and the
+    JAX answer's digest."""
+    from karpenter_tpu_torch.utils import flightrecorder
+    rec = flightrecorder.RECORDER
+    recs = [r for r in rec.tail(len(rec)) if r["seq"] > seq0]
+    bad = []
+    if len(recs) != solves:
+        bad.append(f"{len(recs)} flight records for {solves} solves")
+    for r in recs:
+        got = {"fingerprint": r["fingerprint"],
+               "columns": r["catalog"]["columns"],
+               "price_sha": r["catalog"]["price_sha"]}
+        if r["kind"] != "solve" or got != HEADLINE_FLIGHT:
+            bad.append(f"flight record {r['seq']}: {r['kind']} {got} != "
+                       f"{HEADLINE_FLIGHT}")
+            break
+        if r["result"]["price_hex"] != HEADLINE_PRICE_HEX:
+            bad.append(f"flight record {r['seq']}: result {r['result']}")
+            break
+    last = recs[-1] if recs else {}
+    print(f"[{label}] flight records on {card}: {len(recs)} for {solves} "
+          f"solves; the last: fingerprint {last.get('fingerprint')}, "
+          f"catalog {last.get('catalog')}, knobs {last.get('knobs')}, "
+          f"first-use events (retraces) "
+          f"{[r['retraces'] for r in recs][:3]}..., device memory peak "
+          f"{last.get('device_memory_peak_bytes')} bytes", flush=True)
+    return bad
+
+
 def _check_sweep(results, launches, digest, kernels, label):
     bad = []
     n_unsched = sum(len(r.unschedulable) for r in results)
@@ -1239,6 +1351,40 @@ def _compaction_turns(ffd, sw, c, N, K, reps):
             ffd.solve_ffd_sweep(sw, c, N, k).cpu()
         ms[kind].append((time.perf_counter() - t0) * 1e3 / reps)
     return ms, nbytes
+
+
+def _pack_times(ffd, sw, c, N, K, reps):
+    """The take_exist compaction of K4's epilogue (row 3b) at one sweep
+    chunk: the kernel with the dense and with the compacted rows in turns
+    (dense, compacted, compacted, dense; profiler ms), the pack's cost the
+    difference of their minima (it cannot launch alone); its plain
+    version, `compact_take_exist`, on the chunk's dense rows; and the
+    bound of that function (the dense rows read once, the (count, index)
+    rows written once).  Returns {"turns", "ms", "plain_ms", "bound"}."""
+    import torch
+    dev = sw.group_req.device
+    tag = _tag(bool(sw.heavy), True, False)
+    scan = ffd.sweep_topo_scan if sw.heavy else ffd.sweep_scan
+    bufs = {}
+    for k in (0, K):
+        lay = ffd.flat_layout(sw.G, sw.E, N, sw.D, 0, k)
+        bufs[k] = (lay, torch.empty((sw.B, lay["total"][1]), device=dev),
+                   torch.empty((sw.B, sw.P, ffd.R), device=dev))
+    turns = {"dense": [], "compacted": []}
+    for kind in ("dense", "compacted", "compacted", "dense"):
+        k = K if kind == "compacted" else 0
+        lay, flat, lim = bufs[k]
+        turns[kind].append(_device_ms(
+            lambda: scan(sw, c, N, flat, lay, lim, k), reps, tag)[0])
+    lay, flat, lim = bufs[0]
+    scan(sw, c, N, flat, lay, lim, 0)
+    te = ffd._region(flat, lay, "take_exist").reshape(sw.B * sw.G, sw.E)
+    te = te.contiguous()
+    plain = _time_ms(lambda: ffd.compact_take_exist(te, K), 5)
+    rows = sw.B * sw.G
+    bound = bound_ms(rows * sw.E * 4 + 2 * rows * K * 4, rows * sw.E)
+    return {"turns": turns, "ms": min(turns["compacted"])
+            - min(turns["dense"]), "plain_ms": plain, "bound": bound}
 
 
 def _delta_cases():
@@ -1839,6 +1985,11 @@ def _loop_run(card, warm_up=False, capture=None):
     from karpenter_tpu_torch.solver import ffd, firstuse
     from karpenter_tpu_torch.utils import metrics, tracing
 
+    # the three recorders (flight, ledger, timeline) on, as by default,
+    # their rings emptied as a fresh process has them
+    obs = workloads.port_observability()
+    obs.reset()
+    watch = workloads.WaveObserver(obs)
     loop = workloads.provisioning_loop(
         LOOP_PODS, Options(batch_idle_duration=0), device="cuda")
     warm = None
@@ -1886,6 +2037,7 @@ def _loop_run(card, warm_up=False, capture=None):
             tracing.reset()
             oracle0 = metrics.SOLVER_SOLVES.value(path="oracle")
             f0 = firstuse.total()
+            watch.start(loop.cluster)
             with contextlib.ExitStack() as stack:
                 if capture is not None:
                     caps = (stack.enter_context(_SolveCapture(ffd)),
@@ -1898,6 +2050,7 @@ def _loop_run(card, warm_up=False, capture=None):
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
                 launches = _read_launches(ffd)
+            observed = watch.finish(loop.cluster)
             spans = {}
             for _, sps in tracing.finished_traces():
                 for sp in sps:
@@ -1919,6 +2072,7 @@ def _loop_run(card, warm_up=False, capture=None):
                 "first_use": firstuse.total() - f0,
                 "seams": (cache.last_outcome, cache.last_reason,
                           cache.last_incr_reason),
+                "observed": observed,
                 "hostops": native.hostops() is not None})
     finally:
         tracing.set_enabled(None)
@@ -1927,13 +2081,17 @@ def _loop_run(card, warm_up=False, capture=None):
 
 
 def _loop_check(waves, label):
-    """What phase 18 holds each wave to: the pinned JAX answer, K5 and its
+    """What phase 18 holds each wave to: the pinned JAX answer and what the
+    JAX loop's ledger and timeline recorded (LOOP_OBSERVED), K5 and its
     explain epilogue launched, no oracle solve, no SolverFallback event,
     kt_hostops loaded."""
     bad = []
     for i, w in enumerate(waves):
         if w["answer"] != LOOP[i]:
             bad.append(f"{label} wave {i + 1}: {w['answer']} != {LOOP[i]}")
+        if w["observed"] != LOOP_OBSERVED[i]:
+            bad.append(f"{label} wave {i + 1}: recorded {w['observed']} "
+                       f"!= {LOOP_OBSERVED[i]}")
         for k in ("ffd_batch_scan", "explain_pack"):
             if w["launches"][k] <= 0:
                 bad.append(f"{label} wave {i + 1}: {k} not launched")
@@ -1964,8 +2122,8 @@ def _loop_print(label, waves, card):
               + f"; seams {w['seams']}; launches "
               f"{ {k: v for k, v in w['launches'].items() if v} }; "
               f"oracle solves {w['oracle']}, SolverFallback events "
-              f"{w['fallbacks']}, first-use events {w['first_use']}",
-              flush=True)
+              f"{w['fallbacks']}, first-use events {w['first_use']}; "
+              f"recorded {w['observed']}", flush=True)
 
 
 def _loop_phase(card, add, captured):
@@ -2139,6 +2297,11 @@ def _disruption_run(card, warm_up=False, keep=False):
     from karpenter_tpu_torch.solver import ffd, firstuse
     from karpenter_tpu_torch.utils import metrics, tracing
 
+    # the three recorders on, as by default, their rings emptied as a
+    # fresh process has them
+    obs = workloads.port_observability()
+    obs.reset()
+    watch = workloads.WaveObserver(obs)
     env = workloads.disruption_loop(
         workloads.DISRUPTION_NODES, Options(batch_idle_duration=0),
         device="cuda")
@@ -2242,12 +2405,14 @@ def _disruption_run(card, warm_up=False, keep=False):
                 n_rows = len(log.rows)
                 oracle0 = metrics.SOLVER_SOLVES.value(path="oracle")
                 f0 = firstuse.total()
+                watch.start(env.cluster)
                 _reset_launches(ffd)
                 t0 = time.perf_counter()
                 answer = fn()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
                 launches = _read_launches(ffd)
+                observed = watch.finish(env.cluster)
                 shapes = {}
                 for row in log.rows[n_rows:]:
                     key = f"{row[0]} {row[1]} B={row[3]} G={row[4]} " \
@@ -2268,6 +2433,7 @@ def _disruption_run(card, warm_up=False, keep=False):
                     "fallbacks": sum(1 for ev in waves_drv.last_events
                                      if ev[3] == "SolverFallback"),
                     "first_use": firstuse.total() - f0,
+                    "observed": observed,
                     "hostops": native.hostops() is not None})
     finally:
         tracing.set_enabled(None)
@@ -2276,14 +2442,18 @@ def _disruption_run(card, warm_up=False, keep=False):
 
 
 def _disruption_check(waves, label):
-    """What phase 19 holds each wave to: the pinned JAX answer, no oracle
-    solve, no SolverFallback event, kt_hostops loaded; and over the loop,
-    K5 launched at B=64 and K4 launched."""
+    """What phase 19 holds each wave to: the pinned JAX answer and what the
+    JAX loop's ledger and timeline recorded (DISRUPTION_OBSERVED), no
+    oracle solve, no SolverFallback event, kt_hostops loaded; and over the
+    loop, K5 launched at B=64 and K4 launched."""
     bad = []
     for i, w in enumerate(waves):
         if w["answer"] != DISRUPTION_LOOP[i]:
             bad.append(f"{label} wave {i + 1}: {w['answer']} != "
                        f"{DISRUPTION_LOOP[i]}")
+        if w["observed"] != DISRUPTION_OBSERVED[i]:
+            bad.append(f"{label} wave {i + 1}: recorded {w['observed']} "
+                       f"!= {DISRUPTION_OBSERVED[i]}")
         if w["oracle"]:
             bad.append(f"{label} wave {i + 1}: {w['oracle']} oracle solves")
         if w["fallbacks"]:
@@ -2326,8 +2496,8 @@ def _disruption_print(label, waves, card):
               + f"; launches { {k: v for k, v in w['launches'].items() if v} }"
               f"; oracle solves {w['oracle']}, SolverFallback events "
               f"{w['fallbacks']}, first-use events {w['first_use']} (the "
-              f"first disruption pass {w['first_pass_first_use']})",
-              flush=True)
+              f"first disruption pass {w['first_pass_first_use']}); "
+              f"recorded {w['observed']}", flush=True)
         for k, v in sorted(w["shapes"].items()):
             print(f"    [{label}] wave {i + 1} launch shape {k}: {v}",
                   flush=True)
@@ -2690,6 +2860,7 @@ def main(argv) -> int:
     # -- 4. the main path: the 50k headline ----------------------------------
     torch.cuda.reset_peak_memory_stats(dev)
     p50_on = {}
+    seq0 = _flight_seq()
     res, counts, _ = _main_path(
         TorchSolver, lambda: build_input(HEADLINE_PODS), ffd, card,
         "4 headline", p50=p50_on)
@@ -2698,6 +2869,7 @@ def main(argv) -> int:
           f"{torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
     bad = _check_answer(res, counts, HEADLINE_NODES, HEADLINE_UNSCHED,
                         HEADLINE_PRICE_HEX, ("ffd_batch_scan", "explain_pack"))
+    bad += _check_flight(seq0, WARM_SOLVES + 1, "4 headline", card)
     if bad:
         print(f"chip_smoke: headline path failed: {bad}", file=sys.stderr)
         return 1
@@ -3045,6 +3217,15 @@ def main(argv) -> int:
           f"turns on {card}: " + "; ".join(
               f"{k} ({nbytes[k]} bytes) " + ", ".join(f"{v:.4f}" for v in vs)
               + " ms" for k, vs in turns.items()), flush=True)
+    pack = _pack_times(ffd, sw, cs, Ns, max(Ks, 8), 20)
+    print(f"[9] config #4 chunk take_exist compaction (row 3b, K4's "
+          f"epilogue) on {card}: K4 dense | compacted in turns "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in vs)
+                      for k, vs in pack["turns"].items())
+          + f" ms; the pack {pack['ms']:.4f} ms (the difference of the "
+          f"minima), plain compact_take_exist {pack['plain_ms']:.4f} ms, "
+          f"bound {pack['bound'][0]:.6f} by {pack['bound'][1]}",
+          flush=True)
     # config #9: the gang instance at the cold and the warm node axis, the
     # epilogue with the explain=2 map at the cold one
     p9, c9 = ffd.problem_from_numpy(c9_prob, c9_cat, dev)

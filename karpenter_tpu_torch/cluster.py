@@ -11,9 +11,8 @@ operator's run loop is event-driven (reconcile on change, wake instantly)
 with the poll cadence demoted to a periodic resync, matching
 controller-runtime's informer + resync model.
 
-The port's copy of `karpenter_tpu/cluster.py`.  The timeline recorder's
-capture point in `mutated` is left out until `timeline/` is ported
-(slice 6).
+The port's copy of `karpenter_tpu/cluster.py`, with the timeline
+recorder's capture point in `mutated`.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from collections import deque
 from typing import Callable, Dict, List, NamedTuple, Optional, TypeVar
 
 from karpenter_tpu_torch.models.objects import Node, NodeClaim, Pod
+from karpenter_tpu_torch.timeline import recorder as timeline_recorder
 from karpenter_tpu_torch.utils import tracing
 from karpenter_tpu_torch.utils.clock import Clock, RealClock
 
@@ -231,8 +231,12 @@ class Cluster:
                 watches = list(self._watches)
             for w in watches:
                 w._publish(ev)
-        # the timeline recorder's capture point (one store.<kind>.<op>
-        # event per mutation) comes with timeline/ in slice 6
+        if kind:
+            # the timeline recorder's capture point: every informer-cache
+            # mutation (local write or peer event via sync_backend) lands
+            # as one store.<kind>.<op> timeline event — the recorder
+            # checks its own gate and costs one env read when off
+            timeline_recorder.record_store_mutation(self, kind, op, name)
 
     def wait_synced(self, predicate: Callable[[], bool],
                     timeout: float = 5.0) -> bool:

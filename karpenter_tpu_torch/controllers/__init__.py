@@ -6,9 +6,8 @@ the NodeClaim lifecycle, the fake kubelet, the pod binder and the
 deterministic manager; disruption (drift, emptiness, multi- and
 single-node consolidation), termination, expiration, garbage collection,
 interruption, preemption, the nodeclass controllers (hash, status,
-termination), tagging and the refresh controllers.  The calls into the
-decision ledger (`utils/ledger.py`) and the timeline (`timeline/`) are
-left out until slice 6 ports them; each is marked where it was."""
+termination), tagging and the refresh controllers, with their calls into
+the decision ledger (`utils/ledger.py`) and the timeline (`timeline/`)."""
 
 from karpenter_tpu_torch.controllers.manager import ControllerManager
 from karpenter_tpu_torch.controllers.provisioning import Provisioner

@@ -22,9 +22,8 @@ shrinks until feasible (the reference's heuristic subset search).
 The port's copy of `karpenter_tpu/controllers/disruption.py`: its
 simulations run through the port's `GatedSolver` (a `TorchSolver`: the
 wide multi-node prefixes on K5's batched scan, the leave-one-out sims on
-K4's sweep).  The decision ledger's records (`_ledger_decision`,
-`utils/ledger.py`) are left out until slice 6 ports the ledger; the
-savings counter and every decision are the reference's.
+K4's sweep), and each decision writes its decision-ledger record
+(`_ledger_decision`, `utils/ledger.py`).
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ from karpenter_tpu_torch.scheduling import ScheduleResult
 from karpenter_tpu_torch.scheduling.types import ScheduleInput
 from karpenter_tpu_torch.solver import explain as explainmod
 from karpenter_tpu_torch.solver.solve import B_BUCKETS as SOLVER_B_BUCKETS
-from karpenter_tpu_torch.utils import cron, errors, metrics, tracing
+from karpenter_tpu_torch.utils import cron, errors, ledger, metrics, tracing
 from karpenter_tpu_torch.utils.clock import Clock
 
 SPOT_TO_SPOT_MIN_TYPES = 15  # disruption.md:123-132
@@ -361,7 +360,7 @@ class Disruption:
         for c in empty:
             by_pool.setdefault(c.pool.name, []).append(c)
         acted = False
-        for cands in by_pool.values():
+        for pool_name, cands in by_pool.items():
             n = self._budget_allows(cands[0].pool, REASON_EMPTY, len(cands))
             deleted = cands[:n]
             for cand in deleted:
@@ -370,11 +369,16 @@ class Disruption:
                 self.cluster.nodeclaims.delete(cand.claim.name)
                 acted = True
             if deleted:
-                # empty deletes are pure savings: the savings counter
-                # carries the exact sum of retired prices (IEEE-exactness
-                # contract); the ledger's ConsolidationDelete record
-                # comes with utils/ledger.py in slice 6
+                # empty deletes are pure savings: the ledger delta is the
+                # exact sum of retired prices, and the savings counter
+                # carries the same floats (IEEE-exactness contract)
                 retired = sum(c.price for c in deleted)
+                self._ledger_decision(
+                    "disruption", "delete",
+                    explainmod.CONSOLIDATION_DELETE, deleted, (),
+                    cost_delta=-retired,
+                    detail=f"{len(deleted)} empty node(s) in "
+                           f"{pool_name} deleted")
                 if retired > 0:
                     metrics.DISRUPTION_SAVINGS.inc(
                         retired, method="emptiness")
@@ -543,6 +547,27 @@ class Disruption:
         return None
 
     # -- execution --------------------------------------------------------
+    def _ledger_decision(self, source: str, action: str, code: str,
+                         cands: List[Candidate], new_claims,
+                         cost_delta: float, detail: str = "") -> None:
+        """One decision-ledger record for this controller's fleet
+        mutation: the exact price arithmetic the decision compared,
+        before/after fleet $/hr from the independent node sum, and the
+        trace/flight cross-links (utils/ledger.py stamps those)."""
+        if not ledger.LEDGER.enabled:
+            return
+        pricing = getattr(self.cp.instance_types, "pricing", None)
+        before = ledger.fleet_cost(self.cluster, pricing)["total"]
+        ledger.LEDGER.record(
+            source, action, reason_code=code, detail=detail,
+            pools=[c.pool.name for c in cands]
+            + [s.nodepool for s in new_claims],
+            capacity_types=[ct for c in cands
+                            if (ct := c.node.capacity_type)],
+            nodes_delta=len(new_claims) - len(cands),
+            pods_affected=sum(len(c.reschedulable) for c in cands),
+            fleet_cost_before=before, cost_delta=cost_delta)
+
     def _execute(self, reason: str, cands: List[Candidate],
                  sim: ScheduleResult, method: str = "single_node") -> None:
         for cand in cands:
@@ -558,16 +583,25 @@ class Disruption:
                 f"{spec.nodepool}-replace-{self._replacement_seq}")
             replacements.append(claim.name)
             self._protected[claim.name] = self.clock.now()
-        # savings: recorded at DECISION time with the
+        # decision ledger + savings: recorded at DECISION time with the
         # exact floats this method compared — savings is (sum of retired
         # candidate prices − replacement price), the IEEE-exactness
         # contract the config4 bench asserts.  Drift replaces in kind
-        # (no cheaper-price rule), so it never claims savings.
+        # (no cheaper-price rule), so it writes a ledger record but
+        # never claims savings.
         retired = sum(c.price for c in cands)
         added = sum(s.price for s in sim.new_claims)
-        # the ledger's record of this decision (DriftReplaced,
-        # ConsolidationReplace or ConsolidationDelete, cost delta
-        # added - retired) comes with utils/ledger.py in slice 6
+        if reason == REASON_DRIFT:
+            source, code = "drift", explainmod.DRIFT_REPLACED
+        elif sim.new_claims:
+            source, code = "disruption", explainmod.CONSOLIDATION_REPLACE
+        else:
+            source, code = "disruption", explainmod.CONSOLIDATION_DELETE
+        self._ledger_decision(
+            source, "replace" if sim.new_claims else "delete", code,
+            cands, sim.new_claims, cost_delta=added - retired,
+            detail=f"{method}: {len(cands)} candidate(s) -> "
+                   f"{len(replacements)} replacement(s)")
         savings = retired - added
         if reason != REASON_DRIFT and savings > 0:
             metrics.DISRUPTION_SAVINGS.inc(savings, method=method)

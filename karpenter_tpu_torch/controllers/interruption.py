@@ -14,16 +14,16 @@ instance id (:148-173), act per message kind
   scheduled_change         cloud maintenance: delete the claim
   state_change             stopping/terminated out from under us: delete
 
-The port's copy of `karpenter_tpu/controllers/interruption.py`.  The
-timeline's spot.reclaim capture point comes with `timeline/` and the
-decision ledger's reclaim record with `utils/ledger.py`, both in slice 6.
+The port's copy of `karpenter_tpu/controllers/interruption.py`, with the
+timeline's spot.reclaim capture point and the decision ledger's reclaim
+record.
 """
 
 from __future__ import annotations
 
 from karpenter_tpu_torch.cluster import Cluster
 from karpenter_tpu_torch.providers.queue import QueueProvider
-from karpenter_tpu_torch.utils import errors, metrics
+from karpenter_tpu_torch.utils import errors, ledger, metrics
 from karpenter_tpu_torch.utils.cache import UnavailableOfferings
 
 
@@ -37,6 +37,8 @@ class Interruption:
         self.unavailable = unavailable
         # optional: only the decision ledger's pricing lookups need it
         self.cp = cloud_provider
+        self._drain_fleet_cost = None  # per-reconcile running total
+        self._drain_cache: dict = {}   # per-reconcile pods-by-node index
 
     # long-poll batches drained per reconcile: the reference requeues
     # immediately after each poll (controller.go:124 — effectively a
@@ -47,6 +49,13 @@ class Interruption:
 
     def reconcile(self) -> None:
         by_pid = None
+        # per-drain ledger state: a mass reclaim deletes hundreds of
+        # claims in one reconcile, and re-walking the fleet per record
+        # would be O(deleted x fleet) — the sum is computed once at the
+        # first reclaim and advanced by each record's own delta; the
+        # pods-by-node index amortizes the pod count the same way
+        self._drain_fleet_cost = None
+        self._drain_cache = {}
         for _ in range(self.MAX_BATCHES_PER_RECONCILE):
             try:
                 msgs = list(self.queue.receive())
@@ -85,8 +94,12 @@ class Interruption:
                  if c.provider_id == instance_id), None)
         kind = msg.get("kind")
         if kind == "spot_interruption":
-            # the timeline's spot.reclaim capture point (one event per
-            # reclaim message) comes with timeline/ in slice 6
+            # the timeline's spot.reclaim capture point — one event per
+            # reclaim message, cross-linked to the claim it takes down
+            from karpenter_tpu_torch.timeline import events as tev
+            from karpenter_tpu_torch.timeline import recorder as trec
+            trec.emit(tev.SPOT_RECLAIM, name=str(instance_id or ""),
+                      data={"claim": claim.name if claim else None})
             inst = self.queue.cloud.instances.get(instance_id)
             if inst is not None:
                 # the reclaimed pool is unavailable for the next 3 minutes —
@@ -128,8 +141,30 @@ class Interruption:
         """Delete + drop from the drain index: a duplicate message for the
         same instance later in the drain must see the claim gone, exactly
         as a fresh informer read would."""
-        # the ledger's InterruptionReclaim record comes with
-        # utils/ledger.py in slice 6
+        self._ledger_reclaim(claim, instance_id)
         self.cluster.nodeclaims.delete(claim.name)
         if by_pid is not None:
             by_pid.pop(instance_id, None)
+
+    def _ledger_reclaim(self, claim, instance_id) -> None:
+        """One decision-ledger record per interruption-driven delete: the
+        reclaimed node's $/hr leaves the fleet (the replacement shows up
+        as a later provisioning launch record).  The fleet sum is the
+        drain-scoped running total, never a per-record fleet walk."""
+        if not ledger.LEDGER.enabled:
+            return
+        from karpenter_tpu_torch.solver import explain as explainmod
+        if self._drain_fleet_cost is None:
+            pricing = getattr(getattr(self.cp, "instance_types", None),
+                              "pricing", None)
+            self._drain_fleet_cost = ledger.fleet_cost(
+                self.cluster, pricing)["total"]
+        rec = ledger.record_claim_delete(
+            self.cluster, self.cp, claim,
+            source="interruption",
+            reason_code=explainmod.INTERRUPTION_RECLAIM,
+            detail=f"instance {instance_id} reclaim/maintenance",
+            fleet_before=self._drain_fleet_cost,
+            pass_cache=self._drain_cache)
+        if rec is not None:
+            self._drain_fleet_cost += rec.cost_delta

@@ -17,14 +17,16 @@ reconciles those annotations into evictions:
     ``Pending`` with its node binding and nominations cleared, exactly
     how the termination path releases pods, so the next pass reschedules
     it at its own (lower) priority.
-  * **ledger truth** — the reference writes one ``source="preemption"``
-    record per executed plan (``reason_code=PreemptedFor``,
-    ``cost_delta=0.0``); the port leaves it out until slice 6 ports
-    `utils/ledger.py`.
+  * **ledger truth** — one ``source="preemption"`` record per executed
+    plan with ``reason_code=PreemptedFor`` and ``cost_delta=0.0``
+    (IEEE-hex-exact via the ledger's ``cost_delta_hex``): an eviction
+    moves pods, never money — the fleet's nodes are untouched.
 
 Victims that vanished before execution (completed, already rescheduled)
 make the plan ``outcome=stale`` — nothing to do, annotations of any
 stragglers are cleared.
+
+The port's copy of `karpenter_tpu/controllers/preemption.py`.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from karpenter_tpu_torch.cluster import Cluster
 from karpenter_tpu_torch.controllers.provisioning import NOMINATED_ANNOTATION
 from karpenter_tpu_torch.models import wellknown
 from karpenter_tpu_torch.models.objects import Pod
-from karpenter_tpu_torch.utils import metrics
+from karpenter_tpu_torch.utils import ledger, metrics
 
 
 class Preemption:
@@ -41,8 +43,7 @@ class Preemption:
 
     def __init__(self, cluster: Cluster, cloud_provider=None):
         self.cluster = cluster
-        # optional: only the ledger's fleet-cost snapshot (slice 6)
-        # needs pricing
+        # optional: only the ledger's fleet-cost snapshot needs pricing
         self.cp = cloud_provider
 
     def reconcile(self) -> None:
@@ -65,6 +66,7 @@ class Preemption:
         self.cluster.pods.update(pod)
 
     def _execute(self, plan_id: str, victims: list) -> None:
+        from karpenter_tpu_torch.solver import explain as explainmod
         target = victims[0].meta.annotations.get(
             wellknown.PREEMPT_FOR_ANNOTATION, "")
         live = [p for p in victims if p.node_name]
@@ -86,7 +88,13 @@ class Preemption:
                 f"plan {plan_id}: victim {blocked[0].meta.name} is not "
                 "evictable; no victim evicted")
             return
+        pricing = getattr(getattr(self.cp, "instance_types", None),
+                          "pricing", None)
+        fleet_before = (ledger.fleet_cost(self.cluster, pricing)["total"]
+                        if ledger.LEDGER.enabled else None)
+        nodes = set()
         for p in live:
+            nodes.add(p.node_name)
             self.cluster.record_event(
                 "Pod", p.meta.name, "Preempted",
                 f"plan {plan_id}: evicted for higher-priority {target}")
@@ -95,5 +103,11 @@ class Preemption:
             p.meta.annotations.pop(NOMINATED_ANNOTATION, None)
             self._clear(p)
         metrics.PREEMPTIONS.inc(outcome="evicted")
-        # the ledger's PreemptedFor record (fleet cost before, cost delta
-        # 0.0) comes with utils/ledger.py in slice 6
+        if ledger.LEDGER.enabled:
+            ledger.LEDGER.record(
+                "preemption", "evict",
+                reason_code=explainmod.PREEMPTED_FOR,
+                detail=f"plan {plan_id}: {len(live)} pod(s) evicted "
+                       f"from {len(nodes)} node(s) for {target}",
+                nodes_delta=0, pods_affected=len(live),
+                fleet_cost_before=fleet_before, cost_delta=0.0)

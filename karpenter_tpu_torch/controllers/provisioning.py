@@ -9,9 +9,8 @@ fallback —
 solver failure must never fail provisioning (SURVEY §5).
 
 The port's copy of `karpenter_tpu/controllers/provisioning.py`, solving
-through the port's `GatedSolver` (a `TorchSolver`).  The decision ledger's
-fleet-cost gauges and launch records (`utils/ledger.py`) are left out
-until slice 6 ports the ledger.
+through the port's `GatedSolver` (a `TorchSolver`), with the decision
+ledger's fleet-cost gauges and launch records (`utils/ledger.py`).
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from karpenter_tpu_torch.models.objects import NodeClaim, ObjectMeta, Pod
 from karpenter_tpu_torch.operator.options import Options
 from karpenter_tpu_torch.scheduling import ScheduleInput
 from karpenter_tpu_torch.scheduling.types import NewNodeClaim, ScheduleResult
-from karpenter_tpu_torch.utils import errors, metrics, tracing
+from karpenter_tpu_torch.utils import errors, ledger, metrics, tracing
 from karpenter_tpu_torch.utils.clock import Clock
 
 NOMINATED_ANNOTATION = "karpenter.sh/nominated-claim"
@@ -34,6 +33,10 @@ NOMINATED_ANNOTATION = "karpenter.sh/nominated-claim"
 
 class Provisioner:
     name = "provisioning"
+    # fleet-metric staleness bound when the generation is quiet (the
+    # price book can change out-of-band): one O(nodes+pods+types)
+    # sweep per this many seconds, worst case
+    FLEET_METRICS_TTL = 30.0
 
     def __init__(
         self,
@@ -130,8 +133,28 @@ class Provisioner:
         metrics.PROVISIONER_BACKLOG_AGE.set(
             max((now - t for t in self._first_pending.values()),
                 default=0.0))
-        # the fleet spend/packing gauges (ledger.update_fleet_metrics,
-        # generation-gated with a TTL) come with utils/ledger.py in slice 6
+        # fleet spend/packing gauges: refreshed whenever the cluster
+        # actually changed (generation-gated — the sweep is O(nodes + pods
+        # + types) of pure Python, and an idle 1 s reconcile tick must not
+        # pay it to recompute identical values), plus a TTL fallback: the
+        # price book can move WITHOUT a store mutation (PricingRefresh
+        # updates the provider, never the generation), and an idle fleet
+        # must not export stale $/hr forever.  Best-effort — a pricing or
+        # discovery hiccup degrades the gauges, never the loop
+        gen = self.cluster.generation
+        last = getattr(self, "_fleet_metrics_at", None)
+        if (gen != getattr(self, "_fleet_metrics_gen", None)
+                or last is None
+                or now - last >= self.FLEET_METRICS_TTL):
+            try:
+                ledger.update_fleet_metrics(self.cluster, self.cp)
+                self._fleet_metrics_gen = gen
+                self._fleet_metrics_at = now
+            except Exception as e:  # noqa: BLE001 — advisory telemetry
+                from karpenter_tpu_torch.utils.logging import get_logger
+                get_logger(self.name).warn(
+                    "fleet cost metrics refresh failed",
+                    error=str(e)[:200])
         if not self._batch_ready(pending):
             return
         self._batch_first = self._batch_sig = self._batch_last_change = None
@@ -205,8 +228,26 @@ class Provisioner:
                 if live is not None:
                     live.meta.annotations[NOMINATED_ANNOTATION] = claim.name
                     self.cluster.pods.update(live)
-        # the decision ledger's launch record (ledger.LEDGER.record, one
-        # per pass) comes with utils/ledger.py in slice 6
+        if result.new_claims and ledger.LEDGER.enabled:
+            # decision ledger: one launch record per pass — the cost delta
+            # is the exact sum of the planned claims' prices (the same
+            # floats the solver minimized), fleet-before the independent
+            # sum over live nodes
+            from karpenter_tpu_torch.solver import explain as explainmod
+            pricing = getattr(self.cp.instance_types, "pricing", None)
+            ledger.LEDGER.record(
+                "provisioning", "launch",
+                reason_code=explainmod.CAPACITY_LAUNCHED,
+                detail=f"{len(result.new_claims)} claim(s) for "
+                       f"{sum(len(s.pods) for s in result.new_claims)} "
+                       "pod(s)",
+                pools=[s.nodepool for s in result.new_claims],
+                nodes_delta=len(result.new_claims),
+                pods_affected=sum(len(s.pods) for s in result.new_claims)
+                + len(result.existing_assignments),
+                fleet_cost_before=ledger.fleet_cost(
+                    self.cluster, pricing)["total"],
+                cost_delta=sum(s.price for s in result.new_claims))
 
         if result.preemptions:
             # preemption plans: stamp every victim with the

@@ -7,8 +7,8 @@ refreshes the price books (providers/pricing/controller.go:67), feeding the
 respective provider caches so the scheduling hot path never blocks on a
 cloud API.
 
-The port's copy of `karpenter_tpu/controllers/refresh.py`; the timeline's
-price.refresh capture point comes with `timeline/` in slice 6.
+The port's copy of `karpenter_tpu/controllers/refresh.py`, with the
+timeline's price.refresh capture point.
 """
 
 from __future__ import annotations
@@ -53,8 +53,12 @@ class PricingRefresh(_IntervalController):
     def refresh(self) -> None:
         try:
             self.pricing.update()
-            # the timeline's price.refresh capture point comes with
-            # timeline/ in slice 6
+            # the timeline's price.refresh capture point: a successful
+            # book refresh is a cluster-trajectory input (solves after
+            # it rank against new prices)
+            from karpenter_tpu_torch.timeline import events as tev
+            from karpenter_tpu_torch.timeline import recorder as trec
+            trec.emit(tev.PRICE_REFRESH, name=self.name)
         except Exception as e:  # noqa: BLE001 — keep the stale book (static
             # fallback semantics, pricing.go:54-59) — but visibly: a price
             # book aging silently is how cost regressions go unnoticed

@@ -124,7 +124,7 @@ class GatedSolver:
     moving the work to the CPU unseen.  A solver on the CPU keeps the
     reference's degrade-to-the-oracle behaviour.  The remote solver client of
     `options.solver_endpoint` and its degraded mode (an in-process solver
-    behind the open breaker) are still to port (slice 6): with an
+    behind the open breaker) are still to port (slice 6b): with an
     endpoint set, construction raises NotImplementedError."""
 
     def __init__(self, options, cluster: Cluster, device="cuda"):
@@ -133,7 +133,7 @@ class GatedSolver:
         if options.solver_endpoint:
             raise NotImplementedError(
                 "GatedSolver: the remote solver client (solver_endpoint) "
-                "comes with slice 6 of the port")
+                "comes with slice 6b of the port")
         from karpenter_tpu_torch.solver import TorchSolver
         # SOLVER_MESH / SOLVER_DELTA configure the mesh and delta stories;
         # KARPENTER_TPU_MESH / KARPENTER_TPU_DELTA are the rollback knobs,
@@ -192,7 +192,7 @@ class GatedSolver:
                 self.cluster.record_event(
                     "Provisioner", source, "SolverFallback", str(e))
                 # the degraded in-process solver behind a remote client
-                # comes with slice 6; the in-process solver degrades to the
+                # comes with slice 6b; the in-process solver degrades to the
                 # oracle
         metrics.SOLVER_SOLVES.inc(path="oracle")
         # load shedding is only sound for PROVISIONING (unsolved pods stay

@@ -7,10 +7,9 @@ PDB-aware eviction budget (daemonsets stay), (3) once drained, call
 CloudProvider.Delete, strip the finalizer, and remove the node object.
 Evicted pods return to Pending and re-enter the provisioning queue.
 
-The port's copy of `karpenter_tpu/controllers/termination.py`.  The
+The port's copy of `karpenter_tpu/controllers/termination.py`, with the
 decision ledger's settlement record (`ledger.record_claim_delete` with
-the pass's running fleet $/hr) is left out until slice 6 ports
-`utils/ledger.py`.
+the pass's running fleet $/hr).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from karpenter_tpu_torch.controllers.provisioning import NOMINATED_ANNOTATION
 from karpenter_tpu_torch.models import wellknown
 from karpenter_tpu_torch.models.objects import NodeClaim
 from karpenter_tpu_torch.models.taints import NO_SCHEDULE, Taint
-from karpenter_tpu_torch.utils import errors, metrics
+from karpenter_tpu_torch.utils import errors, ledger, metrics
 
 DISRUPTED_TAINT = Taint(wellknown.DISRUPTED_TAINT_KEY, "", NO_SCHEDULE)
 
@@ -34,8 +33,14 @@ class Termination:
     def __init__(self, cluster: Cluster, cloud_provider: TPUCloudProvider):
         self.cluster = cluster
         self.cp = cloud_provider
+        # per-reconcile running fleet $/hr for the ledger: a mass
+        # settlement (spot drain, pool expiry sweep) releases many
+        # claims in ONE pass, and a per-claim fleet_cost walk would be
+        # O(settled × fleet) — interruption's drain-scoped discipline
+        self._pass_fleet_cost = None
 
     def reconcile(self) -> None:
+        self._pass_fleet_cost = None
         for claim in list(self.cluster.nodeclaims.list(
                 lambda c: c.meta.deleting)):
             self._terminate(claim)
@@ -59,9 +64,19 @@ class Termination:
         # NotFound is success (the instance is already gone); transient cloud
         # errors keep the finalizer for a retry next round
         # (pkg/errors/errors.go taxonomy)
-        # the ledger's settlement inputs (the node's price, the pass's
-        # running fleet $/hr), read before the release, come with
-        # utils/ledger.py in slice 6
+        # ledger inputs BEFORE the release mutates anything: this is the
+        # point the fleet's $/hr actually falls for whatever earlier
+        # decision (consolidation/expiry/interruption) deleted the claim
+        price = fleet_before = None
+        if ledger.LEDGER.enabled:
+            pricing = getattr(getattr(self.cp, "instance_types", None),
+                              "pricing", None)
+            price = (ledger.node_price(node, pricing)
+                     if node is not None else 0.0)
+            if self._pass_fleet_cost is None:
+                self._pass_fleet_cost = ledger.fleet_cost(
+                    self.cluster, pricing)["total"]
+            fleet_before = self._pass_fleet_cost
         try:  # noqa: E501 — see taxonomy note below
             self.cp.delete(claim)
         except Exception as e:  # noqa: BLE001
@@ -78,9 +93,19 @@ class Termination:
         metrics.NODECLAIMS_TERMINATED.inc(nodepool=claim.nodepool)
         self.cluster.record_event(
             "NodeClaim", claim.name, "Terminated", "instance released")
-        # the ledger's NodeTerminated settlement record
-        # (ledger.record_claim_delete, pods_affected=0) comes with
-        # utils/ledger.py in slice 6
+        if fleet_before is not None:
+            from karpenter_tpu_torch.solver import explain as explainmod
+            # pods_affected=0: the node was drained before release, so
+            # no non-daemonset pod is displaced by this settlement
+            rec = ledger.record_claim_delete(
+                self.cluster, self.cp, claim,
+                source="termination",
+                reason_code=explainmod.NODE_TERMINATED,
+                detail=f"{claim.name} drained and released",
+                node=node, price=price, fleet_before=fleet_before,
+                pods_affected=0)
+            if rec is not None:
+                self._pass_fleet_cost += rec.cost_delta
 
     def _grace_expired(self, claim: NodeClaim) -> bool:
         # stamped on the claim at creation; live-pool fallback covers

@@ -138,7 +138,7 @@ LEGACY = "Legacy"  # unregistered plain-string reason (should not occur)
 
 # -- disruption decision vocabulary: the controllers' fleet-mutating
 # -- decisions and their rejection verdicts, registered here so every
-# -- disruption event and (from slice 6) every ledger record carries a
+# -- disruption event and every ledger record carries a
 # -- CODE, never a bare string.
 # -- Constraint "none": these classify decisions, not pod eliminations.
 CAPACITY_LAUNCHED = _register(

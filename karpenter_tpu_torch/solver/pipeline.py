@@ -93,6 +93,13 @@ class ChunkStaging:
             self._down[i] = self._pinned(self._down[i], self._most_down,
                                          torch.float32)
 
+    def occupancy(self) -> int:
+        """Upload slots holding a pinned buffer — the counterpart of the
+        reference's donated-slot occupancy.  Telemetry only
+        (`karpenter_tpu_solver_donated_slots_in_use`); never consulted by
+        the rotation itself."""
+        return sum(1 for buf in self._up if buf is not None)
+
     def upload(self, arrays: Sequence[np.ndarray],
                device: torch.device) -> Tuple[torch.Tensor, ...]:
         from karpenter_tpu_torch.solver.ffd import typed_views

@@ -85,7 +85,7 @@ from karpenter_tpu_torch.solver.encode import (
     group_column_mask,
     group_pods,
 )
-from karpenter_tpu_torch.utils import knobs
+from karpenter_tpu_torch.utils import knobs, metrics, tracing
 from karpenter_tpu_torch.utils.knobs import priority_enabled
 
 R = len(RESOURCE_AXIS)
@@ -196,6 +196,15 @@ class TorchSolver:
         self.last_spec: Optional[Dict] = None
         self._cat_entry = None
         self._last_active: Optional[int] = None  # node-axis warm start
+        # the widest new-node fan-out of one group in the last real solve
+        # (the flight record's `topk_segments` knob) and the last chain's
+        # chunk count (0 on every non-chunked path)
+        self._last_new_segments: Optional[int] = None
+        self._last_spec_chunks = 0
+        # the flight record's prelude, set by each _solve_attempt: the
+        # first-use count at its start and the full capture's path
+        self._flight_fu0 = 0
+        self._flight_capture: Optional[str] = None
         self._last_slots_exhausted = False
         self._pregroup_ms = 0.0
         self._explain_resolved: Optional[int] = None
@@ -491,27 +500,35 @@ class TorchSolver:
         consolidation simulation); a capped solve that runs out of node
         slots returns its strands, as the reference does."""
         self._check_device()
-        self._used_split = False
-        self._residue_counted = set()
-        self.last_residue_pods = 0
-        res = self._solve_relaxed(inp, max_nodes=max_nodes)
-        if res.unschedulable and not (max_nodes is not None
-                                      and self._last_slots_exhausted):
-            # rescue unless the caller's explicit node cap was itself the
-            # binding constraint: a slot-exhausted consolidation sim wants
-            # the cheap reject, but a capped sim stranded for capacity or
-            # topology reasons may be feasible
-            res = self._rescue_stranded(inp, res)
-        if max_nodes is None:
-            # the backstop ignores node caps, so a capped solve never
-            # takes it
-            res = self._oracle_backstop_on_limits(inp, res)
-        if max_nodes is None and res.unschedulable and priority_enabled():
-            # the preemption pre-pass: plans for stranded higher-priority
-            # pods whose seat lower-band evictions could free — the SAME
-            # planner the oracle's solve() runs.  Capped sims never plan.
-            from karpenter_tpu_torch.solver import preempt
-            preempt.attach(inp, res)
+        with tracing.span("solver.solve", pods=len(inp.pods)) as _sp:
+            self._used_split = False
+            self._residue_counted = set()
+            self.last_residue_pods = 0
+            res = self._solve_relaxed(inp, max_nodes=max_nodes)
+            if res.unschedulable and not (max_nodes is not None
+                                          and self._last_slots_exhausted):
+                # rescue unless the caller's explicit node cap was itself
+                # the binding constraint: a slot-exhausted consolidation
+                # sim wants the cheap reject, but a capped sim stranded
+                # for capacity or topology reasons may be feasible
+                res = self._rescue_stranded(inp, res)
+            if max_nodes is None:
+                # the backstop ignores node caps, so a capped solve never
+                # takes it
+                res = self._oracle_backstop_on_limits(inp, res)
+            if (max_nodes is None and res.unschedulable
+                    and priority_enabled()):
+                # the preemption pre-pass: plans for stranded
+                # higher-priority pods whose seat lower-band evictions
+                # could free — the SAME planner the oracle's solve()
+                # runs.  Capped sims never plan.
+                from karpenter_tpu_torch.solver import preempt
+                preempt.attach(inp, res)
+            path = "split" if self._used_split else "device"
+            metrics.SOLVER_SOLVES.inc(path=path)
+            if _sp is not None:
+                _sp.attrs["path"] = path
+                _sp.attrs["unschedulable"] = len(res.unschedulable)
         return res
 
     # pods beyond this, the backstop oracle's O(pods) wall-clock isn't
@@ -537,6 +554,7 @@ class TorchSolver:
             return res
         orc = Scheduler(inp).solve()
         if len(orc.unschedulable) < len(res.unschedulable):
+            metrics.SOLVER_ORACLE_BACKSTOP.inc()
             self._used_split = True  # host help happened
             return orc
         return res
@@ -547,6 +565,8 @@ class TorchSolver:
         fresh = [p for p in pods if p.meta.name not in self._residue_counted]
         self._residue_counted.update(p.meta.name for p in fresh)
         self.last_residue_pods += len(fresh)
+        if fresh:
+            metrics.SOLVER_RESIDUE_PODS.inc(len(fresh))
 
     def _rescue_stranded(self, inp: ScheduleInput,
                          dev_res: ScheduleResult) -> ScheduleResult:
@@ -828,6 +848,7 @@ class TorchSolver:
         (KARPENTER_TPU_RELAX_BUDGET) that the split path's nested solves
         inherit; past it, the stragglers go to the caller's rescue oracle
         on their original soft semantics."""
+        wall0 = time.time()
         t0 = time.perf_counter()
         # the incremental index replaces the grouping walk when it can
         # resolve this pass; real solves only — a capped consolidation sim
@@ -837,8 +858,12 @@ class TorchSolver:
         if groups is None:
             groups = group_pods(inp.pods)
         # grouping belongs to the encode phase (folded in by
-        # _solve_attempt)
+        # _solve_attempt); the histogram keeps it a phase of its own
         self._pregroup_ms = (time.perf_counter() - t0) * 1e3
+        metrics.SOLVER_PHASE_DURATION.observe(
+            self._pregroup_ms / 1e3, phase="pregroup", path="solve")
+        tracing.record_span("solver.phase.pregroup", wall0,
+                            self._pregroup_ms / 1e3, pods=len(inp.pods))
         # soft terms are part of the scheduling key, so one representative
         # per class decides
         if not any(g[0].preferences
@@ -853,7 +878,9 @@ class TorchSolver:
         # one pod's relaxation can un-place another in a later round
         rounds = 1 + min(sum(p.relax_levels() for p in inp.pods), 64)
         # the deadline is per solve: the split path re-enters here on
-        # sub-problems, which inherit the outermost call's clock
+        # sub-problems, which inherit the outermost call's clock (and only
+        # the outermost call observes the duration metric)
+        t0 = time.perf_counter()
         outer = self._relax_deadline is None
         if outer:
             self.relax_counts["solves"] += 1
@@ -877,6 +904,7 @@ class TorchSolver:
                 if time.perf_counter() > self._relax_deadline:
                     if outer:
                         self.relax_counts["budget_exceeded"] += 1
+                        metrics.RELAXATION_BUDGET_EXCEEDED.inc()
                     # a split verdict reached with preferences still
                     # promoted to required carries no authority for pods
                     # with relaxation headroom: the rescue re-judges them
@@ -889,6 +917,8 @@ class TorchSolver:
         finally:
             if outer:
                 self._relax_deadline = None
+                metrics.RELAXATION_DURATION.observe(
+                    time.perf_counter() - t0)
 
     def _adaptive_max_nodes(self) -> int:
         """Node-axis warm start from the previous solve's active count with
@@ -925,6 +955,17 @@ class TorchSolver:
         # a pure-device attempt carries no oracle verdicts
         self._last_oracle_judged = set()
         self._last_slots_exhausted = False
+        # the flight recorder's prelude: the first-use count at the start
+        # (the record reports this attempt's set-up events) and, in
+        # full-capture mode, the problem pickled BEFORE the solve — a
+        # crash mid-solve still leaves the repro input on disk
+        from karpenter_tpu_torch.utils import flightrecorder as fr
+        self._flight_fu0 = firstuse.total()
+        self._flight_capture = fr.RECORDER.capture_problem(
+            {"inp": inp, "max_nodes": max_nodes,
+             "solver_max_nodes": self.max_nodes}) \
+            if fr.RECORDER.capture_enabled() else None
+        wall0 = time.time()
         t0 = time.perf_counter()
         cat = self._catalog_encoding(inp)
         if max_nodes is None and groups is not None:
@@ -933,7 +974,9 @@ class TorchSolver:
             res = self._try_delta(inp, cat, groups)
             if res is not None:
                 return res
-            t0 = time.perf_counter()  # the seam's check is not encode time
+            # the seam's check is not encode time
+            wall0 = time.time()
+            t0 = time.perf_counter()
         enc = self._encode_checked(inp, cat, groups=groups)
         t1 = time.perf_counter()
         self.last_phase_ms = {
@@ -958,7 +1001,8 @@ class TorchSolver:
         if max_nodes is None and groups is not None:
             # the speculative chunk chain: equal to the single program when
             # it runs, a counted fallback (and the program below) otherwise
-            res = self._try_spec(inp, cat, enc, groups, t1)
+            res = self._try_spec(inp, cat, enc, groups,
+                                 wall0 + (t1 - t0), t1)
             if res is not None:
                 return res
 
@@ -1020,7 +1064,9 @@ class TorchSolver:
             out["unsched"].sum() > 0 and out["num_active"] >= mn)
         if max_nodes is None:
             # capped sims (tiny explicit N) must not poison the warm-start
-            self._last_active = int(out["num_active"])
+            na = self._last_active = int(out["num_active"])
+            self._last_new_segments = self._new_segments(
+                out["take_new"], enc.n_groups, na)
         t3 = time.perf_counter()
         self._repair_whole_node(enc, out)
         self._repair_gang(enc, out)
@@ -1037,7 +1083,103 @@ class TorchSolver:
             pad=(t2 - t1) * 1e3, dispatch=disp_s * 1e3,
             device=dev_s * 1e3, pull=pull_s * 1e3,
             repair=(t4 - t3) * 1e3, decode=(t5 - t4) * 1e3)
+        # per-phase histograms + spans; the histogram's `encode` is the
+        # pure encode interval (pregroup is its own phase; last_phase_ms
+        # keeps folding it into encode).  dispatch/device/pull are laid
+        # out sequentially from t2 — exact for the single-dispatch common
+        # case, aggregate across retries
+        mesh_size = mesh.size if mesh is not None else 0
+        for phase, lo, dur in (
+                ("encode", t0, t1 - t0), ("pad", t1, t2 - t1),
+                ("dispatch", t2, disp_s), ("device", t2 + disp_s, dev_s),
+                ("pull", t2 + disp_s + dev_s, pull_s),
+                ("repair", t3, t4 - t3), ("decode", t4, t5 - t4)):
+            metrics.SOLVER_PHASE_DURATION.observe(
+                dur, phase=phase, path="solve")
+            attrs = ({"mesh_devices": mesh_size}
+                     if mesh_size and phase in ("dispatch", "pull") else {})
+            tracing.record_span(f"solver.phase.{phase}",
+                                wall0 + (lo - t0), dur, **attrs)
+        self._flight_record(inp, cat, enc, res, "solve")
         return res
+
+    @staticmethod
+    def _new_segments(take_new, n_groups: int, na: int) -> int:
+        """The widest new-node fan-out of one group (at least 1): the
+        reference's sparse take_new estimate, which its flight record
+        carries as the `topk_segments` knob."""
+        if not na or not n_groups:
+            return 1
+        tn = np.asarray(take_new)[:n_groups, :na]
+        return max(int((tn > 0).sum(axis=1).max()), 1)
+
+    def _flight_record(self, inp: ScheduleInput, cat, enc,
+                       res: ScheduleResult, kind: str) -> None:
+        """One black-box record per solve attempt: what the solve saw
+        (catalog identity, problem fingerprint, resolved knobs), what it
+        paid (phase timings, first-use events as `retraces`, the
+        device-memory watermark), and what it answered (bit-exact result
+        digest).  Fingerprint-only by default — budgeted under 1% of the
+        headline p50; the full-capture path (`KARPENTER_TPU_FLIGHT_CAPTURE`)
+        pickled the input before the solve ran (`_solve_attempt`)."""
+        from karpenter_tpu_torch.utils import flightrecorder as fr
+        from karpenter_tpu_torch.utils.profiling import device_memory_peak
+        # the device-runtime gauges are independent of the recorder gate:
+        # KARPENTER_TPU_FLIGHT=off must not freeze /metrics at the last
+        # sampled watermark
+        mem = device_memory_peak()
+        if mem:
+            metrics.SOLVER_DEVICE_MEMORY_PEAK.set(mem)
+        metrics.SOLVER_DONATED_SLOTS.set(
+            sum(st.occupancy() for st in self._stagings.values()))
+        rec = fr.RECORDER
+        if not rec.enabled:
+            return
+        mesh = self._mesh if self._mesh_resolved else None
+        delta_mode = self._resolve_delta()
+        cache = self._delta_cache
+        metrics.FLIGHT_RECORDS.inc(kind=kind)
+        rec.record(
+            kind=kind,
+            trace_id=tracing.current_trace_id(),
+            catalog=fr.catalog_identity(cat),
+            fingerprint=fr.problem_fingerprint(enc),
+            pods=len(inp.pods),
+            groups=enc.n_groups,
+            knobs={
+                "max_nodes": self.max_nodes,
+                "mesh": mesh.size if mesh is not None else 0,
+                "delta": delta_mode if delta_mode else "off",
+                "pipeline": pipelining.pipeline_enabled(self.device),
+                "topk_segments": self._last_new_segments,
+                "explain": explainmod.mode_name(self._explain_mode()),
+                # the resolved gang knob: a replay pins it so gang solves
+                # reproduce bit for bit whatever the replaying shell says
+                "gang": knobs.gang_enabled(),
+                # the resolved spec knob + this attempt's chunk count (0
+                # on any non-chunked path)
+                "spec": (self._resolve_spec() or "off"),
+                "spec_chunks": self._last_spec_chunks,
+                "incr": (self._resolve_incr() or "off"),
+            },
+            phase_ms={k: round(v, 3)
+                      for k, v in self.last_phase_ms.items()},
+            # the churn self-description: the dirty-set size is stamped
+            # on EVERY pass through the delta seam; groups re-encoded and
+            # the reuse fraction only when the seeded merge engaged
+            delta={"outcome": cache.last_outcome,
+                   "reason": cache.last_reason,
+                   "dirty": cache.last_dirty,
+                   "reencoded": cache.last_reencoded,
+                   "reuse": cache.last_reuse,
+                   "incr": cache.last_incr_reason},
+            # first-use events (solver/firstuse.py) over this attempt: the
+            # port's counterpart of the reference's retrace count
+            retraces=firstuse.total() - self._flight_fu0,
+            device_memory_peak_bytes=mem,
+            result=fr.result_digest(res),
+            capture=self._flight_capture,
+        )
 
     def _note_explain(self, enc: EncodedProblem, out: Dict) -> None:
         """The solve's elimination totals per constraint class, from the
@@ -1058,6 +1200,9 @@ class TorchSolver:
             ks = np.asarray(kc[:G]).sum(axis=0)
             for i, name in enumerate(explainmod.KERNEL_CONSTRAINTS):
                 totals[name] = int(ks[i])
+        for name, n in totals.items():
+            if n:
+                metrics.SOLVER_CONSTRAINT_ELIM.inc(n, constraint=name)
         self.last_explain = {
             "mode": explainmod.mode_name(exc),
             "groups": G,
@@ -1079,6 +1224,7 @@ class TorchSolver:
         cache.last_outcome, cache.last_reason = "fallback", reason
         self._count(self.delta_passes, "fallback")
         self._count(self.delta_fallbacks, reason)
+        metrics.SOLVER_DELTA_PASSES.inc(outcome="fallback")
         return None
 
     def _incr_fallback(self, reason: str) -> None:
@@ -1088,6 +1234,7 @@ class TorchSolver:
         self._delta_cache.last_incr_reason = reason
         self._count(self.incr_passes, "fallback")
         self._count(self.incr_fallbacks, reason)
+        metrics.SOLVER_INCR_PASSES.inc(outcome="fallback")
         return None
 
     def _try_incr_groups(self, inp: ScheduleInput):
@@ -1116,6 +1263,7 @@ class TorchSolver:
             return self._incr_fallback(built)
         groups, m, reuse = built
         self._count(self.incr_passes, "incr")
+        metrics.SOLVER_INCR_PASSES.inc(outcome="incr")
         self._incr_hints = incrmod.IncrHints(
             rec=snap.rec, groups=groups, m=m, reuse=reuse,
             consumed=consumed, dirty_size=dirty)
@@ -1207,6 +1355,7 @@ class TorchSolver:
         if len(cat.columns) == 0:
             return self._delta_fallback("shape")
         cache = self._delta_cache
+        wall0 = time.time()
         t0 = time.perf_counter()
         rec = cache.get(cat)
         if hints is not None and hints.rec is not rec:
@@ -1274,7 +1423,9 @@ class TorchSolver:
         self._note_explain(enc_m, out_m)
         t3 = time.perf_counter()
         # warm-start continuity: the next solve adapts as after a full pass
-        self._last_active = int(out_m["num_active"])
+        na = self._last_active = int(out_m["num_active"])
+        self._last_new_segments = self._new_segments(
+            out_m["take_new"], enc_m.n_groups, na)
         # an engaged pass stitches the new record from the old one along
         # the plan's reuse map — O(groups + churn), no cluster walk
         new_rec = deltam.make_record(cat, enc_m, out_m, inp,
@@ -1291,11 +1442,24 @@ class TorchSolver:
         cache.last_reencoded = int(sp.reencoded)
         cache.last_reuse = round(1.0 - sp.reencoded / max(Gt, 1), 4)
         self._count(self.delta_passes, "delta")
+        metrics.SOLVER_DELTA_PASSES.inc(outcome="delta")
+        metrics.SOLVER_DELTA_GROUPS_REENCODED.set(sp.reencoded)
         self.last_phase_ms = {
             "delta_encode": (t1 - t0) * 1e3 + self._pregroup_ms,
             "dispatch": disp_s * 1e3, "device": dev_s * 1e3,
             "pull": pull_s * 1e3, "decode": (t3 - t2) * 1e3}
         self._pregroup_ms = 0.0
+        for phase, lo, dur in (
+                ("delta_encode", t0, t1 - t0), ("dispatch", t1, disp_s),
+                ("device", t1 + disp_s, dev_s),
+                ("pull", t1 + disp_s + dev_s, pull_s),
+                ("decode", t2, t3 - t2)):
+            metrics.SOLVER_PHASE_DURATION.observe(
+                dur, phase=phase, path="solve")
+            tracing.record_span(f"solver.phase.{phase}",
+                                wall0 + (lo - t0), dur,
+                                groups_reencoded=sp.reencoded)
+        self._flight_record(inp, cat, enc_m, res, "delta")
         return res
 
     def _delta_store(self, inp: ScheduleInput, cat, enc, out,
@@ -1328,6 +1492,7 @@ class TorchSolver:
         self.last_spec = {"outcome": "fallback", "reason": reason}
         self._count(self.spec_passes, "fallback")
         self._count(self.spec_fallbacks, reason)
+        metrics.SOLVER_SPEC_PASSES.inc(outcome="fallback")
         return None
 
     def _spec_repair_count(self, outcomes) -> None:
@@ -1336,6 +1501,7 @@ class TorchSolver:
         bit) or repaired (re-dispatched from the true seed)."""
         for oc in outcomes:
             self._count(self.spec_chunks, oc)
+            metrics.SOLVER_SPEC_CHUNKS.inc(outcome=oc)
 
     @staticmethod
     def _plan_spec_chunks(n_groups: int, mode):
@@ -1363,7 +1529,7 @@ class TorchSolver:
                 for lo in range(0, n_groups, cb)]
 
     def _try_spec(self, inp: ScheduleInput, cat, enc, groups,
-                  t0: float) -> Optional[ScheduleResult]:
+                  wall0: float, t0: float) -> Optional[ScheduleResult]:
         """The speculative chunk chain: cut the scan into K seeded chunk
         solves (K6) and run them as a chain in which chunk k+1 dispatches
         from a SPECULATED exit seed (the open-new-only projection) while
@@ -1372,7 +1538,10 @@ class TorchSolver:
         re-solves from the truth (counted), so the stitched result equals
         the single program's.  None on any conservative fallback
         (counted).  The gates are the delta seam's, on the live encoding:
-        topology-, gang- and limit-free, one band, no price cap."""
+        topology-, gang- and limit-free, one band, no price cap.  `wall0`
+        and `t0` are the wall and perf clocks at the end of the caller's
+        encode (the phase spans' origin)."""
+        self._last_spec_chunks = 0
         self.last_spec = None
         mode = self._resolve_spec()
         if not mode:
@@ -1534,12 +1703,15 @@ class TorchSolver:
         # warm-start continuity and the delta-base store: the chain's
         # output IS the full solve's
         self._last_active = na
+        self._last_new_segments = self._new_segments(tn, G, na)
         self._delta_store(inp, cat, enc, out_m, groups)
+        self._last_spec_chunks = K
         self.last_spec = {
             "outcome": "spec", "chunks": K,
             "committed": outcomes.count("committed"),
             "repaired": outcomes.count("repaired")}
         self._count(self.spec_passes, "spec")
+        metrics.SOLVER_SPEC_PASSES.inc(outcome="spec")
         # `encode` was stamped before the seam; dispatch/device/pull
         # aggregate over the chain's chunks, and spec_repair is the
         # re-dispatched chunks' wall share (0.0 on a clean chain)
@@ -1547,6 +1719,17 @@ class TorchSolver:
             pad=(t1 - t0) * 1e3, dispatch=disp_s * 1e3,
             device=dev_s * 1e3, pull=pull_s * 1e3,
             decode=(t3 - t2) * 1e3, spec_repair=repair_s * 1e3)
+        for phase, lo_t, dur in (
+                ("pad", t0, t1 - t0), ("dispatch", t1, disp_s),
+                ("device", t1 + disp_s, dev_s),
+                ("pull", t1 + disp_s + dev_s, pull_s),
+                ("spec_repair", max(t2 - repair_s, t1), repair_s),
+                ("decode", t2, t3 - t2)):
+            metrics.SOLVER_PHASE_DURATION.observe(
+                dur, phase=phase, path="solve")
+            tracing.record_span(f"solver.phase.{phase}",
+                                wall0 + (lo_t - t0), dur, spec_chunks=K)
+        self._flight_record(inp, cat, enc, res, "spec")
         return res
 
     # -- the batched paths: the consolidation simulator ------------------
@@ -1985,6 +2168,10 @@ class TorchSolver:
             "encode": encode_ms, "device": device_ms, "decode": decode_ms,
             "per_sim": ((encode_ms + device_ms + decode_ms) / len(eligible)
                         if eligible else 0.0)}
+        for phase, ms in (("encode", encode_ms), ("device", device_ms),
+                          ("decode", decode_ms)):
+            metrics.SOLVER_PHASE_DURATION.observe(
+                ms / 1e3, phase=phase, path="sweep")
         return out_results
 
     def solve_batch(self, inps: List[ScheduleInput],
@@ -2010,7 +2197,8 @@ class TorchSolver:
         if not inps:
             return []
         self._check_device()
-        return self._solve_batch_inner(inps, max_nodes=max_nodes)
+        with tracing.span("solver.solve_batch", sims=len(inps)):
+            return self._solve_batch_inner(inps, max_nodes=max_nodes)
 
     def _solve_batch_inner(self, inps: List[ScheduleInput],
                            max_nodes: Optional[int] = None
@@ -2058,6 +2246,8 @@ class TorchSolver:
         # batch.  A per-batch union cache of existing-node encodings serves
         # simulations that share one snapshot's node OBJECTS; when sharing
         # does not materialize (the union balloons) the cache is dropped
+        wall0 = time.time()
+        t_enc0 = time.perf_counter()
         shared = SharedExistEncoding(cat)
         for inp in inps:
             shared.add_input(inp)
@@ -2074,6 +2264,7 @@ class TorchSolver:
                     inp, cat, exist_shared=shared)))
             except Unsupported:
                 singles.append(i)
+        encode_s = time.perf_counter() - t_enc0
         if len(cat.columns) == 0:
             return [self.solve(inp, max_nodes=max_nodes) for inp in inps]
 
@@ -2107,9 +2298,12 @@ class TorchSolver:
         chunk_size = B_BUCKETS[-1]
         chunks = [encs[s:s + chunk_size]
                   for s in range(0, len(encs), chunk_size)]
+        pad_s = device_s = repair_s = decode_s = 0.0
 
         def dispatch(chunk):
             # stage 1: build + upload + launch, never block
+            nonlocal pad_s, device_s
+            t_pad0 = time.perf_counter()
             B = bucket(len(chunk), B_BUCKETS)
             probs = [self._problem_args(e, G, E, Db, O) for _, e in chunk]
             # pad the batch axis with empty problems (zero groups = no
@@ -2117,18 +2311,26 @@ class TorchSolver:
             while len(probs) < B:
                 probs.append(tuple(np.zeros_like(a) for a in probs[0]))
             batch = ffd.batch_tensors(probs, O, self.device, upload=upload)
-            return pull(ffd.solve_ffd_batch(batch, dev, mn, exc_b,
-                                            sparse_k, with_gang=wg_b,
-                                            with_priority=wp_b))
+            t_dev0 = time.perf_counter()
+            pad_s += t_dev0 - t_pad0
+            handle = pull(ffd.solve_ffd_batch(batch, dev, mn, exc_b,
+                                              sparse_k, with_gang=wg_b,
+                                              with_priority=wp_b))
+            device_s += time.perf_counter() - t_dev0
+            return handle
 
         def complete(chunk, handle):
             # stage 2: wait for this chunk's rows, repair and decode
+            nonlocal device_s, repair_s, decode_s
+            t_pull0 = time.perf_counter()
             packed = wait(handle)
+            device_s += time.perf_counter() - t_pull0
             # capped sims: codes without trees; an uncapped batch entry is
             # a real provisioning request and gets its trees
             self._explain_trees = (bool(self._explain_mode())
                                    and max_nodes is None)
             for bi, (i, enc) in enumerate(chunk):
+                t_dec0 = time.perf_counter()
                 out = ffd.unpack(packed[bi], G, E, mn, R, Db,
                                  sparse_k=sparse_k, explain=exc_b,
                                  with_priority=wp_b)
@@ -2140,6 +2342,8 @@ class TorchSolver:
                 self._repair_whole_node(enc, out)
                 self._repair_gang(enc, out)
                 self._repair_topology(enc, out)
+                t_dec1 = time.perf_counter()
+                repair_s += t_dec1 - t_dec0
                 res = self._decode(enc, out)
                 if res.unschedulable and not (
                         max_nodes is not None and exhausted):
@@ -2149,9 +2353,23 @@ class TorchSolver:
                     self._residue_counted = set()
                     self._last_oracle_judged = set()
                     res = self._rescue_stranded(inps[i], res)
+                decode_s += time.perf_counter() - t_dec1
                 out_results[i] = res
 
         pipelining.run_pipeline(chunks, dispatch, complete, enabled=pipe)
+        # the generic batch's phases (path="batch"): unpack + repair as
+        # `repair`, grouping inside `encode`; the spans lay out
+        # sequentially from the batch's start — exact for one chunk,
+        # aggregate across chunks otherwise
+        t_cursor = wall0
+        for phase, secs in (("encode", encode_s), ("pad", pad_s),
+                            ("device", device_s), ("repair", repair_s),
+                            ("decode", decode_s)):
+            metrics.SOLVER_PHASE_DURATION.observe(
+                secs, phase=phase, path="batch")
+            tracing.record_span(f"solver.phase.{phase}", t_cursor, secs,
+                                path="batch")
+            t_cursor += secs
         return out_results
 
     # -- warm-up ------------------------------------------------------------
@@ -2377,6 +2595,7 @@ class TorchSolver:
             tn = out["take_new"][gi, :num_active]
             if int((te > 0).sum()) + int((tn > 0).sum()) <= 1:
                 continue
+            metrics.SOLVER_HOST_REPAIRS.inc(kind="whole_node")
             self._strand_group(enc, out, gi, te, tn)
 
     @staticmethod
@@ -2423,6 +2642,7 @@ class TorchSolver:
             if ok:
                 continue
             self.gang_repairs += 1
+            metrics.SOLVER_GANG_REPAIRS.inc()
             self._strand_group(enc, out, gi, te, tn)
 
     def _repair_topology(self, enc: EncodedProblem,
@@ -2483,6 +2703,8 @@ class TorchSolver:
                     r = min(k, excess - removed)
                     out["take_exist"][gi, ei] -= r
                     removed += r
+                if removed:
+                    metrics.SOLVER_HOST_REPAIRS.inc(kind="topology")
                 out["unsched"][gi] += removed
 
     # -- decode ----------------------------------------------------------

@@ -959,3 +959,124 @@ def disruption_record(env, events, rounds) -> Dict[str, object]:
     return {"acts": acts, "verdicts": dict(sorted(verdicts.items())),
             "retired": float(retired).hex(), "added": float(added).hex(),
             "settles": len(rounds), "rounds": list(rounds)}
+
+
+# -- the observability substrate over a wave ---------------------------------
+# ledger record fields that differ from run to run (wall clock, process,
+# random trace ids); every other field is compared
+LEDGER_NONDETERMINISTIC = ("ts", "pid", "trace_id")
+# the ledger ring a loop's observation needs: every record of the widest
+# wave (phase 19's wave 2 writes ~2,300)
+LEDGER_RING = 100_000
+
+
+@dataclass
+class Observability:
+    """A package's observability modules, for `WaveObserver`: its metrics
+    registry (`utils.metrics`), decision ledger (`utils.ledger`),
+    trajectory judges (`timeline.invariants`), flight recorder
+    (`utils.flightrecorder`) and timeline recorder
+    (`timeline.recorder`)."""
+    metrics: object
+    ledger: object
+    invariants: object
+    flightrecorder: object
+    timeline: object
+
+    def reset(self) -> None:
+        """Empty the three process-global rings, as a fresh process has
+        them (their sequence numbers restart at 1), the ledger's wide
+        enough for a whole wave (`ledger.ensure_buffer`; an explicit
+        KARPENTER_TPU_LEDGER_BUFFER wins)."""
+        self.ledger.ensure_buffer(LEDGER_RING)
+        self.ledger.LEDGER.reset()
+        self.flightrecorder.RECORDER.reset()
+        self.timeline.RECORDER.reset()
+
+
+def port_observability() -> Observability:
+    from karpenter_tpu_torch.timeline import invariants, recorder
+    from karpenter_tpu_torch.utils import flightrecorder, ledger, metrics
+    return Observability(metrics=metrics, ledger=ledger,
+                         invariants=invariants,
+                         flightrecorder=flightrecorder, timeline=recorder)
+
+
+class WaveObserver:
+    """What the decision ledger and the timeline recorded over one wave of
+    a loop, read by attribute from either package's modules (`obs`, an
+    `Observability`).  `start(cluster)` notes the counters, the ledger's
+    newest row and the pods the workload has fed in; `finish(cluster)`
+    returns:
+
+    * `ledger`: the wave's records by source (`LEDGER_RECORDS`), the
+      IEEE-hex sums of their savings and added spend (summed in record
+      order, termination records excluded as `summarize` excludes them),
+      and the sha256 of the records with `LEDGER_NONDETERMINISTIC`
+      removed — the ring must hold the whole wave
+      (`ledger.ensure_buffer`);
+    * `timeline`: the wave's events by kind (`TIMELINE_EVENTS`: the ring
+      is bounded, the counter is not);
+    * `verdict`: the trajectory judges' booleans over the wave
+      (`TrajectoryAuditor.report`): the ledger's hex-exact cost chain,
+      the rows it checked, and no pod fed in before the wave lost."""
+
+    def __init__(self, obs: Observability):
+        self.obs = obs
+
+    def start(self, cluster) -> None:
+        from karpenter_tpu_torch.utils.telemetry import _series
+        m = self.obs.metrics
+        self._events0 = _series(m.TIMELINE_EVENTS)
+        self._records0 = _series(m.LEDGER_RECORDS)
+        self._seq0 = self.obs.ledger.LEDGER.last_seq() or 0
+        self._expected = {p.meta.name for p in cluster.pods.list()}
+
+    def records(self) -> List[dict]:
+        """The ledger's records of this wave (the ring's rows after the
+        newest one at `start`)."""
+        led = self.obs.ledger.LEDGER
+        return [r for r in led.tail(len(led)) if r["seq"] > self._seq0]
+
+    def finish(self, cluster) -> Dict[str, object]:
+        import hashlib
+        import json
+
+        from karpenter_tpu_torch.utils.telemetry import _series
+        m = self.obs.metrics
+        recs = self.records()
+
+        def delta(now, then):
+            return {k: v - then.get(k, 0) for k, v in sorted(now.items())
+                    if v != then.get(k, 0)}
+        by_source = delta(_series(m.LEDGER_RECORDS), self._records0)
+        if sum(by_source.values()) != len(recs):
+            raise RuntimeError(
+                f"the ledger's ring holds {len(recs)} of the wave's "
+                f"{sum(by_source.values())} records")
+        savings = added = 0.0
+        for r in recs:
+            if r["source"] == "termination":
+                continue
+            if r["cost_delta"] < 0:
+                savings += -r["cost_delta"]
+            else:
+                added += r["cost_delta"]
+        stripped = [{k: v for k, v in r.items()
+                     if k not in LEDGER_NONDETERMINISTIC} for r in recs]
+        auditor = self.obs.invariants.TrajectoryAuditor()
+        auditor.expected_pods = set(self._expected)
+        rep = auditor.report(cluster, recs, {})
+        verdict = {k: rep[k] for k in (
+            "ledger_hex_exact", "ledger_rows_checked", "zero_lost_pods",
+            "zero_gang_atomicity_violations", "zero_priority_inversions",
+            "audit_clean")}
+        return {
+            "ledger": {"records": by_source,
+                       "savings": float(savings).hex(),
+                       "added": float(added).hex(),
+                       "digest": hashlib.sha256(json.dumps(
+                           stripped, sort_keys=True,
+                           default=str).encode()).hexdigest()[:16]},
+            "timeline": delta(_series(m.TIMELINE_EVENTS), self._events0),
+            "verdict": verdict}

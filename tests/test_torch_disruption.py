@@ -349,11 +349,26 @@ def test_fuzz_seed_matches_reference(seed):
 
 def _pin():
     """The JAX loop's answers at chip_smoke.py's size, in the form
-    chip_smoke.py pins them (chip_smoke.DISRUPTION_LOOP)."""
+    chip_smoke.py pins them (chip_smoke.DISRUPTION_LOOP), each followed by
+    what its decision ledger and timeline recorded over the wave
+    (`workloads.WaveObserver`, chip_smoke.DISRUPTION_OBSERVED)."""
     import chip_smoke
-    waves, _ = run_loop(JAX, workloads.DISRUPTION_NODES)
-    for answer in waves:
+    from karpenter_tpu.timeline import invariants, recorder
+    from karpenter_tpu.utils import flightrecorder, ledger, metrics
+    obs = workloads.Observability(
+        metrics=metrics, ledger=ledger, invariants=invariants,
+        flightrecorder=flightrecorder, timeline=recorder)
+    obs.reset()
+    watch = workloads.WaveObserver(obs)
+    env = workloads.disruption_loop(
+        workloads.DISRUPTION_NODES, options=_options(JAX),
+        catalog=fresh_catalog(JAX), pkg=loop_pkg(JAX))
+    w = workloads.DisruptionWaves(env)
+    for wave in (w.wave1, w.wave2, w.wave3):
+        watch.start(env.cluster)
+        answer = wave()
         print(chip_smoke.disruption_pin(answer))
+        print(watch.finish(env.cluster))
 
 
 if __name__ == "__main__":

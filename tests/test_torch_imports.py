@@ -80,6 +80,24 @@ def test_the_walk_covers_the_disruption_loop():
         assert f"karpenter_tpu_torch.{mod}" in mods, mod
 
 
+# the observability substrate, which the walk above must reach too (the
+# subprocess import and the AST scan below then cover it)
+OBSERVABILITY = (
+    "utils.flightrecorder", "utils.ledger", "utils.telemetry",
+    "utils.profiling", "timeline", "timeline.events", "timeline.recorder",
+    "timeline.invariants", "timeline.generators")
+
+
+def test_the_walk_covers_the_observability_substrate():
+    mods = set(_modules())
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in OBSERVABILITY:
+        assert f"karpenter_tpu_torch.{mod}" in mods, mod
+        path = os.path.join("karpenter_tpu_torch", *mod.split("."))
+        assert (path + ".py" in files
+                or os.path.join(path, "__init__.py") in files), mod
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, importlib\n"

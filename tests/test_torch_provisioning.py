@@ -297,11 +297,27 @@ def test_remote_solver_endpoint_waits_for_slice_6():
 
 
 def _pin():
-    """The JAX loop's answers at chip_smoke.py's size (chip_smoke.LOOP)."""
+    """The JAX loop's answers at chip_smoke.py's size (chip_smoke.LOOP),
+    then what its decision ledger and timeline recorded over each wave
+    (`workloads.WaveObserver`, chip_smoke.LOOP_OBSERVED)."""
     import chip_smoke
-    loop = build_loop(JAX, chip_smoke.LOOP_PODS)
-    for answer, seams in run_waves(loop, chip_smoke.LOOP_WAVE2):
+    from karpenter_tpu.timeline import invariants, recorder
+    from karpenter_tpu.utils import flightrecorder, ledger, metrics
+    for answer, seams in run_waves(build_loop(JAX, chip_smoke.LOOP_PODS),
+                                   chip_smoke.LOOP_WAVE2):
         print(answer, seams)
+    obs = workloads.Observability(
+        metrics=metrics, ledger=ledger, invariants=invariants,
+        flightrecorder=flightrecorder, timeline=recorder)
+    obs.reset()
+    watch = workloads.WaveObserver(obs)
+    loop = build_loop(JAX, chip_smoke.LOOP_PODS)
+    for wave in (1, 2):
+        if wave == 2:
+            add_pods(loop, chip_smoke.LOOP_WAVE2, "w", workloads.WAVE2_SIZES)
+        watch.start(loop.cluster)
+        loop.manager.run_until_idle()
+        print(watch.finish(loop.cluster))
 
 
 if __name__ == "__main__":
