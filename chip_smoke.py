@@ -103,7 +103,7 @@ Phases (any failure exits non-zero):
      (in a child process that has launched nothing), one whose solver is
      warmed first as the provisioner's startup warm-up does — its first
      solve must meet zero first-use events (solver/firstuse.py) — and
-     two more on fresh clusters; wall time to idle and per round, the
+     one more on a fresh cluster; wall time to idle and per round, the
      provisioner's spans, the controllers' times and the solve phases,
      with p50s;
  19. the disruption control loop (workloads.disruption_loop, run after
@@ -127,7 +127,26 @@ Phases (any failure exits non-zero):
      disruption.* spans, each controller's reconcile ms, solve_batch's
      calls, simulations (those K4's sweep answered) and phases, the
      launch shapes (B, G, E, N) of every K5 and K4 launch, and the
-     first-use events of the first disruption pass.
+     first-use events of the first disruption pass;
+ 20. the external cluster stores (run after phase 19): (a) a store daemon
+     started as its own process (`python -m karpenter_tpu_torch.store
+     <socket>`) and phase 18's loop at full scale with its cluster on a
+     RemoteBackend to it — every wave LOOP and LOOP_OBSERVED, K5 and its
+     epilogue launched, no oracle solve, no SolverFallback, kt_hostops
+     loaded; the store round trips a wave and their ms beside phase 18's
+     p50; the daemon stopped with SIGTERM and its exit code 0; (b) the
+     kube list/watch store (FakeApiServer + HttpBackend) and the same loop
+     at HTTP_LOOP_PODS + HTTP_LOOP_WAVE2 pods, held to the JAX loop
+     through its own http store at that size (HTTP_LOOP,
+     HTTP_LOOP_OBSERVED); each store's put timed over 200 puts first;
+     (c) a GatedSolver on the card solving the headline's first 2,000
+     pods twice under a one-shot `solver.dispatch` error
+     (`faults.arm`, never the environment variable): the first solve
+     launches nothing and raises FaultInjected, as every failure of the
+     device solve does on the card (no oracle solve, no SolverFallback
+     event; one fault.inject timeline event, the fault fired once), the
+     second launches K5 and gives the JAX device answer
+     (FAULT_SOLVES[1]); disarmed after.
 
 Phase 3 also holds K5's gang instance, the witness and the epilogue's map
 and with_gang class against their plain versions on seeded gang and priority
@@ -149,7 +168,7 @@ and the take_exist compaction of K4's epilogue as the difference of K4
 with and without it in turns, beside its plain version and its bound.
 The three recorders (flight, ledger, timeline) stay on, their defaults,
 in every phase; each loop empties their rings first, as a fresh process
-has them.
+has them.  The fault registry stays disarmed outside phase 20(c).
 The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.  `--child MODE`
@@ -315,7 +334,7 @@ MESH_CONFIG7_PASSES = 5   # config #7 under the mesh: gen 0 and 4 passes
 # per wave as `workloads.loop_answer` gives it
 LOOP_PODS = 50_000
 LOOP_WAVE2 = 2_000
-LOOP_FRESH = 2            # loops on fresh clusters after the cold one
+LOOP_FRESH = 1            # loops on fresh clusters after the cold one
 LOOP = (
     {"instances": 782, "instances_digest": "81ea05461e218a66",
      "price": "0x1.c192b9cb684b1p+12", "nodes": 782,
@@ -422,6 +441,62 @@ DISRUPTION_OBSERVED = (
                   "store.nodes.deleted": 60, "store.nodes.modified": 322,
                   "store.pods.modified": 3569},
      "verdict": dict(_VERDICT, ledger_rows_checked=128)},
+)
+
+# The external cluster stores (phase 20).  (a) The same loop at full
+# scale through a store daemon in a process of its own
+# (`python -m karpenter_tpu_torch.store`): it must give LOOP and
+# LOOP_OBSERVED, which the JAX loop gives through its own daemon too
+# (tests/test_torch_store.py).  (b) The loop through the kube list/watch
+# store (FakeApiServer + HttpBackend) at a reduced size: wave 1 holds
+# HTTP_LOOP_PODS of the headline's eight sizes and wave 2 HTTP_LOOP_WAVE2
+# of its two smallest; the catalog and pool stay.  The size keeps every
+# write of the loop inside the protocol's windows (HTTP_WINDOW retained
+# events, as many own write ids), so the records cannot depend on how far
+# the watch thread lags; the JAX pin through its own http store takes
+# ~44 ms a request on a host whose loopback delays the ACK.  The JAX
+# loop's answer and records at that size (`python3
+# tests/test_torch_store.py --pin` prints them)
+HTTP_LOOP_PODS = 1_024
+HTTP_LOOP_WAVE2 = 128
+HTTP_WINDOW = 4_096
+HTTP_LOOP = (
+    {"instances": 16, "instances_digest": "e19e9e008113c2c3",
+     "price": "0x1.26b1c432ca57ap+7", "nodes": 16,
+     "pods_per_node_digest": "e68c8fe2605958ff", "bound": 1024,
+     "unbound": 0, "rounds": 4},
+    {"instances": 16, "instances_digest": "e19e9e008113c2c3",
+     "price": "0x1.26b1c432ca57ap+7", "nodes": 16,
+     "pods_per_node_digest": "ee47ec64ded9dbc4", "bound": 1152,
+     "unbound": 0, "rounds": 2},
+)
+HTTP_LOOP_OBSERVED = (
+    {"ledger": {"records": {"provisioning": 1}, "savings": "0x0.0p+0",
+                "added": "0x1.26b1c432ca57ap+7",
+                "digest": "c961635a4f32bad2"},
+     "timeline": {"store.nodeclaims.added": 16,
+                  "store.nodeclaims.modified": 48, "store.nodes.added": 16,
+                  "store.nodes.modified": 48, "store.pods.modified": 2048},
+     "verdict": dict(_VERDICT, ledger_rows_checked=1)},
+    {"ledger": {"records": {}, "savings": "0x0.0p+0", "added": "0x0.0p+0",
+                "digest": "4f53cda18c2baa0c"},
+     "timeline": {"store.pods.modified": 128},
+     "verdict": dict(_VERDICT, ledger_rows_checked=0)},
+)
+STORE_PROBE_PUTS = 200    # sequential puts timed on each store first
+# (c) GatedSolver under a one-shot `solver.dispatch` error, solving the
+# headline's first FAULT_PODS pods twice.  The JAX package's answers to
+# the two solves (nodes, unschedulable, hex price, `result_digest`): the
+# first the oracle's (its SolverFallback route, which the port takes on
+# the CPU), the second the device path's; tests/test_torch_faults.py holds
+# the port on the CPU to both.  On the card the injected fault raises, and
+# the second solve must give FAULT_SOLVES[1]
+FAULT_PODS = 2_000
+FAULT_SOLVES = (
+    (32, 0, "0x1.1e4536501e258p+8",
+     "7b4ba97a94c010c631f73005d4c425d3a7e3c207868e213e760c6e674847f573"),
+    (32, 0, "0x1.1e4536501e258p+8",
+     "735fc324c99c34c86b737765ca507aa759246912c5158380231f1d55f5cae8a7"),
 )
 
 # H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM bytes/s and
@@ -1965,18 +2040,22 @@ def _config13(ffd, card, TorchSolver, build_config13):
 
 
 # -- 18. the provisioning control loop ---------------------------------------
-def _loop_run(card, warm_up=False, capture=None):
+def _loop_run(card, warm_up=False, capture=None, n_pods=LOOP_PODS,
+              n_wave2=LOOP_WAVE2, store_backend=None, rpcs=None):
     """One provisioning loop on a fresh cluster (workloads.provisioning_loop,
-    Options(batch_idle_duration=0)): wave 1 the headline's LOOP_PODS pods,
-    wave 2 LOOP_WAVE2 pods of its two smallest sizes landing on wave 1's
-    nodes.  With `warm_up`, its GatedSolver is warmed first as the
+    Options(batch_idle_duration=0)): wave 1 the headline's first `n_pods`
+    pods, wave 2 `n_wave2` pods of its two smallest sizes landing on wave
+    1's nodes.  With `warm_up`, its GatedSolver is warmed first as the
     provisioner's startup warm-up does (a one-pod input, shapes (8, e) and
     (512, e)).  With a list as `capture`, each wave appends to it the
     arguments of the one-problem and seeded solves it launched
     (`_SolveCapture`, `_DeltaCapture`), for phase 3 to hold those launches
-    to their plain versions.  Every kernel count is set to 0 just before
-    each wave and read just after.  Returns one record per wave and the
-    warm-up's."""
+    to their plain versions.  `store_backend` is the cluster's store (the
+    in-memory one by default); `rpcs`, a `_rpc_tally` of that backend,
+    gives each wave its store round trips and their ms (and wave 1 the
+    set-up's: the pods created before it).  Every kernel count is set to
+    0 just before each wave and read just after.  Returns one record per
+    wave and the warm-up's."""
     import contextlib
     import torch
     from karpenter_tpu_torch import native, workloads
@@ -1990,8 +2069,13 @@ def _loop_run(card, warm_up=False, capture=None):
     obs = workloads.port_observability()
     obs.reset()
     watch = workloads.WaveObserver(obs)
+    t_setup = time.perf_counter()
     loop = workloads.provisioning_loop(
-        LOOP_PODS, Options(batch_idle_duration=0), device="cuda")
+        n_pods, Options(batch_idle_duration=0), device="cuda",
+        store_backend=store_backend)
+    setup = {"ms": (time.perf_counter() - t_setup) * 1e3}
+    if rpcs is not None:
+        setup.update(rpcs=rpcs["n"], rpc_ms=rpcs["s"] * 1e3)
     warm = None
     if warm_up:
         pod = Pod(meta=ObjectMeta(name="karpenter-warmup"),
@@ -2031,7 +2115,8 @@ def _loop_run(card, warm_up=False, capture=None):
         for wave in (1, 2):
             if wave == 2:
                 loop.add_pods(workloads.headline_pods(
-                    LOOP_WAVE2, prefix="w", sizes=workloads.WAVE2_SIZES))
+                    n_wave2, prefix="w", sizes=workloads.WAVE2_SIZES))
+            rpc0 = dict(rpcs) if rpcs is not None else None
             ctl_s.clear()
             round_ms.clear()
             tracing.reset()
@@ -2074,24 +2159,31 @@ def _loop_run(card, warm_up=False, capture=None):
                           cache.last_incr_reason),
                 "observed": observed,
                 "hostops": native.hostops() is not None})
+            if rpcs is not None:
+                waves[-1]["store"] = {
+                    "rpcs": rpcs["n"] - rpc0["n"],
+                    "rpc_ms": (rpcs["s"] - rpc0["s"]) * 1e3}
+                if wave == 1:
+                    waves[-1]["store"]["setup"] = setup
     finally:
         tracing.set_enabled(None)
         tracing.reset()
     return waves, warm
 
 
-def _loop_check(waves, label):
-    """What phase 18 holds each wave to: the pinned JAX answer and what the
-    JAX loop's ledger and timeline recorded (LOOP_OBSERVED), K5 and its
-    explain epilogue launched, no oracle solve, no SolverFallback event,
-    kt_hostops loaded."""
+def _loop_check(waves, label, answers=LOOP, observed=LOOP_OBSERVED):
+    """What phases 18 and 20 hold each wave to: the pinned JAX answer
+    (`answers`) and what the JAX loop's ledger and timeline recorded
+    (`observed`), K5 and its explain epilogue launched, no oracle solve,
+    no SolverFallback event, kt_hostops loaded."""
     bad = []
     for i, w in enumerate(waves):
-        if w["answer"] != LOOP[i]:
-            bad.append(f"{label} wave {i + 1}: {w['answer']} != {LOOP[i]}")
-        if w["observed"] != LOOP_OBSERVED[i]:
+        if w["answer"] != answers[i]:
+            bad.append(f"{label} wave {i + 1}: {w['answer']} != "
+                       f"{answers[i]}")
+        if w["observed"] != observed[i]:
             bad.append(f"{label} wave {i + 1}: recorded {w['observed']} "
-                       f"!= {LOOP_OBSERVED[i]}")
+                       f"!= {observed[i]}")
         for k in ("ffd_batch_scan", "explain_pack"):
             if w["launches"][k] <= 0:
                 bad.append(f"{label} wave {i + 1}: {k} not launched")
@@ -2136,14 +2228,14 @@ def _loop_phase(card, add, captured):
     launches with `add`; returns what failed."""
     cold, err = _run_child("cold-loop")
     if cold is None:
-        return [f"the cold loop failed: {err}"]
+        return [f"the cold loop failed: {err}"], None
     runs = {"cold": cold["waves"]}
     warmed, warm = _loop_run(card, warm_up=True)
     runs["warmed"] = warmed
     for i in range(LOOP_FRESH):
         runs[f"fresh {i + 1}"] = _loop_run(
             card, capture=captured if i == 0 else None)[0]
-    bad = []
+    bad, p50 = [], []
     for i, (w, cap) in enumerate(zip(runs["fresh 1"], captured)):
         n = {"ffd_batch_scan": len(cap["solve"]),
              "ffd_delta_scan": len(cap["delta"])}
@@ -2173,8 +2265,9 @@ def _loop_phase(card, add, captured):
     if warmed[0]["first_use"]:
         bad.append(f"the warmed solver's first solve met "
                    f"{warmed[0]['first_use']} first-use events")
-    p50_runs = [runs["cold"]] + [runs[k] for k in runs
-                                 if k.startswith("fresh")]
+    # the p50 of the fresh loops alone: the cold loop pays its process's
+    # first use and the warmed one its warm-up, each printed above
+    p50_runs = [runs[k] for k in runs if k.startswith("fresh")]
     for i in (0, 1):
         ws = [r[i] for r in p50_runs]
         spans = {k: _p50([w["spans_ms"].get(k, 0.0) for w in ws])
@@ -2184,15 +2277,251 @@ def _loop_phase(card, add, captured):
                for k in ws[0]["controller_ms"]}
         phases = {k: _p50([w["phase_ms"].get(k, 0.0) for w in ws])
                   for k in ws[0]["phase_ms"]}
-        print(f"[18] wave {i + 1} p50 over the cold loop and {LOOP_FRESH} "
-              f"fresh ones on {card}: to idle "
-              f"{_p50([w['wall_ms'] for w in ws]):.1f} ms; spans ms "
+        p50.append(_p50([w["wall_ms"] for w in ws]))
+        print(f"[18] wave {i + 1} p50 over {LOOP_FRESH} fresh loop(s) "
+              f"on {card}: to idle {p50[-1]:.1f} ms; spans ms "
               + ", ".join(f"{k} {v:.1f}" for k, v in spans.items())
               + "; controllers ms "
               + ", ".join(f"{k} {v:.1f}" for k, v in ctl.items())
               + "; solve phases ms "
               + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()),
               flush=True)
+    return bad, p50
+
+
+# -- 20. the external cluster stores and the restored dispatch hook ---------
+def _rpc_tally(backend, attr):
+    """Wrap `backend.<attr>` (one store round trip: RemoteBackend._call,
+    HttpBackend._request) to count its calls and their seconds; returns
+    the running tally {"n", "s"}."""
+    tally = {"n": 0, "s": 0.0}
+    inner = getattr(backend, attr)
+
+    def counted(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return inner(*a, **kw)
+        finally:
+            tally["n"] += 1
+            tally["s"] += time.perf_counter() - t
+    setattr(backend, attr, counted)
+    return tally
+
+
+def _probe_puts(backend, n=STORE_PROBE_PUTS):
+    """ms a put: `n` sequential creates of one small pod each into a kind
+    no cluster reads."""
+    from karpenter_tpu_torch.models import ObjectMeta, Pod, Resources
+    t = time.perf_counter()
+    for i in range(n):
+        ok = backend.put("probe", f"x{i}", Pod(
+            meta=ObjectMeta(name=f"x{i}"),
+            requests=Resources.parse({"cpu": "1", "memory": "1Gi"})),
+            verb="added")
+        if not ok:
+            raise RuntimeError(f"probe put {i} was rejected")
+    return (time.perf_counter() - t) * 1e3 / n
+
+
+def _start_store_daemon():
+    """`python -m karpenter_tpu_torch.store <socket>` as a child process
+    (the store in a process of its own, as deployed); returns the process,
+    its socket and the socket's directory once it listens."""
+    import select
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    sockdir = tempfile.mkdtemp(prefix="kt_store_")
+    sock = os.path.join(sockdir, "store.sock")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch.store", sock],
+        stdout=subprocess.PIPE, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    ready, _, _ = select.select([proc.stdout], [], [], 60)
+    line = proc.stdout.readline() if ready else ""
+    if not line.strip().endswith(sock):
+        proc.kill()
+        proc.wait()
+        raise RuntimeError(f"the store daemon did not start: {line!r}")
+    return proc, sock, sockdir
+
+
+def _stop_store_daemon(proc, sockdir):
+    """SIGTERM the daemon; its exit code (killed after 60 s: -9)."""
+    import shutil
+    proc.terminate()
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = -9
+    proc.stdout.close()
+    shutil.rmtree(sockdir, ignore_errors=True)
+    return rc
+
+
+def _store_print(label, waves, card, p50=None):
+    _loop_print(label, waves, card)
+    for i, w in enumerate(waves):
+        st = w["store"]
+        setup = st.get("setup")
+        print(f"[{label}] wave {i + 1} on {card}: to idle "
+              f"{w['wall_ms']:.1f} ms"
+              + (f" (phase 18's fresh loops' p50 {p50[i]:.1f} ms)"
+                 if p50 else "")
+              + f"; store round trips {st['rpcs']}, "
+              f"{st['rpc_ms']:.1f} ms in them, "
+              f"{st['rpc_ms'] / max(1, st['rpcs']):.4f} ms each"
+              + (f"; set-up (the pods created before wave 1) "
+                 f"{setup['ms']:.1f} ms, {setup['rpcs']} round trips, "
+                 f"{setup['rpc_ms'] / max(1, setup['rpcs']):.4f} ms each"
+                 if setup else ""), flush=True)
+
+
+def _stores_phase(card, add, p50=None):
+    """Phase 20 (a) and (b): the provisioning loop through a store daemon
+    in its own process at full scale (LOOP, LOOP_OBSERVED), then through
+    the kube list/watch store at HTTP_LOOP_PODS + HTTP_LOOP_WAVE2 pods
+    (HTTP_LOOP, HTTP_LOOP_OBSERVED); each store's put timed first.  Every
+    wave held by `_loop_check`; the daemon's exit code must be 0.  Adds
+    the loops' launches with `add`; returns what failed."""
+    from karpenter_tpu_torch.store import (
+        FakeApiServer,
+        HttpBackend,
+        RemoteBackend,
+    )
+    bad = []
+    proc, sock, sockdir = _start_store_daemon()
+    try:
+        probe = RemoteBackend(sock)
+        put_ms = _probe_puts(probe)
+        probe.close()
+        backend = RemoteBackend(sock)
+        tally = _rpc_tally(backend, "_call")
+        waves, _ = _loop_run(card, store_backend=backend, rpcs=tally)
+        backend.close()
+    finally:
+        rc = _stop_store_daemon(proc, sockdir)
+    print(f"[20a] store daemon (pid {proc.pid}) on {card}: "
+          f"{STORE_PROBE_PUTS} puts {put_ms:.4f} ms each; exit code {rc}",
+          flush=True)
+    _store_print("20a remote", waves, card, p50)
+    bad += _loop_check(waves, "20a remote")
+    if rc != 0:
+        bad.append(f"the store daemon exited with {rc}")
+    for w in waves:
+        add(w["launches"])
+
+    srv = FakeApiServer()
+    try:
+        probe = HttpBackend(srv.url)
+        put_ms = _probe_puts(probe)
+        probe.close()
+    finally:
+        srv.close()
+    print(f"[20b] fake apiserver on {card}: {STORE_PROBE_PUTS} puts "
+          f"{put_ms:.4f} ms each", flush=True)
+    srv = FakeApiServer()
+    try:
+        backend = HttpBackend(srv.url)
+        tally = _rpc_tally(backend, "_request")
+        waves, _ = _loop_run(card, n_pods=HTTP_LOOP_PODS,
+                             n_wave2=HTTP_LOOP_WAVE2, store_backend=backend,
+                             rpcs=tally)
+        backend.close()
+        writes = srv._rv
+    finally:
+        srv.close()
+    _store_print("20b http", waves, card)
+    print(f"[20b] the loop's server took {writes} writes (its windows hold "
+          f"{HTTP_WINDOW})", flush=True)
+    bad += _loop_check(waves, "20b http", HTTP_LOOP, HTTP_LOOP_OBSERVED)
+    if writes > HTTP_WINDOW:
+        bad.append(f"20b http: {writes} writes overran the {HTTP_WINDOW}-"
+                   f"entry windows, so its records may depend on timing")
+    for w in waves:
+        add(w["launches"])
+    return bad
+
+
+def _fault_phase(card, add):
+    """Phase 20 (c): a GatedSolver on the card solves the headline's first
+    FAULT_PODS pods twice under `faults.arm("solver.dispatch", "error",
+    times=1)`.  On the card an injected fault raises like any other
+    failure of the device solve: the first solve must raise
+    `FaultInjected` having launched nothing, with no oracle solve and no
+    SolverFallback event, one fault.inject timeline event and the fault
+    fired once; the second must launch K5 and give the JAX package's
+    device answer FAULT_SOLVES[1].  Adds the second solve's launches with
+    `add`; returns what failed."""
+    import torch
+    from karpenter_tpu_torch.cluster import Cluster
+    from karpenter_tpu_torch.controllers.state import GatedSolver
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.solver import ffd
+    from karpenter_tpu_torch.timeline import recorder
+    from karpenter_tpu_torch.utils import faults, metrics
+    from karpenter_tpu_torch.workloads import build_input
+
+    cluster = Cluster()
+    gs = GatedSolver(Options(), cluster, device="cuda")
+    inp = build_input(FAULT_PODS)
+    recorder.RECORDER.reset()
+    oracle0 = metrics.SOLVER_SOLVES.value(path="oracle")
+    out = []
+    faults.arm("solver.dispatch", "error", times=1)
+    try:
+        for _ in range(2):
+            _reset_launches(ffd)
+            t0 = time.perf_counter()
+            try:
+                res = gs.solve(inp, source="provisioning")
+                answer = (len(res.new_claims), len(res.unschedulable),
+                          float(res.total_price()).hex(), result_digest(res))
+            except faults.FaultInjected as e:
+                answer = f"raised {type(e).__name__}: {e}"
+            torch.cuda.synchronize()
+            out.append({
+                "answer": answer,
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "launches": _read_launches(ffd),
+                "oracle": metrics.SOLVER_SOLVES.value(path="oracle")
+                - oracle0,
+                "fallbacks": [e[1:5] for e in cluster.events
+                              if e[3] == "SolverFallback"]})
+        fired = faults.fire_count("solver.dispatch")
+    finally:
+        faults.disarm()
+    r = recorder.RECORDER
+    injects = [e["name"] for e in r.tail(len(r))
+               if e["kind"] == "fault.inject"]
+    for i, o in enumerate(out):
+        shown = o["answer"] if i == 0 else o["answer"][:3]
+        print(f"[20c] armed solve {i + 1} on {card}: {shown} in "
+              f"{o['ms']:.1f} ms; launches "
+              f"{ {k: v for k, v in o['launches'].items() if v} }; oracle "
+              f"solves {o['oracle']}, SolverFallback events "
+              f"{o['fallbacks']}", flush=True)
+    print(f"[20c] fault fired {fired} time(s); fault.inject events "
+          f"{injects}", flush=True)
+    first, second = out
+    bad = []
+    want = "raised FaultInjected: injected fault at 'solver.dispatch' (error)"
+    if first["answer"] != want:
+        bad.append(f"the faulted solve: {first['answer']}, not {want!r}")
+    if any(first["launches"].values()):
+        bad.append(f"the faulted solve launched {first['launches']}")
+    if second["answer"] != FAULT_SOLVES[1]:
+        bad.append(f"the second solve: {second['answer']} != "
+                   f"{FAULT_SOLVES[1]}")
+    if second["oracle"] or second["fallbacks"]:
+        bad.append(f"the card fell back: {second['oracle']} oracle solves, "
+                   f"{second['fallbacks']}")
+    if second["launches"]["ffd_batch_scan"] <= 0:
+        bad.append("the second solve did not launch ffd_batch_scan")
+    if fired != 1 or injects != ["solver.dispatch"]:
+        bad.append(f"fired {fired}, fault.inject events {injects}")
+    add(second["launches"])
     return bad
 
 
@@ -2642,7 +2971,7 @@ def main(argv) -> int:
     # phase launches a kernel, so that the warm-up check starts from a
     # process that has launched nothing -------------------------------------
     loop_calls = []
-    bad = _loop_phase(card, add, loop_calls)
+    bad, loop_p50 = _loop_phase(card, add, loop_calls)
     if bad:
         print(f"chip_smoke: the provisioning loop failed: {bad}",
               file=sys.stderr)
@@ -2654,6 +2983,14 @@ def main(argv) -> int:
     if bad:
         print(f"chip_smoke: the disruption loop failed: {bad}",
               file=sys.stderr)
+        return 1
+
+    # -- 20. the external cluster stores and the restored dispatch hook ---
+    bad = _stores_phase(card, add, loop_p50)
+    bad += _fault_phase(card, add)
+    if bad:
+        print(f"chip_smoke: the external stores or the dispatch fault "
+              f"failed: {bad}", file=sys.stderr)
         return 1
 
     # -- 3. kernels against their plain versions ---------------------------

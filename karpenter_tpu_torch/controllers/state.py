@@ -121,7 +121,9 @@ class GatedSolver:
     answers only the pods the encoder cannot express (`UnsupportedPods`):
     a kernel that fails to build or launch, or any other error of the
     device solve or its warm-up, propagates to the caller instead of
-    moving the work to the CPU unseen.  A solver on the CPU keeps the
+    moving the work to the CPU unseen.  A fault armed at the
+    `solver.dispatch` point (`utils/faults.py`) is such an error: on the
+    card it raises too.  A solver on the CPU keeps the
     reference's degrade-to-the-oracle behaviour.  The remote solver client of
     `options.solver_endpoint` and its degraded mode (an in-process solver
     behind the open breaker) are still to port (slice 6b): with an

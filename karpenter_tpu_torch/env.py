@@ -7,10 +7,7 @@ The port's copy of `karpenter_tpu/env.py`, with the reference's
 construction order and controller order.  One argument is the port's
 own: `device` ("cuda", the card, by default; "cpu" runs the kernels'
 plain versions) is the device of the shared `GatedSolver`'s
-`TorchSolver`.  The external stores of the cluster-store seam
-(``KARPENTER_TPU_STORE_BACKEND=remote`` or ``http``) come with slice 5c:
-with either set and no explicit `store_backend`, construction raises
-NotImplementedError.
+`TorchSolver`.
 """
 
 from __future__ import annotations
@@ -56,6 +53,18 @@ from karpenter_tpu_torch.utils.cache import UnavailableOfferings
 from karpenter_tpu_torch.utils.clock import Clock, FakeClock
 
 
+def _close_store(backend, daemon, sockdir) -> None:
+    """Module-level so the Environment finalizer holds no self-reference
+    (a bound method would keep the environment alive forever)."""
+    try:
+        backend.close()
+    finally:
+        daemon.close()
+    if sockdir is not None:
+        import shutil
+        shutil.rmtree(sockdir, ignore_errors=True)
+
+
 class Environment:
     def __init__(
         self,
@@ -70,16 +79,44 @@ class Environment:
         self.clock = clock or FakeClock()
         self.options = options or Options()
         # the cluster-store seam (store/__init__.py): explicit backend >
-        # KARPENTER_TPU_STORE_BACKEND=remote|http (the external stores,
-        # still to port) > in-memory
+        # KARPENTER_TPU_STORE_BACKEND=remote (per-environment daemon, the
+        # whole suite then runs against the external store) > in-memory
+        self.store_daemon = None
+        self._store_finalizer = None
         if store_backend is None:
             import os
-            kind = os.environ.get("KARPENTER_TPU_STORE_BACKEND")
-            if kind in ("remote", "http"):
-                raise NotImplementedError(
-                    f"Environment: the {kind} cluster store "
-                    "(KARPENTER_TPU_STORE_BACKEND) comes with slice 5c of "
-                    "the port")
+            if os.environ.get("KARPENTER_TPU_STORE_BACKEND") == "remote":
+                import tempfile
+                import weakref
+                from karpenter_tpu_torch.store import (
+                    RemoteBackend,
+                    StoreDaemon,
+                )
+                sockdir = tempfile.mkdtemp(prefix="kt_store_")
+                self.store_daemon = StoreDaemon(
+                    os.path.join(sockdir, "store.sock"))
+                store_backend = RemoteBackend(self.store_daemon.path)
+                # environments are created by the hundred in fixtures with
+                # no teardown hook; a GC-driven finalizer keeps a
+                # full-suite remote-store run from accumulating daemon
+                # threads, sockets, and tmp dirs
+                self._store_finalizer = weakref.finalize(
+                    self, _close_store, store_backend, self.store_daemon,
+                    sockdir)
+            elif os.environ.get("KARPENTER_TPU_STORE_BACKEND") == "http":
+                # the kube-protocol backend against the in-repo fake
+                # apiserver — the whole suite then exercises REST
+                # list/watch JSON as its cluster store
+                import weakref
+                from karpenter_tpu_torch.store import (
+                    FakeApiServer,
+                    HttpBackend,
+                )
+                self.store_daemon = FakeApiServer()
+                store_backend = HttpBackend(self.store_daemon.url)
+                self._store_finalizer = weakref.finalize(
+                    self, _close_store, store_backend, self.store_daemon,
+                    None)
         self.store_backend = store_backend
         # the cloud session is injectable (operator.go:105-116 resolves the
         # AWS session the same way); default is the in-memory fake, the only
@@ -183,5 +220,7 @@ class Environment:
         return self.manager.run_until_idle(max_rounds)
 
     def close(self) -> None:
-        """The reference's release of an external store; the port's only
-        store is the in-memory one, so there is nothing to release."""
+        """Release the external store (no-op with the in-memory backend);
+        also runs automatically when the environment is garbage-collected."""
+        if self._store_finalizer is not None:
+            self._store_finalizer()

@@ -1,7 +1,7 @@
-"""Operator: options and feature gates (reference: pkg/operator/options).
+"""Operator: options, feature gates and leader election (reference:
+pkg/operator/options; `leaderelection.py`'s leases and elector).
 
-The operator's wiring (`operator.py`) and leader election
-(`leaderelection.py`) are still to port (slice 5c)."""
+The operator's wiring (`operator.py`) is still to port (slice 5d)."""
 
 from karpenter_tpu_torch.operator.options import FeatureGates, Options
 

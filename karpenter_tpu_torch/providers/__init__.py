@@ -3,13 +3,13 @@ and the cloud plumbing (reference: pkg/providers/*).
 
 Each provider wraps one slice of cloud state behind caches, and the fake
 cloud backend replaces AWS exactly the way pkg/fake does.  The port has
-every provider of the reference but the batched cloud
-(`providers/batched_cloud.py`, which needs `utils/batcher.py`) and the
-transcribed EC2 catalog (`providers/ec2_catalog.py`): both come with
-slice 5c."""
+every provider of the reference, the batched cloud
+(`providers/batched_cloud.py`) and the transcribed EC2 catalog
+(`providers/ec2_catalog.py`) among them."""
 
 from karpenter_tpu_torch.providers.catalog import CatalogSpec, generate_catalog
 from karpenter_tpu_torch.providers.fake_cloud import CloudInstance, FakeCloud
+from karpenter_tpu_torch.providers.batched_cloud import BatchedCloud
 from karpenter_tpu_torch.providers.imagefamily import ImageProvider
 from karpenter_tpu_torch.providers.instanceprofile import (
     InstanceProfileProvider,
@@ -31,6 +31,7 @@ __all__ = [
     "InstanceTypeProvider",
     "FakeCloud",
     "CloudInstance",
+    "BatchedCloud",
     "ImageProvider",
     "InstanceProfileProvider",
     "LaunchTemplateProvider",

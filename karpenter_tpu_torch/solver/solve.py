@@ -85,7 +85,7 @@ from karpenter_tpu_torch.solver.encode import (
     group_column_mask,
     group_pods,
 )
-from karpenter_tpu_torch.utils import knobs, metrics, tracing
+from karpenter_tpu_torch.utils import faults, knobs, metrics, tracing
 from karpenter_tpu_torch.utils.knobs import priority_enabled
 
 R = len(RESOURCE_AXIS)
@@ -1029,6 +1029,10 @@ class TorchSolver:
             # dispatch (one upload, the kernel launches), then wait for
             # the device, then pull + unpack — timed separately
             nonlocal disp_s, dev_s, pull_s
+            # fault-matrix hook: `error` here is a failed device dispatch
+            # (GatedSolver must fall back), `delay` a slow device — host
+            # side, before the upload and the launch
+            faults.fire("solver.dispatch")
             t_a = time.perf_counter()
             ptens = ffd.problem_tensors(prob, dev.O, self.device)
             if mesh is not None:
@@ -1399,6 +1403,8 @@ class TorchSolver:
                                     used=sp.seed_used, pool=sp.seed_pool,
                                     colmask=sp.seed_colmask, A=sp.A)
             t1 = time.perf_counter()
+            # fault-matrix hook, same point as the full path's dispatch
+            faults.fire("solver.dispatch")
             flat = self._run_delta(prob, seed, len(cat.columns), dev.O, mn,
                                    dev)
             t_b = time.perf_counter()
@@ -1615,6 +1621,7 @@ class TorchSolver:
                 enc.group_req[lo:hi], enc.group_count[lo:hi],
                 enc.group_mask[lo:hi], enc.exist_cap[lo:hi], seed.er, enc,
                 Gp, E, Db, dev.O)
+            faults.fire("solver.dispatch")
             handle = pull(self._run_delta(prob, seed, O_real, dev.O, mn,
                                           dev, upload=upload,
                                           kind="spec-seed"))

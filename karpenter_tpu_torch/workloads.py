@@ -640,11 +640,14 @@ class ProvisioningLoop:
 
 
 def provisioning_loop(n_pods: int, options=None, clock=None,
-                      device="cuda", catalog=None) -> ProvisioningLoop:
+                      device="cuda", catalog=None,
+                      store_backend=None) -> ProvisioningLoop:
     """The provisioning control loop (module docstring) holding the
     headline's first `n_pods` pods, not yet reconciled.  `options`
     defaults to `Options()`, `clock` to a `FakeClock`, `catalog` to the
-    generated 605-type catalog."""
+    generated 605-type catalog, `store_backend` (the cluster's
+    `store.StoreBackend`, e.g. a `RemoteBackend` on a store daemon) to
+    the in-memory store."""
     from karpenter_tpu_torch.cloudprovider import TPUCloudProvider
     from karpenter_tpu_torch.cluster import Cluster
     from karpenter_tpu_torch.controllers import (
@@ -673,7 +676,7 @@ def provisioning_loop(n_pods: int, options=None, clock=None,
     unavailable = UnavailableOfferings(clock=clock)
     instance_types = InstanceTypeProvider(cloud, pricing, unavailable,
                                           clock=clock)
-    cluster = Cluster(clock=clock)
+    cluster = Cluster(clock=clock, backend=store_backend)
     cloud_provider = metrics.DecoratedCloudProvider(TPUCloudProvider(
         cloud=cloud, instance_types=instance_types, unavailable=unavailable,
         node_classes=cluster.nodeclasses,
@@ -789,15 +792,18 @@ def disruption_pools(M, spot_cpu: int):
 
 
 def disruption_loop(n_pods: int = DISRUPTION_NODES, options=None,
-                    device="cuda", catalog=None, pkg=None):
+                    device="cuda", catalog=None, pkg=None,
+                    store_backend=None):
     """The disruption control loop's cluster, not yet reconciled: an
     `env.Environment` with the default NodeClass, the two pools of
     `disruption_pools` (the spot pool's cpu limit holds half the fleet's
     16-vCPU nodes) and `n_pods` pods of `DISRUPTION_REQUEST` (`d0`..,
     ReplicaSet-owned, so evictable).  `pkg` (a `Package`) names the
     package whose classes build it; by default the port's, its solver on
-    `device`.  `options` defaults to Options(batch_idle_duration=0);
-    drive it with `DisruptionWaves`."""
+    `device`.  `options` defaults to Options(batch_idle_duration=0),
+    `store_backend` to the Environment's own choice (the in-memory store
+    unless `KARPENTER_TPU_STORE_BACKEND` names another); drive it with
+    `DisruptionWaves`."""
     if pkg is None:
         import functools
 
@@ -808,7 +814,8 @@ def disruption_loop(n_pods: int = DISRUPTION_NODES, options=None,
             envmod.Environment, device=device), Options=Options)
     M = pkg.M
     options = options or pkg.Options(batch_idle_duration=0)
-    env = pkg.Environment(catalog=catalog, options=options)
+    env = pkg.Environment(catalog=catalog, options=options,
+                          store_backend=store_backend)
     env.add_default_nodeclass()
     for pool in disruption_pools(M, 16 * (n_pods // 2)):
         env.cluster.nodepools.create(pool)

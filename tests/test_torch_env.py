@@ -2,8 +2,9 @@
 
 Construction on the card by default (with no card a settle raises the
 "pass device='cpu'" error), a settle on the CPU that gives the JAX
-package's answer, the reference's controller order, the external store
-variables that wait for slice 5c, and the cloud plumbing providers that
+package's answer, the reference's controller order, the external stores
+that `KARPENTER_TPU_STORE_BACKEND` names (and an explicit backend over
+them), and the cloud plumbing providers that
 now reach `TPUCloudProvider` — each provider scenario of
 `tests/test_plumbing_providers.py` run on both packages.
 """
@@ -53,17 +54,60 @@ def test_controller_order_is_the_reference():
     assert port.disruption.solver is port.provisioner.solver is port.solver
 
 
-@pytest.mark.parametrize("kind", ["remote", "http"])
-def test_external_stores_wait_for_slice_5c(kind, monkeypatch):
+@pytest.mark.parametrize("kind,backend,server", [
+    ("remote", "RemoteBackend", "StoreDaemon"),
+    ("http", "HttpBackend", "FakeApiServer")])
+def test_external_store_variable_builds_its_store(kind, backend, server,
+                                                  monkeypatch):
+    """KARPENTER_TPU_STORE_BACKEND=remote|http gives each Environment its
+    own store server and backend, as the JAX package's does; `close()`
+    releases them."""
     from karpenter_tpu_torch.env import Environment
     monkeypatch.setenv("KARPENTER_TPU_STORE_BACKEND", kind)
-    with pytest.raises(NotImplementedError, match="slice 5c"):
-        Environment(device="cpu")
-    # an explicit backend takes precedence over the variable
+    env = Environment(device="cpu")
+    ref = JAX.env.Environment()
+    try:
+        got = (type(env.store_backend).__name__,
+               type(env.store_daemon).__name__)
+        assert got == (type(ref.store_backend).__name__,
+                       type(ref.store_daemon).__name__) == (backend, server)
+        assert env.cluster.backend is env.store_backend
+        env.add_default_nodeclass()
+        # the write went through the store: a second client lists it
+        if kind == "remote":
+            from karpenter_tpu_torch.store import RemoteBackend as B
+            peer = B(env.store_daemon.path)
+        else:
+            from karpenter_tpu_torch.store import HttpBackend as B
+            peer = B(env.store_daemon.url)
+        assert sorted(peer.load("nodeclasses")) == ["default"]
+        peer.close()
+    finally:
+        env.close()
+        ref.close()
+    assert not env._store_finalizer.alive
+
+
+@pytest.mark.parametrize("kind", ["remote", "http"])
+def test_explicit_store_backend_takes_precedence(kind, monkeypatch):
+    from karpenter_tpu_torch.env import Environment
     from karpenter_tpu_torch.store import InMemoryBackend
+    monkeypatch.setenv("KARPENTER_TPU_STORE_BACKEND", kind)
     backend = InMemoryBackend()
-    assert Environment(device="cpu",
-                       store_backend=backend).store_backend is backend
+    env = Environment(device="cpu", store_backend=backend)
+    assert env.store_backend is backend and env.cluster.backend is backend
+    assert env.store_daemon is None
+    env.close()  # nothing to release
+
+
+def test_in_memory_store_by_default(monkeypatch):
+    from karpenter_tpu_torch.env import Environment
+    from karpenter_tpu_torch.store import InMemoryBackend
+    monkeypatch.delenv("KARPENTER_TPU_STORE_BACKEND", raising=False)
+    env = Environment(device="cpu")
+    assert env.store_backend is None and env.store_daemon is None
+    assert isinstance(env.cluster.backend, InMemoryBackend)
+    env.close()
 
 
 def test_plumbing_providers_reach_the_cloud_provider():

@@ -98,6 +98,53 @@ def test_the_walk_covers_the_observability_substrate():
                 or os.path.join(path, "__init__.py") in files), mod
 
 
+# the external stores, fault hooks and cloud-call batching, which the walk
+# above must reach too (the subprocess import and the AST scan below then
+# cover them)
+STORES_AND_FAULTS = (
+    "utils.faults", "store.remote", "store.http", "store.__main__",
+    "utils.batcher", "providers.batched_cloud",
+    "operator.leaderelection", "models.v1beta1", "providers.ec2_catalog")
+
+
+def test_the_walk_covers_the_stores_and_faults():
+    mods = set(_modules())
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in STORES_AND_FAULTS:
+        assert f"karpenter_tpu_torch.{mod}" in mods, mod
+        path = os.path.join("karpenter_tpu_torch", *mod.split("."))
+        assert path + ".py" in files, mod
+
+
+def test_store_daemon_process_loads_no_jax():
+    """`python -m karpenter_tpu_torch.store <socket>` in a process of its
+    own: every module it imports (`-X importtime`) is the port's or the
+    standard library's, with neither jax nor the JAX package, and not
+    even torch (the daemon holds pickled bytes and needs no device)."""
+    import signal
+    import tempfile
+    sock = tempfile.mktemp(prefix="kt_store_imports_", suffix=".sock")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m",
+         "karpenter_tpu_torch.store", sock],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd="/",
+        env=env)
+    try:
+        ready = proc.stdout.readline()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=30)
+    assert ready.strip().endswith(sock)
+    assert proc.returncode == 0, err[-2000:]
+    loaded = [line.rsplit("|", 1)[-1].strip() for line in err.splitlines()
+              if line.startswith("import time:") and "|" in line]
+    assert "karpenter_tpu_torch.store.remote" in loaded
+    assert "karpenter_tpu_torch.utils.faults" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert [m for m in loaded if m.split(".")[0] == "torch"] == []
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, importlib\n"

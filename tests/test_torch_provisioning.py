@@ -71,10 +71,11 @@ def _fresh_catalog(ns):
         return cat.catalog_from_table(json.load(f))
 
 
-def build_loop(ns, n_pods, **options):
+def build_loop(ns, n_pods, store_backend=None, **options):
     """The loop of `ns`'s package holding the headline's first `n_pods`
-    pods (not yet reconciled); `options` override Options(batch idle 0,
-    mesh off)."""
+    pods (not yet reconciled), its cluster on `store_backend` (a backend
+    of `ns`'s `store` package; the in-memory store by default);
+    `options` override Options(batch idle 0, mesh off)."""
     opts = ns.opts.Options(**{"batch_idle_duration": 0,
                               "solver_mesh": "off", **options})
     clock = ns.clock.FakeClock()
@@ -83,7 +84,7 @@ def build_loop(ns, n_pods, **options):
     unavailable = ns.cache.UnavailableOfferings(clock=clock)
     its = ns.prov.InstanceTypeProvider(cloud, pricing, unavailable,
                                        clock=clock)
-    cluster = ns.cluster.Cluster(clock=clock)
+    cluster = ns.cluster.Cluster(clock=clock, backend=store_backend)
     cp = ns.metrics.DecoratedCloudProvider(ns.cp.TPUCloudProvider(
         cloud=cloud, instance_types=its, unavailable=unavailable,
         node_classes=cluster.nodeclasses, cluster_name=opts.cluster_name))
