@@ -128,6 +128,18 @@ Phases (any failure exits non-zero):
      calls, simulations (those K4's sweep answered) and phases, the
      launch shapes (B, G, E, N) of every K5 and K4 launch, and the
      first-use events of the first disruption pass;
+ 21. the column-sharded solve across cards (K7x, slice 7b; run within
+     phase 3 and, for the cards, last): each K7x instance rehearsed on
+     this card as one cooperative grid of S blocks (every rank's inbox
+     in its memory) at S = 2 and 4 on phase 3's 32 seeded K7 problems
+     and the headline's and config #2's encodings, each launched 3
+     times, equal to its plain version as uint32 and holding its
+     feature; K7x timed so at config #2, #9 and a seeded problem;
+     mesh="auto" on one card must be the single-device path; a rank
+     whose peer never comes must fail its launch at the exchange's
+     deadline (`--child trap`); and on a host of two or more cards
+     `--child cards` (below), whose numbers the kernels line then
+     carries — on one card the line says the check needs two cards;
  20. the external cluster stores (run after phase 19): (a) a store daemon
      started as its own process (`python -m karpenter_tpu_torch.store
      <socket>`) and phase 18's loop at full scale with its cluster on a
@@ -173,7 +185,17 @@ The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.  `--child MODE`
 runs one of the phases above that need a process of their own; the
-script starts those itself.
+script starts those itself.  `--child cards` is the cross-card check,
+run on a host of two or more cards (`python3 chip_smoke.py --child
+cards` on a four-card host): every card's name and power limit, the
+peer matrix and `nvidia-smi topo -m`; K7x at S = 2 (cards 0-1) and 4
+against its plain version on phase 21's cases; the headline, config #2
+(also mesh off), #9, #7 (delta on) and the soft-term input under
+mesh="auto" against their pins, the transfers log (no column-axis byte
+after the first solve, each card holding only its slice) and every K7x
+launch of those solves against its plain version; K7x timed in turns
+beside K7 on one card and K5 at the headline and config #2, the cost of
+one exchange round, and the NCCL yardstick; one JSON line last.
 """
 
 from __future__ import annotations
@@ -324,6 +346,7 @@ MESH = 8                  # the mesh arms' shard count
 MESH_WARM = 5             # warm solves per mesh arm
 SHARDS = (2, 4, 6, 8)     # K7 against its plain version at these sizes
 K7_REPEATS = 3            # each K7 comparison launched this many times
+CARD_SIZES = (2, 4)       # K7x's ranks in phase 21 and the card check
 MESH_CONFIG7_PASSES = 5   # config #7 under the mesh: gen 0 and 4 passes
 
 # The provisioning control loop (phase 18): the headline's 50k pods
@@ -516,10 +539,13 @@ KERNELS = {"ffd_batch_scan": ("batch_scan", "launches"),
            "ffd_delta_scan": ("delta_scan", "launches"),
            "ffd_sharded_scan": ("sharded_scan", "launches"),
            "ffd_sharded_gang_scan": ("sharded_scan", "gang_launches"),
-           "ffd_sharded_delta_scan": ("sharded_scan", "delta_launches")}
+           "ffd_sharded_delta_scan": ("sharded_scan", "delta_launches"),
+           "ffd_card_scan": ("card_scan", "launches"),
+           "ffd_card_gang_scan": ("card_scan", "gang_launches"),
+           "ffd_card_delta_scan": ("card_scan", "delta_launches")}
 PASSES = {"priority_witness": (("batch_scan", "witness_launches"),),
           "explain_pack": tuple((w, "explain_launches") for w in (
-              "batch_scan", "delta_scan", "sharded_scan")),
+              "batch_scan", "delta_scan", "sharded_scan", "card_scan")),
           "explain_map": (("batch_scan", "map_launches"),)}
 
 
@@ -942,11 +968,12 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _tag(topo: bool, sweep: bool, gang: bool, seed: bool = False,
-         sharded: bool = False) -> str:
-    """The trace's name of one instance of the templated scan kernel."""
+         sharded: int = 0) -> str:
+    """The trace's name of one instance of the templated scan kernel
+    (`sharded` its transport: 0 none, 1 K7's cluster, 2 K7x's cards)."""
     flags = ", ".join("true" if f else "false"
-                      for f in (topo, sweep, gang, seed, sharded))
-    return f"scan_kernel<{flags}>"
+                      for f in (topo, sweep, gang, seed))
+    return f"scan_kernel<{flags}, {int(sharded)}>"
 
 
 def _kernel_ms(fn, reps: int, kernel: str):
@@ -1751,11 +1778,13 @@ def compare_captured(ffd, call, flat_main):
     return out
 
 
-def _sharded_bound(ffd, p, table, sc, N, lay, flat, lim, wg=0, sd=None):
+def _sharded_bound(ffd, p, table, sc, N, lay, flat, lim, wg=0, sd=None,
+                   spread=1):
     """K7's bound, counted as K5's: the problem rows, the catalog shards,
     the mask-table rows the groups gather (and the seed) read once, the
     flat row and budgets written once, against the float operations this
-    run's data needs (the plain version's count) over the fp32 rate."""
+    run's data needs (the plain version's count) over the fp32 rate; K7x
+    (`spread` S cards) with both spread over its S cards."""
     import torch
     fields = ["group_req", "group_count", "mask_bits", "exist_cap",
               "exist_remaining", "pool_limit", "group_ncap", "group_whole",
@@ -1777,7 +1806,7 @@ def _sharded_bound(ffd, p, table, sc, N, lay, flat, lim, wg=0, sd=None):
     work = {"fit": 0, "test": 0, "flops": 0}
     ffd.sharded_scan_reference(p, table, sc, N, torch.empty_like(flat), lay,
                                torch.empty_like(lim), wg, sd, work)
-    return bound_ms(nbytes, _work_ops(work))
+    return bound_ms(nbytes / spread, _work_ops(work) / spread)
 
 
 def _sharded_times(ffd, prob, cat, S, N, reps, dev):
@@ -1864,6 +1893,145 @@ def _captured_sharded_times(ffd, call, reps):
         p, table, sc, N, flat, lay, lim, wg, sd), 1)
     return t, ev, t_plain, _sharded_bound(ffd, p, table, sc, N, lay, flat,
                                           lim, wg, sd), turns
+
+
+# -- the column-sharded solve across cards (K7x): phase 21, --child cards
+def _card_name(wg, seed):
+    return ("ffd_card_delta_scan" if seed is not None
+            else "ffd_card_gang_scan" if wg else "ffd_card_scan")
+
+
+def _card_cases(encoded):
+    """(label, S, problem tuple, catalog arrays, N, explain, seed arrays or
+    None, the features it must hold): the 32 seeded problems of phase 3's
+    K7 check (`_sharded_cases`) and the encodings `encoded` ({name:
+    (problem, catalog, N)}), each at S = 2 and 4 ranks."""
+    cases = [(label, prob, cat, N, ex, seeds, want) for
+             label, _, prob, cat, N, ex, seeds, want in _sharded_cases()]
+    cases += [(name, prob, cat, N, 1, None, set())
+              for name, (prob, cat, N) in encoded.items()]
+    for label, prob, cat, N, ex, seeds, want in cases:
+        for S in CARD_SIZES:
+            yield f"{label}@{S}", S, prob, cat, N, ex, seeds, want
+
+
+class _Cards:
+    """K7x on one problem over `devices`: S distinct cards (`card_scan`,
+    one rank a card), or one card S times (`card_scan_rehearsal`, one
+    cooperative grid of S blocks on K7's layout); and its plain version's
+    arguments, the same shards stacked on the first card."""
+
+    def __init__(self, ffd, S, prob, cat, N, ex, seeds, devices):
+        import torch
+        from karpenter_tpu_torch.parallel.mesh import (card_mesh, make_mesh,
+                                                       shard_problem)
+        self.ffd, self.N, self.S = ffd, N, S
+        self.devices = tuple(devices)
+        self.wg, wp = _statics([prob]) if seeds is None else (0, 0)
+        self.rehearse = len(set(self.devices)) == 1
+        dev = self.devices[0]
+        mesh = make_mesh(S, dev) if self.rehearse else card_mesh(devices)
+        if seeds is None:
+            p, table, sc, _ = shard_problem(prob, cat, mesh)
+            sd = None
+        else:
+            p, sd, table, sc, _ = shard_problem(prob, cat, mesh, seed=seeds)
+        self.args = (p, table, sc, sd)
+        if self.rehearse:
+            self.ref = self.args
+        else:
+            sd0 = None if sd is None else ffd.DeltaSeed(
+                sd[0].seed_used, sd[0].seed_pool, sd[0].seed_active,
+                torch.stack([x.seed_colmask.to(dev) for x in sd]))
+            self.ref = (p[0], torch.stack([t.to(dev) for t in table]),
+                        sc.stacked(dev), sd0)
+        p0 = self.ref[0]
+        self.lay = ffd.flat_layout(p0.G, p0.E, N, p0.D, ex,
+                                   with_priority=wp)
+        self.name = _card_name(self.wg, sd)
+        self.shape = (S, p0.G, p0.E, N, self.ref[2].O)
+
+    def bufs(self):
+        import torch
+        dev = self.devices[0]
+        p0 = self.ref[0]
+        return (torch.full((self.lay["total"][1],), float("nan"),
+                           device=dev),
+                torch.full((p0.P, self.ffd.R), float("nan"), device=dev))
+
+    def launch(self, flat, lim):
+        p, table, sc, sd = self.args
+        fn = (self.ffd.card_scan_rehearsal if self.rehearse
+              else self.ffd.card_scan)
+        fn(p, table, sc, self.N, flat, self.lay, lim, self.wg, sd)
+
+    def plain(self, flat, lim):
+        p, table, sc, sd = self.ref
+        self.ffd.sharded_scan_reference(p, table, sc, self.N, flat, self.lay,
+                                        lim, self.wg, sd)
+
+    def sync(self):
+        import torch
+        for d in set(self.devices):
+            torch.cuda.synchronize(d)
+
+    def bound(self):
+        p, table, sc, sd = self.ref
+        flat, lim = self.bufs()
+        return _sharded_bound(self.ffd, p, table, sc, self.N, self.lay, flat,
+                              lim, self.wg, sd,
+                              spread=1 if self.rehearse else self.S)
+
+    def times(self, reps):
+        """(the profiler's mean time of a rank's kernel, events ms a launch
+        on the first card, whose stream each launch ties every rank back
+        into)."""
+        flat, lim = self.bufs()
+        seed = self.args[3] is not None
+        return _device_ms(lambda: self.launch(flat, lim), reps,
+                          _tag(not seed, False, bool(self.wg), seed, 2))
+
+
+def _span_ms(fn, reps, devices):
+    """Mean time of fn() over `reps` calls, by CUDA events on the first
+    of `devices`, every device synchronised before and after (one warm-up
+    call first)."""
+    import torch
+    fn()
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    with torch.cuda.device(devices[0]):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    return a.elapsed_time(b) / reps
+
+
+def compare_cards(ffd, S, prob, cat, N, ex, seeds, devices,
+                  want=frozenset()):
+    """K7x over `devices` against its plain version on the same shards
+    (stacked on the first card): the whole flat row (the explain counts
+    of its epilogue and the witness included) and the final pool budgets,
+    equal as uint32 on each of K7_REPEATS launches.  Returns ({kernel:
+    (equal, max_abs_err)}, the features of `want` the problem lacks)."""
+    missing = set(want) - _features(prob, seeds)
+    c = _Cards(ffd, S, prob, cat, N, ex, seeds, devices)
+    fp, lp = c.bufs()
+    c.plain(fp, lp)
+    parts = []
+    for _ in range(K7_REPEATS):
+        fk, lk = c.bufs()
+        c.launch(fk, lk)
+        c.sync()
+        parts += [_diff(fk, fp), _diff(lk, lp)]
+    out = {c.name: _merge(parts)}
+    out.update(_explain_checks(fk, fp, c.lay))
+    return out, missing
 
 
 def _p50(xs):
@@ -2884,6 +3052,10 @@ def _child(mode: str) -> int:
     from karpenter_tpu_torch.solver import TorchSolver, ffd
     from karpenter_tpu_torch.workloads import build_input
     card = _card_line()
+    if mode == "cards":
+        return _cards_check(card)
+    if mode == "trap":
+        return _trap_check()
     if mode == "headline":
         p50 = {}
         res, counts, _ = _main_path(
@@ -2904,12 +3076,364 @@ def _child(mode: str) -> int:
     return 0
 
 
-def _run_child(mode: str, env=None):
+def _cards_check(card) -> int:
+    """`--child cards`: the column-sharded solve across the cards of this
+    host (at least two).  Prints every card's name and power limit, the
+    peer-access matrix and `nvidia-smi topo -m`; holds K7x (each
+    instance) at S = 2 (cards 0-1) and S = 4 to its plain version on
+    phase 21's cases; solves the headline, config #2 (also against mesh
+    off), #9, #7 with delta on and the soft-term input with
+    mesh="auto" against their pins, checking the transfers log (no
+    column-axis byte after the first solve, each card holding only its
+    slice) and holding every launch those solves made to its plain
+    version; times K7x at S = 2 and 4 in turns beside K7 on one card at
+    S = 2 and 4 and K5, at the headline and config #2, with the cost of
+    one exchange and the NCCL yardstick (a single-process
+    torch.cuda.nccl.all_reduce, MAX over [N] int32 on the same cards,
+    never called by the port).  Ends with one JSON line."""
+    import torch
+    from karpenter_tpu_torch.parallel.mesh import (MeshExecutor, card_mesh,
+                                                   probe_cards, shard_problem)
+    from karpenter_tpu_torch.solver import TorchSolver, _cuda, ffd
+    from karpenter_tpu_torch.workloads import (
+        build_config2, build_config7, build_config9, build_input,
+        build_soft_terms)
+    n_cards, peer = probe_cards()
+    if n_cards < 2:
+        print(f"the cross-card check needs two cards: this host has "
+              f"{n_cards}", flush=True)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout
+    for i, line in enumerate(smi):
+        print(f"[cards] card {i}: {line}", flush=True)
+    print(f"[cards] peer access {peer}", flush=True)
+    print("[cards] nvidia-smi topo -m:\n" + topo, flush=True)
+    t0 = time.perf_counter()
+    _cuda.build()
+    print(f"[cards] built {', '.join(_cuda.KERNELS)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    devs = [torch.device("cuda", i) for i in range(n_cards)]
+    sizes = [S for S in CARD_SIZES if S <= n_cards]
+    bad, errs, seen = [], {}, {}
+
+    def record(label, res, what):
+        for k, (eq, err) in res.items():
+            errs[k] = max(errs.get(k, 0.0), err)
+            if not eq:
+                bad.append(f"{label}:{k}")
+        _EXPLAIN_SEEN.clear()
+        print(f"[cards] {label:28s} {what}: " + ", ".join(
+            f"{k} {'equal' if eq else 'DIFFERS'} (max abs err {err:g})"
+            for k, (eq, err) in res.items()), flush=True)
+
+    # -- K7x against its plain version on phase 21's cases ------------------
+    solver = TorchSolver()
+    head = _encoded_problem(solver, build_input(HEADLINE_PODS), ffd)
+    c2 = _encoded_problem(solver, build_config2(), ffd)
+    encoded = {"headline": head + (solver.max_nodes,),
+               "config2": c2 + (CONFIG2_MAX_NODES,)}
+    for label, S, prob, catarr, N, ex, seeds, want in _card_cases(encoded):
+        if S not in sizes:
+            continue
+        res, missing = compare_cards(ffd, S, prob, catarr, N, ex, seeds,
+                                     devs[:S], want)
+        seen.update({k: True for k in res})
+        record(label, res, f"K7x S={S} N={N} explain={ex} "
+               f"{'+'.join(sorted(want)) or 'light'} x{K7_REPEATS}")
+        if missing:
+            bad.append(f"{label}: the problem has no {sorted(missing)}")
+
+    # -- the main path: mesh="auto" over every card ------------------------
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def auto(max_nodes, mesh="auto"):
+        return lambda: TorchSolver(mesh=mesh, max_nodes=max_nodes)
+
+    def residency(sv, label):
+        """Each card holds only its slice of every column-axis array."""
+        cat = sv._cat_entry[1]
+        cc = cat.mesh_args
+        if not isinstance(cc, ffd.CardCatalog) or cc.S != n_cards:
+            return [f"{label}: the catalog is {type(cc).__name__}"]
+        out = []
+        for name in ("col_alloc", "col_daemon", "pt_alloc", "col_pool",
+                     "pool_bits", "col_zone", "col_ct"):
+            for r, t in enumerate(getattr(cc, name)):
+                if t.device != devs[r]:
+                    out.append(f"{label}: {name}[{r}] on {t.device}")
+        if any(t.shape[0] != cc.O_s for t in cc.col_alloc):
+            out.append(f"{label}: a card holds more than its {cc.O_s} "
+                       f"columns")
+        table = cat.mask_registry.table
+        if [t.device for t in table] != devs or any(
+                t.shape[1] != cc.W_s for t in table):
+            out.append(f"{label}: the mask table is not one slice a card")
+        return out
+
+    with _MeshCapture() as mcap:
+        for label, m, kernels in (("config2-auto", "auto",
+                                   ("ffd_card_scan", "explain_pack")),
+                                  ("config2-off", "off",
+                                   ("ffd_batch_scan", "explain_pack"))):
+            n_cold = {}
+
+            def after(sv, n_cold=n_cold):
+                n_cold["n"] = (len(sv._mesh_exec.transfers)
+                               if sv._mesh_exec is not None else 0)
+            res, counts, sv = _main_path(
+                auto(CONFIG2_MAX_NODES, m), build_config2, ffd, card, label,
+                warm=MESH_WARM, after_cold=after)
+            nodes, unsched, price_hex, digest = CONFIG2
+            bad.extend(_check_answer(res, counts, nodes, unsched, price_hex,
+                                     kernels))
+            if result_digest(res) != digest:
+                bad.append(f"{label}: digest {result_digest(res)}")
+            if m == "off":
+                continue
+            add(counts)
+            if sv.mesh is None or not sv.mesh.cards \
+                    or sv.mesh.size != n_cards:
+                bad.append(f"{label}: the mesh is {sv.mesh}")
+                continue
+            ex = sv._mesh_exec
+            late = len(ex.transfers) - n_cold["n"]
+            print(f"[cards] {label} column-axis transfers {ex.transfers}; "
+                  f"after the first solve: {late}; blocks each card holds "
+                  f"{[c.get('blocks') for c in ex._configs.values()]}",
+                  flush=True)
+            if late:
+                bad.append(f"{label}: {late} column-axis transfers after "
+                           f"the first solve")
+            bad.extend(residency(sv, label))
+        res, counts, _ = _main_path(
+            auto(CONFIG_MAX_NODES), lambda: build_input(HEADLINE_PODS), ffd,
+            card, "headline-auto", warm=MESH_WARM)
+        add(counts)
+        bad.extend(_check_answer(res, counts, HEADLINE_NODES,
+                                 HEADLINE_UNSCHED, HEADLINE_PRICE_HEX,
+                                 ("ffd_card_scan",)))
+        res, counts, _ = _main_path(auto(CONFIG_MAX_NODES), build_config9,
+                                    ffd, card, "config9-auto",
+                                    warm=MESH_WARM)
+        add(counts)
+        nodes, unsched, price_hex, digest, trees = CONFIG9
+        bad.extend(_check_answer(res, counts, nodes, unsched, price_hex,
+                                 ("ffd_card_gang_scan",)))
+        if result_digest(res) != digest or trees_digest(res) != trees:
+            bad.append(f"config9-auto: digests {result_digest(res)} "
+                       f"{trees_digest(res)}")
+        n7 = MESH_CONFIG7_PASSES
+        on7 = TorchSolver(mesh="auto", max_nodes=CONFIG_MAX_NODES)
+        _reset_launches(ffd)
+        ms, phases, verdicts, k6, bad7 = _lockstep(
+            ffd, "config7-auto", {"auto-delta-on": on7},
+            [lambda g=g: build_config7(g) for g in range(n7)],
+            CONFIG7[:n7], card, timed_from=2)
+        torch.cuda.synchronize()
+        counts = _read_launches(ffd)
+        add(counts)
+        _report("config7-auto", ms, phases, verdicts, k6)
+        print(f"[cards] config7-auto launches {counts}; delta passes "
+              f"{on7.delta_passes}", flush=True)
+        bad.extend(bad7)
+        if any(v[0] != "delta" for v in verdicts["auto-delta-on"][1:]):
+            bad.append("config7-auto: a pass after gen 0 was not a delta "
+                       "pass")
+        if counts["ffd_card_delta_scan"] < n7 - 1:
+            bad.append(f"config7-auto: seeded K7x launches "
+                       f"{counts['ffd_card_delta_scan']}")
+        res, counts, sv = _main_path(auto(1024), build_soft_terms, ffd,
+                                     card, "soft-terms-auto",
+                                     warm=MESH_WARM)
+        add(counts)
+        nodes, unsched, price_hex, digest = SOFT
+        bad.extend(_check_answer(res, counts, nodes, unsched, price_hex,
+                                 ("ffd_card_scan",)))
+        if result_digest(res) != digest:
+            bad.append(f"soft-terms-auto: digest {result_digest(res)}")
+        if sv.relax_counts["rounds"] < 2 * (1 + MESH_WARM):
+            bad.append(f"soft-terms-auto: relaxation {sv.relax_counts}")
+
+    # every K7x launch of those solves held to its plain version, on the
+    # shards stacked on card 0; the first of each instance kept for its
+    # times, with its rows replicated to every card as the executor does
+    by_kind, first = {}, {}
+    dev0 = devs[0]
+    for call, (_, flat) in zip(mcap.calls, mcap.made):
+        prob, table, cat, N, ex, wg, wp, seed = call
+        lay = ffd.flat_layout(prob.G, prob.E, N, prob.D, ex,
+                              with_priority=wp)
+        ref = (prob, torch.stack([t.to(dev0) for t in table]),
+               cat.stacked(dev0), None if seed is None else ffd.DeltaSeed(
+                   seed.seed_used, seed.seed_pool, seed.seed_active,
+                   torch.stack([w.to(dev0) for w in seed.seed_colmask])))
+        fp = torch.full_like(flat, float("nan"))
+        lp = torch.full((prob.P, ffd.R), float("nan"), device=dev0)
+        ffd.sharded_scan_reference(*ref[:3], N, fp, lay, lp, wg, ref[3])
+        name = _card_name(wg, seed)
+        by_kind.setdefault(name, []).append(_diff(flat, fp))
+        first.setdefault(name, (call, lay, ref))
+    for name, diffs in by_kind.items():
+        record(f"main path {name}", {name: _merge(diffs)},
+               f"{len(diffs)} launches")
+
+    # -- times: K7x in turns beside K7 on one card and K5 (the profiler's
+    # device time of a rank's kernel, of K7's cluster, of K5's block) ------
+    turns, exch = {}, {}
+    for lab, (prob, catarr, N) in (("config #2", encoded["config2"]),
+                                   ("headline", encoded["headline"])):
+        arms = {f"K7x S={S}": _Cards(ffd, S, prob, catarr, N, 1, None,
+                                     devs[:S]) for S in sizes}
+        k7 = {}
+        for S in sizes:
+            p, table, sc, _ = shard_problem(prob, catarr, S, devs[0])
+            lay = ffd.flat_layout(p.G, p.E, N, p.D, 1)
+            fl = torch.empty(lay["total"][1], device=devs[0])
+            lm = torch.empty((p.P, ffd.R), device=devs[0])
+            k7[f"K7 S={S}"] = (lambda p=p, table=table, sc=sc, lay=lay,
+                               fl=fl, lm=lm: _device_ms(
+                                   lambda: ffd.sharded_scan(
+                                       p, table, sc, N, fl, lay, lm, 0), 20,
+                                   _tag(True, False, False, False, 1)))
+        p5, c5 = ffd.problem_from_numpy(prob, catarr, devs[0])
+        b5 = ffd.FFDBatch.of(p5)
+        lay5 = ffd.flat_layout(p5.G, p5.E, N, p5.D, 1)
+        fl5 = torch.empty((1, lay5["total"][1]), device=devs[0])
+        lm5 = torch.empty((1, p5.P, ffd.R), device=devs[0])
+        k5 = {"K5": lambda: _device_ms(
+            lambda: ffd.batch_scan(b5, c5, N, fl5, lay5, lm5), 20,
+            _tag(True, False, False))}
+        t = turns[lab] = {}
+        ev = {}
+        order = list(arms) + list(k7) + list(k5)
+        for rnd in range(3):
+            for arm in (order if rnd % 2 == 0 else order[::-1]):
+                if arm in arms:
+                    ms_, ev_ = arms[arm].times(20)
+                else:
+                    ms_, ev_ = (k7.get(arm) or k5[arm])()
+                t.setdefault(arm, []).append(ms_)
+                ev.setdefault(arm, []).append(ev_)
+        G = arms[f"K7x S={sizes[0]}"].ref[0].G
+        print(f"[cards] {lab} (G={G}, N={N}) in turns on {smi[0]}: "
+              + "; ".join(f"{a} " + ", ".join(f"{v:.4f}" for v in vs)
+                          + " ms" for a, vs in t.items())
+              + "; events a launch: " + "; ".join(
+                  f"{a} " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
+                  for a, vs in ev.items()), flush=True)
+        for S in sizes:
+            xch = ffd.card_exchange(devs[:S])
+            rounds = int(xch.flags[0][1].item()) & 0xffffffff
+            extra = (min(t[f"K7x S={S}"]) - min(t[f"K7 S={S}"])) / rounds
+            exch[f"{lab} S={S}"] = {
+                "rounds": rounds, "k7x_ms_a_round":
+                min(t[f"K7x S={S}"]) / rounds,
+                "over_cluster_ms_a_round": extra}
+            print(f"[cards] {lab} S={S}: {rounds} exchange rounds a "
+                  f"launch; K7x {min(t[f'K7x S={S}']) / rounds * 1e3:.2f} "
+                  f"us a round, {extra * 1e3:.2f} us a round over K7's "
+                  f"cluster exchange", flush=True)
+    # the NCCL yardstick: MAX over [N] int32 on the same cards
+    nccl = {}
+    for S in sizes:
+        xs = [torch.zeros(CONFIG_MAX_NODES, dtype=torch.int32, device=d)
+              for d in devs[:S]]
+        try:
+            nccl[f"S={S}"] = _span_ms(
+                lambda xs=xs: torch.cuda.nccl.all_reduce(xs, op=2), 50,
+                devs[:S])
+        except Exception as e:  # a yardstick, not a phase: report it
+            nccl[f"S={S}"] = f"not measured: {e}"
+        print(f"[cards] NCCL yardstick all_reduce MAX [{CONFIG_MAX_NODES}] "
+              f"int32 S={S}: {nccl[f'S={S}']} ms a call", flush=True)
+    # K7x at its main path's own launches (the first of each instance)
+    kernels = {}
+    rep = MeshExecutor(card_mesh(devs))
+    for name in ("ffd_card_scan", "ffd_card_gang_scan",
+                 "ffd_card_delta_scan"):
+        if name not in first:
+            bad.append(f"no {name} launch on the main path")
+            continue
+        (prob, table, cat, N, _, wg, _, seed), lay, ref = first[name]
+        probs, seeds = rep.rank_args(prob, seed)
+        flat = torch.empty(lay["total"][1], device=dev0)
+        lim = torch.empty((prob.P, ffd.R), device=dev0)
+        ms_, ev_ = _device_ms(lambda: ffd.card_scan(
+            probs, table, cat, N, flat, lay, lim, wg, seeds), 20,
+            _tag(seed is None, False, bool(wg), seed is not None, 2))
+        plain = _time_ms(lambda: ffd.sharded_scan_reference(
+            *ref[:3], N, flat, lay, lim, wg, ref[3]), 1)
+        bound = _sharded_bound(ffd, *ref[:3], N, lay, flat, lim, wg, ref[3],
+                               spread=cat.S)
+        shape = (cat.S, prob.G, prob.E, N, cat.O)
+        kernels[name] = {"ms": ms_, "events_ms": ev_, "plain_ms": plain,
+                         "bound": bound, "shape": shape,
+                         "measured": f"across {cat.S} cards"}
+        print(f"[cards] {name} at its main path's launch (S, G, E, N, O) "
+              f"{shape} on {smi[0]}: {ms_:.4f} ms a rank's kernel "
+              f"({ms_ / prob.G:.4f} ms a step; events {ev_:.4f} a launch, "
+              f"plain {plain:.3f}, bound {bound[0]:.6f} by {bound[1]})",
+              flush=True)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    for k in ("ffd_card_scan", "ffd_card_gang_scan", "ffd_card_delta_scan"):
+        if not launches.get(k):
+            bad.append(f"{k} was not launched on the main path")
+    print(json.dumps({"bad": bad, "cards": smi, "peer": peer,
+                      "launches": launches, "errs": errs,
+                      "kernels": kernels, "turns": turns, "exchange": exch,
+                      "nccl": nccl}))
+    return 1 if bad else 0
+
+
+def _trap_check() -> int:
+    """`--child trap`: rank 0 of a two-rank K7x exchange launched alone on
+    this card, its peer never launched: its entry round must wait out the
+    exchange's deadline and trap, and the next synchronise must report
+    it.  Prints one JSON line; exits 0 only if the launch failed."""
+    import torch
+    from karpenter_tpu_torch.parallel.mesh import shard_problem
+    from karpenter_tpu_torch.solver import ffd
+    from karpenter_tpu_torch.solver.problems import random_problem
+    dev = torch.device("cuda", 0)
+    prob, cat = random_problem(11)
+    p, table, sc, _ = shard_problem(prob, cat, 2, dev)
+    lay = ffd.flat_layout(p.G, p.E, 64, p.D, 1)
+    flat = torch.empty(lay["total"][1], device=dev)
+    lim = torch.empty((p.P, ffd.R), device=dev)
+    xch = ffd.CardExchange((dev, dev))
+    entry, inputs, mesh, A = ffd._sharded_launch_args(p, table, sc, lay, 0,
+                                                      None)
+    mesh.update(reps=1)
+    t0 = time.perf_counter()
+    ffd._launch_scan(ffd._CARD_ENTRY[entry], 1, p.G, p.E, 64, p.P, p.D, 0,
+                     sc, flat, lay, lim, 0, inputs, A=A, mesh=mesh,
+                     xcard=(xch, 0, 1, 0))
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(json.dumps({"trapped": True, "s": time.perf_counter() - t0,
+                          "error": str(e).splitlines()[0][:200]}))
+        return 0
+    print(json.dumps({"trapped": False, "s": time.perf_counter() - t0}))
+    return 1
+
+
+def _run_child(mode: str, env=None, timeout=600):
     """Run `_child(mode)` in a child process; its JSON line, or None and
     the child's output when it failed."""
     out = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--child", mode],
-        capture_output=True, text=True, timeout=600,
+        capture_output=True, text=True, timeout=timeout,
         env=dict(os.environ, **(env or {})))
     lines = out.stdout.strip().splitlines()
     for line in lines:
@@ -3172,6 +3696,60 @@ def main(argv) -> int:
     print(f"[3] K7 ffd_sharded_scan at the headline's shape (1024 threads "
           f"a block): cudaOccupancyMaxActiveClusters by cluster size "
           f"{occ}", flush=True)
+    # -- 21. K7x rehearsed on this card: each instance as one cooperative
+    # grid of S blocks (every rank's inbox in this card's memory), held to
+    # its plain version on the 32 seeded problems and the headline's and
+    # config #2's encodings at S = 2 and 4, each launched 3 times
+    encoded = {"headline": (head_prob, head_cat, solver.max_nodes),
+               "config2": (c2_prob, c2_cat, CONFIG2_MAX_NODES)}
+    for label, S, prob, catarr, N, ex, seeds, want in _card_cases(encoded):
+        res, missing = compare_cards(ffd, S, prob, catarr, N, ex, seeds,
+                                     (dev,) * S, want)
+        record(f"21 {label}", res, f"K7x rehearsal S={S} N={N} "
+               f"explain={ex} {'+'.join(sorted(want)) or 'light'} "
+               f"x{K7_REPEATS}")
+        if missing:
+            failed.append(f"21 {label}: the problem has no "
+                          f"{sorted(missing)}")
+    # K7x's times in the rehearsal (one card, its S blocks' exchanges
+    # through this card's memory) at config #2's, config #9's and a
+    # seeded problem's shapes at S = 4
+    k7x_t = {}
+    s4_delta = next(c for c in _sharded_cases() if c[0] == "S4-delta")
+    for prob, catarr, N, seeds in ((c2_prob, c2_cat, CONFIG2_MAX_NODES,
+                                    None),
+                                   (c9_prob, c9_cat, CONFIG_MAX_NODES, None),
+                                   (s4_delta[2], s4_delta[3], s4_delta[4],
+                                    s4_delta[6])):
+        c = _Cards(ffd, 4, prob, catarr, N, 1, seeds, (dev,) * 4)
+        flat, lim = c.bufs()
+        t, ev = _device_ms(lambda: c.launch(flat, lim), 20,
+                           _tag(seeds is None, False, bool(c.wg),
+                                seeds is not None, 2))
+        k7x_t[c.name] = {"ms": t, "events_ms": ev,
+                         "plain_ms": _time_ms(lambda: c.plain(flat, lim), 1),
+                         "bound": c.bound(), "shape": c.shape,
+                         "measured": "rehearsal: S blocks on one card, "
+                                     "no main path on one card"}
+        print(f"[21] {c.name} rehearsed (S, G, E, N, O) {c.shape} on "
+              f"{card}: {t:.4f} ms (events {ev:.4f}, plain "
+              f"{k7x_t[c.name]['plain_ms']:.3f}, bound "
+              f"{k7x_t[c.name]['bound'][0]:.6f} by "
+              f"{k7x_t[c.name]['bound'][1]})", flush=True)
+    auto = TorchSolver(mesh="auto")
+    print(f"[21] TorchSolver(mesh='auto') on {torch.cuda.device_count()} "
+          f"card(s): mesh {auto.mesh}", flush=True)
+    if torch.cuda.device_count() == 1 and auto.mesh is not None:
+        failed.append(f"21: mesh='auto' on one card resolved to "
+                      f"{auto.mesh}, not the single-device path")
+    # a lost rank fails its launch: rank 0 of two, alone, in a child
+    # process (a trap ends the process's CUDA context)
+    got, err = _run_child("trap", timeout=180)
+    print(f"[21] a K7x rank whose peer never comes: {got or err}",
+          flush=True)
+    if got is None or not got.get("trapped"):
+        failed.append(f"21: the lone rank's launch did not fail: "
+                      f"{got or err}")
     # the epilogue: every map class across the cases, and one launch for
     # a batch's problems with their explain rows, one for a seeded solve
     print(f"[3] explain map classes the kernels wrote: "
@@ -3704,6 +4282,25 @@ def main(argv) -> int:
               f"plain {t7p:.3f}, bound {b7:.6f} by {by7})"
               + (f"; {_turns_text(turns7)}" if turns7 else ""), flush=True)
 
+    # -- 21 (continued). K7x across the cards of this host, in a child
+    # process of its own, when there are two or more
+    if torch.cuda.device_count() >= 2:
+        got, err = _run_child("cards", timeout=900)
+        if got is None or got.get("bad"):
+            print(f"chip_smoke: the cross-card check failed: "
+                  f"{got['bad'] if got else err}", file=sys.stderr)
+            return 1
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in got["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        for k, v in got["kernels"].items():
+            k7x_t[k] = dict(v, bound=tuple(v["bound"]))
+    else:
+        print(f"[21] the cross-card check needs two cards: this host has "
+              f"{torch.cuda.device_count()} (run `chip_smoke.py --child "
+              f"cards` on a host of 2 or more)", flush=True)
+
     kernels = [
         {"name": "ffd_batch_scan", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/ffd_batch_scan.cu",
@@ -3755,7 +4352,7 @@ def main(argv) -> int:
          "source": "karpenter_tpu_torch/csrc/ffd_scan_common.cuh",
          "replaces": "karpenter_tpu/solver/ffd.py:1113",
          "epilogue_of": ["ffd_batch_scan", "ffd_delta_scan",
-                         "ffd_sharded_scan"],
+                         "ffd_sharded_scan", "ffd_card_scan"],
          "launches": launches["explain_pack"],
          "max_abs_err": errs["explain_pack"],
          "ms": max(0.0, head_t["epi_ms"]),
@@ -3775,6 +4372,19 @@ def main(argv) -> int:
                "karpenter_tpu/parallel/mesh.py:203"),
               ("ffd_sharded_delta_scan",
                "karpenter_tpu/solver/ffd.py:1446"))),
+        *({"name": k7x, "route": "cuda",
+           "source": "karpenter_tpu_torch/csrc/ffd_card_scan.cu",
+           "replaces": replaces,
+           "launches": launches[k7x], "max_abs_err": errs[k7x],
+           "ms": k7x_t[k7x]["ms"], "plain_ms": k7x_t[k7x]["plain_ms"],
+           "bound_ms": k7x_t[k7x]["bound"][0],
+           "bound_by": k7x_t[k7x]["bound"][1], "library_ms": None,
+           "measured": k7x_t[k7x]["measured"],
+           "shape": list(k7x_t[k7x]["shape"])}
+          for k7x, replaces in (
+              ("ffd_card_scan", "karpenter_tpu/solver/ffd.py:1372"),
+              ("ffd_card_gang_scan", "karpenter_tpu/parallel/mesh.py:203"),
+              ("ffd_card_delta_scan", "karpenter_tpu/solver/ffd.py:1446"))),
         {"name": "explain_map", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/ffd_scan_common.cuh",
          "replaces": "karpenter_tpu/solver/ffd.py:1215",

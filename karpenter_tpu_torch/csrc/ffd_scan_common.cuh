@@ -1,7 +1,7 @@
 // The FFD scan shared by K5 ffd_batch_scan (and its gang instance), K4
 // ffd_sweep_scan (both lanes), K6 ffd_delta_scan and K7 ffd_sharded_scan:
-// one templated kernel, `scan_kernel<TOPO, SWEEP, GANG, SEED, SHARDED>`,
-// that runs the
+// one templated kernel, `scan_kernel<TOPO, SWEEP, GANG, SEED, SHARDED>`
+// (and K7x ffd_card_scan, its XCARD instances), that runs the
 // whole G-step scan of karpenter_tpu/solver/ffd.py `_solve_ffd_impl`
 // (ffd.py:210, scanned at :1062) for B problems in one launch, one thread
 // block per problem (the reference's `jax.vmap` axis, ffd.py:1492, :1531,
@@ -51,7 +51,12 @@
 //     :632, :649, :667, :894, :918); the grid-slot domain pattern is shard
 //     0's leading block (its all_gather, :631, :893, :1161); and the
 //     explain=1 elimination counts are summed over the shards in the
-//     epilogue (its psum, :1202), the slot class joining after the sum;
+//     epilogue (its psum, :1202), the slot class joining after the sum.
+//     That is the XCLUSTER transport; XCARD (K7x, ffd_card_scan.cu) runs
+//     the same body with rank r a thread block on card r of one host, its
+//     pointers already its own card's, and each combination an exchange
+//     between the cards' kernels over NVLink (`card_combine`, the
+//     protocol in ffd_xcard.cuh);
 //   * with K > 0 the take_exist top-K compaction (:1068-1086) in the
 //     epilogue: a block scan ranks each group's nonzero entries;
 //   * with a priority row, the priority inversion witness (:1238-1257) in
@@ -115,6 +120,7 @@
 
 #include "ffd_common.cuh"
 #include "ffd_explain.cuh"
+#include "ffd_xcard.cuh"
 
 #include <cooperative_groups.h>
 #include <limits.h>
@@ -125,6 +131,12 @@ namespace cg = cooperative_groups;
 #define MAXP 64
 #define MAXD 128
 #define MAXZC 64
+
+// scan_kernel's SHARDED: the column-sharded instances and their transport
+#define XNONE 0     // not sharded (K5, K4, K6)
+#define XCLUSTER 1  // K7: S blocks of one cluster, distributed shared memory
+#define XCARD 2     // K7x: one block a card (or the S blocks of one
+                    // cooperative grid on one card), ffd_xcard.cuh
 
 struct ScanArgs {
   // problem (per solve)
@@ -210,6 +222,13 @@ struct ScanArgs {
   int B, X, K, total;            // problems, exclusions, top-K, flat row
   int A;                         // seeded colmask rows (0 = not seeded)
   int C, S;                      // mask-table rows, shards (SHARDED)
+  // the card exchange (XCARD): every rank's inbox and flags, this rank,
+  // the launch counter.  Per card, every pointer above is already rank
+  // r's, on card r: its shard, its carry, its flat row (the caller's for
+  // rank 0, a scratch replica for the others), and nothing is offset; in
+  // the one-card rehearsal (a cooperative grid of S blocks) the layout is
+  // K7's and block r is rank r.
+  XcardArgs xc;
 };
 // Every pointer above addresses problem 0 of the batch; block b offsets the
 // per-problem ones (inputs, carry, the flat row) in offset_block.
@@ -487,9 +506,10 @@ __device__ void open_slots(const ScanArgs& a, const ScanDyn& s, int R,
 }
 
 // ---------------------------------------------------------------------------
-// the cluster exchange of the column-sharded scan (SHARDED only)
-
-#define XCH 2048  // ints per exchange slot
+// the exchanges of the column-sharded scan (SHARDED only): the transport
+// is the instance's, chosen at compile time — XCLUSTER (K7) through
+// distributed shared memory, XCARD (K7x) through the card exchange of
+// ffd_xcard.cuh
 
 // Per block: two exchange slots (double-buffered, so one cluster barrier
 // per exchange round is enough: a block writes slot p only after the
@@ -543,17 +563,81 @@ __device__ void cluster_combine(int* x, int L) {
   __syncthreads();
 }
 
+// Per rank of the card exchange: the launch's round counter (block-wide:
+// thread 0 advances it after the barrier that ends an exchange), shard
+// 0's leading grid-slot block — zone ids at [0, ZC), capacity-type ids at
+// [ZC, 2 ZC) — and a small staging row.  The slots live in device memory
+// (the inboxes), so no distributed shared memory and no cluster.
+struct CardXch {
+  unsigned round;
+  int zc0[2 * MAXZC];
+  int tmp[2 * MAXP];
+};
+
+__device__ __forceinline__ CardXch& cxch() {
+  __shared__ CardXch X;
+  return X;
+}
+
+// the block as the exchange's team (ffd_xcard.cuh)
+struct BlockTeam {
+  int t, nt;
+  __host__ __device__ void sync() {
+#if defined(__CUDA_ARCH__)
+    __syncthreads();
+#endif
+  }
+  __host__ __device__ void fence() {
+#if defined(__CUDA_ARCH__)
+    __threadfence_system();
+#endif
+  }
+};
+
+// cluster_combine's contract over the card exchange: x [L] holds this
+// rank's local reduction; on return every rank holds the max (or with SUM
+// the sum modulo 2^32) over the ranks.  Every thread of every rank calls,
+// with the same L.
+template <bool SUM>
+__device__ void card_combine(const ScanArgs& a, int* x, int L) {
+  CardXch& X = cxch();
+  BlockTeam team = {(int)threadIdx.x, NT};
+  __syncthreads();
+  unsigned k = X.round;
+  xc_all<SUM>(a.xc, &k, x, L, team);
+  if (threadIdx.x == 0) X.round = k;
+}
+
+// the instance's exchange
+template <int SHARDED, bool SUM>
+__device__ __forceinline__ void shard_combine(const ScanArgs& a, int* x,
+                                              int L) {
+  if constexpr (SHARDED == XCARD)
+    card_combine<SUM>(a, x, L);
+  else
+    cluster_combine<SUM>(x, L);
+}
+
+// the instance's staging row [2 * MAXP]
+template <int SHARDED>
+__device__ __forceinline__ int* xtmp() {
+  if constexpr (SHARDED == XCARD) return cxch().tmp;
+  return xch().tmp;
+}
+
 // the grid-slot domain ids every block uses: its own leading block, or
 // under SHARDED shard 0's (gathered in the prologue)
-template <bool SHARDED>
+template <int SHARDED>
 __device__ __forceinline__ const int* slot_zone(const ScanArgs& a) {
-  if constexpr (SHARDED) return xch().zc0_zone;
+  if constexpr (SHARDED == XCARD) return cxch().zc0;
+  if constexpr (SHARDED == XCLUSTER) return xch().zc0_zone;
   return a.col_zone;
 }
 
-template <bool SHARDED>
+template <int SHARDED>
 __device__ __forceinline__ const int* slot_ct(const ScanArgs& a) {
-  if constexpr (SHARDED) return xch().zc0_ct;
+  if constexpr (SHARDED == XCARD) return cxch().zc0 + a.ZC;
+  if constexpr (SHARDED == XCLUSTER) return xch().zc0_ct;
   return a.col_ct;
 }
 
@@ -576,7 +660,7 @@ __device__ __forceinline__ int opened_pods(const ScanShared& S, int p,
 
 // ---------------------------------------------------------------------------
 // the light step (ffd.py:460-587)
-template <bool SHARDED>
+template <int SHARDED>
 __device__ void light_step(const ScanArgs& a, ScanShared& S,
                            const ScanDyn& s, int g) {
   const int tid = threadIdx.x;
@@ -653,7 +737,7 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
   if (tid < P) S.limcap[tid] = fit_count(&a.limits[tid * KR], req);
   __syncthreads();
   // the best over every shard's blocks (min with the cap commutes)
-  if constexpr (SHARDED) cluster_combine<false>(s.cap, N);
+  if constexpr (SHARDED) shard_combine<SHARDED, false>(a, s.cap, N);
 
   // pool limits are collective: each node's cap is clamped by what its
   // pool's budget leaves after lower-index nodes of the same pool take
@@ -754,15 +838,15 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
   if constexpr (SHARDED) {
     // each pool's best column and "any column" over every shard, as one
     // [2P] exchange
-    ClusterXch& X = xch();
+    int* tmp = xtmp<SHARDED>();
     for (int p = tid; p < P; p += NT) {
-      X.tmp[p] = S.kfull[p];
-      X.tmp[P + p] = S.any[p];
+      tmp[p] = S.kfull[p];
+      tmp[P + p] = S.any[p];
     }
-    cluster_combine<false>(X.tmp, 2 * P);
+    shard_combine<SHARDED, false>(a, tmp, 2 * P);
     for (int p = tid; p < P; p += NT) {
-      S.kfull[p] = X.tmp[p];
-      S.any[p] = X.tmp[P + p];
+      S.kfull[p] = tmp[p];
+      S.any[p] = tmp[P + p];
     }
     __syncthreads();
   }
@@ -958,7 +1042,7 @@ __device__ void water_fill(HeavyShared& H, int D, int skew, int mindom) {
   __syncthreads();
 }
 
-template <bool SHARDED>
+template <int SHARDED>
 __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
                            const ScanDyn& s, int g) {
   __shared__ HeavyShared H;
@@ -1047,7 +1131,7 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
   }
   if constexpr (SHARDED) {
     // the [N, ZC] slot maxima over every shard (ffd.py:632)
-    cluster_combine<false>(a.xslot, N * ZC);
+    shard_combine<SHARDED, false>(a, a.xslot, N * ZC);
     for (int n = tid; n < N; n += NT)
       pick_domain(n, a.active[n] != 0, a.xslot + (size_t)n * ZC);
   }
@@ -1073,7 +1157,7 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
   }
   __syncthreads();
   // the [P, D] best column per (pool, domain) over every shard (:667)
-  if constexpr (SHARDED) cluster_combine<false>(s.kpd, P * D);
+  if constexpr (SHARDED) shard_combine<SHARDED, false>(a, s.kpd, P * D);
   const int na0 = S.na;
   for (int d = tid; d < D; d += NT) {
     // new-node pods per domain, clamped by what each pool can buy
@@ -1324,7 +1408,7 @@ __device__ __forceinline__ int gang_dom(int dsel, const int* zone,
 // budgets charged with the in-flight take, then each pool's new nodes and
 // pods, the new nodes pinned.  Evaluating the winner twice on the same
 // carry gives the same candidate bit for bit.  Every thread calls.
-template <bool SHARDED>
+template <int SHARDED>
 __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
                                const ScanDyn& s, GangShared& Gs, int g,
                                int d, bool commit) {
@@ -1392,7 +1476,7 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
   }
   __syncthreads();
   // the best over every shard's blocks in d's slots (ffd.py:894)
-  if constexpr (SHARDED) cluster_combine<false>(s.cap, N);
+  if constexpr (SHARDED) shard_combine<SHARDED, false>(a, s.cap, N);
   // pool limits are collective (_clamp_pool_limits on the carry budgets)
   for (int p = 0; p < P; ++p) {
     unsigned carry = 0u;
@@ -1520,7 +1604,7 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
       node_dom, nullptr);
 }
 
-template <bool SHARDED>
+template <int SHARDED>
 __device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
                           int g) {
   __shared__ GangShared Gs;
@@ -1558,7 +1642,7 @@ __device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
   }
   __syncthreads();
   // the [P, D] best column per (pool, domain) over every shard (:918)
-  if constexpr (SHARDED) cluster_combine<false>(s.kpd, P * D);
+  if constexpr (SHARDED) shard_combine<SHARDED, false>(a, s.kpd, P * D);
 
   // -- every domain's candidate, then the feasible one of lowest rank
   for (int d = 0; d < D; ++d)
@@ -1750,7 +1834,7 @@ __device__ void offset_shard(ScanArgs& a, int r) {
 // ffd.py:1202) and the slot class joins after the sum;
 // a column's grid-slot domain is shard 0's leading block's.  Integer
 // counts and sums only: exact in any order.  Every thread calls.
-template <bool SHARDED, bool GANG>
+template <int SHARDED, bool GANG>
 __device__ void explain_pack(const ScanArgs& a, ScanShared& S,
                              float* s_pt) {
   constexpr int NW = NT / 32;
@@ -1874,7 +1958,7 @@ __device__ void explain_pack(const ScanArgs& a, ScanShared& S,
     }
   }
   if constexpr (SHARDED) {
-    cluster_combine<true>(part, 4 * G);
+    shard_combine<SHARDED, true>(a, part, 4 * G);
     for (int g = threadIdx.x; g < G; g += NT) {
       const int* c = part + g * 4;
       const bool stranded = a.unsched[g] > 0.0f;
@@ -1928,10 +2012,13 @@ __device__ void compact_take_exist(const ScanArgs& a, ScanShared& S) {
 // group_gang set.  SWEEP: the problem is a simulation of a shared
 // snapshot, built in the prologue (kept existing rows, price-capped class
 // masks).  SEED (light only, one problem): the carry starts from the
-// prefix state of the seed arrays.  SHARDED (one problem, B = 1): the
-// grid is ONE cluster of S blocks, block r holding column shard r; the
-// column-axis reductions combine across the cluster (cluster_combine).
-template <bool TOPO, bool SWEEP, bool GANG, bool SEED, bool SHARDED = false>
+// prefix state of the seed arrays.  SHARDED (one problem, B = 1):
+// XCLUSTER, the grid is ONE cluster of S blocks, block r holding column
+// shard r, the column-axis reductions combined across the cluster
+// (cluster_combine); XCARD, this block is rank r of S, one a card (grid
+// 1) or block r of a cooperative grid of S on one card (the rehearsal),
+// the reductions combined through the card exchange (card_combine).
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED = XNONE>
 __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScanShared S;
@@ -1939,10 +2026,16 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   const int tid = threadIdx.x;
   if (tid == 0) {
     A = a0;
-    if constexpr (SHARDED)
+    if constexpr (SHARDED == XCLUSTER) {
       offset_shard(A, (int)cg::this_cluster().block_rank());
-    else
+    } else if constexpr (SHARDED == XCARD) {
+      if (gridDim.x > 1) {  // the rehearsal: block r is rank r
+        A.xc.rank = blockIdx.x;
+        offset_shard(A, blockIdx.x);
+      }
+    } else {
       offset_block<SWEEP>(A, blockIdx.x);
+    }
   }
   __syncthreads();
   const ScanArgs& a = A;
@@ -2012,7 +2105,22 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     S.dreal_zone = INT_MIN;
     S.dreal_ct = INT_MIN;
   }
-  if constexpr (SHARDED) {
+  if constexpr (SHARDED == XCARD) {
+    // round 0 of the exchange (every rank has entered this launch), then
+    // shard 0's leading grid-slot block through it, as the slot->domain
+    // map (the reference's all_gather(...)[0], ffd.py:631): rank 0 offers
+    // its ids, the others INT_MIN, and the max is rank 0's
+    CardXch& X = cxch();
+    BlockTeam team = {tid, NT};
+    if (tid == 0) X.round = 0;
+    xc_enter(a.xc, team);
+    for (int z = tid; z < a.ZC; z += NT) {
+      X.zc0[z] = a.xc.rank == 0 ? a.col_zone[z] : INT_MIN;
+      X.zc0[a.ZC + z] = a.xc.rank == 0 ? a.col_ct[z] : INT_MIN;
+    }
+    card_combine<false>(a, X.zc0, 2 * a.ZC);
+  }
+  if constexpr (SHARDED == XCLUSTER) {
     // every block takes shard 0's leading grid-slot block as the
     // slot->domain map (the reference's all_gather(...)[0], ffd.py:631)
     cg::cluster_group cl = cg::this_cluster();
@@ -2061,15 +2169,15 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     __syncthreads();
     if constexpr (SHARDED) {
       // the max over every shard's columns
-      ClusterXch& X = xch();
+      int* tmp = xtmp<SHARDED>();
       if (tid == 0) {
-        X.tmp[0] = S.dreal_zone;
-        X.tmp[1] = S.dreal_ct;
+        tmp[0] = S.dreal_zone;
+        tmp[1] = S.dreal_ct;
       }
-      cluster_combine<false>(X.tmp, 2);
+      shard_combine<SHARDED, false>(a, tmp, 2);
       if (tid == 0) {
-        S.dreal_zone = X.tmp[0];
-        S.dreal_ct = X.tmp[1];
+        S.dreal_zone = tmp[0];
+        S.dreal_ct = tmp[1];
       }
       __syncthreads();
     }
@@ -2149,8 +2257,9 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     a.ct_out[n] = (float)a.node_ct[n];
   }
   if (tid == 0) a.na_out[0] = (float)S.na;
-  // no block leaves while a peer may still read its shared memory
-  if constexpr (SHARDED) cg::this_cluster().sync();
+  // no block leaves while a peer may still read its shared memory (the
+  // card exchange reads only the inboxes, which outlive the launch)
+  if constexpr (SHARDED == XCLUSTER) cg::this_cluster().sync();
 }
 
 // the dynamic shared memory of one block
@@ -2170,7 +2279,7 @@ size_t scan_smem(const ScanArgs& a) {
 template <bool TOPO, bool GANG, bool SEED>
 cudaError_t sharded_config(const ScanArgs& a, size_t smem, void* stream,
                            cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  auto kern = scan_kernel<TOPO, false, GANG, SEED, true>;
+  auto kern = scan_kernel<TOPO, false, GANG, SEED, XCLUSTER>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -2207,22 +2316,16 @@ int sharded_occupancy(const ScanArgs& a) {
   int n = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(
-        &n, (void*)scan_kernel<TOPO, false, GANG, SEED, true>, &cfg);
+        &n, (void*)scan_kernel<TOPO, false, GANG, SEED, XCLUSTER>, &cfg);
   return err == cudaSuccess ? n : -1000 - (int)err;
 }
 
-// Plain-C entry point body for ctypes.  ptrs: SCAN_NPTRS device addresses in
-// ScanArgs order (0 for what the instance does not read); dims: G, E, N, O,
-// PT, ZC, P, D, W, B, X, K, total, A, C, S.  Returns 0, a CUDA error code
-// (cudaGetLastError after the launch, or cudaLaunchKernelEx's refusal of a
-// cluster the card cannot hold), or a negative argument error.  Launches B
-// blocks (SHARDED: one cluster of S blocks) on `stream` and does not
-// synchronise.
-template <bool TOPO, bool SWEEP, bool GANG, bool SEED, bool SHARDED = false>
-int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
-               int ndims, void* stream) {
-  if (nptrs != SCAN_NPTRS || ndims != SCAN_NDIMS) return -1;
-  ScanArgs a;
+// The ScanArgs of one launch from the entry points' plain-C arguments:
+// ptrs, SCAN_NPTRS device addresses in ScanArgs order (0 for what the
+// instance does not read); dims, G, E, N, O, PT, ZC, P, D, W, B, X, K,
+// total, A, C, S.
+inline void scan_parse(const unsigned long long* ptrs, const int* dims,
+                       ScanArgs& a) {
   int i = 0;
   a.group_req = (const float*)ptrs[i++];
   a.group_count = (const int*)ptrs[i++];
@@ -2302,6 +2405,12 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   a.A = dims[13];
   a.C = dims[14];
   a.S = dims[15];
+}
+
+// The argument checks every instance makes: 0, or -2 for arguments it does
+// not take.
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED>
+int scan_check(const ScanArgs& a) {
   if (a.P < 1 || a.P > MAXP || a.ZC < 1 || a.N < 1 || a.D < 1 || a.G < 1 ||
       a.B < 1 || a.O != a.PT * a.ZC || a.W != (a.O + 31) / 32 || a.K < 0 ||
       !a.node_zone || !a.node_ct ||
@@ -2351,20 +2460,39 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   // takes any of it
   if (SHARDED && (SWEEP || a.B != 1 || a.K != 0 || a.S < 1 || a.S > 16 ||
                   a.C < 1 || !a.mask_rows || !a.xslot || a.ZC > MAXZC ||
-                  a.P > MAXP || !a.row0 || (a.S > 1 && !a.xrow)))
+                  a.P > MAXP || !a.row0))
     return -2;
+  if (SHARDED == XCLUSTER && a.S > 1 && !a.xrow) return -2;
   if (!SHARDED && (a.C != 0 || a.S != 0 || a.mask_rows || a.xslot ||
                    a.row0 || a.xrow))
     return -2;
+  return 0;
+}
+
+// Plain-C entry point body for ctypes (scan_parse's arguments).  Returns
+// 0, a CUDA error code (cudaGetLastError after the launch, or
+// cudaLaunchKernelEx's refusal of a cluster the card cannot hold), or a
+// negative argument error.  Launches B blocks (XCLUSTER: one cluster of S
+// blocks) on `stream` and does not synchronise.  (XCARD launches through
+// ffd_card_scan.cu's card_entry.)
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED = XNONE>
+int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
+               int ndims, void* stream) {
+  static_assert(SHARDED != XCARD, "K7x launches through card_entry");
+  if (nptrs != SCAN_NPTRS || ndims != SCAN_NDIMS) return -1;
+  ScanArgs a = {};
+  scan_parse(ptrs, dims, a);
+  const int rc = scan_check<TOPO, SWEEP, GANG, SEED, SHARDED>(a);
+  if (rc != 0) return rc;
   const size_t smem = scan_smem<TOPO, SWEEP>(a);
-  if constexpr (SHARDED) {
+  if constexpr (SHARDED == XCLUSTER) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     cudaError_t err =
         sharded_config<TOPO, GANG, SEED>(a, smem, stream, cfg, attr);
     if (err == cudaSuccess)
-      err = cudaLaunchKernelEx(&cfg, scan_kernel<TOPO, false, GANG, SEED, true>,
-                               a);
+      err = cudaLaunchKernelEx(
+          &cfg, scan_kernel<TOPO, false, GANG, SEED, XCLUSTER>, a);
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
   } else {
     cudaError_t err = cudaFuncSetAttribute(

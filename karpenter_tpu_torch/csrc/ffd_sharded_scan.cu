@@ -31,12 +31,13 @@
 // and block 0 writes the flat row and the pool budgets into the caller's
 // buffers (the others into a scratch replica of their own).
 //
-// These are the `scan_kernel<TOPO, false, GANG, SEED, true>` instances of
-// ffd_scan_common.cuh, which holds the design notes; K5, K4 and K6 are its
-// SHARDED = false instances and compile as before.  What bounds it on the
-// H100: latency, as K5 — a chain of G steps with block barriers inside
-// each, now with one or two cluster barriers per step besides; the
-// catalog work per block shrinks by S.
+// These are the `scan_kernel<TOPO, false, GANG, SEED, XCLUSTER>` instances
+// of ffd_scan_common.cuh, which holds the design notes; K5, K4 and K6 are
+// its SHARDED = XNONE instances, and K7x (ffd_card_scan.cu) the XCARD
+// ones: the same scan body with the card exchange as its transport.  What
+// bounds it on the H100: latency, as K5 — a chain of G steps with block
+// barriers inside each, now with one or two cluster barriers per step
+// besides; the catalog work per block shrinks by S.
 #include "ffd_scan_common.cuh"
 
 // Plain-C entry points for ctypes.  ptrs: SCAN_NPTRS device addresses in
@@ -54,16 +55,16 @@
 // light and heavy steps (the reference's resident program, with_gang 0)
 extern "C" int ffd_sharded_scan(const unsigned long long* ptrs, int nptrs,
                                 const int* dims, int ndims, void* stream) {
-  return scan_entry<true, false, false, false, true>(ptrs, nptrs, dims,
-                                                     ndims, stream);
+  return scan_entry<true, false, false, false, XCLUSTER>(ptrs, nptrs, dims,
+                                                         ndims, stream);
 }
 
 // with the gang fill (with_gang 1)
 extern "C" int ffd_sharded_gang_scan(const unsigned long long* ptrs,
                                      int nptrs, const int* dims, int ndims,
                                      void* stream) {
-  return scan_entry<true, false, true, false, true>(ptrs, nptrs, dims, ndims,
-                                                    stream);
+  return scan_entry<true, false, true, false, XCLUSTER>(ptrs, nptrs, dims,
+                                                        ndims, stream);
 }
 
 // the seeded instance (the delta resident program: light only, from the
@@ -71,8 +72,8 @@ extern "C" int ffd_sharded_gang_scan(const unsigned long long* ptrs,
 extern "C" int ffd_sharded_delta_scan(const unsigned long long* ptrs,
                                       int nptrs, const int* dims, int ndims,
                                       void* stream) {
-  return scan_entry<false, false, false, true, true>(ptrs, nptrs, dims,
-                                                     ndims, stream);
+  return scan_entry<false, false, false, true, XCLUSTER>(ptrs, nptrs, dims,
+                                                         ndims, stream);
 }
 
 // How many clusters of one launch's shape the card holds at once

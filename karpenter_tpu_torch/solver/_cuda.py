@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # the sources, one library each
 KERNELS = ("ffd_batch_scan", "ffd_sweep_scan", "ffd_delta_scan",
-           "ffd_sharded_scan", "ffd_empty")
+           "ffd_sharded_scan", "ffd_card_scan", "ffd_empty")
 # entry point -> the source that exports it
 ENTRIES = {"ffd_batch_scan": "ffd_batch_scan",
            "ffd_batch_gang_scan": "ffd_batch_scan",
@@ -40,7 +40,12 @@ ENTRIES = {"ffd_batch_scan": "ffd_batch_scan",
            "ffd_sharded_scan": "ffd_sharded_scan",
            "ffd_sharded_gang_scan": "ffd_sharded_scan",
            "ffd_sharded_delta_scan": "ffd_sharded_scan",
-           "ffd_sharded_occupancy": "ffd_sharded_scan"}
+           "ffd_sharded_occupancy": "ffd_sharded_scan",
+           "ffd_card_scan": "ffd_card_scan",
+           "ffd_card_gang_scan": "ffd_card_scan",
+           "ffd_card_delta_scan": "ffd_card_scan",
+           "ffd_card_occupancy": "ffd_card_scan",
+           "ffd_card_peer": "ffd_card_scan"}
 
 # -fmad=false and the precise division/sqrt keep the float arithmetic the
 # reference's (the kernels also spell every operation with a

@@ -34,6 +34,13 @@ runs them as hand-written CUDA kernels, one thread block per problem:
     group's mask gathered from a resident row table, one thread-block
     cluster of S blocks whose column reductions combine through
     distributed shared memory.
+  * ``card_scan`` (K7x, `csrc/ffd_card_scan.cu`): the same scan across
+    the S cards of one host (`CardCatalog`, shard r on card r), one rank
+    a card, each column reduction an exchange between the cards' kernels
+    over NVLink (`CardExchange`, the protocol in `csrc/ffd_xcard.cuh`);
+    ``card_scan_rehearsal`` launches the same instances as one
+    cooperative grid of S blocks on one card, a check of the exchange
+    where only one card exists.
 
 Where the flat layout holds explain rows, K5, K6 and K7 write them in
 their own launch: the scans' epilogue (`explain_pack`, the per-group
@@ -47,14 +54,15 @@ With ``sparse_k`` > 0 the scans also compact each group's take_exist row
 into K (count, index) pairs, the reference's prefix-rank scatter.  Beside
 each kernel sits its plain PyTorch version (``batch_scan_reference``,
 ``sweep_scan_reference``, ``sweep_topo_scan_reference``,
-``delta_scan_reference``, ``sharded_scan_reference``; ``pack_reference``
-the epilogue's), a transcription of the reference with a Python loop over
-problems, groups and pools; every scan shares one light and one heavy
-step.  A wrapper runs the kernel for a CUDA tensor and the plain version
-for a CPU tensor; there is no fallback from one to the other.  Each
-wrapper counts its kernel launches in ``.launches`` (and the launches
-that carried explain rows in ``.explain_launches``; ``batch_scan`` those
-with the map in ``.map_launches``).
+``delta_scan_reference``, ``sharded_scan_reference`` — K7x's too, on its
+shards stacked —; ``pack_reference`` the epilogue's), a transcription of
+the reference with a Python loop over problems, groups and pools; every
+scan shares one light and one heavy step.  A wrapper runs the kernel for
+a CUDA tensor and the plain version for a CPU tensor; there is no
+fallback from one to the other.  Each wrapper counts its kernel launches
+in ``.launches`` (and the launches that carried explain rows in
+``.explain_launches``; ``batch_scan`` those with the map in
+``.map_launches``).
 
 The flat result buffer of one problem has exactly the reference's layout
 (ffd.py:1258):
@@ -73,6 +81,7 @@ splits a row into the same named host arrays.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass, fields
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -91,6 +100,8 @@ MAX_POOLS = 64  # the kernels' pool-axis capacity (csrc MAXP)
 MAX_DOMAINS = 128  # the kernels' domain-axis capacity (csrc MAXD)
 MAX_EXCLUDED = 8  # the sweep kernels' exclusions per simulation (csrc MAXX)
 MAX_SHARDS = 16  # K7's largest cluster (non-portable past 8)
+MAX_CARDS = 8  # K7x's ranks, the cards of one host (csrc XMAXR)
+XCH = 2048  # ints a slot of the card exchange (csrc ffd_xcard.cuh)
 
 
 # -- tensors -----------------------------------------------------------------
@@ -253,11 +264,13 @@ class DeltaSeed:
     seed_pool: torch.Tensor     # [N] i32
     seed_active: torch.Tensor   # [N] i32 0/1
     seed_colmask: torch.Tensor  # [A, W] i32 surviving-column words per slot
-                                # ([S, A, W_s] per shard on the mesh path)
+                                # ([S, A, W_s] per shard on the mesh path,
+                                # rank r's [A, W_s] in the cards form)
 
     @property
     def A(self) -> int:
-        return self.seed_colmask.shape[-2]
+        cm = self.seed_colmask
+        return (cm[0] if isinstance(cm, (tuple, list)) else cm).shape[-2]
 
 
 @dataclass
@@ -314,6 +327,77 @@ class ShardedCatalog:
             self.col_ct.view(-1), zc=self.zc)
 
 
+@dataclass
+class CardCatalog:
+    """The catalog split over S cards, one shard a card: the cards form of
+    ShardedCatalog (the reference's shardings over the devices of a mesh,
+    parallel/mesh.py).  Every column-axis field is a tuple whose [r] is
+    shard r, [O_s, ...] on card r and nowhere else; pool_daemon has a
+    replica on every card.  `full` is the full-width catalog on card 0
+    that the unsharded kernels read (the batched and sweep paths under a
+    mesh), gathered card to card once (`MeshExecutor.gather_full`)."""
+    col_alloc: Tuple[torch.Tensor, ...]    # [O_s, R] f32 on card r
+    col_daemon: Tuple[torch.Tensor, ...]   # [O_s, R] f32
+    pt_alloc: Tuple[torch.Tensor, ...]     # [PT_s, R] f32
+    col_pool: Tuple[torch.Tensor, ...]     # [O_s] i32
+    pool_daemon: Tuple[torch.Tensor, ...]  # [P, R] f32 (a replica a card)
+    pool_bits: Tuple[torch.Tensor, ...]    # [P, W_s] i32
+    col_zone: Tuple[torch.Tensor, ...]     # [O_s] i32
+    col_ct: Tuple[torch.Tensor, ...]       # [O_s] i32
+    zc: int
+    full: Optional[FFDCatalog] = None
+
+    @property
+    def S(self) -> int:
+        return len(self.col_alloc)
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(t.device for t in self.col_alloc)
+
+    @property
+    def O_s(self) -> int:
+        return self.col_alloc[0].shape[0]
+
+    @property
+    def PT_s(self) -> int:
+        return self.pt_alloc[0].shape[0]
+
+    @property
+    def W_s(self) -> int:
+        return (self.O_s + 31) // 32
+
+    @property
+    def O(self) -> int:
+        return self.S * self.O_s
+
+    @property
+    def PT(self) -> int:
+        return self.S * self.PT_s
+
+    def shard(self, r: int) -> ShardedCatalog:
+        """Rank r's shard as a one-shard ShardedCatalog ([1, ...] views on
+        card r): what rank r's launch reads."""
+        return ShardedCatalog(
+            self.col_alloc[r][None], self.col_daemon[r][None],
+            self.pt_alloc[r][None], self.col_pool[r][None],
+            self.pool_daemon[r], self.pool_bits[r][None],
+            self.col_zone[r][None], self.col_ct[r][None],
+            full_pool_bits=self.pool_bits[r], zc=self.zc)
+
+    def stacked(self, device) -> ShardedCatalog:
+        """The shards stacked on `device` as the one-card [S, ...] form
+        (what the plain version reads; full_pool_bits left empty)."""
+        def st(ts):
+            return torch.stack([t.to(device) for t in ts])
+        return ShardedCatalog(
+            st(self.col_alloc), st(self.col_daemon), st(self.pt_alloc),
+            st(self.col_pool), self.pool_daemon[0].to(device),
+            st(self.pool_bits), st(self.col_zone), st(self.col_ct),
+            full_pool_bits=torch.empty((0, 0), dtype=torch.int32,
+                                       device=device), zc=self.zc)
+
+
 def split_columns(a: np.ndarray, S: int, axis: int = 0) -> List[np.ndarray]:
     """S contiguous shards of `a` along `axis`, whose length S divides."""
     if a.shape[axis] % S:
@@ -330,13 +414,14 @@ def shard_words(mask: np.ndarray, S: int) -> List[np.ndarray]:
             for m in split_columns(np.asarray(mask, bool), S, axis=-1)]
 
 
-def sharded_catalog_tensors(cat_arrays: Dict, S: int,
-                            ex) -> ShardedCatalog:
+def sharded_catalog_tensors(cat_arrays: Dict, S: int, ex):
     """The padded catalog arrays (numpy, as `catalog_tensors` takes
     them; PT a multiple of S) as a ShardedCatalog: each column-axis array
     committed shard by shard through `ex.put_sharded` (parallel.mesh
     MeshExecutor, which logs the bytes), pool_daemon and the full-width
-    pool bits through `ex.put_replicated`."""
+    pool bits through `ex.put_replicated`.  On a mesh of cards (`ex.mesh.
+    cards`) a CardCatalog: shard r committed to card r alone, pool_daemon
+    on every card, no full-width pool bits (`gather_full` builds them)."""
     zc = int(cat_arrays["zc"])
     col_pool = np.asarray(cat_arrays["col_pool"], np.int32)
     pool_daemon = np.asarray(cat_arrays["pool_daemon"], np.float32)
@@ -350,6 +435,16 @@ def sharded_catalog_tensors(cat_arrays: Dict, S: int,
     def cols(name, dt):
         return ex.put_sharded(split_columns(
             np.asarray(cat_arrays[name], dt), S), "catalog")
+    if ex.mesh.cards:
+        return CardCatalog(
+            col_alloc=cols("col_alloc", np.float32),
+            col_daemon=cols("col_daemon", np.float32),
+            pt_alloc=ex.put_sharded(split_columns(pt_alloc, S), "catalog"),
+            col_pool=ex.put_sharded(split_columns(col_pool, S), "catalog"),
+            pool_daemon=ex.put_replicated(pool_daemon),
+            pool_bits=ex.put_sharded(shard_words(pool_cols, S), "catalog"),
+            col_zone=cols("col_zone", np.int32),
+            col_ct=cols("col_ct", np.int32), zc=zc)
     cat = ShardedCatalog(
         col_alloc=cols("col_alloc", np.float32),
         col_daemon=cols("col_daemon", np.float32),
@@ -1812,7 +1907,8 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
                  D: int, X: int, cat, flat: torch.Tensor,
                  lay: Dict, limits_out: torch.Tensor, sparse_k: int,
                  inputs: Dict[str, Optional[torch.Tensor]],
-                 A: int = 0, mesh: Optional[Dict] = None) -> None:
+                 A: int = 0, mesh: Optional[Dict] = None,
+                 xcard: Optional[Tuple] = None, defer: bool = False):
     """Launch one of the scan kernels (grid: one block per problem) with
     the argument list every instance takes (ScanArgs order; the explain
     regions of `lay` among the outputs); `inputs` holds the per-problem
@@ -1822,13 +1918,20 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
     ShardedCatalog, the grid is one cluster of S blocks each holding a
     replica of the carry, the dims carry one shard's O, PT and W, and
     block 0 writes the flat row `flat` [total] and the budgets
-    `limits_out` [P, R] (the other blocks keep theirs in the scratch)."""
+    `limits_out` [P, R] (the other blocks keep theirs in the scratch).
+    With `xcard` (K7x: (CardExchange, rank, launch counter, rehearse))
+    the card exchange's addresses and dims follow; one rank's launch
+    (mesh["reps"] 1: `cat` rank r's one-shard view, `flat` its row) or
+    the rehearsal's cooperative grid of S blocks (K7's layout).  With
+    `defer` the launch is returned, not made: a call that enqueues it
+    (its scratch held until then)."""
     from karpenter_tpu_torch.solver import _cuda
     dev = flat.device
     if mesh is None:
         O, PT, W, reps = cat.O, cat.PT, cat.W, B
     else:
-        O, PT, W, reps = cat.O_s, cat.PT_s, cat.W_s, mesh["S"]
+        O, PT, W = cat.O_s, cat.PT_s, cat.W_s
+        reps = mesh.get("reps", mesh["S"])
     total = lay["total"][1]
     if P > MAX_POOLS:
         raise ValueError(f"{P} node pools: the kernels take at most "
@@ -1889,8 +1992,16 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
     dims = [G, E, N, O, PT, cat.zc, P, D, W, B, X, sparse_k, total, A,
             0 if mesh is None else mesh["C"],
             0 if mesh is None else mesh["S"]]
+    ptrs = [_ptr(t) for t in ptrs]
+    if xcard is not None:
+        xch, rank, seq, rehearse = xcard
+        ptrs += xch.addresses()
+        dims += [rank, seq, rehearse, dev.index]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _cuda.launch(entry, [_ptr(t) for t in ptrs], dims, stream)
+    if defer:
+        keep = (scratch_f, scratch_i, flat, limits_out, inputs)
+        return lambda: _cuda.launch(entry, ptrs, dims, stream) or keep
+    _cuda.launch(entry, ptrs, dims, stream)
 
 
 def batch_scan(batch: FFDBatch, cat: FFDCatalog, N: int,
@@ -2216,6 +2327,24 @@ def _check_sharded(prob: FFDProblem, table: torch.Tensor,
                          f"blocks")
 
 
+def _check_sharded_outputs(prob: FFDProblem, O: int, flat: torch.Tensor,
+                           lay: Dict, limits_out: torch.Tensor,
+                           with_gang: int, seed: Optional[DeltaSeed]) -> None:
+    """The flat row and budgets of a column-sharded launch (K7, K7x), and
+    what its instances refuse."""
+    dev = flat.device
+    _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
+    _check(limits_out, "limits_out", torch.float32, (prob.P, R), dev)
+    if "te_cnt" in lay:
+        raise ValueError("the sharded scan writes dense take_exist rows")
+    _check_explain(lay, prob.G, O, map_ok=False)
+    if seed is not None and ("prio_inv" in lay or with_gang):
+        raise ValueError("the seeded scan is gang-free, with no witness")
+    if dev.type != "cuda" and seed is not None and (
+            bool(prob.group_dsel.any()) or bool(prob.group_gang.any())):
+        raise ValueError("the seeded scan is light-only and gang-free")
+
+
 def _sharded_launch_args(prob, table, cat, lay, with_gang, seed):
     """(entry, inputs, mesh, A) of one K7 launch."""
     inputs = {f.name: getattr(prob, f.name) for f in fields(prob)}
@@ -2251,21 +2380,13 @@ def sharded_scan(prob: FFDProblem, table: torch.Tensor, cat: ShardedCatalog,
     tensors run `sharded_scan_reference`."""
     dev = flat.device
     _check_sharded(prob, table, cat, N, dev, seed)
-    _check(flat, "flat", torch.float32, (lay["total"][1],), dev)
-    _check(limits_out, "limits_out", torch.float32, (prob.P, R), dev)
-    if "te_cnt" in lay:
-        raise ValueError("the sharded scan writes dense take_exist rows")
-    _check_explain(lay, prob.G, cat.O, map_ok=False)
-    if seed is not None and ("prio_inv" in lay or with_gang):
-        raise ValueError("the seeded scan is gang-free, with no witness")
+    _check_sharded_outputs(prob, cat.O, flat, lay, limits_out, with_gang,
+                           seed)
     _first_launch("ffd_sharded_scan", prob.G, prob.E, N, prob.P, prob.D,
                   cat.S, table.shape[1], with_gang,
                   None if seed is None else seed.A, "prio_inv" in lay,
                   "explain_counts" in lay)
     if dev.type != "cuda":
-        if seed is not None and (bool(prob.group_dsel.any())
-                                 or bool(prob.group_gang.any())):
-            raise ValueError("the seeded scan is light-only and gang-free")
         sharded_scan_reference(prob, table, cat, N, flat, lay, limits_out,
                                with_gang, seed)
         return
@@ -2316,17 +2437,21 @@ def sharded_solve_ffd(prob: FFDProblem, table: torch.Tensor,
     reference's `sharded_solve_ffd`, parallel/mesh.py:110, and the
     resident program `MeshExecutor.solve` runs): K7, the explain counts in
     its epilogue (explain is clamped to counts by the caller: the [G, O]
-    map has no sharded form, ffd.py:374).  Returns the flat f32 result row
-    on the device (not synchronised)."""
+    map has no sharded form, ffd.py:374).  In the cards form (`cat` a
+    CardCatalog, `prob` and `table` a rank's each) K7x.  Returns the flat
+    f32 result row on the (first) device (not synchronised)."""
     if explain not in (0, 1):
         raise ValueError(f"explain={explain}: the sharded scan computes "
                          "counts (1) or nothing (0)")
-    dev = prob.group_req.device
-    lay = flat_layout(prob.G, prob.E, max_nodes, prob.D, explain,
+    cards = isinstance(cat, CardCatalog)
+    p0 = prob[0] if cards else prob
+    dev = p0.group_req.device
+    lay = flat_layout(p0.G, p0.E, max_nodes, p0.D, explain,
                       with_priority=with_priority)
     flat = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
-    limits = torch.empty((prob.P, R), dtype=torch.float32, device=dev)
-    sharded_scan(prob, table, cat, max_nodes, flat, lay, limits, with_gang)
+    limits = torch.empty((p0.P, R), dtype=torch.float32, device=dev)
+    scan = card_scan if cards else sharded_scan
+    scan(prob, table, cat, max_nodes, flat, lay, limits, with_gang)
     return flat
 
 
@@ -2336,16 +2461,293 @@ def sharded_delta_ffd(prob: FFDProblem, seed: DeltaSeed, table: torch.Tensor,
     """The seeded column-sharded solve (`MeshExecutor.solve_delta`,
     parallel/mesh.py:265): K7's seeded instance from `seed`, whose column
     words arrive per shard ([S, A, W_s]), with explain clamped to counts.
-    Returns the flat f32 result row (not synchronised)."""
+    In the cards form (`cat` a CardCatalog, `prob`, `seed` and `table` a
+    rank's each, each seed with its [A, W_s] words) K7x's seeded
+    instance.  Returns the flat f32 result row (not synchronised)."""
     if explain not in (0, 1):
         raise ValueError(f"explain={explain}: the seeded solve computes "
                          "counts (1) or nothing (0)")
-    dev = prob.group_req.device
-    lay = flat_layout(prob.G, prob.E, max_nodes, prob.D, explain)
+    cards = isinstance(cat, CardCatalog)
+    p0 = prob[0] if cards else prob
+    dev = p0.group_req.device
+    lay = flat_layout(p0.G, p0.E, max_nodes, p0.D, explain)
     flat = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
-    limits = torch.empty((prob.P, R), dtype=torch.float32, device=dev)
-    sharded_scan(prob, table, cat, max_nodes, flat, lay, limits, seed=seed)
+    limits = torch.empty((p0.P, R), dtype=torch.float32, device=dev)
+    if cards:
+        card_scan(prob, table, cat, max_nodes, flat, lay, limits, seeds=seed)
+    else:
+        sharded_scan(prob, table, cat, max_nodes, flat, lay, limits,
+                     seed=seed)
     return flat
+
+
+# -- the column-sharded scan across cards (the mesh path on S cards) -------
+# K7's entries and K7x's, instance for instance
+_CARD_ENTRY = {"ffd_sharded_scan": "ffd_card_scan",
+               "ffd_sharded_gang_scan": "ffd_card_gang_scan",
+               "ffd_sharded_delta_scan": "ffd_card_delta_scan"}
+
+
+class CardExchange:
+    """The card exchange of K7x (`csrc/ffd_xcard.cuh`) over `devices`:
+    rank r's inbox [S, 2, XCH] int32 and flags [S] int64 on devices[r]
+    (the flags zeroed once, here, and never again), the launch counter
+    that, with the round, makes the 64-bit sequence numbers, and the CUDA
+    events that tie one launch's ranks together.  On S distinct cards peer
+    access is enabled for every ordered pair first; with one card S times
+    it serves the rehearsal (the S blocks of one cooperative grid).  A
+    launch enqueues under one lock, so the ranks of two launches never
+    interleave on the cards' streams."""
+
+    def __init__(self, devices: Sequence):
+        from karpenter_tpu_torch.solver import _cuda
+        self.devices = tuple(torch.device(d) for d in devices)
+        S = len(self.devices)
+        if not 1 <= S <= MAX_CARDS:
+            raise ValueError(f"{S} ranks: the card exchange takes 1 to "
+                             f"{MAX_CARDS}")
+        n_distinct = len(set(self.devices))
+        if n_distinct not in (1, S):
+            raise ValueError(f"ranks on {self.devices}: S distinct cards, "
+                             f"or one card (the rehearsal)")
+        self.cards = n_distinct == S > 1
+        if self.cards:
+            _cuda.launch("ffd_card_peer", [],
+                         [d.index for d in self.devices], 0)
+        self.inbox = [torch.empty(S * 2 * XCH, dtype=torch.int32, device=d)
+                      for d in self.devices]
+        self.flags = [torch.zeros(S, dtype=torch.int64, device=d)
+                      for d in self.devices]
+        # the zeroing must land before any peer can publish into a card:
+        # nothing orders one card's memset against another card's launch
+        for d in set(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        self.seq = 0
+        self._events: List = []
+        self._lock = threading.Lock()
+
+    def addresses(self) -> List[int]:
+        """Every rank's inbox, then every rank's flags (0 past S)."""
+        pad = [0] * (MAX_CARDS - len(self.devices))
+        return ([t.data_ptr() for t in self.inbox] + pad
+                + [t.data_ptr() for t in self.flags] + pad)
+
+    def _next(self) -> int:
+        self.seq += 1
+        if self.seq >= 2 ** 31:
+            raise RuntimeError("the card exchange's launch counter is spent")
+        return self.seq
+
+    def launch(self, rank) -> int:
+        """One launch of S ranks: `rank(r, seq)` prepares rank r's launch
+        and returns the call that enqueues it; every card's stream first
+        waits on the previous launch's completion event of every card,
+        then the S ranks are enqueued back to back, card r current for
+        rank r, every rank before anything waits (each spins on its peers
+        from its first round, so the host puts nothing between them);
+        then each card records its completion event and card 0's current
+        stream waits on every other card's, so work that follows on card
+        0 (pulling rank 0's flat row) follows every rank.  Returns the
+        launch counter."""
+        with self._lock:
+            seq, prev = self._next(), self._events
+            calls = [rank(r, seq) for r in range(len(self.devices))]
+            for d in self.devices:
+                stream = torch.cuda.current_stream(d)
+                for e in prev:
+                    stream.wait_event(e)
+            for d, call in zip(self.devices, calls):
+                with torch.cuda.device(d):
+                    call()
+            events = []
+            for d in self.devices:
+                with torch.cuda.device(d):
+                    e = torch.cuda.Event()
+                    e.record(torch.cuda.current_stream(d))
+                    events.append(e)
+            card0 = torch.cuda.current_stream(self.devices[0])
+            for e in events[1:]:
+                card0.wait_event(e)
+            self._events = events
+            return seq
+
+    def rehearse(self, grid) -> int:
+        """One rehearsal launch, `grid(seq)` enqueueing the cooperative
+        grid on the one card (its stream orders the launches)."""
+        with self._lock:
+            seq = self._next()
+            with torch.cuda.device(self.devices[0]):
+                grid(seq)
+            return seq
+
+
+# one exchange per set of cards in the process: two launches over the
+# same cards must enqueue their ranks under one lock, or each card's
+# stream could hold them in another order and every rank would wait on a
+# peer queued behind the other launch
+_EXCHANGES: Dict[Tuple[torch.device, ...], CardExchange] = {}
+_EXCHANGES_LOCK = threading.Lock()
+
+
+def card_exchange(devices: Sequence) -> CardExchange:
+    """The process's card exchange over `devices` (made at first use)."""
+    key = tuple(torch.device(d) for d in devices)
+    with _EXCHANGES_LOCK:
+        xch = _EXCHANGES.get(key)
+        if xch is None:
+            xch = _EXCHANGES[key] = CardExchange(key)
+        return xch
+
+
+def _rank_seed(seed: Optional[DeltaSeed]) -> Optional[DeltaSeed]:
+    """A rank's seed as the one-shard form `_check_sharded` reads."""
+    if seed is None:
+        return None
+    return DeltaSeed(seed.seed_used, seed.seed_pool, seed.seed_active,
+                     seed.seed_colmask[None])
+
+
+def card_scan(probs: Sequence[FFDProblem], tables: Sequence[torch.Tensor],
+              cat: CardCatalog, N: int, flat: torch.Tensor, lay: Dict,
+              limits_out: torch.Tensor, with_gang: int = 0,
+              seeds: Optional[Sequence[DeltaSeed]] = None) -> None:
+    """K7x: the column-sharded scan of one problem over the S cards of
+    `cat`, rank r on card r — its replica of the problem rows probs[r]
+    (mask_bits the groups' [G] rows of its table), its mask table
+    tables[r] [C, W_s], its shard of the catalog and, seeded, seeds[r]
+    (the seed's rows and its own [A, W_s] column words) — each reduction
+    across the ranks an exchange between their kernels over NVLink.  The
+    same function as K7 (`sharded_scan`) on the same shards: rank 0
+    writes the flat row `flat` [total] and the budgets `limits_out` [P, R]
+    on card 0.  CUDA tensors launch one block on each card
+    (`CardExchange.launch`), one launch counted; CPU tensors run the plain
+    version, `sharded_scan_reference`, on the shards stacked."""
+    S, devs = cat.S, cat.devices
+    if (len(probs) != S or len(tables) != S
+            or (seeds is not None and len(seeds) != S)):
+        raise ValueError(f"the cards form takes one problem, table and "
+                         f"seed a rank ({S} ranks)")
+    if not 1 <= S <= MAX_CARDS:
+        raise ValueError(f"{S} cards: K7x takes 1 to {MAX_CARDS}")
+    for r in range(S):
+        _check_sharded(probs[r], tables[r][None], cat.shard(r), N, devs[r],
+                       _rank_seed(None if seeds is None else seeds[r]))
+    dev, p0 = flat.device, probs[0]
+    if dev != devs[0]:
+        raise ValueError(f"the flat row is rank 0's, on {devs[0]}, not "
+                         f"{dev}")
+    seed0 = None if seeds is None else seeds[0]
+    _check_sharded_outputs(p0, cat.O, flat, lay, limits_out, with_gang,
+                           seed0)
+    _first_launch("ffd_card_scan", p0.G, p0.E, N, p0.P, p0.D, S,
+                  tables[0].shape[0], with_gang,
+                  None if seed0 is None else seed0.A, "prio_inv" in lay,
+                  "explain_counts" in lay)
+    if dev.type != "cuda":
+        seed = None if seeds is None else DeltaSeed(
+            seed0.seed_used, seed0.seed_pool, seed0.seed_active,
+            torch.stack([sd.seed_colmask.to(dev) for sd in seeds]))
+        sharded_scan_reference(p0, torch.stack([t.to(dev) for t in tables]),
+                               cat.stacked(dev), N, flat, lay, limits_out,
+                               with_gang, seed)
+        return
+    if len(set(devs)) != S:
+        raise ValueError(f"K7x runs one rank a card: {devs} repeats a card "
+                         f"(one card's S blocks: card_scan_rehearsal)")
+    xch = card_exchange(devs)
+    total = lay["total"][1]
+
+    def rank(r, seq):
+        if r == 0:
+            flat_r, lim_r = flat, limits_out
+        else:
+            flat_r = torch.empty(total, dtype=torch.float32, device=devs[r])
+            lim_r = torch.empty((p0.P, R), dtype=torch.float32,
+                                device=devs[r])
+        shard = cat.shard(r)
+        entry, inputs, mesh, A = _sharded_launch_args(
+            probs[r], tables[r][None], shard, lay, with_gang,
+            None if seeds is None else seeds[r])
+        mesh.update(S=S, reps=1)
+        return _launch_scan(_CARD_ENTRY[entry], 1, p0.G, p0.E, N, p0.P,
+                            p0.D, 0, shard, flat_r, lay, lim_r, 0, inputs,
+                            A=A, mesh=mesh, xcard=(xch, r, seq, 0),
+                            defer=True)
+    xch.launch(rank)
+    if seeds is not None:
+        card_scan.delta_launches += 1
+    elif with_gang:
+        card_scan.gang_launches += 1
+    else:
+        card_scan.launches += 1
+    _count_explain(card_scan, lay)
+
+
+card_scan.launches = 0          # ffd_card_scan
+card_scan.gang_launches = 0     # ffd_card_gang_scan
+card_scan.delta_launches = 0    # ffd_card_delta_scan
+card_scan.explain_launches = 0  # launches (any) with the explain counts
+
+
+def card_scan_rehearsal(prob: FFDProblem, table: torch.Tensor,
+                        cat: ShardedCatalog, N: int, flat: torch.Tensor,
+                        lay: Dict, limits_out: torch.Tensor,
+                        with_gang: int = 0,
+                        seed: Optional[DeltaSeed] = None) -> None:
+    """K7x rehearsed on one card: the same instances launched as ONE
+    cooperative grid of S blocks (cudaLaunchCooperativeKernel: all
+    resident, or refused), block r rank r, every rank's inbox in that
+    card's memory, on K7's stacked arguments (`sharded_scan`'s).  A check
+    of the exchange code where only one card exists; the solver never
+    takes it.  CPU tensors run `sharded_scan_reference`."""
+    dev = flat.device
+    _check_sharded(prob, table, cat, N, dev, seed)
+    if cat.S > MAX_CARDS:
+        raise ValueError(f"{cat.S} ranks: K7x takes 1 to {MAX_CARDS}")
+    _check_sharded_outputs(prob, cat.O, flat, lay, limits_out, with_gang,
+                           seed)
+    if dev.type != "cuda":
+        sharded_scan_reference(prob, table, cat, N, flat, lay, limits_out,
+                               with_gang, seed)
+        return
+    xch = card_exchange((dev,) * cat.S)
+    entry, inputs, mesh, A = _sharded_launch_args(prob, table, cat, lay,
+                                                  with_gang, seed)
+    xch.rehearse(lambda seq: _launch_scan(
+        _CARD_ENTRY[entry], 1, prob.G, prob.E, N, prob.P, prob.D, 0, cat,
+        flat, lay, limits_out, 0, inputs, A=A, mesh=mesh,
+        xcard=(xch, 0, seq, 1)))
+    card_scan_rehearsal.launches += 1
+
+
+card_scan_rehearsal.launches = 0
+
+
+def card_blocks(probs: Sequence[FFDProblem], tables: Sequence[torch.Tensor],
+                cat: CardCatalog, N: int, lay: Dict, with_gang: int = 0,
+                seeds: Optional[Sequence[DeltaSeed]] = None
+                ) -> Tuple[int, ...]:
+    """How many blocks of K7x's rank launch each card holds at once (0 =
+    a rank's block does not fit and its launch would be refused).
+    Launches nothing; CUDA tensors only."""
+    from karpenter_tpu_torch.solver import _cuda
+    p = probs[0]
+    variant = 2 if seeds is not None else 1 if with_gang else 0
+    dims = [p.G, p.E, N, cat.O_s, cat.PT_s, cat.zc, p.P, p.D, cat.W_s, 1,
+            0, 0, lay["total"][1], 0 if seeds is None else seeds[0].A,
+            tables[0].shape[0], cat.S]
+    out = []
+    for d in cat.devices:
+        dd = dims + [d.index]
+        with torch.cuda.device(d):
+            rc = _cuda.kernel("ffd_card_occupancy")(
+                None, 0, (ctypes.c_int * len(dd))(*dd), len(dd),
+                ctypes.c_void_p(variant))
+        if rc < 0:
+            raise RuntimeError(f"ffd_card_occupancy on {d} failed: {rc}")
+        out.append(rc)
+    return tuple(out)
 
 
 def unpack(packed, G: int, E: int, N: int, RDIM: int, D: int,

@@ -158,12 +158,14 @@ class TorchSolver:
         KARPENTER_TPU_INCR (on/off/auto) override the constructed values;
         each is resolved once, at the first solve.
 
-        `mesh`: the column-sharded solve — an integer S > 1 splits the
-        catalog's offering columns over S shards (on one card, K7's S
-        thread blocks in one cluster), "auto" takes the device count
-        (`torch.cuda.device_count()` on "cuda", 1 on "cpu", so one device
-        is the single-device path, as the reference's), a `parallel.Mesh`
-        is taken as it is, "off"/None/0 is the single-device path.
+        `mesh`: the column-sharded solve (`parallel.resolve_mesh`) — an
+        integer S > 1 splits the catalog's offering columns over S shards:
+        on the first S cards, one rank a card (K7x), when the host has at
+        least S, else K7's S thread blocks in one cluster on one card;
+        "auto" takes every card when there is more than one (on "cpu", or
+        on one card, the single-device path, as the reference's); a
+        `parallel.Mesh` is taken as it is; "off"/None/0 is the
+        single-device path.  Cards without peer access between them raise.
         KARPENTER_TPU_MESH (off/0, auto, an integer) overrides it; resolved
         once."""
         self.max_nodes = max_nodes
@@ -274,22 +276,12 @@ class TorchSolver:
         if self._mesh_resolved:
             return self._mesh
         self._mesh_resolved = True
-        from karpenter_tpu_torch.parallel import Mesh, MeshExecutor, make_mesh
+        from karpenter_tpu_torch.parallel import (MeshExecutor, probe_cards,
+                                                  resolve_mesh)
         spec = knobs.mesh_spec(self._mesh_spec)
-        if spec in (None, 0, False, "off", ""):
-            return None
-        if isinstance(spec, Mesh):
-            mesh = spec if spec.size > 1 else None
-        else:
-            if spec == "auto":
-                n = (torch.cuda.device_count()
-                     if self.device.type == "cuda" else 1)
-            else:
-                try:
-                    n = int(spec)
-                except (TypeError, ValueError):
-                    n = 0  # a malformed spec degrades to single-device
-            mesh = make_mesh(n, self.device) if n > 1 else None
+        count, peer = (probe_cards() if self.device.type == "cuda"
+                       else (0, ()))
+        mesh = resolve_mesh(spec, count, peer, self.device)
         if mesh is not None:
             self._mesh_exec = MeshExecutor(mesh)
         self._mesh = mesh
@@ -402,7 +394,10 @@ class TorchSolver:
             from karpenter_tpu_torch.parallel import MaskRowRegistry
             cat.mesh_args = ffd.sharded_catalog_tensors(
                 arrays, mesh.size, self._mesh_exec)
-            cat.device_args = cat.mesh_args.full()
+            # across cards the full width is a card-to-card gather onto
+            # card 0, once per catalog identity (logged)
+            cat.device_args = (self._mesh_exec.gather_full(cat.mesh_args)
+                               if mesh.cards else cat.mesh_args.full())
             cat.mask_registry = MaskRowRegistry(self._mesh_exec, O)
         self._cat_entry = (key, cat)
         return cat
@@ -1036,7 +1031,8 @@ class TorchSolver:
             t_a = time.perf_counter()
             ptens = ffd.problem_tensors(prob, dev.O, self.device)
             if mesh is not None:
-                # K7: one cluster of S blocks over the resident shards
+                # K7: one cluster of S blocks over the resident shards (K7x:
+                # one rank a card)
                 flat = self._mesh_exec.solve(
                     ptens, table, cat.mesh_args, n, explain=exc,
                     with_gang=wg, with_priority=wp)
@@ -1316,7 +1312,8 @@ class TorchSolver:
         one.
         Under a mesh the group masks go through the resident row table and
         the seed's column words are committed per shard (logged as `kind`,
-        "delta-seed" or "spec-seed"), and K7's seeded instance runs.
+        "delta-seed" or "spec-seed"; across cards each shard to its own
+        card), and K7's (K7x's) seeded instance runs.
         Returns the flat result row on the device (not synchronised)."""
         A_pad = min(bucket(max(seed.A, 1), deltam.SEED_BUCKETS), mn)
         cm = np.zeros((A_pad, O), dtype=bool)

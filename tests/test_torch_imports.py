@@ -116,6 +116,27 @@ def test_the_walk_covers_the_stores_and_faults():
         assert path + ".py" in files, mod
 
 
+def test_the_walk_covers_the_cross_card_solve():
+    """The column-sharded solve across cards (K7x): its modules are in the
+    walk (the subprocess import and the AST scan below then cover them),
+    its CUDA source and the exchange's header are in csrc, and every
+    entry point `_cuda.ENTRIES` names is exported by its source."""
+    from karpenter_tpu_torch.solver import _cuda
+    mods = set(_modules())
+    for mod in ("parallel", "parallel.mesh", "solver.ffd", "solver._cuda"):
+        assert f"karpenter_tpu_torch.{mod}" in mods, mod
+    csrc = os.path.join(PKG, "csrc")
+    assert os.path.exists(os.path.join(csrc, "ffd_xcard.cuh"))
+    assert "ffd_card_scan" in _cuda.KERNELS
+    assert set(_cuda.ENTRIES.values()) == set(_cuda.KERNELS)
+    for entry, src in _cuda.ENTRIES.items():
+        with open(os.path.join(csrc, f"{src}.cu")) as f:
+            assert f'extern "C" int {entry}(' in f.read(), entry
+    assert {e for e, s in _cuda.ENTRIES.items() if s == "ffd_card_scan"} \
+        == {"ffd_card_scan", "ffd_card_gang_scan", "ffd_card_delta_scan",
+            "ffd_card_occupancy", "ffd_card_peer"}
+
+
 def test_store_daemon_process_loads_no_jax():
     """`python -m karpenter_tpu_torch.store <socket>` in a process of its
     own: every module it imports (`-X importtime`) is the port's or the
