@@ -121,8 +121,9 @@ Phases (any failure exits non-zero):
      (DISRUPTION_OBSERVED), K5 must launch at B=64 and K4 launch, with no
      oracle solve,
      no SolverFallback event and kt_hostops loaded.  One cold loop in a
-     child process that has launched nothing, run to its end before the
-     parent's loop whose solver is warmed first; per wave
+     child process that has launched nothing and, beside it, the
+     parent's loop whose solver is warmed first, each run whole (so each
+     loop's host times count the other's host work too); per wave
      the wall time to idle, the ms a round and a disruption pass, the
      disruption.* spans, each controller's reconcile ms, solve_batch's
      calls, simulations (those K4's sweep answered) and phases, the
@@ -158,7 +159,39 @@ Phases (any failure exits non-zero):
      device solve does on the card (no oracle solve, no SolverFallback
      event; one fault.inject timeline event, the fault fired once), the
      second launches K5 and gives the JAX device answer
-     (FAULT_SOLVES[1]); disarmed after.
+     (FAULT_SOLVES[1]); disarmed after;
+ 22. the operator's entry point (in child processes started beside
+     phase 19, each ended before phase 3): (a) a
+     store daemon in its own process loaded through a store client with
+     the default NodeClass, the default pool (its consolidateAfter an
+     hour: the operator runs the disruption controller too, which phase
+     18's loop does not) and phase 18's 50,000 pods, then `python -m
+     karpenter_tpu_torch` started on that store and a file lease with no
+     platform variable, so on the card; every pod must bind and the store
+     must hold LOOP's wave 1 (`workloads.store_answer`), the wave's
+     flight record HEADLINE_FLIGHT (/debug/flight), /metrics the
+     scheduling histogram and the replica's K5 and epilogue launches
+     (`karpenter_tpu_solver_kernel_launches_total`), /healthz and /readyz
+     "ok", /debug/ledger and /debug/timeline records; 2,000 more pods
+     must give LOOP's wave 2; SIGTERM must end the replica with exit code
+     0 within 15 s and its lease released; (b) tests/test_ha.py's
+     two-replica layout on the card — a
+     store daemon in its own process, one shared FakeCloud, two
+     Operators, one file lease — the election made, the 50,000 pods
+     created through the standby, the pair's loops started, and the
+     leader killed without release (its store connection cut) once
+     claims exist: never two leaders at once, every pod bound, none lost,
+     the standby leading (the fleet, which depends on timing, printed);
+ 23. in a child process started beside phase 19: BASELINE config #11's
+     rewind day (`workloads.build_rewind_day`, 6,422 events at 240 s
+     ticks) through `RewindEngine(device="cuda",
+     audit=True).run(driver="operator")`: every invariant of the config
+     (ledger hex exactness, gang atomicity, no priority inversion, the
+     shadow audit at rate 1 clean, no lost pod), every event applied, the
+     crash tick's armed `solver.dispatch` error raised once on the card
+     (one ReconcileError, no SolverFallback) and retried there; then
+     `seek_check` on the manager driver at the day's midpoint,
+     bit-identical.
 
 Phase 3 also holds K5's gang instance, the witness and the epilogue's map
 and with_gang class against their plain versions on seeded gang and priority
@@ -185,7 +218,11 @@ The line before the card line is the kernels' JSON record; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA device it exits 2 and prints no result.  `--child MODE`
 runs one of the phases above that need a process of their own; the
-script starts those itself.  `--child cards` is the cross-card check,
+script starts those itself.  `--child entry` (phase 22(a)), `--child
+ha` (22(b)) and `--child rewind` (23) run those phases alone, the kernels
+and kt_hostops built first; the main run starts the three beside phase
+19, and every child ends before phase 3 times a kernel.
+`--child cards` is the cross-card check,
 run on a host of two or more cards (`python3 chip_smoke.py --child
 cards` on a four-card host): every card's name and power limit, the
 peer matrix and `nvidia-smi topo -m`; K7x at S = 2 (cards 0-1) and 4
@@ -205,6 +242,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2693,6 +2731,484 @@ def _fault_phase(card, add):
     return bad
 
 
+# -- 22. the operator's entry point as its own process; the HA pair ---------
+ENTRY_WAVE_S = 900        # a wave's wait, through the store, for every pod
+ENTRY_STOP_S = 15         # SIGTERM to exit
+# the HA pair's lease: duration, renew interval, retry period (s)
+HA_LEASE = (5.0, 1.0, 0.2)
+# the default pool's consolidateAfter in both: the operator runs every
+# controller, and at the models' default of 0 the disruption controller
+# simulates all 782 nodes right after the burst (multi-node, then one
+# simulation a node) and acts on them; an hour keeps the fleet phase 18's
+# for the phase, whose loop runs no disruption controller
+ENTRY_CONSOLIDATE_AFTER_S = 3600.0
+# the replica's batch window's max (BATCH_MAX_DURATION; the idle window
+# stays the default 1 s): wave 2's 2,000 creates reach the replica at the
+# pace it drains the daemon's stream, 15.0 s in one run on an H100 host, past
+# the default 10 s max, which split the wave into two solves; phase 18
+# places wave 2 as one batch
+ENTRY_BATCH_MAX_S = 120.0
+
+
+def _entry_pool():
+    from karpenter_tpu_torch.models import Disruption, NodePool, ObjectMeta
+    return NodePool(meta=ObjectMeta(name="default"), disruption=Disruption(
+        consolidate_after=ENTRY_CONSOLIDATE_AFTER_S))
+
+
+def _http(port, path, timeout=60.0):
+    """GET http://127.0.0.1:`port``path`: (status, body)."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _scraped_launches(port):
+    """The replica's kernel counts by kernel, from its /metrics
+    (karpenter_tpu_solver_kernel_launches_total, which reads the
+    wrappers' counts when scraped)."""
+    out = {k: 0 for k in _counters()}
+    _, body = _http(port, "/metrics")
+    for line in body.splitlines():
+        if line.startswith("karpenter_tpu_solver_kernel_launches_total{"):
+            kernel = line.split('kernel="', 1)[1].split('"', 1)[0]
+            out[kernel] = out.get(kernel, 0) + int(float(line.rsplit(" ", 1)[1]))
+    return out, body
+
+
+def _start_replica(sock, lease, logdir):
+    """`python -m karpenter_tpu_torch` as its own process on the store
+    daemon at `sock` and the file lease `lease`, on ephemeral ports and
+    with no platform variable (so on the card); its stderr to a file in
+    `logdir`.  Returns (process, banner, metrics port, health port, the
+    seconds to the banner, the stderr path)."""
+    import select
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, KARPENTER_TPU_STORE_SOCKET=sock,
+               KARPENTER_TPU_LEASE_FILE=lease,
+               KARPENTER_TPU_METRICS_PORT="0", KARPENTER_TPU_HEALTH_PORT="0",
+               BATCH_MAX_DURATION=str(ENTRY_BATCH_MAX_S))
+    for k in ("KARPENTER_TPU_PLATFORM", "KARPENTER_TPU_FORCE_CPU"):
+        env.pop(k, None)
+    errpath = os.path.join(logdir, "replica.stderr")
+    t0 = time.perf_counter()
+    with open(errpath, "w") as errf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_tpu_torch"], env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=errf)
+    fd = proc.stdout.fileno()
+    buf = b""
+    deadline = time.monotonic() + 300
+    while b"health=:" not in buf or not buf.endswith(b"\n"):
+        left = deadline - time.monotonic()
+        if left <= 0 or proc.poll() is not None:
+            proc.kill()
+            proc.wait()
+            with open(errpath) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"the replica did not start: {buf!r}\n{tail}")
+        ready, _, _ = select.select([fd], [], [], min(left, 1.0))
+        if ready:
+            buf += os.read(fd, 4096)
+    banner = buf.decode().strip().splitlines()[-1]
+    ports = {k: int(banner.split(f"{k}=:")[1].split()[0])
+             for k in ("metrics", "health")}
+    return (proc, banner, ports["metrics"], ports["health"],
+            time.perf_counter() - t0, errpath)
+
+
+def _wait_bound(client, n, timeout=ENTRY_WAVE_S):
+    """Poll the store client until it holds `n` pods, every one bound and
+    Running; the seconds it took (None at the timeout)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        client.sync_backend()
+        pods = client.pods.list()
+        if len(pods) == n and all(p.node_name and p.phase == "Running"
+                                  for p in pods):
+            return time.perf_counter() - t0
+        time.sleep(0.5)
+    return None
+
+
+def _entry_phase(card, add):
+    """Phase 22 (a): a store daemon in its own process holds the default
+    NodeClass and pool and the headline's 50,000 pods, created through a
+    store client before `python -m karpenter_tpu_torch` starts on the
+    card; every pod must bind, and what the store holds must give LOOP's
+    wave 1 (`workloads.store_answer`: the nodes, their pods, the price
+    from the nodes' labels and the port's catalog), the wave's flight
+    record HEADLINE_FLIGHT (/debug/flight), /metrics the scheduling
+    histogram and K5's and the epilogue's launch counters, /healthz and
+    /readyz "ok", /debug/ledger and /debug/timeline records; then 2,000
+    pods of its two smallest sizes give LOOP's wave 2; SIGTERM ends the
+    replica with exit code 0 inside ENTRY_STOP_S seconds, its lease
+    released.  Adds the replica's launches with `add`; returns what
+    failed."""
+    import shutil
+    import tempfile
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.cluster import Cluster
+    from karpenter_tpu_torch.models import NodeClass, ObjectMeta
+    from karpenter_tpu_torch.operator.leaderelection import FileLease
+    from karpenter_tpu_torch.providers import generate_catalog
+    from karpenter_tpu_torch.store import RemoteBackend
+
+    bad = []
+    tmp = tempfile.mkdtemp(prefix="kt_entry_")
+    lease = os.path.join(tmp, "lease.json")
+    daemon, sock, sockdir = _start_store_daemon()
+    proc = None
+    try:
+        client = Cluster(backend=RemoteBackend(sock))
+        t0 = time.perf_counter()
+        client.nodeclasses.create(NodeClass(meta=ObjectMeta(name="default")))
+        client.nodepools.create(_entry_pool())
+        for pod in workloads.headline_pods(LOOP_PODS):
+            client.pods.create(pod)
+        setup_s = time.perf_counter() - t0
+        proc, banner, mport, hport, boot_s, errpath = _start_replica(
+            sock, lease, tmp)
+        print(f"[22a] {LOOP_PODS} pods created through the store client in "
+              f"{setup_s:.1f} s; the replica (pid {proc.pid}) served after "
+              f"{boot_s:.1f} s: {banner}", flush=True)
+        catalog = generate_catalog()
+        seen = {k: 0 for k in _counters()}
+        for wave in (1, 2):
+            if wave == 2:
+                t0 = time.perf_counter()
+                for pod in workloads.headline_pods(
+                        LOOP_WAVE2, prefix="w", sizes=workloads.WAVE2_SIZES):
+                    client.pods.create(pod)
+                print(f"[22a] wave 2's {LOOP_WAVE2} pods created in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+            want_n = LOOP_PODS + (LOOP_WAVE2 if wave == 2 else 0)
+            took = _wait_bound(client, want_n)
+            counts, metrics_body = _scraped_launches(mport)
+            launches = {k: counts.get(k, 0) - seen.get(k, 0) for k in counts}
+            seen = counts
+            add(launches)
+            if took is None:
+                bad.append(f"22a wave {wave}: not every pod bound in "
+                           f"{ENTRY_WAVE_S} s")
+                break
+            answer = workloads.store_answer(client, catalog)
+            want = {k: v for k, v in LOOP[wave - 1].items() if k != "rounds"}
+            _, fbody = _http(hport, "/debug/flight?limit=64")
+            solves = [r for r in json.loads(fbody)["records"]
+                      if r["kind"] == "solve" and r["pods"] == (
+                          LOOP_PODS if wave == 1 else LOOP_WAVE2)]
+            print(f"[22a] wave {wave} on {card}: every pod bound {took:.1f} s "
+                  f"after {'the replica served' if wave == 1 else 'the last create'}; "
+                  f"{answer}; the replica's launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; flight "
+                  f"records of the wave's solve {len(solves)}"
+                  + (f", phase ms {solves[-1]['phase_ms']}" if solves else ""),
+                  flush=True)
+            if answer != want:
+                bad.append(f"22a wave {wave}: {answer} != {want}")
+            for k in ("ffd_batch_scan", "explain_pack"):
+                if launches.get(k, 0) <= 0:
+                    bad.append(f"22a wave {wave}: {k} not launched")
+            if wave == 1:
+                got = [{"fingerprint": r["fingerprint"],
+                        "columns": r["catalog"]["columns"],
+                        "price_sha": r["catalog"]["price_sha"],
+                        "price_hex": r["result"]["price_hex"]}
+                       for r in solves]
+                if got != [dict(HEADLINE_FLIGHT,
+                                price_hex=HEADLINE_PRICE_HEX)]:
+                    bad.append(f"22a wave 1 flight records: {got}")
+                if ("karpenter_provisioner_scheduling_duration_seconds"
+                        not in metrics_body):
+                    bad.append("22a: /metrics has no scheduling histogram")
+                for path in ("/healthz", "/readyz"):
+                    got_h = _http(hport, path)
+                    if got_h != (200, "ok\n"):
+                        bad.append(f"22a {path}: {got_h}")
+                for path, key in (("/debug/ledger", "records"),
+                                  ("/debug/timeline", "events")):
+                    code, body = _http(hport, path)
+                    n = len(json.loads(body)[key]) if code == 200 else 0
+                    print(f"[22a] {path}: {code}, {n} {key}", flush=True)
+                    if code != 200 or n == 0:
+                        bad.append(f"22a {path}: {code}, {n} {key}")
+        t0 = time.perf_counter()
+        proc.terminate()
+        try:
+            rc = proc.wait(timeout=ENTRY_STOP_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        stop_s = time.perf_counter() - t0
+        holder = FileLease(lease).holder(now=time.time())
+        print(f"[22a] SIGTERM: exit code {rc} after {stop_s:.1f} s; the "
+              f"lease's holder after {holder!r}", flush=True)
+        if rc != 0:
+            bad.append(f"22a: the replica's exit code {rc} within "
+                       f"{ENTRY_STOP_S} s of SIGTERM")
+        if holder is not None:
+            bad.append(f"22a: the lease is still held by {holder}")
+        if bad:
+            with open(errpath) as f:
+                print("[22a] the replica's stderr ends:\n"
+                      + f.read()[-3000:], flush=True)
+        client.backend.close()
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if proc is not None:
+            proc.stdout.close()
+        drc = _stop_store_daemon(daemon, sockdir)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if drc != 0:
+        bad.append(f"22a: the store daemon exited with {drc}")
+    return bad
+
+
+def _ha_phase(card, add):
+    """Phase 22 (b): tests/test_ha.py TestTwoReplicaExternalStore's layout
+    on the card — a store daemon in its own process, one shared FakeCloud,
+    two Operators (their environments on the card, each its own informer
+    cache), one file lease; the headline's 50,000 pods created through
+    the standby, the leader killed without releasing its lease once
+    claims exist.  Never two leaders at once, every pod bound and none
+    lost, the standby leading.  The fleet depends on when the leader
+    died, so it is printed, not pinned.  The election is made before the
+    pods are created and the pair's loops start after, so the leader meets
+    the 50,000 pods as one burst.  Adds the launches with `add`; returns
+    what failed."""
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.cluster import Cluster
+    from karpenter_tpu_torch.env import Environment
+    from karpenter_tpu_torch.operator.leaderelection import FileLease
+    from karpenter_tpu_torch.operator.operator import Operator
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.providers.fake_cloud import FakeCloud
+    from karpenter_tpu_torch.solver import ffd
+    from karpenter_tpu_torch.store import RemoteBackend
+    from karpenter_tpu_torch.utils.clock import RealClock
+
+    bad = []
+    tmp = tempfile.mkdtemp(prefix="kt_ha_")
+    daemon, sock, sockdir = _start_store_daemon()
+    ops, threads, envs = [], [], []
+    overlap = {"max": 0}
+    watching = threading.Event()
+    try:
+        opts = Options()
+        cloud = FakeCloud(clock=RealClock())
+        envs = [Environment(clock=RealClock(), options=opts, cloud=cloud,
+                            store_backend=RemoteBackend(sock), device="cuda")
+                for _ in range(2)]
+        envs[0].add_default_nodeclass()
+        envs[0].cluster.nodepools.create(_entry_pool())
+        lease = FileLease(os.path.join(tmp, "lease.json"))
+        for ident, env in zip(("rep-1", "rep-2"), envs):
+            op = Operator(options=opts, env=env, lease=lease, identity=ident,
+                          metrics_port=0, health_port=0,
+                          reconcile_interval=0.05)
+            (op.elector.lease_duration, op.elector.renew_interval,
+             op.elector.retry_period) = HA_LEASE
+            ops.append(op)
+
+        def watch_leaders():
+            while not watching.is_set():
+                overlap["max"] = max(overlap["max"], sum(
+                    op._leadership.is_set() for op in ops))
+                time.sleep(0.01)
+        # the election first (rep-1 takes the lease, held while the pods
+        # are created), then the 50,000 pods through the standby's cache,
+        # then the pair's loops: created while the loops run, the creates
+        # contend with both loops for this process's interpreter (117.8 s
+        # in one run on an H100 host)
+        leader, standby = ops
+        lease_s = leader.elector.lease_duration
+        leader.elector.lease_duration = 3600.0
+        if not leader.elector.try_acquire_or_renew():
+            return ["22b: rep-1 did not take the free lease"]
+        leader.elector.lease_duration = lease_s
+        t0 = time.perf_counter()
+        for pod in workloads.headline_pods(LOOP_PODS):
+            standby.env.cluster.pods.create(pod)
+        create_s = time.perf_counter() - t0
+        watcher = threading.Thread(target=watch_leaders, daemon=True)
+        watcher.start()
+        _reset_launches(ffd)
+        threads = [threading.Thread(target=op.run, daemon=True)
+                   for op in ops]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        while time.perf_counter() - t0 < ENTRY_WAVE_S:
+            if leader.env.cluster.nodeclaims.list():
+                break
+            time.sleep(0.02)
+        claims = len(leader.env.cluster.nodeclaims.list())
+        kill_s = time.perf_counter() - t0
+        leading = (leader._leadership.is_set(),
+                   standby._leadership.is_set())
+        # sudden death: no release, and the replica's store connection
+        # gone, so the pass it is in cannot go on writing (stop() alone
+        # lets that pass run to its end, as a live process would)
+        leader.elector.release = lambda: None
+
+        def dead(*_a, **_kw):
+            raise ConnectionError("the replica was killed")
+        leader.env.cluster.backend._call = dead
+        leader.stop()
+        client = Cluster(backend=RemoteBackend(sock))
+        took = _wait_bound(client, LOOP_PODS)
+        torch.cuda.synchronize()
+        launches = _read_launches(ffd)
+        add(launches)
+        answer = workloads.loop_answer(client, cloud, 0)
+        pods = client.pods.list()
+        client.backend.close()
+        print(f"[22b] HA pair on {card}: {LOOP_PODS} pods created through "
+              f"the standby ({standby.elector.identity}) in {create_s:.1f} "
+              f"s; the leader ({leader.elector.identity}; leading, standby "
+              f"leading: {leading}) killed {kill_s:.1f} s after the loops "
+              f"started, once {claims} claim(s) existed; every pod bound "
+              + (f"{took:.1f} s after the kill" if took is not None
+                 else "NOT within the limit")
+              + f"; at most {overlap['max']} leader(s) at once; standby "
+              f"leads {standby.elector.is_leader}; fleet {answer['instances']} "
+              f"instances, price {answer['price']} ({float.fromhex(answer['price']):.5f}), "
+              f"bound {answer['bound']}, unbound {answer['unbound']}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; reconcile "
+              f"errors {[op.reconcile_errors for op in ops]}", flush=True)
+        if took is None or len(pods) != LOOP_PODS:
+            bad.append(f"22b: {len(pods)} pods, bound "
+                       f"{answer['bound']}, within {ENTRY_WAVE_S} s: "
+                       f"{took is not None}")
+        if overlap["max"] > 1:
+            bad.append("22b: two leaders at once")
+        if not standby.elector.is_leader:
+            bad.append("22b: the standby does not lead")
+        if leading != (True, False):
+            bad.append(f"22b: leadership before the kill {leading}")
+        if launches["ffd_batch_scan"] <= 0:
+            bad.append("22b: ffd_batch_scan not launched")
+    finally:
+        watching.set()
+        for op in ops:
+            op.stop()
+        for th in threads:
+            th.join(timeout=300)
+        for env in envs:
+            env.cluster.backend.close()
+        drc = _stop_store_daemon(daemon, sockdir)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(th.is_alive() for th in threads):
+        bad.append("22b: an operator's loop did not stop")
+    if drc != 0:
+        bad.append(f"22b: the store daemon exited with {drc}")
+    return bad
+
+
+# -- 23. BASELINE config #11's rewind day through a real Operator ------------
+REWIND_SEED = 1107
+
+
+def _rewind_phase(card, add):
+    """Phase 23: BASELINE config #11's day (`workloads.build_rewind_day`,
+    at least 5,000 events, 240 s ticks) through `RewindEngine(device=
+    "cuda", audit=True).run(driver="operator")`: a real Operator on the
+    card, the shadow audit at rate 1.  Every invariant must hold
+    (`ledger_hex_exact`, `zero_gang_atomicity_violations`,
+    `zero_priority_inversions`, `audit_clean`, `zero_lost_pods`), every
+    event applied, solves made, K5 launched, and the crash tick's armed
+    `solver.dispatch` error must raise once on the card — one
+    `ReconcileError`, no `SolverFallback` — and the next resync answer
+    on the card.  (After the crash tick the card's trajectory may differ
+    from the JAX replay's, whose oracle answers that tick.)  Then
+    `seek_check` on the manager driver at the day's midpoint must be
+    bit-identical.  Adds the launches with `add`; returns what failed."""
+    import torch
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.solver import ffd
+    from karpenter_tpu_torch.timeline import rewind
+    from karpenter_tpu_torch.utils import metrics
+
+    bad = []
+    day = workloads.build_rewind_day(REWIND_SEED)
+    oracle0 = metrics.SOLVER_SOLVES.value(path="oracle")
+    _reset_launches(ffd)
+    eng = rewind.RewindEngine(day, resolution=workloads.REWIND_TICK,
+                              device="cuda", audit=True)
+    t0 = time.perf_counter()
+    rep = eng.run(driver="operator")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches(ffd)
+    add(launches)
+    reasons = [e[3] for e in eng.env.cluster.events]
+    errors = [e[4] for e in eng.env.cluster.events
+              if e[3] == "ReconcileError"]
+    print(f"[23] config #11's day on {card}: {rep['events_applied']} of {rep['events_total']} events in "
+          f"{len(eng.ticks)} ticks, {wall:.1f} s ({rep['events_per_s']} "
+          f"events/s), {rep['solves']} solves; audit verdicts "
+          f"{rep['audit_verdict_deltas']}; invariants "
+          + ", ".join(f"{k} {rep[k]}" for k in (
+              "ledger_hex_exact", "zero_gang_atomicity_violations",
+              "zero_priority_inversions", "audit_clean", "zero_lost_pods"))
+          + f"; ledger rows {rep['ledger_rows_checked']}; final pods "
+          f"{rep['pods_final']}, scheduled {rep['scheduled_final']}, nodes "
+          f"{rep['nodes_final']}; skipped {rep['events_skipped']}; "
+          f"reconcile errors {rep['reconcile_errors']} {errors}; "
+          f"SolverFallback events {reasons.count('SolverFallback')}; oracle "
+          f"solves {metrics.SOLVER_SOLVES.value(path='oracle') - oracle0}; "
+          f"launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    if len(day) < workloads.REWIND_MIN_EVENTS:
+        bad.append(f"23: the day has {len(day)} events")
+    if not rep["invariants_held"]:
+        bad.append("23: " + ", ".join(
+            f"{k} {rep[k]}" for k in ("ledger_breaks", "gang_violations",
+                                      "priority_inversions", "lost_pods")
+            if rep.get(k)))
+    if rep["events_applied"] != rep["events_total"] or rep["solves"] <= 0:
+        bad.append(f"23: {rep['events_applied']} of {rep['events_total']} "
+                   f"events, {rep['solves']} solves")
+    if rep["reconcile_errors"] != 1 or len(errors) != 1 \
+            or "FaultInjected" not in errors[0]:
+        bad.append(f"23: the crash raised {rep['reconcile_errors']} "
+                   f"time(s): {errors}")
+    if "SolverFallback" in reasons:
+        bad.append("23: a SolverFallback event on the card")
+    if launches["ffd_batch_scan"] <= 0:
+        bad.append("23: ffd_batch_scan not launched")
+
+    _reset_launches(ffd)
+    t0 = time.perf_counter()
+    chk = rewind.seek_check(day, len(day) // 2,
+                            resolution=workloads.REWIND_TICK, audit=False,
+                            device="cuda")
+    torch.cuda.synchronize()
+    seek_launches = _read_launches(ffd)
+    add(seek_launches)
+    print(f"[23] seek_check at event {chk['k']} of {len(day)} on {card}: "
+          f"bit_identical {chk['bit_identical']} ({chk['straight_digest']}"
+          f" / {chk['seek_digest']}) in {time.perf_counter() - t0:.1f} s "
+          f"(straight {chk['straight']['wall_s']} s, seek "
+          f"{chk['seek']['wall_s']} s); launches "
+          f"{ {k: v for k, v in seek_launches.items() if v} }", flush=True)
+    if not chk["bit_identical"]:
+        bad.append(f"23: seek {chk['seek_digest']} != straight "
+                   f"{chk['straight_digest']}")
+    return bad
+
+
 # -- 19. the disruption control loop -----------------------------------------
 def disruption_pin(answer):
     """A disruption wave's answer in the form DISRUPTION_LOOP pins:
@@ -3008,14 +3524,18 @@ def _first_pass(waves):
 
 
 def _disruption_phase(card, add):
-    """Phase 19: the cold loop in a child process, run to its end first,
-    then the loop whose solver is warmed first, which keeps the launches
-    phase 3 holds to their plain versions (one loop at a time, so that
-    neither's times count the other's host work).  Adds the warmed loop's
-    launches with `add`; returns what failed and the warmed loop's
-    `_LaunchLog`."""
-    cold, err = _run_child("disruption-cold")
-    warmed, warm, log = _disruption_run(card, warm_up=True, keep=True)
+    """Phase 19: the cold loop in a child process and, beside it, the
+    loop whose solver is warmed first, which keeps the launches phase 3
+    holds to their plain versions; each run whole and held to the pins.
+    Side by side, each loop's host times count the other's host work
+    too; the answers, launches and first-use counts are each loop's own.
+    Adds the warmed loop's launches with `add`; returns what failed and
+    the warmed loop's `_LaunchLog`."""
+    child = _start_child("disruption-cold")
+    try:
+        warmed, warm, log = _disruption_run(card, warm_up=True, keep=True)
+    finally:
+        cold, err = _finish_child(child, "disruption-cold")
     bad = []
     if cold is None:
         bad.append(f"the cold disruption loop failed: {err}")
@@ -3044,8 +3564,9 @@ def _child(mode: str) -> int:
     """The phases that run in a child process of their own: "headline"
     (phase 4's headline with the environment the parent set, for the
     KARPENTER_TPU_NO_NATIVE=1 arm), "cold-loop" (phase 18's cold loop,
-    in a process that has launched nothing) and "disruption-cold" (phase
-    19's cold loop, the same).  Prints one JSON line."""
+    in a process that has launched nothing), "disruption-cold" (phase
+    19's cold loop, the same), "entry" (phase 22(a)), "ha" (phase 22(b))
+    and "rewind" (phase 23).  Prints one JSON line."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch import native
@@ -3054,6 +3575,27 @@ def _child(mode: str) -> int:
     card = _card_line()
     if mode == "cards":
         return _cards_check(card)
+    if mode in ("entry", "ha", "rewind"):
+        # phases 22(a), 22(b) and 23 in a process of their own: the
+        # kernels and kt_hostops built first (loaded as they are when
+        # phase 2 built them), so no replica builds them
+        from karpenter_tpu_torch.solver import _cuda
+        _cuda.build()
+        if native.hostops() is None:
+            print(f"chip_smoke: kt_hostops did not load: "
+                  f"{native.build_error()}", file=sys.stderr)
+            return 1
+        launches = {}
+
+        def add(counts):
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        t0 = time.perf_counter()
+        bad = {"entry": _entry_phase, "ha": _ha_phase,
+               "rewind": _rewind_phase}[mode](card, add)
+        print(json.dumps({"bad": bad, "launches": launches,
+                          "s": time.perf_counter() - t0}))
+        return 1 if bad else 0
     if mode == "trap":
         return _trap_check()
     if mode == "headline":
@@ -3428,19 +3970,42 @@ def _trap_check() -> int:
     return 1
 
 
+def _start_child(mode: str, env=None):
+    """Start `_child(mode)` in a child process, its output to files (a
+    child that runs beside the parent must never block on a full pipe)."""
+    out = tempfile.TemporaryFile("w+")
+    err = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", mode],
+        stdout=out, stderr=err, text=True,
+        env=dict(os.environ, **(env or {})))
+    proc.outputs = (out, err)
+    return proc
+
+
+def _finish_child(proc, mode: str, timeout=600):
+    """Wait for a `_start_child` process and print its output; its JSON
+    line, or None and its output when it failed."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    stdout, stderr = [f.seek(0) or f.read() for f in proc.outputs]
+    for f in proc.outputs:
+        f.close()
+    lines = stdout.strip().splitlines()
+    for line in lines:
+        print(f"    [child {mode}] {line}", flush=True)
+    if proc.returncode != 0 or not lines:
+        return None, stderr[-4000:]
+    return json.loads(lines[-1]), None
+
+
 def _run_child(mode: str, env=None, timeout=600):
     """Run `_child(mode)` in a child process; its JSON line, or None and
     the child's output when it failed."""
-    out = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--child", mode],
-        capture_output=True, text=True, timeout=timeout,
-        env=dict(os.environ, **(env or {})))
-    lines = out.stdout.strip().splitlines()
-    for line in lines:
-        print(f"    [child {mode}] {line}", flush=True)
-    if out.returncode != 0 or not lines:
-        return None, out.stderr[-4000:]
-    return json.loads(lines[-1]), None
+    return _finish_child(_start_child(mode, env), mode, timeout)
 
 
 def main(argv) -> int:
@@ -3495,27 +4060,65 @@ def main(argv) -> int:
     # phase launches a kernel, so that the warm-up check starts from a
     # process that has launched nothing -------------------------------------
     loop_calls = []
+    t0 = time.perf_counter()
     bad, loop_p50 = _loop_phase(card, add, loop_calls)
+    print(f"[18] phase time {time.perf_counter() - t0:.1f} s", flush=True)
     if bad:
         print(f"chip_smoke: the provisioning loop failed: {bad}",
               file=sys.stderr)
         return 1
 
     # -- 19. the disruption control loop, here too: its warmed loop keeps
-    # the launches phase 3 holds to their plain versions -------------------
-    bad, disruption_log = _disruption_phase(card, add)
-    if bad:
-        print(f"chip_smoke: the disruption loop failed: {bad}",
-              file=sys.stderr)
-        return 1
+    # the launches phase 3 holds to their plain versions.  Beside it, each
+    # in a child process, the phases that launch nothing in this process:
+    # 22(a) the operator's entry point as its own process, 22(b) the HA
+    # pair, 23 config #11's rewind day through a real Operator.  Each is
+    # host-bound on processes of its own, and one after the other they do
+    # not fit the script's time limit; every child ends before phase 3
+    # times a kernel ----------------------------------------------------
+    t19 = time.perf_counter()
+    children = {mode: _start_child(mode) for mode in ("entry", "ha",
+                                                      "rewind")}
+    try:
+        bad, disruption_log = _disruption_phase(card, add)
+        print(f"[19] phase time {time.perf_counter() - t19:.1f} s",
+              flush=True)
+        if bad:
+            print(f"chip_smoke: the disruption loop failed: {bad}",
+                  file=sys.stderr)
+            return 1
 
-    # -- 20. the external cluster stores and the restored dispatch hook ---
-    bad = _stores_phase(card, add, loop_p50)
-    bad += _fault_phase(card, add)
-    if bad:
-        print(f"chip_smoke: the external stores or the dispatch fault "
-              f"failed: {bad}", file=sys.stderr)
-        return 1
+        # -- 20. the external cluster stores and the restored dispatch
+        # hook ------------------------------------------------------------
+        t0 = time.perf_counter()
+        bad = _stores_phase(card, add, loop_p50)
+        bad += _fault_phase(card, add)
+        print(f"[20] phase time {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if bad:
+            print(f"chip_smoke: the external stores or the dispatch fault "
+                  f"failed: {bad}", file=sys.stderr)
+            return 1
+        for mode, phase in (("entry", "22a"), ("ha", "22b"),
+                            ("rewind", "23")):
+            out, err = _finish_child(children.pop(mode), mode,
+                                     timeout=1200)
+            print(f"[{phase}] the child took "
+                  f"{out['s'] if out else float('nan'):.1f} s and ended "
+                  f"{time.perf_counter() - t19:.1f} s after phase 19 "
+                  f"began", flush=True)
+            if out is None:
+                bad.append(f"{phase}: the child failed: {err}")
+            else:
+                bad += out["bad"]
+                add(out["launches"])
+        if bad:
+            print(f"chip_smoke: phase 22 or 23 failed: {bad}",
+                  file=sys.stderr)
+            return 1
+    finally:
+        for mode, proc in children.items():
+            _finish_child(proc, mode, timeout=1200)
 
     # -- 3. kernels against their plain versions ---------------------------
     errs = {k: 0.0 for k in list(KERNELS) + list(PASSES)

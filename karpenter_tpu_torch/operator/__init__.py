@@ -1,8 +1,17 @@
-"""Operator: options, feature gates and leader election (reference:
-pkg/operator/options; `leaderelection.py`'s leases and elector).
-
-The operator's wiring (`operator.py`) is still to port (slice 5d)."""
+"""Operator: options, feature gates, leader election and the runnable
+operator process (reference: pkg/operator + pkg/operator/options;
+`leaderelection.py`'s leases and elector, `operator.py`'s `Operator`)."""
 
 from karpenter_tpu_torch.operator.options import FeatureGates, Options
 
-__all__ = ["Options", "FeatureGates"]
+__all__ = ["Options", "FeatureGates", "Operator"]
+
+
+def __getattr__(name):
+    # lazy: the operator imports the whole environment (and torch), which
+    # the options' importers do not need
+    if name == "Operator":
+        from karpenter_tpu_torch.operator.operator import Operator
+        return Operator
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")

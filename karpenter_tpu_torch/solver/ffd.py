@@ -62,7 +62,9 @@ a CUDA tensor and the plain version for a CPU tensor; there is no
 fallback from one to the other.  Each wrapper counts its kernel launches
 in ``.launches`` (and the launches that carried explain rows in
 ``.explain_launches``; ``batch_scan`` those with the map in
-``.map_launches``).
+``.map_launches``); ``launch_counts()`` sums them by kernel instance, and
+the metric family ``karpenter_tpu_solver_kernel_launches_total{kernel}``
+reads it when scraped.
 
 The flat result buffer of one problem has exactly the reference's layout
 (ffd.py:1258):
@@ -2799,3 +2801,32 @@ def unpack(packed, G: int, E: int, N: int, RDIM: int, D: int,
     if with_priority:
         out["prio_inv"] = reg("prio_inv") > 0.5
     return out
+
+
+# every launch count by kernel instance (or the epilogue pass a launch
+# carried): the wrapper attributes that hold it
+LAUNCH_COUNTS = {
+    "ffd_batch_scan": (("batch_scan", "launches"),),
+    "ffd_batch_gang_scan": (("batch_scan", "gang_launches"),),
+    "ffd_sweep_scan": (("sweep_scan", "launches"),),
+    "ffd_sweep_topo_scan": (("sweep_topo_scan", "launches"),),
+    "ffd_delta_scan": (("delta_scan", "launches"),),
+    "ffd_sharded_scan": (("sharded_scan", "launches"),),
+    "ffd_sharded_gang_scan": (("sharded_scan", "gang_launches"),),
+    "ffd_sharded_delta_scan": (("sharded_scan", "delta_launches"),),
+    "ffd_card_scan": (("card_scan", "launches"),),
+    "ffd_card_gang_scan": (("card_scan", "gang_launches"),),
+    "ffd_card_delta_scan": (("card_scan", "delta_launches"),),
+    "priority_witness": (("batch_scan", "witness_launches"),),
+    "explain_pack": tuple((w, "explain_launches") for w in (
+        "batch_scan", "delta_scan", "sharded_scan", "card_scan")),
+    "explain_map": (("batch_scan", "map_launches"),),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """The wrappers' launch counts by kernel instance (or epilogue pass),
+    since the process started or a caller last set them to 0."""
+    g = globals()
+    return {k: sum(getattr(g[w], attr) for w, attr in pairs)
+            for k, pairs in LAUNCH_COUNTS.items()}

@@ -524,6 +524,13 @@ class TorchSolver:
             if _sp is not None:
                 _sp.attrs["path"] = path
                 _sp.attrs["unschedulable"] = len(res.unschedulable)
+            # shadow audit (solver/audit.py): sample REAL solves for
+            # background oracle/full-re-solve re-verification.  Disarmed
+            # (the default) this is one env read; capped sims are never
+            # eligible (the oracle does not model the node cap)
+            from karpenter_tpu_torch.solver import audit as auditmod
+            auditmod.SAMPLER.maybe_submit(inp, res, solver=self,
+                                          max_nodes=max_nodes)
         return res
 
     # pods beyond this, the backstop oracle's O(pods) wall-clock isn't
@@ -1052,14 +1059,16 @@ class TorchSolver:
             pull_s += t_d - t_c
             return out_
 
-        out = execute(mn)
-        if (max_nodes is None and mn < self.max_nodes
-                and out["unsched"].sum() > 0
-                and out["num_active"] >= mn):
-            # the warm-start bucket ran out of node slots: redo at the
-            # configured ceiling
-            mn = self.max_nodes
+        from karpenter_tpu_torch.utils.profiling import trace_solve
+        with trace_solve("ffd-solve"):
             out = execute(mn)
+            if (max_nodes is None and mn < self.max_nodes
+                    and out["unsched"].sum() > 0
+                    and out["num_active"] >= mn):
+                # the warm-start bucket ran out of node slots: redo at the
+                # configured ceiling
+                mn = self.max_nodes
+                out = execute(mn)
         self._last_slots_exhausted = bool(
             out["unsched"].sum() > 0 and out["num_active"] >= mn)
         if max_nodes is None:
@@ -1660,9 +1669,11 @@ class TorchSolver:
         def match(a, b):
             return deltam.seed_digest(a) == deltam.seed_digest(b)
 
-        ok, outcomes, flushed = pipelining.run_spec_chain(
-            K, deltam.chunk_entry_seed(enc), dispatch, project, commit,
-            match, depth=min(K, pipelining.SPEC_DEPTH))
+        from karpenter_tpu_torch.utils.profiling import trace_solve
+        with trace_solve("ffd-spec-chain"):
+            ok, outcomes, flushed = pipelining.run_spec_chain(
+                K, deltam.chunk_entry_seed(enc), dispatch, project, commit,
+                match, depth=min(K, pipelining.SPEC_DEPTH))
         if cuda and flushed:
             # flushed chunks' launches and copies were never read; their
             # buffers are released only once the stream has passed them

@@ -13,10 +13,13 @@ from karpenter_tpu_torch.store import StoreDaemon
 def main() -> int:
     path = sys.argv[1] if len(sys.argv) > 1 else "/tmp/karpenter-store.sock"
     daemon = StoreDaemon(path)
-    print(f"karpenter-tpu store daemon: {path}", flush=True)
     stop = threading.Event()
+    # the handlers before the banner: a caller may signal the moment it
+    # reads the banner, and a SIGTERM before them would end the process
+    # with no exit code of its own
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
+    print(f"karpenter-tpu store daemon: {path}", flush=True)
     stop.wait()
     daemon.close()
     return 0

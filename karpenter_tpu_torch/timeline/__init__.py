@@ -1,13 +1,12 @@
 """Cluster timeline: the recorder, the event registry, the trajectory
-invariants and the seeded generators.
+invariants, the seeded generators and the rewind engine.
 
 The package is split so the recorder half stays import-light (it is on
 the `Cluster.mutated` hot path): this __init__ exposes only the event
-registry and the recorder; `generators` and `invariants` are imported
-explicitly by their consumers.
-
-The port's copy of `karpenter_tpu/timeline/` without `rewind.py`, which
-builds an Environment and the operator and comes with the operator.
+registry and the recorder.  The heavyweight halves — `rewind` (builds an
+Environment / Operator), `generators`, and `invariants` — are imported
+explicitly by their consumers.  The port's copy of
+`karpenter_tpu/timeline/`.
 """
 
 from karpenter_tpu_torch.timeline import events  # noqa: F401

@@ -27,10 +27,7 @@ around the shared GatedSolver (env.solver / provisioner.solver /
 disruption.solver all point at the same instance, so the engine
 re-points all three).
 
-The port's copy of `karpenter_tpu/timeline/invariants.py`.  The shadow
-audit's sampler (`solver/audit.py`) comes with the solver service in
-slice 6b: until then `SolveProbe` has no sampler to drain, and the audit
-verdict counters it reads stay at zero.
+The port's copy of `karpenter_tpu/timeline/invariants.py`.
 """
 
 from __future__ import annotations
@@ -60,15 +57,27 @@ class SolveProbe:
 
     def solve(self, inp, source: str = "solver",
               max_nodes: Optional[int] = None):
-        # the whole solve+audit window runs under the world lock: the
-        # judges read live cluster objects through inp, and nothing may
-        # mutate them between the live encode and the audit (the
-        # reference also drains the shadow sampler here; see the
-        # module docstring)
+        # the whole solve+audit window runs under the world lock, and
+        # the shadow sampler drains BEFORE the caller acts on the
+        # result: the sampler's oracle re-solve reads live cluster
+        # objects through inp (ExistingNode.node taints, resident-pod
+        # lists), and replay compresses hours of churn into seconds —
+        # a pod marked deleting (or a node tainted) by the rewind
+        # thread anywhere between the live encode and the async
+        # worker's re-solve makes the oracle call the difference a
+        # divergence.  Lock + drain pin the oracle to the exact state
+        # the live solve encoded, so a diverged verdict during replay
+        # is a real parity break, not a race artifact.
         with self._world:
             res = self._inner.solve(inp, source=source,
                                     max_nodes=max_nodes)
             self._auditor.on_solve(inp, res)
+            from karpenter_tpu_torch.solver.audit import (
+                SAMPLER,
+                sample_rate,
+            )
+            if sample_rate() > 0.0:
+                SAMPLER.drain(timeout=60.0)
         return res
 
     def solve_batch(self, inps, source: str = "disruption",

@@ -53,11 +53,13 @@ Points the port fires (grep for ``faults.fire`` to verify):
                                (the solve's `execute`, the delta seam,
                                the chunk chain), host side before the
                                upload and the launch
+  * ``solver.audit.digest``  — the shadow audit's live digest, perturbed
+                               before comparison (solver/audit.py)
 
-The reference's solver-service, shadow-audit and determinism-harness
-points (``service.client.send``/``.recv``, ``solverd.handle_batch``,
-``solver.audit.digest``, ``determinism.digest``) arrive with the
-modules that fire them; arming one before then is harmless.
+The reference's solver-service and determinism-harness points
+(``service.client.send``/``.recv``, ``solverd.handle_batch``,
+``determinism.digest``) arrive with the modules that fire them; arming
+one before then is harmless.
 """
 
 from __future__ import annotations

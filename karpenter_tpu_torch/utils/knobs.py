@@ -78,6 +78,13 @@ def spot_risk_enabled() -> bool:
     return env_bool("KARPENTER_TPU_SPOT_RISK", default=False)
 
 
+def bind_host() -> str:
+    """`KARPENTER_TPU_BIND_HOST`: the metrics/health/probe bind address
+    (default loopback; `0.0.0.0` in containers).  Shared by the
+    operator's debug server and the supervisor's probe listener — one
+    parsing owner so the two can never read different defaults."""
+    return os.environ.get("KARPENTER_TPU_BIND_HOST", "127.0.0.1")
+
 
 def relax_budget_s(environ: Optional[Mapping[str, str]] = None
                    ) -> Optional[float]:

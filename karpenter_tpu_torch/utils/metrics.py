@@ -96,6 +96,24 @@ class Counter(_Metric):
         return out
 
 
+class CounterFunc(Counter):
+    """A counter family whose samples are read from `fn()` ({label value:
+    count}, one label) when it is rendered: for counts kept elsewhere,
+    which the registry would otherwise hold a second copy of."""
+
+    def __init__(self, name, help_, label_name, fn):
+        super().__init__(name, help_, (label_name,))
+        self.fn = fn
+
+    def render(self) -> List[str]:
+        with self._lock:
+            self._values = {(str(k),): float(v) for k, v in self.fn().items()}
+        return super().render()
+
+    def value(self, **labels) -> float:
+        return float(self.fn().get(labels[self.label_names[0]], 0))
+
+
 class Gauge(Counter):
     kind = "gauge"
 
@@ -571,6 +589,23 @@ SOLVER_AUDIT = _c(
     "pass failed its full re-solve parity (auto-captured for "
     "kt_replay), dropped = sampler backlog full, error = the "
     "verification itself failed.", ("verdict",))
+# the port's own: its hand-written CUDA kernels, launch by launch, read
+# when scraped from the counts each wrapper of solver/ffd.py keeps where
+# it launches (the CPU's plain versions launch nothing), so a scrape of a
+# running operator shows which kernels its passes went through
+
+
+def _kernel_launches() -> Dict[str, int]:
+    from karpenter_tpu_torch.solver import ffd
+    return ffd.launch_counts()
+
+
+SOLVER_KERNEL_LAUNCHES = REGISTRY.register(CounterFunc(
+    "karpenter_tpu_solver_kernel_launches_total",
+    "CUDA kernel launches of the solver, by kernel instance "
+    "(ffd_batch_scan, ffd_sweep_scan, ...); the scans' epilogue passes "
+    "(explain_pack, explain_map, priority_witness) count the launches "
+    "that carried them.", "kernel", _kernel_launches))
 # per-instance-type catalog gauges (reference:
 # pkg/providers/instancetype/instancetype.go:156-161,302-311 + metrics.go)
 INSTANCE_TYPE_CPU = _g(

@@ -85,7 +85,9 @@ None), the cluster store, the port's `GatedSolver` on `device`, and a
 `ControllerManager` over the provisioner, the NodeClaim lifecycle, the
 fake kubelet and the pod binder.  The store holds one NodePool `default`,
 the default NodeClass and the headline's first `n_pods` pods
-(`headline_pods`); `loop_answer` is the loop's canonical outcome.
+(`headline_pods`); `loop_answer` is the loop's canonical outcome, and
+`store_answer` the same fields read off the store alone (for a process
+that holds only a store client, as beside `python -m karpenter_tpu_torch`).
 
 `disruption_loop(n_pods, options, clock, device)` is the disruption
 control loop, BASELINE config #4's fleet reached through the port's
@@ -96,6 +98,13 @@ NodeClass, a spot pool (weight 100, a cpu limit of half the fleet's
 (and the JAX package's, built with `pkg`) through three waves: provision;
 resize every pod in place to 500m / 1Gi and settle until a settle
 changes nothing, consolidating the fleet; spot interruptions.
+
+`build_rewind_day(seed)` is BASELINE config #11 (the JAX package's
+`benchmarks/config11_rewind.py build_day`): a compressed six-hour fleet
+day of at least 5,000 events for the rewind engine — the diurnal hum, a
+noon spot storm, an afternoon gang burst, an evening priority wave and
+one solve-worker crash with its restart — replayed at `REWIND_TICK`
+second ticks.
 """
 
 from __future__ import annotations
@@ -701,25 +710,16 @@ def provisioning_loop(n_pods: int, options=None, clock=None,
     return loop
 
 
-def loop_answer(cluster, cloud, rounds: int) -> Dict[str, object]:
-    """The canonical outcome of a settled loop, read off its store and its
-    cloud with attribute access only (so it reads either package's
-    objects): the running instances' sorted (nodepool, instance type,
-    zone, capacity type) and their count, the IEEE-hex sum of their
-    catalog prices in that order, each node's bound-pod count (sorted by
-    node name, with the node's instance type), the pods bound and left
-    unbound, and the rounds taken."""
+def _digest(rows) -> str:
     import hashlib
+    return hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
 
-    def digest(rows) -> str:
-        return hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
 
-    book = {(it.name, o.zone, o.capacity_type): o.price
-            for it in cloud.describe_instance_types() for o in it.offerings}
-    insts = sorted(
-        (i.tags.get("karpenter.sh/nodepool"), i.instance_type, i.zone,
-         i.capacity_type)
-        for i in cloud.instances.values() if i.state == "running")
+def _answer(cluster, insts, book) -> Dict[str, object]:
+    """The fields of `loop_answer` but `rounds`: `insts` the sorted
+    (nodepool, instance type, zone, capacity type) of the running
+    instances, priced from `book` in that order; the pods bound per node
+    and left unbound, read off `cluster`."""
     price = 0.0
     for _, t, z, ct in insts:
         price += book[(t, z, ct)]
@@ -733,11 +733,68 @@ def loop_answer(cluster, cloud, rounds: int) -> Dict[str, object]:
     nodes = sorted(
         (n.meta.name, n.meta.labels.get(wellknown.INSTANCE_TYPE_LABEL),
          per_node.get(n.meta.name, 0)) for n in cluster.nodes.list())
-    return {"instances": len(insts), "instances_digest": digest(insts),
+    return {"instances": len(insts), "instances_digest": _digest(insts),
             "price": float(price).hex(), "nodes": len(nodes),
-            "pods_per_node_digest": digest(nodes),
-            "bound": sum(per_node.values()), "unbound": unbound,
-            "rounds": rounds}
+            "pods_per_node_digest": _digest(nodes),
+            "bound": sum(per_node.values()), "unbound": unbound}
+
+
+def loop_answer(cluster, cloud, rounds: int) -> Dict[str, object]:
+    """The canonical outcome of a settled loop, read off its store and its
+    cloud with attribute access only (so it reads either package's
+    objects): the running instances' sorted (nodepool, instance type,
+    zone, capacity type) and their count, the IEEE-hex sum of their
+    catalog prices in that order, each node's bound-pod count (sorted by
+    node name, with the node's instance type), the pods bound and left
+    unbound, and the rounds taken."""
+    book = {(it.name, o.zone, o.capacity_type): o.price
+            for it in cloud.describe_instance_types() for o in it.offerings}
+    insts = sorted(
+        (i.tags.get("karpenter.sh/nodepool"), i.instance_type, i.zone,
+         i.capacity_type)
+        for i in cloud.instances.values() if i.state == "running")
+    return dict(_answer(cluster, insts, book), rounds=rounds)
+
+
+def store_answer(cluster, catalog) -> Dict[str, object]:
+    """`loop_answer`'s fields but `rounds`, read off the store alone: the
+    nodes' (nodepool, instance type, zone, capacity type) labels stand
+    for the running instances (one node each), priced from `catalog`'s
+    offerings."""
+    book = {(it.name, o.zone, o.capacity_type): o.price
+            for it in catalog for o in it.offerings}
+    insts = sorted(
+        tuple(n.meta.labels.get(k) for k in (
+            wellknown.NODEPOOL_LABEL, wellknown.INSTANCE_TYPE_LABEL,
+            wellknown.ZONE_LABEL, wellknown.CAPACITY_TYPE_LABEL))
+        for n in cluster.nodes.list())
+    return _answer(cluster, insts, book)
+
+
+# -- the rewind day ------------------------------------------------------------
+REWIND_TICK = 240.0       # replay frame: one settle/audit round per 4 min
+REWIND_DAY = 21600.0      # 6 h of compressed fleet life
+REWIND_MIN_EVENTS = 5000
+
+
+def build_rewind_day(seed: int = 1107) -> List[dict]:
+    """BASELINE config #11's day (module docstring): diurnal hum + noon
+    spot storm + afternoon gang burst + evening priority wave + one
+    worker crash, from the port's seeded generators."""
+    from karpenter_tpu_torch.timeline import generators as g
+    day, tick = REWIND_DAY, REWIND_TICK
+    return g.compose(
+        g.diurnal_load(seed=seed, duration=day, step=tick,
+                       base=12, peak=48, lifetime=2700.0),
+        g.spot_storm(at=day * 0.45, reclaims=60, spacing=20.0,
+                     seed=seed + 1),
+        g.gang_burst(at=day * 0.6, gangs=30, size=6, spacing=8.0,
+                     seed=seed + 2),
+        g.priority_wave(at=day * 0.75,
+                        bands=((1000, 40), (100, 40), (0, 40)),
+                        seed=seed + 3),
+        g.crash_schedule(day * 0.3, restart_after=tick),
+    )
 
 
 # -- the disruption control loop ---------------------------------------------

@@ -1,18 +1,38 @@
-"""The port's leader election (`operator/leaderelection.py`) against the
-JAX package's: the `TestLeases` and `TestElector` cases of
-`tests/test_ha.py` on both packages, and one lease file shared by a
-replica of each package (the file format is one, so mixed replicas
-exclude each other).  The in-process replica pair of `tests/test_ha.py`
-needs the operator, which the port does not have yet (slice 5d).
+"""The port's leader election (`operator/leaderelection.py`) and its
+replica pairs against the JAX package's: the `TestLeases` and
+`TestElector` cases of `tests/test_ha.py` on both packages, one lease
+file shared by a replica of each package (the file format is one, so
+mixed replicas exclude each other), and `tests/test_ha.py`'s
+`TestReplicaPairE2E` and `TestTwoReplicaExternalStore` on both packages'
+Operators (the port's environments on the CPU).
+`TestFullProductionTopology` puts a solver daemon between the replicas
+and the solver; it waits for the port's solver service.
 """
 
 import importlib
+import threading
+import time
+from types import SimpleNamespace
 
 import pytest
+import torch
 
 PKGS = {name: importlib.import_module(f"{root}.operator.leaderelection")
         for name, root in (("jax", "karpenter_tpu"),
                            ("port", "karpenter_tpu_torch"))}
+
+
+def _stack(root):
+    imp = lambda m: importlib.import_module(f"{root}.{m}")  # noqa: E731
+    return SimpleNamespace(
+        root=root, M=imp("models"), env=imp("env"), le=imp(
+            "operator.leaderelection"), op=imp("operator.operator"),
+        Options=imp("operator.options").Options, clock=imp("utils.clock"),
+        store=imp("store"), fake_cloud=imp("providers.fake_cloud"),
+        faults=imp("utils.faults"))
+
+
+STACKS = {"jax": _stack("karpenter_tpu"), "port": _stack("karpenter_tpu_torch")}
 
 
 @pytest.fixture(autouse=True)
@@ -106,3 +126,162 @@ def test_one_lease_file_excludes_across_packages(tmp_path):
     ref = run(jax.FileLease, jax.FileLease, str(tmp_path / "jax.json"))
     assert mixed == ref
     assert mixed[0] == [True, False, "rep-a", True, "rep-b", None]
+
+
+# -- the replica pairs of tests/test_ha.py, on both packages' Operators -------
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(params=sorted(STACKS))
+def st(request):
+    return STACKS[request.param]
+
+
+def mkpod(st, name):
+    return st.M.Pod(meta=st.M.ObjectMeta(name=name),
+                    requests=st.M.Resources.parse({"cpu": "500m",
+                                                   "memory": "1Gi"}))
+
+
+def mkenv(st, opts, **kw):
+    if st.root == "karpenter_tpu_torch":
+        kw["device"] = "cpu"
+    return st.env.Environment(clock=st.clock.RealClock(), options=opts, **kw)
+
+
+def wait_scheduled(env, name, timeout=20.0):
+    """tests/test_ha.py's event-driven wait for one pod to schedule."""
+    w = env.cluster.watch()
+    try:
+        deadline = time.monotonic() + timeout
+        while True:
+            p = env.cluster.pods.get(name)
+            if p is not None and p.scheduled:
+                return True
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return False
+            w.wait(timeout=min(left, 0.5))
+            w.drain()
+    finally:
+        env.cluster.unwatch(w)
+
+
+def pair(st, opts, lease, envs):
+    ops = []
+    for ident, env in zip(("rep-1", "rep-2"), envs):
+        op = st.op.Operator(options=opts, env=env, lease=lease,
+                            identity=ident, metrics_port=0, health_port=0,
+                            reconcile_interval=0.05)
+        op.elector.lease_duration = 1.2
+        op.elector.renew_interval = 0.3
+        op.elector.retry_period = 0.1
+        ops.append(op)
+    threads = [threading.Thread(target=op.run, daemon=True) for op in ops]
+    for th in threads:
+        th.start()
+    return ops, threads
+
+
+class TestReplicaPairE2E:
+    def test_standby_takes_over_provisioning(self, st):
+        """Two replicas share one cluster and one lease; the leader dies
+        WITHOUT releasing; the standby must acquire and provision new
+        pods."""
+        opts = st.Options(batch_idle_duration=0)
+        env = mkenv(st, opts)
+        env.add_default_nodeclass()
+        env.cluster.nodepools.create(
+            st.M.NodePool(meta=st.M.ObjectMeta(name="default")))
+        ops, threads = pair(st, opts, st.le.InMemoryLease(), (env, env))
+        try:
+            env.cluster.pods.create(mkpod(st, "before"))
+            assert wait_scheduled(env, "before")
+            deadline = time.monotonic() + 20
+            leaders = []
+            while time.monotonic() < deadline:
+                leaders = [op for op in ops if op._leadership.is_set()]
+                if len(leaders) == 1:
+                    break
+                time.sleep(0.05)
+            assert len(leaders) == 1
+            leader = leaders[0]
+            standby = next(op for op in ops if op is not leader)
+            leader.elector.release = lambda: None  # sudden death
+            leader.stop()
+            env.cluster.pods.create(mkpod(st, "after"))
+            assert wait_scheduled(env, "after"), \
+                "standby never took over provisioning"
+            assert standby._leadership.wait(5.0)
+            assert standby.elector.is_leader
+        finally:
+            for op in ops:
+                op.stop()
+            for th in threads:
+                th.join(timeout=5)
+
+
+class TestTwoReplicaExternalStore:
+    def test_leader_killed_mid_provisioning_loses_no_pods(self, st,
+                                                          tmp_path):
+        """Two replicas, each with its OWN informer cache, sharing one
+        store daemon, one cloud and one file lease; the leader is killed
+        mid-provisioning without releasing its lease; the standby takes
+        over and finishes: every pod scheduled, none lost."""
+        opts = st.Options(batch_idle_duration=0)
+        daemon = st.store.StoreDaemon(str(tmp_path / "store.sock"))
+        cloud = st.fake_cloud.FakeCloud(clock=st.clock.RealClock())
+        envs = [mkenv(st, opts, cloud=cloud,
+                      store_backend=st.store.RemoteBackend(daemon.path))
+                for _ in range(2)]
+        envs[0].add_default_nodeclass()
+        envs[0].cluster.nodepools.create(
+            st.M.NodePool(meta=st.M.ObjectMeta(name="default")))
+        ops, threads = pair(st, opts,
+                            st.le.FileLease(str(tmp_path / "lease.json")),
+                            envs)
+        try:
+            deadline = time.time() + 20
+            while time.time() < deadline:
+                leaders = [op for op in ops if op.elector.is_leader]
+                if len(leaders) == 1:
+                    break
+                time.sleep(0.05)
+            assert len(leaders) == 1
+            leader = leaders[0]
+            standby = next(op for op in ops if op is not leader)
+            for i in range(6):
+                standby.env.cluster.pods.create(mkpod(st, f"p{i}"))
+            deadline = time.time() + 20
+            while time.time() < deadline:
+                if leader.env.cluster.nodeclaims.list():
+                    break
+                time.sleep(0.02)
+            assert leader.env.cluster.nodeclaims.list(), \
+                "leader never began provisioning"
+            leader.elector.release = lambda: None  # sudden death
+            leader.stop()
+            deadline = time.time() + 30
+            while time.time() < deadline:
+                pods = standby.env.cluster.pods.list()
+                if len(pods) == 6 and all(p.scheduled for p in pods):
+                    break
+                time.sleep(0.05)
+            pods = standby.env.cluster.pods.list()
+            assert len(pods) == 6, "pods were lost across failover"
+            assert all(p.scheduled for p in pods), \
+                "standby never finished provisioning"
+            assert standby.elector.is_leader
+        finally:
+            for op in ops:
+                op.stop()
+            for th in threads:
+                th.join(timeout=5)
+            for env in envs:
+                env.cluster.backend.close()
+            daemon.close()

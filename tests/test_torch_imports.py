@@ -137,6 +137,53 @@ def test_the_walk_covers_the_cross_card_solve():
             "ffd_card_occupancy", "ffd_card_peer"}
 
 
+# the operator process and its entry point, the device bootstrap, the
+# shadow audit and the rewind engine, which the walk above must reach too
+# (the subprocess import and the AST scan below then cover them)
+OPERATOR = ("__main__", "operator.operator", "utils.platform",
+            "utils.profiling", "utils.knobs", "solver.audit",
+            "timeline.rewind")
+
+
+def test_the_walk_covers_the_operator():
+    mods = set(_modules())
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in OPERATOR:
+        assert f"karpenter_tpu_torch.{mod}" in mods, mod
+        path = os.path.join("karpenter_tpu_torch", *mod.split("."))
+        assert path + ".py" in files, mod
+
+
+def test_operator_process_loads_no_jax(tmp_path):
+    """`python -m karpenter_tpu_torch` on the CPU in a process of its
+    own, stopped by SIGTERM once it serves: every module it imported
+    (`-X importtime`) is the port's, torch's or another library's, with
+    neither jax nor the JAX package."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=ROOT, KARPENTER_TPU_PLATFORM="cpu",
+               KARPENTER_TPU_METRICS_PORT="0", KARPENTER_TPU_HEALTH_PORT="0")
+    # the import log (torch's included) outgrows a pipe's buffer: a file
+    log = tmp_path / "stderr"
+    with open(log, "w") as errf:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m",
+             "karpenter_tpu_torch"], stdout=subprocess.PIPE, stderr=errf,
+            text=True, cwd=str(tmp_path), env=env)
+        try:
+            banner = proc.stdout.readline()
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            proc.communicate(timeout=60)
+    err = log.read_text()
+    assert "device=cpu" in banner and "health=:" in banner, err[-2000:]
+    assert proc.returncode == 0, err[-2000:]
+    loaded = [line.rsplit("|", 1)[-1].strip() for line in err.splitlines()
+              if line.startswith("import time:") and "|" in line]
+    assert "karpenter_tpu_torch.operator.operator" in loaded
+    assert "karpenter_tpu_torch.utils.platform" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
 def test_store_daemon_process_loads_no_jax():
     """`python -m karpenter_tpu_torch.store <socket>` in a process of its
     own: every module it imports (`-X importtime`) is the port's or the
