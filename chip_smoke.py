@@ -192,6 +192,30 @@ Phases (any failure exits non-zero):
      (one ReconcileError, no SolverFallback) and retried there; then
      `seek_check` on the manager driver at the day's midpoint,
      bit-identical.
+ 24. the solver service (slice 6b; in a child process started beside
+     phase 19): kt_solverd (`make -s solverd` in native/) under
+     `SolverdSupervisor`, always `--module karpenter_tpu_torch.service.
+     backend`, on the card.  (a) each worker's seconds from spawn to its
+     socket, its first answer and a warm `warmup` frame, its interpreter,
+     torch, CUDA and card as it reports them over stats, and no jaxlib
+     or libtpu in its /proc/<pid>/maps; (b) BASELINE config #8
+     (`workloads.Config8Traffic`: 8 tenants, two closed-loop drivers
+     each, 12 s an arm, the 12-type catalog, KARPENTER_TPU_MAX_NODES=128)
+     with fusion on and off, each on its own worker: every request equal
+     to a solo `TorchSolver(device="cuda", mesh="off", delta="off")`
+     solve, tenant-0's warm steps `CONFIG8_PIN` (the JAX package's), none
+     lost, K5 launched by the worker; throughput, per-tenant p50/p99,
+     fleet p99, fused batch sizes, shed, the fused/unfused ratio; (c)
+     phase 18's 50k + 2k loop with `Options(solver_endpoint=<the
+     worker>)`: `LOOP` and `LOOP_OBSERVED`, K5 launched by the worker,
+     the frames' bytes each way and each wave's time to idle beside the
+     same loop in memory; (d) a worker armed with
+     `KARPENTER_TPU_FAULTS=solverd.handle_batch=crash::1`: restarted by
+     the supervisor, the client's retries give the pin; then the
+     supervisor stopped, the breaker open, the degraded in-process
+     `TorchSolver` on the card gives the pin with `SolverFallback`
+     recorded and no oracle solve; the worker's exit code on SIGTERM and
+     both processes' device memory.  `--child service` runs it alone.
 
 Phase 3 also holds K5's gang instance, the witness and the epilogue's map
 and with_gang class against their plain versions on seeded gang and priority
@@ -220,7 +244,8 @@ Without a CUDA device it exits 2 and prints no result.  `--child MODE`
 runs one of the phases above that need a process of their own; the
 script starts those itself.  `--child entry` (phase 22(a)), `--child
 ha` (22(b)) and `--child rewind` (23) run those phases alone, the kernels
-and kt_hostops built first; the main run starts the three beside phase
+and kt_hostops built first; `--child service` (24) likewise; the main
+run starts the four beside phase
 19, and every child ends before phase 3 times a kernel.
 `--child cards` is the cross-card check,
 run on a host of two or more cards (`python3 chip_smoke.py --child
@@ -2247,7 +2272,8 @@ def _config13(ffd, card, TorchSolver, build_config13):
 
 # -- 18. the provisioning control loop ---------------------------------------
 def _loop_run(card, warm_up=False, capture=None, n_pods=LOOP_PODS,
-              n_wave2=LOOP_WAVE2, store_backend=None, rpcs=None):
+              n_wave2=LOOP_WAVE2, store_backend=None, rpcs=None,
+              options=None, launch_counts=None):
     """One provisioning loop on a fresh cluster (workloads.provisioning_loop,
     Options(batch_idle_duration=0)): wave 1 the headline's first `n_pods`
     pods, wave 2 `n_wave2` pods of its two smallest sizes landing on wave
@@ -2260,8 +2286,12 @@ def _loop_run(card, warm_up=False, capture=None, n_pods=LOOP_PODS,
     in-memory one by default); `rpcs`, a `_rpc_tally` of that backend,
     gives each wave its store round trips and their ms (and wave 1 the
     set-up's: the pods created before it).  Every kernel count is set to
-    0 just before each wave and read just after.  Returns one record per
-    wave and the warm-up's."""
+    0 just before each wave and read just after.  `options` replaces
+    Options(batch_idle_duration=0) (phase 24 passes a `solver_endpoint`:
+    the loop's GatedSolver is then the solver service's client, each
+    wave's launches are the worker's, read by `launch_counts` before and
+    after it, and its frame bytes each way are recorded).  Returns one
+    record per wave and the warm-up's."""
     import contextlib
     import torch
     from karpenter_tpu_torch import native, workloads
@@ -2277,8 +2307,9 @@ def _loop_run(card, warm_up=False, capture=None, n_pods=LOOP_PODS,
     watch = workloads.WaveObserver(obs)
     t_setup = time.perf_counter()
     loop = workloads.provisioning_loop(
-        n_pods, Options(batch_idle_duration=0), device="cuda",
+        n_pods, options or Options(batch_idle_duration=0), device="cuda",
         store_backend=store_backend)
+    client = loop.solver.tpu if loop.solver._remote else None
     setup = {"ms": (time.perf_counter() - t_setup) * 1e3}
     if rpcs is not None:
         setup.update(rpcs=rpcs["n"], rpc_ms=rpcs["s"] * 1e3)
@@ -2335,26 +2366,34 @@ def _loop_run(card, warm_up=False, capture=None, n_pods=LOOP_PODS,
                             stack.enter_context(_DeltaCapture(ffd)))
                     capture.append({"solve": caps[0].calls,
                                     "delta": caps[1].calls})
-                _reset_launches(ffd)
+                if launch_counts is None:
+                    _reset_launches(ffd)
+                    c0 = {}
+                else:
+                    c0 = launch_counts()
+                if client is not None:
+                    frames0 = (client.bytes_sent, client.bytes_received)
                 t0 = time.perf_counter()
                 rounds = loop.settle()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-                launches = _read_launches(ffd)
+                launches = {k: v - c0.get(k, 0) for k, v in (
+                    launch_counts or (lambda: _read_launches(ffd)))().items()}
             observed = watch.finish(loop.cluster)
             spans = {}
             for _, sps in tracing.finished_traces():
                 for sp in sps:
                     spans[sp.name] = spans.get(sp.name, 0.0) + \
                         sp.duration * 1e3
-            cache = loop.solver.tpu._delta_cache
+            cache = getattr(loop.solver.tpu, "_delta_cache", None)
             waves.append({
                 "answer": workloads.loop_answer(loop.cluster, loop.cloud,
                                                 rounds),
                 "wall_ms": wall, "round_ms": list(round_ms),
                 "spans_ms": spans,
                 "controller_ms": {k: v * 1e3 for k, v in ctl_s.items()},
-                "phase_ms": dict(loop.solver.tpu.last_phase_ms),
+                "phase_ms": dict(getattr(loop.solver.tpu, "last_phase_ms",
+                                         {})),
                 "launches": launches,
                 "oracle": metrics.SOLVER_SOLVES.value(path="oracle")
                 - oracle0,
@@ -2362,9 +2401,13 @@ def _loop_run(card, warm_up=False, capture=None, n_pods=LOOP_PODS,
                                  if ev[3] == "SolverFallback"),
                 "first_use": firstuse.total() - f0,
                 "seams": (cache.last_outcome, cache.last_reason,
-                          cache.last_incr_reason),
+                          cache.last_incr_reason) if cache else None,
                 "observed": observed,
                 "hostops": native.hostops() is not None})
+            if client is not None:
+                waves[-1]["frames"] = {
+                    "sent": client.bytes_sent - frames0[0],
+                    "received": client.bytes_received - frames0[1]}
             if rpcs is not None:
                 waves[-1]["store"] = {
                     "rpcs": rpcs["n"] - rpc0["n"],
@@ -3209,6 +3252,467 @@ def _rewind_phase(card, add):
     return bad
 
 
+# -- 24. the solver service ----------------------------------------------------
+# BASELINE config #8 (benchmarks/config8_saturation.py, its traffic as
+# `workloads.Config8Traffic`) through kt_solverd with the port's backend
+# on the card: the answers of `tenant-0`'s warm steps (its three traffic
+# shapes, four solves), pinned from the JAX package (TPUSolver(max_nodes=
+# 128, mesh off, delta off); tests/test_torch_service.py holds the pin to
+# both packages on the CPU), as `config8_digest`
+CONFIG8_PIN_TENANT = "tenant-0"
+CONFIG8_PIN = "d9c09ff241893041a094aeb1b36f541a"
+SERVICE_BOOT_S = 600      # a worker's spawn to its socket, at most
+SERVICE_RECOVER_S = 300   # the crashed worker's client, retrying, at most
+SERVICE_CRASH = "solverd.handle_batch=crash::1"   # the worker's first batch
+SERVICE_DEGRADED_REPS = 5  # timed degraded solves after the first
+
+
+def config8_digest(results) -> str:
+    """sha256 (32 hex) of the results' `workloads.config8_canon`s."""
+    import hashlib
+    from karpenter_tpu_torch.workloads import config8_canon
+    return hashlib.sha256(json.dumps(
+        [config8_canon(r) for r in results]).encode()).hexdigest()[:32]
+
+
+def _pct(xs, q):
+    return sorted(xs)[max(0, int(round(q * len(xs))) - 1)] if xs else None
+
+
+def _service_worker(sockdir, name, env_extra, probe=True):
+    """A `SolverdSupervisor` worker (kt_solverd with the port's backend)
+    on the card, `env_extra` in its environment: the seconds from spawn
+    to its socket and, with `probe`, to its first answer (a stats frame)
+    and the worker's own report.  A worker that exits before it listens
+    fails with its stderr."""
+    from karpenter_tpu_torch.service import SolverdSupervisor
+    from karpenter_tpu_torch.service import SolverServiceClient
+    env = dict(os.environ)
+    for k in ("KARPENTER_TPU_PLATFORM", "KARPENTER_TPU_FORCE_CPU",
+              "KARPENTER_TPU_FAULTS"):
+        env.pop(k, None)
+    env.update(env_extra)
+    from karpenter_tpu_torch.workloads import CONFIG8_WINDOW
+    sock = os.path.join(sockdir, f"{name}.sock")
+    err = os.path.join(sockdir, f"{name}.stderr")
+    sup = SolverdSupervisor(sock, env=env, extra_args=CONFIG8_WINDOW,
+                            stderr_path=err, backoff_base=0.2,
+                            backoff_max=2.0)
+    t0 = time.perf_counter()
+    sup.start(wait_for_socket=False)
+    while True:
+        try:
+            sup.wait_ready(timeout=1.0)
+            break
+        except TimeoutError:
+            pass
+        if sup.restarts or sup.last_exit is not None \
+                or time.perf_counter() - t0 > SERVICE_BOOT_S:
+            sup.stop()
+            with open(err, errors="replace") as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"the {name} worker never listened (exit "
+                               f"{sup.last_exit}): {tail}")
+    boot = {"socket_s": time.perf_counter() - t0, "sock": sock, "err": err}
+    if probe:
+        client = SolverServiceClient(sock, timeout=SERVICE_BOOT_S)
+        boot["worker"] = client.stats()["worker"]
+        boot["first_answer_s"] = time.perf_counter() - t0
+        client.close()
+    return sup, boot
+
+
+def _worker_report(sock):
+    """The worker's own report over a stats frame (`backend._worker_info`:
+    its interpreter, torch, device, launch counts and device memory)."""
+    from karpenter_tpu_torch.service import SolverServiceClient
+    c = SolverServiceClient(sock, timeout=120)
+    try:
+        return c.stats()["worker"]
+    finally:
+        c.close()
+
+
+def _config8_arm(sock, traffic, fuse_on, card):
+    """One arm of config #8 on a worker started with
+    KARPENTER_TPU_TENANT_FUSE on or off: CONFIG8_TENANTS tenants, two
+    closed-loop drivers each (a control plane's provisioner and its
+    disruption simulator), CONFIG8_ARM_S seconds, after `tenant-0`'s warm
+    steps.  Returns the arm's record: throughput, latencies, shed, lost,
+    the worker's batch sizes and launches during the arm, and one
+    (tenant, step, [digest]) per traffic step for the solo check."""
+    import threading
+    from collections import Counter
+
+    from karpenter_tpu_torch.service import SolverServiceClient
+    from karpenter_tpu_torch.workloads import (CONFIG8_ARM_S,
+                                               CONFIG8_TENANTS,
+                                               CONFIG8_WINDOW)
+    names = [f"tenant-{i}" for i in range(CONFIG8_TENANTS)]
+    clients = {t: SolverServiceClient(sock, timeout=120, tenant=t)
+               for t in names}
+    lat = {t: [] for t in names}
+    sent = {t: 0 for t in names}
+    done = {t: 0 for t in names}
+    errors, answers = [], []
+    lock = threading.Lock()
+    try:
+        warm = traffic.warm(clients[names[0]], names[0])
+        pin = config8_digest([r for _, rs, _ in warm for r in rs])
+        st0 = clients[names[0]].stats()
+        n_batches0 = len(st0["batch_sizes"])
+        dispatch0 = (st0.get("scheduler") or {}).get("dispatch_s", 0.0)
+        launches0 = st0["worker"]["launches"]
+        seq = {t: iter(range(1 << 20)) for t in names}
+        start = threading.Barrier(2 * len(names))
+        stop_at = [0.0]
+
+        def drive(t):
+            start.wait()
+            while time.perf_counter() < stop_at[0]:
+                with lock:
+                    it = next(seq[t])
+                t0 = time.perf_counter()
+                try:
+                    n, results, _ = traffic.call(clients[t], t, it)
+                except Exception as e:  # noqa: BLE001 — counted, must be 0
+                    errors.append((t, str(e)[:200]))
+                    return
+                ms = (time.perf_counter() - t0) * 1e3
+                digs = [config8_digest([r]) for r in results]
+                with lock:
+                    lat[t].append(ms)
+                    sent[t] += n
+                    done[t] += len(results)
+                    answers.append((t, it, digs))
+
+        threads = [threading.Thread(target=drive, args=(t,))
+                   for t in names for _ in range(2)]
+        stop_at[0] = time.perf_counter() + CONFIG8_ARM_S
+        t_begin = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        elapsed = time.perf_counter() - t_begin
+        st = clients[names[0]].stats()
+    finally:
+        for c in clients.values():
+            c.close()
+    sizes = st["batch_sizes"][n_batches0:]
+    launches = {k: v - launches0.get(k, 0)
+                for k, v in st["worker"]["launches"].items()}
+    all_lat = [x for v in lat.values() for x in v]
+    per_tenant = {t: (len(v), _pct(v, 0.5), _pct(v, 0.99))
+                  for t, v in lat.items()}
+    rec = {"fuse": fuse_on, "elapsed_s": elapsed,
+           "requests": sum(done.values()),
+           "throughput_rps": sum(done.values()) / elapsed,
+           "lost": sum(sent.values()) - sum(done.values()),
+           "errors": errors, "shed": st["shed"],
+           "fleet_p50_ms": _pct(all_lat, 0.5),
+           "fleet_p99_ms": _pct(all_lat, 0.99),
+           "per_tenant": per_tenant,
+           "batch_sizes": dict(sorted(Counter(sizes).items())),
+           "batches": len(sizes),
+           "cross_tenant_batches":
+               (st.get("scheduler") or {}).get("cross_tenant_batches"),
+           "launches": launches, "pin": pin, "answers": answers,
+           "worker": st["worker"],
+           "dispatch_s": (st.get("scheduler") or {}).get(
+               "dispatch_s", 0.0) - dispatch0,
+           "phases": (st.get("telemetry") or {}).get("phase_latency_ms")}
+    print(f"[24b] config #8 fusion {'on' if fuse_on else 'off'} on {card}: "
+          f"{rec['requests']} requests in {elapsed:.2f} s = "
+          f"{rec['throughput_rps']:.2f} req/s; fleet p50 "
+          f"{rec['fleet_p50_ms']:.3f} ms, p99 {rec['fleet_p99_ms']:.3f} ms; "
+          f"per tenant (calls, p50, p99 ms) "
+          + ", ".join(f"{t} ({n}, {p50:.2f}, {p99:.2f})"
+                      for t, (n, p50, p99) in per_tenant.items())
+          + f"; fused batch sizes {rec['batch_sizes']} over "
+          f"{rec['batches']} batches ({rec['cross_tenant_batches']} "
+          f"cross-tenant in all); shed {rec['shed']}, lost {rec['lost']}, "
+          f"errors {len(errors)}; the worker's launches "
+          f"{ {k: v for k, v in launches.items() if v} }; the warm "
+          f"steps' digest {pin}", flush=True)
+    # where an arm's time goes: the worker's dispatches (its scheduler's
+    # EWMA of one fused dispatch: unpickled frames to answers, K5
+    # included) against the wall, the rest the window and the frames
+    print(f"[24b] fusion {'on' if fuse_on else 'off'}: the worker "
+          f"dispatched {rec['batches']} batches in "
+          f"{rec['dispatch_s'] * 1e3:.1f} ms of the arm's "
+          f"{elapsed * 1e3:.1f} ms wall (the rest its window, "
+          f"{' '.join(CONFIG8_WINDOW)}, and the frames); its solve phases "
+          f"(count, p50, p99 ms, histogram buckets) {rec['phases']}",
+          flush=True)
+    return rec
+
+
+def _service_phase(card, add):
+    """Phase 24: the solver service.  (a) kt_solverd built by `make
+    solverd` and started by `SolverdSupervisor` (always `--module
+    karpenter_tpu_torch.service.backend`) on the card: seconds to its
+    socket, its first answer and a warm `warmup` frame; its interpreter,
+    torch and device as it reports them; no jaxlib or libtpu mapped into
+    it.  (b) config #8: fusion on and off, each on its own worker — every
+    request equal to a solo card solve, `tenant-0`'s warm steps the JAX
+    pin, none lost, K5 launched by the worker.  (c) phase 18's 50k +
+    2k loop with `Options(solver_endpoint=...)`: `LOOP` and
+    `LOOP_OBSERVED`, K5 launched by the worker, the frames' bytes each
+    way and each wave's time to idle beside the same loop in memory.
+    (d) a worker armed to crash on its first batch: the supervisor
+    restarts it and the client's retry gets the pin; then the supervisor
+    stopped, the breaker open, and the degraded in-process TorchSolver on
+    the card gives the pin with `SolverFallback` recorded and no oracle
+    solve; the worker's exit code on SIGTERM and both processes' device
+    memory.  Adds the launches with `add`; returns what failed."""
+    import pickle
+    import shutil
+
+    import torch
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.cluster import Cluster
+    from karpenter_tpu_torch.controllers.state import GatedSolver
+    from karpenter_tpu_torch.operator.options import Options
+    from karpenter_tpu_torch.service import (CircuitBreaker, RetryPolicy,
+                                             SolverServiceClient)
+    from karpenter_tpu_torch.service import supervisor as sup_mod
+    from karpenter_tpu_torch.solver import TorchSolver, ffd
+    from karpenter_tpu_torch.utils import metrics
+
+    bad = []
+    t0 = time.perf_counter()
+    try:
+        binary = sup_mod.build_binary()
+    except RuntimeError as e:
+        return [f"24a: kt_solverd did not build or link: {e}"]
+    print(f"[24a] kt_solverd ({binary}) ready in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    tmp = tempfile.mkdtemp(prefix="kt_svc_")
+    sockdir = os.path.join(tmp, "s")
+    os.makedirs(sockdir)
+    traffic = workloads.Config8Traffic()
+    small = {"KARPENTER_TPU_MAX_NODES": str(workloads.CONFIG8_MAX_NODES)}
+    sups = []
+    try:
+        # -- (a) boot, and (b) the fused arm on the same worker --------------
+        arms = {}
+        for fuse in (True, False):
+            sup, boot = _service_worker(
+                sockdir, f"config8-{'on' if fuse else 'off'}",
+                dict(small, KARPENTER_TPU_TENANT_FUSE="on" if fuse else "off"))
+            sups.append(sup)
+            w = boot["worker"]
+            c = SolverServiceClient(boot["sock"], timeout=SERVICE_BOOT_S)
+            t1 = time.perf_counter()
+            warmed = c.warmup(traffic.inputs("boot", 0)[0],
+                              shapes=((12, 0),), batch_sizes=(1, 4, 16, 64))
+            warm_s = time.perf_counter() - t1
+            c.close()
+            with open(f"/proc/{sup.worker_pid}/maps") as f:
+                maps = f.read()
+            libs = sorted({line.split()[-1] for line in maps.splitlines()
+                           if line.split()[-1].startswith("/")})
+            print(f"[24a] worker {sup.worker_pid} (fusion "
+                  f"{'on' if fuse else 'off'}) on {card}: socket "
+                  f"{boot['socket_s']:.2f} s, first answer "
+                  f"{boot['first_answer_s']:.2f} s, warmup frame "
+                  f"{warm_s:.2f} s ({warmed} launches) after spawn + "
+                  f"{boot['first_answer_s']:.2f}; its sys.executable "
+                  f"{w['executable']}, python {w['python']}, torch "
+                  f"{w['torch']}, CUDA {w['cuda']}, device {w['device']} "
+                  f"({w.get('device_name')}); libpython "
+                  f"{[p for p in libs if 'libpython' in p]}", flush=True)
+            if not str(w["device"]).startswith("cuda"):
+                bad.append(f"24a: the worker runs on {w['device']}")
+            hits = [p for p in libs if "jaxlib" in p or "libtpu" in p]
+            if hits:
+                bad.append(f"24a: the worker maps {hits}")
+            if warmed <= 0:
+                bad.append("24a: the warmup frame launched nothing")
+            arms[fuse] = _config8_arm(boot["sock"], traffic, fuse, card)
+            sup.stop()
+            print(f"[24a] worker stopped by SIGTERM: exit code "
+                  f"{sup.last_exit}", flush=True)
+        # every request against a solo card solve on the same input
+        solo = TorchSolver(max_nodes=workloads.CONFIG8_MAX_NODES,
+                           device="cuda", mesh="off", delta="off")
+        t1 = time.perf_counter()
+        n = wrong = 0
+        for fuse, arm in arms.items():
+            for t, it, digs in arm.pop("answers"):
+                for inp, d in zip(traffic.inputs(t, it), digs):
+                    n += 1
+                    if config8_digest([solo.solve(inp)]) != d:
+                        wrong += 1
+        ratio = arms[True]["throughput_rps"] / arms[False]["throughput_rps"]
+        print(f"[24b] {n} requests against solo card solves: {wrong} "
+              f"differ ({time.perf_counter() - t1:.1f} s); fused/unfused "
+              f"throughput {ratio:.3f}x; the warm steps' digests "
+              f"{arms[True]['pin']} / {arms[False]['pin']} (pin "
+              f"{CONFIG8_PIN})", flush=True)
+        if wrong:
+            bad.append(f"24b: {wrong} of {n} requests differ from solo "
+                       f"card solves")
+        for fuse, arm in arms.items():
+            tag = f"24b fusion {'on' if fuse else 'off'}"
+            if arm["pin"] != CONFIG8_PIN:
+                bad.append(f"{tag}: warm digest {arm['pin']} != pin")
+            if arm["lost"] or arm["errors"]:
+                bad.append(f"{tag}: lost {arm['lost']}, errors "
+                           f"{arm['errors'][:3]}")
+            if arm["launches"].get("ffd_batch_scan", 0) <= 0:
+                bad.append(f"{tag}: the worker launched no K5")
+            add({k: arm["launches"].get(k, 0)
+                 for k in ("ffd_batch_scan", "explain_pack")})
+
+        # -- (c) the 50k headline loop through the service ----------------
+        opts = Options()
+        sup, boot = _service_worker(
+            sockdir, "loop",
+            {"KARPENTER_TPU_MAX_NODES": str(opts.solver_max_nodes)})
+        sups.append(sup)
+        inp = workloads.build_input(LOOP_PODS)
+        t1 = time.perf_counter()
+        blob = pickle.dumps(inp.pods, protocol=pickle.HIGHEST_PROTOCOL)
+        t_dump = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pickle.loads(blob)
+        t_load = time.perf_counter() - t1
+        print(f"[24c] the {LOOP_PODS} pods pickled on this host: "
+              f"{len(blob)} bytes, dumps {t_dump:.3f} s, loads "
+              f"{t_load:.3f} s", flush=True)
+        del inp, blob
+        mem, _ = _loop_run(card)
+        svc, _ = _loop_run(
+            card, options=Options(batch_idle_duration=0,
+                                  solver_endpoint=boot["sock"],
+                                  service_request_timeout=600.0),
+            launch_counts=lambda: _worker_report(boot["sock"])["launches"])
+        _loop_print("24c service loop", svc, card)
+        bad += _loop_check(svc, "24c service loop")
+        for i, (m, s_) in enumerate(zip(mem, svc)):
+            print(f"[24c] wave {i + 1} on {card}: to idle through the "
+                  f"service {s_['wall_ms']:.1f} ms against "
+                  f"{m['wall_ms']:.1f} in memory; frames sent "
+                  f"{s_['frames']['sent']} bytes, received "
+                  f"{s_['frames']['received']}; spans ms provisioning.solve"
+                  f" {s_['spans_ms'].get('provisioning.solve', 0.0):.1f} "
+                  f"(in memory "
+                  f"{m['spans_ms'].get('provisioning.solve', 0.0):.1f}); "
+                  f"the worker's launches "
+                  f"{ {k: v for k, v in s_['launches'].items() if v} }",
+                  flush=True)
+            add(s_["launches"])
+        bad += [f"24c in memory: {b}" for b in _loop_check(mem, "memory")]
+        w = _worker_report(boot["sock"])
+        print(f"[24c] the worker's device memory after the loop: allocated "
+              f"{w.get('memory_allocated')} bytes, reserved at most "
+              f"{w.get('max_memory_reserved')}", flush=True)
+        sup.stop()
+        print(f"[24c] worker stopped by SIGTERM: exit code {sup.last_exit}",
+              flush=True)
+
+        # -- (d) a crash, its recovery, and degraded mode ------------------
+        sup, boot = _service_worker(
+            sockdir, "crash", dict(small, KARPENTER_TPU_FAULTS=SERVICE_CRASH),
+            probe=False)
+        sups.append(sup)
+        # the crashing worker read its environment at spawn; its
+        # successors start clean
+        sup.env.pop("KARPENTER_TPU_FAULTS", None)
+        client = SolverServiceClient(
+            boot["sock"], timeout=SERVICE_RECOVER_S,
+            retry=RetryPolicy(attempts=1000, base_backoff=0.25,
+                              max_backoff=1.0, deadline=SERVICE_RECOVER_S),
+            breaker=CircuitBreaker(threshold=1000))
+        t1 = time.perf_counter()
+        try:
+            warm = traffic.warm(client, CONFIG8_PIN_TENANT)
+            got = config8_digest([r for _, rs, _ in warm for r in rs])
+        except Exception as e:  # noqa: BLE001
+            got = f"failed: {e}"
+        recover_s = time.perf_counter() - t1
+        client.close()
+        print(f"[24d] crash on the first batch: restarts {sup.restarts}, "
+              f"the crashed worker's exit {sup.last_exit}, the client's "
+              f"retries answered after {recover_s:.2f} s, digest {got}",
+              flush=True)
+        if sup.restarts < 1:
+            bad.append("24d: the supervisor restarted nothing")
+        if got != CONFIG8_PIN:
+            bad.append(f"24d: after the restart {got} != pin")
+        gs = GatedSolver(Options(
+            solver_endpoint=boot["sock"],
+            solver_max_nodes=workloads.CONFIG8_MAX_NODES,
+            service_retry_attempts=2, service_breaker_threshold=2),
+            Cluster(), device="cuda")
+
+        def steps():
+            out = []
+            for it in workloads.CONFIG8_WARM_STEPS:
+                inps = traffic.inputs(f"{CONFIG8_PIN_TENANT}-warm", it)
+                out += (list(gs.solve_batch(inps)) if len(inps) > 1
+                        else [gs.solve(inps[0])])
+            return config8_digest(out)
+        live = steps()
+        wstats = _worker_report(boot["sock"])
+        sup.stop()
+        exit_code = sup.last_exit
+        oracle0 = metrics.SOLVER_SOLVES.value(path="oracle")
+        _reset_launches(ffd)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        degraded = steps()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t1) * 1e3
+        times = []
+        for _ in range(SERVICE_DEGRADED_REPS):
+            t1 = time.perf_counter()
+            again = steps()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        local_launches = _read_launches(ffd)
+        add(local_launches)
+        fallbacks = sum(1 for e in gs.cluster.events
+                        if e[3] == "SolverFallback")
+        oracle = metrics.SOLVER_SOLVES.value(path="oracle") - oracle0
+        print(f"[24d] service mode before the stop: digest {live}; the "
+              f"worker's exit code on SIGTERM {exit_code}; degraded mode "
+              f"on {card}: digest {degraded} (again {again}), breaker "
+              f"{gs.tpu.breaker.state}, SolverFallback events {fallbacks}, "
+              f"oracle solves {oracle}, the degraded solver on "
+              f"{gs._local.device if gs._local else None}; the warm steps "
+              f"(4 solves) {first_ms:.1f} ms the first time, "
+              f"{_p50(times):.1f} ms p50 of {len(times)} after; this "
+              f"process's launches "
+              f"{ {k: v for k, v in local_launches.items() if v} }; device "
+              f"memory: the worker allocated {wstats.get('memory_allocated')}"
+              f" bytes (reserved at most {wstats.get('max_memory_reserved')})"
+              f", this process reserved at most "
+              f"{torch.cuda.max_memory_reserved()}", flush=True)
+        if live != CONFIG8_PIN or degraded != CONFIG8_PIN \
+                or again != CONFIG8_PIN:
+            bad.append(f"24d: digests {live} / {degraded} / {again} != pin")
+        if gs.tpu.breaker.state != "open":
+            bad.append(f"24d: the breaker is {gs.tpu.breaker.state}")
+        if not fallbacks or oracle:
+            bad.append(f"24d: SolverFallback {fallbacks}, oracle {oracle}")
+        if gs._local is None or gs._local.device.type != "cuda" \
+                or local_launches["ffd_batch_scan"] <= 0:
+            bad.append("24d: the degraded solve did not launch K5 on the "
+                       "card")
+    except Exception as e:  # noqa: BLE001 — the phase fails, with why
+        import traceback
+        traceback.print_exc()
+        bad.append(f"24: {type(e).__name__}: {e}")
+    finally:
+        for sup in sups:
+            sup.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return bad
+
+
 # -- 19. the disruption control loop -----------------------------------------
 def disruption_pin(answer):
     """A disruption wave's answer in the form DISRUPTION_LOOP pins:
@@ -3565,8 +4069,9 @@ def _child(mode: str) -> int:
     (phase 4's headline with the environment the parent set, for the
     KARPENTER_TPU_NO_NATIVE=1 arm), "cold-loop" (phase 18's cold loop,
     in a process that has launched nothing), "disruption-cold" (phase
-    19's cold loop, the same), "entry" (phase 22(a)), "ha" (phase 22(b))
-    and "rewind" (phase 23).  Prints one JSON line."""
+    19's cold loop, the same), "entry" (phase 22(a)), "ha" (phase 22(b)),
+    "rewind" (phase 23) and "service" (phase 24).  Prints one JSON
+    line."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch import native
@@ -3575,8 +4080,8 @@ def _child(mode: str) -> int:
     card = _card_line()
     if mode == "cards":
         return _cards_check(card)
-    if mode in ("entry", "ha", "rewind"):
-        # phases 22(a), 22(b) and 23 in a process of their own: the
+    if mode in ("entry", "ha", "rewind", "service"):
+        # phases 22(a), 22(b), 23 and 24 in a process of their own: the
         # kernels and kt_hostops built first (loaded as they are when
         # phase 2 built them), so no replica builds them
         from karpenter_tpu_torch.solver import _cuda
@@ -3592,7 +4097,8 @@ def _child(mode: str) -> int:
                 launches[k] = launches.get(k, 0) + v
         t0 = time.perf_counter()
         bad = {"entry": _entry_phase, "ha": _ha_phase,
-               "rewind": _rewind_phase}[mode](card, add)
+               "rewind": _rewind_phase,
+               "service": _service_phase}[mode](card, add)
         print(json.dumps({"bad": bad, "launches": launches,
                           "s": time.perf_counter() - t0}))
         return 1 if bad else 0
@@ -4078,7 +4584,7 @@ def main(argv) -> int:
     # times a kernel ----------------------------------------------------
     t19 = time.perf_counter()
     children = {mode: _start_child(mode) for mode in ("entry", "ha",
-                                                      "rewind")}
+                                                      "rewind", "service")}
     try:
         bad, disruption_log = _disruption_phase(card, add)
         print(f"[19] phase time {time.perf_counter() - t19:.1f} s",
@@ -4100,7 +4606,7 @@ def main(argv) -> int:
                   f"failed: {bad}", file=sys.stderr)
             return 1
         for mode, phase in (("entry", "22a"), ("ha", "22b"),
-                            ("rewind", "23")):
+                            ("rewind", "23"), ("service", "24")):
             out, err = _finish_child(children.pop(mode), mode,
                                      timeout=1200)
             print(f"[{phase}] the child took "
@@ -4113,7 +4619,7 @@ def main(argv) -> int:
                 bad += out["bad"]
                 add(out["launches"])
         if bad:
-            print(f"chip_smoke: phase 22 or 23 failed: {bad}",
+            print(f"chip_smoke: phase 22, 23 or 24 failed: {bad}",
                   file=sys.stderr)
             return 1
     finally:

@@ -124,44 +124,101 @@ class GatedSolver:
     moving the work to the CPU unseen.  A fault armed at the
     `solver.dispatch` point (`utils/faults.py`) is such an error: on the
     card it raises too.  A solver on the CPU keeps the
-    reference's degrade-to-the-oracle behaviour.  The remote solver client of
-    `options.solver_endpoint` and its degraded mode (an in-process solver
-    behind the open breaker) are still to port (slice 6b): with an
-    endpoint set, construction raises NotImplementedError."""
+    reference's degrade-to-the-oracle behaviour.
+
+    With `options.solver_endpoint` set, `tpu` is the remote client of a
+    kt_solverd worker (`service/`), as in the reference.  A failed remote
+    solve records a `SolverFallback` event and enters DEGRADED MODE: an
+    in-process `TorchSolver` on `device`, built at the first degraded
+    solve, answers under a `solver.degraded_local` span.  It follows the
+    in-process rule: on the card a failure of the degraded solve raises,
+    and only `UnsupportedPods` (or a degraded solver on the CPU) reaches
+    the oracle.  Neither the remote nor the degraded solver arms the
+    incremental index."""
+
+    # the in-process topology unless __init__ finds an endpoint
+    _remote = False
+    _local = None
 
     def __init__(self, options, cluster: Cluster, device="cuda"):
         self.options = options
         self.cluster = cluster
+        self.device = device
+        # lazily-built in-process solver used as DEGRADED MODE when the
+        # remote service is down/breaker-open: better than the oracle,
+        # never constructed while the service is healthy. The lock
+        # guards the lazy init — the provisioner and the disruption
+        # simulator share this GatedSolver and can hit the degraded path
+        # concurrently, and a TorchSolver construction is too expensive
+        # to duplicate.
+        self._remote = bool(options.solver_endpoint)
+        self._local = None
+        import threading
+        self._local_init_lock = threading.Lock()
         if options.solver_endpoint:
-            raise NotImplementedError(
-                "GatedSolver: the remote solver client (solver_endpoint) "
-                "comes with slice 6b of the port")
-        from karpenter_tpu_torch.solver import TorchSolver
-        # SOLVER_MESH / SOLVER_DELTA configure the mesh and delta stories;
-        # KARPENTER_TPU_MESH / KARPENTER_TPU_DELTA are the rollback knobs,
-        # resolved inside the solver
-        self.tpu = TorchSolver(
-            max_nodes=options.solver_max_nodes,
-            device=device,
-            mesh=getattr(options, "solver_mesh", "auto"),
-            delta=getattr(options, "solver_delta", "auto"),
-            incr=getattr(options, "solver_incr", "auto"))
-        # event-driven delta-cache invalidation: cluster watch → dirty
-        # pod/node names → TorchSolver.delta_invalidate
-        self._delta_feed = SolveCacheFeed(cluster)
-        # the feed delivers OBJECTS with every event from here on, so the
-        # solver's "auto" incremental index may trust the stream — arming
-        # stays strictly tied to the feed's existence
-        self.tpu.incr_arm()
+            # remote card-owning solver process (native/solverd.cc): same
+            # solve/solve_batch seam, coalesced in the daemon's window.
+            # The client carries the shared availability layer — bounded
+            # retries with backoff, per-request deadlines shipped in the
+            # frame, and the circuit breaker whose open state is what
+            # "degraded mode" means operationally.
+            from karpenter_tpu_torch.service import (
+                CircuitBreaker,
+                RetryPolicy,
+                SolverServiceClient,
+            )
+            timeout = getattr(options, "service_request_timeout", 60.0)
+            self.tpu = SolverServiceClient(
+                options.solver_endpoint,
+                timeout=timeout,
+                retry=RetryPolicy(
+                    attempts=getattr(options, "service_retry_attempts", 3),
+                    deadline=timeout),
+                breaker=CircuitBreaker(
+                    threshold=getattr(options,
+                                      "service_breaker_threshold", 5),
+                    cooldown=getattr(options,
+                                     "service_breaker_cooldown", 10.0)),
+                # one cluster = one tenant by default, so a shared
+                # solverd queues this control plane fairly against its
+                # peer clusters
+                tenant=getattr(options, "service_tenant", None)
+                or getattr(options, "cluster_name", None),
+                priority=getattr(options, "service_priority", 0))
+        else:
+            # SOLVER_MESH / SOLVER_DELTA configure the mesh and delta
+            # stories; KARPENTER_TPU_MESH / KARPENTER_TPU_DELTA are the
+            # rollback knobs, resolved inside the solver
+            self.tpu = self._torch_solver(
+                incr=getattr(options, "solver_incr", "auto"))
+            # event-driven delta-cache invalidation: cluster watch →
+            # dirty pod/node names → TorchSolver.delta_invalidate
+            self._delta_feed = SolveCacheFeed(cluster)
+            # the feed delivers OBJECTS with every event from here on,
+            # so the solver's "auto" incremental index may trust the
+            # stream — arming stays strictly tied to the feed's
+            # existence; the remote/degraded solvers never arm
+            self.tpu.incr_arm()
         # warm the native host-ops build at startup, never inside a
-        # latency-sensitive solve
+        # latency-sensitive solve (the degraded solver's host paths too)
         from karpenter_tpu_torch.native import hostops
         hostops()
 
-    def _on_card(self) -> bool:
-        """True when the solver's tensors live on the card: its failures
-        then propagate rather than fall back to the oracle."""
-        return getattr(getattr(self.tpu, "device", None), "type",
+    def _torch_solver(self, incr="auto"):
+        from karpenter_tpu_torch.solver import TorchSolver
+        return TorchSolver(
+            max_nodes=self.options.solver_max_nodes,
+            device=self.device,
+            mesh=getattr(self.options, "solver_mesh", "auto"),
+            delta=getattr(self.options, "solver_delta", "auto"),
+            incr=incr)
+
+    def _on_card(self, solver=None) -> bool:
+        """True when the solver's tensors live on the card (the
+        in-process solver's, or the given one's): its failures then
+        propagate rather than fall back to the oracle."""
+        solver = self.tpu if solver is None else solver
+        return getattr(getattr(solver, "device", None), "type",
                        None) == "cuda"
 
     # largest pod batch one ORACLE pass will chew through when the device
@@ -173,29 +230,72 @@ class GatedSolver:
     # spurious unschedulable verdicts.
     ORACLE_SHED_LIMIT = 8000
 
+    def _local_solver(self):
+        """The degraded-mode in-process solver behind the remote client.
+        None when this GatedSolver IS the in-process solver (nothing to
+        degrade to but the oracle) or the fallback is disabled."""
+        if not self._remote or not getattr(
+                self.options, "service_local_fallback", True):
+            return None
+        if self._local is None:
+            with self._local_init_lock:
+                if self._local is None:
+                    self._local = self._torch_solver()
+        return self._local
+
+    def _degraded_solve(self, inp: ScheduleInput, source: str,
+                        max_nodes: Optional[int]):
+        """One in-process solve while the service is unavailable.
+        Returns None to fall through to the oracle: for `UnsupportedPods`,
+        and for any other failure of a degraded solver on the CPU; on the
+        card that failure raises."""
+        local = self._local_solver()
+        if local is None:
+            return None
+        from karpenter_tpu_torch.solver import UnsupportedPods
+        from karpenter_tpu_torch.utils import tracing
+        try:
+            with tracing.span("solver.degraded_local", source=source,
+                              pods=len(inp.pods)):
+                return local.solve(inp, max_nodes=max_nodes)
+        except UnsupportedPods:
+            return None
+        except Exception as e:  # noqa: BLE001
+            if self._on_card(local):
+                raise
+            from karpenter_tpu_torch.utils.logging import get_logger
+            get_logger("solver").warn(
+                "degraded-mode local solve failed; falling back to oracle",
+                source=source, error=str(e)[:200])
+            return None
+
     def solve(self, inp: ScheduleInput, source: str = "solver",
               max_nodes: Optional[int] = None):
         from karpenter_tpu_torch.scheduling import Scheduler
         from karpenter_tpu_torch.solver import UnsupportedPods
         from karpenter_tpu_torch.utils import metrics, tracing
         if self.options.feature_gates.tpu_solver:
-            self._delta_feed.feed(self.tpu)
+            feed = getattr(self, "_delta_feed", None)
+            if feed is not None:
+                feed.feed(self.tpu)
             try:
                 return self.tpu.solve(inp, max_nodes=max_nodes)
             except UnsupportedPods:
                 pass  # constraints the encoder can't express yet → oracle
             except Exception as e:  # noqa: BLE001
-                if self._on_card():
+                if not self._remote and self._on_card():
                     raise
                 from karpenter_tpu_torch.utils.logging import get_logger
                 get_logger("solver").warn(
+                    "device solve failed; entering degraded mode"
+                    if self._remote else
                     "device solve failed; falling back to the oracle",
                     source=source, error=str(e)[:200])
                 self.cluster.record_event(
                     "Provisioner", source, "SolverFallback", str(e))
-                # the degraded in-process solver behind a remote client
-                # comes with slice 6b; the in-process solver degrades to the
-                # oracle
+                res = self._degraded_solve(inp, source, max_nodes)
+                if res is not None:
+                    return res
         metrics.SOLVER_SOLVES.inc(path="oracle")
         # load shedding is only sound for PROVISIONING (unsolved pods stay
         # pending and retry): a disruption simulation must judge its whole
@@ -216,16 +316,18 @@ class GatedSolver:
 
     def warmup(self, inp: ScheduleInput, shapes=()) -> int:
         """The solver's first-use costs paid at operator startup (never on
-        the solve path): delegates to `TorchSolver.warmup`.  On the CPU it
-        is best-effort — a warm-up failure degrades to cold first solves,
-        never blocks or crashes the operator, and returns 0; on the card a
-        failure (a kernel that does not build or launch) propagates."""
+        the solve path): delegates to `TorchSolver.warmup`, or to the
+        solverd client's remote variant.  Best-effort on the CPU and
+        through the service — a warm-up failure degrades to cold first
+        solves, never blocks or crashes the operator, and returns 0; for
+        the in-process solver on the card a failure (a kernel that does
+        not build or launch) propagates."""
         if not self.options.feature_gates.tpu_solver:
             return 0
         try:
             return self.tpu.warmup(inp, shapes=shapes)
         except Exception as e:  # noqa: BLE001
-            if self._on_card():
+            if not self._remote and self._on_card():
                 raise
             from karpenter_tpu_torch.utils.logging import get_logger
             get_logger("solver").warn(
@@ -246,10 +348,12 @@ class GatedSolver:
 
         from karpenter_tpu_torch.scheduling import Scheduler
         from karpenter_tpu_torch.solver import UnsupportedPods
-        from karpenter_tpu_torch.utils import metrics
+        from karpenter_tpu_torch.utils import metrics, tracing
         if self.options.feature_gates.tpu_solver:
             try:
                 t0 = _time.perf_counter()
+                # both backends (in-process TorchSolver,
+                # SolverServiceClient) accept the per-call kernel cap
                 results = self.tpu.solve_batch(inps, max_nodes=max_nodes)
                 if results:
                     per = (_time.perf_counter() - t0) / len(results)
@@ -268,10 +372,56 @@ class GatedSolver:
                                              max_nodes=max_nodes)
                 return _per_input()
             except Exception as e:  # noqa: BLE001
-                if self._on_card():
+                if not self._remote and self._on_card():
                     raise
                 self.cluster.record_event(
                     "Provisioner", source, "SolverFallback", str(e))
+                local = self._local_solver()
+                if local is not None:
+                    try:
+                        t0 = _time.perf_counter()
+                        with tracing.span("solver.degraded_local",
+                                          source=source,
+                                          requests=len(inps)):
+                            results = local.solve_batch(
+                                inps, max_nodes=max_nodes)
+                        if results:
+                            per = (_time.perf_counter() - t0) / len(results)
+                            for _ in results:
+                                metrics.SCHEDULING_SIMULATION_DURATION \
+                                    .observe(per)
+                        return results
+                    except UnsupportedPods:
+                        # per-input retry on the LOCAL solver/oracle
+                        # only: re-entering self.solve here would pay a
+                        # fresh remote retry deadline per input against
+                        # the service we just watched fail
+                        def _per_input_degraded():
+                            for inp in inps:
+                                # observe BEFORE yielding: a timer held
+                                # across the yield would also clock the
+                                # consumer's work (and an abandoned
+                                # generator's whole lifetime) into the
+                                # simulation histogram
+                                t0 = _time.perf_counter()
+                                res = self._degraded_solve(
+                                    inp, source, max_nodes)
+                                if res is None:
+                                    metrics.SOLVER_SOLVES.inc(
+                                        path="oracle")
+                                    res = Scheduler(inp).solve()
+                                metrics.SCHEDULING_SIMULATION_DURATION \
+                                    .observe(_time.perf_counter() - t0)
+                                yield res
+                        return _per_input_degraded()
+                    except Exception as e2:  # noqa: BLE001
+                        if self._on_card(local):
+                            raise
+                        from karpenter_tpu_torch.utils.logging import (
+                            get_logger)
+                        get_logger("solver").warn(
+                            "degraded-mode local batch failed; oracle",
+                            source=source, error=str(e2)[:200])
 
         def _lazy():
             metrics.SOLVER_SOLVES.inc(path="oracle")

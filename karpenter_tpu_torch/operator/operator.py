@@ -308,7 +308,8 @@ class Operator:
                                      + (f" on trace {tid}" if tid else ""),
                             "hint": "the store holds recent provisioning "
                                     "verdicts; for a past solve, replay "
-                                    "its flight record's capture"}
+                                    "its flight record with python -m "
+                                    "karpenter_tpu_torch.tools.kt_explain"}
                     else:
                         code = 200
                         doc = {"pods": explainm.STORE.recent(limit),
@@ -345,10 +346,25 @@ class Operator:
         return telemetry.html_page(f"explain: {title}", [(None, doc)])
 
     def _worker_snapshot(self):
-        """The solverd worker's section of the dashboard merge.  None:
-        the port's solver always runs in this process (`GatedSolver`
-        refuses a `solver_endpoint`), so there is no worker to ask."""
-        return None
+        """The solverd worker's section of the dashboard merge: its
+        stats RPC response (which carries the worker-process telemetry
+        snapshot — solve rate, phase latencies, delta split, flight
+        tail) plus the client-side in-flight and breaker view only this
+        process knows.  None in the in-process-solver topology (no
+        worker to ask); raises on a dead worker and telemetry.collect
+        renders the error — the dashboard must keep serving exactly
+        when the fleet is degraded."""
+        gs = getattr(self.env, "solver", None)
+        client = getattr(gs, "tpu", None)
+        if not getattr(gs, "_remote", False) or client is None:
+            return None
+        st = client.stats()
+        snap = dict(st.pop("telemetry", None) or {})
+        snap["stats"] = st
+        snap["shed"] = st.get("shed", 0)
+        snap["in_flight"] = len(client._pending)
+        snap["breaker"] = client.breaker.state
+        return snap
 
     def serve(self) -> None:
         if self._servers:

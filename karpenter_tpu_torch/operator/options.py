@@ -59,9 +59,8 @@ class Options:
     solver_delta: str = "auto"
     # unix-socket path of a kt_solverd solver service (native/solverd.cc);
     # None = in-process solver. Lets control-plane replicas share one
-    # device-owning process (SURVEY §2.3 leader-election note). The
-    # port's remote solver client is still to port: GatedSolver raises
-    # NotImplementedError when this is set.
+    # device-owning process (SURVEY §2.3 leader-election note); the
+    # worker is `python -m karpenter_tpu_torch.service.supervisor`.
     solver_endpoint: "str | None" = None
     # solver-service availability knobs (service/resilience.py): one
     # request deadline (also shipped in the frame so the daemon sheds

@@ -263,6 +263,11 @@ SPEC_FALLBACK_REASONS = frozenset((
 INCR_FALLBACK_REASONS = frozenset((
     "cold", "flood", "drift", "pods", "nodes", "order"))
 
+# tenant-scheduler shed vocabulary (service/scheduler.py)
+SHED_ADMISSION = "admission"
+SHED_DEADLINE = "deadline"
+SHED_REASONS = frozenset((SHED_ADMISSION, SHED_DEADLINE))
+
 
 # -- the gate --------------------------------------------------------------
 MODE_OFF, MODE_COUNTS, MODE_FULL = 0, 1, 2

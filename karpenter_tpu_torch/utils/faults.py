@@ -55,11 +55,16 @@ Points the port fires (grep for ``faults.fire`` to verify):
                                upload and the launch
   * ``solver.audit.digest``  — the shadow audit's live digest, perturbed
                                before comparison (solver/audit.py)
+  * ``service.client.send``  — client→solverd frame write
+                               (service/client.py)
+  * ``service.client.recv``  — solverd→client frame read (the client's
+                               reader thread)
+  * ``solverd.handle_batch`` — the worker's batch entry
+                               (service/backend.py; ``crash`` kills the
+                               worker mid-batch)
 
-The reference's solver-service and determinism-harness points
-(``service.client.send``/``.recv``, ``solverd.handle_batch``,
-``determinism.digest``) arrive with the modules that fire them; arming
-one before then is harmless.
+The reference's determinism-harness point (``determinism.digest``) has
+no site in the port; arming it is harmless.
 """
 
 from __future__ import annotations

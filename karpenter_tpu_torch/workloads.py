@@ -99,6 +99,16 @@ NodeClass, a spot pool (weight 100, a cpu limit of half the fleet's
 resize every pod in place to 500m / 1Gi and settle until a settle
 changes nothing, consolidating the fleet; spot interruptions.
 
+`Config8Traffic` is BASELINE config #8 (the JAX package's
+`benchmarks/config8_saturation.py Workload`): the closed-loop traffic one
+tenant of a shared solver service sends — mostly ~120-pod 24-class
+solves, every 4th step a 2-wide `solve_batch`, every 8th a ~48-pod
+12-class solve — against the 12-type catalog without GPUs
+(`config8_catalog`), deterministic per (tenant, iteration); `CONFIG8_*`
+are the benchmark's tenants, arm length, node cap and window.
+`config8_canon(res)` is the benchmark's canonical result with each price
+as its IEEE hex.
+
 `build_rewind_day(seed)` is BASELINE config #11 (the JAX package's
 `benchmarks/config11_rewind.py build_day`): a compressed six-hour fleet
 day of at least 5,000 events for the rewind engine — the diurnal hum, a
@@ -604,6 +614,74 @@ def build_config13(n_pods: int, gen: int
                         instance_types={"default": st["catalog"]},
                         existing_nodes=list(st["existing"]))
     return inp, events
+
+
+# -- BASELINE config #8: the solver service under multi-tenant load --------
+CONFIG8_TENANTS = 8
+CONFIG8_ARM_S = 12.0        # seconds each arm (fusion on, fusion off) runs
+CONFIG8_MAX_NODES = 128     # the worker's KARPENTER_TPU_MAX_NODES
+CONFIG8_WINDOW = ("--idle-ms", "25", "--max-ms", "150")  # kt_solverd's
+CONFIG8_WARM_STEPS = (0, 3, 7)  # one step of each traffic shape
+
+
+def config8_catalog() -> List[InstanceType]:
+    """The benchmark's catalog: the generated one cut to 12 types, no
+    GPUs."""
+    from karpenter_tpu_torch.providers.catalog import CatalogSpec
+    return generate_catalog(CatalogSpec(max_types=12, include_gpu=False))
+
+
+class Config8Traffic:
+    """config #8's per-(tenant, iteration) traffic, so the fused arm, the
+    unfused arm, and the solo parity solver all see identical problems."""
+
+    def __init__(self, catalog=None, pool=None):
+        self.catalog = catalog if catalog is not None else config8_catalog()
+        self.pool = pool if pool is not None else NodePool(
+            meta=ObjectMeta(name="default"))
+
+    def mkinp(self, tag, n=10, classes=1) -> ScheduleInput:
+        pods = [Pod(meta=ObjectMeta(name=f"{tag}-p{c}-{i}"),
+                    requests=Resources.parse(
+                        {"cpu": f"{500 + 10 * c}m", "memory": "1Gi"}))
+                for c in range(classes) for i in range(n)]
+        return ScheduleInput(pods=pods, nodepools=[self.pool],
+                             instance_types={"default": self.catalog})
+
+    def inputs(self, tenant, it) -> List[ScheduleInput]:
+        """The inputs of traffic step `it` of `tenant`: a 12-class solve
+        every 8th step, a 2-wide 24-class batch every 4th, else one
+        24-class solve."""
+        if it % 8 == 7:
+            return [self.mkinp(f"{tenant}-i{it}", n=4, classes=12)]
+        if it % 4 == 3:
+            return [self.mkinp(f"{tenant}-i{it}b{j}", n=4 + j, classes=24)
+                    for j in range(2)]
+        return [self.mkinp(f"{tenant}-i{it}", n=5 + it % 2, classes=24)]
+
+    def call(self, client, tenant, it):
+        """One traffic step through `client` (a `SolverServiceClient`);
+        returns (n_requests, [results], [inputs])."""
+        inps = self.inputs(tenant, it)
+        if len(inps) > 1:
+            return len(inps), client.solve_batch(inps), inps
+        return 1, [client.solve(inps[0])], inps
+
+    def warm(self, client, tenant):
+        """Every traffic shape once (`CONFIG8_WARM_STEPS`)."""
+        return [self.call(client, f"{tenant}-warm", it)
+                for it in CONFIG8_WARM_STEPS]
+
+
+def config8_canon(res):
+    """The benchmark's `canon`, prices as IEEE hex: the new claims
+    (pool, pods, types, price), the existing-node assignments and the
+    unschedulable pods."""
+    return (sorted((c.nodepool, tuple(sorted(p.meta.name for p in c.pods)),
+                    tuple(c.instance_type_names), float(c.price).hex())
+                   for c in res.new_claims),
+            sorted(dict(res.existing_assignments).items()),
+            sorted(res.unschedulable))
 
 
 # -- the provisioning control loop ------------------------------------------

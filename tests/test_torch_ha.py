@@ -4,9 +4,10 @@ replica pairs against the JAX package's: the `TestLeases` and
 file shared by a replica of each package (the file format is one, so
 mixed replicas exclude each other), and `tests/test_ha.py`'s
 `TestReplicaPairE2E` and `TestTwoReplicaExternalStore` on both packages'
-Operators (the port's environments on the CPU).
-`TestFullProductionTopology` puts a solver daemon between the replicas
-and the solver; it waits for the port's solver service.
+Operators (the port's environments on the CPU), and its
+`TestFullProductionTopology` on the port: a store daemon, kt_solverd
+with the port's backend as a supervised worker, two replicas and one
+lease.
 """
 
 import importlib
@@ -285,3 +286,132 @@ class TestTwoReplicaExternalStore:
             for env in envs:
                 env.cluster.backend.close()
             daemon.close()
+
+
+class TestFullProductionTopology:
+    def test_store_daemon_solverd_and_two_replicas(self, tmp_path):
+        """tests/test_ha.py's complete deployment shape on the port, in
+        process: one store daemon (apiserver analogue), one kt_solverd
+        worker running the port's backend on the CPU under
+        `SolverdSupervisor`, shared by both replicas over its coalescing
+        socket, and two Operators with separate informer caches racing
+        one file lease.  Pods created through the standby provision via
+        leader → solverd → the shared cloud; failover keeps the stack
+        working; and a SIGKILLed worker is restarted by the supervisor
+        while the surviving replica keeps placing pods (degraded mode in
+        the gap, the service again after the need_catalog re-upload)."""
+        st = STACKS["port"]
+        from karpenter_tpu_torch.service import SolverdSupervisor
+        from karpenter_tpu_torch.service import supervisor as sup_mod
+        try:
+            sup_mod.build_binary()
+        except RuntimeError as e:
+            pytest.skip(f"native toolchain unavailable: {e}")
+        import os
+        env = dict(os.environ, KARPENTER_TPU_FORCE_CPU="1",
+                   KARPENTER_TPU_MAX_NODES="128", OMP_NUM_THREADS="1")
+        env.pop("KARPENTER_TPU_FAULTS", None)
+        solver_sock = str(tmp_path / "kt.sock")
+        stderr_path = str(tmp_path / "solverd.stderr")
+        sup = SolverdSupervisor(
+            solver_sock, env=env,
+            extra_args=["--idle-ms", "20", "--max-ms", "200"],
+            stderr_path=stderr_path, backoff_base=0.2, backoff_max=2.0)
+        sup.start(wait_for_socket=True, timeout=120)
+
+        def dump():
+            try:
+                with open(stderr_path, "rb") as f:
+                    return f.read().decode(errors="replace")[-4000:]
+            except OSError:
+                return "<no stderr>"
+
+        store = st.store.StoreDaemon(str(tmp_path / "store.sock"))
+        lease = st.le.FileLease(str(tmp_path / "lease.json"))
+        cloud = st.fake_cloud.FakeCloud(clock=st.clock.RealClock())
+        opts = st.Options(batch_idle_duration=0, solver_endpoint=solver_sock,
+                          service_breaker_cooldown=0.5)
+        envs = [mkenv(st, opts, cloud=cloud,
+                      store_backend=st.store.RemoteBackend(store.path))
+                for _ in range(2)]
+        envs[0].add_default_nodeclass()
+        envs[0].cluster.nodepools.create(
+            st.M.NodePool(meta=st.M.ObjectMeta(name="default")))
+        ops, threads = pair(st, opts, lease, envs)
+        for op in ops:
+            op.elector.lease_duration = 1.5
+
+        def scheduled(env, name):
+            p = env.cluster.pods.get(name)
+            return p is not None and p.scheduled
+
+        def wait(pred, timeout):
+            deadline = time.time() + timeout
+            while time.time() < deadline and not pred():
+                time.sleep(0.1)
+            return pred()
+        try:
+            assert wait(lambda: len([op for op in ops
+                                     if op.elector.is_leader]) == 1, 30)
+            leader = next(op for op in ops if op.elector.is_leader)
+            standby = next(op for op in ops if op is not leader)
+            # pods through the standby; the leader schedules them through
+            # the worker
+            for i in range(4):
+                standby.env.cluster.pods.create(mkpod(st, f"s{i}"))
+            assert wait(lambda: len(leader.env.cluster.pods.list()) == 4
+                        and all(p.scheduled
+                                for p in leader.env.cluster.pods.list()),
+                        120), f"--- solverd stderr ---\n{dump()}"
+            assert leader.env.solver._local is None  # served remotely
+            # kill the leader without release; the standby finishes new
+            # work over the SAME worker
+            leader.elector.release = lambda: None
+            leader.stop()
+            standby.env.cluster.pods.create(mkpod(st, "after"))
+            assert wait(lambda: scheduled(standby.env, "after"), 60), \
+                f"--- solverd stderr ---\n{dump()}"
+            assert standby.elector.is_leader
+            # SIGKILL the worker: the supervisor brings a fresh one up,
+            # and the surviving replica keeps placing pods throughout
+            restarts_before = sup.restarts
+            sup.kill_worker()
+            standby.env.cluster.pods.create(mkpod(st, "post-crash"))
+            assert wait(lambda: scheduled(standby.env, "post-crash"), 120), \
+                f"--- solverd stderr ---\n{dump()}"
+            assert wait(lambda: sup.restarts > restarts_before, 60), \
+                "supervisor never restarted the killed worker"
+            sup.wait_ready(timeout=120)
+            # the same replica's client is served by the new worker once
+            # its breaker's cooldown lets a probe through
+            client = standby.env.solver.tpu
+            inp = _probe_input(standby.env)
+
+            def served():
+                try:
+                    return client.solve(inp).node_count() >= 1
+                except Exception:  # noqa: BLE001 — breaker still open
+                    return False
+            assert wait(served, 60)
+            assert client.stats()["catalogs"] == 1
+        finally:
+            for op in ops:
+                op.stop()
+            for th in threads:
+                th.join(timeout=10)
+            for env in envs:
+                env.cluster.backend.close()
+            store.close()
+            sup.stop()
+
+
+def _probe_input(env):
+    """A two-pod input on the environment's own pools and catalog."""
+    from karpenter_tpu_torch.controllers.state import build_schedule_input
+    M = STACKS["port"].M
+    pods = [M.Pod(meta=M.ObjectMeta(name=f"probe{i}"),
+                  requests=M.Resources.parse({"cpu": "500m",
+                                              "memory": "1Gi"}))
+            for i in range(2)]
+    return build_schedule_input(env.cluster, env.cloud_provider, pods)
+

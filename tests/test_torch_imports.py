@@ -154,6 +154,67 @@ def test_the_walk_covers_the_operator():
         assert path + ".py" in files, mod
 
 
+# the solver service, the lock observer and the post-mortem tools, which
+# the walk above must reach too (the subprocess import and the AST scan
+# below then cover them)
+SERVICE = ("service", "service.resilience", "service.scheduler",
+           "service.backend", "service.client", "service.supervisor",
+           "service.loopback", "utils.lockwatch", "tools", "tools.kt_replay",
+           "tools.kt_explain")
+
+
+def test_the_walk_covers_the_service():
+    mods = set(_modules())
+    for mod in SERVICE:
+        assert f"karpenter_tpu_torch.{mod}" in mods, mod
+
+
+def test_every_reference_module_has_its_counterpart():
+    """A listing of both trees: every module of the JAX package has the
+    module of the same path in the port."""
+    ref = os.path.join(ROOT, "karpenter_tpu")
+    missing = []
+    for d, _, files in os.walk(ref):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), ref)
+                if not os.path.exists(os.path.join(PKG, rel)):
+                    missing.append(rel)
+    assert missing == []
+
+
+def test_solver_worker_maps_no_jax(tmp_path):
+    """kt_solverd started with the port's backend (`SolverdSupervisor`,
+    which always passes `--module karpenter_tpu_torch.service.backend`)
+    on the CPU: the worker answers stats from the port's backend, and no
+    jaxlib or libtpu object is mapped into its process."""
+    from karpenter_tpu_torch.service import SolverServiceClient
+    from karpenter_tpu_torch.service import supervisor as sup_mod
+    try:
+        sup_mod.build_binary()
+    except RuntimeError as e:
+        pytest.skip(f"native toolchain unavailable: {e}")
+    env = dict(os.environ, KARPENTER_TPU_FORCE_CPU="1", OMP_NUM_THREADS="1")
+    env.pop("KARPENTER_TPU_FAULTS", None)
+    sock = str(tmp_path / "kt.sock")
+    sup = sup_mod.SolverdSupervisor(sock, env=env,
+                                    stderr_path=str(tmp_path / "err"))
+    sup.start(timeout=120)
+    client = SolverServiceClient(sock, timeout=120)
+    try:
+        worker = client.stats()["worker"]
+        pid = sup.worker_pid
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+    finally:
+        client.close()
+        sup.stop()
+    assert worker["pid"] == pid and worker["device"] == "cpu"
+    assert "libtorch" in maps
+    assert "jaxlib" not in maps and "libtpu" not in maps
+    assert sup.last_exit == 0  # SIGTERM ends the worker cleanly
+
+
 def test_operator_process_loads_no_jax(tmp_path):
     """`python -m karpenter_tpu_torch` on the CPU in a process of its
     own, stopped by SIGTERM once it serves: every module it imported

@@ -293,8 +293,15 @@ def test_startup_warmup_pays_the_first_uses(monkeypatch):
 
 
 def test_remote_solver_endpoint_waits_for_slice_6():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        build_loop(PORT, 0, solver_endpoint="/tmp/solverd.sock")
+    """With an endpoint the loop's GatedSolver is the solver service's
+    client, as the reference's (connecting only at the first solve);
+    the in-process solver is built only in degraded mode."""
+    from karpenter_tpu_torch.service import SolverServiceClient
+    loop = build_loop(PORT, 0, solver_endpoint="/tmp/solverd.sock")
+    assert isinstance(loop.solver.tpu, SolverServiceClient)
+    assert loop.solver.tpu.socket_path == "/tmp/solverd.sock"
+    assert loop.solver._remote and loop.solver._local is None
+    assert not hasattr(loop.solver, "_delta_feed")
 
 
 def _pin():
