@@ -20,7 +20,9 @@ Phases (any failure exits non-zero):
      on seeded sweeps (exclusions, price caps, pool limits, strands, new
      nodes under N=8, the take_exist compaction on and off, up to 128
      domains) and on the first light chunk of config #4 and the first
-     heavy chunk of config #4b: flat result buffers must be equal as
+     heavy chunk of config #4b, each K4 case on both carry routes (its own
+     N, the carry in shared memory, and an N whose carry does not fit
+     there, in device memory): flat result buffers must be equal as
      uint32, region by region, every case's explain counts must hold a
      nonzero, and the map cases together every class 1-4;
   4. the headline path: TorchSolver().solve(build_input(50_000)) — one
@@ -56,8 +58,11 @@ Phases (any failure exits non-zero):
      also as ms a scan step (kernel ms / G); K5, K6 and K7 with and
      without their explain rows in turns (the epilogue's cost: the
      headline, config #3, #9 with the map, #12's one program, K6 at #7's
-     suffix and #12's chunk, K7 at #2's launch); the sweep's dense
-     against compacted take_exist rows, and an empty kernel's launch as
+     suffix and #12's chunk, K7 at #2's launch); K4 at each chunk shape
+     (config #4's, #4b's and phase 19's first chunk of each size B), the
+     profiler's and the CUDA events' ms a launch and its carry route;
+     the sweep's dense against compacted take_exist rows, and an empty
+     kernel's launch as
      the floor of them all (run after 10-12);
  10. the steady state, config #7: a delta-on TorchSolver(max_nodes=2048)
      and a delta-off one in lockstep over build_config7(gen) — gen 0, one
@@ -1014,6 +1019,34 @@ def compare_sweep(ffd, sw, c, N, K, dev):
     return _compare_rows(name, fk, lk, fp, lp, lay)
 
 
+def device_carry_n(ffd, sw, c, N, K) -> int:
+    """The least N' = N * 2^k past which K4's carry no longer fits a
+    block's shared memory (its device-memory route, `ffd.sweep_carry_fits`)."""
+    n = N
+    while ffd.sweep_carry_fits(sw.G, sw.E, n, c.PT, c.zc, sw.P,
+                               sw.D if sw.heavy else 1, c.W, K, sw.heavy):
+        n *= 2
+    return n
+
+
+def compare_sweep_routes(ffd, sw, c, N, K, dev):
+    """K4 against its plain version on both carry routes: at N, and at
+    `device_carry_n`'s N' (the device-memory carry).  Returns [(label
+    suffix, {kernel: (equal, max_abs_err)}, N, route)]; a route other than
+    its label says is a failed check."""
+    out = []
+    for suffix, n in (("", N), ("-device-carry", device_carry_n(
+            ffd, sw, c, N, K))):
+        fits = ffd.sweep_carry_fits(sw.G, sw.E, n, c.PT, c.zc, sw.P,
+                                    sw.D if sw.heavy else 1, c.W, K,
+                                    sw.heavy)
+        res = compare_sweep(ffd, sw, c, n, K, dev)
+        if fits != (suffix == ""):
+            res = {k: (False, v[1]) for k, v in res.items()}
+        out.append((suffix, res, n, "shared" if fits else "device"))
+    return out
+
+
 def _time_ms(fn, reps: int) -> float:
     """Mean device time of fn() over `reps` calls, by CUDA events, after
     one warm-up call."""
@@ -1472,6 +1505,13 @@ def _witness_times(ffd, b, c, N, reps):
         p0.group_count, unsched, p0.group_prio), 20)
     bnd = bound_ms(4 * 4 * b.G, 3 * b.G)
     return out, t_plain, bnd
+
+
+def _route(ffd, sw, c, N, K) -> str:
+    """K4's carry route at this chunk's shapes."""
+    return "shared" if ffd.sweep_carry_fits(
+        sw.G, sw.E, N, c.PT, c.zc, sw.P, sw.D if sw.heavy else 1, c.W, K,
+        sw.heavy) else "device"
 
 
 def _sweep_times(ffd, sw, c, N, K, reps):
@@ -3755,13 +3795,15 @@ class _LaunchLog:
     with the controller whose reconcile made it and the wave: (kernel,
     controller, wave, B, G, E, N).  With `keep`, it also keeps, cloned,
     the arguments of the first B=64 K5 launch of a disruption pass, its
-    first K4 chunk and the first provisioner K5 launch with E > 1,000 in
-    wave 2 (a re-placement of evicted pods), for phase 3."""
+    first K4 chunk (and the first of each other chunk size B) and the
+    first provisioner K5 launch with E > 1,000 in wave 2 (a re-placement
+    of evicted pods), for phase 3."""
 
     def __init__(self, ffd, keep=False):
         self.ffd, self.keep = ffd, keep
         self.rows, self.kept = [], {}
         self.ctl, self.wave = None, 0
+        self.sweep_b = set()
 
     def __enter__(self):
         ffd = self.ffd
@@ -3790,6 +3832,12 @@ class _LaunchLog:
             if self.keep and "sweep chunk" not in self.kept:
                 self.kept["sweep chunk"] = ("sweep", _clone(sw), c, n,
                                             sparse_k)
+                self.sweep_b = {sw.B}
+            elif self.keep and sw.B not in self.sweep_b:
+                # the first chunk of each other chunk size (B)
+                self.sweep_b.add(sw.B)
+                self.kept[f"sweep chunk B={sw.B}"] = ("sweep", _clone(sw),
+                                                      c, n, sparse_k)
             return real_sweep(sw, c, n, sparse_k)
         ffd.solve_ffd_batch, ffd.solve_ffd_sweep = batch, sweep
         return self
@@ -4714,9 +4762,11 @@ def main(argv) -> int:
                    f"K={K}")
         else:
             _, sw, c, N, K = call
-            record(f"disruption-{key.replace(' ', '-')}",
-                   compare_sweep(ffd, sw, c, N, K, dev),
-                   f"B={sw.B} G={sw.G} E={sw.E} D={sw.D} N={N} K={K}")
+            for suffix, res, n, route in compare_sweep_routes(
+                    ffd, sw, c, N, K, dev):
+                record(f"disruption-{key.replace(' ', '-')}{suffix}", res,
+                       f"B={sw.B} G={sw.G} E={sw.E} D={sw.D} N={n} K={K} "
+                       f"{route} carry")
     for label, prob, catarr, seeds, N, ex in _delta_cases():
         c = ffd.catalog_tensors(catarr, dev)
         p, sd = ffd.delta_tensors(prob, *seeds, c.O, dev)
@@ -4758,12 +4808,16 @@ def main(argv) -> int:
                                      ("config12-chunk1", cap12.calls[1])):
         record(label, compare_delta(ffd, p, sd, c, N, ex),
                f"G={p.G} A={sd.A} N={N} E={p.E} explain={ex}")
+    # K4 on both carry routes: at the case's N (the carry in shared
+    # memory) and at an N whose carry does not fit (in device memory)
     for label, rows, shared, catarr, N, K in _sweep_cases():
         c = ffd.catalog_tensors(catarr, dev)
         sw = ffd.sweep_tensors(rows, ffd.sweep_shared_tensors(
             shared, c.O, dev), dev)
-        record(label, compare_sweep(ffd, sw, c, N, K, dev),
-               f"B={sw.B} E={sw.E} D={sw.D} N={N} K={K}")
+        for suffix, res, n, route in compare_sweep_routes(ffd, sw, c, N, K,
+                                                          dev):
+            record(label + suffix, res,
+                   f"B={sw.B} E={sw.E} D={sw.D} N={n} K={K} {route} carry")
     # the sweeps' own first chunks: config #4's first light chunk and
     # config #4b's first heavy chunk, as solve_batch launches them
     chunks = {"config4": _first_chunks(ffd, TorchSolver(), build_config4()),
@@ -4777,8 +4831,11 @@ def main(argv) -> int:
     c4b_chunk = chunks["config4b"][True]
     for label, (sw, c, N, K) in (("config4-light-chunk", c4_chunk),
                                  ("config4b-heavy-chunk", c4b_chunk)):
-        record(label, compare_sweep(ffd, sw, c, N, K, dev),
-               f"B={sw.B} G={sw.G} E={sw.E} D={sw.D} N={N} K={K}")
+        for suffix, res, n, route in compare_sweep_routes(ffd, sw, c, N, K,
+                                                          dev):
+            record(label + suffix, res,
+                   f"B={sw.B} G={sw.G} E={sw.E} D={sw.D} N={n} K={K} "
+                   f"{route} carry")
     # K7, the column-sharded scan, against its plain version at 2, 4, 6
     # and 8 shards, each launch repeated, then at the mesh paths' own
     # encodings (the headline and config #2) at 8 shards
@@ -5231,7 +5288,8 @@ def main(argv) -> int:
         sweep_t[kname] = (t4, t4p, b4, by4)
         print(f"[9] {'config #4b heavy' if sw.heavy else 'config #4 light'}"
               f" chunk (B={sw.B}, G={sw.G}, E={sw.E}, D={sw.D}, N={Ns}, "
-              f"O={cs.O}, K={Ks}) on {card}: {kname} {t4:.4f} ms "
+              f"O={cs.O}, K={Ks}, {_route(ffd, sw, cs, Ns, Ks)} carry) on "
+              f"{card}: {kname} {t4:.4f} ms "
               f"({t4 / sw.G:.4f} ms a step; events {ev4:.4f}, per "
               f"simulation {t4 / sw.B * 1e3:.2f} us, plain "
               f"{t4p:.3f}, bound {b4:.6f} by {by4})", flush=True)
@@ -5343,9 +5401,10 @@ def main(argv) -> int:
                      f"explain={ex}")
         else:
             _, sw, c, N, K = call
-            kname = "ffd_sweep_scan"
+            kname = "ffd_sweep_topo_scan" if sw.heavy else "ffd_sweep_scan"
             t, tp, ev, (bd, by) = _sweep_times(ffd, sw, c, N, K, 20)
-            shape = f"B={sw.B}, G={sw.G}, E={sw.E}, N={N}, O={c.O}, K={K}"
+            shape = (f"B={sw.B}, G={sw.G}, E={sw.E}, N={N}, O={c.O}, K={K}, "
+                     f"{_route(ffd, sw, c, N, K)} carry")
         print(f"[9] disruption loop {key} ({shape}) on {card}: {kname} "
               f"{t:.4f} ms (events {ev:.4f}, plain {tp:.3f} once, bound "
               f"{bd:.6f} by {by})", flush=True)

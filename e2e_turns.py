@@ -27,6 +27,21 @@ keeps).  The arms use only the entry points both trees share:
                 delta="off", spec="on"): the chunk chain, 5 warm passes
   batch64       solve_batch of 64 headline-sized inputs (100 to 2,431 pods
                 each, one catalog and pool) with explain=counts (uncapped)
+  k4            K4 (the consolidation sweep) through the tree's own
+                wrappers and kernels, at config #4's first light chunk,
+                config #4b's first heavy chunk and the disruption loop's
+                first chunk of each chunk size: the profiler's device ms
+                a launch and the CUDA events' ms a launch (20 launches
+                each, `chip_smoke._device_ms`), and a digest of each
+                launch's rows, which must agree across the trees.  The
+                first k4 child runs the warmed disruption loop of
+                `chip_smoke.py` phase 19 (`chip_smoke._disruption_run`)
+                through its three waves — its wave-2 `disruption.
+                simulate_batch` span and the sweep's `device` phase (the
+                p50 printed is that span's total ms) — and keeps the
+                chunks' arguments in `K4_CHUNKS` (git-ignored), which the
+                later children load instead of running the loop (their
+                p50 is nan) (not in the default arms)
 
 Prints, per arm, each turn's p50 and each tree's lower p50 with the
 card's name and power limit.  Exits non-zero without a CUDA device or
@@ -46,6 +61,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARMS = ("headline", "config9-full", "config7-delta", "config12-spec",
         "batch64")
+# the k4 arm's chunks, kept by its first child for the others
+K4_CHUNKS = os.path.join(ROOT, "karpenter_tpu_torch", "_build",
+                         "e2e_k4_chunks.pt")
 
 
 def _counts(ffd):
@@ -101,6 +119,8 @@ def child(arm: str, root: str, warm: int) -> int:
     elif arm == "batch64":
         solver, inps = TorchSolver(), _batch64_inputs()
         runs = [lambda: solver.solve_batch(inps)] * (1 + warm)
+    elif arm == "k4":
+        return k4_child(warm)
     else:
         raise SystemExit(f"unknown arm {arm!r}")
     t0 = time.perf_counter()
@@ -123,6 +143,106 @@ def child(arm: str, root: str, warm: int) -> int:
         "phase_p50": {k: statistics.median(v) for k, v in phases.items()},
         "launches": {k: c1[k] - c0.get(k, 0) for k in c1
                      if c1[k] - c0.get(k, 0)}}))
+    return 0
+
+
+def _save_chunks(path: str, shapes) -> None:
+    """{label: (SweepBatch, FFDCatalog, N, K)} on the host, each
+    dataclass as its class name and fields."""
+    import dataclasses
+    import torch
+
+    def plain(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu().clone()  # its own storage, not a view's
+        if dataclasses.is_dataclass(x):
+            return {"class": type(x).__name__, "fields": {
+                f.name: plain(getattr(x, f.name))
+                for f in dataclasses.fields(x) if f.init}}
+        return x
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: [plain(v) for v in val] for k, val in shapes.items()},
+               path)
+
+
+def _load_chunks(path: str, ffd, dev):
+    """`_save_chunks`' file, rebuilt with this tree's classes on `dev`."""
+    import torch
+
+    def build(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, dict) and set(x) == {"class", "fields"}:
+            return getattr(ffd, x["class"])(
+                **{k: build(v) for k, v in x["fields"].items()})
+        return x
+    return {k: tuple(build(v) for v in val) for k, val in
+            torch.load(path, weights_only=False).items()}
+
+
+def k4_child(warm: int) -> int:
+    """The k4 arm on the tree first on sys.path: prints one JSON line."""
+    import hashlib
+    import torch
+    import chip_smoke as cs
+    from karpenter_tpu_torch.solver import TorchSolver, ffd
+    from karpenter_tpu_torch.workloads import build_config4, build_config4b
+    card = cs._card_line()
+    dev = torch.device("cuda", 0)
+    nan = float("nan")
+    cold, sim_ms, phases, counts = nan, nan, {}, {}
+    if os.path.exists(K4_CHUNKS):
+        shapes = _load_chunks(K4_CHUNKS, ffd, dev)
+    else:
+        kept = {}
+        real = ffd.solve_ffd_sweep
+
+        def capture(sw, c, n, sparse_k=0):
+            key = (f"loop {'heavy' if sw.heavy else 'light'} chunk "
+                   f"B={sw.B} G={sw.G} E={sw.E} N={n}")
+            if key not in kept:
+                kept[key] = (cs._clone(sw), c, n, sparse_k)
+            return real(sw, c, n, sparse_k)
+        ffd.solve_ffd_sweep = capture
+        try:
+            t0 = time.perf_counter()
+            waves, _, _ = cs._disruption_run(card, warm_up=True)
+            cold = (time.perf_counter() - t0) * 1e3
+        finally:
+            ffd.solve_ffd_sweep = real
+        w2 = waves[1]
+        sim_ms = w2["spans_ms"].get("disruption.simulate_batch", 0.0)
+        phases = {"wave 2 simulate_batch": sim_ms,
+                  "wave 2 device": w2["solve_batch"].get("phase device",
+                                                         0.0),
+                  "wave 2 wall": w2["wall_ms"]}
+        counts = {k: v for k, v in w2["launches"].items() if v}
+        shapes = {"config #4 light chunk": cs._first_chunks(
+            ffd, TorchSolver(), build_config4())[False],
+            "config #4b heavy chunk": cs._first_chunks(
+            ffd, TorchSolver(), build_config4b())[True]}
+        shapes.update(sorted(kept.items()))
+        _save_chunks(K4_CHUNKS, shapes)
+    out = {}
+    for label, (sw, c, n, k) in shapes.items():
+        lay = ffd.flat_layout(sw.G, sw.E, n, sw.D, 0, k)
+        flat = torch.empty((sw.B, lay["total"][1]), device=dev)
+        lim = torch.empty((sw.B, sw.P, ffd.R), device=dev)
+        scan = ffd.sweep_topo_scan if sw.heavy else ffd.sweep_scan
+        fn = lambda: scan(sw, c, n, flat, lay, lim, k)  # noqa: E731
+        ms, ev = cs._device_ms(fn, max(warm, 1), cs._tag(sw.heavy, True,
+                                                         False))
+        flat.fill_(float("nan"))
+        lim.fill_(float("nan"))
+        fn()
+        torch.cuda.synchronize()
+        h = hashlib.sha256(flat.cpu().numpy().tobytes())
+        h.update(lim.cpu().numpy().tobytes())
+        out[label] = {"ms": ms, "events_ms": ev, "digest": h.hexdigest()}
+    print(json.dumps({
+        "arm": "k4", "cold_ms": cold, "p50": sim_ms, "min": sim_ms,
+        "max": sim_ms, "n": 1, "phase_p50": phases, "launches": counts,
+        "k4": out}))
     return 0
 
 
@@ -156,6 +276,8 @@ def main(argv) -> int:
     card = _card()
     arms = args.arms.split(",")
     got = {}
+    if os.path.exists(K4_CHUNKS):
+        os.remove(K4_CHUNKS)  # the first k4 child runs the loop
     for name, root in trees:
         for arm in arms:
             env = dict(os.environ)
@@ -179,12 +301,47 @@ def main(argv) -> int:
                   + ", ".join(f"{k} {v:.3f}" for k, v in
                               rec["phase_p50"].items())
                   + f"; launches {rec['launches']}", flush=True)
+    bad = _k4_report(got.get("k4"), card)
     for arm in arms:
         print(f"[e2e] {arm} on {card}: " + "; ".join(
             f"{name} warm p50 " + ", ".join(f"{r['p50']:.3f}" for r in recs)
-            + f" ms (lower {min(r['p50'] for r in recs):.3f})"
+            + f" ms (lower {_lower(r['p50'] for r in recs):.3f})"
             for name, recs in got[arm].items()), flush=True)
-    return 0
+    return 1 if bad else 0
+
+
+def _lower(vals) -> float:
+    """The least of the measured values (nan where none was)."""
+    got = [v for v in vals if v == v]
+    return min(got) if got else float("nan")
+
+
+def _k4_report(trees, card) -> bool:
+    """The k4 arm's launches, each tree's lower ms of its turns; True when
+    a launch's rows differ between the trees (or turns)."""
+    if not trees:
+        return False
+    labels = list(next(iter(trees.values()))[0]["k4"])
+    bad = False
+    for label in labels:
+        parts, digests = [], set()
+        for name, recs in trees.items():
+            got = [r["k4"].get(label) for r in recs]
+            if None in got:
+                bad = True
+                continue
+            digests.update(g["digest"] for g in got)
+            parts.append(
+                f"{name} profiler " + ", ".join(f"{g['ms']:.4f}" for g in got)
+                + f" (lower {min(g['ms'] for g in got):.4f}) events "
+                + ", ".join(f"{g['events_ms']:.4f}" for g in got)
+                + f" (lower {min(g['events_ms'] for g in got):.4f})")
+        same = len(digests) == 1
+        bad = bad or not same
+        print(f"[k4] {label} on {card}, ms a launch: " + "; ".join(parts)
+              + ("; rows equal across trees" if same
+                 else "; ROWS DIFFER"), flush=True)
+    return bad
 
 
 if __name__ == "__main__":

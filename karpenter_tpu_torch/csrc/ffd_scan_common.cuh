@@ -85,7 +85,8 @@
 // device memory, one slice per block: the surviving-column mask as u32
 // bit-words in [N, W] layout (one node's words in one run), used [N, R],
 // the pool budgets [P, R], the existing-node remainders [E, R], and each
-// node's zone and capacity-type pin.  The per-node column work — the best
+// node's zone and capacity-type pin (K4's in the block's shared memory
+// where it fits, carry_layout).  The per-node column work — the best
 // fit over a node's surviving admitted (pool,type) blocks, in the heavy
 // step per grid slot, and the colmask narrowing of touched and opened
 // nodes — is one tile of lanes per node (tile_best, tile_slotmax,
@@ -124,6 +125,10 @@
 
 #include <cooperative_groups.h>
 #include <limits.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace cg = cooperative_groups;
 
@@ -2007,6 +2012,132 @@ __device__ void compact_take_exist(const ScanArgs& a, ScanShared& S) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4's shared-memory carry and its staging.
+//
+// The dynamic shared memory of one block: the scan's own arrays (ScanDyn,
+// scan_smem_base bytes) and, on K4's shared-memory route, the carry after
+// them (CarryLayout): the existing rows first, at a 16-byte boundary (the
+// copy engine's unit), then the per-existing-row caps, the dense
+// take_exist rows the compaction reads (K > 0), used, the column words,
+// the per-slot ints and the pool budgets.  The route is chosen by shape
+// alone (sweep_carry_fits: the whole block within SWEEP_SMEM_BUDGET
+// bytes); solver/ffd.py mirrors it (`scan_smem`, `sweep_carry_fits`).
+
+// bytes of dynamic shared memory K4 may take with its carry: the 227 KB a
+// block may hold on the H100, less room for the static shared state
+// (ScanShared, ScanArgs, HeavyShared, the staging barrier)
+#define SWEEP_SMEM_BUDGET (200 * 1024)
+
+template <bool TOPO, bool SWEEP>
+__host__ __device__ inline size_t scan_smem_base(const ScanArgs& a) {
+  return (size_t)a.PT * KR * sizeof(float) + 2 * (size_t)a.N * sizeof(int) +
+         2 * (size_t)a.W * sizeof(uint32_t) +
+         (TOPO ? ((size_t)a.N + (size_t)a.P * a.D) * sizeof(int) : 0) +
+         (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0) +
+         ((size_t)a.N + 1) * summary_words(a.W, a.ZC) * sizeof(uint32_t);
+}
+
+struct CarryLayout {
+  size_t exist_rem, cap_e, te, used, colmask, ints, limits, end;
+};
+
+template <bool TOPO>
+__host__ __device__ inline CarryLayout carry_layout(const ScanArgs& a) {
+  CarryLayout L;
+  const size_t E = a.E, N = a.N, f = sizeof(float);
+  L.exist_rem = (scan_smem_base<TOPO, true>(a) + 15) & ~(size_t)15;
+  L.cap_e = L.exist_rem + E * KR * f;
+  L.te = L.cap_e + E * f;
+  L.used = L.te + (a.K > 0 ? (size_t)a.G * E * f : 0);
+  L.colmask = L.used + N * KR * f;
+  L.ints = L.colmask + N * (size_t)a.W * f;  // active, pool, zone, ct [N]
+  L.limits = L.ints + 4 * N * f;
+  L.end = L.limits + (size_t)a.P * KR * f;
+  return L;
+}
+
+// whether K4's carry fits in the block's shared memory
+template <bool TOPO>
+__host__ __device__ inline bool sweep_carry_fits(const ScanArgs& a) {
+  return carry_layout<TOPO>(a).end <= SWEEP_SMEM_BUDGET;
+}
+
+// Block b's carry pointers (already offset to its device slices by
+// offset_block) moved to its shared memory; generic addressing lets the
+// steps read them unchanged.  The pool budgets' output row stays in
+// its flat row's slot of `limits` (the epilogue copies them there).
+template <bool TOPO>
+__device__ void carry_to_smem(ScanArgs& a, unsigned char* smem) {
+  const CarryLayout L = carry_layout<TOPO>(a);
+  const size_t N = a.N;
+  a.exist_rem = reinterpret_cast<float*>(smem + L.exist_rem);
+  a.cap_e = reinterpret_cast<int*>(smem + L.cap_e);
+  if (a.K > 0) a.take_exist = reinterpret_cast<float*>(smem + L.te);
+  a.used = reinterpret_cast<float*>(smem + L.used);
+  a.colmask = reinterpret_cast<uint32_t*>(smem + L.colmask);
+  a.active = reinterpret_cast<int*>(smem + L.ints);
+  a.node_pool = a.active + N;
+  a.node_zone = a.active + 2 * N;
+  a.node_ct = a.active + 3 * N;
+  a.limits = reinterpret_cast<float*>(smem + L.limits);
+}
+
+// The staging of the snapshot's rows (the (pool,type) allocatable and, on
+// the shared-memory route, the existing rows) by Hopper's bulk
+// asynchronous copy: one thread issues `cp.async.bulk` global -> shared
+// and the copy engine completes it on an mbarrier (transaction bytes)
+// while the block's threads build the simulation's price-cap mask.  A
+// source's whole 16-byte units go by the engine when the source is
+// 16-byte aligned (the destination always is), the rest by the threads.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the bytes of `n` floats at src that the copy engine stages
+__device__ __forceinline__ unsigned stage_bytes(const float* src, size_t n) {
+  return ((uintptr_t)src & 15u) ? 0u
+                                : (unsigned)((n * sizeof(float)) & ~(size_t)15);
+}
+
+// one thread: the barrier, waiting for one arrival (the issuing thread's,
+// which carries the byte count), visible to the copy engine
+__device__ __forceinline__ void stage_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void stage_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst
+__device__ __forceinline__ void stage_copy(void* dst, const void* src,
+                                           unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// every thread: until the staged bytes have landed (the barrier's phase 0)
+__device__ __forceinline__ void stage_wait(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "STAGE_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      "@!p bra STAGE_WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
 // One block of NT threads per problem (grid = B).  TOPO: the heavy step for
 // groups with dsel > 0.  GANG (with TOPO): the gang fill for groups with
 // group_gang set.  SWEEP: the problem is a simulation of a shared
@@ -2023,7 +2154,11 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScanShared S;
   __shared__ ScanArgs A;
+  __shared__ __align__(8) uint64_t staged;  // K4's staging barrier
   const int tid = threadIdx.x;
+  // K4's route, by shape (sweep_carry_fits, as scan_entry sized the
+  // launch's shared memory)
+  bool carry_smem = false;
   if (tid == 0) {
     A = a0;
     if constexpr (SHARDED == XCLUSTER) {
@@ -2036,9 +2171,23 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     } else {
       offset_block<SWEEP>(A, blockIdx.x);
     }
+    if constexpr (SWEEP) {
+      carry_smem = sweep_carry_fits<TOPO>(A);
+      if (carry_smem) carry_to_smem<TOPO>(A, smem);
+      // the snapshot's rows (every block's) start landing before the
+      // block reads anything else
+      stage_init(&staged);
+      const unsigned pb = stage_bytes(A.pt_alloc, (size_t)A.PT * KR);
+      const unsigned eb =
+          carry_smem ? stage_bytes(A.exist_remaining, (size_t)A.E * KR) : 0u;
+      stage_expect(&staged, pb + eb);
+      if (pb) stage_copy(smem, A.pt_alloc, pb, &staged);
+      if (eb) stage_copy(A.exist_rem, A.exist_remaining, eb, &staged);
+    }
   }
   __syncthreads();
   const ScanArgs& a = A;
+  if constexpr (SWEEP) carry_smem = sweep_carry_fits<TOPO>(a);
   const int G = a.G, E = a.E, N = a.N, O = a.O, PT = a.PT;
   const int P = a.P, D = a.D, W = a.W;
   ScanDyn s;
@@ -2052,28 +2201,60 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   s.pm = reinterpret_cast<uint32_t*>(s.kpd + (TOPO ? P * D : 0));  // [W]
   s.csum = s.pm + (SWEEP ? W : 0);        // [N, NS], then the mask's [NS]
 
-  // -- the simulation: its exclusions and its price-capped columns --------
+  // -- the simulation: its exclusions and its price-capped columns, while
+  // the snapshot's rows land ----------------------------------------------
   if (tid == 0) S.nx = SWEEP ? a.X : 0;
-  if (SWEEP) {
+  if constexpr (SWEEP) {
     if (tid < a.X) S.excl[tid] = a.exclude_idx[tid];
+    // a warp a word: lane l tests column 32 w + l in one coalesced load,
+    // the ballot is word w (an exact comparison, +inf padding fails it)
+    // (four words a round, their loads in flight together)
     const float pcap = a.price_cap[0];
-    for (int w = tid; w < W; w += NT) {
-      uint32_t word = 0u;
-      for (int bit = 0; bit < 32; ++bit) {
-        const int o = w * 32 + bit;
-        if (o < O && a.col_price[o] < pcap) word |= 1u << bit;
+    const int lane = tid & 31;
+    constexpr int NWARP = NT / 32, U = 4;
+    for (int w0 = tid >> 5; w0 < W; w0 += U * NWARP) {
+      bool under[U];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const int o = (w0 + k * NWARP) * 32 + lane;
+        under[k] = o < O && a.col_price[o] < pcap;
       }
-      s.pm[w] = word;
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const uint32_t word = __ballot_sync(FULLMASK, under[k]);
+        if (lane == 0 && w0 + k * NWARP < W) s.pm[w0 + k * NWARP] = word;
+      }
+    }
+    // what the copy engine does not stage, the threads copy
+    const int np = PT * KR;
+    for (int i = stage_bytes(a.pt_alloc, np) / 4 + tid; i < np; i += NT)
+      s.pt[i] = a.pt_alloc[i];
+    if (carry_smem) {
+      const int ne = E * KR;
+      for (int i = stage_bytes(a.exist_remaining, ne) / 4 + tid; i < ne;
+           i += NT)
+        a.exist_rem[i] = a.exist_remaining[i];
     }
   }
   __syncthreads();
 
   // -- initial carry --------------------------------------------------------
-  for (int i = tid; i < PT * KR; i += NT) s.pt[i] = a.pt_alloc[i];
-  for (int i = tid; i < E * KR; i += NT)
-    a.exist_rem[i] =
-        SWEEP ? __fmul_rn(a.exist_remaining[i], kept(S, i / KR) ? 1.0f : 0.0f)
-              : a.exist_remaining[i];
+  if constexpr (SWEEP) {
+    // the staged rows have landed; the keep multiply in place (shared
+    // memory) or on the copy into the device carry
+    stage_wait(&staged);
+    for (int e = tid; e < E; e += NT) {
+      const float k = kept(S, e) ? 1.0f : 0.0f;
+      const float* src = carry_smem ? a.exist_rem : a.exist_remaining;
+#pragma unroll
+      for (int r = 0; r < KR; ++r)
+        a.exist_rem[e * KR + r] = __fmul_rn(src[e * KR + r], k);
+    }
+  } else {
+    for (int i = tid; i < PT * KR; i += NT) s.pt[i] = a.pt_alloc[i];
+    for (int i = tid; i < E * KR; i += NT)
+      a.exist_rem[i] = a.exist_remaining[i];
+  }
   for (int i = tid; i < N * KR; i += NT)
     a.used[i] = SEED ? a.seed_used[i] : 0.0f;
   // the carry's [N, W] column words: the seed's [A, W] slot rows, and their
@@ -2257,19 +2438,22 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     a.ct_out[n] = (float)a.node_ct[n];
   }
   if (tid == 0) a.na_out[0] = (float)S.na;
+  if (carry_smem)
+    for (int i = tid; i < P * KR; i += NT)
+      a0.limits[(size_t)blockIdx.x * P * KR + i] = a.limits[i];
   // no block leaves while a peer may still read its shared memory (the
   // card exchange reads only the inboxes, which outlive the launch)
   if constexpr (SHARDED == XCLUSTER) cg::this_cluster().sync();
 }
 
-// the dynamic shared memory of one block
+// the dynamic shared memory of one block (with K4's carry on its
+// shared-memory route)
 template <bool TOPO, bool SWEEP>
 size_t scan_smem(const ScanArgs& a) {
-  return (size_t)a.PT * KR * sizeof(float) + 2 * (size_t)a.N * sizeof(int) +
-         2 * (size_t)a.W * sizeof(uint32_t) +
-         (TOPO ? ((size_t)a.N + (size_t)a.P * a.D) * sizeof(int) : 0) +
-         (SWEEP ? (size_t)a.W * sizeof(uint32_t) : 0) +
-         ((size_t)a.N + 1) * summary_words(a.W, a.ZC) * sizeof(uint32_t);
+  if constexpr (SWEEP) {
+    if (sweep_carry_fits<TOPO>(a)) return carry_layout<TOPO>(a).end;
+  }
+  return scan_smem_base<TOPO, SWEEP>(a);
 }
 
 // The launch configuration of the column-sharded instance: one cluster of
@@ -2413,9 +2597,18 @@ template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED>
 int scan_check(const ScanArgs& a) {
   if (a.P < 1 || a.P > MAXP || a.ZC < 1 || a.N < 1 || a.D < 1 || a.G < 1 ||
       a.B < 1 || a.O != a.PT * a.ZC || a.W != (a.O + 31) / 32 || a.K < 0 ||
-      !a.node_zone || !a.node_ct ||
       (a.E > 0 && (!a.exist_zone || !a.exist_ct)))
     return -2;
+  // the carry: K4's lives in shared memory where it fits (scan_entry's
+  // route, sweep_carry_fits; device pointers given there are not read),
+  // every other launch's in the device slices these address
+  const bool smem_carry = SWEEP && sweep_carry_fits<TOPO>(a);
+  if (!smem_carry &&
+      (!a.used || !a.colmask || !a.active || !a.node_pool || !a.node_zone ||
+       !a.node_ct || !a.limits ||
+       (a.E > 0 && (!a.exist_rem || !a.cap_e || (a.K > 0 && !a.te_dense)))))
+    return -2;
+  if (smem_carry && !a.limits) return -2;
   if (TOPO && (a.D > MAXD || a.ZC > MAXZC || !a.group_dsel ||
                !a.group_dbase || !a.group_dcap || !a.group_skew ||
                !a.group_mindom || !a.group_delig || !a.col_zone ||
@@ -2434,8 +2627,8 @@ int scan_check(const ScanArgs& a) {
   if ((a.prio_inv != nullptr) != (a.group_prio != nullptr) ||
       (SWEEP && a.prio_inv))
     return -2;
-  if ((a.K > 0) != (a.te_dense != nullptr && a.te_head != nullptr) ||
-      (a.K == 0 && a.E > 0 && !a.take_exist))
+  if ((a.K > 0) != (a.te_head != nullptr) ||
+      (a.K == 0 && (a.te_dense || (a.E > 0 && !a.take_exist))))
     return -2;
   // the seeded instance: one light-only problem with its seed arrays, a
   // dense take_exist and no witness; every other instance takes none
@@ -2469,6 +2662,34 @@ int scan_check(const ScanArgs& a) {
   return 0;
 }
 
+namespace {
+// The dynamic shared memory each kernel of this library may take on each
+// card, as last raised.  Internal linkage: a function-local static of a
+// template would be one object for every library loaded in the process
+// that instantiates the template, and each library has its own kernels.
+std::mutex smem_lock;
+std::map<std::pair<const void*, int>, size_t> smem_allowed;
+}  // namespace
+
+// Lets `kern` take `smem` bytes of dynamic shared memory on the current
+// card, raising its attribute only when a launch needs more than any
+// before it (one attribute call a new peak, not one a launch).
+static cudaError_t allow_smem(const void* kern, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(smem_lock);
+  size_t& allowed = smem_allowed[{kern, dev}];
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  return cudaSuccess;
+}
+
 // Plain-C entry point body for ctypes (scan_parse's arguments).  Returns
 // 0, a CUDA error code (cudaGetLastError after the launch, or
 // cudaLaunchKernelEx's refusal of a cluster the card cannot hold), or a
@@ -2495,12 +2716,10 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
           &cfg, scan_kernel<TOPO, false, GANG, SEED, XCLUSTER>, a);
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
   } else {
-    cudaError_t err = cudaFuncSetAttribute(
-        scan_kernel<TOPO, SWEEP, GANG, SEED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto kern = scan_kernel<TOPO, SWEEP, GANG, SEED>;
+    const cudaError_t err = allow_smem((const void*)kern, smem);
     if (err != cudaSuccess) return (int)err;
-    scan_kernel<TOPO, SWEEP, GANG, SEED>
-        <<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
+    kern<<<a.B, NT, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
 }

@@ -20,12 +20,46 @@
 // ffd_scan_common.cuh's, `scan_kernel<false, true, false, false>` and
 // `scan_kernel<true, true, false, false>`.
 //
-// What bounds it on the H100: latency, as K5 (ffd_batch_scan.cu).  At
-// BASELINE config #4 (E=2048 existing rows, N=8 node slots, O=3840
-// columns, G=1, B=64 a chunk) a block reads the 48 KB of existing rows and
-// a few KB of class rows and writes ~300 bytes; its chain is one group's
-// existing fill (two block scans over 2048 rows), the column walk and the
-// pool cascade.
+// What bounds it on the H100: latency, on two levels.  At BASELINE
+// config #4 (E=2048 existing rows, N=8 node slots, O=3840 columns, G=1,
+// B=64 a chunk) a block reads ~70 KB of snapshot (48 KB of existing rows,
+// 15 KB of (pool,type) rows, the class rows and prices) and the catalog's
+// columns once, and writes ~300 bytes: its bound is 0.0001 ms.  Its time
+// is one simulation's dependency chain on one SM — the prologue, one
+// scan step (the existing fill over 2048 rows, the column pass over 3840
+// columns, the pool cascade), the compaction — and, around it, the host's
+// launch: the wrapper's checks, scratch and argument array took 5-8x the
+// kernel when each chunk built them anew.
+//
+// The design, each part aimed at one of those:
+//   * the carry in shared memory (carry_layout) where the block fits
+//     SWEEP_SMEM_BUDGET — at config #4 ~85 KB: the existing rows, their
+//     caps, the dense take_exist rows, the column words, the slot ints and
+//     the budgets — so each step reads it at shared-memory latency; shapes
+//     that do not fit keep the device-memory carry (a route chosen by
+//     shape, sweep_carry_fits, mirrored by solver/ffd.py);
+//   * the snapshot staged by the copy engine: one thread issues
+//     cp.async.bulk of the existing rows and the (pool,type) rows on an
+//     mbarrier, and while they land the block builds its price-cap mask
+//     (a warp a word: one coalesced load and a ballot) and reads its
+//     exclusions; the keep multiply, __fmul_rn(x, 1 or 0), applies after
+//     arrival, row by row;
+//   * a cheaper launch: solver/ffd.py SweepLaunch builds the argument
+//     array once a sweep and each chunk patches its rows (in turns, 0.03-0.05
+//     ms a launch by CUDA events at config #4's and #4b's chunks, against
+//     0.09-0.12 through _launch_scan with the same checks), and the entry
+//     point raises the kernel's shared-memory attribute only at a new
+//     peak.
+// The block keeps K5's 1,024 threads and their 64-register cap, which
+// spills a few dozen bytes: 512-thread blocks, with up to 128 registers
+// and no spills, were slower at every chunk measured in turns, as each
+// step's loops over 2,048 rows and 3,840 columns take twice the rounds;
+// the spills are not what bounds it.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (profiler, a launch, in
+// turns): config #4's light chunk 0.0219 ms at 1,024 threads against
+// 0.0236 at 512, #4b's heavy chunk 0.0435 against 0.0475, where the
+// design before this one (1,024 threads, the carry in device memory, the
+// price mask bit by bit) took 0.0261 and 0.0485.
 #include "ffd_scan_common.cuh"
 
 // Plain-C entry points for ctypes, as ffd_batch_scan's: ptrs SCAN_NPTRS

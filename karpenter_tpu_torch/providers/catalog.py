@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from karpenter_tpu_torch.models import wellknown
 from karpenter_tpu_torch.models.objects import InstanceType, Offering
@@ -276,6 +276,10 @@ def synthesize_catalog(spec: Optional[CatalogSpec] = None) -> List[InstanceType]
     if spec.max_types is not None:
         out = out[: spec.max_types]
     return out
+
+
+def catalog_by_name(catalog: List[InstanceType]) -> Dict[str, InstanceType]:
+    return {it.name: it for it in catalog}
 
 
 # ---------------------------------------------------------------------------

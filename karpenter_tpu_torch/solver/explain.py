@@ -199,6 +199,9 @@ CAUSE_INCOMPATIBLE = "IncompatibleRequirements"
 CAUSE_LIMITS = "LimitsExceeded"
 CAUSE_NO_FIT = "NoFittingType"
 CAUSE_TOPOLOGY = "TopologyUnsatisfiable"
+POOL_CAUSES = frozenset((
+    CAUSE_NO_TYPES, CAUSE_TAINTS, CAUSE_UNKNOWN_LABEL,
+    CAUSE_INCOMPATIBLE, CAUSE_LIMITS, CAUSE_NO_FIT, CAUSE_TOPOLOGY))
 
 
 class Reason(str):

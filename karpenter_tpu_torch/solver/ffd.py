@@ -84,6 +84,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import weakref
 from dataclasses import dataclass, fields
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -1817,24 +1818,17 @@ def _check_problem(prob: FFDProblem, cat: FFDCatalog, N: int,
         raise ValueError(f"empty problem: G={G}, N={N}, D={D}")
 
 
-def _check_sweep(sw: SweepBatch, cat: FFDCatalog, N: int, device) -> None:
-    B, G, E, P, X, W, D = sw.B, sw.G, sw.E, sw.P, sw.X, cat.W, sw.D
+def _check_sweep_rows(sw: SweepBatch, N: int, device) -> None:
+    """A chunk's own rows: shapes, types, device and contiguity."""
+    B, G, P, X, D = sw.B, sw.G, sw.P, sw.X, sw.D
     f32, i32 = torch.float32, torch.int32
-    sh = sw.shared
-    C = sh.class_bits.shape[0]
     checks = [
         ("group_req", sw.group_req, f32, (B, G, R)),
         ("group_count", sw.group_count, i32, (B, G)),
         ("group_class", sw.group_class, i32, (B, G)),
         ("exclude_idx", sw.exclude_idx, i32, (B, X)),
         ("price_cap", sw.price_cap, f32, (B,)),
-        ("pool_limit", sw.pool_limit, f32, (B, P, R)),
-        ("class_bits", sh.class_bits, i32, (C, W)),
-        ("class_cap", sh.class_cap, i32, (C, E)),
-        ("exist_remaining", sh.exist_remaining, f32, (E, R)),
-        ("exist_zone", sh.exist_zone, i32, (E,)),
-        ("exist_ct", sh.exist_ct, i32, (E,)),
-        ("col_price", sh.col_price, f32, (cat.O,))]
+        ("pool_limit", sw.pool_limit, f32, (B, P, R))]
     if sw.heavy:
         checks += [
             ("group_ncap", sw.group_ncap, i32, (B, G)),
@@ -1846,12 +1840,30 @@ def _check_sweep(sw: SweepBatch, cat: FFDCatalog, N: int, device) -> None:
             ("group_delig", sw.group_delig, i32, (B, G, D))]
     for name, t, dt, shp in checks:
         _check(t, name, dt, shp, device)
-    _check_catalog(cat, P, device)
-    if N < 1 or G < 1 or B < 1 or C < 1:
-        raise ValueError(f"empty sweep: B={B}, G={G}, N={N}, C={C}")
+    if N < 1 or G < 1 or B < 1:
+        raise ValueError(f"empty sweep: B={B}, G={G}, N={N}")
     if X > MAX_EXCLUDED:
         raise ValueError(f"{X} exclusions per simulation: the sweep "
                          f"kernels take at most {MAX_EXCLUDED}")
+
+
+def _check_sweep_shared(sh: SweepShared, cat: FFDCatalog, P: int,
+                        device) -> None:
+    """A sweep's snapshot and catalog (once a sweep, `SweepLaunch`)."""
+    E, W = sh.exist_remaining.shape[0], cat.W
+    f32, i32 = torch.float32, torch.int32
+    C = sh.class_bits.shape[0]
+    for name, t, dt, shp in (
+            ("class_bits", sh.class_bits, i32, (C, W)),
+            ("class_cap", sh.class_cap, i32, (C, E)),
+            ("exist_remaining", sh.exist_remaining, f32, (E, R)),
+            ("exist_zone", sh.exist_zone, i32, (E,)),
+            ("exist_ct", sh.exist_ct, i32, (E,)),
+            ("col_price", sh.col_price, f32, (cat.O,))):
+        _check(t, name, dt, shp, device)
+    _check_catalog(cat, P, device)
+    if C < 1:
+        raise ValueError("empty sweep: no class rows")
 
 
 def _check_outputs(B: int, P: int, flat: torch.Tensor, lay: Dict,
@@ -1905,6 +1917,161 @@ def _first_launch(*key) -> None:
     firstuse.first("launch", key)
 
 
+# ScanArgs' pointer fields in order (csrc ffd_scan_common.cuh): the
+# argument array every scan entry point takes
+SCAN_FIELDS = (
+    "group_req", "group_count", "mask_bits", "exist_cap", "exist_remaining",
+    "pool_limit", "group_ncap", "group_whole",
+    "col_alloc", "col_daemon", "pt_alloc", "col_pool", "pool_daemon",
+    "pool_bits",
+    "exist_rem", "used", "colmask", "active", "node_pool", "cap_e", "limits",
+    "take_exist", "take_new", "unsched", "dom_placed", "used_out",
+    "pool_out", "zone_out", "ct_out", "na_out",
+    "group_dsel", "group_dbase", "group_dcap", "group_skew", "group_mindom",
+    "group_delig", "exist_zone", "exist_ct", "col_zone", "col_ct",
+    "node_zone", "node_ct",
+    "group_class", "exclude_idx", "price_cap", "col_price", "te_dense",
+    "te_head", "group_gang", "group_prio", "prio_inv",
+    "seed_used", "seed_pool", "seed_active", "seed_colmask",
+    "mask_rows", "xslot", "ex_counts", "ex_bits", "ex_map", "row0", "xrow")
+# the flat row's regions (flat_layout's names) each output field points at
+SCAN_REGIONS = (
+    ("take_exist", "take_exist"), ("take_new", "take_new"),
+    ("unsched", "unsched"), ("dom_placed", "dom_placed"),
+    ("used_out", "used"), ("pool_out", "node_pool"),
+    ("zone_out", "node_zone"), ("ct_out", "node_ct"),
+    ("na_out", "num_active"), ("te_head", "te_cnt"),
+    ("prio_inv", "prio_inv"), ("ex_counts", "explain_counts"),
+    ("ex_bits", "explain_bits"), ("ex_map", "explain_map"))
+# the carry's fields (the scratch of a device-memory carry)
+CARRY_FIELDS = ("exist_rem", "used", "colmask", "active", "node_pool",
+                "cap_e", "node_zone", "node_ct", "te_dense")
+SWEEP_ENTRIES = ("ffd_sweep_scan", "ffd_sweep_topo_scan")
+SWEEP_SMEM_BUDGET = 200 * 1024  # csrc SWEEP_SMEM_BUDGET
+
+
+def _summary_words(W: int, ZC: int) -> int:
+    """u32 words of a node row's chunk summary (csrc ffd_walk.cuh
+    summary_words)."""
+    pow2 = ZC & -ZC
+    chunk = ZC // (pow2 if pow2 < 32 else 32)
+    return (-(-W // chunk) + 31) // 32
+
+
+def scan_smem(G: int, E: int, N: int, PT: int, ZC: int, P: int, D: int,
+              W: int, K: int, topo: bool, sweep: bool,
+              carry: bool = False) -> int:
+    """Bytes of dynamic shared memory one block of a scan takes, as the
+    kernels lay it out (csrc `scan_smem_base`): the (pool,type) rows, the
+    per-slot caps and takes, the group's and the feasible column words,
+    with `topo` the slot domains and the [P, D] best columns, with `sweep`
+    the price-cap words, and the chunk summaries.  With `carry`, K4's
+    carry after them (csrc `carry_layout`): the existing rows from a
+    16-byte boundary, their caps, the dense take_exist rows when K > 0,
+    used, the column words, four ints a slot and the pool budgets."""
+    words = (PT * R + 2 * N + 2 * W + ((N + P * D) if topo else 0)
+             + (W if sweep else 0) + (N + 1) * _summary_words(W, ZC))
+    base = 4 * words
+    if not carry:
+        return base
+    return ((base + 15) & ~15) + 4 * (
+        E * R + E + (G * E if K > 0 else 0) + N * R + N * W + 4 * N + P * R)
+
+
+def sweep_carry_fits(G: int, E: int, N: int, PT: int, ZC: int, P: int,
+                     D: int, W: int, K: int, heavy: bool) -> bool:
+    """K4's route, chosen by shape as its entry point chooses it (csrc
+    `sweep_carry_fits`): the carry in each block's shared memory when the
+    block's whole dynamic shared memory stays within SWEEP_SMEM_BUDGET
+    (the H100's 227 KB a block less the static shared state), else the
+    carry in device memory, one slice a block."""
+    return scan_smem(G, E, N, PT, ZC, P, D, W, K, topo=heavy, sweep=True,
+                     carry=True) <= SWEEP_SMEM_BUDGET
+
+
+def _region_ptrs(base: int, lay: Dict) -> Dict[str, int]:
+    """The output fields' device addresses in the flat row at `base`."""
+    return {f: base + 4 * lay[name][0] if name in lay else 0
+            for f, name in SCAN_REGIONS}
+
+
+def _carry_scratch(reps: int, G: int, E: int, N: int, W: int, P: int,
+                   sparse_k: int, total: int, n_x: int,
+                   dev) -> Tuple[Dict[str, torch.Tensor], Tuple]:
+    """The carry's device slices, one a block (`reps`), in two buffers
+    (and on the mesh the other blocks' flat rows and budgets, `total` > 0,
+    and the slot scratch, n_x ints): {field: tensor}, the buffers."""
+    n_rows = (reps - 1) * (total + P * R) if total else 0
+    scratch_f = torch.empty(reps * (E * R + N * R + G * E * (sparse_k > 0))
+                            + n_rows, dtype=torch.float32, device=dev)
+    scratch_i = torch.empty(reps * (W * N + 4 * N + E) + n_x,
+                            dtype=torch.int32, device=dev)
+    rest = scratch_i[reps * W * N:]
+    out = {
+        "exist_rem": scratch_f[:reps * E * R],
+        "used": scratch_f[reps * E * R:reps * (E * R + N * R)],
+        "te_dense": scratch_f[reps * (E * R + N * R):] if sparse_k else None,
+        "xrow": scratch_f[scratch_f.numel() - n_rows:] if n_rows else None,
+        "colmask": scratch_i[:reps * W * N],
+        "active": rest[:reps * N], "node_pool": rest[reps * N:2 * reps * N],
+        "node_zone": rest[2 * reps * N:3 * reps * N],
+        "node_ct": rest[3 * reps * N:4 * reps * N],
+        "cap_e": rest[4 * reps * N:4 * reps * N + reps * E],
+        "xslot": rest[4 * reps * N + reps * E:] if n_x else None}
+    return out, (scratch_f, scratch_i)
+
+
+def _scan_args(entry: str, B: int, G: int, E: int, N: int, P: int,
+               D: int, X: int, cat, flat: torch.Tensor,
+               lay: Dict, limits_out: torch.Tensor, sparse_k: int,
+               inputs: Dict[str, Optional[torch.Tensor]],
+               A: int = 0, mesh: Optional[Dict] = None):
+    """The argument array of one scan launch (`_launch_scan`): the
+    SCAN_FIELDS device addresses, the dims and the scratch the launch
+    holds until it runs.  K4 on its shared-memory route
+    (`sweep_carry_fits`) allocates no scratch: its carry pointers are 0."""
+    dev = flat.device
+    if mesh is None:
+        O, PT, W, reps = cat.O, cat.PT, cat.W, B
+    else:
+        O, PT, W = cat.O_s, cat.PT_s, cat.W_s
+        reps = mesh.get("reps", mesh["S"])
+    total = lay["total"][1]
+    if P > MAX_POOLS:
+        raise ValueError(f"{P} node pools: the kernels take at most "
+                         f"{MAX_POOLS}")
+    if D > MAX_DOMAINS:
+        raise ValueError(f"{D} topology domains: the kernels take at most "
+                         f"{MAX_DOMAINS}")
+    vals: Dict[str, object] = dict(inputs)
+    for f in ("col_alloc", "col_daemon", "pt_alloc", "col_pool",
+              "pool_daemon", "pool_bits", "col_zone", "col_ct"):
+        vals[f] = getattr(cat, f)
+    vals["limits"] = limits_out
+    row0 = flat.view(-1)   # problem 0's (block 0's) flat row
+    vals.update(_region_ptrs(row0.data_ptr(), lay))
+    keep: Tuple = ()
+    if not (entry in SWEEP_ENTRIES and sweep_carry_fits(
+            G, E, N, PT, cat.zc, P, D, W, sparse_k,
+            heavy=entry == "ffd_sweep_topo_scan")):
+        # per-block scratch (the scan's carry), one slice per problem (per
+        # shard on the mesh, with its slot-maxima and counts scratch)
+        n_x = 0 if mesh is None else reps * (N * cat.zc + 4 * G)
+        scratch, keep = _carry_scratch(reps, G, E, N, W, P, sparse_k,
+                                       0 if mesh is None else total, n_x,
+                                       dev)
+        vals.update(scratch)
+    if mesh is not None:
+        vals["mask_rows"] = mesh["mask_rows"]
+        vals["row0"] = row0
+    ptrs = [v if isinstance(v, int) else _ptr(v)
+            for v in (vals.get(f) for f in SCAN_FIELDS)]
+    dims = [G, E, N, O, PT, cat.zc, P, D, W, B, X, sparse_k, total, A,
+            0 if mesh is None else mesh["C"],
+            0 if mesh is None else mesh["S"]]
+    return ptrs, dims, keep
+
+
 def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
                  D: int, X: int, cat, flat: torch.Tensor,
                  lay: Dict, limits_out: torch.Tensor, sparse_k: int,
@@ -1912,9 +2079,9 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
                  A: int = 0, mesh: Optional[Dict] = None,
                  xcard: Optional[Tuple] = None, defer: bool = False):
     """Launch one of the scan kernels (grid: one block per problem) with
-    the argument list every instance takes (ScanArgs order; the explain
-    regions of `lay` among the outputs); `inputs` holds the per-problem
-    or per-simulation tensors (and the seeded
+    the argument list every instance takes (ScanArgs order, `_scan_args`;
+    the explain regions of `lay` among the outputs); `inputs` holds the
+    per-problem or per-simulation tensors (and the seeded
     instance's seed, `A` its colmask rows), None where the instance reads
     nothing.  With `mesh` (K7: {"S", "C", "mask_rows"}) `cat` is a
     ShardedCatalog, the grid is one cluster of S blocks each holding a
@@ -1929,79 +2096,16 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
     (its scratch held until then)."""
     from karpenter_tpu_torch.solver import _cuda
     dev = flat.device
-    if mesh is None:
-        O, PT, W, reps = cat.O, cat.PT, cat.W, B
-    else:
-        O, PT, W = cat.O_s, cat.PT_s, cat.W_s
-        reps = mesh.get("reps", mesh["S"])
-    total = lay["total"][1]
-    if P > MAX_POOLS:
-        raise ValueError(f"{P} node pools: the kernels take at most "
-                         f"{MAX_POOLS}")
-    if D > MAX_DOMAINS:
-        raise ValueError(f"{D} topology domains: the kernels take at most "
-                         f"{MAX_DOMAINS}")
-    # per-block scratch (the scan's carry), one slice per problem (per
-    # shard on the mesh, with its slot-maxima and counts scratch)
-    n_rows = 0 if mesh is None else (reps - 1) * (total + P * R)
-    scratch_f = torch.empty(reps * (E * R + N * R + G * E * (sparse_k > 0))
-                            + n_rows, dtype=torch.float32, device=dev)
-    n_x = 0 if mesh is None else reps * (N * cat.zc + 4 * G)
-    scratch_i = torch.empty(reps * (W * N + 4 * N + E) + n_x,
-                            dtype=torch.int32, device=dev)
-    exist_rem = scratch_f[:reps * E * R]
-    used = scratch_f[reps * E * R:reps * (E * R + N * R)]
-    te_dense = scratch_f[reps * (E * R + N * R):] if sparse_k else None
-    xrow = scratch_f[scratch_f.numel() - n_rows:] if n_rows else None
-    colmask = scratch_i[:reps * W * N]
-    rest = scratch_i[reps * W * N:]
-    active, node_pool = rest[:reps * N], rest[reps * N:2 * reps * N]
-    node_zone = rest[2 * reps * N:3 * reps * N]
-    node_ct = rest[3 * reps * N:4 * reps * N]
-    cap_e = rest[4 * reps * N:4 * reps * N + reps * E]
-    xslot = rest[4 * reps * N + reps * E:] if mesh is not None else None
-
-    row0 = flat.view(-1)   # problem 0's (block 0's) flat row
-
-    def reg(name):
-        return row0[lay[name][0]:] if name in lay else None
-
-    i = inputs
-    ptrs = [
-        i["group_req"], i["group_count"], i["mask_bits"], i["exist_cap"],
-        i["exist_remaining"], i["pool_limit"], i.get("group_ncap"),
-        i.get("group_whole"),
-        cat.col_alloc, cat.col_daemon, cat.pt_alloc, cat.col_pool,
-        cat.pool_daemon, cat.pool_bits,
-        exist_rem, used, colmask, active, node_pool, cap_e, limits_out,
-        reg("take_exist"), reg("take_new"), reg("unsched"),
-        reg("dom_placed"),
-        reg("used"), reg("node_pool"), reg("node_zone"), reg("node_ct"),
-        reg("num_active"),
-        i.get("group_dsel"), i.get("group_dbase"), i.get("group_dcap"),
-        i.get("group_skew"), i.get("group_mindom"), i.get("group_delig"),
-        i["exist_zone"], i["exist_ct"], cat.col_zone, cat.col_ct,
-        node_zone, node_ct,
-        i.get("group_class"), i.get("exclude_idx"), i.get("price_cap"),
-        i.get("col_price"), te_dense, reg("te_cnt"),
-        i.get("group_gang"), i.get("group_prio"), reg("prio_inv"),
-        i.get("seed_used"), i.get("seed_pool"), i.get("seed_active"),
-        i.get("seed_colmask"),
-        None if mesh is None else mesh["mask_rows"], xslot,
-        reg("explain_counts"), reg("explain_bits"), reg("explain_map"),
-        None if mesh is None else row0, xrow,
-    ]
-    dims = [G, E, N, O, PT, cat.zc, P, D, W, B, X, sparse_k, total, A,
-            0 if mesh is None else mesh["C"],
-            0 if mesh is None else mesh["S"]]
-    ptrs = [_ptr(t) for t in ptrs]
+    ptrs, dims, scratch = _scan_args(entry, B, G, E, N, P, D, X, cat, flat,
+                                     lay, limits_out, sparse_k, inputs, A,
+                                     mesh)
     if xcard is not None:
         xch, rank, seq, rehearse = xcard
         ptrs += xch.addresses()
         dims += [rank, seq, rehearse, dev.index]
     stream = torch.cuda.current_stream(dev).cuda_stream
     if defer:
-        keep = (scratch_f, scratch_i, flat, limits_out, inputs)
+        keep = (scratch, flat, limits_out, inputs)
         return lambda: _cuda.launch(entry, ptrs, dims, stream) or keep
     _cuda.launch(entry, ptrs, dims, stream)
 
@@ -2071,6 +2175,148 @@ def _sweep_inputs(sw: SweepBatch) -> Dict[str, Optional[torch.Tensor]]:
     return out
 
 
+class SweepLaunch:
+    """K4's launch path for one sweep: `_scan_args`' argument array built
+    once for the sweep's snapshot `shared`, catalog `cat`, node slots `N`
+    and `sparse_k` (the class tables, the existing rows, the prices, the
+    catalog: the same in every chunk, checked once), and per chunk only
+    its own rows, its outputs, B and, on the device-memory route, its
+    carry scratch patched in before the call.  A lane (light or heavy, at
+    one G, X, D, P and flat row) builds its array at its first chunk.
+    The kernels, their checks (`scan_check`) and the launch counters are
+    the wrappers' own (`sweep_scan`, `sweep_topo_scan`), which launch
+    through the snapshot's plan (`of`)."""
+
+    def __init__(self, shared: SweepShared, cat: FFDCatalog, N: int,
+                 sparse_k: int = 0):
+        # the snapshot holds its plan (`of`), the plan its snapshot weakly
+        self._shared = weakref.ref(shared)
+        self.cat, self.N, self.sparse_k = cat, N, sparse_k
+        self._lanes: Dict[Tuple, Dict] = {}
+        self._lock = threading.Lock()
+
+    @property
+    def shared(self) -> Optional[SweepShared]:
+        return self._shared()
+
+    @classmethod
+    def of(cls, shared: SweepShared, cat: FFDCatalog, N: int,
+           sparse_k: int = 0) -> "SweepLaunch":
+        """The plan `shared` holds for (cat, N, sparse_k), else a new one
+        that it holds from then on: a sweep builds it before its first
+        chunk, and every chunk's wrapper call finds it."""
+        plan = getattr(shared, "_k4_launch", None)
+        if (plan is None or plan.shared is not shared or plan.cat is not cat
+                or plan.N != N or plan.sparse_k != sparse_k):
+            plan = cls(shared, cat, N, sparse_k)
+            shared._k4_launch = plan
+        return plan
+
+    def _lane(self, sw: SweepBatch, flat: torch.Tensor, lay: Dict,
+              limits_out: torch.Tensor) -> Dict:
+        heavy = sw.heavy
+        D = sw.D if heavy else 1
+        smem = sweep_carry_fits(sw.G, sw.E, self.N, self.cat.PT,
+                                self.cat.zc, sw.P, D, self.cat.W,
+                                self.sparse_k, heavy)
+        key = (heavy, sw.G, sw.X, D, sw.P, lay["total"][1], flat.device,
+               smem)
+        lane = self._lanes.get(key)
+        if lane is not None:
+            return lane
+        _check_sweep_shared(self.shared, self.cat, sw.P, flat.device)
+        entry = SWEEP_ENTRIES[heavy]
+        ptrs, dims, _ = _scan_args(entry, sw.B, sw.G, sw.E, self.N, sw.P, D,
+                                   sw.X, self.cat, flat, lay, limits_out,
+                                   self.sparse_k, _sweep_inputs(sw))
+        index = {f: i for i, f in enumerate(SCAN_FIELDS)}
+        rows = SWEEP_ROWS + (SWEEP_TOPO_ROWS if heavy else ())
+        lane = {
+            "entry": entry, "smem": smem, "D": D,
+            "ptrs": (ctypes.c_uint64 * len(ptrs))(*ptrs),
+            "dims": (ctypes.c_int * len(dims))(*dims),
+            "rows": tuple((index[n], n) for n in rows),
+            "regions": tuple((index[f], 4 * lay[name][0])
+                             for f, name in SCAN_REGIONS if name in lay),
+            "limits": index["limits"],
+            "carry": tuple((index[f], f) for f in CARRY_FIELDS)}
+        self._lanes[key] = lane
+        return lane
+
+    def _patch(self, lane: Dict, sw: SweepBatch, flat: torch.Tensor,
+               lay: Dict, limits_out: torch.Tensor) -> Tuple:
+        """The chunk's rows, outputs and B into the lane's array; returns
+        the scratch the launch holds (device-memory route)."""
+        p = lane["ptrs"]
+        for i, name in lane["rows"]:
+            p[i] = getattr(sw, name).data_ptr()
+        base = flat.data_ptr()
+        for i, off in lane["regions"]:
+            p[i] = base + off
+        p[lane["limits"]] = limits_out.data_ptr()
+        lane["dims"][9] = sw.B
+        if lane["smem"]:
+            return ()
+        scratch, keep = _carry_scratch(sw.B, sw.G, sw.E, self.N,
+                                       self.cat.W, sw.P, self.sparse_k, 0,
+                                       0, flat.device)
+        for i, f in lane["carry"]:
+            p[i] = _ptr(scratch[f])
+        return keep
+
+    def args(self, sw: SweepBatch, flat: torch.Tensor, lay: Dict,
+             limits_out: torch.Tensor) -> Tuple[List[int], List[int], Tuple]:
+        """The chunk's argument array as the launch passes it: (ptrs,
+        dims, the scratch it holds)."""
+        with self._lock:
+            lane = self._lane(sw, flat, lay, limits_out)
+            keep = self._patch(lane, sw, flat, lay, limits_out)
+            return list(lane["ptrs"]), list(lane["dims"]), keep
+
+    def launch(self, sw: SweepBatch, flat: torch.Tensor, lay: Dict,
+               limits_out: torch.Tensor) -> None:
+        """Launch the chunk's lane on the current stream (CUDA tensors)."""
+        from karpenter_tpu_torch.solver import _cuda
+        dev = flat.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with self._lock:
+            lane = self._lane(sw, flat, lay, limits_out)
+            fn = _cuda.kernel(lane["entry"])
+            keep = self._patch(lane, sw, flat, lay, limits_out)
+            rc = fn(lane["ptrs"], len(SCAN_FIELDS), lane["dims"], 16,
+                    ctypes.c_void_p(stream))
+        del keep  # the scratch's blocks return to the stream's pool
+        if rc != 0:
+            raise RuntimeError(
+                f"CUDA kernel {lane['entry']} failed: "
+                + (f"argument check {rc}" if rc < 0 else f"cudaError {rc}"))
+
+
+def _sweep_call(wrapper, heavy: bool, sw: SweepBatch, cat: FFDCatalog,
+                N: int, flat: torch.Tensor, lay: Dict,
+                limits_out: torch.Tensor, sparse_k: int) -> None:
+    dev = flat.device
+    if sw.heavy != heavy:
+        raise ValueError("topology rows need the heavy lane "
+                         "(sweep_topo_scan)" if sw.heavy else
+                         "the heavy lane needs per-simulation topology "
+                         "rows")
+    _check_sweep_rows(sw, N, dev)
+    _check_outputs(sw.B, sw.P, flat, lay, limits_out, sparse_k)
+    entry = SWEEP_ENTRIES[heavy]
+    _first_launch(entry, sw.B, sw.G, sw.E, N, sw.P,
+                  *((sw.D,) if heavy else ()), sw.X, cat.O, sparse_k)
+    if dev.type != "cuda":
+        _check_sweep_shared(sw.shared, cat, sw.P, dev)
+        plain = (sweep_topo_scan_reference if heavy
+                 else sweep_scan_reference)
+        plain(sw, cat, N, flat, lay, limits_out, sparse_k)
+        return
+    SweepLaunch.of(sw.shared, cat, N, sparse_k).launch(sw, flat, lay,
+                                                        limits_out)
+    wrapper.launches += 1
+
+
 def sweep_scan(sw: SweepBatch, cat: FFDCatalog, N: int, flat: torch.Tensor,
                lay: Dict, limits_out: torch.Tensor,
                sparse_k: int = 0) -> None:
@@ -2078,21 +2324,11 @@ def sweep_scan(sw: SweepBatch, cat: FFDCatalog, N: int, flat: torch.Tensor,
     shared snapshot — its kept existing rows, its classes' column masks
     under its price cap — every group light; writes what `batch_scan`
     writes (dom_placed one zero column, node pins -1).  CUDA tensors
-    launch the kernel; CPU tensors run `sweep_scan_reference`."""
-    dev = flat.device
-    _check_sweep(sw, cat, N, dev)
-    _check_outputs(sw.B, sw.P, flat, lay, limits_out, sparse_k)
-    if sw.heavy:
-        raise ValueError("topology rows need the heavy lane "
-                         "(sweep_topo_scan)")
-    _first_launch("ffd_sweep_scan", sw.B, sw.G, sw.E, N, sw.P, sw.X, cat.O,
-                  sparse_k)
-    if dev.type != "cuda":
-        sweep_scan_reference(sw, cat, N, flat, lay, limits_out, sparse_k)
-        return
-    _launch_scan("ffd_sweep_scan", sw.B, sw.G, sw.E, N, sw.P, 1, sw.X,
-                 cat, flat, lay, limits_out, sparse_k, _sweep_inputs(sw))
-    sweep_scan.launches += 1
+    launch the kernel through the snapshot's SweepLaunch, which checks
+    the snapshot and the catalog once and each chunk's rows; CPU tensors
+    run `sweep_scan_reference`."""
+    _sweep_call(sweep_scan, False, sw, cat, N, flat, lay, limits_out,
+                sparse_k)
 
 
 sweep_scan.launches = 0
@@ -2104,22 +2340,8 @@ def sweep_topo_scan(sw: SweepBatch, cat: FFDCatalog, N: int,
     """K4, heavy lane: as `sweep_scan`, with each simulation's topology
     rows and the heavy step for its groups with dsel > 0.  CUDA tensors
     launch the kernel; CPU tensors run `sweep_topo_scan_reference`."""
-    dev = flat.device
-    _check_sweep(sw, cat, N, dev)
-    _check_outputs(sw.B, sw.P, flat, lay, limits_out, sparse_k)
-    if not sw.heavy:
-        raise ValueError("the heavy lane needs per-simulation topology "
-                         "rows")
-    _first_launch("ffd_sweep_topo_scan", sw.B, sw.G, sw.E, N, sw.P, sw.D,
-                  sw.X, cat.O, sparse_k)
-    if dev.type != "cuda":
-        sweep_topo_scan_reference(sw, cat, N, flat, lay, limits_out,
-                                  sparse_k)
-        return
-    _launch_scan("ffd_sweep_topo_scan", sw.B, sw.G, sw.E, N, sw.P, sw.D,
-                 sw.X, cat, flat, lay, limits_out, sparse_k,
-                 _sweep_inputs(sw))
-    sweep_topo_scan.launches += 1
+    _sweep_call(sweep_topo_scan, True, sw, cat, N, flat, lay, limits_out,
+                sparse_k)
 
 
 sweep_topo_scan.launches = 0

@@ -14,6 +14,24 @@ read that bypasses this function (hack/analyze/rules/env_knobs.py).
 
 The port's copy keeps the knobs its modules read; the names and the
 grammar are the reference's, so one environment drives both packages.
+
+Three of the reference's solver knobs have no reader here, and setting
+them changes nothing in the port, answers included:
+
+- ``KARPENTER_TPU_MASK_BITS`` and ``KARPENTER_TPU_COALESCE`` roll back the
+  reference's device-link transforms (the bit-packed group mask and the
+  one-buffer upload).  The port always ships the mask as column bits,
+  which its kernels read as bits, and always uploads a problem in one
+  pinned host-to-device copy, so there is no dense or per-array form to
+  roll back to; either form gives the reference the same answer.
+- ``KARPENTER_TPU_NEW_TOPK`` forces the reference's dense take_new rows
+  in place of its top-K compaction.  The port's scans always write the
+  dense rows; the compaction only shrank the pull over the reference's
+  device tunnel, and its estimate survives only as the flight record's
+  ``topk_segments``.
+
+The fourth, ``KARPENTER_TPU_PROFILE_PORT``, is the reference's profiler
+server port; `utils/profiling.py` says why the port has no server.
 """
 
 from __future__ import annotations

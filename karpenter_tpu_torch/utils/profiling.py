@@ -21,6 +21,11 @@ card, the kernels' device time), gated by the reference's knobs:
 
 Disabled (the default), `trace_solve` is a no-op context manager with one
 environment read of overhead.
+
+The reference's ``KARPENTER_TPU_PROFILE_PORT`` (the port of its JAX
+profiler server, 9999 by default) has no reader here: with no server
+there is no port to choose, and setting it changes no answer and no
+trace.  (`utils/knobs.py` lists the reference's other unread knobs.)
 """
 
 from __future__ import annotations

@@ -11,29 +11,45 @@ The script copies the scan kernels' sources (this checkout's
 at block barriers between the light step's sections — the existing nodes,
 the in-flight capacity walk, the pool-limit scans, the take scan, the
 touched-node narrowing, the pool-budget update, the new-node column pass,
-the per-pool cascade, the slot activation — and around each step's
-prologue, each heavy or gang step, the kernel's prologue and epilogue and
-the explain rows' pass of the epilogue (`explain_pack`),
+the per-pool cascade, the slot activation — at the heavy step's (its
+prologue, the capacity estimates, the in-flight slot maxima, the column
+pass, the water-fill, the existing, in-flight and new nodes per domain)
+and around each step's prologue, each gang step, the kernel's prologue
+and epilogue and the explain rows' pass of the epilogue (`explain_pack`),
 builds K5, K6 and K4 from the copy with the port's nvcc flags, and
 launches them at the main paths' shapes, with the explain rows the main
 path asks for (explain=counts): K6 at config #12's second chunk, K5 at
 config #12's one program (the spec-off arm's launch), at config #3
 (N=1024 and 64) and at the headline, K4's light lane at config #4's first
-chunk.  Thread 0 of block 0 reads the SM clock after each section's
+chunk and its heavy lane at config #4b's (`--only K4` splits only
+those).  Thread 0 of block 0 reads the SM clock after each section's
 barrier and adds the difference to a counter in device memory, which the
 script reads back and prints as cycles a launch and a step and as shares.
 The counters add a barrier per section, so the instrumented kernel runs a
 little slower than the real one: both times are printed.  The checkout's
 kernels are never changed.
 
+With `--k4-launch` it times K4's two launch paths in turns at config
+#4's first light chunk and config #4b's first heavy chunk, each on both
+carry routes (the chunk's own N, and N = 1024, whose carry does not
+fit): the wrapper (`ffd.sweep_scan` / `sweep_topo_scan`,
+through the sweep's `SweepLaunch`, its array patched a chunk) and
+`ffd._launch_scan` after the checks the wrapper would make each chunk
+(its argument array built anew a launch, no scratch on the shared-memory
+route), in the order general, wrapper, wrapper, general: the CUDA
+events' ms a launch over 200 launches back to back and the host's ms a
+call, holding both paths' rows equal as uint32.
+
 With `--against DIR` (another tree's `csrc`, e.g. the parent commit's) it
 also builds that tree's kernels and this checkout's, uninstrumented, and
 times both at the shapes above and at config #9, config #2, config #7's
-suffix and delta-off chain chunk, K7 at 8 shards and K4's two lanes, in
-turns (DIR, this, this, DIR; the profiler's device time, the lower of
-each tree's two), holding this checkout's outputs to DIR's as uint32.
-DIR's kernels must take this checkout's argument list (ScanArgs, the
-wrappers of this checkout's `solver/ffd.py` launch both).
+suffix and delta-off chain chunk, K7 at 8 shards, K7x rehearsed on this
+card (one cooperative grid of 4 blocks) at config #2 and #9, and K4's
+two lanes, in turns (DIR, this, this, DIR; the profiler's device time,
+the lower of each tree's two), holding this checkout's outputs to DIR's
+as uint32.  DIR's kernels must take this checkout's argument list
+(ScanArgs, the wrappers of this checkout's `solver/ffd.py` launch both;
+K4's launches then carry device scratch for the carry on both trees).
 
 Exits non-zero without a CUDA device, and on any build failure or
 differing output.
@@ -56,9 +72,23 @@ OUT = os.path.join(ROOT, "karpenter_tpu_torch", "_build", "sections")
 SECTIONS = ("existing nodes", "capacity walk", "pool-limit scans",
             "take scan", "touched narrowing", "pool-budget update",
             "new-node column pass", "cascade", "slot activation",
-            "step prologue", "heavy or gang step", "kernel prologue",
-            "kernel epilogue", "final state", "explain epilogue")
-STEPS = 20  # counter: steps the counters span
+            "step prologue", "heavy outputs or gang step", "kernel prologue",
+            "kernel epilogue", "final state", "explain epilogue",
+            "heavy prologue", "heavy capacity estimates",
+            "heavy slot maxima", "heavy column pass", "heavy water-fill",
+            "heavy existing per domain", "heavy in-flight per domain",
+            "heavy new nodes")
+# the heavy step's sections: (index, the anchor that ends the section)
+HEAVY = ((15, "  // -- capacity estimates per domain"),
+         (16, "  // each in-flight node serves ONE domain"),
+         (17, "  // per-column pods-per-node of an empty node, the feasible "
+              "columns, and\n  // the best column per (pool, domain)"),
+         (18, "  water_fill(H, D,"),
+         (19, "  // -- 1. existing nodes, per domain"),
+         (20, "  // -- 2. in-flight nodes, per domain"),
+         (21, "  // -- 3. open new nodes, per pool x domain"),
+         (22, "  // -- outputs"))
+STEPS = 31  # counter: steps the counters span
 
 COUNTERS = r'''
 __device__ unsigned long long g_sections[32];
@@ -100,6 +130,9 @@ def instrument(src: str) -> str:
             (7, "  // emit the take_new row" if "// emit the take_new row"
                 in src else "  // activate the opened slots")):
         src = _insert(src, light, anchor, f"  SECTION({k});\n")
+    heavy = "__device__ void heavy_step("
+    for k, anchor in HEAVY:
+        src = _insert(src, heavy, anchor, f"  SECTION({k});\n")
     end = "  for (int d = tid; d < D; d += NT) a.dom_placed["
     i = src.index(end, src.index(light))
     i = src.index("\n}", i)
@@ -226,6 +259,13 @@ def shapes(cs, ffd, dev):
         return (lambda: ffd.sharded_scan(p, table, sc, N, fl, lay, lim, 0),
                 (fl, lim), cs._tag(True, False, False, False, True), p.G)
 
+    def rehearsal(prob, cat, S, N):
+        # K7x rehearsed on this card: one cooperative grid of S blocks
+        c = cs._Cards(ffd, S, prob, cat, N, 1, None, (dev,) * S)
+        fl, lim = c.bufs()
+        return (lambda: c.launch(fl, lim), (fl, lim),
+                cs._tag(True, False, bool(c.wg), False, 2), c.ref[0].G)
+
     def sweep(chunk):
         sw, c, N, K = chunk
         lay = ffd.flat_layout(sw.G, sw.E, N, sw.D, 0, K)
@@ -241,7 +281,8 @@ def shapes(cs, ffd, dev):
              ("K5 config #3 N=1024", encoded(*c3, solver.max_nodes)),
              ("K5 config #3 N=64", encoded(*c3, cs.CONFIG3_WARM_N)),
              ("K5 headline N=1024", encoded(*head, solver.max_nodes)),
-             ("K4 config #4 light chunk", sweep(c4))]
+             ("K4 config #4 light chunk", sweep(c4)),
+             ("K4 config #4b heavy chunk", sweep(c4b))]
     more = [("K5 gang config #9 N=2048", encoded(*c9, big, 1)),
             ("K5 config #2 N=256", encoded(*c2, cs.CONFIG2_MAX_NODES)),
             ("K6 config #7 suffix", delta(cap7.calls[0])),
@@ -249,8 +290,87 @@ def shapes(cs, ffd, dev):
             ("K7 headline S=8", sharded(*head, cs.MESH, solver.max_nodes)),
             ("K7 config #2 S=8", sharded(*c2, cs.MESH,
                                          cs.CONFIG2_MAX_NODES)),
-            ("K4 config #4b heavy chunk", sweep(c4b))]
+            ("K7x rehearsal config #2 S=4", rehearsal(
+                *c2, 4, cs.CONFIG2_MAX_NODES)),
+            ("K7x rehearsal gang config #9 S=4", rehearsal(*c9, 4, big))]
     return split, more
+
+
+def k4_launch_paths(cs, ffd, reps: int = 200) -> int:
+    """K4's launch through its wrapper (SweepLaunch) against
+    `_launch_scan` with the wrapper's checks, in turns (module doc)."""
+    import numpy as np
+    import torch
+    from karpenter_tpu_torch.solver import TorchSolver
+    from karpenter_tpu_torch.workloads import build_config4, build_config4b
+    dev = torch.device("cuda", 0)
+    c4 = cs._first_chunks(ffd, TorchSolver(), build_config4())[False]
+    c4b = cs._first_chunks(ffd, TorchSolver(), build_config4b())[True]
+    cases = []
+    for label, (sw, c, N, K) in (("config #4 light chunk", c4),
+                                 ("config #4b heavy chunk", c4b)):
+        for n in (N, 1024):
+            lay = ffd.flat_layout(sw.G, sw.E, n, sw.D, 0, K)
+            bufs = (torch.empty((sw.B, lay["total"][1]), device=dev),
+                    torch.empty((sw.B, sw.P, ffd.R), device=dev))
+            entry = ffd.SWEEP_ENTRIES[sw.heavy]
+            scan = ffd.sweep_topo_scan if sw.heavy else ffd.sweep_scan
+            D = sw.D if sw.heavy else 1
+
+            def general(sw=sw, c=c, n=n, K=K, lay=lay, b=bufs, entry=entry,
+                        D=D):
+                ffd._check_sweep_rows(sw, n, dev)
+                ffd._check_sweep_shared(sw.shared, c, sw.P, dev)
+                ffd._check_outputs(sw.B, sw.P, b[0], lay, b[1], K)
+                ffd._first_launch(entry, sw.B, sw.G, sw.E, n, sw.P, D,
+                                  sw.X, c.O, K)
+                ffd._launch_scan(entry, sw.B, sw.G, sw.E, n, sw.P, D, sw.X,
+                                 c, b[0], lay, b[1], K,
+                                 ffd._sweep_inputs(sw))
+
+            route = cs._route(ffd, sw, c, n, K)
+            cases.append((f"{label} N={n} ({route} carry)", bufs, {
+                "_launch_scan": general,
+                "SweepLaunch": lambda sw=sw, c=c, n=n, K=K, lay=lay,
+                b=bufs, scan=scan: scan(sw, c, n, b[0], lay, b[1], K)}))
+    times, ref, bad = {}, {}, []
+    for path in ("_launch_scan", "SweepLaunch", "SweepLaunch",
+                 "_launch_scan"):
+        for label, bufs, fns in cases:
+            fn = fns[path]
+            for b in bufs:
+                b.fill_(float("nan"))
+            fn()
+            torch.cuda.synchronize()
+            got = [b.cpu().numpy().view(np.uint32).copy() for b in bufs]
+            if label not in ref:
+                ref[label] = got
+            elif not all(np.array_equal(x, y)
+                         for x, y in zip(got, ref[label])):
+                bad.append((label, path))
+            ev = cs._time_ms(fn, reps)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda.synchronize()
+            times.setdefault((label, path), []).append((ev, host))
+    print(f"[k4-launch] K4's launch paths, events ms a launch and host ms "
+          f"a call over {reps} launches (each turn; general, wrapper, "
+          f"wrapper, general), on {cs._card_line()}")
+    for label, bufs, fns in cases:
+        print(f"[k4-launch] {label:44s} " + "; ".join(
+            f"{path}: events " + ", ".join(
+                f"{e:.4f}" for e, _ in times[(label, path)])
+            + " host " + ", ".join(f"{h:.4f}" for _, h in
+                                   times[(label, path)])
+            for path in ("_launch_scan", "SweepLaunch")), flush=True)
+    if bad:
+        print(f"scan_sections: the launch paths differ in their rows: {bad}",
+              file=sys.stderr)
+        return 1
+    print("[k4-launch] both paths' rows equal as uint32")
+    return 0
 
 
 def main(argv) -> int:
@@ -261,6 +381,11 @@ def main(argv) -> int:
     ap.add_argument("--against", default=None,
                     help="another tree's csrc to time this checkout's "
                          "kernels against, in turns")
+    ap.add_argument("--only", default=None,
+                    help="split only the launches whose label starts with "
+                         "one of these, e.g. K4 or K5,K6")
+    ap.add_argument("--k4-launch", action="store_true",
+                    help="time K4's wrapper against _launch_scan in turns")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -272,8 +397,11 @@ def main(argv) -> int:
     import chip_smoke as cs
     from karpenter_tpu_torch.solver import ffd
 
+    if args.k4_launch:
+        return k4_launch_paths(cs, ffd)
     split_src = ("ffd_batch_scan", "ffd_delta_scan", "ffd_sweep_scan")
-    all_src = split_src + ("ffd_sharded_scan",)
+    # K7x's source is built for its ptxas report beside the others'
+    all_src = split_src + ("ffd_sharded_scan", "ffd_card_scan")
     t0 = time.perf_counter()
     procs = build(args.csrc, os.path.join(OUT, "split"), split_src, True)
     procs += build(args.csrc, os.path.join(OUT, "plain"), split_src, False)
@@ -304,6 +432,9 @@ def main(argv) -> int:
     counted = load(os.path.join(OUT, "split"), split_src)
     for lib in counted.values():
         lib.kt_sections_read.argtypes = [ctypes.POINTER(ctypes.c_uint64)]
+    if args.only:
+        split = [x for x in split
+                 if x[0].split()[0] in args.only.split(",")]
     for label, (fn, bufs, tag, G) in split:
         src = {"K4": "ffd_sweep_scan", "K5": "ffd_batch_scan",
                "K6": "ffd_delta_scan"}[label[:2]]
@@ -329,7 +460,11 @@ def main(argv) -> int:
     if not args.against:
         return 0
 
-    # this checkout against the other tree, in turns
+    # this checkout against the other tree, in turns.  K4's launches
+    # carry device scratch for its carry on every route: a tree whose K4
+    # keeps its carry in device memory reads it there, and this
+    # checkout's K4 ignores it where its carry fits in shared memory
+    ffd.sweep_carry_fits = lambda *a, **k: False
     real = load(os.path.join(OUT, "this"), all_src)
     against = load(os.path.join(OUT, "against"), all_src)
     times, ref, bad = {}, {}, []

@@ -183,6 +183,114 @@ def test_every_reference_module_has_its_counterpart():
     assert missing == []
 
 
+def _public_names(path: str) -> set:
+    """The public module-level names of the module at `path`, read from
+    its source: what its top level (and the top level's if/try blocks)
+    defines, and in a package's __init__.py what it imports."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    init = os.path.basename(path) == "__init__.py"
+    out = set()
+
+    def walk(body):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)):
+                out.add(node.name)
+            elif isinstance(node, ast.Assign):
+                out.update(n.id for t in node.targets for n in ast.walk(t)
+                           if isinstance(n, ast.Name))
+            elif (isinstance(node, ast.AnnAssign)
+                  and isinstance(node.target, ast.Name)):
+                out.add(node.target.id)
+            elif init and isinstance(node, (ast.Import, ast.ImportFrom)):
+                out.update((a.asname or a.name).split(".")[0]
+                           for a in node.names if a.name != "*")
+            elif isinstance(node, (ast.If, ast.Try)):
+                walk(node.body)
+                for h in getattr(node, "handlers", ()):
+                    walk(h.body)
+                walk(node.orelse)
+
+    walk(tree.body)
+    return {n for n in out if not n.startswith("_")}
+
+
+# The reference's public names that the port leaves out on purpose, by
+# module (a path under both packages), each with its reason.
+JAX_ONLY_NAMES = {
+    # the jitted XLA programs, their donated-buffer and coalesced-upload
+    # wrappers and their retrace counters: the port's kernels replace the
+    # programs (the `solve_ffd_*` wrappers the port keeps launch them),
+    # and nothing there is traced
+    "solver/ffd.py": {"TRACE_COUNT", "TRACE_LOG", "pack_problem",
+                      "solve_ffd_batch_donated", "solve_ffd_coalesced",
+                      "solve_ffd_coalesced_donated",
+                      "solve_ffd_sweep_donated", "solve_ffd_sweep_topo",
+                      "solve_ffd_sweep_topo_donated"},
+    # the JAX solver class: the port's is TorchSolver
+    "solver/solve.py": {"TPUSolver"},
+    # the reference's device-resident result slots: the port's pipeline
+    # keeps pinned host slots instead
+    "solver/pipeline.py": {"DeviceSlots"},
+    # the shard_map program: the port launches K7 (ffd.sharded_solve_ffd)
+    "parallel/mesh.py": {"sharded_solve_ffd"},
+    "parallel/__init__.py": {"sharded_solve_ffd"},
+    # the TPU holder's process-group teardown and its attempt log: the
+    # card needs no holder to terminate (dropped in the operator slice)
+    "utils/platform.py": {"terminate_holder", "terminate_group",
+                          "log_attempt"},
+}
+
+
+def _module_pairs():
+    ref = os.path.join(ROOT, "karpenter_tpu")
+    for d, _, files in os.walk(ref):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), ref)
+                if os.path.exists(os.path.join(PKG, rel)):
+                    yield rel, os.path.join(d, f), os.path.join(PKG, rel)
+
+
+def test_every_reference_public_name_has_its_counterpart():
+    """Each module of the port defines every public module-level name of
+    the reference's module of the same path, but for JAX_ONLY_NAMES."""
+    missing = {}
+    for rel, ref_path, port_path in _module_pairs():
+        gone = (_public_names(ref_path) - _public_names(port_path)
+                - JAX_ONLY_NAMES.get(rel, set()))
+        if gone:
+            missing[rel] = sorted(gone)
+    assert missing == {}
+
+
+def test_the_jax_only_names_are_absent_from_the_port():
+    """Every allowed name is the reference's and is not the port's: the
+    allow-list holds nothing stale."""
+    pairs = {rel: (r, p) for rel, r, p in _module_pairs()}
+    for rel, allowed in JAX_ONLY_NAMES.items():
+        ref_path, port_path = pairs[rel]
+        assert allowed <= _public_names(ref_path), rel
+        assert not allowed & _public_names(port_path), rel
+
+
+def test_the_repaired_names_equal_the_references():
+    """The two names the port once lacked hold the reference's values."""
+    from karpenter_tpu.providers import catalog as ref_catalog
+    from karpenter_tpu.solver import explain as ref_explain
+    from karpenter_tpu_torch.providers import catalog
+    from karpenter_tpu_torch.solver import explain
+    assert explain.POOL_CAUSES == ref_explain.POOL_CAUSES
+    assert isinstance(explain.POOL_CAUSES, frozenset)
+    types = catalog.generate_catalog()
+    by_name = catalog.catalog_by_name(types)
+    ref_by_name = ref_catalog.catalog_by_name(
+        ref_catalog.generate_catalog())
+    assert sorted(by_name) == sorted(ref_by_name)
+    assert all(by_name[it.name] is it for it in types)
+
+
 def test_solver_worker_maps_no_jax(tmp_path):
     """kt_solverd started with the port's backend (`SolverdSupervisor`,
     which always passes `--module karpenter_tpu_torch.service.backend`)
