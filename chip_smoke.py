@@ -140,7 +140,12 @@ Phases (any failure exits non-zero):
      in its memory) at S = 2 and 4 on phase 3's 32 seeded K7 problems
      and the headline's and config #2's encodings, each launched 3
      times, equal to its plain version as uint32 and holding its
-     feature; K7x timed so at config #2, #9 and a seeded problem;
+     feature; K7x timed so at config #2, #9 and a seeded problem
+     (profiler, events and the host's ms a launch); the stress case,
+     CARD_STRESS launches back to back cycling the three instances
+     (`_card_stress`: the inboxes rewound halfway, each launch equal to
+     its plain version, one library call a launch); a launch after the
+     fit check's occupancy query at a smaller shape still equal;
      mesh="auto" on one card must be the single-device path; a rank
      whose peer never comes must fail its launch at the exchange's
      deadline (`--child trap`); and on a host of two or more cards
@@ -256,7 +261,8 @@ run starts the four beside phase
 run on a host of two or more cards (`python3 chip_smoke.py --child
 cards` on a four-card host): every card's name and power limit, the
 peer matrix and `nvidia-smi topo -m`; K7x at S = 2 (cards 0-1) and 4
-against its plain version on phase 21's cases; the headline, config #2
+against its plain version on phase 21's cases; the stress case across
+four cards (host and events ms a launch); the headline, config #2
 (also mesh off), #9, #7 (delta on) and the soft-term input under
 mesh="auto" against their pins, the transfers log (no column-axis byte
 after the first solve, each card holding only its slice) and every K7x
@@ -415,6 +421,7 @@ MESH_WARM = 5             # warm solves per mesh arm
 SHARDS = (2, 4, 6, 8)     # K7 against its plain version at these sizes
 K7_REPEATS = 3            # each K7 comparison launched this many times
 CARD_SIZES = (2, 4)       # K7x's ranks in phase 21 and the card check
+CARD_STRESS = 510         # K7x launches back to back in the stress case
 MESH_CONFIG7_PASSES = 5   # config #7 under the mesh: gen 0 and 4 passes
 
 # The provisioning control loop (phase 18): the headline's 50k pods
@@ -2053,6 +2060,7 @@ class _Cards:
                                    with_priority=wp)
         self.name = _card_name(self.wg, sd)
         self.shape = (S, p0.G, p0.E, N, self.ref[2].O)
+        self.plan = None  # card_scan's CardLaunch, from the first launch
 
     def bufs(self):
         import torch
@@ -2064,9 +2072,13 @@ class _Cards:
 
     def launch(self, flat, lim):
         p, table, sc, sd = self.args
-        fn = (self.ffd.card_scan_rehearsal if self.rehearse
-              else self.ffd.card_scan)
-        fn(p, table, sc, self.N, flat, self.lay, lim, self.wg, sd)
+        if self.rehearse:
+            self.ffd.card_scan_rehearsal(p, table, sc, self.N, flat,
+                                         self.lay, lim, self.wg, sd)
+        else:
+            self.plan = self.ffd.card_scan(p, table, sc, self.N, flat,
+                                           self.lay, lim, self.wg, sd,
+                                           plan=self.plan)
 
     def plain(self, flat, lim):
         p, table, sc, sd = self.ref
@@ -2088,11 +2100,98 @@ class _Cards:
     def times(self, reps):
         """(the profiler's mean time of a rank's kernel, events ms a launch
         on the first card, whose stream each launch ties every rank back
-        into)."""
+        into, and the host's ms a launch: the wrapper's call, every rank
+        enqueued)."""
         flat, lim = self.bufs()
         seed = self.args[3] is not None
-        return _device_ms(lambda: self.launch(flat, lim), reps,
-                          _tag(not seed, False, bool(self.wg), seed, 2))
+        ms, ev = _device_ms(lambda: self.launch(flat, lim), reps,
+                            _tag(not seed, False, bool(self.wg), seed, 2))
+        return ms, ev, _host_ms(lambda: self.launch(flat, lim), reps,
+                                self.devices)
+
+
+def _host_ms(fn, reps, devices):
+    """The host's mean ms a call of fn() over `reps` calls made back to
+    back (every device synchronised before, and after the clock stops)."""
+    import torch
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    return t
+
+
+def _card_stress(ffd, devices):
+    """K7x at S = len(devices) ranks (S distinct cards, or one card S times:
+    the rehearsal), CARD_STRESS launches back to back, cycling the three
+    instances on phase 3's seeded S = 4 problems (heavy rows with the
+    explain counts, the gang instance, the seeded one), in two halves with
+    every inbox zeroed between them (`CardExchange.rewind`), each launch's
+    rows and budgets then held to its instance's plain version as uint32.
+    Returns (what failed, {"launches", "library_calls", "host_ms" and
+    "events_ms" a launch, "rounds" of the first half, "max_abs_err"})."""
+    import torch
+    cases = {c[0]: c for c in _sharded_cases()}
+    cards = [_Cards(ffd, len(devices), *cases[k][2:7], devices)
+             for k in ("S4-heavy", "S4-gang", "S4-delta")]
+    plain = []
+    for c in cards:
+        fp, lp = c.bufs()
+        c.plain(fp, lp)
+        c.launch(*c.bufs())  # its launch configuration, built
+        plain.append((fp, lp))
+    rehearse = cards[0].rehearse
+    wrap = ffd.card_scan_rehearsal if rehearse else ffd.card_scan
+
+    def launched():
+        return (wrap.launches if rehearse else wrap.launches
+                + wrap.gang_launches + wrap.delta_launches)
+    xch = ffd.card_exchange(devices)
+    outs = [cards[i % 3].bufs() for i in range(CARD_STRESS)]
+    n0, calls0 = launched(), wrap.library_calls
+    host = ev = 0.0
+    rounds = None
+    half = CARD_STRESS // 2
+    for lo, hi in ((0, half), (half, CARD_STRESS)):
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        r0 = xch.rounds()
+        with torch.cuda.device(devices[0]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            for i in range(lo, hi):
+                cards[i % 3].launch(*outs[i])
+            host += time.perf_counter() - t0
+            b.record()
+        b.synchronize()
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        ev += a.elapsed_time(b)
+        if rounds is None:
+            rounds = xch.rounds() - r0
+            xch.rewind()
+    bad, parts = [], []
+    for i, (fk, lk) in enumerate(outs):
+        fp, lp = plain[i % 3]
+        d = [_diff(fk, fp), _diff(lk, lp)]
+        parts += d
+        if not all(eq for eq, _ in d):
+            bad.append(f"stress launch {i} ({cards[i % 3].name}) differs")
+    n, calls = launched() - n0, wrap.library_calls - calls0
+    if n != CARD_STRESS or calls != n:
+        bad.append(f"stress: {n} launches counted, {calls} library calls, "
+                   f"for {CARD_STRESS}")
+    return bad[:8], {"launches": n, "library_calls": calls,
+                     "host_ms": host * 1e3 / CARD_STRESS,
+                     "events_ms": ev / CARD_STRESS, "rounds": rounds,
+                     "rewinds": xch.rewinds,
+                     "max_abs_err": _merge(parts)[1]}
 
 
 def _span_ms(fn, reps, devices):
@@ -4188,8 +4287,7 @@ def _cards_check(card) -> int:
     torch.cuda.nccl.all_reduce, MAX over [N] int32 on the same cards,
     never called by the port).  Ends with one JSON line."""
     import torch
-    from karpenter_tpu_torch.parallel.mesh import (MeshExecutor, card_mesh,
-                                                   probe_cards, shard_problem)
+    from karpenter_tpu_torch.parallel.mesh import probe_cards, shard_problem
     from karpenter_tpu_torch.solver import TorchSolver, _cuda, ffd
     from karpenter_tpu_torch.workloads import (
         build_config2, build_config7, build_config9, build_input,
@@ -4243,6 +4341,21 @@ def _cards_check(card) -> int:
                f"{'+'.join(sorted(want)) or 'light'} x{K7_REPEATS}")
         if missing:
             bad.append(f"{label}: the problem has no {sorted(missing)}")
+
+    # -- the stress case: CARD_STRESS launches back to back at S = 4 -------
+    stress = None
+    if n_cards >= 4:
+        sbad, stress = _card_stress(ffd, devs[:4])
+        bad.extend(sbad)
+        print(f"[cards] stress: {stress['launches']} K7x launches back to "
+              f"back at S=4 across 4 cards (three instances in turn, the "
+              f"inboxes zeroed halfway), {stress['library_calls']} calls "
+              f"into the kernel library; host {stress['host_ms']:.4f} ms a "
+              f"launch, events {stress['events_ms']:.4f} ms a launch, "
+              f"{stress['rounds']} rounds in the first half; every launch "
+              f"{'equal to' if not sbad else 'NOT equal to'} its plain "
+              f"version (max abs err {stress['max_abs_err']:g}) on "
+              f"{smi[0]}", flush=True)
 
     # -- the main path: mesh="auto" over every card ------------------------
     launches = {}
@@ -4383,8 +4496,9 @@ def _cards_check(card) -> int:
                f"{len(diffs)} launches")
 
     # -- times: K7x in turns beside K7 on one card and K5 (the profiler's
-    # device time of a rank's kernel, of K7's cluster, of K5's block) ------
-    turns, exch = {}, {}
+    # device time of a rank's kernel, of K7's cluster, of K5's block; K7x's
+    # events and the host's ms a launch) ------------------------------------
+    turns, exch, host_turns = {}, {}, {}
     for lab, (prob, catarr, N) in (("config #2", encoded["config2"]),
                                    ("headline", encoded["headline"])):
         arms = {f"K7x S={S}": _Cards(ffd, S, prob, catarr, N, 1, None,
@@ -4410,11 +4524,13 @@ def _cards_check(card) -> int:
             _tag(True, False, False))}
         t = turns[lab] = {}
         ev = {}
+        hosts = host_turns[lab] = {}
         order = list(arms) + list(k7) + list(k5)
         for rnd in range(3):
             for arm in (order if rnd % 2 == 0 else order[::-1]):
                 if arm in arms:
-                    ms_, ev_ = arms[arm].times(20)
+                    ms_, ev_, host_ = arms[arm].times(20)
+                    hosts.setdefault(arm, []).append(host_)
                 else:
                     ms_, ev_ = (k7.get(arm) or k5[arm])()
                 t.setdefault(arm, []).append(ms_)
@@ -4425,10 +4541,18 @@ def _cards_check(card) -> int:
                           + " ms" for a, vs in t.items())
               + "; events a launch: " + "; ".join(
                   f"{a} " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
-                  for a, vs in ev.items()), flush=True)
+                  for a, vs in ev.items())
+              + "; host a launch: " + "; ".join(
+                  f"{a} " + ", ".join(f"{v:.4f}" for v in vs) + " ms"
+                  for a, vs in hosts.items()), flush=True)
         for S in sizes:
+            c = arms[f"K7x S={S}"]
             xch = ffd.card_exchange(devs[:S])
-            rounds = int(xch.flags[0][1].item()) & 0xffffffff
+            c.sync()
+            r0 = xch.rounds()
+            c.launch(*c.bufs())
+            c.sync()
+            rounds = xch.rounds() - r0
             extra = (min(t[f"K7x S={S}"]) - min(t[f"K7 S={S}"])) / rounds
             exch[f"{lab} S={S}"] = {
                 "rounds": rounds, "k7x_ms_a_round":
@@ -4453,32 +4577,37 @@ def _cards_check(card) -> int:
               f"int32 S={S}: {nccl[f'S={S}']} ms a call", flush=True)
     # K7x at its main path's own launches (the first of each instance)
     kernels = {}
-    rep = MeshExecutor(card_mesh(devs))
     for name in ("ffd_card_scan", "ffd_card_gang_scan",
                  "ffd_card_delta_scan"):
         if name not in first:
             bad.append(f"no {name} launch on the main path")
             continue
         (prob, table, cat, N, _, wg, _, seed), lay, ref = first[name]
-        probs, seeds = rep.rank_args(prob, seed)
         flat = torch.empty(lay["total"][1], device=dev0)
         lim = torch.empty((prob.P, ffd.R), device=dev0)
-        ms_, ev_ = _device_ms(lambda: ffd.card_scan(
-            probs, table, cat, N, flat, lay, lim, wg, seeds), 20,
-            _tag(seed is None, False, bool(wg), seed is not None, 2))
+
+        plans = [None]
+
+        def launch(prob=prob, table=table, cat=cat, N=N, lay=lay, wg=wg,
+                   seed=seed, flat=flat, lim=lim, plans=plans):
+            plans[0] = ffd.card_scan(prob, table, cat, N, flat, lay, lim, wg,
+                                     seed, plan=plans[0])
+        ms_, ev_ = _device_ms(launch, 20, _tag(
+            seed is None, False, bool(wg), seed is not None, 2))
+        host_ = _host_ms(launch, 20, devs)
         plain = _time_ms(lambda: ffd.sharded_scan_reference(
             *ref[:3], N, flat, lay, lim, wg, ref[3]), 1)
         bound = _sharded_bound(ffd, *ref[:3], N, lay, flat, lim, wg, ref[3],
                                spread=cat.S)
         shape = (cat.S, prob.G, prob.E, N, cat.O)
-        kernels[name] = {"ms": ms_, "events_ms": ev_, "plain_ms": plain,
-                         "bound": bound, "shape": shape,
+        kernels[name] = {"ms": ms_, "events_ms": ev_, "host_ms": host_,
+                         "plain_ms": plain, "bound": bound, "shape": shape,
                          "measured": f"across {cat.S} cards"}
         print(f"[cards] {name} at its main path's launch (S, G, E, N, O) "
               f"{shape} on {smi[0]}: {ms_:.4f} ms a rank's kernel "
               f"({ms_ / prob.G:.4f} ms a step; events {ev_:.4f} a launch, "
-              f"plain {plain:.3f}, bound {bound[0]:.6f} by {bound[1]})",
-              flush=True)
+              f"host {host_:.4f} a launch, plain {plain:.3f}, bound "
+              f"{bound[0]:.6f} by {bound[1]})", flush=True)
     for d in devs:
         torch.cuda.synchronize(d)
     for k in ("ffd_card_scan", "ffd_card_gang_scan", "ffd_card_delta_scan"):
@@ -4486,16 +4615,17 @@ def _cards_check(card) -> int:
             bad.append(f"{k} was not launched on the main path")
     print(json.dumps({"bad": bad, "cards": smi, "peer": peer,
                       "launches": launches, "errs": errs,
-                      "kernels": kernels, "turns": turns, "exchange": exch,
-                      "nccl": nccl}))
+                      "kernels": kernels, "turns": turns,
+                      "host_turns": host_turns, "exchange": exch,
+                      "nccl": nccl, "stress": stress}))
     return 1 if bad else 0
 
 
 def _trap_check() -> int:
     """`--child trap`: rank 0 of a two-rank K7x exchange launched alone on
-    this card, its peer never launched: its entry round must wait out the
-    exchange's deadline and trap, and the next synchronise must report
-    it.  Prints one JSON line; exits 0 only if the launch failed."""
+    this card, its peer never launched: its first exchange round must wait
+    out the exchange's deadline and trap, and the next synchronise must
+    report it.  Prints one JSON line; exits 0 only if the launch failed."""
     import torch
     from karpenter_tpu_torch.parallel.mesh import shard_problem
     from karpenter_tpu_torch.solver import ffd
@@ -4510,10 +4640,11 @@ def _trap_check() -> int:
     entry, inputs, mesh, A = ffd._sharded_launch_args(p, table, sc, lay, 0,
                                                       None)
     mesh.update(reps=1)
+    slot_ids = torch.cat([sc.col_zone[0, :sc.zc], sc.col_ct[0, :sc.zc]])
     t0 = time.perf_counter()
     ffd._launch_scan(ffd._CARD_ENTRY[entry], 1, p.G, p.E, 64, p.P, p.D, 0,
                      sc, flat, lay, lim, 0, inputs, A=A, mesh=mesh,
-                     xcard=(xch, 0, 1, 0))
+                     xcard=(xch, 0, 0, slot_ids))
     try:
         torch.cuda.synchronize()
     except RuntimeError as e:
@@ -4839,7 +4970,7 @@ def main(argv) -> int:
     # K7, the column-sharded scan, against its plain version at 2, 4, 6
     # and 8 shards, each launch repeated, then at the mesh paths' own
     # encodings (the headline and config #2) at 8 shards
-    from karpenter_tpu_torch.parallel.mesh import shard_problem
+    from karpenter_tpu_torch.parallel.mesh import card_mesh, shard_problem
     for label, S, prob, catarr, N, ex, seeds, want in _sharded_cases():
         res, n, missing = compare_sharded(ffd, S, prob, catarr, N, ex, seeds,
                                           dev, want)
@@ -4889,19 +5020,46 @@ def main(argv) -> int:
                                     s4_delta[6])):
         c = _Cards(ffd, 4, prob, catarr, N, 1, seeds, (dev,) * 4)
         flat, lim = c.bufs()
-        t, ev = _device_ms(lambda: c.launch(flat, lim), 20,
-                           _tag(seeds is None, False, bool(c.wg),
-                                seeds is not None, 2))
-        k7x_t[c.name] = {"ms": t, "events_ms": ev,
+        t, ev, host = c.times(20)
+        k7x_t[c.name] = {"ms": t, "events_ms": ev, "host_ms": host,
                          "plain_ms": _time_ms(lambda: c.plain(flat, lim), 1),
                          "bound": c.bound(), "shape": c.shape,
                          "measured": "rehearsal: S blocks on one card, "
                                      "no main path on one card"}
         print(f"[21] {c.name} rehearsed (S, G, E, N, O) {c.shape} on "
-              f"{card}: {t:.4f} ms (events {ev:.4f}, plain "
-              f"{k7x_t[c.name]['plain_ms']:.3f}, bound "
+              f"{card}: {t:.4f} ms (events {ev:.4f}, host {host:.4f} a "
+              f"launch, plain {k7x_t[c.name]['plain_ms']:.3f}, bound "
               f"{k7x_t[c.name]['bound'][0]:.6f} by "
               f"{k7x_t[c.name]['bound'][1]})", flush=True)
+    # the stress case, rehearsed: CARD_STRESS launches back to back at S=4
+    sbad, stress = _card_stress(ffd, (dev,) * 4)
+    failed.extend(f"21 {b}" for b in sbad)
+    print(f"[21] stress: {stress['launches']} K7x launches back to back, "
+          f"rehearsed at S=4 (three instances in turn, the inboxes zeroed "
+          f"halfway), {stress['library_calls']} calls into the kernel "
+          f"library; host {stress['host_ms']:.4f} ms a launch, events "
+          f"{stress['events_ms']:.4f} ms a launch, {stress['rounds']} "
+          f"rounds in the first half; every launch "
+          f"{'equal to' if not sbad else 'NOT equal to'} its plain version "
+          f"(max abs err {stress['max_abs_err']:g}) on {card}", flush=True)
+    # the fit check's occupancy query (`ffd.card_blocks`, which the
+    # executor makes once a launch configuration) must not lower the
+    # shared-memory attribute a launch already raised: config #2's S=2
+    # rehearsal, the query at its S=4 shape, the S=2 launch again
+    c = _Cards(ffd, 2, c2_prob, c2_cat, CONFIG2_MAX_NODES, 1, None,
+               (dev,) * 2)
+    c.launch(*c.bufs())
+    p4, t4, cc4, _ = shard_problem(c2_prob, c2_cat, card_mesh([dev] * 4))
+    blocks = ffd.card_blocks(p4, t4, cc4, CONFIG2_MAX_NODES, ffd.flat_layout(
+        p4[0].G, p4[0].E, CONFIG2_MAX_NODES, p4[0].D, 1))
+    fk, lk = c.bufs()
+    c.launch(fk, lk)
+    c.sync()
+    fp, lp = c.bufs()
+    c.plain(fp, lp)
+    record("21 launch after the fit check", {c.name: _merge(
+        [_diff(fk, fp), _diff(lk, lp)])}, f"K7x rehearsal S=2 after "
+        f"card_blocks at S=4 (blocks {blocks})")
     auto = TorchSolver(mesh="auto")
     print(f"[21] TorchSolver(mesh='auto') on {torch.cuda.device_count()} "
           f"card(s): mesh {auto.mesh}", flush=True)
@@ -5299,15 +5457,17 @@ def main(argv) -> int:
           f"turns on {card}: " + "; ".join(
               f"{k} ({nbytes[k]} bytes) " + ", ".join(f"{v:.4f}" for v in vs)
               + " ms" for k, vs in turns.items()), flush=True)
-    pack = _pack_times(ffd, sw, cs, Ns, max(Ks, 8), 20)
-    print(f"[9] config #4 chunk take_exist compaction (row 3b, K4's "
-          f"epilogue) on {card}: K4 dense | compacted in turns "
-          + "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in vs)
-                      for k, vs in pack["turns"].items())
-          + f" ms; the pack {pack['ms']:.4f} ms (the difference of the "
-          f"minima), plain compact_take_exist {pack['plain_ms']:.4f} ms, "
-          f"bound {pack['bound'][0]:.6f} by {pack['bound'][1]}",
-          flush=True)
+    for lab, (sw, cs, Ns, Ks) in (("config #4", c4_chunk),
+                                  ("config #4b heavy", c4b_chunk)):
+        pack = _pack_times(ffd, sw, cs, Ns, max(Ks, 8), 20)
+        print(f"[9] {lab} chunk take_exist compaction (row 3b, K4's "
+              f"epilogue) on {card}: K4 dense | compacted in turns "
+              + "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in vs)
+                          for k, vs in pack["turns"].items())
+              + f" ms; the pack {pack['ms']:.4f} ms (the difference of "
+              f"the minima), plain compact_take_exist "
+              f"{pack['plain_ms']:.4f} ms, bound {pack['bound'][0]:.6f} by "
+              f"{pack['bound'][1]}", flush=True)
     # config #9: the gang instance at the cold and the warm node axis, the
     # epilogue with the explain=2 map at the cold one
     p9, c9 = ffd.problem_from_numpy(c9_prob, c9_cat, dev)

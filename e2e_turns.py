@@ -42,6 +42,21 @@ keeps).  The arms use only the entry points both trees share:
                 chunks' arguments in `K4_CHUNKS` (git-ignored), which the
                 later children load instead of running the loop (their
                 p50 is nan) (not in the default arms)
+  cards         K7x (the column-sharded solve across cards) through the
+                tree's own wrappers, at S = 4: across cards 0-3 on a host
+                of four or more, else rehearsed on one card (one
+                cooperative grid of 4 blocks): at config #2's, the
+                headline's and config #9's encodings (the last the gang
+                instance) and phase 3's seeded S=4 problem, a rank's
+                kernel (the profiler's device ms), the CUDA events' and
+                the host's ms a launch (`--warm` launches each), the
+                exchange rounds a launch, K7 at the same four shards on
+                one card (for a round's cost over K7's) and a digest of
+                the launch's rows, which must agree across the trees; then
+                TorchSolver(mesh="auto") solves config #2 and the
+                headline, cold and `--warm` times (the p50 printed is
+                config #2's; on one card "auto" is the single-device
+                path) (not in the default arms)
 
 Prints, per arm, each turn's p50 and each tree's lower p50 with the
 card's name and power limit.  Exits non-zero without a CUDA device or
@@ -121,6 +136,8 @@ def child(arm: str, root: str, warm: int) -> int:
         runs = [lambda: solver.solve_batch(inps)] * (1 + warm)
     elif arm == "k4":
         return k4_child(warm)
+    elif arm == "cards":
+        return cards_child(warm)
     else:
         raise SystemExit(f"unknown arm {arm!r}")
     t0 = time.perf_counter()
@@ -246,6 +263,95 @@ def k4_child(warm: int) -> int:
     return 0
 
 
+def cards_child(warm: int) -> int:
+    """The cards arm on the tree first on sys.path: prints one JSON
+    line."""
+    import hashlib
+    import torch
+    import chip_smoke as cs
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.solver import TorchSolver, ffd
+    n = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(4)] if n >= 4
+            else [torch.device("cuda", 0)] * 4)
+    from karpenter_tpu_torch.parallel.mesh import shard_problem
+    solver = TorchSolver()
+    delta = next(x for x in cs._sharded_cases() if x[0] == "S4-delta")
+    cases = {
+        "config #2": cs._encoded_problem(solver, workloads.build_config2(),
+                                         ffd) + (cs.CONFIG2_MAX_NODES, None),
+        "headline": cs._encoded_problem(
+            solver, workloads.build_input(cs.HEADLINE_PODS), ffd)
+        + (solver.max_nodes, None),
+        "gang config #9": cs._encoded_problem(
+            solver, workloads.build_config9(), ffd)
+        + (cs.CONFIG_MAX_NODES, None),
+        "seeded S4-delta": (delta[2], delta[3], delta[4], delta[6])}
+    reps = max(warm, 1)
+    xch = ffd.card_exchange(devs)
+    out = {}
+    for label, (prob, catarr, N, seeds) in cases.items():
+        c = cs._Cards(ffd, 4, prob, catarr, N, 1, seeds, devs)
+        flat, lim = c.bufs()
+        fn = lambda: c.launch(flat, lim)  # noqa: E731
+        ms, ev = cs._device_ms(fn, reps, cs._tag(
+            seeds is None, False, bool(c.wg), seeds is not None, 2))
+        for d in set(devs):
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        flat.fill_(float("nan"))
+        lim.fill_(float("nan"))
+        before = xch.rounds() if hasattr(xch, "rounds") else 0
+        fn()
+        for d in set(devs):
+            torch.cuda.synchronize(d)
+        # the exchange rounds of one launch: the round count's step, or
+        # (a tree whose flags hold the last round) the low word
+        rounds = (xch.rounds() - before if hasattr(xch, "rounds")
+                  else int(xch.flags[0][1].item()) & 0xffffffff)
+        h = hashlib.sha256(flat.cpu().numpy().tobytes())
+        h.update(lim.cpu().numpy().tobytes())
+        out[label] = {"ms": ms, "events_ms": ev, "host_ms": host,
+                      "rounds": rounds, "digest": h.hexdigest()}
+        if seeds is None and not c.wg:
+            # K7 on one card at the same shards, for a round's cost
+            p, table, sc, _ = shard_problem(prob, catarr, 4, devs[0])
+            lay = ffd.flat_layout(p.G, p.E, N, p.D, 1)
+            fl = torch.empty(lay["total"][1], device=devs[0])
+            lm = torch.empty((p.P, ffd.R), device=devs[0])
+            out[label]["k7_ms"] = cs._device_ms(
+                lambda: ffd.sharded_scan(p, table, sc, N, fl, lay, lm, 0),
+                reps, cs._tag(True, False, False, False, 1))[0]
+    p50 = {}
+    for label, build, mn in (
+            ("config #2", workloads.build_config2, cs.CONFIG2_MAX_NODES),
+            ("headline", lambda: workloads.build_input(cs.HEADLINE_PODS),
+             cs.CONFIG_MAX_NODES)):
+        sv, inp = TorchSolver(mesh="auto", max_nodes=mn), build()
+        sv.solve(inp)
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            sv.solve(inp)
+            for d in set(devs):
+                torch.cuda.synchronize(d)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        p50[f"mesh=auto {label}"] = statistics.median(ms)
+        p50[f"mesh=auto {label} mesh"] = str(sv.mesh)
+    main = p50["mesh=auto config #2"]
+    print(json.dumps({
+        "arm": "cards", "cold_ms": float("nan"), "p50": main, "min": main,
+        "max": main, "n": reps, "phase_p50": {
+            k: v for k, v in p50.items() if not isinstance(v, str)},
+        "launches": {}, "cards": out,
+        "meshes": {k: v for k, v in p50.items() if isinstance(v, str)},
+        "rehearsed": n < 4}))
+    return 0
+
+
 def _card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -302,6 +408,7 @@ def main(argv) -> int:
                               rec["phase_p50"].items())
                   + f"; launches {rec['launches']}", flush=True)
     bad = _k4_report(got.get("k4"), card)
+    bad = _cards_report(got.get("cards"), card) or bad
     for arm in arms:
         print(f"[e2e] {arm} on {card}: " + "; ".join(
             f"{name} warm p50 " + ", ".join(f"{r['p50']:.3f}" for r in recs)
@@ -341,6 +448,49 @@ def _k4_report(trees, card) -> bool:
         print(f"[k4] {label} on {card}, ms a launch: " + "; ".join(parts)
               + ("; rows equal across trees" if same
                  else "; ROWS DIFFER"), flush=True)
+    return bad
+
+
+def _cards_report(trees, card) -> bool:
+    """The cards arm's launches, each tree's lower ms of its turns; True
+    when a launch's rows differ between the trees (or turns)."""
+    if not trees:
+        return False
+    bad = False
+    first = next(iter(trees.values()))[0]
+    where = ("rehearsed on one card (S=4)" if first["rehearsed"]
+             else "across 4 cards")
+    for label in first["cards"]:
+        parts, digests = [], set()
+        for name, recs in trees.items():
+            got = [r["cards"].get(label) for r in recs]
+            if None in got:
+                bad = True
+                continue
+            digests.update(g["digest"] for g in got)
+            lower = {k: min(g[k] for g in got)
+                     for k in ("ms", "events_ms", "host_ms", "k7_ms")
+                     if k in got[0]}
+            text = f"{name} " + " ".join(
+                f"{k} " + ", ".join(f"{g[k]:.4f}" for g in got)
+                + f" (lower {v:.4f})" for k, v in lower.items())
+            rounds = got[0]["rounds"]
+            text += f"; {rounds} rounds a launch"
+            if "k7_ms" in lower and rounds:
+                over = (lower["ms"] - lower["k7_ms"]) / rounds * 1e3
+                text += f", {over:.2f} us a round over K7's"
+            parts.append(text)
+        same = len(digests) == 1
+        bad = bad or not same
+        print(f"[cards] K7x {label} {where} on {card}, ms a launch: "
+              + "; ".join(parts)
+              + ("; rows equal across trees" if same
+                 else "; ROWS DIFFER"), flush=True)
+    for name, recs in trees.items():
+        print(f"[cards] {name} mesh='auto' warm p50 on {card}: " + "; ".join(
+            f"{k} " + ", ".join(f"{r['phase_p50'][k]:.3f}" for r in recs)
+            + " ms" for k in recs[0]["phase_p50"])
+            + f" (meshes {recs[0]['meshes']})", flush=True)
     return bad
 
 

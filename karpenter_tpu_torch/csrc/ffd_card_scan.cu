@@ -11,20 +11,25 @@
 // the catalog, of the resident mask table and of the seed's column words,
 // and keeps its own replica of the group-scan carry there; rank 0 writes
 // the caller's flat row and pool budgets, the others a scratch replica on
-// their own cards.  The reference's collectives (max, shard 0's leading
-// block, an integer sum) are exchanges between the ranks' kernels over
-// NVLink, inside the scan (ffd_xcard.cuh holds the protocol): plain stores
-// into every peer's inbox, a system-scope release of a 64-bit sequence
-// number, acquire spins on the rank's own card, a bounded wait that traps.
-// Max and integer sums are exact in any order, so the result equals the
-// plain version bit for bit.  (NCCL outside the kernel would cut the
-// G-step scan into G launches with host-issued collectives between them:
-// the shape the reference records as ~100x slower,
-// karpenter_tpu/parallel/mesh.py:9-12.)
+// their own cards.  The reference's collectives (max, an integer sum) are
+// exchanges between the ranks' kernels over NVLink, inside the scan
+// (ffd_xcard.cuh holds the protocol): each value one 64-bit word, tagged
+// with its round, stored into every peer's inbox; each rank polls its own
+// inbox until the tags are the round's; a bounded wait that traps.  Its
+// all_gather of shard 0's leading block of grid-slot domains is a copy
+// each card holds beside its catalog shard.  Max and integer sums are
+// exact in any order, so the result equals the plain version bit for bit.
+// (NCCL outside the kernel would cut the G-step scan into G launches with
+// host-issued collectives between them: the shape the reference records
+// as ~100x slower, karpenter_tpu/parallel/mesh.py:9-12.)
 //
 // These are the `scan_kernel<TOPO, false, GANG, SEED, XCARD>` instances
 // of ffd_scan_common.cuh: one scan body, the transport chosen at compile
-// time.  The same instances also launch as one cooperative grid of S
+// time.  A launch across cards is one call, `ffd_card_launch`: for every
+// rank it orders the rank's stream after the last launch and card 0's
+// upload, copies card 0's problem rows to the rank's replica over NVLink
+// and launches the rank's block, then ties every card back into card 0's
+// stream.  The same instances also launch as one cooperative grid of S
 // blocks on one card (`rehearse`), each block a rank and every inbox in
 // that card's memory, with K7's stacked [S, ...] layout: a check of the
 // exchange code on one card, never a path of the solver.  What bounds it
@@ -33,12 +38,14 @@
 // step besides; the catalog work per card shrinks by S.
 #include "ffd_scan_common.cuh"
 
-#define CARD_NPTRS (SCAN_NPTRS + 2 * XMAXR)
-#define CARD_NDIMS (SCAN_NDIMS + 4)
+#define CARD_NPTRS (SCAN_NPTRS + XMAXR + 1)
+#define CARD_NDIMS (SCAN_NDIMS + 3)
+// ffd_card_launch's arguments: two header pointers and three header dims,
+// then for each rank three pointers and its CARD_NPTRS, and its
+// CARD_NDIMS
+#define LAUNCH_RANK_PTRS (3 + CARD_NPTRS)
 
-// the runtime's current device set to `device` for a scope (the caller
-// also makes it current on its side; this keeps the launch right either
-// way)
+// the runtime's current device set to `device` for a scope
 struct DeviceScope {
   int prev = -1;
   cudaError_t err;
@@ -51,19 +58,19 @@ struct DeviceScope {
   }
 };
 
-// Plain-C entry point body.  ptrs: SCAN_NPTRS device addresses in
-// scan_parse's order (K7's, with mask_bits this rank's mask table [C, W],
-// mask_rows the [G] row ids, xslot this rank's [N*ZC + 4G] scratch, row0
-// this rank's flat row, xrow 0 — in the rehearsal K7's stacked layout
-// and its xrow), then XMAXR inbox addresses ([S][2][XCH] ints on rank r's
-// card) and XMAXR flag addresses ([S] u64 on rank r's card, zeroed once
-// when allocated, never again), 0 past S.  dims: SCAN_NDIMS (O, PT and W
-// one shard's, S the ranks), then rank, launch (the host's counter, >= 1,
-// one per launch, never reused with the same inboxes), rehearse (0: this
-// rank's block on this card; 1: a cooperative grid of S blocks on one
-// card, rank 0 given) and the device.  Returns 0, a CUDA error code
-// (cudaGetLastError after the launch, or the cooperative launch's
-// refusal), or a negative argument error.  Does not synchronise.
+// Plain-C entry point body: one rank's launch.  ptrs: SCAN_NPTRS device
+// addresses in scan_parse's order (K7's, with mask_bits this rank's mask
+// table [C, W], mask_rows the [G] row ids, xslot this rank's [N*ZC + 4G]
+// scratch, row0 this rank's flat row, xrow 0 — in the rehearsal K7's
+// stacked layout and its xrow), then XMAXR inbox addresses ([S][2][XCH]
+// 64-bit words and the round count, zeroed when allocated, on rank r's
+// card; 0 past S) and this card's copy of shard 0's leading grid-slot ids
+// ([2 ZC] int; 0 in the rehearsal).  dims: SCAN_NDIMS (O, PT and W one
+// shard's, S the ranks), then rank, rehearse (0: this rank's block on
+// this card; 1: a cooperative grid of S blocks on one card, rank 0 given)
+// and the device.  Returns 0, a CUDA error code (cudaGetLastError after
+// the launch, or the cooperative launch's refusal), or a negative
+// argument error.  Does not synchronise.
 template <bool TOPO, bool GANG, bool SEED>
 int card_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
                int ndims, void* stream) {
@@ -72,28 +79,26 @@ int card_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   scan_parse(ptrs, dims, a);
   int rc = scan_check<TOPO, false, GANG, SEED, XCARD>(a);
   if (rc != 0) return rc;
-  const int rank = dims[SCAN_NDIMS], launch = dims[SCAN_NDIMS + 1];
-  const int rehearse = dims[SCAN_NDIMS + 2], device = dims[SCAN_NDIMS + 3];
-  if (a.S > XMAXR || launch < 1 || (rehearse != 0 && rehearse != 1) ||
-      device < 0)
+  const int rank = dims[SCAN_NDIMS], rehearse = dims[SCAN_NDIMS + 1];
+  const int device = dims[SCAN_NDIMS + 2];
+  if (a.S > XMAXR || (rehearse != 0 && rehearse != 1) || device < 0)
     return -2;
   if (rehearse ? (rank != 0 || (a.S > 1 && !a.xrow))
                : (rank < 0 || rank >= a.S || a.xrow))
     return -2;
   a.xc.rank = rank;
   a.xc.S = a.S;
-  a.xc.launch = (unsigned)launch;
   for (int r = 0; r < XMAXR; ++r) {
-    a.xc.inbox[r] = (int*)ptrs[SCAN_NPTRS + r];
-    a.xc.flags[r] = (unsigned long long*)ptrs[SCAN_NPTRS + XMAXR + r];
-    if ((r < a.S) != (a.xc.inbox[r] && a.xc.flags[r])) return -2;
+    a.xc.inbox[r] = (unsigned long long*)ptrs[SCAN_NPTRS + r];
+    if ((r < a.S) != (a.xc.inbox[r] != nullptr)) return -2;
   }
+  a.slot_ids = (const int*)ptrs[SCAN_NPTRS + XMAXR];
+  if ((a.slot_ids == nullptr) != (rehearse == 1)) return -2;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   auto kern = scan_kernel<TOPO, false, GANG, SEED, XCARD>;
   const size_t smem = scan_smem<TOPO, false>(a);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem((const void*)kern, smem);
   if (err == cudaSuccess) {
     if (rehearse) {
       void* args[] = {&a};
@@ -126,13 +131,113 @@ extern "C" int ffd_card_delta_scan(const unsigned long long* ptrs, int nptrs,
   return card_entry<false, false, true>(ptrs, nptrs, dims, ndims, stream);
 }
 
+typedef int (*CardEntry)(const unsigned long long*, int, const int*, int,
+                         void*);
+
+// One launch of K7x across S cards, every rank, in one call.  ptrs: the
+// upload buffer's address on card 0 (where the problem rows begin), the
+// "ready" event (card 0's), then for each rank r: its stream, its "done"
+// event, its replica of the upload buffer (0 for rank 0), and its
+// CARD_NPTRS (card_entry's; its problem rows inside its replica).  dims:
+// S, the instance (0 ffd_card_scan, 1 the gang instance, 2 the seeded
+// one), the upload's bytes, then each rank's CARD_NDIMS (rank r, not
+// rehearsed, its device).  In order:
+//   * card 0's stream waits on every card's "done" event of the last
+//     launch, copies the upload buffer (this launch's, uploaded before
+//     on that stream) into every other rank's replica
+//     (cudaMemcpyPeerAsync) and records "ready": every copy is queued
+//     before any rank's block, so none waits behind a rank that spins;
+//   * every other rank's stream waits on "ready";
+//   * every rank launches its block on its stream (every rank before
+//     anything waits: each spins on its peers from its first round);
+//   * each card records its "done" event, and card 0's stream waits on
+//     the others', so what follows on card 0 (pulling rank 0's flat row,
+//     the next upload) follows every rank.
+// Returns 0, the first CUDA error or card_entry's code.  `stream` unused.
+extern "C" int ffd_card_launch(const unsigned long long* ptrs, int nptrs,
+                               const int* dims, int ndims, void* stream) {
+  (void)stream;
+  if (ndims < 3) return -1;
+  const int S = dims[0], inst = dims[1], bytes = dims[2];
+  if (S < 1 || S > XMAXR || inst < 0 || inst > 2 || bytes < 0) return -2;
+  if (nptrs != 2 + S * LAUNCH_RANK_PTRS || ndims != 3 + S * CARD_NDIMS)
+    return -1;
+  CardEntry entry = &card_entry<false, false, true>;
+  if (inst == 0) entry = &card_entry<true, false, false>;
+  if (inst == 1) entry = &card_entry<true, true, false>;
+  const auto rp = [&](int r) { return ptrs + 2 + r * LAUNCH_RANK_PTRS; };
+  const auto rd = [&](int r) { return dims + 3 + r * CARD_NDIMS; };
+  const auto dev = [&](int r) { return rd(r)[SCAN_NDIMS + 2]; };
+  const auto st = [&](int r) { return (cudaStream_t)rp(r)[0]; };
+  const auto done = [&](int r) { return (cudaEvent_t)rp(r)[1]; };
+  const cudaEvent_t ready = (cudaEvent_t)ptrs[1];
+  cudaError_t err;
+  {
+    // every copy on card 0's stream, before any rank's block: a peer copy
+    // on card r's legacy default stream (PyTorch's default stream) waits
+    // behind the work of card 0's blocking streams, where rank 0 spins,
+    // so a copy on the rank's own stream would never run (peer_order.py)
+    DeviceScope on(dev(0));
+    err = on.err;
+    for (int q = 0; err == cudaSuccess && q < S; ++q)
+      err = cudaStreamWaitEvent(st(0), done(q), 0);
+    for (int r = 1; err == cudaSuccess && bytes > 0 && r < S; ++r)
+      err = cudaMemcpyPeerAsync((void*)rp(r)[2], dev(r), (void*)ptrs[0],
+                                dev(0), (size_t)bytes, st(0));
+    if (err == cudaSuccess) err = cudaEventRecord(ready, st(0));
+  }
+  for (int r = 1; err == cudaSuccess && r < S; ++r) {
+    DeviceScope on(dev(r));
+    err = on.err;
+    if (err == cudaSuccess) err = cudaStreamWaitEvent(st(r), ready, 0);
+  }
+  for (int r = 0; err == cudaSuccess && r < S; ++r) {
+    const int rc = entry(rp(r) + 3, CARD_NPTRS, rd(r), CARD_NDIMS,
+                         (void*)st(r));
+    if (rc != 0) return rc;
+  }
+  for (int r = 0; err == cudaSuccess && r < S; ++r) {
+    DeviceScope on(dev(r));
+    err = on.err;
+    if (err == cudaSuccess) err = cudaEventRecord(done(r), st(r));
+  }
+  if (err == cudaSuccess) {
+    DeviceScope on(dev(0));
+    err = on.err;
+    for (int r = 1; err == cudaSuccess && r < S; ++r)
+      err = cudaStreamWaitEvent(st(0), done(r), 0);
+  }
+  return (int)err;
+}
+
+// `ndims` events (cudaEventDisableTiming), event i on card dims[i], their
+// handles written to ptrs[i] (a caller's array).  Returns 0 or the first
+// CUDA error.  `stream` unused.
+extern "C" int ffd_card_events(const unsigned long long* ptrs, int nptrs,
+                               const int* dims, int ndims, void* stream) {
+  (void)stream;
+  if (nptrs != ndims || ndims < 1) return -2;
+  unsigned long long* out = const_cast<unsigned long long*>(ptrs);
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; err == cudaSuccess && i < ndims; ++i) {
+    DeviceScope on(dims[i]);
+    err = on.err;
+    cudaEvent_t e = nullptr;
+    if (err == cudaSuccess)
+      err = cudaEventCreateWithFlags(&e, cudaEventDisableTiming);
+    out[i] = (unsigned long long)e;
+  }
+  return (int)err;
+}
+
 template <bool TOPO, bool GANG, bool SEED>
 int card_occupancy(const ScanArgs& a) {
   auto kern = scan_kernel<TOPO, false, GANG, SEED, XCARD>;
   const size_t smem = scan_smem<TOPO, false>(a);
   int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // raised only, through the launches' own record (allow_smem): setting
+  // the attribute here could lower it under what a launch already took
+  cudaError_t err = allow_smem((const void*)kern, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT,
                                                         smem);

@@ -227,13 +227,16 @@ struct ScanArgs {
   int B, X, K, total;            // problems, exclusions, top-K, flat row
   int A;                         // seeded colmask rows (0 = not seeded)
   int C, S;                      // mask-table rows, shards (SHARDED)
-  // the card exchange (XCARD): every rank's inbox and flags, this rank,
-  // the launch counter.  Per card, every pointer above is already rank
+  // the card exchange (XCARD): every rank's inbox, this rank, the rank
+  // count.  Per card, every pointer above is already rank
   // r's, on card r: its shard, its carry, its flat row (the caller's for
   // rank 0, a scratch replica for the others), and nothing is offset; in
   // the one-card rehearsal (a cooperative grid of S blocks) the layout is
   // K7's and block r is rank r.
   XcardArgs xc;
+  const int* slot_ids;           // [2 ZC] shard 0's leading grid-slot zone,
+                                 // then capacity-type ids, on this card
+                                 // (XCARD; null in the rehearsal)
 };
 // Every pointer above addresses problem 0 of the batch; block b offsets the
 // per-problem ones (inputs, carry, the flat row) in offset_block.
@@ -568,11 +571,12 @@ __device__ void cluster_combine(int* x, int L) {
   __syncthreads();
 }
 
-// Per rank of the card exchange: the launch's round counter (block-wide:
-// thread 0 advances it after the barrier that ends an exchange), shard
-// 0's leading grid-slot block — zone ids at [0, ZC), capacity-type ids at
-// [ZC, 2 ZC) — and a small staging row.  The slots live in device memory
-// (the inboxes), so no distributed shared memory and no cluster.
+// Per rank of the card exchange: its round count (block-wide: thread 0
+// loads it from the rank's device word in the prologue, advances it at the
+// end of each exchange and stores it back at the end of the launch),
+// shard 0's leading grid-slot block — zone ids at [0, ZC), capacity-type
+// ids at [ZC, 2 ZC) — and a small staging row.  The slots live in device
+// memory (the inboxes), so no distributed shared memory and no cluster.
 struct CardXch {
   unsigned round;
   int zc0[2 * MAXZC];
@@ -592,11 +596,7 @@ struct BlockTeam {
     __syncthreads();
 #endif
   }
-  __host__ __device__ void fence() {
-#if defined(__CUDA_ARCH__)
-    __threadfence_system();
-#endif
-  }
+  __host__ __device__ void lag() {}
 };
 
 // cluster_combine's contract over the card exchange: x [L] holds this
@@ -605,12 +605,8 @@ struct BlockTeam {
 // with the same L.
 template <bool SUM>
 __device__ void card_combine(const ScanArgs& a, int* x, int L) {
-  CardXch& X = cxch();
   BlockTeam team = {(int)threadIdx.x, NT};
-  __syncthreads();
-  unsigned k = X.round;
-  xc_all<SUM>(a.xc, &k, x, L, team);
-  if (threadIdx.x == 0) X.round = k;
+  xc_all<SUM>(a.xc, &cxch().round, x, L, team);
 }
 
 // the instance's exchange
@@ -2287,19 +2283,19 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     S.dreal_ct = INT_MIN;
   }
   if constexpr (SHARDED == XCARD) {
-    // round 0 of the exchange (every rank has entered this launch), then
-    // shard 0's leading grid-slot block through it, as the slot->domain
-    // map (the reference's all_gather(...)[0], ffd.py:631): rank 0 offers
-    // its ids, the others INT_MIN, and the max is rank 0's
+    // the rank's round count, and shard 0's leading grid-slot block as the
+    // slot->domain map (the reference's all_gather(...)[0], ffd.py:631):
+    // on a card its catalog's copy (slot_ids), in the rehearsal shard 0's
+    // own rows (the first of the stacked layout)
     CardXch& X = cxch();
     BlockTeam team = {tid, NT};
-    if (tid == 0) X.round = 0;
-    xc_enter(a.xc, team);
+    const int* zz = a.slot_ids ? a.slot_ids : a0.col_zone;
+    const int* zt = a.slot_ids ? a.slot_ids + a.ZC : a0.col_ct;
     for (int z = tid; z < a.ZC; z += NT) {
-      X.zc0[z] = a.xc.rank == 0 ? a.col_zone[z] : INT_MIN;
-      X.zc0[a.ZC + z] = a.xc.rank == 0 ? a.col_ct[z] : INT_MIN;
+      X.zc0[z] = zz[z];
+      X.zc0[a.ZC + z] = zt[z];
     }
-    card_combine<false>(a, X.zc0, 2 * a.ZC);
+    xc_begin(a.xc, &X.round, team);
   }
   if constexpr (SHARDED == XCLUSTER) {
     // every block takes shard 0's leading grid-slot block as the
@@ -2438,6 +2434,10 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     a.ct_out[n] = (float)a.node_ct[n];
   }
   if (tid == 0) a.na_out[0] = (float)S.na;
+  if constexpr (SHARDED == XCARD) {
+    BlockTeam team = {tid, NT};
+    xc_end(a.xc, &cxch().round, team);
+  }
   if (carry_smem)
     for (int i = tid; i < P * KR; i += NT)
       a0.limits[(size_t)blockIdx.x * P * KR + i] = a.limits[i];

@@ -3,44 +3,54 @@
 // each of S cards, combine a vector of ints by max or by integer sum
 // inside one running kernel.  It stands in for the reference's
 // collectives under `shard_map` (pmax in `_axmax`/`_axany`,
-// karpenter_tpu/solver/ffd.py:93-113, on `kfull_pd` :667, :918; the
-// all_gather of shard 0's slot domains :631, :893, :1161; the psum of the
-// explain counts :1202), which the one-card K7 runs as exchanges through
-// distributed shared memory (`cluster_combine`).
+// karpenter_tpu/solver/ffd.py:93-113, on `kfull_pd` :667, :918; the psum
+// of the explain counts :1202), which the one-card K7 runs as exchanges
+// through distributed shared memory (`cluster_combine`).  (The all_gather
+// of shard 0's slot domains, :631, :893, :1161, is no exchange: those ids
+// are a constant of the resident catalog, and each card holds a copy.)
 //
-// Memory.  Rank r's card holds its inbox, [S][2][XCH] ints (one
-// double-buffered slot per source rank), and its flags, [S] 64-bit
-// sequence numbers (flags[src] is the last round src published to r).
-// Every rank gets all S inbox and flag addresses: a peer's are device
-// pointers into the peer's memory, reached over NVLink once peer access
-// is on (or, in the one-card rehearsal, plain addresses of one card).
+// Memory.  Rank r's card holds its inbox: [S][2][XCH] 64-bit words (one
+// double-buffered slot per source rank), then one word, the rank's round
+// count.  Every rank gets all S inbox addresses: a peer's is a device
+// pointer into the peer's memory, reached over NVLink once peer access is
+// on (or, in the one-card rehearsal, a plain address of one card).
 //
-// One round k (1, 2, ...) of launch L moves n <= XCH values:
-//   push     each thread stores its values into slot [rank][k & 1] of
-//            every peer's inbox (plain stores through peer pointers),
-//            then __threadfence_system() and a block barrier;
-//   publish  thread r of the block stores seq(L, k) = (L << 32) | k into
-//            peer r's flags[rank] with a system-scope release;
-//   wait     thread r spins with system-scope acquire loads on its own
-//            card's flags[r] until it reads at least seq(L, k); a block
-//            barrier;
-//   combine  each thread folds every peer's slot [src][k & 1] (read
-//            through L2, `__ldcg`: a slot read two rounds ago may still
-//            sit in L1) into its own values.
-// Round 0 of every launch carries no data: each rank publishes seq(L, 0)
-// on entry and waits for every peer's, so a rank starts writing slots
-// only once every peer has left the previous launch.
+// The word.  Every value travels in one aligned 8-byte word: the round's
+// tag in the high half, the int in the low half.  A writer makes one
+// 64-bit store into the peer's inbox (relaxed, system scope); a reader
+// loads the words of its own inbox (relaxed, system scope: past the SM's
+// L1, so no stale line) until each tag is the round's, then folds them.
+// A 64-bit aligned store is single-copy atomic over NVLink (NCCL's LL
+// protocol rests on the same), so a word whose tag is the round's holds
+// the round's value.  No fence, no flag, no release/acquire pair: one
+// NVLink crossing a round.
 //
-// Slot reuse.  A rank writes slot p = k & 1 of round k only after it has
-// seen every peer's seq(L, k - 1); a peer publishes seq(L, k - 1) only
-// after the block barrier that follows its reads of round k - 2, the last
-// round that used slot p (for k = 1, 2 that was the previous launch,
-// which the peer had left before it published seq(L, 0)).  A peer is at
-// most one round ahead, so it writes the other slot.  The flags are never
-// reset: a reset on one card could land after a peer had already
-// published into it.  The sequence grows instead — the launch counter L
-// (kept by the host, >= 1, one per launch) in the high word and the round
-// in the low one — and a wait asks for "at least".
+// One round k (the rank's round count, +1 a round) moves n <= XCH values:
+//   push     each thread stores word (k, v[i]) for its values i = t,
+//            t + nt, ... into slot [rank][k & 1] of every peer's inbox;
+//   combine  the same thread loads exactly those entries of slot
+//            [src][k & 1] of its own inbox, for every peer, until each
+//            tag is k, and folds them into v[i].
+// A block barrier follows the combine (the scan reads the combined
+// vector), and one separates two rounds of one exchange.
+//
+// Tags and slots.  The round count lives in device memory, in the word
+// after the rank's slots: a launch's first round continues where the
+// rank's last launch stopped, so a tag names its round across launches
+// and no launch needs an entry round.  Every rank runs the same sequence
+// of exchanges, so every rank's count moves alike.  A slot is reused
+// every second round: a word left from round k - 2, k - 4, ... has
+// another tag and is never taken for round k.  No overwrite: a rank
+// pushes round k only after the barrier that follows its combine of
+// round k - 1, in which it took a word of round k - 1 from every peer; a
+// peer pushes round k - 1 only after the barrier that follows its own
+// combine of round k - 2, the last round that used slot k & 1 (in the
+// rank's last launch, if k - 2 was there: the stream orders a rank's
+// launches).  A peer is at most one round ahead, so it writes the other
+// slot.  The count is 32 bits and starts at 0 (the inbox is zeroed with
+// it, so no round carries tag 0); the host zeroes every inbox and count
+// again, with every card idle, before a count passes 2^31
+// (`CardExchange`), far before a tag could come round.
 //
 // Exactness.  Max and sum modulo 2^32 are exact in any order, so every
 // rank holds the same combination, equal to the plain version's bit for
@@ -50,17 +60,20 @@
 // __trap(), so a lost rank fails the launch (the next synchronise reports
 // it); nothing hangs and nothing falls back.
 //
-// Everything here is __host__ __device__, with the atomics, the clock,
-// the fence and the failure behind small wrappers, so that a host shim
+// Everything here is __host__ __device__, with the loads, stores, clock
+// and failure behind small wrappers, so that a host shim
 // (tests/test_torch_xcard.py) runs the same protocol with std::thread
-// ranks.
+// ranks; there a failed wait throws `XcTimeout`.  The shim also builds
+// three broken variants (XC_MUTANT_STALE, a reader that takes a tag two
+// rounds old; XC_MUTANT_ONE_SLOT, one slot instead of two;
+// XC_MUTANT_NO_COUNT, a count that starts again at 0 each launch) and
+// checks that each fails; no build of the kernels defines them.
 #pragma once
 
 #include <stddef.h>
 #include <stdint.h>
 
 #include <chrono>
-#include <cstdlib>
 #include <thread>
 
 #if defined(__CUDACC__)
@@ -71,56 +84,71 @@
 #endif
 
 #ifndef XCH
-#define XCH 2048  // ints per exchange slot
+#define XCH 2048  // values per exchange slot
 #endif
 #define XMAXR 8   // ranks (cards of one host)
 #ifndef XC_TIMEOUT_NS
 #define XC_TIMEOUT_NS 5000000000ull  // a wait's deadline: 5 s
 #endif
 
-// What a rank needs of the exchange: every rank's inbox and flags, its
-// rank, the rank count and the launch counter.
+// What a rank needs of the exchange: every rank's inbox, its rank, the
+// rank count.
 struct XcardArgs {
-  int* inbox[XMAXR];                 // rank r's [S][2][XCH] on its card
-  unsigned long long* flags[XMAXR];  // rank r's [S] on its card
+  unsigned long long* inbox[XMAXR];  // rank r's [S][2][XCH] + 1 on its card
   int rank, S;
-  unsigned launch;                   // >= 1, one per launch (the host's)
 };
 
-XC_HD unsigned long long xc_seq(unsigned launch, unsigned round) {
-  return ((unsigned long long)launch << 32) | round;
-}
-
 // slot [src][par] of rank dst's inbox
-XC_HD int* xc_slot(const XcardArgs& x, int dst, int src, int par) {
+XC_HD unsigned long long* xc_slot(const XcardArgs& x, int dst, int src,
+                                  int par) {
   return x.inbox[dst] + ((size_t)src * 2 + par) * XCH;
 }
 
+// this rank's round count, the word after its slots
+XC_HD unsigned long long* xc_count(const XcardArgs& x) {
+  return x.inbox[x.rank] + (size_t)x.S * 2 * XCH;
+}
+
+// the slot of round k
+XC_HD int xc_par(unsigned k) {
+#if defined(XC_MUTANT_ONE_SLOT)
+  (void)k;
+  return 0;
+#else
+  return (int)(k & 1u);
+#endif
+}
+
+XC_HD unsigned long long xc_word(unsigned tag, int v) {
+  return ((unsigned long long)tag << 32) | (unsigned)v;
+}
+
+// whether word w carries round k
+XC_HD bool xc_is(unsigned long long w, unsigned k) {
+  const unsigned tag = (unsigned)(w >> 32);
+#if defined(XC_MUTANT_STALE)
+  return tag == k || tag + 2u == k;
+#else
+  return tag == k;
+#endif
+}
+
 // -- the wrappers ------------------------------------------------------------
-XC_HD void xc_release(unsigned long long* p, unsigned long long v) {
+XC_HD void xc_put(unsigned long long* p, unsigned long long w) {
 #if defined(__CUDA_ARCH__)
   cuda::atomic_ref<unsigned long long, cuda::thread_scope_system>(*p).store(
-      v, cuda::memory_order_release);
+      w, cuda::memory_order_relaxed);
 #else
-  __atomic_store_n(p, v, __ATOMIC_RELEASE);
+  __atomic_store_n(p, w, __ATOMIC_RELAXED);
 #endif
 }
 
-XC_HD unsigned long long xc_acquire(unsigned long long* p) {
+XC_HD unsigned long long xc_get(unsigned long long* p) {
 #if defined(__CUDA_ARCH__)
   return cuda::atomic_ref<unsigned long long, cuda::thread_scope_system>(*p)
-      .load(cuda::memory_order_acquire);
+      .load(cuda::memory_order_relaxed);
 #else
-  return __atomic_load_n(p, __ATOMIC_ACQUIRE);
-#endif
-}
-
-// a value a peer pushed, past the reading SM's L1
-XC_HD int xc_load(const int* p) {
-#if defined(__CUDA_ARCH__)
-  return __ldcg(p);
-#else
-  return *(const volatile int*)p;
+  return __atomic_load_n(p, __ATOMIC_RELAXED);
 #endif
 }
 
@@ -139,117 +167,105 @@ XC_HD unsigned long long xc_now_ns() {
 
 XC_HD void xc_pause() {
 #if defined(__CUDA_ARCH__)
-  __nanosleep(64);
+  __nanosleep(32);
 #else
   std::this_thread::yield();
 #endif
 }
 
+struct XcTimeout {};
+
 XC_HD void xc_fail() {
 #if defined(__CUDA_ARCH__)
   __trap();
 #else
-  std::abort();
+  throw XcTimeout{};
 #endif
 }
 
 // -- the protocol's steps ----------------------------------------------------
-// push: this rank's n values v into slot [rank][par] of every peer's inbox;
-// thread t of nt
-XC_HD void xc_push(const XcardArgs& x, int par, const int* v, int n, int t,
-                   int nt) {
-  for (int i = t; i < n; i += nt) {
-    const int val = v[i];
-    for (int r = 0; r < x.S; ++r)
-      if (r != x.rank) xc_slot(x, r, x.rank, par)[i] = val;
+// until the word at p (this rank's inbox) carries round k: its value in
+// *v, or false past `timeout_ns`
+XC_HD bool xc_wait(unsigned long long* p, unsigned k,
+                   unsigned long long timeout_ns, int* v) {
+  unsigned long long w = xc_get(p);
+  if (!xc_is(w, k)) {
+    const unsigned long long t0 = xc_now_ns();
+    do {
+      if (xc_now_ns() - t0 > timeout_ns) return false;
+      xc_pause();
+      w = xc_get(p);
+    } while (!xc_is(w, k));
   }
-}
-
-// publish: seq to every peer (flags[r][rank]), the peers r = t, t + nt, ...
-XC_HD void xc_publish(const XcardArgs& x, unsigned long long seq, int t,
-                      int nt) {
-  for (int r = t; r < x.S; r += nt)
-    if (r != x.rank) xc_release(x.flags[r] + x.rank, seq);
-}
-
-// wait until peer src has published at least seq to this rank; false past
-// `timeout_ns`
-XC_HD bool xc_wait_one(const XcardArgs& x, int src, unsigned long long seq,
-                       unsigned long long timeout_ns) {
-  unsigned long long* f = x.flags[x.rank] + src;
-  if (xc_acquire(f) >= seq) return true;
-  const unsigned long long t0 = xc_now_ns();
-  while (xc_acquire(f) < seq) {
-    if (xc_now_ns() - t0 > timeout_ns) return false;
-    xc_pause();
-  }
+  *v = (int)(unsigned)w;
   return true;
 }
 
-// wait for the peers r = t, t + nt, ...; a peer past the deadline fails
-// the launch
-XC_HD void xc_wait(const XcardArgs& x, unsigned long long seq, int t,
-                   int nt) {
-  for (int r = t; r < x.S; r += nt)
-    if (r != x.rank && !xc_wait_one(x, r, seq, XC_TIMEOUT_NS)) xc_fail();
-}
-
-// combine: every peer's slot [src][par] folded into this rank's n values v
-// (max, or with SUM the sum modulo 2^32)
-template <bool SUM>
-XC_HD void xc_combine(const XcardArgs& x, int par, int* v, int n, int t,
-                      int nt) {
-  for (int i = t; i < n; i += nt) {
+// round k: v [n <= XCH] becomes its combination over every rank (max, or
+// with SUM the sum modulo 2^32); thread t of nt takes values t, t + nt, ...
+template <bool SUM, class Team>
+XC_HD void xc_round(const XcardArgs& x, unsigned k, int* v, int n,
+                    Team& team) {
+  const int par = xc_par(k);
+  for (int i = team.t; i < n; i += team.nt) {
+    const unsigned long long w = xc_word(k, v[i]);
+    for (int r = 0; r < x.S; ++r)
+      if (r != x.rank) xc_put(xc_slot(x, r, x.rank, par) + i, w);
+  }
+  team.lag();
+  for (int i = team.t; i < n; i += team.nt) {
     int acc = v[i];
     for (int r = 0; r < x.S; ++r) {
       if (r == x.rank) continue;
-      const int y = xc_load(xc_slot(x, x.rank, r, par) + i);
+      int y;
+      if (!xc_wait(xc_slot(x, x.rank, r, par) + i, k, XC_TIMEOUT_NS, &y))
+        xc_fail();
       acc = SUM ? (int)((unsigned)acc + (unsigned)y) : (acc > y ? acc : y);
     }
     v[i] = acc;
   }
 }
 
-// -- a team's rounds ---------------------------------------------------------
+// -- a team's exchanges ------------------------------------------------------
 // `Team` is what runs one rank: t, nt, sync() (a barrier of the team) and
-// fence() (__threadfence_system on the card).  Every member calls with the
-// same arguments.
+// lag() (between a round's push and its combine: nothing on the card; a
+// host shim's slow rank waits there).  Every member calls with the same
+// arguments; `round` is the team's shared round count.
 
-// round 0: every peer has entered launch x.launch
+// a launch's start: member 0 loads the rank's round count (x's device
+// word) into *round, then a team barrier
 template <class Team>
-XC_HD void xc_enter(const XcardArgs& x, Team& team) {
-  const unsigned long long seq = xc_seq(x.launch, 0u);
-  team.sync();
-  xc_publish(x, seq, team.t, team.nt);
-  xc_wait(x, seq, team.t, team.nt);
+XC_HD void xc_begin(const XcardArgs& x, unsigned* round, Team& team) {
+  if (team.t == 0) {
+#if defined(XC_MUTANT_NO_COUNT)
+    *round = 0u;
+#else
+    *round = (unsigned)*xc_count(x);
+#endif
+  }
   team.sync();
 }
 
-// round k >= 1: v [n <= XCH] becomes its combination over every rank
-template <bool SUM, class Team>
-XC_HD void xc_round(const XcardArgs& x, unsigned k, int* v, int n,
-                    Team& team) {
-  const int par = (int)(k & 1u);
-  const unsigned long long seq = xc_seq(x.launch, k);
-  xc_push(x, par, v, n, team.t, team.nt);
-  team.fence();
-  team.sync();
-  xc_publish(x, seq, team.t, team.nt);
-  xc_wait(x, seq, team.t, team.nt);
-  team.sync();
-  xc_combine<SUM>(x, par, v, n, team.t, team.nt);
+// a launch's end, after its last exchange: member 0 stores the count back
+template <class Team>
+XC_HD void xc_end(const XcardArgs& x, const unsigned* round, Team& team) {
+  if (team.t == 0) *xc_count(x) = *round;
 }
 
-// a vector of any length L: rounds *k + 1, *k + 2, ... of XCH values each;
-// team barriers before the first push (the members wrote v) and after the
-// last combine.  Every member keeps its own *k: they advance alike.
+// a vector of any length L: rounds *round + 1, *round + 2, ... of XCH
+// values each; team barriers before the first push (the members wrote v),
+// between two rounds and after the last combine.  Every member reads
+// *round before the first barrier; member 0 advances it before the last.
 template <bool SUM, class Team>
-XC_HD void xc_all(const XcardArgs& x, unsigned* k, int* v, int L,
+XC_HD void xc_all(const XcardArgs& x, unsigned* round, int* v, int L,
                   Team& team) {
+  unsigned k = *round;
   team.sync();
   for (int base = 0; base < L; base += XCH) {
+    if (base) team.sync();
     const int n = L - base < XCH ? L - base : XCH;
-    xc_round<SUM>(x, ++*k, v + base, n, team);
+    xc_round<SUM>(x, ++k, v + base, n, team);
   }
+  if (team.t == 0) *round = k;
   team.sync();
 }

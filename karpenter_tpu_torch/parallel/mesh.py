@@ -18,11 +18,13 @@ through distributed shared memory.  A sharded array is one device tensor
 [S, ...] whose [r] is shard r, contiguous, filled from its own host slice.
 
 On a host of S cards (a mesh of cards, `Mesh.devices`) a mesh of S shards
-is S rank launches of K7x (`solver/ffd.py` `card_scan`), one block a
-card: card r holds only shard r of the catalog, of the mask-row table and
-of the seed words, and its own replica of the carry; a sharded array is a
-tuple whose [r] lives on card r, and the collectives are exchanges
-between the cards' kernels over NVLink.  `resolve_mesh` is the rule that
+is one launch of K7x (`solver/ffd.py` `card_scan`), one block a card,
+every rank enqueued by one call into the kernel library: card r holds
+only shard r of the catalog, of the mask-row table and of the seed words,
+and its own replica of the problem rows (copied from card 0's upload by
+the launch) and of the carry; a sharded array is a tuple whose [r] lives
+on card r, and the collectives are exchanges between the cards' kernels
+over NVLink.  `resolve_mesh` is the rule that
 turns a mesh spec into one of the two forms.
 
 Axis name: "cat", the offering-column (catalog) axis.
@@ -187,7 +189,9 @@ class MeshExecutor:
         # launch configurations by static shape: {"lay": the flat layout,
         # "clusters": how many clusters of S blocks the card holds at once
         # (None off the card and across cards), across cards "blocks":
-        # how many rank blocks each card holds at once}
+        # how many rank blocks each card holds at once and "plan": K7x's
+        # ffd.CardLaunch for the resident catalog (made at its first
+        # launch)}
         self._configs: Dict[tuple, Dict] = {}
 
     @property
@@ -267,10 +271,12 @@ class MeshExecutor:
         return full
 
     def rank_args(self, prob, seed=None):
-        """The cards form's arguments of one launch, one a rank: the
-        problem rows on the first card (and the seed's rows) copied card to
-        card to every rank, each rank's seed with its own column words
-        (`seed.seed_colmask`, a tuple, rank r's on card r).  Returns
+        """The cards form's arguments of one launch, one a rank, for
+        kernel-level checks (`shard_problem`; the executor's own launches
+        hand card 0's rows to `ffd.card_scan`, whose launch copies them):
+        the problem rows on the first card (and the seed's rows) copied
+        card to card to every rank, each rank's seed with its own column
+        words (`seed.seed_colmask`, a tuple, rank r's on card r).  Returns
         (problems, seeds or None)."""
         if seed is None:
             return [r[0] for r in self._replicas(prob)], None
@@ -317,8 +323,7 @@ class MeshExecutor:
         cfg = self._configs.get(key)
         if cfg is None:
             firstuse.note("launch")
-            p0 = prob[0] if self.mesh.cards else prob
-            lay = ffd.flat_layout(p0.G, p0.E, N, p0.D, explain,
+            lay = ffd.flat_layout(prob.G, prob.E, N, prob.D, explain,
                                   with_priority=with_priority)
             cfg = {"lay": lay, "clusters": None}
             if self.mesh.device.type == "cuda" and self.mesh.cards:
@@ -344,33 +349,39 @@ class MeshExecutor:
 
     def _launch(self, cfg: Dict, prob, table, cat, max_nodes: int,
                 with_gang: int = 0, seed=None) -> torch.Tensor:
-        """One launch: K7's cluster, or across cards K7x's S rank launches
-        (`ffd.card_scan`: every rank enqueued before anything waits, then
-        tied by CUDA events — card 0's stream waits on every card's
-        completion, each rank's next launch on the last launch's events
-        on every card).  Returns rank 0's flat row on the first device."""
-        p0 = prob[0] if self.mesh.cards else prob
+        """One launch: K7's cluster, or across cards K7x's S ranks
+        (`ffd.card_scan` through the configuration's `ffd.CardLaunch`, one
+        call into the kernel library: card 0's rows copied to every rank,
+        every rank enqueued before anything waits, tied by CUDA events —
+        card 0's stream waits on every card's completion, each launch
+        after the last one on every card).  Returns rank 0's flat row on
+        the first device."""
         flat = torch.empty(cfg["lay"]["total"][1], dtype=torch.float32,
                            device=self.mesh.device)
-        limits = torch.empty((p0.P, ffd.R), dtype=torch.float32,
+        limits = torch.empty((prob.P, ffd.R), dtype=torch.float32,
                              device=self.mesh.device)
-        scan = ffd.card_scan if self.mesh.cards else ffd.sharded_scan
-        scan(prob, table, cat, max_nodes, flat, cfg["lay"], limits,
-             with_gang, seed)
+        if not self.mesh.cards:
+            ffd.sharded_scan(prob, table, cat, max_nodes, flat, cfg["lay"],
+                             limits, with_gang, seed)
+            return flat
+        plan = cfg.get("plan")
+        if plan is not None and plan.cat is not cat:
+            plan = None  # another resident catalog: its scratch goes too
+        cfg["plan"] = ffd.card_scan(prob, table, cat, max_nodes, flat,
+                                    cfg["lay"], limits, with_gang, seed,
+                                    plan=plan)
         return flat
 
     def solve(self, prob, table, cat, max_nodes: int, explain: int = 0,
               with_gang: int = 0, with_priority: int = 0) -> torch.Tensor:
         """One resident-path solve: `prob` the replicated problem rows on
         the first device (its mask_bits the [G] table rows; across cards
-        copied card to card to every rank), `table` the mask-table
+        the launch copies them to every rank), `table` the mask-table
         snapshot `MaskRowRegistry.ensure` returned with them, `cat` the
         resident ShardedCatalog (CardCatalog).  Returns the flat result
         row (not synchronised)."""
         key = ("solve", prob.G, prob.E, prob.D, prob.P, _rows(table),
                max_nodes, explain, with_gang, with_priority)
-        if self.mesh.cards:
-            prob, _ = self.rank_args(prob)
         cfg = self._config(key, prob, table, cat, max_nodes, explain,
                            with_gang, with_priority, None)
         return self._launch(cfg, prob, table, cat, max_nodes, with_gang)
@@ -384,8 +395,6 @@ class MeshExecutor:
         everything else with a column axis is resident."""
         key = ("delta", prob.G, prob.E, prob.D, prob.P, _rows(table),
                max_nodes, explain, seed.A)
-        if self.mesh.cards:
-            prob, seed = self.rank_args(prob, seed)
         cfg = self._config(key, prob, table, cat, max_nodes, explain, 0, 0,
                            seed)
         return self._launch(cfg, prob, table, cat, max_nodes, seed=seed)

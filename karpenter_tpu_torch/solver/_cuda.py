@@ -45,7 +45,9 @@ ENTRIES = {"ffd_batch_scan": "ffd_batch_scan",
            "ffd_card_gang_scan": "ffd_card_scan",
            "ffd_card_delta_scan": "ffd_card_scan",
            "ffd_card_occupancy": "ffd_card_scan",
-           "ffd_card_peer": "ffd_card_scan"}
+           "ffd_card_peer": "ffd_card_scan",
+           "ffd_card_launch": "ffd_card_scan",
+           "ffd_card_events": "ffd_card_scan"}
 
 # -fmad=false and the precise division/sqrt keep the float arithmetic the
 # reference's (the kernels also spell every operation with a

@@ -37,7 +37,9 @@ runs them as hand-written CUDA kernels, one thread block per problem:
   * ``card_scan`` (K7x, `csrc/ffd_card_scan.cu`): the same scan across
     the S cards of one host (`CardCatalog`, shard r on card r), one rank
     a card, each column reduction an exchange between the cards' kernels
-    over NVLink (`CardExchange`, the protocol in `csrc/ffd_xcard.cuh`);
+    over NVLink (`CardExchange`, the protocol in `csrc/ffd_xcard.cuh`),
+    every rank of a launch enqueued by one call into the kernel library
+    (`CardLaunch`);
     ``card_scan_rehearsal`` launches the same instances as one
     cooperative grid of S blocks on one card, a check of the exchange
     where only one card exists.
@@ -338,7 +340,10 @@ class CardCatalog:
     shard r, [O_s, ...] on card r and nowhere else; pool_daemon has a
     replica on every card.  `full` is the full-width catalog on card 0
     that the unsharded kernels read (the batched and sweep paths under a
-    mesh), gathered card to card once (`MeshExecutor.gather_full`)."""
+    mesh), gathered card to card once (`MeshExecutor.gather_full`).
+    `slot_ids` is shard 0's leading block of grid-slot domains (the
+    reference's all_gather(...)[0], ffd.py:631), a copy a card: K7x reads
+    it as the slot->domain map."""
     col_alloc: Tuple[torch.Tensor, ...]    # [O_s, R] f32 on card r
     col_daemon: Tuple[torch.Tensor, ...]   # [O_s, R] f32
     pt_alloc: Tuple[torch.Tensor, ...]     # [PT_s, R] f32
@@ -349,6 +354,8 @@ class CardCatalog:
     col_ct: Tuple[torch.Tensor, ...]       # [O_s] i32
     zc: int
     full: Optional[FFDCatalog] = None
+    slot_ids: Tuple[torch.Tensor, ...] = ()  # [2 zc] i32: zones, then
+                                             # capacity types, on card r
 
     @property
     def S(self) -> int:
@@ -424,7 +431,8 @@ def sharded_catalog_tensors(cat_arrays: Dict, S: int, ex):
     MeshExecutor, which logs the bytes), pool_daemon and the full-width
     pool bits through `ex.put_replicated`.  On a mesh of cards (`ex.mesh.
     cards`) a CardCatalog: shard r committed to card r alone, pool_daemon
-    on every card, no full-width pool bits (`gather_full` builds them)."""
+    on every card, shard 0's leading grid-slot ids on every card, no
+    full-width pool bits (`gather_full` builds them)."""
     zc = int(cat_arrays["zc"])
     col_pool = np.asarray(cat_arrays["col_pool"], np.int32)
     pool_daemon = np.asarray(cat_arrays["pool_daemon"], np.float32)
@@ -447,7 +455,10 @@ def sharded_catalog_tensors(cat_arrays: Dict, S: int, ex):
             pool_daemon=ex.put_replicated(pool_daemon),
             pool_bits=ex.put_sharded(shard_words(pool_cols, S), "catalog"),
             col_zone=cols("col_zone", np.int32),
-            col_ct=cols("col_ct", np.int32), zc=zc)
+            col_ct=cols("col_ct", np.int32), zc=zc,
+            slot_ids=ex.put_replicated(np.concatenate([
+                np.asarray(cat_arrays["col_zone"], np.int32)[:zc],
+                np.asarray(cat_arrays["col_ct"], np.int32)[:zc]])))
     cat = ShardedCatalog(
         col_alloc=cols("col_alloc", np.float32),
         col_daemon=cols("col_daemon", np.float32),
@@ -2077,7 +2088,7 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
                  lay: Dict, limits_out: torch.Tensor, sparse_k: int,
                  inputs: Dict[str, Optional[torch.Tensor]],
                  A: int = 0, mesh: Optional[Dict] = None,
-                 xcard: Optional[Tuple] = None, defer: bool = False):
+                 xcard: Optional[Tuple] = None):
     """Launch one of the scan kernels (grid: one block per problem) with
     the argument list every instance takes (ScanArgs order, `_scan_args`;
     the explain regions of `lay` among the outputs); `inputs` holds the
@@ -2088,25 +2099,22 @@ def _launch_scan(entry: str, B: int, G: int, E: int, N: int, P: int,
     replica of the carry, the dims carry one shard's O, PT and W, and
     block 0 writes the flat row `flat` [total] and the budgets
     `limits_out` [P, R] (the other blocks keep theirs in the scratch).
-    With `xcard` (K7x: (CardExchange, rank, launch counter, rehearse))
-    the card exchange's addresses and dims follow; one rank's launch
-    (mesh["reps"] 1: `cat` rank r's one-shard view, `flat` its row) or
-    the rehearsal's cooperative grid of S blocks (K7's layout).  With
-    `defer` the launch is returned, not made: a call that enqueues it
-    (its scratch held until then)."""
+    With `xcard` (K7x: (CardExchange, rank, rehearse, this card's copy of
+    shard 0's grid-slot ids or None in the rehearsal)) the card exchange's
+    addresses, the ids and the dims follow: one rank's launch alone
+    (mesh["reps"] 1: `cat` rank r's one-shard view, `flat` its row; the
+    solver launches every rank at once through `CardLaunch`) or the
+    rehearsal's cooperative grid of S blocks (K7's layout)."""
     from karpenter_tpu_torch.solver import _cuda
     dev = flat.device
     ptrs, dims, scratch = _scan_args(entry, B, G, E, N, P, D, X, cat, flat,
                                      lay, limits_out, sparse_k, inputs, A,
                                      mesh)
     if xcard is not None:
-        xch, rank, seq, rehearse = xcard
-        ptrs += xch.addresses()
-        dims += [rank, seq, rehearse, dev.index]
+        xch, rank, rehearse, slot_ids = xcard
+        ptrs += xch.addresses() + [_ptr(slot_ids)]
+        dims += [rank, rehearse, dev.index]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if defer:
-        keep = (scratch, flat, limits_out, inputs)
-        return lambda: _cuda.launch(entry, ptrs, dims, stream) or keep
     _cuda.launch(entry, ptrs, dims, stream)
 
 
@@ -2710,18 +2718,35 @@ def sharded_delta_ffd(prob: FFDProblem, seed: DeltaSeed, table: torch.Tensor,
 _CARD_ENTRY = {"ffd_sharded_scan": "ffd_card_scan",
                "ffd_sharded_gang_scan": "ffd_card_gang_scan",
                "ffd_sharded_delta_scan": "ffd_card_delta_scan"}
+# K7x's instances as `ffd_card_launch` numbers them
+_CARD_INSTANCE = {"ffd_card_scan": 0, "ffd_card_gang_scan": 1,
+                  "ffd_card_delta_scan": 2}
+# a round count the host does not let pass (csrc ffd_xcard.cuh: the tags
+# are 32 bits), read every CARD_CHECK_EVERY launches of an exchange (a
+# launch makes far fewer than 2^21 rounds)
+CARD_ROUND_LIMIT = 2 ** 31
+CARD_CHECK_EVERY = 1024
+# ffd_card_launch's arguments (csrc ffd_card_scan.cu): per rank its
+# stream, event and replica, then card_entry's pointers (SCAN_FIELDS, the
+# XMAXR inboxes, the slot ids) and dims (the scan's, rank, rehearse,
+# device)
+_CARD_HEAD_PTRS, _CARD_HEAD_DIMS = 2, 3
+_CARD_RANK_PTRS = 3 + len(SCAN_FIELDS) + MAX_CARDS + 1
+_CARD_NDIMS = 16 + 3
 
 
 class CardExchange:
     """The card exchange of K7x (`csrc/ffd_xcard.cuh`) over `devices`:
-    rank r's inbox [S, 2, XCH] int32 and flags [S] int64 on devices[r]
-    (the flags zeroed once, here, and never again), the launch counter
-    that, with the round, makes the 64-bit sequence numbers, and the CUDA
-    events that tie one launch's ranks together.  On S distinct cards peer
+    rank r's inbox on devices[r], [S, 2, XCH] tagged 64-bit words and then
+    the rank's round count (zeroed here); the CUDA events that tie a
+    launch's ranks together (`events`, made once, each on its card); the
+    lock under which a launch is enqueued, so the ranks of two launches
+    never interleave on the cards' streams.  On S distinct cards peer
     access is enabled for every ordered pair first; with one card S times
-    it serves the rehearsal (the S blocks of one cooperative grid).  A
-    launch enqueues under one lock, so the ranks of two launches never
-    interleave on the cards' streams."""
+    it serves the rehearsal (the S blocks of one cooperative grid).
+    Every CARD_CHECK_EVERY launches (`admit`) the host reads rank 0's round
+    count, and past CARD_ROUND_LIMIT zeroes every inbox with every card
+    idle (`rewind`), so no tag comes round."""
 
     def __init__(self, devices: Sequence):
         from karpenter_tpu_torch.solver import _cuda
@@ -2738,72 +2763,63 @@ class CardExchange:
         if self.cards:
             _cuda.launch("ffd_card_peer", [],
                          [d.index for d in self.devices], 0)
-        self.inbox = [torch.empty(S * 2 * XCH, dtype=torch.int32, device=d)
-                      for d in self.devices]
-        self.flags = [torch.zeros(S, dtype=torch.int64, device=d)
-                      for d in self.devices]
-        # the zeroing must land before any peer can publish into a card:
+        self.inbox = [torch.zeros(S * 2 * XCH + 1, dtype=torch.int64,
+                                  device=d) for d in self.devices]
+        self._settle()
+        self.launches = 0   # launches admitted
+        self.rewinds = 0    # times every inbox was zeroed again
+        self._events: Optional[Tuple[int, ...]] = None
+        self.lock = threading.Lock()
+
+    def _settle(self) -> None:
         # nothing orders one card's memset against another card's launch
+        # that pushes into it: every card idle
         for d in set(self.devices):
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
-        self.seq = 0
-        self._events: List = []
-        self._lock = threading.Lock()
 
     def addresses(self) -> List[int]:
-        """Every rank's inbox, then every rank's flags (0 past S)."""
-        pad = [0] * (MAX_CARDS - len(self.devices))
-        return ([t.data_ptr() for t in self.inbox] + pad
-                + [t.data_ptr() for t in self.flags] + pad)
+        """Every rank's inbox (0 past S)."""
+        return ([t.data_ptr() for t in self.inbox]
+                + [0] * (MAX_CARDS - len(self.devices)))
 
-    def _next(self) -> int:
-        self.seq += 1
-        if self.seq >= 2 ** 31:
-            raise RuntimeError("the card exchange's launch counter is spent")
-        return self.seq
+    def rounds(self) -> int:
+        """Rank 0's round count: the exchange rounds since the inboxes
+        were last zeroed (reads card 0 after what its stream holds)."""
+        return int(self.inbox[0][-1].item())
 
-    def launch(self, rank) -> int:
-        """One launch of S ranks: `rank(r, seq)` prepares rank r's launch
-        and returns the call that enqueues it; every card's stream first
-        waits on the previous launch's completion event of every card,
-        then the S ranks are enqueued back to back, card r current for
-        rank r, every rank before anything waits (each spins on its peers
-        from its first round, so the host puts nothing between them);
-        then each card records its completion event and card 0's current
-        stream waits on every other card's, so work that follows on card
-        0 (pulling rank 0's flat row) follows every rank.  Returns the
-        launch counter."""
-        with self._lock:
-            seq, prev = self._next(), self._events
-            calls = [rank(r, seq) for r in range(len(self.devices))]
-            for d in self.devices:
-                stream = torch.cuda.current_stream(d)
-                for e in prev:
-                    stream.wait_event(e)
-            for d, call in zip(self.devices, calls):
-                with torch.cuda.device(d):
-                    call()
-            events = []
-            for d in self.devices:
-                with torch.cuda.device(d):
-                    e = torch.cuda.Event()
-                    e.record(torch.cuda.current_stream(d))
-                    events.append(e)
-            card0 = torch.cuda.current_stream(self.devices[0])
-            for e in events[1:]:
-                card0.wait_event(e)
-            self._events = events
-            return seq
+    def rewind(self) -> None:
+        """Every inbox and round count zeroed, with every card idle before
+        (no rank of the exchange runs) and after (no launch starts before
+        the zeroes land)."""
+        self._settle()
+        for t in self.inbox:
+            t.zero_()
+        self._settle()
+        self.rewinds += 1
 
-    def rehearse(self, grid) -> int:
-        """One rehearsal launch, `grid(seq)` enqueueing the cooperative
-        grid on the one card (its stream orders the launches)."""
-        with self._lock:
-            seq = self._next()
-            with torch.cuda.device(self.devices[0]):
-                grid(seq)
-            return seq
+    def admit(self) -> None:
+        """Count one launch (the caller holds `lock`); every
+        CARD_CHECK_EVERY launches rewind past CARD_ROUND_LIMIT."""
+        self.launches += 1
+        if (self.launches % CARD_CHECK_EVERY == 0
+                and self.rounds() >= CARD_ROUND_LIMIT):
+            self.rewind()
+
+    def events(self) -> Tuple[int, ...]:
+        """The launch's events (cudaEvent_t handles): "ready" on card 0,
+        then each rank's "done" on its card."""
+        if self._events is None:
+            from karpenter_tpu_torch.solver import _cuda
+            devs = [self.devices[0].index] + [d.index for d in self.devices]
+            out = (ctypes.c_uint64 * len(devs))()
+            rc = _cuda.kernel("ffd_card_events")(
+                out, len(devs), (ctypes.c_int * len(devs))(*devs),
+                len(devs), None)
+            if rc != 0:
+                raise RuntimeError(f"ffd_card_events failed: cudaError {rc}")
+            self._events = tuple(out)
+        return self._events
 
 
 # one exchange per set of cards in the process: two launches over the
@@ -2824,94 +2840,298 @@ def card_exchange(devices: Sequence) -> CardExchange:
         return xch
 
 
-def _rank_seed(seed: Optional[DeltaSeed]) -> Optional[DeltaSeed]:
-    """A rank's seed as the one-shard form `_check_sharded` reads."""
+def _rank_seed(seed: Optional[DeltaSeed],
+               words: Optional[torch.Tensor] = None) -> Optional[DeltaSeed]:
+    """A rank's seed as the one-shard form `_check_sharded` reads: its
+    rows, and its own [A, W_s] words (`words`, else the seed's)."""
     if seed is None:
         return None
+    w = seed.seed_colmask if words is None else words
     return DeltaSeed(seed.seed_used, seed.seed_pool, seed.seed_active,
-                     seed.seed_colmask[None])
+                     w[None])
 
 
-def card_scan(probs: Sequence[FFDProblem], tables: Sequence[torch.Tensor],
-              cat: CardCatalog, N: int, flat: torch.Tensor, lay: Dict,
-              limits_out: torch.Tensor, with_gang: int = 0,
-              seeds: Optional[Sequence[DeltaSeed]] = None) -> None:
-    """K7x: the column-sharded scan of one problem over the S cards of
-    `cat`, rank r on card r — its replica of the problem rows probs[r]
-    (mask_bits the groups' [G] rows of its table), its mask table
-    tables[r] [C, W_s], its shard of the catalog and, seeded, seeds[r]
-    (the seed's rows and its own [A, W_s] column words) — each reduction
-    across the ranks an exchange between their kernels over NVLink.  The
-    same function as K7 (`sharded_scan`) on the same shards: rank 0
-    writes the flat row `flat` [total] and the budgets `limits_out` [P, R]
-    on card 0.  CUDA tensors launch one block on each card
-    (`CardExchange.launch`), one launch counted; CPU tensors run the plain
-    version, `sharded_scan_reference`, on the shards stacked."""
-    S, devs = cat.S, cat.devices
-    if (len(probs) != S or len(tables) != S
-            or (seeds is not None and len(seeds) != S)):
+def _card_form(probs, seeds, S: int):
+    """card_scan's arguments as (rank 0's problem, rank 0's seed or None,
+    the ranks' seed words or None).  The problem: one a rank (each rank's
+    replica) or card 0's alone; the seed likewise, one a rank with its own
+    [A, W_s] words, or one whose `seed_colmask` is the ranks' words.  Only
+    rank 0's rows are read: a launch copies them to every rank."""
+    if isinstance(probs, FFDProblem):
+        prob0 = probs
+    elif len(probs) == S:
+        prob0 = probs[0]
+    else:
+        raise ValueError(f"the cards form takes one problem, table and "
+                         f"seed a rank ({S} ranks), or card 0's problem")
+    if seeds is None:
+        return prob0, None, None
+    if isinstance(seeds, DeltaSeed):
+        seed0, words = seeds, tuple(seeds.seed_colmask)
+    else:
+        seed0, words = seeds[0], tuple(s.seed_colmask for s in seeds)
+    if len(words) != S:
         raise ValueError(f"the cards form takes one problem, table and "
                          f"seed a rank ({S} ranks)")
+    return prob0, seed0, words
+
+
+class CardLaunch:
+    """K7x's launch path for one launch configuration (its statics, its
+    CardCatalog, its cards): every rank's argument array and persistent
+    scratch, built once — ranks past 0 their flat row, pool budgets and
+    carry on their own cards and a replica of card 0's upload buffer of
+    problem rows, rank 0 its carry — and per launch only rank 0's problem
+    rows, its outputs, the upload's address, the mask tables, the seed's
+    words and the streams patched in before one call into the kernel
+    library (`ffd_card_launch`), which copies the upload to every replica
+    and launches every rank (csrc ffd_card_scan.cu).  `card_scan` builds
+    one when it is handed none and returns it; the executor holds one in
+    each launch configuration (`MeshExecutor._launch`).  The plan keeps
+    no buffer of the caller's: rank 0's rows and outputs are each
+    launch's own."""
+
+    def __init__(self, prob: FFDProblem, tables: Sequence[torch.Tensor],
+                 cat: CardCatalog, N: int, lay: Dict, with_gang: int,
+                 seed: Optional[DeltaSeed], words, flat: torch.Tensor,
+                 limits_out: torch.Tensor):
+        S, devs = cat.S, cat.devices
+        self.cat, self.S, self.devices = cat, S, devs
+        self.key = _card_key(prob, tables, N, lay, with_gang, seed)
+        self.xch = card_exchange(devs)
+        # the upload's rows: (ScanArgs field, "p" problem or "s" seed,
+        # attribute), their offsets from the first byte, sizes and types
+        src = [("mask_rows", "p", "mask_bits")] + [
+            (f.name, "p", f.name) for f in fields(FFDProblem)
+            if f.name != "mask_bits"]
+        if seed is not None:
+            src += [(n, "s", n) for n in ("seed_used", "seed_pool",
+                                          "seed_active")]
+        objs = {"p": prob, "s": seed}
+        rows = [getattr(objs[k], a) for _, k, a in src]
+        for t in rows:
+            if not t.is_contiguous():
+                raise ValueError("the problem rows are not contiguous")
+        # an empty row has no address (data_ptr 0) and nothing to copy
+        self._live = tuple(j for j, t in enumerate(rows) if t.numel())
+        starts = [t.data_ptr() for t in rows]
+        lo = min(starts[j] for j in self._live)
+        offsets = [starts[j] - lo if j in self._live else 0
+                   for j in range(len(rows))]
+        self._offsets = tuple(offsets[j] for j in self._live)
+        self._nbytes = max(offsets[j] + rows[j].numel()
+                           * rows[j].element_size() for j in self._live)
+        index = {f: i for i, f in enumerate(SCAN_FIELDS)}
+        self._rows = tuple((index[f], k, a) for f, k, a in src)
+        # each rank's problem: rank 0's the caller's (not kept), every
+        # other one's in its replica of the upload; its outputs and carry
+        self.problems, self.seeds, self.replicas = [None], [None], [None]
+        self._keep = []
+        head, dims = [0, 0], [S, 0, self._nbytes]
+        for r in range(S):
+            if r == 0:
+                p_r, s_r, buf = prob, seed, None
+                flat_r, lim_r = flat, limits_out
+            else:
+                buf = torch.empty(self._nbytes, dtype=torch.uint8,
+                                  device=devs[r])
+                views = {(k, a): buf[o:o + t.numel() * t.element_size()]
+                         .view(t.dtype).view(t.shape)
+                         for (_, k, a), o, t in zip(src, offsets, rows)}
+                p_r = FFDProblem(**{f.name: views[("p", f.name)]
+                                    for f in fields(FFDProblem)})
+                s_r = None if seed is None else DeltaSeed(
+                    views[("s", "seed_used")], views[("s", "seed_pool")],
+                    views[("s", "seed_active")], None)
+                flat_r = torch.empty(lay["total"][1], dtype=torch.float32,
+                                     device=devs[r])
+                lim_r = torch.empty((prob.P, R), dtype=torch.float32,
+                                    device=devs[r])
+            shard = cat.shard(r)
+            entry, inputs, mesh, A = _sharded_launch_args(
+                p_r, tables[r][None], shard, lay, with_gang,
+                _rank_seed(s_r, None if words is None else words[r]))
+            mesh.update(S=S, reps=1)
+            ptrs, d, keep = _scan_args(entry, 1, prob.G, prob.E, N, prob.P,
+                                       prob.D, 0, shard, flat_r, lay, lim_r,
+                                       0, inputs, A, mesh)
+            head += [0, 0, 0 if buf is None else buf.data_ptr()] + ptrs
+            head += self.xch.addresses() + [cat.slot_ids[r].data_ptr()]
+            dims += d + [r, 0, devs[r].index or 0]
+            if r == 0:
+                self._keep.append((keep,))
+                # the rows the instance reads (its entry point refuses the
+                # others: their pointers stay 0)
+                self._patched = tuple(
+                    (j, i) for j, (i, _, a) in enumerate(self._rows)
+                    if a == "mask_bits" or inputs.get(a) is not None)
+            else:
+                self.problems.append(p_r)
+                self.seeds.append(s_r)
+                self.replicas.append(buf)
+                self._keep.append((keep, flat_r, lim_r))
+        self.entry = _CARD_ENTRY[entry]
+        dims[1] = _CARD_INSTANCE[self.entry]
+        assert len(head) == _CARD_HEAD_PTRS + S * _CARD_RANK_PTRS
+        assert len(dims) == _CARD_HEAD_DIMS + S * _CARD_NDIMS
+        self.ptrs = (ctypes.c_uint64 * len(head))(*head)
+        self.dims = (ctypes.c_int * len(dims))(*dims)
+        # what a launch patches besides its rows: rank 0's outputs, every
+        # rank's table and seed words
+        self._regions = tuple((index[f], 4 * lay[name][0])
+                              for f, name in SCAN_REGIONS if name in lay)
+        self._limits, self._row0 = index["limits"], index["row0"]
+        self._table = index["mask_bits"]
+        self._words = index["seed_colmask"] if seed is not None else None
+        self._evented = False
+
+    def rank_args(self, r: int) -> Tuple[List[int], List[int]]:
+        """Rank r's argument array as the last launch passed it (card_entry's
+        pointers and dims)."""
+        p0 = _CARD_HEAD_PTRS + r * _CARD_RANK_PTRS + 3
+        d0 = _CARD_HEAD_DIMS + r * _CARD_NDIMS
+        return (list(self.ptrs[p0:p0 + _CARD_RANK_PTRS - 3]),
+                list(self.dims[d0:d0 + _CARD_NDIMS]))
+
+    def _patch(self, prob, seed, tables, words, flat, limits_out) -> None:
+        p, S = self.ptrs, self.S
+        objs = {"p": prob, "s": seed}
+        starts = [getattr(objs[k], a).data_ptr() for _, k, a in self._rows]
+        lo = min(starts[j] for j in self._live)
+        if tuple(starts[j] - lo for j in self._live) != self._offsets:
+            raise ValueError("the problem rows are not laid out as the "
+                             "launch configuration's upload")
+        b0 = _CARD_HEAD_PTRS + 3
+        for j, i in self._patched:
+            p[b0 + i] = starts[j]
+        base = flat.data_ptr()
+        for i, off in self._regions:
+            p[b0 + i] = base + off
+        p[b0 + self._limits] = limits_out.data_ptr()
+        p[b0 + self._row0] = base
+        p[0] = lo
+        for r in range(S):
+            br = _CARD_HEAD_PTRS + r * _CARD_RANK_PTRS
+            p[br] = torch.cuda.current_stream(
+                self.devices[r]).cuda_stream if flat.is_cuda else 0
+            p[br + 3 + self._table] = tables[r].data_ptr()
+            if self._words is not None:
+                p[br + 3 + self._words] = words[r].data_ptr()
+
+    def patch(self, prob, seed, tables, words, flat, limits_out) -> None:
+        """The launch's rows, tables, words and rank 0's outputs into the
+        arrays (under the exchange's lock), as `launch` does."""
+        with self.xch.lock:
+            self._patch(prob, seed, tables, words, flat, limits_out)
+
+    def launch(self, prob, seed, tables, words, flat, limits_out) -> None:
+        """One launch of every rank on the cards' current streams."""
+        from karpenter_tpu_torch.solver import _cuda
+        fn = _cuda.kernel("ffd_card_launch")
+        with self.xch.lock:
+            if not self._evented:
+                ev = self.xch.events()
+                self.ptrs[1] = ev[0]
+                for r in range(self.S):
+                    self.ptrs[_CARD_HEAD_PTRS + r * _CARD_RANK_PTRS + 1] = \
+                        ev[1 + r]
+                self._evented = True
+            self.xch.admit()
+            self._patch(prob, seed, tables, words, flat, limits_out)
+            rc = fn(self.ptrs, len(self.ptrs), self.dims, len(self.dims),
+                    None)
+            card_scan.library_calls += 1
+        if rc != 0:
+            raise RuntimeError(
+                f"CUDA kernel {self.entry} across {self.S} cards failed: "
+                + (f"argument check {rc}" if rc < 0 else f"cudaError {rc}"))
+
+
+def _card_key(prob: FFDProblem, tables, N: int, lay: Dict, with_gang: int,
+              seed: Optional[DeltaSeed]) -> tuple:
+    """The statics a CardLaunch is built for."""
+    return (prob.G, prob.E, prob.D, prob.P, N, tables[0].shape[0],
+            with_gang, None if seed is None else seed.A, tuple(lay.items()))
+
+
+def card_scan(probs, tables: Sequence[torch.Tensor], cat: CardCatalog,
+              N: int, flat: torch.Tensor, lay: Dict,
+              limits_out: torch.Tensor, with_gang: int = 0,
+              seeds=None, plan: Optional[CardLaunch] = None
+              ) -> Optional[CardLaunch]:
+    """K7x: the column-sharded scan of one problem over the S cards of
+    `cat`, rank r on card r — the problem's rows (mask_bits the groups'
+    [G] rows of the mask tables), its mask table tables[r] [C, W_s], its
+    shard of the catalog and, seeded, the seed's rows and its own [A, W_s]
+    column words — each reduction across the ranks an exchange between
+    their kernels over NVLink.  `probs` is card 0's problem, or one a rank
+    (`_card_form`; `seeds` likewise); the launch copies rank 0's rows to
+    every rank.  The same function as K7 (`sharded_scan`) on the same
+    shards: rank 0 writes the flat row `flat` [total] and the budgets
+    `limits_out` [P, R] on card 0.  CUDA tensors launch one block on each
+    card through one call into the kernel library (`CardLaunch`: `plan`,
+    one built for this launch's statics and catalog, else a new one),
+    one launch counted, and return the plan; CPU tensors run the plain
+    version, `sharded_scan_reference`, on the shards stacked."""
+    S, devs = cat.S, cat.devices
     if not 1 <= S <= MAX_CARDS:
         raise ValueError(f"{S} cards: K7x takes 1 to {MAX_CARDS}")
-    for r in range(S):
-        _check_sharded(probs[r], tables[r][None], cat.shard(r), N, devs[r],
-                       _rank_seed(None if seeds is None else seeds[r]))
-    dev, p0 = flat.device, probs[0]
+    p0, seed0, words = _card_form(probs, seeds, S)
+    if len(tables) != S:
+        raise ValueError(f"the cards form takes one problem, table and "
+                         f"seed a rank ({S} ranks)")
+    dev = flat.device
     if dev != devs[0]:
         raise ValueError(f"the flat row is rank 0's, on {devs[0]}, not "
                          f"{dev}")
-    seed0 = None if seeds is None else seeds[0]
+    _check_sharded(p0, tables[0][None], cat.shard(0), N, devs[0],
+                   _rank_seed(seed0, None if words is None else words[0]))
+    for r in range(1, S):
+        _check(tables[r], f"mask table {r}", torch.int32,
+               tables[0].shape, devs[r])
+        if words is not None:
+            _check(words[r], f"seed_colmask {r}", torch.int32,
+                   words[0].shape, devs[r])
     _check_sharded_outputs(p0, cat.O, flat, lay, limits_out, with_gang,
                            seed0)
+    if plan is not None and (plan.cat is not cat or plan.key != _card_key(
+            p0, tables, N, lay, with_gang, seed0)):
+        raise ValueError("the plan was built for another launch "
+                         "configuration or catalog")
     _first_launch("ffd_card_scan", p0.G, p0.E, N, p0.P, p0.D, S,
                   tables[0].shape[0], with_gang,
                   None if seed0 is None else seed0.A, "prio_inv" in lay,
                   "explain_counts" in lay)
     if dev.type != "cuda":
-        seed = None if seeds is None else DeltaSeed(
+        seed = None if seed0 is None else DeltaSeed(
             seed0.seed_used, seed0.seed_pool, seed0.seed_active,
-            torch.stack([sd.seed_colmask.to(dev) for sd in seeds]))
+            torch.stack([w.to(dev) for w in words]))
         sharded_scan_reference(p0, torch.stack([t.to(dev) for t in tables]),
                                cat.stacked(dev), N, flat, lay, limits_out,
                                with_gang, seed)
-        return
+        return None
     if len(set(devs)) != S:
         raise ValueError(f"K7x runs one rank a card: {devs} repeats a card "
                          f"(one card's S blocks: card_scan_rehearsal)")
-    xch = card_exchange(devs)
-    total = lay["total"][1]
-
-    def rank(r, seq):
-        if r == 0:
-            flat_r, lim_r = flat, limits_out
-        else:
-            flat_r = torch.empty(total, dtype=torch.float32, device=devs[r])
-            lim_r = torch.empty((p0.P, R), dtype=torch.float32,
-                                device=devs[r])
-        shard = cat.shard(r)
-        entry, inputs, mesh, A = _sharded_launch_args(
-            probs[r], tables[r][None], shard, lay, with_gang,
-            None if seeds is None else seeds[r])
-        mesh.update(S=S, reps=1)
-        return _launch_scan(_CARD_ENTRY[entry], 1, p0.G, p0.E, N, p0.P,
-                            p0.D, 0, shard, flat_r, lay, lim_r, 0, inputs,
-                            A=A, mesh=mesh, xcard=(xch, r, seq, 0),
-                            defer=True)
-    xch.launch(rank)
-    if seeds is not None:
+    if plan is None:
+        plan = CardLaunch(p0, tables, cat, N, lay, with_gang, seed0, words,
+                          flat, limits_out)
+    plan.launch(p0, seed0, tables, words, flat, limits_out)
+    if seed0 is not None:
         card_scan.delta_launches += 1
     elif with_gang:
         card_scan.gang_launches += 1
     else:
         card_scan.launches += 1
     _count_explain(card_scan, lay)
+    return plan
 
 
 card_scan.launches = 0          # ffd_card_scan
 card_scan.gang_launches = 0     # ffd_card_gang_scan
 card_scan.delta_launches = 0    # ffd_card_delta_scan
 card_scan.explain_launches = 0  # launches (any) with the explain counts
+card_scan.library_calls = 0     # calls into the kernel library (one a launch)
 
 
 def card_scan_rehearsal(prob: FFDProblem, table: torch.Tensor,
@@ -2922,9 +3142,10 @@ def card_scan_rehearsal(prob: FFDProblem, table: torch.Tensor,
     """K7x rehearsed on one card: the same instances launched as ONE
     cooperative grid of S blocks (cudaLaunchCooperativeKernel: all
     resident, or refused), block r rank r, every rank's inbox in that
-    card's memory, on K7's stacked arguments (`sharded_scan`'s).  A check
-    of the exchange code where only one card exists; the solver never
-    takes it.  CPU tensors run `sharded_scan_reference`."""
+    card's memory, on K7's stacked arguments (`sharded_scan`'s), the same
+    exchange protocol.  A check of the exchange code where only one card
+    exists; the solver never takes it.  CPU tensors run
+    `sharded_scan_reference`."""
     dev = flat.device
     _check_sharded(prob, table, cat, N, dev, seed)
     if cat.S > MAX_CARDS:
@@ -2938,28 +3159,31 @@ def card_scan_rehearsal(prob: FFDProblem, table: torch.Tensor,
     xch = card_exchange((dev,) * cat.S)
     entry, inputs, mesh, A = _sharded_launch_args(prob, table, cat, lay,
                                                   with_gang, seed)
-    xch.rehearse(lambda seq: _launch_scan(
-        _CARD_ENTRY[entry], 1, prob.G, prob.E, N, prob.P, prob.D, 0, cat,
-        flat, lay, limits_out, 0, inputs, A=A, mesh=mesh,
-        xcard=(xch, 0, seq, 1)))
+    with xch.lock, torch.cuda.device(dev):
+        xch.admit()
+        _launch_scan(_CARD_ENTRY[entry], 1, prob.G, prob.E, N, prob.P,
+                     prob.D, 0, cat, flat, lay, limits_out, 0, inputs, A=A,
+                     mesh=mesh, xcard=(xch, 0, 1, None))
+        card_scan_rehearsal.library_calls += 1
     card_scan_rehearsal.launches += 1
 
 
 card_scan_rehearsal.launches = 0
+card_scan_rehearsal.library_calls = 0
 
 
-def card_blocks(probs: Sequence[FFDProblem], tables: Sequence[torch.Tensor],
-                cat: CardCatalog, N: int, lay: Dict, with_gang: int = 0,
-                seeds: Optional[Sequence[DeltaSeed]] = None
+def card_blocks(probs, tables: Sequence[torch.Tensor], cat: CardCatalog,
+                N: int, lay: Dict, with_gang: int = 0, seeds=None
                 ) -> Tuple[int, ...]:
     """How many blocks of K7x's rank launch each card holds at once (0 =
-    a rank's block does not fit and its launch would be refused).
-    Launches nothing; CUDA tensors only."""
+    a rank's block does not fit and its launch would be refused); `probs`
+    and `seeds` as `card_scan` takes them.  Launches nothing; CUDA
+    tensors only."""
     from karpenter_tpu_torch.solver import _cuda
-    p = probs[0]
-    variant = 2 if seeds is not None else 1 if with_gang else 0
+    p, seed0, _ = _card_form(probs, seeds, cat.S)
+    variant = 2 if seed0 is not None else 1 if with_gang else 0
     dims = [p.G, p.E, N, cat.O_s, cat.PT_s, cat.zc, p.P, p.D, cat.W_s, 1,
-            0, 0, lay["total"][1], 0 if seeds is None else seeds[0].A,
+            0, 0, lay["total"][1], 0 if seed0 is None else seed0.A,
             tables[0].shape[0], cat.S]
     out = []
     for d in cat.devices:

@@ -45,11 +45,14 @@ also builds that tree's kernels and this checkout's, uninstrumented, and
 times both at the shapes above and at config #9, config #2, config #7's
 suffix and delta-off chain chunk, K7 at 8 shards, K7x rehearsed on this
 card (one cooperative grid of 4 blocks) at config #2 and #9, and K4's
-two lanes, in turns (DIR, this, this, DIR; the profiler's device time,
-the lower of each tree's two), holding this checkout's outputs to DIR's
-as uint32.  DIR's kernels must take this checkout's argument list
-(ScanArgs, the wrappers of this checkout's `solver/ffd.py` launch both;
-K4's launches then carry device scratch for the carry on both trees).
+two lanes, also dense and with the take_exist compaction (K >= 8: row
+3b is the difference), in turns (DIR, this, this, DIR; the profiler's
+device time, the lower of each tree's two), holding this checkout's
+outputs to DIR's as uint32.  DIR's kernels must take this checkout's
+argument list (ScanArgs, the wrappers of this checkout's `solver/ffd.py`
+launch both; K4's launches then carry device scratch for the carry on
+both trees); K7x is left out when DIR's `ffd_card_scan.cu` takes
+another (its CARD_NPTRS, CARD_NDIMS).
 
 Exits non-zero without a CUDA device, and on any build failure or
 differing output.
@@ -177,13 +180,14 @@ def build(tree: str, dest: str, sources, instrumented: bool):
 
 
 def load(dest: str, sources):
-    """{source: CDLL} with the entry points' argument types set."""
+    """{source: CDLL} with the entry points' argument types set (those the
+    library exports: another tree's may lack some)."""
     from karpenter_tpu_torch.solver import _cuda
     libs = {}
     for name in sources:
         lib = ctypes.CDLL(os.path.join(dest, f"lib{name}.so"))
         for entry, src in _cuda.ENTRIES.items():
-            if src == name:
+            if src == name and hasattr(lib, entry):
                 fn = getattr(lib, entry)
                 fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
                                ctypes.POINTER(ctypes.c_int), ctypes.c_int,
@@ -293,7 +297,22 @@ def shapes(cs, ffd, dev):
             ("K7x rehearsal config #2 S=4", rehearsal(
                 *c2, 4, cs.CONFIG2_MAX_NODES)),
             ("K7x rehearsal gang config #9 S=4", rehearsal(*c9, 4, big))]
+    # the take_exist compaction of K4's epilogue (row 3b): each chunk dense
+    # and compacted
+    for lab, (sw, c, N, K) in (("K4 config #4 light chunk", c4),
+                               ("K4 config #4b heavy chunk", c4b)):
+        more += [(f"{lab} dense", sweep((sw, c, N, 0))),
+                 (f"{lab} K={max(K, 8)}", sweep((sw, c, N, max(K, 8))))]
     return split, more
+
+
+def card_abi(csrc: str):
+    """K7x's argument counts in a tree's ffd_card_scan.cu (its
+    CARD_NPTRS and CARD_NDIMS definitions)."""
+    with open(os.path.join(csrc, "ffd_card_scan.cu")) as f:
+        return tuple(line.split(None, 2)[2].strip() for line in f
+                     if line.startswith(("#define CARD_NPTRS",
+                                         "#define CARD_NDIMS")))
 
 
 def k4_launch_paths(cs, ffd, reps: int = 200) -> int:
@@ -465,6 +484,13 @@ def main(argv) -> int:
     # keeps its carry in device memory reads it there, and this
     # checkout's K4 ignores it where its carry fits in shared memory
     ffd.sweep_carry_fits = lambda *a, **k: False
+    if card_abi(args.against) != card_abi(CSRC):
+        # this checkout's wrappers cannot launch the other tree's K7x
+        more = [x for x in more if not x[0].startswith("K7x")]
+        print(f"[turns] K7x left out: {args.against} takes another "
+              f"argument list {card_abi(args.against)} than this checkout "
+              f"{card_abi(CSRC)} (e2e_turns.py --arms cards times each "
+              f"tree's K7x through its own wrappers)", flush=True)
     real = load(os.path.join(OUT, "this"), all_src)
     against = load(os.path.join(OUT, "against"), all_src)
     times, ref, bad = {}, {}, []
@@ -491,6 +517,15 @@ def main(argv) -> int:
         a, t = min(times[(label, "against")]), min(times[(label, "this")])
         print(f"[turns] {label:40s} {a:11.4f} {t:10.4f} {t / a:12.3f} "
               f"{t / G:15.5f}", flush=True)
+    for lab in ("K4 config #4 light chunk", "K4 config #4b heavy chunk"):
+        dense = [x for x in more if x[0] == f"{lab} dense"][0][0]
+        packed = [x for x in more if x[0].startswith(f"{lab} K=")][0][0]
+        pack = {name: min(times[(packed, name)]) - min(times[(dense, name)])
+                for name in ("against", "this")}
+        print(f"[turns] {lab}: the take_exist compaction (row 3b, the "
+              f"difference of the minima) " + ", ".join(
+                  f"{name} {ms:.4f} ms" for name, ms in pack.items()),
+              flush=True)
     if bad:
         print(f"scan_sections: outputs differ from {args.against}: "
               f"{sorted(set(bad))}", file=sys.stderr)

@@ -14,8 +14,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "karpenter_tpu_torch")
 
 
+# the scripts that run the port on the card, beside the package
+SCRIPTS = ("chip_smoke.py", "e2e_turns.py", "scan_sections.py",
+           "peer_order.py")
+
+
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, s) for s in SCRIPTS]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -25,7 +30,7 @@ def _modules():
     mods = []
     for path in _port_files():
         rel = os.path.relpath(path, ROOT)
-        if rel == "chip_smoke.py":
+        if rel in SCRIPTS:
             continue
         mod = rel[:-3].replace(os.sep, ".")
         mods.append(mod[:-len(".__init__")] if mod.endswith(".__init__")
@@ -134,7 +139,8 @@ def test_the_walk_covers_the_cross_card_solve():
             assert f'extern "C" int {entry}(' in f.read(), entry
     assert {e for e, s in _cuda.ENTRIES.items() if s == "ffd_card_scan"} \
         == {"ffd_card_scan", "ffd_card_gang_scan", "ffd_card_delta_scan",
-            "ffd_card_occupancy", "ffd_card_peer"}
+            "ffd_card_occupancy", "ffd_card_peer", "ffd_card_launch",
+            "ffd_card_events"}
 
 
 # the operator process and its entry point, the device bootstrap, the
