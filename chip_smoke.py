@@ -61,9 +61,14 @@ Phases (any failure exits non-zero):
      suffix and #12's chunk, K7 at #2's launch); K4 at each chunk shape
      (config #4's, #4b's and phase 19's first chunk of each size B), the
      profiler's and the CUDA events' ms a launch and its carry route;
-     the sweep's dense against compacted take_exist rows, and an empty
-     kernel's launch as
-     the floor of them all (run after 10-12);
+     the sweep's dense against compacted take_exist rows; row 9, the
+     priority witness (written in K5's steps), as K5 without and with
+     its region over 8 turns a side at config #10 and at a G = 2048
+     priority problem (`witness_problem`), its region held to the plain
+     witness, beside `torch.cummax` of the masked row as a yardstick;
+     row 5, the headline's one pinned upload copy, beside the rate of a
+     256 MiB pinned copy; and an empty kernel's launch as the floor of
+     them all (run after 10-12);
  10. the steady state, config #7: a delta-on TorchSolver(max_nodes=2048)
      and a delta-off one in lockstep over build_config7(gen) — gen 0, one
      warm pass, 16 timed churn passes — every pass the JAX package's
@@ -237,7 +242,9 @@ warmed loop's first B=64 K5 launch of a multi-node pass, its first K4
 chunk and a wave-2 re-placement K5 launch with E > 1,000); and K7
 (the column-sharded scan) on seeded problems at 2, 4, 6 and 8 shards —
 light, heavy, gang, priority, explain off, shards of padding blocks only,
-a wide one and the seeded instance, each launched 3 times — and on the
+a wide one and the seeded instance, each launched 3 times; the witness
+region of every K5, K7 and K7x case that holds one also on its own,
+`priority_witness` — and on the
 headline's and config #2's encodings at 8 shards, printing
 cudaOccupancyMaxActiveClusters by cluster size.  Phase 9 also times K7 at
 2, 4 and 8 shards beside K5 and at the mesh phases' own launches, and K5
@@ -419,6 +426,9 @@ SOFT = (7, 0, "0x1.fa8255b035bd5p+3",
 MESH = 8                  # the mesh arms' shard count
 MESH_WARM = 5             # warm solves per mesh arm
 SHARDS = (2, 4, 6, 8)     # K7 against its plain version at these sizes
+WITNESS_TURNS = 8         # row 9's turns a side (phase 9)
+WITNESS_SEED, WITNESS_G = 2048, 2048  # row 9's G = 2048 priority problem
+UPLOAD_RATE_BYTES = 256 << 20  # the pinned copy that sets row 5's rate
 K7_REPEATS = 3            # each K7 comparison launched this many times
 CARD_SIZES = (2, 4)       # K7x's ranks in phase 21 and the card check
 CARD_STRESS = 510         # K7x launches back to back in the stress case
@@ -939,6 +949,17 @@ def _explain_checks(fk, fp, lay):
     return out
 
 
+def _witness_checks(fk, fp, lay):
+    """{"priority_witness": (equal, max_abs_err)} of the witness region of
+    a kernel's flat rows `fk` against its plain version's `fp`, where the
+    layout holds one (the scans write it in their steps), else {}."""
+    from karpenter_tpu_torch.solver import ffd
+    if "prio_inv" not in lay:
+        return {}
+    return {"priority_witness": _diff(ffd._region(fk, lay, "prio_inv"),
+                                      ffd._region(fp, lay, "prio_inv"))}
+
+
 def _buffers(B, P, lay, dev):
     import torch
     from karpenter_tpu_torch.solver import ffd
@@ -977,9 +998,7 @@ def compare_batch(ffd, b, c, N, ex, K, dev, wg=0, wp=0):
     torch.cuda.synchronize()
     out = _compare_rows("ffd_batch_gang_scan" if wg else "ffd_batch_scan",
                         fk, lk, fp, lp, lay)
-    if wp:
-        out["priority_witness"] = _diff(ffd._region(fk, lay, "prio_inv"),
-                                        ffd._region(fp, lay, "prio_inv"))
+    out.update(_witness_checks(fk, fp, lay))
     return out
 
 
@@ -1491,27 +1510,109 @@ def _kept_batch_times(ffd, b, c, N, ex, K, wg, wp, reps):
                                          work)
 
 
-def _witness_times(ffd, b, c, N, reps):
-    """The witness at one problem's shapes: K5 with and without the
-    witness region in turns (profiler ms each), the plain witness's ms,
-    and its bound (count, unsched and priority rows read, the witness row
-    written)."""
+def _witness_times(ffd, b, c, N, reps, turns=WITNESS_TURNS):
+    """Row 9, the witness, at one batch's shapes: K5 without and with the
+    witness region on identical inputs in rounds of (without, with, with,
+    without), `turns` launches' profiler ms a side ({0: [...], 1: [...]});
+    its cost, the difference of the two sides' minima; the witness region
+    of the last launch held to the plain witness on the kernel's own
+    strand rows ((equal, max_abs_err), every problem of the batch); the
+    plain witness's ms; the yardstick, `torch.cummax` of the masked [G]
+    int32 row on the card; and its bound (count, unsched and priority rows
+    read, the witness row written)."""
     import torch
     dev = b.group_req.device
-    out = {}
-    for wp in (0, 1, 1, 0):
+    out, bufs = {0: [], 1: []}, {}
+    for wp in (0, 1):
         lay = ffd.flat_layout(b.G, b.E, N, b.D, 0, 0, c.O, wp)
-        flat = torch.empty((b.B, lay["total"][1]), device=dev)
-        lim = torch.empty((b.B, b.P, ffd.R), device=dev)
-        t, _ = _device_ms(lambda: ffd.batch_scan(b, c, N, flat, lay, lim),
-                          reps, _tag(True, False, False))
-        out.setdefault(wp, []).append(t)
-    unsched = ffd._region(flat, lay, "unsched")[0].to(torch.int32)
-    p0 = b.at(0)
+        bufs[wp] = (lay, torch.empty((b.B, lay["total"][1]), device=dev),
+                    torch.empty((b.B, b.P, ffd.R), device=dev))
+    for _ in range(turns // 2):
+        for wp in (0, 1, 1, 0):
+            lay, flat, lim = bufs[wp]
+            t, _ = _device_ms(
+                lambda: ffd.batch_scan(b, c, N, flat, lay, lim), reps,
+                _tag(True, False, False))
+            out[wp].append(t)
+    lay, flat, lim = bufs[1]
+    torch.cuda.synchronize()
+    unsched = ffd._region(flat, lay, "unsched").to(torch.int32)
+    got = ffd._region(flat, lay, "prio_inv")
+    want = torch.stack([ffd.priority_witness(
+        b.group_count[i], unsched[i], b.group_prio[i]).to(torch.float32)
+        for i in range(b.B)])
+    check = _diff(got, want)
     t_plain = _time_ms(lambda: ffd.priority_witness(
-        p0.group_count, unsched, p0.group_prio), 20)
-    bnd = bound_ms(4 * 4 * b.G, 3 * b.G)
-    return out, t_plain, bnd
+        b.group_count[0], unsched[0], b.group_prio[0]), 20)
+    masked = torch.where(unsched[0] > 0, b.group_prio[0],
+                         torch.full_like(b.group_prio[0], -(2 ** 31) + 1))
+    t_cummax = _time_ms(lambda: torch.cummax(masked, 0), 50)
+    return {"turns": out, "ms": min(out[1]) - min(out[0]),
+            "k5_ms": min(out[1]), "check": check, "plain_ms": t_plain,
+            "cummax_ms": t_cummax, "bound": bound_ms(4 * 4 * b.G, 3 * b.G)}
+
+
+def _witness_line(label, b, N, card, w):
+    """A phase-9 line of `_witness_times`'s record `w`."""
+    bnd, by = w["bound"]
+    return (f"[9] {label} (B={b.B}, G={b.G}, N={N}) on {card}: "
+            f"ffd_batch_scan with the witness " + ", ".join(
+                f"{v:.4f}" for v in w["turns"][1]) + " ms, without "
+            + ", ".join(f"{v:.4f}" for v in w["turns"][0])
+            + f" ms (in turns): row 9 {w['ms']:.4f} ms (the difference of "
+            f"the minima; of the medians "
+            f"{statistics.median(w['turns'][1]) - statistics.median(w['turns'][0]):.4f}"
+            f"; K5 with it {w['k5_ms']:.4f}); the witness region "
+            f"{'equal to' if w['check'][0] else 'NOT equal to'} the plain "
+            f"witness on the kernel's strand rows; plain witness "
+            f"{w['plain_ms']:.4f} ms, torch.cummax of the masked row "
+            f"{w['cummax_ms']:.4f} ms, bound {bnd:.8f} by {by}")
+
+
+def witness_problem():
+    """The G = 2048 priority-band problem row 9 is timed at besides config
+    #10: gang-free and light (no topology rows), small groups on 256 node
+    slots and mixed pool budgets, so that most groups place and about one
+    in twenty strands (on the CPU: 1,924 groups place, 123 strand, 1,544
+    flags).  (problem tuple, catalog arrays, N)."""
+    from karpenter_tpu_torch.solver.problems import random_problem
+    prob, cat = random_problem(WITNESS_SEED, G=WITNESS_G, priority=True,
+                               limits="mixed", pod_scale=4)
+    return prob, cat, 256
+
+
+def _upload_times(ffd, prob, O, dev, reps=50):
+    """Row 5, the coalesced upload, at one problem: the CUDA events' ms of
+    its one pinned host->device copy (the int32 buffer `ffd._upload`
+    ships; each copy between its own pair of events, the median and the
+    minimum of `reps`), its bytes, and its bound: those bytes over the rate
+    of a large pinned copy (UPLOAD_RATE_BYTES) on the same card.  Returns
+    {"ms", "min_ms", "bytes", "bound_ms", "rate_gbs"}."""
+    import torch
+    parts = [np.ascontiguousarray(a).reshape(-1).view(np.int32)
+             for a in ffd.problem_arrays(prob, O)]
+    host = torch.from_numpy(np.concatenate(parts)).pin_memory()
+    big = torch.empty(UPLOAD_RATE_BYTES // 4, dtype=torch.int32).pin_memory()
+
+    def copies(src, n):
+        dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+        dst.copy_(src, non_blocking=True)
+        ts = []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            z.record()
+            z.synchronize()
+            ts.append(a.elapsed_time(z))
+        return ts
+    small = copies(host, reps)
+    rate = big.numel() * 4 / (min(copies(big, 5)) * 1e-3)
+    nbytes = host.numel() * 4
+    return {"ms": statistics.median(small), "min_ms": min(small),
+            "bytes": nbytes, "bound_ms": nbytes / rate * 1e3,
+            "rate_gbs": rate / 1e9}
 
 
 def _route(ffd, sw, c, N, K) -> str:
@@ -1861,6 +1962,7 @@ def compare_sharded(ffd, S, prob, cat, N, ex, seeds, dev,
         parts += [_diff(fk, fp), _diff(lk, lp)]
     out[_sharded_name(wg, sd)] = _merge(parts)
     out.update(_explain_checks(fk, fp, lay))
+    out.update(_witness_checks(fk, fp, lay))
     return out, clusters, missing
 
 
@@ -1885,6 +1987,7 @@ def compare_captured(ffd, call, flat_main):
     out = {_sharded_name(wg, sd): _merge(
         [_diff(flat_main, fp), _diff(fk, fp), _diff(lk, lp)])}
     out.update(_explain_checks(fk, fp, lay))
+    out.update(_witness_checks(fk, fp, lay))
     return out
 
 
@@ -2233,6 +2336,7 @@ def compare_cards(ffd, S, prob, cat, N, ex, seeds, devices,
         parts += [_diff(fk, fp), _diff(lk, lp)]
     out = {c.name: _merge(parts)}
     out.update(_explain_checks(fk, fp, c.lay))
+    out.update(_witness_checks(fk, fp, c.lay))
     return out, missing
 
 
@@ -5481,16 +5585,36 @@ def main(argv) -> int:
               f"{t9:.4f} ms ({t9 / p9.G:.4f} ms a step; events "
               f"{t9d['ev_ms']:.4f}, plain {t9d['plain_ms']:.3f}, bound "
               f"{b9:.6f} by {by9}); " + _epilogue_line(t9d), flush=True)
-    # config #10: the gang-free scan with and without the witness
+    # row 9, the witness: the gang-free scan with and without it at config
+    # #10 (the main path's) and at the G = 2048 priority problem
     p10, c10 = ffd.problem_from_numpy(c10_prob, c10_cat, dev)
-    wit, t_witp, (b_wit, by_wit) = _witness_times(
-        ffd, ffd.FFDBatch.of(p10), c10, CONFIG3_WARM_N, 20)
-    print(f"[9] config #10 shapes (B=1, G={p10.G}, N={CONFIG3_WARM_N}) on "
-          f"{card}: ffd_batch_scan with the witness "
-          + ", ".join(f"{v:.4f}" for v in wit[1]) + " ms, without "
-          + ", ".join(f"{v:.4f}" for v in wit[0]) + f" ms (in turns); "
-          f"plain witness {t_witp:.4f} ms, bound {b_wit:.8f} by {by_wit}",
+    b10 = ffd.FFDBatch.of(p10)
+    wit = _witness_times(ffd, b10, c10, CONFIG3_WARM_N, 20)
+    print(_witness_line("config #10 shapes", b10, CONFIG3_WARM_N, card, wit),
           flush=True)
+    wprob, wcat, wN = witness_problem()
+    pw, cw = ffd.problem_from_numpy(wprob, wcat, dev)
+    bw = ffd.FFDBatch.of(pw)
+    wit2k = _witness_times(ffd, bw, cw, wN, 5)
+    print(_witness_line(f"the G={WITNESS_G} priority problem", bw, wN, card,
+                        wit2k), flush=True)
+    for lab, w in (("config #10", wit), (f"G={WITNESS_G}", wit2k)):
+        errs["priority_witness"] = max(errs["priority_witness"],
+                                       w["check"][1])
+        if not w["check"][0]:
+            print(f"chip_smoke: {lab}: the witness region differs from the "
+                  f"plain witness (max abs err {w['check'][1]:g})",
+                  file=sys.stderr)
+            return 1
+    (b_wit, by_wit), t_witp = wit["bound"], wit["plain_ms"]
+    # row 5, the coalesced upload: the headline's one pinned copy
+    up = _upload_times(ffd, head_prob, head_cat["col_pool"].shape[0], dev)
+    print(f"[9] headline upload (row 5: one pinned host->device copy of "
+          f"{up['bytes']} bytes) on {card}: events {up['ms']:.4f} ms "
+          f"(median of 50, min {up['min_ms']:.4f}); bound "
+          f"{up['bound_ms']:.6f} ms by bytes at {up['rate_gbs']:.2f} GB/s, "
+          f"the rate of a {UPLOAD_RATE_BYTES >> 20} MiB pinned copy on this "
+          f"card", flush=True)
     map_t = gang_t[CONFIG_MAX_NODES]
     t_gang, t_gangp, (b_gang, by_gang) = (map_t["ms"], map_t["plain_ms"],
                                           map_t["bound"])
@@ -5649,7 +5773,7 @@ def main(argv) -> int:
          "replaces": "karpenter_tpu/solver/ffd.py:1238",
          "launches": launches["priority_witness"],
          "max_abs_err": errs["priority_witness"],
-         "ms": max(0.0, min(wit[1]) - min(wit[0])), "plain_ms": t_witp,
+         "ms": max(0.0, wit["ms"]), "plain_ms": t_witp,
          "bound_ms": b_wit, "bound_by": by_wit, "library_ms": None},
         {"name": "ffd_sweep_scan", "route": "cuda",
          "source": "karpenter_tpu_torch/csrc/ffd_sweep_scan.cu",

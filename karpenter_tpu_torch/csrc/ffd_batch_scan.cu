@@ -13,10 +13,13 @@
 //
 // This is the `scan_kernel<true, false, false, false>` instance of
 // ffd_scan_common.cuh, which holds the design notes.  With priority bands
-// it also writes the priority inversion witness (ffd.py:1238-1257) in its
-// epilogue, and with explain rows the explain=1 counts (ffd.py:1113-1214)
-// and the explain=2 class map (:1215-1237), each problem's block for its
-// own problem.  What bounds it on the H100: latency, not bytes or
+// it launches `witness_scan_kernel<true, false, false, false>`, the same
+// scan writing the priority inversion witness (ffd.py:1238-1257) in its
+// steps, each group's flag beside its strand count (ffd_witness.cuh).
+// With explain rows its epilogue writes the explain=1 counts
+// (ffd.py:1113-1214) and the explain=2 class map (:1215-1237), each
+// problem's block for its own problem.
+// What bounds it on the H100: latency, not bytes or
 // arithmetic.  Each problem's inputs are a few hundred KB and its float
 // work a few million operations at most (microseconds of HBM and of
 // fp32), while its scan is a dependency chain, steps x pools (x domains)

@@ -96,7 +96,7 @@ int card_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
   if ((a.slot_ids == nullptr) != (rehearse == 1)) return -2;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  auto kern = scan_kernel<TOPO, false, GANG, SEED, XCARD>;
+  auto kern = scan_instance<TOPO, false, GANG, SEED, XCARD>(a);
   const size_t smem = scan_smem<TOPO, false>(a);
   cudaError_t err = allow_smem((const void*)kern, smem);
   if (err == cudaSuccess) {
@@ -232,7 +232,7 @@ extern "C" int ffd_card_events(const unsigned long long* ptrs, int nptrs,
 
 template <bool TOPO, bool GANG, bool SEED>
 int card_occupancy(const ScanArgs& a) {
-  auto kern = scan_kernel<TOPO, false, GANG, SEED, XCARD>;
+  auto kern = scan_instance<TOPO, false, GANG, SEED, XCARD>(a);
   const size_t smem = scan_smem<TOPO, false>(a);
   int per_sm = 0, dev = 0, sms = 0;
   // raised only, through the launches' own record (allow_smem): setting

@@ -59,9 +59,14 @@
 //     protocol in ffd_xcard.cuh);
 //   * with K > 0 the take_exist top-K compaction (:1068-1086) in the
 //     epilogue: a block scan ranks each group's nonzero entries;
-//   * with a priority row, the priority inversion witness (:1238-1257) in
-//     the epilogue: one thread walks the groups with the exclusive running
-//     max of the stranded groups' priorities (integers only, exact);
+//   * with a priority row, the priority inversion witness (:1238-1257),
+//     folded into the steps of its own instance (`witness_scan_kernel`):
+//     the thread that writes a group's strand count writes its flag from
+//     that register and advances the exclusive running max of the
+//     stranded groups' priorities (`witness_put`, ffd_witness.cuh;
+//     integers only, exact), so the epilogue has no serial pass over the
+//     groups, and a launch without the row runs `scan_kernel`, which
+//     compiles none of it;
 //   * with explain rows, the explain=1 counts and bits (:1113-1214) and
 //     with a map row the explain=2 class map (:1215-1237) in the epilogue
 //     (`explain_pack`, the per-group arithmetic in ffd_explain.cuh), from
@@ -121,6 +126,7 @@
 
 #include "ffd_common.cuh"
 #include "ffd_explain.cuh"
+#include "ffd_witness.cuh"
 #include "ffd_xcard.cuh"
 
 #include <cooperative_groups.h>
@@ -659,9 +665,58 @@ __device__ __forceinline__ int opened_pods(const ScanShared& S, int p,
                                         : kfull;
 }
 
+// The witness's state (ffd_witness.cuh), thread 0's: the step's group
+// priority, loaded at the top of the step's prologue, and `before`, reset
+// per problem in the kernel's prologue.  Its own shared object, so that
+// the instances without a witness (WIT false) keep their shared memory as
+// it was.
+struct WitShared {
+  int prio, before;
+};
+
+__device__ __forceinline__ WitShared& wit() {
+  __shared__ WitShared Wt;
+  return Wt;
+}
+
+// What thread 0 needs to write a group's witness: the output row and the
+// group's count and priority and the running `before`.  Read by
+// `witness_in` at the top of the thread-0 block that computes the strand
+// count, so that these loads are in flight while it runs and the write
+// itself waits on no load.
+struct WitIn {
+  float* out;
+  int cnt, prio, before;
+};
+
+template <bool WIT>
+__device__ __forceinline__ WitIn witness_in(const ScanArgs& a,
+                                            const ScanShared& S) {
+  if constexpr (WIT) {
+    const WitShared& w = wit();
+    return {a.prio_inv, S.cnt, w.prio, w.before};
+  }
+  return {nullptr, 0, 0, 0};
+}
+
+// Group g's witness, written by the thread that writes unsched[g] (thread
+// 0) right after it, from the strand count it holds (`un`, the float it
+// wrote, read as an int32 count as the reference reads it).  Only the WIT
+// instances compile it (witness_scan_kernel, launched with a priority row
+// only).
+template <bool WIT>
+__device__ __forceinline__ void witness_put(const WitIn& in, int g,
+                                            float un) {
+  if constexpr (WIT) {
+    int before = in.before;
+    in.out[g] = witness_step(in.cnt, (int)un, in.prio, before) ? 1.0f : 0.0f;
+    wit().before = before;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the light step (ffd.py:460-587)
-template <int SHARDED>
+template <int SHARDED, bool WIT>
 __device__ void light_step(const ScanArgs& a, ScanShared& S,
                            const ScanDyn& s, int g) {
   const int tid = threadIdx.x;
@@ -854,6 +909,7 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
 
   // the per-pool cascade, in pool priority order, on one thread
   if (tid == 0) {
+    const WitIn wi = witness_in<WIT>(a, S);
     int c_rem = S.crem, na = S.na;
     for (int p = 0; p < P; ++p) {
       float* lim = a.limits + p * KR;
@@ -892,7 +948,9 @@ __device__ void light_step(const ScanArgs& a, ScanShared& S,
       c_rem -= taken;
     }
     S.na = na;
-    a.unsched[g] = (float)c_rem;
+    const float un = (float)c_rem;
+    a.unsched[g] = un;
+    witness_put<WIT>(wi, g, un);
   }
   __syncthreads();
 
@@ -1043,7 +1101,7 @@ __device__ void water_fill(HeavyShared& H, int D, int skew, int mindom) {
   __syncthreads();
 }
 
-template <int SHARDED>
+template <int SHARDED, bool WIT>
 __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
                            const ScanDyn& s, int g) {
   __shared__ HeavyShared H;
@@ -1374,9 +1432,12 @@ __device__ void heavy_step(const ScanArgs& a, ScanShared& S,
     a.dom_placed[(size_t)g * D + d] =
         (float)(int)(H.dexist[d] + H.dflight[d] + H.dnew[d]);
   if (tid == 0) {
+    const WitIn wi = witness_in<WIT>(a, S);
     unsigned ws = 0u;
     for (int d = 0; d < D; ++d) ws += (unsigned)H.want[d];
-    a.unsched[g] = (float)(int)((unsigned)H.unplaceable + ws);
+    const float un = (float)(int)((unsigned)H.unplaceable + ws);
+    a.unsched[g] = un;
+    witness_put<WIT>(wi, g, un);
   }
 }
 
@@ -1605,7 +1666,7 @@ __device__ void gang_candidate(const ScanArgs& a, ScanShared& S,
       node_dom, nullptr);
 }
 
-template <int SHARDED>
+template <int SHARDED, bool WIT>
 __device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
                           int g) {
   __shared__ GangShared Gs;
@@ -1667,25 +1728,19 @@ __device__ void gang_step(const ScanArgs& a, ScanShared& S, const ScanDyn& s,
   const int w = Gs.w;
   if (Gs.ok) {
     gang_candidate<SHARDED>(a, S, s, Gs, g, w, true);
-    if (tid == 0) a.unsched[g] = 0.0f;
+    if (tid == 0) {
+      a.unsched[g] = 0.0f;
+      witness_put<WIT>(witness_in<WIT>(a, S), g, 0.0f);
+    }
   } else {
     // nothing commits: the gang strands whole
     for (int e = tid; e < E; e += NT) a.take_exist[(size_t)g * E + e] = 0.0f;
     for (int n = tid; n < N; n += NT) a.take_new[(size_t)g * N + n] = 0.0f;
-    if (tid == 0) a.unsched[g] = (float)cnt;
-  }
-}
-
-// The priority inversion witness (ffd.py:1238-1257) from the strand
-// outputs: a group that placed pods after an earlier group of strictly
-// higher priority stranded.  One thread; integers only.
-__device__ void priority_witness(const ScanArgs& a) {
-  int before = -2147483647;  // -(2^31) + 1
-  for (int g = 0; g < a.G; ++g) {
-    const int un = (int)a.unsched[g];
-    const int gp = a.group_prio[g];
-    a.prio_inv[g] = (a.group_count[g] - un > 0 && gp < before) ? 1.0f : 0.0f;
-    if (un > 0) before = max(before, gp);
+    if (tid == 0) {
+      const float un = (float)cnt;
+      a.unsched[g] = un;
+      witness_put<WIT>(witness_in<WIT>(a, S), g, un);
+    }
   }
 }
 
@@ -2144,9 +2199,12 @@ __device__ __forceinline__ void stage_wait(uint64_t* bar) {
 // shard r, the column-axis reductions combined across the cluster
 // (cluster_combine); XCARD, this block is rank r of S, one a card (grid
 // 1) or block r of a cooperative grid of S on one card (the rehearsal),
-// the reductions combined through the card exchange (card_combine).
-template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED = XNONE>
-__global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
+// the reductions combined through the card exchange (card_combine).  WIT:
+// the priority inversion witness, written in the steps (witness_put); only
+// witness_scan_kernel, launched with a priority row, compiles it.
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED, bool WIT>
+__device__ __forceinline__ void scan_body(const ScanArgs a0) {
+  static_assert(!WIT || (!SWEEP && !SEED), "no witness in K4 or K6");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScanShared S;
   __shared__ ScanArgs A;
@@ -2281,6 +2339,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     S.sum = 0;
     S.dreal_zone = INT_MIN;
     S.dreal_ct = INT_MIN;
+    if constexpr (WIT) wit().before = WITNESS_BEFORE0;  // per problem
   }
   if constexpr (SHARDED == XCARD) {
     // the rank's round count, and shard 0's leading grid-slot block as the
@@ -2365,6 +2424,14 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   }
 
   for (int g = 0; g < G; ++g) {
+    // the witness's priority (thread 0's), loaded ahead of the prologue's
+    // first store to shared memory: each load below waits on the stores
+    // before it (a generic pointer may address shared memory), so this
+    // one is in flight beside the first instead of after the last
+    int prio = 0;
+    if constexpr (WIT) {
+      if (tid == 0) prio = a.group_prio[g];
+    }
     const int row = a.group_class ? a.group_class[g] : g;
     if (tid < KR) S.req[tid] = a.group_req[g * KR + tid];
     if (tid == 0) {
@@ -2376,6 +2443,7 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
       S.row = row;
       S.first = INT_MAX;
       S.sum = 0;
+      if constexpr (WIT) wit().prio = prio;
     }
     // the mesh path gathers the group's row of the resident mask table
     const int mrow = SHARDED ? a.mask_rows[g] : row;
@@ -2402,23 +2470,22 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
     __syncthreads();
     if constexpr (GANG) {
       if (S.gang)
-        gang_step<SHARDED>(a, S, s, g);
+        gang_step<SHARDED, WIT>(a, S, s, g);
       else if (S.dsel > 0)
-        heavy_step<SHARDED>(a, S, s, g);
+        heavy_step<SHARDED, WIT>(a, S, s, g);
       else
-        light_step<SHARDED>(a, S, s, g);
+        light_step<SHARDED, WIT>(a, S, s, g);
     } else if constexpr (TOPO) {
       if (S.dsel > 0)
-        heavy_step<SHARDED>(a, S, s, g);
+        heavy_step<SHARDED, WIT>(a, S, s, g);
       else
-        light_step<SHARDED>(a, S, s, g);
+        light_step<SHARDED, WIT>(a, S, s, g);
     } else {
-      light_step<SHARDED>(a, S, s, g);
+      light_step<SHARDED, WIT>(a, S, s, g);
     }
     __syncthreads();
   }
   if (a.K > 0) compact_take_exist(a, S);
-  if (!SWEEP && a.prio_inv && tid == 0) priority_witness(a);
   if constexpr (!SWEEP) {
     if (a.ex_counts) {
       __syncthreads();
@@ -2446,6 +2513,34 @@ __global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
   if constexpr (SHARDED == XCLUSTER) cg::this_cluster().sync();
 }
 
+// The scan without the witness: every launch without a priority row
+// (scan_instance).
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED = XNONE>
+__global__ void __launch_bounds__(NT, 1) scan_kernel(const ScanArgs a0) {
+  scan_body<TOPO, SWEEP, GANG, SEED, SHARDED, false>(a0);
+}
+
+// The same scan writing the priority inversion witness in its steps: the
+// launches with a priority row (K5, K7, K7x; `scan_check` refuses one for
+// K4 and K6).  Its name holds scan_kernel's template list, so that a
+// trace's key for one matches both.
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED = XNONE>
+__global__ void __launch_bounds__(NT, 1) witness_scan_kernel(
+    const ScanArgs a0) {
+  scan_body<TOPO, SWEEP, GANG, SEED, SHARDED, true>(a0);
+}
+
+// The instance a launch runs: the witness's with a priority row, else the
+// plain scan, which compiles no witness code.
+template <bool TOPO, bool SWEEP, bool GANG, bool SEED, int SHARDED>
+auto scan_instance(const ScanArgs& a) {
+  if constexpr (!SWEEP && !SEED) {
+    if (a.prio_inv) return witness_scan_kernel<TOPO, SWEEP, GANG, SEED,
+                                               SHARDED>;
+  }
+  return scan_kernel<TOPO, SWEEP, GANG, SEED, SHARDED>;
+}
+
 // the dynamic shared memory of one block (with K4's carry on its
 // shared-memory route)
 template <bool TOPO, bool SWEEP>
@@ -2463,7 +2558,7 @@ size_t scan_smem(const ScanArgs& a) {
 template <bool TOPO, bool GANG, bool SEED>
 cudaError_t sharded_config(const ScanArgs& a, size_t smem, void* stream,
                            cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  auto kern = scan_kernel<TOPO, false, GANG, SEED, XCLUSTER>;
+  auto kern = scan_instance<TOPO, false, GANG, SEED, XCLUSTER>(a);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -2500,7 +2595,7 @@ int sharded_occupancy(const ScanArgs& a) {
   int n = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(
-        &n, (void*)scan_kernel<TOPO, false, GANG, SEED, XCLUSTER>, &cfg);
+        &n, (void*)scan_instance<TOPO, false, GANG, SEED, XCLUSTER>(a), &cfg);
   return err == cudaSuccess ? n : -1000 - (int)err;
 }
 
@@ -2713,10 +2808,10 @@ int scan_entry(const unsigned long long* ptrs, int nptrs, const int* dims,
         sharded_config<TOPO, GANG, SEED>(a, smem, stream, cfg, attr);
     if (err == cudaSuccess)
       err = cudaLaunchKernelEx(
-          &cfg, scan_kernel<TOPO, false, GANG, SEED, XCLUSTER>, a);
+          &cfg, scan_instance<TOPO, false, GANG, SEED, XCLUSTER>(a), a);
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
   } else {
-    auto kern = scan_kernel<TOPO, SWEEP, GANG, SEED>;
+    auto kern = scan_instance<TOPO, SWEEP, GANG, SEED, XNONE>(a);
     const cudaError_t err = allow_smem((const void*)kern, smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<a.B, NT, smem, (cudaStream_t)stream>>>(a);

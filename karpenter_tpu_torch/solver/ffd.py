@@ -15,7 +15,8 @@ runs them as hand-written CUDA kernels, one thread block per problem:
     reference's `with_gang` static); gang-free problems launch the
     gang-free instance, so their rows stay those of the gang-free program.
     A problem carrying priority bands also gets the priority inversion
-    witness (`with_priority`), written in the scan's epilogue.
+    witness (`with_priority`), written in each scan step beside the
+    group's strand count (`csrc/ffd_witness.cuh`).
   * ``sweep_scan`` / ``sweep_topo_scan`` (K4, `csrc/ffd_sweep_scan.cu`,
     the light and the heavy lane): the scan over B simulations of one
     cluster snapshot (`_solve_ffd_sweep_impl`, `_solve_ffd_sweep_topo_impl`)
@@ -2126,8 +2127,9 @@ def batch_scan(batch: FFDBatch, cat: FFDCatalog, N: int,
     `with_gang` the gang fill for gang groups), one flat row each in
     `flat` [B, total]: take_exist (or its sparse_k compaction), take_new,
     unsched, dom_placed, used, node_pool/zone/ct, num_active and, where
-    the layout holds them, the priority witness, the explain counts and
-    the explain=2 class map (the epilogue); the final pool budgets in
+    the layout holds them, the priority witness (written in the steps),
+    the explain counts and the explain=2 class map (the epilogue); the
+    final pool budgets in
     `limits_out` [B, P, R].  CUDA tensors launch the kernel (its gang
     instance with `with_gang`); CPU tensors run `batch_scan_reference`."""
     dev = flat.device

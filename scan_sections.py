@@ -26,8 +26,12 @@ those).  Thread 0 of block 0 reads the SM clock after each section's
 barrier and adds the difference to a counter in device memory, which the
 script reads back and prints as cycles a launch and a step and as shares.
 The counters add a barrier per section, so the instrumented kernel runs a
-little slower than the real one: both times are printed.  The checkout's
-kernels are never changed.
+little slower than the real one: both times are printed.  K5 is also
+split with the priority witness's region at config #10's encoding and at
+`chip_smoke.py`'s G = 2048 priority problem: the witness has no barrier
+of its own, so thread 0 reads the clock around it (`witness_put`, inside
+the steps) and its cycles are printed beside the sections, not in their
+total.  The checkout's kernels are never changed.
 
 With `--k4-launch` it times K4's two launch paths in turns at config
 #4's first light chunk and config #4b's first heavy chunk, each on both
@@ -41,14 +45,19 @@ events' ms a launch over 200 launches back to back and the host's ms a
 call, holding both paths' rows equal as uint32.
 
 With `--against DIR` (another tree's `csrc`, e.g. the parent commit's) it
-also builds that tree's kernels and this checkout's, uninstrumented, and
-times both at the shapes above and at config #9, config #2, config #7's
-suffix and delta-off chain chunk, K7 at 8 shards, K7x rehearsed on this
-card (one cooperative grid of 4 blocks) at config #2 and #9, and K4's
-two lanes, also dense and with the take_exist compaction (K >= 8: row
-3b is the difference), in turns (DIR, this, this, DIR; the profiler's
-device time, the lower of each tree's two), holding this checkout's
-outputs to DIR's as uint32.  DIR's kernels must take this checkout's
+also builds that tree's kernels and this checkout's, uninstrumented,
+prints each kernel's ptxas report of the two trees as identical or not
+(K4's must be identical: its instances compile no witness), and times
+both at the shapes above and at config #9, config #2, config #7's suffix
+and delta-off chain chunk, K7 at 8 shards, K7x rehearsed on this card
+(one cooperative grid of 4 blocks) at config #2 and #9 and on a seeded
+problem (its seeded instance), K4's two lanes, also dense and with the
+take_exist compaction (K >= 8: row 3b is the difference), and K5 without
+the witness's region at config #10 and at the G = 2048 priority problem
+(row 9 is the difference from the split launches with it), in turns
+(DIR, this, this, DIR, ROUNDS times; the profiler's device time, the
+lower of each tree's 2 x ROUNDS, and the ratio of the trees' medians),
+holding this checkout's outputs to DIR's as uint32.  DIR's kernels must take this checkout's
 argument list (ScanArgs, the wrappers of this checkout's `solver/ffd.py`
 launch both; K4's launches then carry device scratch for the carry on
 both trees); K7x is left out when DIR's `ffd_card_scan.cu` takes
@@ -64,6 +73,7 @@ import argparse
 import ctypes
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -81,6 +91,11 @@ SECTIONS = ("existing nodes", "capacity walk", "pool-limit scans",
             "heavy slot maxima", "heavy column pass", "heavy water-fill",
             "heavy existing per domain", "heavy in-flight per domain",
             "heavy new nodes")
+# the priority witness's counter: thread 0's cycles in it, read without a
+# barrier of its own (inside the sections above, so not in their total)
+WITNESS = 23
+# --against's rounds of (DIR, this, this, DIR): turns a side = 2 x ROUNDS
+ROUNDS = 4
 # the heavy step's sections: (index, the anchor that ends the section)
 HEAVY = ((15, "  // -- capacity estimates per domain"),
          (16, "  // each in-flight node serves ONE domain"),
@@ -140,7 +155,7 @@ def instrument(src: str) -> str:
     i = src.index(end, src.index(light))
     i = src.index("\n}", i)
     src = src[:i] + "\n  SECTION(8);" + src[i:]
-    kern = "__launch_bounds__(NT, 1) scan_kernel("
+    kern = "__device__ __forceinline__ void scan_body("
     src = _insert(src, kern, "  const ScanArgs& a = A;",
                   "  if (tid == 0 && blockIdx.x == 0) g_clock = clock64();\n")
     src = _insert(src, kern, "  for (int g = 0; g < G; ++g) {",
@@ -156,7 +171,20 @@ def instrument(src: str) -> str:
     i = src.index("  if (a.K > 0) compact_take_exist(a, S);",
                   src.index(kern))
     i = src.rindex("    __syncthreads();\n  }\n", 0, i)
-    return src[:i] + "    SECTION(10);\n" + src[i:]
+    return witness_counter(src[:i] + "    SECTION(10);\n" + src[i:])
+
+
+def witness_counter(src: str) -> str:
+    """The priority witness's counter (WITNESS): the SM clock read by
+    thread 0 of block 0 before and after `witness_put` in the steps (the
+    flag written beside the strand count, any wait on the loads
+    `witness_in` started earlier included)."""
+    put = "    int before = in.before;\n"
+    end = "    wit().before = before;\n"
+    j = src.index(end, src.index(put)) + len(end)
+    src = (src[:j] + f"    if (blockIdx.x == 0) g_sections[{WITNESS}] += "
+           "(unsigned long long)(clock64() - w0_);\n" + src[j:])
+    return src.replace(put, "    const long long w0_ = clock64();\n" + put, 1)
 
 
 def build(tree: str, dest: str, sources, instrumented: bool):
@@ -211,12 +239,16 @@ def shapes(cs, ffd, dev):
     from karpenter_tpu_torch.solver import TorchSolver
     from karpenter_tpu_torch.workloads import (
         build_config2, build_config3, build_config4, build_config4b,
-        build_config7, build_config9, build_config12, build_input)
+        build_config7, build_config9, build_config10, build_config12,
+        build_input)
     solver = TorchSolver()
     head = cs._encoded_problem(solver, build_input(cs.HEADLINE_PODS), ffd)
     c3 = cs._encoded_problem(solver, build_config3(), ffd)
     c9 = cs._encoded_problem(solver, build_config9(), ffd)
     c2 = cs._encoded_problem(solver, build_config2(), ffd)
+    c10 = cs._encoded_problem(solver, build_config10(), ffd)
+    wprob, wcat, wN = cs.witness_problem()
+    seeded = {c[0]: c for c in cs._sharded_cases()}["S4-delta"]
     big = cs.CONFIG_MAX_NODES
     with cs._DeltaCapture(ffd) as cap12:
         TorchSolver(max_nodes=big, delta="off", spec="on").solve(
@@ -245,8 +277,8 @@ def shapes(cs, ffd, dev):
         return (lambda: ffd.batch_scan(b, c, N, fl, lay, lim, with_gang=wg),
                 (fl, lim), cs._tag(True, False, bool(wg)), b.G)
 
-    def encoded(prob, cat, N, wg=0):
-        return batch(*ffd.problem_from_numpy(prob, cat, dev), N, wg)
+    def encoded(prob, cat, N, wg=0, wp=0, ex=1):
+        return batch(*ffd.problem_from_numpy(prob, cat, dev), N, wg, wp, ex)
 
     def delta(call):
         p, sd, c, N, ex = call
@@ -263,12 +295,14 @@ def shapes(cs, ffd, dev):
         return (lambda: ffd.sharded_scan(p, table, sc, N, fl, lay, lim, 0),
                 (fl, lim), cs._tag(True, False, False, False, True), p.G)
 
-    def rehearsal(prob, cat, S, N):
+    def rehearsal(prob, cat, S, N, ex=1, seeds=None):
         # K7x rehearsed on this card: one cooperative grid of S blocks
-        c = cs._Cards(ffd, S, prob, cat, N, 1, None, (dev,) * S)
+        c = cs._Cards(ffd, S, prob, cat, N, ex, seeds, (dev,) * S)
         fl, lim = c.bufs()
         return (lambda: c.launch(fl, lim), (fl, lim),
-                cs._tag(True, False, bool(c.wg), False, 2), c.ref[0].G)
+                cs._tag(seeds is None, False, bool(c.wg), seeds is not None,
+                        2),
+                c.ref[0].G)
 
     def sweep(chunk):
         sw, c, N, K = chunk
@@ -296,7 +330,18 @@ def shapes(cs, ffd, dev):
                                          cs.CONFIG2_MAX_NODES)),
             ("K7x rehearsal config #2 S=4", rehearsal(
                 *c2, 4, cs.CONFIG2_MAX_NODES)),
-            ("K7x rehearsal gang config #9 S=4", rehearsal(*c9, 4, big))]
+            ("K7x rehearsal gang config #9 S=4", rehearsal(*c9, 4, big)),
+            ("K7x rehearsal seeded S4-delta S=4", rehearsal(
+                *seeded[2:4], 4, *seeded[4:7]))]
+    # row 9, the priority witness: K5 with its region (split: its cycles)
+    # and without (in `more`), as phase 9 of chip_smoke.py launches it
+    for lab, (prob, cat), N in (
+            ("config #10", c10, cs.CONFIG3_WARM_N),
+            (f"G={cs.WITNESS_G} priority problem", (wprob, wcat), wN)):
+        split.append((f"K5 {lab} with the witness",
+                      encoded(prob, cat, N, 0, 1, 0)))
+        more.append((f"K5 {lab} without the witness",
+                     encoded(prob, cat, N, 0, 0, 0)))
     # the take_exist compaction of K4's epilogue (row 3b): each chunk dense
     # and compacted
     for lab, (sw, c, N, K) in (("K4 config #4 light chunk", c4),
@@ -392,6 +437,20 @@ def k4_launch_paths(cs, ffd, reps: int = 200) -> int:
     return 0
 
 
+def ptxas_reports(log: str):
+    """{kernel's mangled name: its ptxas lines (registers, stack, spills)}
+    of one nvcc log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+            out[name] = []
+        elif name and ("registers" in line or "spill" in line
+                       or "stack frame" in line):
+            out[name].append(line.split("info    :")[-1].strip())
+    return out
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--csrc", default=CSRC,
@@ -428,9 +487,10 @@ def main(argv) -> int:
         procs += build(CSRC, os.path.join(OUT, "this"), all_src, False)
         procs += build(args.against, os.path.join(OUT, "against"), all_src,
                        False)
-    failed = False
+    failed, logs = False, {}
     for dest, name, proc in procs:
         log, _ = proc.communicate()
+        logs[(os.path.basename(dest), name)] = log
         if proc.returncode:
             print(f"scan_sections: nvcc failed on {dest}/{name}.cu\n{log}",
                   file=sys.stderr)
@@ -443,6 +503,22 @@ def main(argv) -> int:
     print(f"[sections] built {len(procs)} libraries in "
           f"{time.perf_counter() - t0:.1f} s on {cs._card_line()}",
           flush=True)
+    k4_differs = []
+    if args.against:
+        # each kernel's ptxas report, this checkout's against DIR's
+        for src in all_src:
+            mine = ptxas_reports(logs[("this", src)])
+            theirs = ptxas_reports(logs[("against", src)])
+            for kern in sorted(set(mine) | set(theirs)):
+                t, a = mine.get(kern), theirs.get(kern)
+                if t == a:
+                    print(f"[ptxas] {src} {kern}: identical", flush=True)
+                    continue
+                if src == "ffd_sweep_scan":
+                    k4_differs.append(kern)
+                print(f"[ptxas] {src} {kern}: against "
+                      + " | ".join(a or ["(none)"]) + " ; this "
+                      + " | ".join(t or ["(none)"]), flush=True)
 
     dev = torch.device("cuda", 0)
     plain = load(os.path.join(OUT, "plain"), split_src)
@@ -476,6 +552,9 @@ def main(argv) -> int:
         for k, name in enumerate(SECTIONS):
             print(f"    {name:22s} {v[k]:12d} {v[k] / steps:12.0f} "
                   f"({100.0 * v[k] / total:5.2f}%)")
+        print(f"    {'priority witness':22s} {v[WITNESS]:12d} "
+              f"{v[WITNESS] / steps:12.0f} (thread 0, inside the sections "
+              f"above)")
     if not args.against:
         return 0
 
@@ -495,7 +574,7 @@ def main(argv) -> int:
     against = load(os.path.join(OUT, "against"), all_src)
     times, ref, bad = {}, {}, []
     for name, libs in (("against", against), ("this", real),
-                       ("this", real), ("against", against)):
+                       ("this", real), ("against", against)) * ROUNDS:
         use(libs)
         for label, (fn, bufs, tag, G) in split + more:
             for b in bufs:
@@ -508,15 +587,18 @@ def main(argv) -> int:
             elif not all(np.array_equal(x, y)
                          for x, y in zip(got, ref[label])):
                 bad.append(label)
-            reps = 3 if "one program" in label else 20
+            reps = 3 if G >= 2048 else 20
             times.setdefault((label, name), []).append(
                 cs._device_ms(fn, reps, tag)[0])
     print(f"[turns] {'shape':40s} {'against ms':>11s} {'this ms':>10s} "
-          f"{'this/against':>12s} {'this ms a step':>15s}")
+          f"{'this/against':>12s} {'of the medians':>14s} "
+          f"{'this ms a step':>15s}")
     for label, (fn, bufs, tag, G) in split + more:
         a, t = min(times[(label, "against")]), min(times[(label, "this")])
+        med = (statistics.median(times[(label, "this")])
+               / statistics.median(times[(label, "against")]))
         print(f"[turns] {label:40s} {a:11.4f} {t:10.4f} {t / a:12.3f} "
-              f"{t / G:15.5f}", flush=True)
+              f"{med:14.3f} {t / G:15.5f}", flush=True)
     for lab in ("K4 config #4 light chunk", "K4 config #4b heavy chunk"):
         dense = [x for x in more if x[0] == f"{lab} dense"][0][0]
         packed = [x for x in more if x[0].startswith(f"{lab} K=")][0][0]
@@ -526,12 +608,28 @@ def main(argv) -> int:
               f"difference of the minima) " + ", ".join(
                   f"{name} {ms:.4f} ms" for name, ms in pack.items()),
               flush=True)
+    for lab in ("config #10", f"G={cs.WITNESS_G} priority problem"):
+        on, off = (f"K5 {lab} with the witness",
+                   f"K5 {lab} without the witness")
+        row = {name: (min(times[(on, name)]) - min(times[(off, name)]),
+                      statistics.median(times[(on, name)])
+                      - statistics.median(times[(off, name)]))
+               for name in ("against", "this")}
+        print(f"[turns] K5 {lab}: the priority witness (row 9, the "
+              f"difference of the minima; of the medians) " + ", ".join(
+                  f"{name} {lo:.4f} ms ({med:.4f})"
+                  for name, (lo, med) in row.items()), flush=True)
+    rc = 0
+    if k4_differs:
+        print(f"scan_sections: K4's ptxas report differs from "
+              f"{args.against}'s: {k4_differs}", file=sys.stderr)
+        rc = 1
     if bad:
         print(f"scan_sections: outputs differ from {args.against}: "
               f"{sorted(set(bad))}", file=sys.stderr)
         return 1
     print(f"[turns] every output equal to {args.against}'s as uint32")
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

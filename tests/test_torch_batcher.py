@@ -44,8 +44,12 @@ def pkg(request):
 def _run_concurrently(fn, args_list):
     results = [None] * len(args_list)
     errors = [None] * len(args_list)
+    # every thread calls at once: a loaded host can start threads tens of
+    # ms apart, past a batching window
+    start = threading.Barrier(len(args_list))
 
     def work(i, a):
+        start.wait()
         try:
             results[i] = fn(a)
         except Exception as e:  # noqa: BLE001
@@ -209,6 +213,8 @@ class TestBatchedCloud:
 
     def test_create_fleet_rides_one_window(self, pkg):
         cloud, bc = self._cloud(pkg)
+        # a window wide enough for four concurrent calls on a loaded host
+        bc.fleet_batcher.idle_s = 0.25
         reqs = [
             ([pkg.FleetCandidate("standard-4", "zone-a", "on-demand", 1.0)],
              {"karpenter.sh/nodeclaim": f"nc-{i}"})

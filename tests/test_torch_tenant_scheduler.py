@@ -422,17 +422,32 @@ def loopback(small_backend, tmp_path):
     d.close()
 
 
+@pytest.fixture()
+def wide_loopback(small_backend, tmp_path):
+    """The loopback daemon with a coalescing window wide enough that six
+    requests started together land in one window on a loaded machine
+    (the tier-1 run's six workers): a 250 ms idle gap, at most 2 s."""
+    from karpenter_tpu_torch.service.loopback import LoopbackSolverd
+    d = LoopbackSolverd(str(tmp_path / "lb.sock"), idle_ms=250, max_ms=2000)
+    yield d
+    d.close()
+
+
 class TestLoopbackEndToEnd:
-    def test_multi_tenant_traffic_fuses_with_parity(self, loopback):
+    def test_multi_tenant_traffic_fuses_with_parity(self, wide_loopback):
+        loopback = wide_loopback
         clients = {t: SolverServiceClient(loopback.socket_path, timeout=120,
                                           tenant=t)
                    for t in ("alpha", "beta", "gamma")}
         try:
             clients["alpha"].solve(mkinp("warm"))  # compile out of the way
             outs = {}
+            start = threading.Barrier(6)
 
             def call(t, i):
-                outs[(t, i)] = clients[t].solve(mkinp(f"{t}{i}", n=10 + i))
+                inp = mkinp(f"{t}{i}", n=10 + i)
+                start.wait(timeout=60)  # the six requests leave together
+                outs[(t, i)] = clients[t].solve(inp)
 
             threads = [threading.Thread(target=call, args=(t, i))
                        for t in clients for i in range(2)]
