@@ -188,8 +188,12 @@ Phases (any failure exits non-zero):
      scheduling histogram and the replica's K5 and epilogue launches
      (`karpenter_tpu_solver_kernel_launches_total`), /healthz and /readyz
      "ok", /debug/ledger and /debug/timeline records; 2,000 more pods
-     must give LOOP's wave 2; SIGTERM must end the replica with exit code
-     0 within 15 s and its lease released; (b) tests/test_ha.py's
+     must give LOOP's wave 2; the replica spills its ledger
+     (KARPENTER_TPU_LEDGER_DIR, its ring wide enough for every record),
+     and `python -m karpenter_tpu_torch.tools.kt_ledger <spill> --json`
+     must report its /debug/ledger summary's records by source, savings
+     and added spend, hex for hex; SIGTERM must end the replica with exit
+     code 0 within 15 s and its lease released; (b) tests/test_ha.py's
      two-replica layout on the card — a
      store daemon in its own process, one shared FakeCloud, two
      Operators, one file lease — the election made, the 50,000 pods
@@ -231,6 +235,26 @@ Phases (any failure exits non-zero):
      `TorchSolver` on the card gives the pin with `SolverFallback`
      recorded and no oracle solve; the worker's exit code on SIGTERM and
      both processes' device memory.  `--child service` runs it alone.
+ 25. BASELINE configs #1, #6 and #13 at 1M pods and the operator's tools:
+     (a) config #1 (workloads.build_config1: 100 identical pods over 30
+     types) through K5 at B = 1, one cold and 20 warm solves: the JAX
+     package's nodes, unschedulable, hex price and digest (CONFIG1);
+     in child processes started beside phase 20 (`--child config6`,
+     `config13-1m`, `tools`, each also runnable alone): (b) config #6 at
+     15,000 queued interruption messages (workloads.build_config6) on an
+     Environment on the card, drained by one interruption reconcile: the
+     queue empty, claims deleted, offerings marked unavailable and the
+     deleted names' digest the JAX package's (CONFIG6), the drain's
+     seconds and msgs/s; (c) config #13 at 50k and then 1,000,000 pods in
+     one process, each through phase 12's stories with the resident pods
+     frozen in the collector before the timed passes, as its benchmark
+     runs them: every generation CONFIG13 / CONFIG13_1M, every timed
+     pass engaged with no fallback, the build seconds, peak RSS, both
+     stories' p50 at both sizes, flat_ratio and walk_ratio (no limit);
+     (d) `python -m karpenter_tpu_torch.tools.determinism` (exit 0), the
+     same `--drill` (non-zero), `kt_rewind --generate smoke --seed 7
+     --seek 40` (bit-identical, every invariant held, on the card) and
+     `allocatable_diff` (exit 0), at once, each one's seconds printed.
 
 Phase 3 also holds K5's gang instance, the witness and the epilogue's map
 and with_gang class against their plain versions on seeded gang and priority
@@ -261,9 +285,11 @@ Without a CUDA device it exits 2 and prints no result.  `--child MODE`
 runs one of the phases above that need a process of their own; the
 script starts those itself.  `--child entry` (phase 22(a)), `--child
 ha` (22(b)) and `--child rewind` (23) run those phases alone, the kernels
-and kt_hostops built first; `--child service` (24) likewise; the main
-run starts the four beside phase
-19, and every child ends before phase 3 times a kernel.
+and kt_hostops built first; `--child service` (24), `--child config6`
+(25(b)), `--child config13-1m` (25(c)) and `--child tools` (25(d))
+likewise; the main run starts the first four beside phase 19 and the
+other three beside phase 20, and every child ends before phase 3 times a
+kernel.
 `--child cards` is the cross-card check,
 run on a host of two or more cards (`python3 chip_smoke.py --child
 cards` on a four-card host): every card's name and power limit, the
@@ -397,7 +423,7 @@ CONFIG7 = (
 CONFIG7_TIMED = 16        # churn passes after gen 0 and one warm pass
 CONFIG12 = "548186e9300c0fb12b678fff8de5a7fc0e1f9388fed1776961af240eb5f0c535"
 CONFIG12_CHUNKS = 5
-CONFIG13_PODS = 50_000    # config #13's first size (1M cut)
+CONFIG13_PODS = 50_000    # config #13's first size (phase 12, 25(c))
 CONFIG13 = (
     "250406d122cc0b889c267a867a5a0858c090bdfa017ef3901b1df9ea587d81ab",
     "f1ffe368eaa3b84729587634eef9570443460d00bfc41240805b7b91a370035e",
@@ -411,6 +437,38 @@ CONFIG13 = (
     "6f5b2e35720f316bafe41b3df53a614530b9b05bdb206d583914d09f7389150c",
     "1ca0da542fe6c1d5272759230413f83dbd8fab9275751f43313b34b2a3d8c76c",
 )
+# config #13 at its published top size (`benchmarks/config13_warm_million.py`
+# SIZES), per generation 0..10 (397 nodes, 0x1.8d00000000000p+14 every
+# pass; `python3 tests/test_torch_configs.py --pin`, the JAX package's
+# TPUSolver(max_nodes=2048, mesh="off") with its default knobs on the CPU)
+CONFIG13_1M_PODS = 1_000_000
+CONFIG13_1M = (
+    "fbe68ded77c1665b6b57d15f03267b6057f4971af4dbdcbf1a4cd62b8ab0d69a",
+    "ebd9f6f5b421836ef2c915e5403390487cda7572a4319d13fb2fab1fe5f3b4ee",
+    "b214c787b3df9cd3632191cfd5b04dfc4f0f61be6116fb3014f418ef207f5aed",
+    "8b0e8bd02177198594b61d1f5c1659c41cf8adaa6152e85bb0672ae71db56d25",
+    "eb296b6190cdbbe0b63c351bcfb30f83813d6d7f4f3cd006924ce751a6b74e5c",
+    "4d7e567ebf2acc6b935b723de03f95d7028aca55e710b65acd2a4b869a241d0e",
+    "8e90abe24988e1e1e48ae302164dd555714bd94dec2a4a1869b430ffad7dc855",
+    "87c73dccb8f892252e3629aad42a4ef6d19d9988ebc8b972f1cedbde6ea9338c",
+    "c60795fdf6f6334004028e2b79151d82a81e02a2ae21eae915c39f8d1a63596f",
+    "37c286230ae43a8ac69730f4fa69ecfde6191553660cf22bab48ace9c0517546",
+    "53e41c4ade2ebe47d51b1fa9aaf5182e2d81f7d4caff32c35ee5fa77ac586459",
+)
+# BASELINE config #1 (`benchmarks/config1_inflate.py`, workloads.
+# build_config1) on TorchSolver(): nodes, unschedulable, price hex,
+# result_digest of the JAX answer (TPUSolver(mesh="off"), delta, spec and
+# incr off, on the CPU; `tests/test_torch_configs.py --pin`)
+CONFIG1 = (2, 0, "0x1.18b4395810625p+0",
+           "99d9714704b5bade7d8447cfa7abdedbbdfa3768acb8796140f6f70eef2906ee")
+# BASELINE config #6 (`benchmarks/config6_interruption.py`, workloads.
+# build_config6) at the reference harness's 15,000 messages, drained by one
+# interruption reconcile: claims deleted, offerings marked unavailable and
+# `workloads.names_digest` of the deleted claims' names — the JAX package's
+# environment's (`tests/test_torch_configs.py --pin`)
+CONFIG6_MESSAGES = 15_000
+CONFIG6 = (11_250, 6,
+           "5565077b5c0eb5131e6cb8fc86055a8731ea0f9c9b3eeb51e8df9f84a0c9937b")
 # The column-sharded solve (slice 7): BASELINE config #2 at 5k pods (the
 # JAX package's `bench.py build_config2_5k`, the port's
 # workloads.build_config2) on TorchSolver(max_nodes=256) — the JAX
@@ -2345,10 +2403,11 @@ def _p50(xs):
 
 
 def _lockstep(ffd, label, arms, inputs, digests, card, feed=None,
-              timed_from=0):
+              timed_from=0, at_timed=None):
     """Solve each input (inputs[i] answers digests[i]) on every solver of
     `arms` ({name: solver}) in turn; `feed(name, solver, i)` delivers the
-    pass's watch events first.  Returns ({arm: [e2e ms of the timed
+    pass's watch events first, `at_timed()` runs once before the first
+    timed pass's input is built.  Returns ({arm: [e2e ms of the timed
     passes]}, {arm: {phase: [ms]}}, {arm: [per-pass verdicts]}, {arm:
     [K6 launches of each pass]}, problems): every arm's canonical result
     must equal the pinned JAX answer."""
@@ -2359,6 +2418,8 @@ def _lockstep(ffd, label, arms, inputs, digests, card, feed=None,
     k6 = {a: [] for a in arms}
     bad = []
     for i, build in enumerate(inputs):
+        if i == timed_from and at_timed is not None:
+            at_timed()
         inp = build()
         for name, solver in arms.items():
             k0 = ffd.delta_scan.launches
@@ -2471,19 +2532,27 @@ def _config12(ffd, card, TorchSolver, build_config12):
     return launches, bad
 
 
-def _config13(ffd, card, TorchSolver, build_config13):
-    """Config #13 at its first size: the incremental index (fed the churn
-    as watch events) against the walk, delta auto in both, over a cold
-    pass, two warm ones and 8 timed churn passes; returns (launches,
-    problems)."""
+def _config13(ffd, card, TorchSolver, build_config13,
+              n_pods=CONFIG13_PODS, pins=CONFIG13, label="12 config13",
+              freeze=False):
+    """Config #13 at `n_pods`: the incremental index (fed the churn as
+    watch events) against the walk, delta auto in both, over a cold
+    pass, two warm ones and 8 timed churn passes, every pass the pinned
+    digest (`pins`); `freeze` moves the resident pods to the collector's
+    permanent generation before the timed passes, as the benchmark does
+    (`benchmarks/config13_warm_million.py`).  Returns (launches,
+    problems, {story: timed e2e p50 ms})."""
+    import gc
+
     import torch
     on = TorchSolver(max_nodes=CONFIG_MAX_NODES, spec="off", incr="on")
     walk = TorchSolver(max_nodes=CONFIG_MAX_NODES, spec="off", incr="off")
-    n = len(CONFIG13)
+    n = len(pins)
+    timed_from = 3
     events = {}
 
     def build(g):
-        inp, ev = build_config13(CONFIG13_PODS, g)
+        inp, ev = build_config13(n_pods, g)
         events[g] = ev
         return inp
 
@@ -2492,25 +2561,43 @@ def _config13(ffd, card, TorchSolver, build_config13):
             solver.delta_invalidate(pods=tuple(events[i]),
                                     pod_objs=events[i])
 
+    def at_timed():
+        gc.collect()
+        gc.freeze()
+
     _reset_launches(ffd)
-    ms, phases, verdicts, k6, bad = _lockstep(
-        ffd, "12 config13", {"incr": on, "walk": walk},
-        [lambda g=g: build(g) for g in range(n)], CONFIG13, card,
-        feed=feed, timed_from=3)
+    try:
+        ms, phases, verdicts, k6, bad = _lockstep(
+            ffd, label, {"incr": on, "walk": walk},
+            [lambda g=g: build(g) for g in range(n)], pins, card,
+            feed=feed, timed_from=timed_from,
+            at_timed=at_timed if freeze else None)
+    finally:
+        if freeze:
+            gc.unfreeze()
     torch.cuda.synchronize()
     launches = _read_launches(ffd)
-    _report("12 config13", ms, phases, verdicts, k6)
+    _report(label, ms, phases, verdicts, k6)
     for name in ("incr", "walk"):
         for i, v in enumerate(verdicts[name][1:], 1):
             if (v[0] != "delta" or k6[name][i] < 1
                     or (name == "incr" and v[2] is not None)):
                 bad.append(f"{name} pass {i}: {v}, {k6[name][i]} K6")
-    print(f"[12 config13] launches {launches}; incr passes "
+    engaged = sum(v[2] is None for v in verdicts["incr"][timed_from:])
+    fallbacks = {name: sum(v[0] != "delta"
+                           for v in verdicts[name][timed_from:])
+                 for name in ("incr", "walk")}
+    print(f"[{label}] launches {launches}; incr passes "
           f"{on.incr_passes} fallbacks {on.incr_fallbacks}; delta passes "
-          f"incr {on.delta_passes}, walk {walk.delta_passes}", flush=True)
+          f"incr {on.delta_passes}, walk {walk.delta_passes}; timed "
+          f"passes {n - timed_from}: incr engaged {engaged}, fallbacks "
+          f"{fallbacks}", flush=True)
+    if engaged != n - timed_from or any(fallbacks.values()):
+        bad.append(f"{label}: timed passes engaged {engaged} of "
+                   f"{n - timed_from}, fallbacks {fallbacks}")
     if launches["ffd_delta_scan"] <= 0:
         bad.append("kernel ffd_delta_scan was not launched on the main path")
-    return launches, bad
+    return launches, bad, {k: _p50(v) for k, v in ms.items()}
 
 
 # -- 18. the provisioning control loop ---------------------------------------
@@ -3018,6 +3105,10 @@ def _fault_phase(card, add):
 
 
 # -- 22. the operator's entry point as its own process; the HA pair ---------
+# the replica's ledger ring in 22(a): wide enough for every record of its
+# waves (as workloads.LEDGER_RING), so /debug/ledger and the spill hold
+# the same records
+_LEDGER_RING = 100_000
 ENTRY_WAVE_S = 900        # a wave's wait, through the store, for every pod
 ENTRY_STOP_S = 15         # SIGTERM to exit
 # the HA pair's lease: duration, renew interval, retry period (s)
@@ -3067,18 +3158,19 @@ def _scraped_launches(port):
     return out, body
 
 
-def _start_replica(sock, lease, logdir):
+def _start_replica(sock, lease, logdir, env_extra=None):
     """`python -m karpenter_tpu_torch` as its own process on the store
     daemon at `sock` and the file lease `lease`, on ephemeral ports and
-    with no platform variable (so on the card); its stderr to a file in
-    `logdir`.  Returns (process, banner, metrics port, health port, the
-    seconds to the banner, the stderr path)."""
+    with no platform variable (so on the card), `env_extra` added to its
+    environment; its stderr to a file in `logdir`.  Returns (process,
+    banner, metrics port, health port, the seconds to the banner, the
+    stderr path)."""
     import select
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root, KARPENTER_TPU_STORE_SOCKET=sock,
                KARPENTER_TPU_LEASE_FILE=lease,
                KARPENTER_TPU_METRICS_PORT="0", KARPENTER_TPU_HEALTH_PORT="0",
-               BATCH_MAX_DURATION=str(ENTRY_BATCH_MAX_S))
+               BATCH_MAX_DURATION=str(ENTRY_BATCH_MAX_S), **(env_extra or {}))
     for k in ("KARPENTER_TPU_PLATFORM", "KARPENTER_TPU_FORCE_CPU"):
         env.pop(k, None)
     errpath = os.path.join(logdir, "replica.stderr")
@@ -3122,6 +3214,39 @@ def _wait_bound(client, n, timeout=ENTRY_WAVE_S):
     return None
 
 
+def _kt_ledger_check(port, spill):
+    """Phase 22(a)'s ledger check: `python -m karpenter_tpu_torch.tools.
+    kt_ledger <spill> --json` over the replica's ledger spill must report
+    what the replica's /debug/ledger summary reports over the same
+    records (its ring holds them all): the records by source and the
+    savings and added spend, hex for hex.  Returns what failed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    limit = str(_LEDGER_RING)
+    code, body = _http(port, f"/debug/ledger?limit={limit}")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "karpenter_tpu_torch.tools.kt_ledger", spill,
+         "--json", "--limit", limit], cwd=root, capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, PYTHONPATH=root))
+    secs = time.perf_counter() - t0
+    if code != 200 or out.returncode != 0:
+        return [f"22a kt_ledger: /debug/ledger {code}, the tool's exit code "
+                f"{out.returncode}: {out.stderr[-500:]}"]
+    docs = {"http": json.loads(body)["summary"],
+            "kt_ledger": json.loads(out.stdout)["summary"]}
+    seen = {name: (doc["records"], doc["by_source"],
+                   float(doc["savings_dollars_per_hr"]).hex(),
+                   float(doc["spend_added_dollars_per_hr"]).hex())
+            for name, doc in docs.items()}
+    print(f"[22a] kt_ledger over {os.path.basename(spill)} in {secs:.1f} s: "
+          f"(records, by source, savings hex, added hex) {seen['kt_ledger']}"
+          f"; /debug/ledger {seen['http']}", flush=True)
+    if seen["http"] != seen["kt_ledger"] or not seen["http"][0]:
+        return [f"22a kt_ledger: {seen['kt_ledger']} != /debug/ledger "
+                f"{seen['http']}"]
+    return []
+
+
 def _entry_phase(card, add):
     """Phase 22 (a): a store daemon in its own process holds the default
     NodeClass and pool and the headline's 50,000 pods, created through a
@@ -3148,6 +3273,7 @@ def _entry_phase(card, add):
     bad = []
     tmp = tempfile.mkdtemp(prefix="kt_entry_")
     lease = os.path.join(tmp, "lease.json")
+    ledger_dir = os.path.join(tmp, "ledger")
     daemon, sock, sockdir = _start_store_daemon()
     proc = None
     try:
@@ -3159,7 +3285,9 @@ def _entry_phase(card, add):
             client.pods.create(pod)
         setup_s = time.perf_counter() - t0
         proc, banner, mport, hport, boot_s, errpath = _start_replica(
-            sock, lease, tmp)
+            sock, lease, tmp, {"KARPENTER_TPU_LEDGER_DIR": ledger_dir,
+                               "KARPENTER_TPU_LEDGER_BUFFER":
+                                   str(_LEDGER_RING)})
         print(f"[22a] {LOOP_PODS} pods created through the store client in "
               f"{setup_s:.1f} s; the replica (pid {proc.pid}) served after "
               f"{boot_s:.1f} s: {banner}", flush=True)
@@ -3224,6 +3352,9 @@ def _entry_phase(card, add):
                     print(f"[22a] {path}: {code}, {n} {key}", flush=True)
                     if code != 200 or n == 0:
                         bad.append(f"22a {path}: {code}, {n} {key}")
+        if not bad:
+            bad += _kt_ledger_check(hport, os.path.join(
+                ledger_dir, f"ledger-{proc.pid}.jsonl"))
         t0 = time.perf_counter()
         proc.terminate()
         try:
@@ -4315,14 +4446,177 @@ def _disruption_phase(card, add):
     return bad, log
 
 
+# -- 25. configs #1, #6 and #13 at 1M pods, and the operator's tools -------
+TOOLS_TIMEOUT_S = 600     # each tool's run in 25(d), at most
+# 25(d)'s tool runs: (module of karpenter_tpu_torch.tools, its arguments,
+# the exit code it must give: 0, or "nonzero")
+TOOL_RUNS = (
+    ("determinism", (), 0),
+    ("determinism", ("--drill",), "nonzero"),
+    ("kt_rewind", ("--generate", "smoke", "--seed", "7", "--seek", "40"), 0),
+    ("allocatable_diff", (), 0),
+)
+
+
+def _config1_phase(ffd, card, TorchSolver, add):
+    """Phase 25(a): BASELINE config #1 (workloads.build_config1: 100
+    identical pods, 30 types) through K5 at B = 1 and its epilogue, one
+    cold and 20 warm solves: the JAX package's nodes, unschedulable, hex
+    price and result digest (CONFIG1).  Returns what failed."""
+    from karpenter_tpu_torch.workloads import build_config1
+    t0 = time.perf_counter()
+    res, counts, _ = _main_path(TorchSolver, build_config1, ffd, card,
+                                "25a config1")
+    add(counts)
+    bad = _check_answer(res, counts, *CONFIG1[:3],
+                        ("ffd_batch_scan", "explain_pack"))
+    if result_digest(res) != CONFIG1[3]:
+        bad.append(f"25a: result digest {result_digest(res)[:16]} != "
+                   f"{CONFIG1[3][:16]}")
+    print(f"[25a] phase time {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+    return bad
+
+
+def _config6_phase(card, add):
+    """Phase 25(b): BASELINE config #6 at CONFIG6_MESSAGES messages
+    (workloads.build_config6: an Environment on the card, one m5.large
+    instance and one launched claim a message, the interruption mix)
+    drained by one interruption reconcile: the queue empty, and the
+    claims deleted, the offerings marked unavailable and the deleted
+    names' digest the JAX package's (CONFIG6); the drain's seconds and
+    msgs/s printed.  Launches no kernel.  Returns what failed."""
+    from karpenter_tpu_torch import workloads
+    t0 = time.perf_counter()
+    env = workloads.build_config6(CONFIG6_MESSAGES)
+    build_s = time.perf_counter() - t0
+    out = workloads.drain_config6(env)
+    got = (out["claims_deleted"], out["offerings_unavailable"],
+           out["names_digest"])
+    print(f"[25b] config #6 on {card}: {CONFIG6_MESSAGES} instances, "
+          f"claims and queued messages built in {build_s:.1f} s; "
+          f"{out['messages']} messages drained in {out['drain_s']:.3f} s "
+          f"({out['msgs_per_s']:.1f} msgs/s): queue empty "
+          f"{out['drained']}, claims deleted {got[0]}, offerings marked "
+          f"unavailable {got[1]}, deleted names {got[2][:16]}", flush=True)
+    bad = []
+    if not out["drained"]:
+        bad.append("25b: the interruption queue is not empty")
+    if got != CONFIG6:
+        bad.append(f"25b: {got} != {CONFIG6}")
+    return bad
+
+
+def _config13_million_phase(card, add):
+    """Phase 25(c): BASELINE config #13 as its benchmark sweeps it, in
+    one process: CONFIG13_PODS and then CONFIG13_1M_PODS pods, each size
+    through phase 12's incr and walk stories (`_config13`, the resident
+    pods frozen in the collector before the timed passes): every
+    generation the JAX package's digest (CONFIG13, CONFIG13_1M), every
+    timed pass engaged with no fallback, K6 launched; the seconds to
+    build each size's pods, the peak RSS, each story's timed p50 at both
+    sizes and their ratios (flat_ratio, walk_ratio: printed, no limit).
+    Returns what failed."""
+    import resource
+
+    from karpenter_tpu_torch import workloads
+    from karpenter_tpu_torch.solver import TorchSolver, ffd
+    bad, p50, k56 = [], {}, {}
+    for n, pins in ((CONFIG13_PODS, CONFIG13),
+                    (CONFIG13_1M_PODS, CONFIG13_1M)):
+        label = f"25c config13 {n}"
+        t0 = time.perf_counter()
+        workloads.build_config13(n, 0)
+        print(f"[{label}] {n} pods built in "
+              f"{time.perf_counter() - t0:.1f} s; peak RSS "
+              f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} KiB",
+              flush=True)
+        counts, b, p50[n] = _config13(ffd, card, TorchSolver,
+                                      workloads.build_config13, n, pins,
+                                      label, freeze=True)
+        add(counts)
+        bad += b
+        k56[n] = (counts["ffd_batch_scan"], counts["ffd_delta_scan"])
+        workloads._C13.pop(n, None)
+    small, big = p50[CONFIG13_PODS], p50[CONFIG13_1M_PODS]
+    print(f"[25c] config #13 on {card}: incr p50 {small['incr']:.3f} ms at "
+          f"{CONFIG13_PODS}, {big['incr']:.3f} ms at {CONFIG13_1M_PODS} "
+          f"(flat_ratio {big['incr'] / small['incr']:.3f}); walk p50 "
+          f"{small['walk']:.3f} ms, {big['walk']:.3f} ms (walk_ratio "
+          f"{big['walk'] / small['walk']:.3f}); K5, K6 launches "
+          f"{k56[CONFIG13_PODS]} at {CONFIG13_PODS}, "
+          f"{k56[CONFIG13_1M_PODS]} at {CONFIG13_1M_PODS}; peak RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} KiB",
+          flush=True)
+    return bad
+
+
+def _tools_phase(card, add):
+    """Phase 25(d): the operator's tools, each `python -m
+    karpenter_tpu_torch.tools.<tool>` in a process of its own with no
+    platform variable (so on the card), all at once (TOOL_RUNS): the
+    determinism harness exits 0 and its drill non-zero, kt_rewind's
+    seek at event 40 of the smoke scenario is bit-identical with every
+    invariant held, allocatable_diff exits 0.  Each one's seconds, exit
+    code and last lines printed.  Returns what failed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    for k in ("KARPENTER_TPU_PLATFORM", "KARPENTER_TPU_FORCE_CPU"):
+        env.pop(k, None)
+    runs = []
+    for tool, args, want in TOOL_RUNS:
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"karpenter_tpu_torch.tools.{tool}",
+             *args], cwd=root, env=env, stdout=out, stderr=err, text=True)
+        runs.append(dict(name=" ".join((tool,) + args), proc=proc, out=out,
+                         err=err, want=want, t0=time.perf_counter(),
+                         s=None))
+    deadline = time.perf_counter() + TOOLS_TIMEOUT_S
+    while any(r["s"] is None for r in runs):
+        for r in runs:
+            if r["s"] is None and r["proc"].poll() is not None:
+                r["s"] = time.perf_counter() - r["t0"]
+        if time.perf_counter() > deadline:
+            for r in runs:
+                if r["s"] is None:
+                    r["proc"].kill()
+                    r["proc"].wait()
+                    r["s"] = time.perf_counter() - r["t0"]
+        time.sleep(0.2)
+    bad = []
+    for r in runs:
+        rc = r["proc"].returncode
+        stdout, stderr = [f.seek(0) or f.read() for f in (r["out"],
+                                                          r["err"])]
+        for f in (r["out"], r["err"]):
+            f.close()
+        tail = [ln for ln in (stdout + stderr).splitlines()
+                if not ln.startswith("ts=")][-3:]
+        print(f"[25d] {r['name']} on {card}: exit code {rc} after "
+              f"{r['s']:.1f} s; " + " | ".join(ln[:400] for ln in tail),
+              flush=True)
+        ok = rc != 0 if r["want"] == "nonzero" else rc == r["want"]
+        if r["name"].startswith("kt_rewind") and ok:
+            doc = json.loads(stdout.strip().splitlines()[-1])
+            ok = (doc["seek_bit_identical"] and doc["invariants_held"]
+                  and doc["device"] == "cuda")
+        if r["name"] == "determinism --drill" and ok:
+            ok = "MISMATCH" in stderr
+        if not ok:
+            bad.append(f"25d {r['name']}: exit code {rc}: "
+                       f"{(stdout + stderr)[-1500:]}")
+    return bad
+
+
 def _child(mode: str) -> int:
     """The phases that run in a child process of their own: "headline"
     (phase 4's headline with the environment the parent set, for the
     KARPENTER_TPU_NO_NATIVE=1 arm), "cold-loop" (phase 18's cold loop,
     in a process that has launched nothing), "disruption-cold" (phase
     19's cold loop, the same), "entry" (phase 22(a)), "ha" (phase 22(b)),
-    "rewind" (phase 23) and "service" (phase 24).  Prints one JSON
-    line."""
+    "rewind" (phase 23), "service" (phase 24), "config6" (phase 25(b)),
+    "config13-1m" (25(c)) and "tools" (25(d)).  Prints one JSON line."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch import native
@@ -4331,10 +4625,11 @@ def _child(mode: str) -> int:
     card = _card_line()
     if mode == "cards":
         return _cards_check(card)
-    if mode in ("entry", "ha", "rewind", "service"):
-        # phases 22(a), 22(b), 23 and 24 in a process of their own: the
-        # kernels and kt_hostops built first (loaded as they are when
-        # phase 2 built them), so no replica builds them
+    if mode in ("entry", "ha", "rewind", "service", "config6",
+                "config13-1m", "tools"):
+        # phases 22(a), 22(b), 23, 24 and 25(b)-(d) in a process of their
+        # own: the kernels and kt_hostops built first (loaded as they are
+        # when phase 2 built them), so no replica or tool builds them
         from karpenter_tpu_torch.solver import _cuda
         _cuda.build()
         if native.hostops() is None:
@@ -4348,8 +4643,10 @@ def _child(mode: str) -> int:
                 launches[k] = launches.get(k, 0) + v
         t0 = time.perf_counter()
         bad = {"entry": _entry_phase, "ha": _ha_phase,
-               "rewind": _rewind_phase,
-               "service": _service_phase}[mode](card, add)
+               "rewind": _rewind_phase, "service": _service_phase,
+               "config6": _config6_phase,
+               "config13-1m": _config13_million_phase,
+               "tools": _tools_phase}[mode](card, add)
         print(json.dumps({"bad": bad, "launches": launches,
                           "s": time.perf_counter() - t0}))
         return 1 if bad else 0
@@ -4877,6 +5174,12 @@ def main(argv) -> int:
                   file=sys.stderr)
             return 1
 
+        # -- 25(b)-(d), each in a child process beside phase 20 (the
+        # children of 22-24 mostly done by then): config #6 at 15,000
+        # messages, config #13 at 50k and 1M pods, the operator's tools
+        children.update({mode: _start_child(mode) for mode in (
+            "config6", "config13-1m", "tools")})
+
         # -- 20. the external cluster stores and the restored dispatch
         # hook ------------------------------------------------------------
         t0 = time.perf_counter()
@@ -4889,11 +5192,14 @@ def main(argv) -> int:
                   f"failed: {bad}", file=sys.stderr)
             return 1
         for mode, phase in (("entry", "22a"), ("ha", "22b"),
-                            ("rewind", "23"), ("service", "24")):
+                            ("rewind", "23"), ("service", "24"),
+                            ("config6", "25b"), ("config13-1m", "25c"),
+                            ("tools", "25d")):
             out, err = _finish_child(children.pop(mode), mode,
                                      timeout=1200)
             print(f"[{phase}] the child took "
-                  f"{out['s'] if out else float('nan'):.1f} s and ended "
+                  f"{out['s'] if out else float('nan'):.1f} s on {card} "
+                  f"and ended "
                   f"{time.perf_counter() - t19:.1f} s after phase 19 "
                   f"began", flush=True)
             if out is None:
@@ -4902,7 +5208,7 @@ def main(argv) -> int:
                 bad += out["bad"]
                 add(out["launches"])
         if bad:
-            print(f"chip_smoke: phase 22, 23 or 24 failed: {bad}",
+            print(f"chip_smoke: phase 22, 23, 24 or 25 failed: {bad}",
                   file=sys.stderr)
             return 1
     finally:
@@ -5349,6 +5655,12 @@ def main(argv) -> int:
             print(f"chip_smoke: {label} failed: {bad}", file=sys.stderr)
             return 1
 
+    # -- 25(a). config #1 through K5 at B = 1 ------------------------------
+    bad = _config1_phase(ffd, card, TorchSolver, add)
+    if bad:
+        print(f"chip_smoke: config #1 failed: {bad}", file=sys.stderr)
+        return 1
+
     # -- 10-12. the steady state: config #7, #12 and #13 --------------------
     counts, bad = _config7(ffd, card, TorchSolver, build_config7)
     add(counts)
@@ -5360,7 +5672,7 @@ def main(argv) -> int:
     if bad:
         print(f"chip_smoke: config #12 failed: {bad}", file=sys.stderr)
         return 1
-    counts, bad = _config13(ffd, card, TorchSolver, build_config13)
+    counts, bad, _ = _config13(ffd, card, TorchSolver, build_config13)
     add(counts)
     if bad:
         print(f"chip_smoke: config #13 failed: {bad}", file=sys.stderr)

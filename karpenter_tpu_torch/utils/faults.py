@@ -62,9 +62,11 @@ Points the port fires (grep for ``faults.fire`` to verify):
   * ``solverd.handle_batch`` — the worker's batch entry
                                (service/backend.py; ``crash`` kills the
                                worker mid-batch)
-
-The reference's determinism-harness point (``determinism.digest``) has
-no site in the port; arming it is harmless.
+  * ``determinism.digest``   — the determinism harness's canonical
+                               flight record (tools/determinism.py
+                               `canon_flight_record`; ``error`` stamps a
+                               wall-clock perturbation into it, the
+                               harness's ``--drill``)
 """
 
 from __future__ import annotations

@@ -1,5 +1,10 @@
 """Scheduling inputs the port is measured on.
 
+`build_config1()` is BASELINE config #1 (the JAX package's
+`benchmarks/config1_inflate.py make_input`), the `inflate` Deployment:
+100 identical pods of 1 cpu / 1536Mi on one NodePool against the
+generated catalog cut to 30 types without GPUs.
+
 `build_input(n)` is the headline workload (the JAX package's
 `bench.py build_input`): `n` pods in 8 size classes, one of them asking for
 an `nvidia.com/gpu`, one NodePool with no limits, no existing nodes and no
@@ -73,7 +78,21 @@ shape whose pod capacity scales with the size, 256 existing nodes that
 absorb nothing, and per generation the 4 tail classes' 125 pods each
 replaced (500 pods at every size).  It returns the input and the watch
 events since the previous generation (name -> the new object, None for
-a deleted pod), in the order a store reports them.
+a deleted pod), in the order a store reports them.  Every count and
+capacity stays below 2^24 (f32-exact) up to the benchmark's 1,000,000
+pods (`C13_SIZES`).
+
+`build_config6(n_messages, device, pkg)` is BASELINE config #6 (the JAX
+package's `benchmarks/config6_interruption.py`): an `env.Environment` on
+`device` with the default NodeClass and pool, and per message one
+`m5.large` instance in the fake cloud (zones in turn, spot and on-demand
+alternating) with a launched NodeClaim, then one queued interruption
+message per claim (`i % 4`: a spot interruption twice, a "stopping"
+state change, a rebalance recommendation).  `drain_config6(env)` drains
+the queue with one `env.interruption.reconcile()` and returns what the
+benchmark reports: the seconds and msgs/s, the claims deleted (their
+names and `names_digest`), the offerings marked unavailable, and whether
+the queue is empty.
 
 `provisioning_loop(n_pods, options, clock, device)` is the provisioning
 control loop as the JAX package's `env.py` wires it, cut to the
@@ -119,6 +138,10 @@ second ticks.
 
 from __future__ import annotations
 
+import hashlib
+import json
+import sys
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -161,6 +184,22 @@ def build_input(n_pods: int) -> ScheduleInput:
             requests=Resources.parse(sizes[i % len(sizes)]))
         for i in range(n_pods)
     ]
+    pool = NodePool(meta=ObjectMeta(name="default"))
+    return ScheduleInput(pods=pods, nodepools=[pool],
+                         instance_types={"default": catalog})
+
+
+CONFIG1_PODS = 100
+CONFIG1_TYPES = 30
+
+
+def build_config1() -> ScheduleInput:
+    from karpenter_tpu_torch.providers.catalog import CatalogSpec
+    catalog = generate_catalog(CatalogSpec(max_types=CONFIG1_TYPES,
+                                           include_gpu=False))
+    pods = [Pod(meta=ObjectMeta(name=f"inflate-{i}"),
+                requests=Resources.parse({"cpu": "1", "memory": "1536Mi"}))
+            for i in range(CONFIG1_PODS)]
     pool = NodePool(meta=ObjectMeta(name="default"))
     return ScheduleInput(pods=pods, nodepools=[pool],
                          instance_types={"default": catalog})
@@ -542,6 +581,7 @@ def build_config12() -> ScheduleInput:
 C13_CLASSES = 400
 C13_CHURN_CLASSES = 4
 C13_CHURN_PODS = 125
+C13_SIZES = (50_000, 1_000_000)   # the benchmark's sweep
 _C13: Dict[int, Dict] = {}
 
 
@@ -902,6 +942,17 @@ class Package:
     Options: object
 
 
+def port_package(device="cuda") -> Package:
+    """The port's `Package`, its Environment's solver on `device`."""
+    import functools
+
+    from karpenter_tpu_torch import env as envmod
+    from karpenter_tpu_torch import models
+    from karpenter_tpu_torch.operator.options import Options
+    return Package(M=models, Environment=functools.partial(
+        envmod.Environment, device=device), Options=Options)
+
+
 def disruption_pools(M, spot_cpu: int):
     """The loop's two NodePools from the models module `M`: `spot`
     (weight 100, capacity type spot, a cpu limit of `spot_cpu`) and
@@ -939,14 +990,7 @@ def disruption_loop(n_pods: int = DISRUPTION_NODES, options=None,
     `store_backend` to the Environment's own choice (the in-memory store
     unless `KARPENTER_TPU_STORE_BACKEND` names another); drive it with
     `DisruptionWaves`."""
-    if pkg is None:
-        import functools
-
-        from karpenter_tpu_torch import env as envmod
-        from karpenter_tpu_torch import models
-        from karpenter_tpu_torch.operator.options import Options
-        pkg = Package(M=models, Environment=functools.partial(
-            envmod.Environment, device=device), Options=Options)
+    pkg = pkg or port_package(device)
     M = pkg.M
     options = options or pkg.Options(batch_idle_duration=0)
     env = pkg.Environment(catalog=catalog, options=options,
@@ -959,6 +1003,73 @@ def disruption_loop(n_pods: int = DISRUPTION_NODES, options=None,
             meta=M.ObjectMeta(name=f"d{i}"),
             requests=M.Resources.parse(DISRUPTION_REQUEST)))
     return env
+
+
+# -- BASELINE config #6: the interruption queue's drain ---------------------
+CONFIG6_MESSAGES = 15_000     # the reference harness's top tier
+CONFIG6_TYPE = "m5.large"
+CONFIG6_PRICE = 0.05
+
+
+def build_config6(n_messages: int = CONFIG6_MESSAGES, device="cuda",
+                  pkg=None):
+    """Config #6's fleet and queue (module docstring), from `pkg`'s
+    classes (a `Package`; the port's on `device` by default).  The claims
+    carry no finalizer, so a deleted one leaves the store at once: the
+    drain measures the interruption path, not termination."""
+    pkg = pkg or port_package(device)
+    M = pkg.M
+    env = pkg.Environment()
+    env.add_default_nodeclass()
+    env.cluster.nodepools.create(M.NodePool(meta=M.ObjectMeta(
+        name="default")))
+    # the candidate class of the fake cloud's own module (either package)
+    candidate = sys.modules[type(env.cloud).__module__].FleetCandidate
+    zones = env.cloud.zones
+    for i in range(n_messages):
+        inst, _ = env.cloud.create_fleet(
+            [candidate(CONFIG6_TYPE, zones[i % len(zones)],
+                       ("spot", "on-demand")[i % 2], CONFIG6_PRICE)],
+            tags={"karpenter.sh/managed-by": "default-cluster"})
+        claim = M.NodeClaim(
+            meta=M.ObjectMeta(name=f"c{i}", labels={
+                M.wellknown.NODEPOOL_LABEL: "default"}),
+            nodepool="default", node_class_ref="default",
+            provider_id=inst.instance_id)
+        claim.set_condition("Launched")
+        env.cluster.nodeclaims.create(claim)
+    for i, claim in enumerate(env.cluster.nodeclaims.list()):
+        k = i % 4
+        if k in (0, 1):
+            env.cloud.interrupt_spot(claim.provider_id)
+        elif k == 2:
+            env.cloud.send_state_change(claim.provider_id, "stopping")
+        else:
+            env.cloud.send_rebalance_recommendation(claim.provider_id)
+    return env
+
+
+def names_digest(names) -> str:
+    """sha256 of the sorted names as one JSON list."""
+    return hashlib.sha256(json.dumps(sorted(names)).encode()).hexdigest()
+
+
+def drain_config6(env) -> Dict[str, object]:
+    """Drain config #6's queue with one interruption reconcile; what the
+    benchmark reports (module docstring)."""
+    before = {c.meta.name for c in env.cluster.nodeclaims.list()}
+    n = len(env.cloud.interruption_queue)
+    t0 = time.perf_counter()
+    env.interruption.reconcile()
+    secs = time.perf_counter() - t0
+    left = {c.meta.name for c in env.cluster.nodeclaims.list(
+        lambda c: not c.meta.deleting)}
+    deleted = sorted(before - left)
+    return {"messages": n, "drain_s": secs, "msgs_per_s": n / secs,
+            "drained": not env.cloud.interruption_queue,
+            "claims_deleted": len(deleted), "deleted": deleted,
+            "names_digest": names_digest(deleted),
+            "offerings_unavailable": len(env.unavailable._cache)}
 
 
 class DisruptionWaves:

@@ -175,6 +175,22 @@ def test_the_walk_covers_the_service():
         assert f"karpenter_tpu_torch.{mod}" in mods, mod
 
 
+# the operator's tools, the port's twins of the repository's tools/,
+# hack/determinism_harness.py and deploy/run_ha.py (the subprocess import
+# and the AST scan below cover them)
+TOOLS = ("tools.kt_ledger", "tools.kt_rewind", "tools.allocatable_diff",
+         "tools.determinism", "tools.run_ha")
+
+
+def test_the_walk_covers_the_tools():
+    mods = set(_modules())
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in TOOLS:
+        assert f"karpenter_tpu_torch.{mod}" in mods, mod
+        path = os.path.join("karpenter_tpu_torch", *mod.split("."))
+        assert path + ".py" in files, mod
+
+
 def test_every_reference_module_has_its_counterpart():
     """A listing of both trees: every module of the JAX package has the
     module of the same path in the port."""
